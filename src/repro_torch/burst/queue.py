@@ -1,0 +1,140 @@
+"""Finite-buffer fluid-queue loss model over sub-interval link loads — the
+counterpart of ``repro/burst/queue.py``.
+
+Each directed link ``e`` is a fluid queue drained at capacity ``cap[e]``
+(Gb/s) with a finite buffer ``buf[e]`` (Gb) sized in time units of the line
+rate (``buffer_ms``).  Over sub-steps of duration ``dt`` seconds with offered
+load ``load[k, e]``:
+
+    x[k]    = q[k] + (load[k, e] - cap[e]) · dt      # fluid level
+    drop[k] = max(0, x[k] - buf[e])                  # overflowed volume (Gb)
+    q[k+1]  = clip(x[k], 0, buf[e])
+
+The per-interval **loss fraction** is dropped volume over offered *demand*
+volume (the expanded sub-interval demand, bursts included), aggregated over
+links and the interval's ``n_sub`` sub-steps and clipped to 1.  Queue state
+starts empty at every block (routing epoch) boundary.  See the reference
+module for the model's timescale assumptions.
+
+Burst expansion (:func:`repro_torch.burst.expander.expand`) and the loss
+fractions stay float64 numpy on the host, as in the reference; the queue scan
+runs on the epoch-batched CUDA kernel (``backend="torch"``) or the float64
+numpy oracle (``backend="numpy"``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.burst.expander import BurstParams, expand
+
+__all__ = ["LossConfig", "link_buffer_gb", "interval_loss_batched",
+           "queue_loss_numpy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Configuration of the burst-loss pipeline (expander + fluid queue).
+
+    Attributes:
+      burst: sub-interval burst model (:class:`BurstParams`).
+      n_sub: sub-samples per TM interval (S).
+      buffer_ms: per-link buffer depth in milliseconds at line rate.
+      seed: burst realization seed (same seed ⇒ same bursts ⇒ paired
+        comparisons across strategies).
+    """
+
+    burst: BurstParams = BurstParams.zero()
+    n_sub: int = 12
+    buffer_ms: float = 25.0
+    seed: int = 0
+
+
+def link_buffer_gb(capacities: np.ndarray, buffer_ms: float) -> np.ndarray:
+    """Buffer depth per link in Gb: ``cap (Gb/s) × buffer_ms``."""
+    return np.asarray(capacities, np.float64) * (buffer_ms * 1e-3)
+
+
+def queue_loss_numpy(demand: np.ndarray, weights: np.ndarray, cap: np.ndarray,
+                     buf: np.ndarray, dt: float):
+    """Float64 queue-loss oracle (the precision reference).
+
+    Returns per-sub-step ``(drop, tot)`` — dropped Gb and offered load Gb/s,
+    each summed over links, shape ``(TS,)`` float64.
+    """
+    demand = np.asarray(demand, np.float64)
+    load = demand @ np.asarray(weights, np.float64)
+    cap = np.asarray(cap, np.float64)
+    buf = np.asarray(buf, np.float64)
+    ts = demand.shape[0]
+    q = np.zeros_like(cap)
+    drop = np.empty(ts, np.float64)
+    tot = np.empty(ts, np.float64)
+    for k in range(ts):
+        x = q + (load[k] - cap) * dt
+        drop[k] = np.maximum(x - buf, 0.0).sum()
+        q = np.clip(x, 0.0, buf)
+        tot[k] = load[k].sum()
+    return drop, tot
+
+
+def _loss_fractions(drop: np.ndarray, sub: np.ndarray, t: int, n_sub: int,
+                    dt: float) -> np.ndarray:
+    """Aggregate per-sub-step drops (Gb) and sub-interval demand into the
+    per-interval loss fraction (dropped over offered volume, clipped to 1)."""
+    drop_i = drop.reshape(t, n_sub).sum(axis=1)  # Gb dropped
+    offered_i = sub.sum(axis=1).reshape(t, n_sub).sum(axis=1) * dt  # Gb demanded
+    return np.where(offered_i > 1e-12,
+                    np.minimum(drop_i / np.maximum(offered_i, 1e-12), 1.0), 0.0)
+
+
+def interval_loss_batched(
+    blocks: list,
+    weights: np.ndarray,
+    capacities: np.ndarray,
+    interval_seconds: float,
+    cfg: LossConfig,
+    seeds: list,
+    backend: str = "torch",
+    device=None,
+) -> list:
+    """Per-interval loss fractions of a controller sweep's routing epochs.
+
+    Args:
+      blocks: list of per-epoch ``(T_b, C)`` demand blocks (lengths may vary).
+      weights: ``(B, C, E_d)`` per-epoch routing-weight matrices.
+      capacities: ``(B, E_d)`` per-epoch directed capacities.
+      seeds: per-epoch burst seeds (the controller uses ``cfg.seed + start``
+        so comparisons stay paired across strategies).
+      backend: ``"torch"`` (one launch of the epoch-batched queueloss kernel)
+        or ``"numpy"``.
+      device: the torch backend's device (``None`` = CUDA).
+
+    Burst expansion stays per-epoch (each epoch draws its own realization
+    from its seed); short epochs are zero-padded — padded sub-steps only
+    drain queues and never drop.  Returns a list of per-epoch ``(T_b,)``
+    loss-fraction arrays.
+    """
+    b = len(blocks)
+    if b == 0:
+        return []
+    cap = np.asarray(capacities, np.float64)
+    dt = interval_seconds / cfg.n_sub
+    subs, lens = [], []
+    for block, seed in zip(blocks, seeds):
+        block = np.asarray(block, np.float64)
+        lens.append(block.shape[0])
+        subs.append(expand(block, cfg.n_sub, cfg.burst, seed))
+    ts_max = max(lens) * cfg.n_sub
+    sub_b = np.zeros((b, ts_max, subs[0].shape[1]), np.float64)
+    for i, s in enumerate(subs):
+        sub_b[i, : s.shape[0]] = s
+    buf_b = np.stack([link_buffer_gb(c, cfg.buffer_ms) for c in cap])
+    from repro_torch.kernels.queueloss import ops as qlops
+
+    drop_b, _ = qlops.queue_loss_batched(sub_b, weights, cap, buf_b, dt,
+                                         backend=backend, device=device)
+    return [_loss_fractions(drop_b[i, : n * cfg.n_sub], s, n, cfg.n_sub, dt)
+            for i, (s, n) in enumerate(zip(subs, lens))]

@@ -1,0 +1,564 @@
+"""Batched PDHG routing solver in PyTorch — the counterpart of
+``repro/core/jaxlp.py``'s batch path (:meth:`JaxRoutingSolver.solve_routing_batch`).
+
+The routing stages with a fixed topology are small structured LPs over the
+per-commodity path simplex:
+
+  stage 1:  min u  s.t.  U(f)_{t,e} ≤ u            (U = capacity-normalized load)
+  stage 2:  min r  s.t.  U(f) ≤ u*,  f_p δ/C_e ≤ r  ∀ e ∈ p
+  stage 3:  min Σ_t Σ_p f_p d_{t,c(p)} len(p)  s.t.  U(f) ≤ u*, risk ≤ r*
+
+All three are solved with a reflected-Halpern primal–dual hybrid gradient
+iteration on the dense pod tensor ``f3[b, i, j, k]`` (epoch ``b``, commodity
+``i→j`` via transit ``k``; the ``k = j`` slot is the direct path), so the
+load operator and its adjoint are ``einsum`` contractions with a leading
+batch axis written out.  The arithmetic is the reference's, step for step.
+
+The reference runs a ``lax.while_loop`` under ``vmap``: a batch runs until its
+slowest element is done, and finished elements are frozen.  Here the loop
+carries an ``active`` mask and updates every state tensor with
+``torch.where(active, new, old)``; each element counts its own iterations and
+checks convergence at its own ``it % check_every == 0``.  Active elements
+share one iteration count, so ``active`` can only change at a check, and the
+host syncs once per check (``active`` read back), not once per iteration.
+
+Matmuls run in full float32: the solver refuses to start with TF32 matmuls
+enabled (about 1e-3 relative error, above the certificate's tolerance).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core.graph import Fabric, directed_edge_index
+from repro_torch.core.paths import PathSet, build_paths
+from repro_torch.device import resolve_device, synchronize
+
+__all__ = ["TorchRoutingSolver", "project_simplex_rows"]
+
+
+def _bc(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """View a per-element (B,) tensor so it broadcasts against ``like``."""
+    return s.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def project_simplex_rows(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean projection of each row of ``x`` onto the probability simplex."""
+    n = x.shape[-1]
+    u = torch.sort(x, dim=-1, descending=True).values
+    css = torch.cumsum(u, dim=-1) - 1.0
+    idx = torch.arange(1, n + 1, dtype=x.dtype, device=x.device)
+    cond = u - css / idx > 0
+    # rho ≥ 1 always holds mathematically; the guard keeps NaN/degenerate
+    # inputs from dividing 0/0
+    rho = torch.clamp(cond.sum(-1), min=1)
+    theta = torch.gather(css, -1, (rho - 1)[..., None]) / rho[..., None].to(x.dtype)
+    return torch.clamp(x - theta, min=0.0)
+
+
+def _michelot_rows(x: torch.Tensor, valid: torch.Tensor, passes: int) -> torch.Tensor:
+    """Masked per-row simplex projection via Michelot's algorithm (``passes``
+    ≥ the number of valid entries per row makes it exact)."""
+    x = torch.where(valid, x, 0.0)
+    act = valid.expand(x.shape)
+    theta = x.new_zeros(x.shape[:-1])
+    for _ in range(passes):
+        nact = act.sum(-1).to(x.dtype)
+        s = torch.where(act, x, 0.0).sum(-1)
+        theta = (s - 1.0) / torch.clamp(nact, min=1.0)
+        act = act & (x - theta[..., None] > 0)
+    return torch.where(valid, torch.clamp(x - theta[..., None], min=0.0), 0.0)
+
+
+def _capped_simplex_rows(x: torch.Tensor, ub: torch.Tensor, valid: torch.Tensor,
+                         iters: int = 24) -> torch.Tensor:
+    """Masked per-row projection onto ``{f : Σf = 1, 0 ≤ f ≤ ub}`` by
+    bisection on the threshold θ of ``f = clip(x - θ, 0, ub)``."""
+    x = torch.where(valid, x, -1e18)
+    ub = torch.where(valid, ub, 0.0)
+    target = torch.clamp(ub.sum(-1), max=1.0)
+    lo = torch.where(valid, x - ub, math.inf).amin(-1) - 1.0
+    hi = torch.where(valid, x, -math.inf).amax(-1)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        s = torch.minimum(torch.clamp(x - mid[..., None], min=0.0), ub).sum(-1)
+        gt = s > target
+        lo, hi = torch.where(gt, mid, lo), torch.where(gt, hi, mid)
+    theta = 0.5 * (lo + hi)
+    return torch.where(
+        valid, torch.minimum(torch.clamp(x - theta[..., None], min=0.0), ub), 0.0)
+
+
+def _project_simplex_topk(x: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-element projection of ``x[b]`` (flattened) onto the simplex, using
+    only its top-``k`` entries to locate the threshold."""
+    b = x.shape[0]
+    flat = torch.where(valid, x, -1e9).reshape(b, -1)
+    k = min(k, flat.shape[1])
+    top = torch.topk(flat, k, dim=1).values
+    css = torch.cumsum(top, dim=1) - 1.0
+    idx = torch.arange(1, k + 1, dtype=x.dtype, device=x.device)
+    rho = torch.clamp((top - css / idx > 0).sum(1), min=1)
+    theta = torch.gather(css, 1, (rho - 1)[:, None]) / rho[:, None].to(x.dtype)
+    out = torch.clamp(flat - theta, min=0.0).reshape(x.shape)
+    out = torch.where(valid, out, 0.0)
+    # more than k entries above the threshold over-weigh the thresholded
+    # point; renormalizing keeps the iterate on the simplex
+    return out / _bc(torch.clamp(out.reshape(b, -1).sum(1), min=1e-30), out)
+
+
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).amax(1)
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).sum(1)
+
+
+class TorchRoutingSolver:
+    """Per-(fabric, m) batched PDHG routing solver.
+
+    :meth:`solve_routing_batch` runs the stage 1 → [2] → 3 pipeline over a
+    batch of routing epochs, each with its own (m, C) critical TMs and (E,)
+    capacities.  ``check_every``/``tol`` drive the convergence-based early
+    exit; ``max_iters`` bounds it.
+    """
+
+    def __init__(self, fabric: Fabric, m: int, max_iters: int = 3000,
+                 check_every: int = 100, tol: float = 5e-3,
+                 restart_every: int = 150, dual_topk: int = 128,
+                 precision: str = "f32", device=None):
+        if precision != "f32":
+            raise NotImplementedError(
+                f"PDHG precision {precision!r} lands in a later slice of the port")
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "torch.backends.cuda.matmul.allow_tf32 is True: TF32 matmuls "
+                "carry ~1e-3 relative error, above the PDHG certificate's")
+        self.fabric = fabric
+        self.m = m
+        self.max_iters = max_iters
+        self.check_every = check_every
+        self.tol = tol
+        self.restart_every = restart_every
+        self.dual_topk = dual_topk
+        self.device = resolve_device(device)
+        v = fabric.n_pods
+        paths: PathSet = build_paths(v)
+        self.paths = paths
+        self.V = v
+        self.C = paths.n_commodities
+        self.E = paths.n_directed
+
+        # commodity c = (i, j) enumeration == directed-edge enumeration
+        comm = directed_edge_index(v)
+        self._comm_flat = comm[:, 0].astype(np.int64) * v + comm[:, 1]
+        # path p ↔ dense slot (i, j, k): direct path stored at k = j
+        slot = np.empty(paths.n_paths, dtype=np.int64)
+        for c in range(self.C):
+            i, j = int(comm[c, 0]), int(comm[c, 1])
+            ps = paths.commodity_paths[c]
+            slot[ps[0]] = (i * v + j) * v + j
+            ks = [k for k in range(v) if k != i and k != j]
+            for s_idx, k in enumerate(ks):
+                slot[ps[1 + s_idx]] = (i * v + j) * v + k
+        self._path_slot = slot
+
+        dev = self.device
+        ii, jj, kk = np.meshgrid(np.arange(v), np.arange(v), np.arange(v),
+                                 indexing="ij")
+        self.valid = torch.as_tensor((ii != jj) & (kk != ii), device=dev)
+        self.mask_kj = torch.as_tensor(1.0 - np.eye(v), dtype=torch.float32,
+                                       device=dev)  # [j != k] on (..., j, k)
+        self._len3 = torch.as_tensor(np.where(kk == jj, 1.0, 2.0),
+                                     dtype=torch.float32, device=dev)
+
+    # ---- dense conversions ---------------------------------------------------
+
+    def _dense_tms(self, tms: np.ndarray) -> torch.Tensor:
+        """(B, m, C) commodity TMs → (B, m, V, V) dense pod matrices."""
+        tms = np.asarray(tms, np.float32)
+        out = np.zeros(tms.shape[:-1] + (self.V * self.V,), np.float32)
+        out[..., self._comm_flat] = tms
+        return torch.from_numpy(
+            out.reshape(tms.shape[:-1] + (self.V, self.V))).to(self.device)
+
+    def _dense_inv_cap(self, capacities: np.ndarray) -> torch.Tensor:
+        """(B, E) directed capacities → (B, V, V) dense inverse capacities."""
+        cap = np.asarray(capacities, np.float64)
+        ic = np.where(cap > 1e-9, 1.0 / np.maximum(cap, 1e-9), 0.0)
+        out = np.zeros(cap.shape[:-1] + (self.V * self.V,), np.float32)
+        out[..., self._comm_flat] = ic
+        return torch.from_numpy(
+            out.reshape(cap.shape[:-1] + (self.V, self.V))).to(self.device)
+
+    def _flat_f(self, f3: torch.Tensor) -> np.ndarray:
+        """(B, V, V, V) splits → (B, P) float64 in the PathSet layout."""
+        flat = f3.detach().cpu().numpy().astype(np.float64)
+        return flat.reshape(flat.shape[0], -1)[:, self._path_slot]
+
+    # ---- linear operators on the pod tensor ---------------------------------
+
+    def _util(self, f3, d3, ic):
+        """U[b, t, a, c] = capacity-normalized load of edge (a, c) under TM t."""
+        load1 = torch.einsum("bmij,bijk->bmik", d3, f3)  # first hops (+ direct)
+        load2 = torch.einsum("bmij,bijk->bmkj", d3, f3 * self.mask_kj)
+        return (load1 + load2) * ic[:, None]
+
+    def _util_adj(self, y, d3, ic):
+        """Adjoint: y (B, m, V, V) → gradient on f3 (B, V, V, V)."""
+        yn = y * ic[:, None]
+        g1 = torch.einsum("bmij,bmik->bijk", d3, yn)
+        g2 = torch.einsum("bmij,bmkj->bijk", d3, yn) * self.mask_kj
+        return g1 + g2
+
+    def _opnorm(self, d3, ic, valid, iters: int = 30):
+        """Power iteration for ‖U‖ per element (as an operator on f3)."""
+        vv = valid.to(d3.dtype)
+        vv = vv / _bc(torch.linalg.vector_norm(vv.reshape(vv.shape[0], -1), dim=1), vv)
+        for _ in range(iters):
+            v2 = self._util_adj(self._util(vv, d3, ic), d3, ic)
+            nrm = torch.linalg.vector_norm(v2.reshape(v2.shape[0], -1), dim=1)
+            vv = v2 / _bc(nrm + 1e-30, v2)
+        u = self._util(vv, d3, ic)
+        return torch.linalg.vector_norm(u.reshape(u.shape[0], -1), dim=1)
+
+    def _proj_f(self, f3, valid):
+        return _michelot_rows(f3, valid, self.V)
+
+    def _dual_min(self, coeff, valid):
+        """Σ over commodities of ``min_k coeff[b, i, j, k]`` (valid slots only)."""
+        per_row = torch.where(valid, coeff, math.inf).amin(-1)
+        return _sum(torch.where(torch.isfinite(per_row), per_row, 0.0))
+
+    def _hop_inv_caps(self, ic):
+        """Per-slot inverse capacities of the two hops of each path."""
+        v = self.V
+        ic0 = ic[:, :, None, :].expand(-1, v, v, v)  # hop 1: edge (i, k)
+        # hop 2: edge (k, j) — ic1[b, i, j, k] = ic[b, k, j]; zero on the
+        # direct slot (single hop)
+        ic1 = ic.transpose(1, 2)[:, None, :, :] * self.mask_kj
+        return ic0, ic1
+
+    def _halpern(self, halves, anchors, k):
+        """Reflected-Halpern update: blend the reflected PDHG step with the
+        anchor at weight 1/(k+2); restart the anchor every ``restart_every``
+        iterations."""
+        lam = (k + 1.0) / (k + 2.0)
+        k = k + 1.0
+        rs = torch.remainder(k, self.restart_every) == 0
+        out, new_anchors = [], []
+        for (w, w_h), wa in zip(halves, anchors):
+            lw = _bc(lam, w)
+            w_new = lw * (2.0 * w_h - w) + (1.0 - lw) * wa
+            out.append(w_new)
+            new_anchors.append(torch.where(_bc(rs, w), w_new, wa))
+        return out, new_anchors, torch.where(rs, 0.0, k)
+
+    def _f_uniform(self, valid):
+        n_slots = torch.clamp(valid.sum(-1, keepdim=True), min=1).to(torch.float32)
+        return valid.to(torch.float32) / n_slots
+
+    def _run(self, state: dict, step, check):
+        """The batched ``while_loop``: iterate ``step`` on every active element
+        until each has converged (``check`` at its own ``it % check_every ==
+        0``) or hit ``max_iters``; finished elements are frozen.
+
+        ``state`` maps names to (B, ...) tensors.  Returns the final state
+        plus per-element ``it`` and ``gap``."""
+        b = next(iter(state.values())).shape[0]
+        dev = self.device
+        it = torch.zeros(b, dtype=torch.int32, device=dev)
+        last = torch.full((b,), math.inf, device=dev)
+        gap = torch.full((b,), math.inf, device=dev)
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        all_active = True
+        n = 0
+        while n < self.max_iters:
+            new = step(state)
+            if all_active:
+                state = new
+            else:
+                state = {key: torch.where(_bc(active, val), val, state[key])
+                         for key, val in new.items()}
+            it = it + active.to(it.dtype)
+            n += 1
+            if n % self.check_every == 0:
+                ok, obj, rel = check(state, last)
+                last = torch.where(active, obj, last)
+                gap = torch.where(active, rel, gap)
+                active = active & ~ok
+                n_active = int(active.sum())  # the one host sync per check
+                if n_active == 0:
+                    break
+                all_active = n_active == b
+        return state, it, gap
+
+    # ---- stage 1: min u  ≡  min_f max_{t,e} U(f) (matrix game) --------------
+
+    def _mlu_inits(self, d3, ic, valid):
+        """Cold-start point: uniform splits, dual softmax-concentrated near
+        the binding constraints."""
+        notdiag = valid.any(-1)
+        f0 = self._f_uniform(valid)
+        u0 = self._util(f0, d3, ic)
+        scale = 0.02 * torch.clamp(_amax(u0), min=1e-12)
+        logits = torch.where(notdiag[:, None], u0, -math.inf) / _bc(scale, u0)
+        y0 = torch.softmax(logits.reshape(u0.shape[0], -1), dim=1).reshape(u0.shape)
+        return f0, y0
+
+    def _mlu_core(self, d3, ic, valid, f0, y0):
+        notdiag = valid.any(-1)[:, None]
+        tau = 0.99 / torch.clamp(self._opnorm(d3, ic, valid), min=1e-12)
+        sig = tau
+        tau_f, sig_y = _bc(tau, f0), _bc(sig, y0)
+
+        def step(s):
+            f, y = s["f"], s["y"]
+            g = self._util_adj(y, d3, ic)
+            f_h = self._proj_f(f - tau_f * g, valid)
+            fb = 2.0 * f_h - f
+            y_h = _project_simplex_topk(y + sig_y * self._util(fb, d3, ic),
+                                        notdiag, self.dual_topk)
+            (f, y), (fa, ya), k = self._halpern(
+                [(f, f_h), (y, y_h)], [s["fa"], s["ya"]], s["k"])
+            return {"f": f, "y": y, "fa": fa, "ya": ya, "k": k}
+
+        def check(s, last):
+            # exact duality gap of the matrix game: primal = max util of f;
+            # dual lower bound = min_f' <y, U f'> (closed form)
+            obj = _amax(self._util(s["f"], d3, ic))
+            lb = self._dual_min(self._util_adj(s["y"], d3, ic), valid)
+            ok = obj - lb <= self.tol * torch.clamp(obj, min=1e-6)
+            return ok, obj, (obj - lb) / torch.clamp(obj, min=1e-6)
+
+        b = d3.shape[0]
+        state = {"f": f0, "y": y0, "fa": f0, "ya": y0,
+                 "k": torch.zeros(b, device=self.device)}
+        s, it, gap = self._run(state, step, check)
+        return s["f"], _amax(self._util(s["f"], d3, ic)), it, s["y"], gap
+
+    # ---- stage 2: min r  ≡  min_f max(δ f / C) s.t. U(f) ≤ u* ---------------
+
+    def _zvalid(self, valid):
+        return torch.stack([valid, valid & (self.mask_kj > 0)], dim=-1)
+
+    def _risk_inits(self, d3, valid):
+        b = d3.shape[0]
+        f0 = self._f_uniform(valid)
+        y0 = torch.zeros((b, self.m, self.V, self.V), device=self.device)
+        z0 = self._zvalid(valid).to(torch.float32)
+        z0 = z0 / _bc(torch.clamp(_sum(z0), min=1.0), z0)
+        return f0, y0, z0
+
+    def _risk_core(self, d3, ic, valid, u_star, delta, f0, y0, z0):
+        norm = self._opnorm(d3, ic, valid)
+        ic0, ic1 = self._hop_inv_caps(ic)
+        rnorm = delta * _amax(ic) * math.sqrt(2.0)
+        tau = 0.99 / torch.clamp(norm + rnorm, min=1e-12)
+        sig = tau
+        zvalid = self._zvalid(valid)
+        dl3 = _bc(delta, ic0)
+        tau_f, sig_y, sig_z = _bc(tau, f0), _bc(sig, y0), _bc(sig, z0)
+        u_y = _bc(u_star, y0)
+
+        def risk_of(f3):
+            return torch.stack([dl3 * f3 * ic0, dl3 * f3 * ic1], dim=-1)
+
+        def step(s):
+            f, y, z = s["f"], s["y"], s["z"]
+            gf = (self._util_adj(y, d3, ic)
+                  + dl3 * (z[..., 0] * ic0 + z[..., 1] * ic1))
+            f_h = self._proj_f(f - tau_f * gf, valid)
+            fb = 2.0 * f_h - f
+            y_h = torch.clamp(y + sig_y * (self._util(fb, d3, ic) - u_y), min=0.0)
+            z_h = _project_simplex_topk(z + sig_z * risk_of(fb), zvalid,
+                                        self.dual_topk)
+            (f, y, z), (fa, ya, za), k = self._halpern(
+                [(f, f_h), (y, y_h), (z, z_h)], [s["fa"], s["ya"], s["za"]],
+                s["k"])
+            return {"f": f, "y": y, "z": z, "fa": fa, "ya": ya, "za": za, "k": k}
+
+        def check(s, last):
+            # Lagrangian dual lower bound plus an objective-stall test at a
+            # 10·tol relative threshold (the risk objective is often
+            # minuscule, where the last-iterate bound oscillates)
+            f, y, z = s["f"], s["y"], s["z"]
+            obj = _amax(risk_of(f))
+            u_chk = _amax(self._util(f, d3, ic))
+            coeff = (self._util_adj(y, d3, ic)
+                     + dl3 * (z[..., 0] * ic0 + z[..., 1] * ic1))
+            lb = self._dual_min(coeff, valid) - u_star * _sum(y)
+            scale = torch.clamp(obj, min=1e-9)
+            gap_ok = obj - lb <= self.tol * scale
+            stall = torch.abs(obj - last) <= 10.0 * self.tol * scale
+            feas = u_chk <= u_star * (1.0 + 2.0 * self.tol) + 1e-9
+            return (gap_ok | stall) & feas, obj, (obj - lb) / scale
+
+        b = d3.shape[0]
+        state = {"f": f0, "y": y0, "z": z0, "fa": f0, "ya": y0, "za": z0,
+                 "k": torch.zeros(b, device=self.device)}
+        s, it, gap = self._run(state, step, check)
+        f = s["f"]
+        return (f, _amax(risk_of(f)), _amax(self._util(f, d3, ic)),
+                s["y"], s["z"], it, gap)
+
+    # ---- stage 3: min stretch s.t. U(f) ≤ u*, risk ≤ r* ---------------------
+
+    def _stretch_core(self, d3, ic, valid, u_star, r_star, delta, f_init, y0):
+        """min <cost, f> over the *capped* simplex — the risk budget is a
+        per-slot upper bound ``f ≤ r*/(δ·max ic)`` enforced by projection;
+        only the MLU budget keeps a Lagrange dual ``y``."""
+        norm = self._opnorm(d3, ic, valid)
+        ic0, ic1 = self._hop_inv_caps(ic)
+        tau = 0.99 / torch.clamp(norm, min=1e-12)
+        sig = tau
+        dsum = d3.sum(dim=1)  # (B, V, V)
+        cost = torch.where(valid, dsum[..., None] * self._len3, 0.0)
+        cost = cost / _bc(_amax(torch.abs(cost)) + 1e-30, cost)  # scale-free
+        ub = _bc(r_star, ic0) / torch.clamp(
+            _bc(delta, ic0) * torch.maximum(ic0, ic1), min=1e-30)
+        ub = torch.clamp(ub, max=1.0)  # simplex rows never exceed 1 anyway
+        f0 = _capped_simplex_rows(f_init, ub, valid)  # risk-feasible start
+        tau_f, sig_y = _bc(tau, f0), _bc(sig, y0)
+        u_y = _bc(u_star, y0)
+
+        def step(s):
+            f, y = s["f"], s["y"]
+            gf = cost + self._util_adj(y, d3, ic)
+            f_h = _capped_simplex_rows(f - tau_f * gf, ub, valid)
+            fb = 2.0 * f_h - f
+            y_h = torch.clamp(y + sig_y * (self._util(fb, d3, ic) - u_y), min=0.0)
+            (f, y), (fa, ya), k = self._halpern(
+                [(f, f_h), (y, y_h)], [s["fa"], s["ya"]], s["k"])
+            return {"f": f, "y": y, "fa": fa, "ya": ya, "k": k}
+
+        def check(s, last):
+            f, y = s["f"], s["y"]
+            obj = _sum(cost * f)
+            u_chk = _amax(self._util(f, d3, ic))
+            coeff = cost + self._util_adj(y, d3, ic)
+            lb = self._dual_min(coeff, valid) - u_star * _sum(y)
+            scale = torch.clamp(torch.abs(obj), min=1e-9)
+            gap_ok = obj - lb <= self.tol * scale
+            stall = torch.abs(obj - last) <= 10.0 * self.tol * scale
+            feas = u_chk <= u_star * (1.0 + 2.0 * self.tol) + 1e-9
+            return (gap_ok | stall) & feas, obj, (obj - lb) / scale
+
+        b = d3.shape[0]
+        state = {"f": f0, "y": y0, "fa": f0, "ya": y0,
+                 "k": torch.zeros(b, device=self.device)}
+        s, it, gap = self._run(state, step, check)
+        return s["f"], s["y"], it, gap
+
+    # ---- full routing pipeline, batched over epochs -------------------------
+
+    def solve_routing_batch(self, tms: np.ndarray, capacities: np.ndarray,
+                            hedging: bool, deltas: np.ndarray | None = None,
+                            skip_stage3: bool = False):
+        """Stages 1 → [2] → 3 for a batch of routing epochs, warm-started from
+        a single **anchor** solve.
+
+        The batch's middle epoch is solved cold first; its primal splits *and*
+        dual iterates seed every element (controller epochs are sliding-window
+        neighbours, so the anchor is near-optimal for most of the batch).
+
+        Args:
+          tms: (B, m, C) critical TMs, zero-padded to the static ``m``.
+          capacities: (B, E) realized directed capacities per epoch.
+          hedging: run stage 2 (elements with ``deltas == 0`` keep stage 1's f).
+          deltas: (B,) burst sizes (ignored unless ``hedging``).
+          skip_stage3: skip the stretch-minimization stage.
+
+        Returns dict with ``f`` (B, P) float64, ``u_star`` (B,), ``r_star``
+        (B,) or None, and ``stats`` — per-epoch iteration counts, final
+        certified relative gaps and Halpern restart counts per stage (stage 2
+        carries an ``active`` mask for the elements that hedge), plus
+        ``anchor_seconds``.
+        """
+        dev = self.device
+        d3 = self._dense_tms(tms)
+        ic = self._dense_inv_cap(capacities)
+        b = d3.shape[0]
+        a = b // 2  # anchor epoch
+        valid_b = self.valid.expand(b, -1, -1, -1)
+        valid_1 = self.valid[None]
+        anchor_s = 0.0
+
+        def tile(x):
+            return x.expand((b,) + x.shape[1:])
+
+        with obs.timed("pdhg.anchor", stage="mlu") as t:
+            d_a, ic_a = d3[a:a + 1], ic[a:a + 1]
+            f_a, _, _, y_a, _ = self._mlu_core(
+                d_a, ic_a, valid_1, *self._mlu_inits(d_a, ic_a, valid_1))
+            synchronize(dev)
+        anchor_s += t.seconds
+        with obs.span("pdhg.stage1", b=b):
+            f3, u, it1, _, gap1 = self._mlu_core(d3, ic, valid_b, tile(f_a),
+                                                 tile(y_a))
+        u_budget = u * 1.005 + 1e-9
+        stats = {"stage1": self._stage_stats(it1, gap1)}
+        r_star = None
+        deltas32 = (None if deltas is None
+                    else torch.from_numpy(np.asarray(deltas, np.float32)).to(dev))
+        if hedging:
+            dl = deltas32
+            with obs.timed("pdhg.anchor", stage="risk") as t:
+                f2_a, _, _, y2_a, z2_a, _, _ = self._risk_core(
+                    d_a, ic_a, valid_1, u_budget[a:a + 1], dl[a:a + 1],
+                    *self._risk_inits(d_a, valid_1))
+                synchronize(dev)
+            anchor_s += t.seconds
+            with obs.span("pdhg.stage2", b=b):
+                f3r, r, _, _, _, it2, gap2 = self._risk_core(
+                    d3, ic, valid_b, u_budget, dl, tile(f2_a), tile(y2_a),
+                    tile(z2_a))
+            use = dl > 0
+            f3 = torch.where(_bc(use, f3), f3r, f3)
+            r_star = torch.where(use, r, math.inf)
+            stats["stage2"] = self._stage_stats(it2, gap2,
+                                                active=use.cpu().numpy())
+        if not skip_stage3:
+            if r_star is None:
+                r_in = torch.full((b,), 1e9, device=dev)
+                dl_in = torch.zeros(b, device=dev)
+            else:
+                fin = torch.isfinite(r_star)
+                r_in = torch.where(fin, r_star * 1.005 + 1e-12, 1e9)
+                dl_in = torch.where(fin, deltas32, 0.0)
+            with obs.timed("pdhg.anchor", stage="stretch") as t:
+                _, y3_a, _, _ = self._stretch_core(
+                    d_a, ic_a, valid_1, u_budget[a:a + 1], r_in[a:a + 1],
+                    dl_in[a:a + 1], f3[a:a + 1],
+                    torch.zeros((1, self.m, self.V, self.V), device=dev))
+                synchronize(dev)
+            anchor_s += t.seconds
+            with obs.span("pdhg.stage3", b=b):
+                f3, _, it3, gap3 = self._stretch_core(
+                    d3, ic, valid_b, u_budget, r_in, dl_in, f3, tile(y3_a))
+            stats["stage3"] = self._stage_stats(it3, gap3)
+        f = self._flat_f(f3)
+        out_r = None
+        if r_star is not None:
+            rr = r_star.cpu().numpy().astype(np.float64)
+            out_r = np.where(np.isfinite(rr), rr, np.nan)
+        stats["anchor_seconds"] = anchor_s
+        return {"f": f, "u_star": u.cpu().numpy().astype(np.float64),
+                "r_star": out_r, "stats": stats}
+
+    def _stage_stats(self, it, gap, active=None) -> dict:
+        """Host-side per-element telemetry for one batched stage.  Restarts
+        follow the deterministic Halpern schedule (one every
+        ``restart_every`` iterations)."""
+        iters = it.cpu().numpy().astype(np.int64).reshape(-1)
+        out = {"iters": iters,
+               "gap": gap.cpu().numpy().astype(np.float64).reshape(-1),
+               "restarts": iters // max(self.restart_every, 1)}
+        if active is not None:
+            out["active"] = np.asarray(active, bool).reshape(-1)
+        return out

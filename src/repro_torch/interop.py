@@ -1,0 +1,60 @@
+"""Carry the reference's state across to the port.
+
+In this system what stands in for parameters is the fabric, the trace and the
+configurations.  These helpers rebuild the port's objects from numpy arrays
+and plain dicts (for example ``dataclasses.asdict`` of the reference's
+objects), so both packages can be handed the same state without the port
+importing the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.burst import BurstParams, LossConfig
+from repro_torch.core.controller import ControllerConfig
+from repro_torch.core.graph import Fabric
+from repro_torch.core.solver import SolverConfig, Strategy
+from repro_torch.core.traffic import Trace
+
+__all__ = ["fabric_from_numpy", "trace_from_numpy", "strategy_from_dict",
+           "solver_config_from_dict", "loss_config_from_dict",
+           "controller_config_from_dict"]
+
+# the reference's metrics backends → the port's
+_BACKENDS = {"pallas": "torch", "jax": "torch", "numpy": "numpy"}
+
+
+def fabric_from_numpy(name: str, radix, speed) -> Fabric:
+    return Fabric(name=name, radix=np.asarray(radix), speed=np.asarray(speed))
+
+
+def trace_from_numpy(name: str, demand, interval_minutes: float,
+                     n_pods: int) -> Trace:
+    return Trace(name, np.asarray(demand, np.float64), float(interval_minutes),
+                 int(n_pods))
+
+
+def strategy_from_dict(d: dict) -> Strategy:
+    return Strategy(**d)
+
+
+def solver_config_from_dict(d: dict) -> SolverConfig:
+    return SolverConfig(**d)
+
+
+def loss_config_from_dict(d: dict | None) -> LossConfig | None:
+    if d is None:
+        return None
+    d = dict(d)
+    return LossConfig(burst=BurstParams(**d.pop("burst")), **d)
+
+
+def controller_config_from_dict(d: dict) -> ControllerConfig:
+    """``ControllerConfig`` from the reference's fields.  ``backend`` maps
+    "pallas"/"jax" to "torch" and keeps "numpy"; a set ``transition`` or
+    ``failures`` is passed on, and the port's config refuses it."""
+    d = dict(d)
+    d["backend"] = _BACKENDS[d["backend"]]
+    d["loss"] = loss_config_from_dict(d.get("loss"))
+    return ControllerConfig(**d)

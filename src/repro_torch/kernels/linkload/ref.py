@@ -1,0 +1,25 @@
+"""Plain-PyTorch version of the fused link-load metrics kernel.
+
+The counterpart of ``repro/kernels/linkload/ref.py``.  It materializes the
+``(B, T, E)`` load tensor that the CUDA kernel (``csrc/linkload.cu``) keeps
+out of device memory; the wrapper in :mod:`.ops` runs it for CPU tensors, and
+``chip_smoke.py`` holds the kernel against it on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["linkload_metrics_batched_ref"]
+
+
+def linkload_metrics_batched_ref(demand: torch.Tensor, w: torch.Tensor,
+                                 inv_cap: torch.Tensor, threshold: float):
+    """demand (B, T, C), w (B, C, E), inv_cap (B, E) (0 = dead link).
+
+    Returns (mlu, alu_sum, olr_count, load_sum), each (B, T).
+    """
+    load = demand @ w  # (B, T, E)
+    util = load * inv_cap[:, None, :]  # dead/padded links contribute 0
+    return (util.amax(dim=2), util.sum(dim=2),
+            (util > threshold).to(util.dtype).sum(dim=2), load.sum(dim=2))

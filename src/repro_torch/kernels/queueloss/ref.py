@@ -1,0 +1,35 @@
+"""Plain-PyTorch version of the fused queue-loss kernel.
+
+The counterpart of ``repro/kernels/queueloss/ref.py``.  Per directed link
+``e`` (fluid queue with a finite buffer, see :mod:`repro_torch.burst.queue`):
+
+    x[k]     = q[k] + (load[k, e] - cap[e]) * dt        # pre-clip level (Gb)
+    drop[k]  = max(0, x[k] - buf[e])                    # overflow (Gb)
+    q[k+1]   = clip(x[k], 0, buf[e])
+
+It materializes the ``(B, TS, E)`` load tensor and walks the sub-steps in a
+Python loop; the wrapper in :mod:`.ops` runs it for CPU tensors, and
+``chip_smoke.py`` holds the CUDA kernel (``csrc/queueloss.cu``) against it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["queueloss_batched_ref"]
+
+
+def queueloss_batched_ref(demand: torch.Tensor, w: torch.Tensor,
+                          cap: torch.Tensor, buf: torch.Tensor, dt: float):
+    """demand (B, TS, C), w (B, C, E), cap/buf (B, E); the queue starts empty
+    in every epoch.  Returns (drop_sum, load_sum), each (B, TS)."""
+    load = demand @ w  # (B, TS, E)
+    q = torch.zeros_like(cap)
+    drops = []
+    for k in range(load.shape[1]):
+        x = q + (load[:, k] - cap) * dt
+        drops.append(torch.clamp(x - buf, min=0.0).sum(dim=1))
+        q = torch.minimum(torch.clamp(x, min=0.0), buf)
+    drop = (torch.stack(drops, dim=1) if drops
+            else load.new_zeros(load.shape[:2]))
+    return drop, load.sum(dim=2)

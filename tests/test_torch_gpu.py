@@ -1,0 +1,62 @@
+"""The two CUDA kernels against their plain PyTorch versions on the card, at
+the controller's chip-scale shapes (B=672 epochs, T=3 / TS=36, C=E=132) and at
+ragged shapes.  Marked ``gpu``: each test decides inside itself whether a
+card is present and skips without one.  Run on the card with
+``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
+(``--noconftest``: the shared conftest imports the JAX package, which the
+card's machine does not have).
+
+Tolerances are the plain-version contracts: rtol 3e-4, atol 1e-4.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.linkload import ops as llops
+from repro_torch.kernels.linkload.ref import linkload_metrics_batched_ref
+from repro_torch.kernels.queueloss import ops as qlops
+from repro_torch.kernels.queueloss.ref import queueloss_batched_ref
+
+RTOL, ATOL = 3e-4, 1e-4
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,e", [(672, 3, 132, 132), (4, 13, 30, 200)])
+def test_linkload_kernel_matches_plain(gen, b, t, c, e):
+    # dyadic data: every load is exact in f32, so OLR cannot flip on a tie
+    d = torch.randint(0, 16, (b, t, c), generator=gen, device="cuda").float()
+    w = torch.randint(0, 17, (b, c, e), generator=gen, device="cuda").float() / 16
+    cap = 20.0 + 40.0 * torch.rand((b, e), generator=gen, device="cuda")
+    inv_cap = torch.where(torch.rand((b, e), generator=gen, device="cuda") < 0.1,
+                          0.0, 1.0 / cap)
+    before = llops.launches
+    out = llops.linkload_batched(d, w, inv_cap, 0.8)
+    ref = linkload_metrics_batched_ref(d, w, inv_cap, 0.8)
+    assert llops.launches == before + 1
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ts,c,e", [(672, 36, 132, 132), (4, 45, 30, 300)])
+def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
+    d = torch.rand((b, ts, c), generator=gen, device="cuda") * 20.0
+    w = torch.rand((b, c, e), generator=gen, device="cuda")
+    w = w * (torch.rand((b, c, e), generator=gen, device="cuda") < 0.08)
+    cap = 40.0 + 80.0 * torch.rand((b, e), generator=gen, device="cuda")
+    cap = torch.where(torch.rand((b, e), generator=gen, device="cuda") < 0.1, 0.0, cap)
+    buf = cap * 0.025
+    before = qlops.launches
+    out = qlops.queueloss_batched(d, w, cap, buf, 30.0)
+    ref = queueloss_batched_ref(d, w, cap, buf, 30.0)
+    assert qlops.launches == before + 1
+    assert float(ref[0].sum()) > 0.0
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)

@@ -1,0 +1,96 @@
+"""The port's rules, for this and every later slice.
+
+* ``repro_torch`` imports neither ``jax`` nor any module of the reference
+  package ``repro``;
+* its entry point runs on CUDA unless the caller asks for the CPU, and
+  raises without a card — there is no silent CPU fallback;
+* features of later slices raise instead of being ignored;
+* its copy of the synthetic fleet generates bit-equal fabrics, traces and
+  bursts, so both packages can be handed the same state.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax  # noqa: F401  (both frameworks in one process; JAX stays on the CPU)
+import numpy as np
+import pytest
+import torch
+
+import repro.burst.expander as ref_expander
+import repro.core.fleet as ref_fleet
+import repro_torch.burst.expander as port_expander
+import repro_torch.core.fleet as port_fleet
+from repro.core import ControllerConfig as RefControllerConfig
+from repro_torch import interop
+from repro_torch.core import ControllerConfig, Strategy, run_controller
+from repro_torch.device import resolve_device
+
+torch.set_num_threads(1)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = ("import sys, repro_torch.core.engine, repro_torch.interop, "
+            "repro_torch.kernels.linkload.ops, repro_torch.kernels.queueloss.ops\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+            "print(','.join(bad))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ), timeout=300, check=True)
+    assert out.stdout.strip() == ""
+
+
+def test_default_device_raises_without_a_card(small_fabric, small_trace,
+                                               monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    fab = interop.fabric_from_numpy(small_fabric.name, small_fabric.radix,
+                                    small_fabric.speed)
+    trace = interop.trace_from_numpy(small_trace.name, small_trace.demand,
+                                     small_trace.interval_minutes,
+                                     small_trace.n_pods)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_controller(fab, trace, Strategy(False, False))
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("over", [{"engine": "sequential"},
+                                  {"transition": object()},
+                                  {"failures": object()},
+                                  {"solver_precision": "bf16"}])
+def test_later_slices_raise(over):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ControllerConfig(**over)
+
+
+def test_controller_config_carries_reference_fields():
+    ref = dataclasses.asdict(RefControllerConfig(backend="pallas",
+                                                 solver_backend="pdhg"))
+    port = interop.controller_config_from_dict(ref)
+    assert set(ref) <= set(dataclasses.asdict(port))
+    assert port.backend == "torch" and port.solver_backend == "pdhg"
+    assert interop.controller_config_from_dict(
+        dict(ref, backend="numpy")).backend == "numpy"
+    assert ControllerConfig().backend == "torch"
+    assert ControllerConfig().solver_backend == "pdhg"
+
+
+@pytest.mark.parametrize("idx", [0, 2, 17, 20])
+def test_fleet_copy_is_bit_equal(idx):
+    ref_spec, spec = ref_fleet.FLEET_SPECS[idx], port_fleet.FLEET_SPECS[idx]
+    assert dataclasses.asdict(ref_spec) == dataclasses.asdict(spec)
+    ref_fab, fab = ref_fleet.make_fabric(ref_spec), port_fleet.make_fabric(spec)
+    np.testing.assert_array_equal(fab.radix, ref_fab.radix)
+    np.testing.assert_array_equal(fab.speed, ref_fab.speed)
+    ref_tr = ref_fleet.make_trace(ref_spec, ref_fab, days=3.0, interval_minutes=60.0)
+    tr = port_fleet.make_trace(spec, fab, days=3.0, interval_minutes=60.0)
+    np.testing.assert_array_equal(tr.demand, ref_tr.demand)
+    ref_burst = ref_fleet.sub_burst_params(ref_spec)
+    burst = port_fleet.sub_burst_params(spec)
+    assert dataclasses.asdict(burst) == dataclasses.asdict(ref_burst)
+    np.testing.assert_array_equal(
+        port_expander.expand(tr.demand[:5], 12, burst, seed=idx),
+        ref_expander.expand(ref_tr.demand[:5], 12, ref_burst, seed=idx))
