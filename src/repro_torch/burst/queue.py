@@ -18,8 +18,8 @@ module for the model's timescale assumptions.
 
 Burst expansion (:func:`repro_torch.burst.expander.expand`) and the loss
 fractions stay float64 numpy on the host, as in the reference; the queue scan
-runs on the epoch-batched CUDA kernel (``backend="torch"``) or the float64
-numpy oracle (``backend="numpy"``).
+runs on the CUDA kernel (``backend="torch"``: one launch per block, or one
+per sweep batched) or the float64 numpy oracle (``backend="numpy"``).
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import numpy as np
 
 from repro_torch.burst.expander import BurstParams, expand
 
-__all__ = ["LossConfig", "link_buffer_gb", "interval_loss_batched",
-           "queue_loss_numpy"]
+__all__ = ["LossConfig", "link_buffer_gb", "interval_loss",
+           "interval_loss_batched", "queue_loss_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +83,47 @@ def queue_loss_numpy(demand: np.ndarray, weights: np.ndarray, cap: np.ndarray,
 def _loss_fractions(drop: np.ndarray, sub: np.ndarray, t: int, n_sub: int,
                     dt: float) -> np.ndarray:
     """Aggregate per-sub-step drops (Gb) and sub-interval demand into the
-    per-interval loss fraction (dropped over offered volume, clipped to 1)."""
+    per-interval loss fraction (dropped over offered volume, clipped to 1).
+    Shared by the single-block and batched paths so their arithmetic cannot
+    drift apart."""
     drop_i = drop.reshape(t, n_sub).sum(axis=1)  # Gb dropped
     offered_i = sub.sum(axis=1).reshape(t, n_sub).sum(axis=1) * dt  # Gb demanded
     return np.where(offered_i > 1e-12,
                     np.minimum(drop_i / np.maximum(offered_i, 1e-12), 1.0), 0.0)
+
+
+def interval_loss(
+    demand: np.ndarray,
+    weights: np.ndarray,
+    capacities: np.ndarray,
+    interval_seconds: float,
+    cfg: LossConfig,
+    backend: str = "torch",
+    device=None,
+) -> np.ndarray:
+    """Per-interval loss fraction for a ``(T, C)`` demand block.
+
+    Expands the block into sub-interval samples
+    (:func:`repro_torch.burst.expander.expand`, seeded by ``cfg.seed``),
+    routes them with ``weights (C, E_d)``, runs the fluid queue per link (one
+    launch of the queueloss kernel on ``backend="torch"``; the queue starts
+    empty at the block) and aggregates dropped over offered *demand* volume
+    per original interval.  ``device`` is the torch backend's device
+    (``None`` = CUDA).  Returns a ``(T,)`` float64 array in [0, 1].
+    """
+    demand = np.asarray(demand, dtype=np.float64)
+    t = demand.shape[0]
+    if t == 0:
+        return np.zeros((0,))
+    cap = np.asarray(capacities, dtype=np.float64)
+    sub = expand(demand, cfg.n_sub, cfg.burst, cfg.seed)
+    dt = interval_seconds / cfg.n_sub
+    buf = link_buffer_gb(cap, cfg.buffer_ms)
+    from repro_torch.kernels.queueloss import ops as qlops
+
+    drop, _ = qlops.queue_loss(sub, weights, cap, buf, dt, backend=backend,
+                               device=device)
+    return _loss_fractions(drop, sub, t, cfg.n_sub, dt)
 
 
 def interval_loss_batched(

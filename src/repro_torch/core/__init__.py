@@ -1,5 +1,6 @@
 """Gemini core on PyTorch — the counterpart of ``repro.core``: the batched
-controller engine, its PDHG routing solver and scoring on the device, and
+controller engine and the sequential walk, their PDHG routing solver and
+scoring on the device, the predictor and the baselines, and
 copies of the reference's framework-free modules (fabric graph, paths,
 traffic, synthetic fleet, scipy LPs, rounding, joint solver)."""
 
@@ -9,8 +10,8 @@ from repro_torch.core.traffic import Trace
 from repro_torch.core.clustering import critical_tms
 from repro_torch.core.solver import (STRATEGIES, GeminiSolution, SolverConfig,
                                      Strategy, solve)
-from repro_torch.core.simulator import (IntervalMetrics, route_metrics_batched,
-                                        summarize)
+from repro_torch.core.simulator import (IntervalMetrics, route_metrics,
+                                        route_metrics_batched, summarize)
 from repro_torch.core.controller import (ControllerConfig, ControllerResult,
                                          run_controller)
 from repro_torch.core.engine import (ControllerPlan, PlanArtifacts,
@@ -22,7 +23,7 @@ __all__ = [
     "Fabric", "uniform_topology", "PathSet", "build_paths",
     "routing_weight_matrix", "Trace", "critical_tms", "STRATEGIES",
     "GeminiSolution", "SolverConfig", "Strategy", "solve", "IntervalMetrics",
-    "route_metrics_batched", "summarize", "ControllerConfig",
+    "route_metrics", "route_metrics_batched", "summarize", "ControllerConfig",
     "ControllerResult", "run_controller", "ControllerPlan", "PlanArtifacts",
     "plan_artifacts", "plan_controller", "run_controller_batched",
     "BurstParams", "LossConfig",

@@ -7,11 +7,15 @@ reconfiguration every ``topology_interval``, both computed from a sliding
 first aggregation window is warm-up; topologies are physically realized
 (rounded, paper Algorithm 1) before they are scored.
 
-This slice of the port runs the plan → batch-execute engine
-(:mod:`repro_torch.core.engine`) on the device: batched PDHG routing solves
-and one launch each of the linkload and queueloss CUDA kernels per sweep.
-The sequential walk, reconfiguration transitions and failure contingencies
-come with later slices; asking for them raises ``NotImplementedError``.
+Two engines run on the device.  ``engine="batched"`` (the default) is the
+plan → batch-execute engine (:mod:`repro_torch.core.engine`): batched PDHG
+routing solves and one launch each of the epoch-batched linkload and
+queueloss CUDA kernels per sweep.  ``engine="sequential"`` walks the trace
+epoch by epoch (:func:`run_controller` below): one routing solve and one
+:func:`repro_torch.core.simulator.route_metrics` call — one launch each of
+the single-block kernels — per epoch.  Reconfiguration transitions and
+failure contingencies come with later slices; asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,11 +23,16 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch import obs
 from repro_torch.burst import LossConfig
-from repro_torch.core.graph import Fabric
-from repro_torch.core.simulator import IntervalMetrics
-from repro_torch.core.solver import SolverConfig, Strategy
+from repro_torch.core import clustering
+from repro_torch.core.graph import Fabric, uniform_topology
+from repro_torch.core.paths import build_paths, routing_weight_matrix
+from repro_torch.core.rounding import realize
+from repro_torch.core.simulator import IntervalMetrics, route_metrics, summarize
+from repro_torch.core.solver import GeminiSolution, SolverConfig, Strategy, solve
 from repro_torch.core.traffic import Trace
 from repro_torch.device import resolve_device
 
@@ -55,7 +64,7 @@ class ControllerConfig:
     # burst-level loss tracking; None = off.  The loss seed is shared across
     # strategies, so comparisons are paired under identical burst realizations.
     loss: LossConfig | None = None
-    engine: str = "batched"  # "sequential" lands in a later slice
+    engine: str = "batched"  # batched | sequential
     solver_backend: str = "pdhg"  # routing-only solves: pdhg | scipy
     pdhg_max_iters: int = 3000  # PDHG iteration cap per stage
     pdhg_tol: float = 1e-2  # PDHG certified-gap / objective-stall tolerance
@@ -69,9 +78,7 @@ class ControllerConfig:
             raise _later_slice("ControllerConfig.transition")
         if self.failures is not None:
             raise _later_slice("ControllerConfig.failures")
-        if self.engine == "sequential":
-            raise _later_slice("the sequential controller (engine='sequential')")
-        if self.engine != "batched":
+        if self.engine not in ("batched", "sequential"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.solver_precision != "f32":
             raise _later_slice(f"solver_precision={self.solver_precision!r}")
@@ -104,9 +111,15 @@ class ControllerResult:
     solver_stats: object = None
     contingency: object = None
     # what the sweep scored, per routing epoch: path splits (B, P) and
-    # realized directed capacities (B, E) — enough to re-score it
+    # realized directed capacities (B, E) — enough to re-score it — and the
+    # stage-1 MLU bound u* (B,) each routing solve certified
     splits: np.ndarray | None = None
     capacities: np.ndarray | None = None
+    u_star: np.ndarray | None = None
+
+
+def _window(trace: Trace, end: int, n: int) -> np.ndarray:
+    return trace.demand[max(0, end - n): end]
 
 
 def run_controller(
@@ -121,8 +134,159 @@ def run_controller(
 
     ``device=None`` means the CUDA device; without a card the call raises
     ``RuntimeError`` unless the caller passes ``device="cpu"``.
+    ``cc.engine`` picks the batched engine or the sequential walk; both give
+    the reference's fields and semantics.
     """
     dev = resolve_device(device)
-    from repro_torch.core.engine import run_controller_batched
+    cc = cc or ControllerConfig()
+    sc = sc or SolverConfig()
+    if cc.engine == "batched":
+        from repro_torch.core.engine import run_controller_batched
 
-    return run_controller_batched(fabric, trace, strategy, cc, sc, device=dev)
+        return run_controller_batched(fabric, trace, strategy, cc, sc,
+                                      device=dev)
+    paths = build_paths(fabric.n_pods)
+    kmeans_dtype = getattr(torch, cc.kmeans_dtype)
+    ipd = trace.intervals_per_day()
+    agg = max(1, int(round(cc.aggregation_days * ipd)))
+    route_step = max(1, int(round(cc.routing_interval_hours * ipd / 24.0)))
+    topo_step = max(route_step, int(round(cc.topology_interval_days * ipd)))
+    if trace.n_intervals <= agg:
+        raise ValueError("trace shorter than the aggregation window")
+
+    metrics = IntervalMetrics.empty()
+    n_routing, n_topology, solver_s = 0, 0, 0.0
+    transit_mass, transit_n = 0.0, 0
+    phases = obs.PhaseTimes()
+    pdhg_raws: list = []
+    n_fallbacks = 0
+    f_epochs, cap_epochs, u_epochs = [], [], []
+
+    sol: GeminiSolution | None = None
+    n_realized: np.ndarray | None = None
+    cap: np.ndarray | None = None
+    next_topo = agg  # reconfigure topology at warm-up end, then every topo_step
+
+    fixed = Strategy(nonuniform=False, hedging=strategy.hedging)
+    for start in range(agg, trace.n_intervals, route_step):
+        with phases("plan"):
+            window = _window(trace, start, agg)
+            tms = clustering.critical_tms(window, k=cc.k_critical,
+                                          seed=n_routing, dtype=kmeans_dtype,
+                                          device=dev)
+        if strategy.nonuniform and (sol is None or start >= next_topo):
+            with phases("plan"):
+                # full joint solve: new topology + routing
+                sol = solve(fabric, tms, strategy, sc, window_demand=window)
+                solver_s += sol.solve_seconds
+                n_realized = (realize(fabric, sol.n_e)[0]
+                              if cc.realize_topology else sol.n_e)
+                cap = fabric.capacities(n_realized)
+            n_topology += 1
+            obs.event("controller.topology_applied", start=start,
+                      fabric=fabric.name)
+            obs.metrics.inc("controller.topology_updates",
+                            fabric=fabric.name, outcome="applied")
+            next_topo = start + topo_step
+        elif cap is None:
+            # uniform strategies: fix the (realized) uniform topology once
+            n0 = uniform_topology(fabric)
+            n_realized = realize(fabric, n0)[0] if cc.realize_topology else n0
+            cap = fabric.capacities(n_realized)
+        # routing must target the *realized* (integer) capacities
+        with phases("solve"):
+            sol = _solve_routing_only(fabric, tms, fixed, sc, window, cap, cc,
+                                      device=dev)
+        solver_s += sol.solve_seconds
+        if sol.pdhg_stats is not None:
+            pdhg_raws.append(sol.pdhg_stats)
+            phases.add("anchor", sol.pdhg_stats.get("anchor_seconds", 0.0))
+            n_fallbacks += int(sol.pdhg_stats.get("n_fallbacks", 0))
+        n_routing += 1
+        transit_mass += sol.transit_fraction(paths)
+        transit_n += 1
+        f_epochs.append(sol.f)
+        cap_epochs.append(cap)
+        u_epochs.append(sol.u_star)
+
+        with phases("score"):
+            w = routing_weight_matrix(paths, sol.f)
+            block = trace.demand[start: start + route_step]
+            obs.quality.record_epoch_quality(fabric.name, tms, block)
+            # the burst seed is a pure function of (cc.loss.seed, start), so
+            # strategies walking the same starts stay paired
+            loss_cfg = (dataclasses.replace(cc.loss, seed=cc.loss.seed + start)
+                        if cc.loss is not None else None)
+            metrics = metrics.concat(route_metrics(
+                block, w, cap, cc.overload_threshold, backend=cc.backend,
+                loss_cfg=loss_cfg,
+                interval_seconds=trace.interval_minutes * 60.0, device=dev))
+
+    obs.quality.record_interval_metrics(fabric.name, metrics)
+    solver_stats = None
+    if pdhg_raws:
+        solver_stats = obs.SolverStats.from_pdhg(
+            pdhg_raws, cc.pdhg_max_iters, cc.pdhg_tol,
+            n_fallbacks=n_fallbacks)
+    return ControllerResult(
+        strategy=strategy,
+        metrics=metrics,
+        summary=summarize(metrics),
+        n_routing_updates=n_routing,
+        n_topology_updates=n_topology,
+        final_topology=np.asarray(n_realized),
+        transit_fraction=transit_mass / max(transit_n, 1),
+        solver_seconds=solver_s,
+        stage_times=phases.times,
+        solver_stats=solver_stats,
+        splits=np.stack(f_epochs),
+        capacities=np.stack(cap_epochs),
+        u_star=np.asarray(u_epochs, np.float64),
+    )
+
+
+def _solve_routing_only(fabric, tms, strategy, sc, window, capacities,
+                        cc: ControllerConfig, device=None) -> GeminiSolution:
+    """Fixed-capacity routing re-solve (stages 1 → [2] → 3 with C given).
+
+    ``cc.solver_backend`` selects PDHG on ``device`` (the batched solver at
+    B = 1, as the reference's sequential walk runs it) or scipy/HiGHS.
+    """
+    from repro_torch.core.engine import (_pad_tms, _solve_routing_scipy,
+                                         pdhg_finite_fallback,
+                                         routing_solver_for)
+    from repro_torch.core.lp import estimate_delta
+
+    pdhg_stats = None
+    with obs.timed("controller.solve_routing",
+                   backend=cc.solver_backend) as t:
+        delta = 0.0
+        if strategy.hedging:
+            delta = (sc.delta if sc.delta is not None
+                     else estimate_delta(window, sc.delta_quantile))
+        if cc.solver_backend == "pdhg":
+            solver = routing_solver_for(fabric, cc.k_critical,
+                                        cc.pdhg_max_iters, cc.pdhg_tol,
+                                        cc.solver_precision, device=device)
+            caps = np.asarray(capacities, float)[None]
+            out = solver.solve_routing_batch(
+                _pad_tms(np.asarray(tms, float), cc.k_critical)[None], caps,
+                hedging=strategy.hedging, deltas=np.asarray([delta]),
+                skip_stage3=sc.skip_stage3)
+            f_g, u_g, n_fb = pdhg_finite_fallback(
+                fabric, [tms], caps, np.asarray([delta]), sc, out["f"],
+                out["u_star"])
+            f, u_star = f_g[0], float(u_g[0])
+            r_star = (None if out["r_star"] is None
+                      or not np.isfinite(out["r_star"][0])
+                      else float(out["r_star"][0]))
+            pdhg_stats = dict(out["stats"])
+            if n_fb:
+                pdhg_stats["n_fallbacks"] = n_fb
+        else:
+            f, u_star, r_star = _solve_routing_scipy(fabric, tms, sc,
+                                                     capacities, delta)
+    return GeminiSolution(
+        strategy=strategy, fabric=fabric, n_e=np.zeros(fabric.n_trunks), f=f,
+        u_star=u_star, r_star=r_star, delta=delta,
+        solve_seconds=t.seconds, pdhg_stats=pdhg_stats)

@@ -96,16 +96,27 @@ def plan_controller(trace: Trace, cc, nonuniform: bool) -> ControllerPlan:
                           epochs=tuple(epochs))
 
 
+# one PDHG solver per (pods, m, knobs, device): building one walks the path
+# set and copies its masks to the device, which the streaming and sequential
+# controllers would otherwise repeat on every epoch
+_SOLVER_CACHE: dict = {}
+
+
 def routing_solver_for(fabric: Fabric, m: int, max_iters: int, tol: float,
                        precision: str = "f32", device=None):
-    """The batched PDHG solver for ``fabric``'s shape on ``device``.
-
-    Eager PyTorch traces nothing, so unlike the reference there is no
-    per-shape solver cache to share."""
+    """The shared PDHG solver for ``fabric``'s shape on ``device``; a
+    same-shape fabric reuses it (``.fabric`` is set to the caller's)."""
     from repro_torch.core.pdhg import TorchRoutingSolver
 
-    return TorchRoutingSolver(fabric, m, max_iters=max_iters, tol=tol,
-                              precision=precision, device=device)
+    dev = resolve_device(device)
+    key = (fabric.n_pods, m, max_iters, tol, precision, dev)
+    if key not in _SOLVER_CACHE:
+        _SOLVER_CACHE[key] = TorchRoutingSolver(
+            fabric, m, max_iters=max_iters, tol=tol, precision=precision,
+            device=dev)
+    sol = _SOLVER_CACHE[key]
+    sol.fabric = fabric  # same-shape fabrics share the solver
+    return sol
 
 
 def _pad_tms(tms: np.ndarray, k: int) -> np.ndarray:
@@ -289,7 +300,7 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
             out = solver.solve_routing_batch(
                 art.tms_padded(cc.k_critical), caps, hedging=fixed.hedging,
                 deltas=art.deltas, skip_stage3=sc.skip_stage3)
-            f_b, _, n_fb = pdhg_finite_fallback(
+            f_b, u_b, n_fb = pdhg_finite_fallback(
                 fabric, art.tms, caps, art.deltas, sc,
                 out["f"], out["u_star"])
             phases.add("anchor", out["stats"].get("anchor_seconds", 0.0))
@@ -297,9 +308,10 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
                 [out["stats"]], cc.pdhg_max_iters, cc.pdhg_tol,
                 n_fallbacks=n_fb)
         elif cc.solver_backend == "scipy":
-            f_b = np.stack([
-                _solve_routing_scipy(fabric, tms, sc, c, d)[0]
-                for tms, c, d in zip(art.tms, caps, art.deltas)])
+            solved = [_solve_routing_scipy(fabric, tms, sc, c, d)
+                      for tms, c, d in zip(art.tms, caps, art.deltas)]
+            f_b = np.stack([f for f, _, _ in solved])
+            u_b = np.asarray([u for _, u, _ in solved], np.float64)
         else:
             raise ValueError(f"unknown solver_backend {cc.solver_backend!r}")
     solver_s += t_solve.seconds
@@ -336,6 +348,7 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
         solver_stats=solver_stats,
         splits=f_b,
         capacities=caps,
+        u_star=u_b,
     )
 
 

@@ -1,5 +1,7 @@
 """Batched PDHG routing solver in PyTorch — the counterpart of
-``repro/core/jaxlp.py``'s batch path (:meth:`JaxRoutingSolver.solve_routing_batch`).
+``repro/core/jaxlp.py``'s batch path (:meth:`JaxRoutingSolver.solve_routing_batch`)
+and its streaming path (:meth:`JaxRoutingSolver.solve_routing_warm`, one epoch
+warm-started from the previous epoch's iterates, :class:`RoutingWarmState`).
 
 The routing stages with a fixed topology are small structured LPs over the
 per-commodity path simplex:
@@ -28,6 +30,7 @@ enabled (about 1e-3 relative error, above the certificate's tolerance).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -38,7 +41,28 @@ from repro_torch.core.graph import Fabric, directed_edge_index
 from repro_torch.core.paths import PathSet, build_paths
 from repro_torch.device import resolve_device, synchronize
 
-__all__ = ["TorchRoutingSolver", "project_simplex_rows"]
+__all__ = ["RoutingWarmState", "TorchRoutingSolver", "project_simplex_rows"]
+
+
+@dataclasses.dataclass
+class RoutingWarmState:
+    """Converged primal/dual iterates of one routing solve, reusable as the
+    next epoch's starting point (:meth:`TorchRoutingSolver.solve_routing_warm`).
+
+    Consecutive streaming epochs share all but one window interval, so the
+    previous optimum is near-feasible and near-optimal for the next solve.
+    Stage-2/3 fields are ``None`` when the producing solve did not run that
+    stage (no hedging / ``skip_stage3``); a ``None`` field falls back to the
+    cold init for just that stage.  The tensors stay on the solver's device,
+    so carrying the state adds no host round trips.
+    """
+
+    f1: torch.Tensor  # (V, V, V) stage-1 primal splits
+    y1: torch.Tensor  # (m, V, V) stage-1 dual
+    f2: torch.Tensor | None = None  # stage-2 primal splits
+    y2: torch.Tensor | None = None  # stage-2 MLU dual
+    z2: torch.Tensor | None = None  # stage-2 risk dual (V, V, V, 2)
+    y3: torch.Tensor | None = None  # stage-3 MLU dual
 
 
 def _bc(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -111,6 +135,16 @@ def _project_simplex_topk(x: torch.Tensor, valid: torch.Tensor, k: int) -> torch
     return out / _bc(torch.clamp(out.reshape(b, -1).sum(1), min=1e-30), out)
 
 
+def _refuse_tf32() -> None:
+    """Raise if TF32 matmuls are on: about 1e-3 relative error, above the
+    PDHG certificate's tolerance.  Checked at construction and at every solve
+    (a cached solver outlives the setting it was built under)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: TF32 matmuls "
+            "carry ~1e-3 relative error, above the PDHG certificate's")
+
+
 def _amax(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).amax(1)
 
@@ -135,10 +169,7 @@ class TorchRoutingSolver:
         if precision != "f32":
             raise NotImplementedError(
                 f"PDHG precision {precision!r} lands in a later slice of the port")
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 is True: TF32 matmuls "
-                "carry ~1e-3 relative error, above the PDHG certificate's")
+        _refuse_tf32()
         self.fabric = fabric
         self.m = m
         self.max_iters = max_iters
@@ -480,6 +511,7 @@ class TorchRoutingSolver:
         carries an ``active`` mask for the elements that hedge), plus
         ``anchor_seconds``.
         """
+        _refuse_tf32()
         dev = self.device
         d3 = self._dense_tms(tms)
         ic = self._dense_inv_cap(capacities)
@@ -550,6 +582,79 @@ class TorchRoutingSolver:
         stats["anchor_seconds"] = anchor_s
         return {"f": f, "u_star": u.cpu().numpy().astype(np.float64),
                 "r_star": out_r, "stats": stats}
+
+    def solve_routing_warm(self, tms: np.ndarray, capacities: np.ndarray,
+                           hedging: bool, delta: float = 0.0,
+                           skip_stage3: bool = False,
+                           anchor_state: RoutingWarmState | None = None):
+        """Stages 1 → [2] → 3 for ONE routing epoch, warm-started from the
+        previous epoch's converged iterates.
+
+        The streaming counterpart of :meth:`solve_routing_batch`: instead of
+        a batch anchored on a cold middle-epoch solve, every stage takes its
+        primal *and* dual start from ``anchor_state``; a stage whose carried
+        fields are missing starts from its cold init (stage 1
+        :meth:`_mlu_inits`, stage 2 :meth:`_risk_inits`, stage 3 a zero
+        dual).  The convergence checks gate the exit exactly as in the cold
+        path, so only the iteration count changes.
+
+        Args:
+          tms: (m, C) critical TMs, zero-padded to the static ``m``.
+          capacities: (E,) realized directed capacities.
+          hedging: run stage 2 when ``delta > 0``.
+          delta: burst size (ignored unless ``hedging``).
+          skip_stage3: skip the stretch-minimization stage.
+          anchor_state: the previous epoch's :class:`RoutingWarmState`, or
+            ``None`` for a cold start.
+
+        Returns ``(out, state)``: ``out`` has ``f`` (P,) float64,
+        ``u_star``, ``r_star`` (None unless hedged), and ``stats`` (the
+        :meth:`solve_routing_batch` schema at batch length 1, with
+        ``anchor_seconds`` 0.0); ``state`` seeds the next call.
+        """
+        _refuse_tf32()
+        dev = self.device
+        d3 = self._dense_tms(np.asarray(tms)[None])
+        ic = self._dense_inv_cap(np.asarray(capacities)[None])
+        valid = self.valid[None]
+        warm = anchor_state
+
+        with obs.span("pdhg.warm_stage1"):
+            inits = (self._mlu_inits(d3, ic, valid) if warm is None
+                     else (warm.f1[None], warm.y1[None]))
+            f3, u, it1, y1, gap1 = self._mlu_core(d3, ic, valid, *inits)
+        state = RoutingWarmState(f1=f3[0], y1=y1[0])
+        u_budget = u * 1.005 + 1e-9
+        stats = {"stage1": self._stage_stats(it1, gap1), "anchor_seconds": 0.0}
+        r_star = None
+        run2 = hedging and delta > 0
+        if run2:
+            dl = torch.tensor([delta], dtype=torch.float32, device=dev)
+            with obs.span("pdhg.warm_stage2"):
+                inits = (self._risk_inits(d3, valid)
+                         if warm is None or warm.f2 is None
+                         else (warm.f2[None], warm.y2[None], warm.z2[None]))
+                f3, r, _, y2, z2, it2, gap2 = self._risk_core(
+                    d3, ic, valid, u_budget, dl, *inits)
+            state.f2, state.y2, state.z2 = f3[0], y2[0], z2[0]
+            r_star = float(r[0])
+            stats["stage2"] = self._stage_stats(it2, gap2,
+                                                active=np.asarray([True]))
+        if not skip_stage3:
+            r_in = torch.tensor([r_star * 1.005 + 1e-12 if run2 else 1e9],
+                                dtype=torch.float32, device=dev)
+            dl_in = torch.tensor([delta if run2 else 0.0], dtype=torch.float32,
+                                 device=dev)
+            y0 = (torch.zeros((1, self.m, self.V, self.V), device=dev)
+                  if warm is None or warm.y3 is None else warm.y3[None])
+            with obs.span("pdhg.warm_stage3"):
+                f3, y3, it3, gap3 = self._stretch_core(
+                    d3, ic, valid, u_budget, r_in, dl_in, f3, y0)
+            state.y3 = y3[0]
+            stats["stage3"] = self._stage_stats(it3, gap3)
+        f = self._flat_f(f3)[0]
+        return ({"f": f, "u_star": float(u[0]), "r_star": r_star,
+                 "stats": stats}, state)
 
     def _stage_stats(self, it, gap, active=None) -> dict:
         """Host-side per-element telemetry for one batched stage.  Restarts

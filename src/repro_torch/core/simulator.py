@@ -1,17 +1,19 @@
 """Trace-driven link-utilization scoring (paper §5.2 methodology, §3 metrics)
-— the counterpart of ``repro/core/simulator.py``'s batched path.
+— the counterpart of ``repro/core/simulator.py``.
 
-Given per-epoch routing-weight matrices ``W (B, C, E_d)`` and directed
-capacities ``cap (B, E_d)``, per-interval loads are one matmul per epoch:
+Given a routing-weight matrix ``W (C, E_d)`` and directed capacities
+``cap (E_d,)`` — or one of each per routing epoch, ``(B, C, E_d)`` and
+``(B, E_d)`` — per-interval loads are one matmul per block:
 
-    load[b, t, e] = Σ_c demand[b, t, c] · W[b, c, e]
+    load[t, e] = Σ_c demand[t, c] · W[c, e]
 
 Metrics per interval: MLU (max load/C over live links), ALU (mean load/C),
 OLR (fraction of links above the overload threshold) and stretch (total load
 over total demand).  Summaries report the p99.9 over intervals.  With a
 :class:`repro_torch.burst.LossConfig`, each interval also gets the burst-level
-loss fraction.  ``backend="torch"`` runs one launch each of the epoch-batched
-linkload and queueloss CUDA kernels; ``"numpy"`` is the float64 oracle.
+loss fraction.  ``backend="torch"`` runs the linkload and queueloss CUDA
+kernels — one launch each per block (:func:`route_metrics`) or per sweep
+(:func:`route_metrics_batched`); ``"numpy"`` is the float64 oracle.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["IntervalMetrics", "route_metrics_batched", "p999", "summarize"]
+__all__ = ["IntervalMetrics", "route_metrics", "route_metrics_batched",
+           "p999", "summarize"]
 
 
 def _concat_loss(a, a_size: int, b, b_size: int):
@@ -76,6 +79,62 @@ def summarize(m: IntervalMetrics) -> dict:
         out["p999_loss"] = p999(m.loss)
         out["mean_loss"] = float(m.loss.mean()) if m.loss.size else float("nan")
     return out
+
+
+def route_metrics(
+    demand: np.ndarray,
+    weights: np.ndarray,
+    capacities: np.ndarray,
+    overload_threshold: float = 0.8,
+    backend: str = "torch",
+    loss_cfg=None,
+    interval_seconds: float | None = None,
+    device=None,
+) -> IntervalMetrics:
+    """Per-interval MLU/ALU/OLR/stretch for a (T, C) demand block.
+
+    ``backend="torch"`` scores through :func:`link_metrics` (one launch of
+    the linkload kernel on a CUDA device); ``"numpy"`` is the reference's
+    float64 path.  With ``loss_cfg`` (a :class:`repro_torch.burst.LossConfig`)
+    and ``interval_seconds``, also attaches the per-interval burst-level loss
+    fraction from :func:`repro_torch.burst.interval_loss` on ``backend``.
+    ``device`` is the torch backend's device (``None`` = CUDA).
+
+    Dead links (capacity ≤ 1e-9) carry no utilization: they are excluded from
+    MLU and from the ALU/OLR live-link averages on both backends, and an
+    all-dead capacity vector scores MLU/ALU/OLR = 0.
+    """
+    demand = np.asarray(demand, dtype=np.float64)
+    cap = np.asarray(capacities, dtype=np.float64)
+    live = cap > 1e-9
+    if backend == "torch":
+        from repro_torch.kernels.linkload import ops as llops
+
+        mlu, alu, olr, load_tot = (np.asarray(x) for x in llops.link_metrics(
+            demand, weights, cap, overload_threshold, device=device))
+    elif backend == "numpy":
+        load = demand @ weights  # (T, E_d)
+        if live.any():
+            util = load[:, live] / cap[None, live]
+            mlu = util.max(axis=1)
+            alu = util.mean(axis=1)
+            olr = (util > overload_threshold).mean(axis=1)
+        else:
+            mlu = alu = olr = np.zeros(demand.shape[0])
+        load_tot = load.sum(axis=1)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    tot_dem = demand.sum(axis=1)
+    stretch = np.where(tot_dem > 1e-12, load_tot / np.maximum(tot_dem, 1e-12), 1.0)
+    loss = None
+    if loss_cfg is not None:
+        if interval_seconds is None:
+            raise ValueError("loss tracking requires interval_seconds")
+        from repro_torch.burst import interval_loss
+
+        loss = interval_loss(demand, weights, cap, interval_seconds, loss_cfg,
+                             backend=backend, device=device)
+    return IntervalMetrics(mlu=mlu, alu=alu, olr=olr, stretch=stretch, loss=loss)
 
 
 def route_metrics_batched(

@@ -1,8 +1,12 @@
-// Epoch-batched fused link-load metrics for the H100 (sm_90a).
+// Fused link-load metrics for the H100 (sm_90a): epoch-batched and single-block.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   src/repro/kernels/linkload/linkload.py :: linkload_pallas_batched
-//   (kernel body linkload_batched_kernel).
+//   (kernel body linkload_batched_kernel), entry linkload_batched below, and
+//   src/repro/kernels/linkload/linkload.py :: linkload_pallas
+//   (kernel body linkload_metrics_kernel), entry linkload_single below.  The TPU's
+//   single-block kernel is its batched one at B = 1 (one W, one inv_cap), so
+//   both entries launch the same body; the single-block one at B = 1.
 // For every epoch b and interval t it computes
 //   load[t, e] = sum_c demand[b, t, c] * W[b, c, e],  util = load * inv_cap[b, e]
 // and returns per row: max_e util, sum_e util, #(util > thr), sum_e load.
@@ -12,6 +16,12 @@
 // controller's shapes (B=672, T=3, C=E=132) W is 46.8 MB of the 48 MB the
 // kernel reads, about 14 us at 3.35 TB/s, against 70 MFLOP (1 us at the
 // 67 TFLOP/s f32 rate).
+//
+// Single block.  At the streaming controller's shape (T=3, C=E=132) the call
+// reads 72 KB (0.02 us at 3.35 TB/s): one CTA, bound by the launch.  Scoring a
+// whole trace under one W (the baselines: T=4032) moves 2.3 MB but does
+// 143 MFLOP, so f32 operations bound it (2.1 us at 67 TFLOP/s); the grid is
+// 504 T-tiles, each re-reading the same 70 KB W from L2.
 //
 // Design.  The TPU kernel leans on its sequential grid: the four output
 // blocks stay resident across all (e, c) steps.  A CUDA grid gives no order,
@@ -124,20 +134,8 @@ linkload_batched_kernel(const float* __restrict__ demand,   // (B, T, C)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Largest C the demand tile fits in shared memory for (the host checks it).
-int linkload_max_commodities() { return (227 * 1024 - 4 * kWarps * kRows * 4) / (kRows * 4); }
-
-const char* linkload_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-int linkload_batched(const void* demand, const void* w, const void* inv_cap, float thr,
-                     void* mlu, void* alu, void* olr, void* tot, int B, int T, int C, int E,
-                     void* stream) {
+int launch(const void* demand, const void* w, const void* inv_cap, float thr, void* mlu,
+           void* alu, void* olr, void* tot, int B, int T, int C, int E, void* stream) {
   if (B == 0 || T == 0) return 0;
   const int n_ttiles = (T + kRows - 1) / kRows;
   const size_t smem = (size_t)kRows * C * sizeof(float);
@@ -153,6 +151,30 @@ int linkload_batched(const void* demand, const void* w, const void* inv_cap, flo
       static_cast<float*>(alu), static_cast<float*>(olr), static_cast<float*>(tot), T, C, E,
       n_ttiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest C the demand tile fits in shared memory for (the host checks it).
+int linkload_max_commodities() { return (227 * 1024 - 4 * kWarps * kRows * 4) / (kRows * 4); }
+
+const char* linkload_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int linkload_batched(const void* demand, const void* w, const void* inv_cap, float thr,
+                     void* mlu, void* alu, void* olr, void* tot, int B, int T, int C, int E,
+                     void* stream) {
+  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
+}
+
+// One (T, C) block under one (C, E) weight matrix and one (E,) inv_cap.
+int linkload_single(const void* demand, const void* w, const void* inv_cap, float thr,
+                    void* mlu, void* alu, void* olr, void* tot, int T, int C, int E,
+                    void* stream) {
+  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,14 @@
-// Epoch-batched fused link-load matmul + fluid-queue loss scan for the H100
-// (sm_90a).
+// Fused link-load matmul + fluid-queue loss scan for the H100 (sm_90a):
+// epoch-batched and single-block.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   src/repro/kernels/queueloss/queueloss.py :: queueloss_pallas_batched
-//   (kernel body queueloss_batched_kernel).
+//   (kernel body queueloss_batched_kernel), entry queueloss_batched below, and
+//   src/repro/kernels/queueloss/queueloss.py :: queueloss_pallas
+//   (kernel body queueloss_kernel), entry queueloss_single below.  The TPU's
+//   single-block kernel is its batched one at B = 1: one W, and one queue that
+//   starts empty at the call and carries across all of its sub-steps.  Both
+//   entries launch the same body; the single-block one at B = 1.
 // For every epoch b, link e and sub-step k in time order:
 //   load = sum_c demand[b, k, c] * W[b, c, e]
 //   x = q + (load - cap[b, e]) * dt;  drop += max(0, x - buf[b, e]);  q = clip(x, 0, buf[b, e])
@@ -14,6 +19,8 @@
 // TS=36, C=E=132) the kernel must read W (46.8 MB) and the sub-step demand
 // (12.8 MB), about 18 us at 3.35 TB/s, against 0.84 GFLOP (13 us at the
 // 67 TFLOP/s f32 rate).  The recurrence makes time sequential per link.
+// The single-block call of the streaming controller (TS=36, C=E=132) reads
+// 90 KB and does 1.25 MFLOP: two CTAs of 128 link-threads, bound by the launch.
 //
 // Design.  The TPU kernel carries the whole queue vector in VMEM scratch
 // across sequential time tiles.  Here one CTA owns one (epoch, E-tile) and one
@@ -135,24 +142,9 @@ __global__ void sum_partials_kernel(const float* __restrict__ drop_part,
   load[i] = l;
 }
 
-}  // namespace
-
-extern "C" {
-
-int queueloss_links_per_block() { return kThreads; }
-
-// Largest C the demand chunk fits in shared memory for (the host checks it).
-int queueloss_max_commodities() {
-  return (227 * 1024 - 2 * kWarps * kSteps * 4) / (kSteps * 4);
-}
-
-const char* queueloss_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-int queueloss_batched(const void* demand, const void* w, const void* cap, const void* buf,
-                      float dt, void* drop, void* load, void* drop_part, void* load_part,
-                      int B, int TS, int C, int E, void* stream) {
+int launch(const void* demand, const void* w, const void* cap, const void* buf, float dt,
+           void* drop, void* load, void* drop_part, void* load_part, int B, int TS, int C,
+           int E, void* stream) {
   if (B == 0 || TS == 0) return 0;
   const int n_etiles = E > 0 ? (E + kThreads - 1) / kThreads : 1;
   const size_t smem = (size_t)kSteps * C * sizeof(float);
@@ -174,6 +166,34 @@ int queueloss_batched(const void* demand, const void* w, const void* cap, const 
       static_cast<const float*>(drop_part), static_cast<const float*>(load_part),
       static_cast<float*>(drop), static_cast<float*>(load), rows, n_etiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int queueloss_links_per_block() { return kThreads; }
+
+// Largest C the demand chunk fits in shared memory for (the host checks it).
+int queueloss_max_commodities() {
+  return (227 * 1024 - 2 * kWarps * kSteps * 4) / (kSteps * 4);
+}
+
+const char* queueloss_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int queueloss_batched(const void* demand, const void* w, const void* cap, const void* buf,
+                      float dt, void* drop, void* load, void* drop_part, void* load_part,
+                      int B, int TS, int C, int E, void* stream) {
+  return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, B, TS, C, E, stream);
+}
+
+// One (TS, C) block under one (C, E) weight matrix; the queue starts empty.
+int queueloss_single(const void* demand, const void* w, const void* cap, const void* buf,
+                     float dt, void* drop, void* load, void* drop_part, void* load_part,
+                     int TS, int C, int E, void* stream) {
+  return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, 1, TS, C, E, stream);
 }
 
 }  // extern "C"

@@ -1,25 +1,31 @@
 """Carry the reference's state across to the port.
 
-In this system what stands in for parameters is the fabric, the trace and the
-configurations.  These helpers rebuild the port's objects from numpy arrays
-and plain dicts (for example ``dataclasses.asdict`` of the reference's
-objects), so both packages can be handed the same state without the port
-importing the reference.
+In this system what stands in for parameters is the fabric, the trace, the
+configurations and, for the streaming controller, the PDHG iterates carried
+from one epoch to the next.  These helpers rebuild the port's objects from
+numpy arrays and plain dicts (for example ``dataclasses.asdict`` of the
+reference's objects), so both packages can be handed the same state without
+the port importing the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.burst import BurstParams, LossConfig
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.graph import Fabric
+from repro_torch.core.pdhg import RoutingWarmState
 from repro_torch.core.solver import SolverConfig, Strategy
 from repro_torch.core.traffic import Trace
+from repro_torch.device import resolve_device
+from repro_torch.serve import ServeConfig
 
 __all__ = ["fabric_from_numpy", "trace_from_numpy", "strategy_from_dict",
            "solver_config_from_dict", "loss_config_from_dict",
-           "controller_config_from_dict"]
+           "controller_config_from_dict", "serve_config_from_dict",
+           "warm_state_from_numpy"]
 
 # the reference's metrics backends → the port's
 _BACKENDS = {"pallas": "torch", "jax": "torch", "numpy": "numpy"}
@@ -58,3 +64,21 @@ def controller_config_from_dict(d: dict) -> ControllerConfig:
     d["backend"] = _BACKENDS[d["backend"]]
     d["loss"] = loss_config_from_dict(d.get("loss"))
     return ControllerConfig(**d)
+
+
+def serve_config_from_dict(d: dict) -> ServeConfig:
+    return ServeConfig(**d)
+
+
+def warm_state_from_numpy(d: dict, device=None) -> RoutingWarmState:
+    """The port's :class:`RoutingWarmState` from the reference's fields
+    (``f1``, ``y1``, ``f2``, ``y2``, ``z2``, ``y3``) as numpy arrays or
+    ``None``; the tensors are float32 on ``device`` (``None`` = CUDA)."""
+    dev = resolve_device(device)
+
+    def put(x):
+        return (None if x is None
+                else torch.from_numpy(np.array(x, np.float32)).to(dev))
+
+    return RoutingWarmState(**{k: put(d.get(k)) for k in
+                               ("f1", "y1", "f2", "y2", "z2", "y3")})

@@ -1,15 +1,17 @@
-"""Wrapper for the fused link-load metrics kernel (``csrc/linkload.cu``).
+"""Wrappers for the fused link-load metrics kernel (``csrc/linkload.cu``).
 
-The counterpart of ``repro/kernels/linkload/ops.py``'s
-:func:`link_metrics_batched`: live-link masking, capacity normalization and
+The counterpart of ``repro/kernels/linkload/ops.py``'s :func:`link_metrics`
+(one demand block under one weight matrix) and :func:`link_metrics_batched`
+(one block per routing epoch): live-link masking, capacity normalization and
 the conversion of the kernel's raw accumulators (sums/counts) into the
 simulator's MLU / ALU / OLR / total-load metrics.  ``backend`` is ``"torch"``
 (the CUDA kernel on a CUDA device, its plain version on the CPU) or
 ``"numpy"`` (the float64 oracle).
 
-:func:`linkload_batched` is the tensor-level wrapper: a CUDA tensor launches
-the kernel (and adds one to :data:`launches`), a CPU tensor runs the plain
-version in :mod:`.ref`.  Nothing falls back from one to the other.
+:func:`linkload` and :func:`linkload_batched` are the tensor-level wrappers:
+a CUDA tensor launches the kernel (and adds one to :data:`single_launches` or
+:data:`launches`), a CPU tensor runs the plain version in :mod:`.ref`.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -22,22 +24,65 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
-from repro_torch.kernels.linkload.ref import linkload_metrics_batched_ref
+from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
+                                              linkload_metrics_ref)
 
-__all__ = ["launches", "linkload_batched", "link_metrics_batched"]
+__all__ = ["launches", "single_launches", "linkload", "linkload_batched",
+           "link_metrics", "link_metrics_batched"]
 
-launches = 0  # kernel launches so far; set to 0 before a run to count its own
+# kernel launches so far; set to 0 before a run to count its own
+launches = 0  # linkload_batched
+single_launches = 0  # linkload (one block)
 
 
-def _entry():
+def _entry(name: str, n_dims: int):
+    """The C entry ``name`` of the linkload library, with its argument types:
+    three input pointers, the threshold, four output pointers, ``n_dims``
+    ints and the stream."""
     lib = _build.library("linkload")
-    fn = lib.linkload_batched
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_dims
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.linkload_max_commodities.restype = ctypes.c_int
     return lib, fn
+
+
+def _launch(name: str, dev, demand, w, inv_cap, threshold, out, dims):
+    lib, fn = _entry(name, len(dims))
+    c, c_max = dims[-2], lib.linkload_max_commodities()
+    if c > c_max:
+        raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
+                         f"tile ({c_max})")
+    with torch.cuda.device(dev):
+        rc = fn(demand.data_ptr(), w.data_ptr(), inv_cap.data_ptr(),
+                float(threshold), *(o.data_ptr() for o in out), *dims,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "linkload", name, rc)
+
+
+def linkload(demand: torch.Tensor, w: torch.Tensor, inv_cap: torch.Tensor,
+             threshold: float):
+    """Per-row (mlu, alu_sum, olr_count, load_sum), each (T,) float32.
+
+    demand (T, C), w (C, E), inv_cap (E,) (0 = dead link): contiguous
+    float32, all on the CPU (plain version) or all on one CUDA device (the
+    kernel).
+    """
+    dev = placement("linkload", demand=demand, w=w, inv_cap=inv_cap)
+    t, c = demand.shape
+    if w.dim() != 2 or w.shape[0] != c or inv_cap.shape != (w.shape[1],):
+        raise ValueError(f"linkload: shapes {tuple(demand.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
+    if dev.type == "cpu":
+        return linkload_metrics_ref(demand, w, inv_cap, threshold)
+    out = torch.empty((4, t), dtype=torch.float32, device=dev)
+    _launch("linkload_single", dev, demand, w, inv_cap, threshold, out,
+            (t, c, w.shape[1]))
+    global single_launches
+    single_launches += 1
+    return out[0], out[1], out[2], out[3]
 
 
 def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
@@ -55,21 +100,60 @@ def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
     if dev.type == "cpu":
         return linkload_metrics_batched_ref(demand, w, inv_cap, threshold)
-    e = w.shape[2]
-    lib, fn = _entry()
-    if c > lib.linkload_max_commodities():
-        raise ValueError(f"linkload_batched: C={c} exceeds the kernel's "
-                         f"shared-memory tile ({lib.linkload_max_commodities()})")
     out = torch.empty((4, b, t), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(demand.data_ptr(), w.data_ptr(), inv_cap.data_ptr(),
-                float(threshold), out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(), out[3].data_ptr(), b, t, c, e,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "linkload", "linkload_batched", rc)
+    _launch("linkload_batched", dev, demand, w, inv_cap, threshold, out,
+            (b, t, c, w.shape[2]))
     global launches
     launches += 1
     return out[0], out[1], out[2], out[3]
+
+
+def _live_inv_cap(capacities):
+    """Live-link mask's count (≥ 1, over the last axis) and the inverse
+    capacities with dead links (capacity ≤ 1e-9) at 0, float64."""
+    cap = np.asarray(capacities, np.float64)
+    live = cap > 1e-9
+    n_live = np.maximum(live.sum(axis=-1), 1)
+    return n_live, np.where(live, 1.0 / np.maximum(cap, 1e-9), 0.0)
+
+
+def _put(x, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+
+def link_metrics(demand, weights, capacities, threshold: float = 0.8,
+                 backend: str = "torch", device=None):
+    """Per-interval (mlu, alu, olr, total_load) for a (T, C) demand block.
+
+    Args:
+      demand: (T, C) demand; weights: (C, E) routing weights; capacities:
+        (E,) directed capacities (≤ 1e-9 = dead link).
+      threshold: overload threshold of the OLR count.
+      backend: ``"torch"`` (float32, one launch of the kernel on a CUDA
+        device) or ``"numpy"`` (float64).
+      device: the torch backend's device (``None`` = CUDA).
+
+    ALU and OLR are averaged over *live* links only; dead links have
+    inv_cap = 0, so they never contribute.
+    """
+    n_live, inv_cap = _live_inv_cap(capacities)
+    if backend == "torch":
+        dev = resolve_device(device)
+        mlu, alu_sum, olr_cnt, tot = (
+            x.cpu().numpy() for x in linkload(
+                _put(demand, dev), _put(weights, dev), _put(inv_cap, dev),
+                threshold))
+    elif backend == "numpy":
+        load = (np.asarray(demand, np.float32).astype(np.float64)
+                @ np.asarray(weights, np.float32).astype(np.float64))
+        util = load * inv_cap.astype(np.float32)[None, :]
+        mlu = util.max(axis=1)
+        alu_sum = util.sum(axis=1)
+        olr_cnt = (util > threshold).sum(axis=1)
+        tot = load.sum(axis=1)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    return mlu, alu_sum / n_live, olr_cnt / n_live, tot
 
 
 def link_metrics_batched(demand, weights, capacities, threshold: float = 0.8,
@@ -90,19 +174,14 @@ def link_metrics_batched(demand, weights, capacities, threshold: float = 0.8,
     """
     demand = np.asarray(demand)
     weights = np.asarray(weights)
-    cap = np.asarray(capacities, np.float64)
-    live = cap > 1e-9  # (B, E)
-    n_live = np.maximum(live.sum(axis=1), 1)[:, None]  # (B, 1)
-    inv_cap = np.where(live, 1.0 / np.maximum(cap, 1e-9), 0.0)
+    n_live, inv_cap = _live_inv_cap(capacities)
+    n_live = n_live[:, None]  # (B, 1)
     if backend == "torch":
         dev = resolve_device(device)
-
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-
         mlu, alu_sum, olr_cnt, tot = (
             x.cpu().numpy() for x in linkload_batched(
-                put(demand), put(weights), put(inv_cap), threshold))
+                _put(demand, dev), _put(weights, dev), _put(inv_cap, dev),
+                threshold))
     elif backend == "numpy":
         load = demand.astype(np.float64) @ weights.astype(np.float64)  # (B,T,E)
         util = load * inv_cap[:, None, :]

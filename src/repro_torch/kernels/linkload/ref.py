@@ -1,16 +1,29 @@
 """Plain-PyTorch version of the fused link-load metrics kernel.
 
-The counterpart of ``repro/kernels/linkload/ref.py``.  It materializes the
-``(B, T, E)`` load tensor that the CUDA kernel (``csrc/linkload.cu``) keeps
-out of device memory; the wrapper in :mod:`.ops` runs it for CPU tensors, and
-``chip_smoke.py`` holds the kernel against it on the card.
+The counterpart of ``repro/kernels/linkload/ref.py``.  Both functions
+materialize the load tensor ((T, E), or (B, T, E) batched) that the CUDA
+kernel (``csrc/linkload.cu``) keeps out of device memory; the wrappers in
+:mod:`.ops` run them for CPU tensors, and ``chip_smoke.py`` holds the kernel
+against them on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["linkload_metrics_batched_ref"]
+__all__ = ["linkload_metrics_ref", "linkload_metrics_batched_ref"]
+
+
+def linkload_metrics_ref(demand: torch.Tensor, w: torch.Tensor,
+                         inv_cap: torch.Tensor, threshold: float):
+    """demand (T, C), w (C, E), inv_cap (E,) (0 = dead link).
+
+    Returns (mlu, alu_sum, olr_count, load_sum), each (T,).
+    """
+    load = demand @ w  # (T, E)
+    util = load * inv_cap[None, :]  # dead/padded links contribute 0
+    return (util.amax(dim=1), util.sum(dim=1),
+            (util > threshold).to(util.dtype).sum(dim=1), load.sum(dim=1))
 
 
 def linkload_metrics_batched_ref(demand: torch.Tensor, w: torch.Tensor,

@@ -1,14 +1,17 @@
-"""Wrapper for the fused queue-loss kernel (``csrc/queueloss.cu``).
+"""Wrappers for the fused queue-loss kernel (``csrc/queueloss.cu``).
 
-The counterpart of ``repro/kernels/queueloss/ops.py``'s
-:func:`queue_loss_batched`.  ``backend`` is ``"torch"`` (the CUDA kernel on a
-CUDA device, its plain version on the CPU; float32) or ``"numpy"`` (the
-float64 oracle :func:`repro_torch.burst.queue.queue_loss_numpy`).  All
-implement the same finite-buffer fluid-queue recurrence; padded links get
-``cap = buf = 0`` and carry zero load, so they never drop.
+The counterpart of ``repro/kernels/queueloss/ops.py``'s :func:`queue_loss`
+(one sub-step block, one queue carried across it) and
+:func:`queue_loss_batched` (one block per routing epoch).  ``backend`` is
+``"torch"`` (the CUDA kernel on a CUDA device, its plain version on the CPU;
+float32) or ``"numpy"`` (the float64 oracle
+:func:`repro_torch.burst.queue.queue_loss_numpy`).  All implement the same
+finite-buffer fluid-queue recurrence; padded links get ``cap = buf = 0`` and
+carry zero load, so they never drop.
 
-:func:`queueloss_batched` is the tensor-level wrapper: a CUDA tensor launches
-the kernel (and adds one to :data:`launches`), a CPU tensor runs the plain
+:func:`queueloss` and :func:`queueloss_batched` are the tensor-level
+wrappers: a CUDA tensor launches the kernel (and adds one to
+:data:`single_launches` or :data:`launches`), a CPU tensor runs the plain
 version in :mod:`.ref`.  Nothing falls back from one to the other.
 """
 
@@ -22,23 +25,66 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
-from repro_torch.kernels.queueloss.ref import queueloss_batched_ref
+from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
+                                               queueloss_ref)
 
-__all__ = ["launches", "queueloss_batched", "queue_loss_batched"]
+__all__ = ["launches", "single_launches", "queueloss", "queueloss_batched",
+           "queue_loss", "queue_loss_batched"]
 
-launches = 0  # kernel launches so far; set to 0 before a run to count its own
+# kernel launches so far; set to 0 before a run to count its own
+launches = 0  # queueloss_batched
+single_launches = 0  # queueloss (one block)
 
 
-def _entry():
+def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
+    """Launch the C entry ``name`` (four input pointers, dt, two outputs and
+    two partial buffers, ``dims`` ints, the stream); returns (drop, load)."""
     lib = _build.library("queueloss")
-    fn = lib.queueloss_batched
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * len(dims)
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.queueloss_links_per_block.restype = ctypes.c_int
     lib.queueloss_max_commodities.restype = ctypes.c_int
-    return lib, fn
+    *lead, ts, c, e = dims
+    if c > lib.queueloss_max_commodities():
+        raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
+                         f"chunk ({lib.queueloss_max_commodities()})")
+    n_e = max(1, -(-e // lib.queueloss_links_per_block()))
+    out = torch.empty((2, *lead, ts), dtype=torch.float32, device=dev)
+    part = torch.empty((2, *lead, ts, n_e), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(demand.data_ptr(), w.data_ptr(), cap.data_ptr(), buf.data_ptr(),
+                float(dt), out[0].data_ptr(), out[1].data_ptr(),
+                part[0].data_ptr(), part[1].data_ptr(), *dims,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "queueloss", name, rc)
+    return out[0], out[1]
+
+
+def queueloss(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
+              buf: torch.Tensor, dt: float):
+    """Per-sub-step (drop_sum, load_sum), each (TS,) float32.
+
+    demand (TS, C), w (C, E), cap/buf (E,): contiguous float32, all on the
+    CPU (plain version) or all on one CUDA device (the kernel).  The queue
+    starts empty at the call and carries across all TS sub-steps.
+    """
+    dev = placement("queueloss", demand=demand, w=w, cap=cap, buf=buf)
+    ts, c = demand.shape
+    if (w.dim() != 2 or w.shape[0] != c or cap.shape != (w.shape[1],)
+            or buf.shape != cap.shape):
+        raise ValueError(f"queueloss: shapes {tuple(demand.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(cap.shape)}, "
+                         f"{tuple(buf.shape)} disagree")
+    if dev.type == "cpu":
+        return queueloss_ref(demand, w, cap, buf, dt)
+    out = _launch("queueloss_single", dev, demand, w, cap, buf, dt,
+                  (ts, c, w.shape[1]))
+    global single_launches
+    single_launches += 1
+    return out
 
 
 def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
@@ -58,23 +104,41 @@ def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
                          f"{tuple(buf.shape)} disagree")
     if dev.type == "cpu":
         return queueloss_batched_ref(demand, w, cap, buf, dt)
-    lib, fn = _entry()
-    if c > lib.queueloss_max_commodities():
-        raise ValueError(f"queueloss_batched: C={c} exceeds the kernel's "
-                         f"shared-memory chunk ({lib.queueloss_max_commodities()})")
-    per = lib.queueloss_links_per_block()
-    n_e = max(1, -(-e // per))
-    out = torch.empty((2, b, ts), dtype=torch.float32, device=dev)
-    part = torch.empty((2, b, ts, n_e), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(demand.data_ptr(), w.data_ptr(), cap.data_ptr(), buf.data_ptr(),
-                float(dt), out[0].data_ptr(), out[1].data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), b, ts, c, e,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "queueloss", "queueloss_batched", rc)
+    out = _launch("queueloss_batched", dev, demand, w, cap, buf, dt,
+                  (b, ts, c, e))
     global launches
     launches += 1
-    return out[0], out[1]
+    return out
+
+
+def _put(x, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+
+def queue_loss(demand, weights, capacities, buffers, dt: float,
+               backend: str = "torch", device=None):
+    """Per-sub-step (drop_sum, load_sum) for a (TS, C) sub-interval demand
+    block routed by ``weights (C, E)`` over links with ``capacities (E,)``
+    (Gb/s) and finite buffers ``buffers (E,)`` (Gb); ``dt`` is the sub-step
+    duration in seconds.
+
+    ``backend`` is ``"torch"`` (one launch of the kernel on a CUDA device)
+    or ``"numpy"``; ``device`` is the torch backend's device (``None`` =
+    CUDA).  The queue starts empty at the call.  Returns ``(drop, tot)``:
+    dropped volume (Gb) and offered load (Gb/s) per sub-step, each summed
+    over links, shape ``(TS,)`` float64.
+    """
+    if backend == "numpy":  # float64 end to end
+        from repro_torch.burst.queue import queue_loss_numpy
+
+        return queue_loss_numpy(demand, weights, capacities, buffers, dt)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve_device(device)
+    drop, tot = queueloss(_put(demand, dev), _put(weights, dev),
+                          _put(capacities, dev), _put(buffers, dev), dt)
+    return (drop.cpu().numpy().astype(np.float64),
+            tot.cpu().numpy().astype(np.float64))
 
 
 def queue_loss_batched(demand, weights, capacities, buffers, dt: float,
@@ -101,11 +165,7 @@ def queue_loss_batched(demand, weights, capacities, buffers, dt: float,
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-
-    drop, tot = queueloss_batched(put(demand), put(weights), put(capacities),
-                                  put(buffers), dt)
+    drop, tot = queueloss_batched(_put(demand, dev), _put(weights, dev),
+                                  _put(capacities, dev), _put(buffers, dev), dt)
     return (drop.cpu().numpy().astype(np.float64),
             tot.cpu().numpy().astype(np.float64))

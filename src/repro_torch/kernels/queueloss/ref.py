@@ -7,16 +7,27 @@ The counterpart of ``repro/kernels/queueloss/ref.py``.  Per directed link
     drop[k]  = max(0, x[k] - buf[e])                    # overflow (Gb)
     q[k+1]   = clip(x[k], 0, buf[e])
 
-It materializes the ``(B, TS, E)`` load tensor and walks the sub-steps in a
-Python loop; the wrapper in :mod:`.ops` runs it for CPU tensors, and
-``chip_smoke.py`` holds the CUDA kernel (``csrc/queueloss.cu``) against it.
+Both functions materialize the load tensor ((TS, E), or (B, TS, E) batched)
+and walk the sub-steps in a Python loop; the wrappers in :mod:`.ops` run them
+for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernel
+(``csrc/queueloss.cu``) against them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["queueloss_batched_ref"]
+__all__ = ["queueloss_ref", "queueloss_batched_ref"]
+
+
+def queueloss_ref(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
+                  buf: torch.Tensor, dt: float):
+    """demand (TS, C), w (C, E), cap/buf (E,); the queue starts empty at the
+    call and carries across all TS sub-steps.  Returns (drop_sum, load_sum),
+    each (TS,)."""
+    drop, tot = queueloss_batched_ref(demand[None], w[None], cap[None],
+                                      buf[None], dt)
+    return drop[0], tot[0]
 
 
 def queueloss_batched_ref(demand: torch.Tensor, w: torch.Tensor,

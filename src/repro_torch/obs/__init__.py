@@ -1,5 +1,5 @@
-"""repro_torch.obs — tracing, solver telemetry and fleet metrics (copies of
-the reference's ``repro.obs`` modules; the decision audit, health and report
+"""repro_torch.obs — tracing, solver telemetry, fleet metrics and the decision
+audit (copies of the reference's ``repro.obs`` modules; the health and report
 CLIs come with a later slice of the port).
 
 All layers are off by default and free when off:
@@ -10,9 +10,11 @@ All layers are off by default and free when off:
   attached to ``ControllerResult.solver_stats``.
 * **Fleet metrics** (:mod:`.metrics` + :mod:`.quality`): labeled counters /
   gauges / histograms of per-fabric MLU, loss and stretch series.
+* **Decision audit** (:mod:`.audit`): every ``pick_best`` with its full
+  input vector, replayable from the record alone.
 """
 
-from . import metrics, quality
+from . import audit, metrics, quality
 from .stats import (SolverStats, StageStats, slice_raw_stats,
                     warm_start_savings)
 from .trace import (PhaseTimes, capacity, chrome_trace_events, clear, counter,
@@ -25,5 +27,5 @@ __all__ = [
     "timed", "event", "counter", "events", "PhaseTimes", "export_jsonl",
     "export_chrome_trace", "read_jsonl", "chrome_trace_events",
     "SolverStats", "StageStats", "slice_raw_stats", "warm_start_savings",
-    "metrics", "quality",
+    "audit", "metrics", "quality",
 ]

@@ -1,6 +1,8 @@
-"""The two CUDA kernels against their plain PyTorch versions on the card, at
-the controller's chip-scale shapes (B=672 epochs, T=3 / TS=36, C=E=132) and at
-ragged shapes.  Marked ``gpu``: each test decides inside itself whether a
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+batched entries at the batched engine's chip-scale shapes (B=672 epochs,
+T=3 / TS=36, C=E=132), the single-block entries at the streaming
+controller's (T=3 / TS=36) and the whole-trace baseline's (T=4032), and all
+at ragged shapes.  Marked ``gpu``: each test decides inside itself whether a
 card is present and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports the JAX package, which the
@@ -13,9 +15,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.linkload import ops as llops
-from repro_torch.kernels.linkload.ref import linkload_metrics_batched_ref
+from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
+                                              linkload_metrics_ref)
 from repro_torch.kernels.queueloss import ops as qlops
-from repro_torch.kernels.queueloss.ref import queueloss_batched_ref
+from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
+                                               queueloss_ref)
 
 RTOL, ATOL = 3e-4, 1e-4
 
@@ -57,6 +61,40 @@ def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
     out = qlops.queueloss_batched(d, w, cap, buf, 30.0)
     ref = queueloss_batched_ref(d, w, cap, buf, 30.0)
     assert qlops.launches == before + 1
+    assert float(ref[0].sum()) > 0.0
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c,e", [(3, 132, 132), (4032, 132, 132), (13, 30, 200)])
+def test_single_linkload_kernel_matches_plain(gen, t, c, e):
+    d = torch.randint(0, 16, (t, c), generator=gen, device="cuda").float()
+    w = torch.randint(0, 17, (c, e), generator=gen, device="cuda").float() / 16
+    cap = 20.0 + 40.0 * torch.rand(e, generator=gen, device="cuda")
+    inv_cap = torch.where(torch.rand(e, generator=gen, device="cuda") < 0.1,
+                          0.0, 1.0 / cap)
+    before = llops.single_launches
+    out = llops.linkload(d, w, inv_cap, 0.8)
+    ref = linkload_metrics_ref(d, w, inv_cap, 0.8)
+    assert llops.single_launches == before + 1
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,c,e", [(36, 132, 132), (45, 30, 300)])
+def test_single_queueloss_kernel_matches_plain(gen, ts, c, e):
+    d = torch.rand((ts, c), generator=gen, device="cuda") * 20.0
+    w = torch.rand((c, e), generator=gen, device="cuda")
+    w = w * (torch.rand((c, e), generator=gen, device="cuda") < 0.08)
+    cap = 40.0 + 80.0 * torch.rand(e, generator=gen, device="cuda")
+    cap = torch.where(torch.rand(e, generator=gen, device="cuda") < 0.1, 0.0, cap)
+    buf = cap * 0.025
+    before = qlops.single_launches
+    out = qlops.queueloss(d, w, cap, buf, 30.0)
+    ref = queueloss_ref(d, w, cap, buf, 30.0)
+    assert qlops.single_launches == before + 1
     assert float(ref[0].sum()) > 0.0
     for a, r in zip(out, ref):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)

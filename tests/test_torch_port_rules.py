@@ -2,8 +2,8 @@
 
 * ``repro_torch`` imports neither ``jax`` nor any module of the reference
   package ``repro``;
-* its entry point runs on CUDA unless the caller asks for the CPU, and
-  raises without a card — there is no silent CPU fallback;
+* its entry points run on CUDA unless the caller asks for the CPU, and
+  raise without a card — there is no silent CPU fallback;
 * features of later slices raise instead of being ignored;
 * its copy of the synthetic fleet generates bit-equal fabrics, traces and
   bursts, so both packages can be handed the same state.
@@ -26,14 +26,18 @@ import repro_torch.core.fleet as port_fleet
 from repro.core import ControllerConfig as RefControllerConfig
 from repro_torch import interop
 from repro_torch.core import ControllerConfig, Strategy, run_controller
+from repro_torch.core.baselines import uniform_vlb_metrics
 from repro_torch.device import resolve_device
+from repro_torch.serve import StreamingController, TMStream
 
 torch.set_num_threads(1)
 
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.core.engine, repro_torch.interop, "
-            "repro_torch.kernels.linkload.ops, repro_torch.kernels.queueloss.ops\n"
+            "repro_torch.kernels.linkload.ops, repro_torch.kernels.queueloss.ops, "
+            "repro_torch.serve, repro_torch.core.predictor, "
+            "repro_torch.core.baselines, repro_torch.obs.audit\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -54,16 +58,42 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
                                      small_trace.n_pods)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_controller(fab, trace, Strategy(False, False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_controller(fab, trace, Strategy(False, False),
+                       ControllerConfig(engine="sequential"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingController(fab, TMStream.from_trace(trace), Strategy(False, True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        uniform_vlb_metrics(fab, trace)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.warm_state_from_numpy({"f1": np.zeros(1), "y1": np.zeros(1)})
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("over", [{"engine": "sequential"},
+@pytest.mark.parametrize("over", [{"engine": "sequential", "transition": object()},
                                   {"transition": object()},
                                   {"failures": object()},
                                   {"solver_precision": "bf16"}])
 def test_later_slices_raise(over):
     with pytest.raises(NotImplementedError, match="later slice"):
         ControllerConfig(**over)
+
+
+def test_sequential_engine_runs(small_fabric, small_trace):
+    """``engine="sequential"`` runs now (it raised before this slice); the
+    reference-parity tests are in ``tests/test_torch_sequential.py``."""
+    fab = interop.fabric_from_numpy(small_fabric.name, small_fabric.radix,
+                                    small_fabric.speed)
+    trace = interop.trace_from_numpy(small_trace.name, small_trace.demand[:60],
+                                     small_trace.interval_minutes,
+                                     small_trace.n_pods)
+    cc = ControllerConfig(engine="sequential", solver_backend="scipy",
+                          routing_interval_hours=12.0, aggregation_days=3.0,
+                          k_critical=4)
+    res = run_controller(fab, trace, Strategy(False, True), cc, device="cpu")
+    assert res.n_routing_updates == 4 and res.metrics.mlu.shape == (24,)
+    with pytest.raises(ValueError, match="unknown engine"):
+        ControllerConfig(engine="fleet")
 
 
 def test_controller_config_carries_reference_fields():

@@ -1,0 +1,192 @@
+"""Port vs reference: single-block scoring — the kernels #3/#4 path.
+
+* ``link_metrics`` / ``queue_loss`` (the port's plain PyTorch versions on CPU
+  tensors) against the reference's ``ops`` with the Pallas kernels in
+  interpret mode and with the float64 numpy oracle, ragged shapes and dead
+  links included: rtol 3e-4, atol 1e-4 (the contract of
+  ``tests/test_kernels_linkload.py`` / ``test_kernels_queueloss.py``).
+  Observed on the CPU: max relative error 1.8e-7 (linkload) and 2.6e-7
+  (queueloss).
+* ``route_metrics`` / ``interval_loss`` of the port on ``backend="torch"``
+  against its float64 numpy path, and against the reference's: 1e-5 rtol/atol
+  (``tests/test_backend_parity.py``).  Observed: 1.2e-6 worst relative.
+* The (uniform, VLB) and Clos baselines against the reference's at 1e-5.
+"""
+
+import dataclasses
+
+import jax  # noqa: F401  (both frameworks in one process; JAX stays on the CPU)
+import numpy as np
+import pytest
+import torch
+
+from repro.burst import BurstParams, LossConfig
+from repro.burst.queue import interval_loss as ref_interval_loss
+from repro.core import baselines as ref_baselines
+from repro.core.simulator import route_metrics as ref_route_metrics
+from repro.kernels.linkload import ops as ref_llops
+from repro.kernels.queueloss import ops as ref_qlops
+from repro_torch import interop
+from repro_torch.burst import interval_loss
+from repro_torch.core import baselines
+from repro_torch.core.simulator import route_metrics
+from repro_torch.kernels.linkload import ops as llops
+from repro_torch.kernels.queueloss import ops as qlops
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 3e-4, 1e-4
+TOL = 1e-5
+NAMES = ("mlu", "alu", "olr", "tot")
+FIELDS = ("mlu", "alu", "olr", "stretch", "loss")
+LOSS = LossConfig(burst=BurstParams(rate=0.05, shape=1.6, scale=2.5, clip=8.0),
+                  n_sub=6, buffer_ms=25.0, seed=3)
+
+
+def _link_inputs(seed, t, c, e):
+    rng = np.random.default_rng(seed)
+    d = rng.gamma(2.0, 10.0, (t, c))
+    w = rng.random((c, e)) * (rng.random((c, e)) > 0.5)
+    cap = rng.uniform(50, 500, e)
+    cap[rng.random(e) < 0.1] = 0.0  # dead links
+    return d, w, cap
+
+
+def _queue_inputs(seed, ts, c, e):
+    rng = np.random.default_rng(seed)
+    d = rng.gamma(2.0, 5.0, (ts, c))
+    d *= 1.0 + 3.0 * (rng.random((ts, c)) < 0.05)  # bursts overflow buffers
+    w = rng.random((c, e)) * (rng.random((c, e)) < 0.3)
+    cap = rng.uniform(20.0, 60.0, e)
+    cap[rng.random(e) < 0.1] = 0.0  # dead links
+    return d, w, cap, cap * 0.025
+
+
+@pytest.mark.parametrize("t,c,e", [(3, 132, 132), (13, 30, 200), (7, 56, 40)])
+def test_link_metrics_matches_reference(t, c, e):
+    d, w, cap = _link_inputs(t * 1000 + e, t, c, e)
+    ref_pallas = ref_llops.link_metrics(d, w, cap, 0.8, backend="pallas")
+    ref_numpy = ref_llops.link_metrics(d, w, cap, 0.8, backend="numpy")
+    out = llops.link_metrics(d, w, cap, 0.8, backend="torch", device="cpu")
+    for a, r, p, name in zip(out, ref_numpy, ref_pallas, NAMES):
+        assert a.shape == (t,), name
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+        np.testing.assert_allclose(a, p, rtol=RTOL, atol=ATOL, err_msg=name)
+    # the port's numpy oracle is the reference's, line for line
+    for a, r in zip(llops.link_metrics(d, w, cap, 0.8, backend="numpy"), ref_numpy):
+        np.testing.assert_array_equal(a, r)
+
+
+@pytest.mark.parametrize("ts,c,e", [(36, 30, 30), (150, 20, 45)])
+def test_queue_loss_matches_reference(ts, c, e):
+    """The queue starts empty at the call and carries across every sub-step
+    (150 is more than the reference's 128-row time tile)."""
+    d, w, cap, buf = _queue_inputs(ts + e, ts, c, e)
+    ref = ref_qlops.queue_loss(d, w, cap, buf, 25.0, backend="pallas")
+    ref_np = ref_qlops.queue_loss(d, w, cap, buf, 25.0, backend="numpy")
+    out = qlops.queue_loss(d, w, cap, buf, 25.0, backend="torch", device="cpu")
+    assert ref_np[0].sum() > 0.0, "parity must be exercised on real drops"
+    for a, r, p in zip(out, ref_np, ref):
+        assert a.shape == (ts,) and a.dtype == np.float64
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(a, p, rtol=RTOL, atol=ATOL)
+    for a, r in zip(qlops.queue_loss(d, w, cap, buf, 25.0, backend="numpy"),
+                    ref_np):
+        np.testing.assert_array_equal(a, r)
+
+
+def test_single_block_is_the_batched_kernel_at_one_epoch():
+    """Both wrappers at B = 1 give the single-block results (the CUDA entries
+    launch the same body)."""
+    d, w, cap, buf = (torch.from_numpy(x.astype(np.float32))
+                      for x in _queue_inputs(5, 40, 20, 24))
+    ic = torch.where(cap > 0, 1.0 / torch.clamp(cap, min=1e-9), 0.0)
+    for a, b in zip(llops.linkload(d, w, ic, 0.8),
+                    llops.linkload_batched(d[None], w[None], ic[None], 0.8)):
+        torch.testing.assert_close(a, b[0])
+    for a, b in zip(qlops.queueloss(d, w, cap, buf, 25.0),
+                    qlops.queueloss_batched(d[None], w[None], cap[None],
+                                            buf[None], 25.0)):
+        torch.testing.assert_close(a, b[0])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    d, w = torch.zeros((3, 4)), torch.zeros((4, 5))
+    with pytest.raises(ValueError, match="disagree"):
+        llops.linkload(d, w, torch.zeros(4), 0.8)
+    with pytest.raises(ValueError, match="float32"):
+        llops.linkload(d.double(), w, torch.zeros(5), 0.8)
+    with pytest.raises(ValueError, match="disagree"):
+        qlops.queueloss(d, w, torch.zeros(5), torch.zeros(4), 1.0)
+    with pytest.raises(ValueError, match="unknown backend"):
+        llops.link_metrics(np.zeros((1, 2)), np.zeros((2, 2)), np.ones(2),
+                           backend="pallas")
+    with pytest.raises(ValueError, match="unknown backend"):
+        qlops.queue_loss(np.zeros((1, 2)), np.zeros((2, 2)), np.ones(2),
+                         np.ones(2), 1.0, backend="pallas")
+
+
+@pytest.fixture(scope="module")
+def block(small_fabric, small_trace):
+    """Ten intervals under mostly-direct routing (bursts overflow), one dead
+    trunk."""
+    from repro.core.graph import uniform_topology
+
+    cap = small_fabric.capacities(uniform_topology(small_fabric))
+    cap[:2] = 0.0
+    vlb = ref_baselines.vlb_weights(small_fabric.n_pods)
+    w = 0.2 * vlb + 0.8 * np.eye(cap.size)
+    return small_trace.demand[40:50], w, cap
+
+
+def test_route_metrics_matches_numpy_and_reference(block):
+    demand, w, cap = block
+    port_loss = interop.loss_config_from_dict(dataclasses.asdict(LOSS))
+    kw = dict(interval_seconds=3600.0)
+    out = route_metrics(demand, w, cap, 0.8, backend="torch",
+                        loss_cfg=port_loss, device="cpu", **kw)
+    oracle = route_metrics(demand, w, cap, 0.8, backend="numpy",
+                           loss_cfg=port_loss, **kw)
+    ref = ref_route_metrics(demand, w, cap, 0.8, backend="pallas",
+                            loss_cfg=LOSS, **kw)
+    ref_np = ref_route_metrics(demand, w, cap, 0.8, backend="numpy",
+                               loss_cfg=LOSS, **kw)
+    assert oracle.loss.max() > 0.0, "parity must be exercised on real loss"
+    for field in FIELDS:
+        a = getattr(out, field)
+        assert a.shape == (demand.shape[0],), field
+        for r in (getattr(oracle, field), getattr(ref, field)):
+            np.testing.assert_allclose(a, r, rtol=TOL, atol=TOL, err_msg=field)
+        # the numpy path is the reference's, letter for letter
+        np.testing.assert_array_equal(getattr(oracle, field),
+                                      getattr(ref_np, field), err_msg=field)
+
+
+def test_interval_loss_matches_reference(block):
+    demand, w, cap = block
+    out = interval_loss(demand, w, cap, 3600.0,
+                        interop.loss_config_from_dict(dataclasses.asdict(LOSS)),
+                        backend="torch", device="cpu")
+    ref = ref_interval_loss(demand, w, cap, 3600.0, LOSS, backend="numpy")
+    assert ref.max() > 0.0
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+    assert interval_loss(demand[:0], w, cap, 3600.0, LOSS, device="cpu").shape == (0,)
+
+
+def test_baselines_match_reference(small_fabric, small_trace):
+    fab = interop.fabric_from_numpy(small_fabric.name, small_fabric.radix,
+                                    small_fabric.speed)
+    trace = interop.trace_from_numpy(small_trace.name, small_trace.demand,
+                                     small_trace.interval_minutes,
+                                     small_trace.n_pods)
+    np.testing.assert_array_equal(baselines.vlb_weights(fab.n_pods),
+                                  ref_baselines.vlb_weights(fab.n_pods))
+    ref = ref_baselines.uniform_vlb_metrics(small_fabric, small_trace)
+    out = baselines.uniform_vlb_metrics(fab, trace, device="cpu")
+    for field in ("mlu", "alu", "olr", "stretch"):
+        np.testing.assert_allclose(getattr(out, field), getattr(ref, field),
+                                   rtol=TOL, atol=TOL, err_msg=field)
+    ref_c = ref_baselines.clos_metrics(small_fabric, small_trace)
+    out_c = baselines.clos_metrics(fab, trace)
+    for field in ("mlu", "alu", "olr", "stretch"):
+        np.testing.assert_array_equal(getattr(out_c, field), getattr(ref_c, field))
