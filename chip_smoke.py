@@ -8,16 +8,18 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
 1. The card: ``nvidia-smi`` name and power limit, the torch device name and
    count.  No CUDA device means exit 1.
 2. Build both CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, in parallel; each carries a batched and a single-block entry) and
-   print ptxas' registers/spills.
-3. Hold each of the four kernel entries against its plain PyTorch version on
+   each, in parallel; each carries a batched, a single-block and a fleet
+   entry) and print ptxas' registers/spills.
+3. Hold each of the six kernel entries against its plain PyTorch version on
    the card: the batched ones at the batched engine's shapes (B=96 epochs of
    phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
    single-block ones at the streaming controller's shapes (T=3 / TS=36) and
-   linkload at the whole-trace shape (T=4032), each also at a ragged shape
-   with dead links; time kernel, plain version and the ``torch.bmm`` /
-   ``torch.mm`` yardstick with CUDA events.  A small batched PDHG solve is
-   held against scipy/HiGHS.
+   linkload at the whole-trace shape (T=4032), the fleet ones at phase 7's
+   two buckets (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at
+   C=E=56), each also at a ragged shape with dead links (the fleet ones:
+   fabrics with fewer blocks than the bucket and a padded-pod layout); time
+   kernel, plain version and the ``torch.bmm`` / ``torch.mm`` yardstick with
+   CUDA events.  A small batched PDHG solve is held against scipy/HiGHS.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -33,6 +35,14 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    (uniform topology + hedging, 8 epochs) against the batched engine, and
    the (uniform, VLB) baseline over a 14-day trace: one whole-trace launch
    of the single-block linkload kernel, against the numpy oracle.
+7. The fleet engine: ``repro_torch.core.run_fleet`` over all 22 fabrics of
+   the synthetic fleet, each with its own 8-day trace at 5-minute TMs, the
+   paper's default controller, uniform topology + hedging and one shared
+   burst-loss configuration: two buckets (12 and 8 padded pods), each solved
+   in one flattened PDHG batch and scored with one launch of each fleet
+   kernel.  Held against the per-fabric batched engine on F21 (12 pods), F1
+   (11, padded to 12) and F17 (6, padded to 8), and every job re-scored
+   through the numpy oracle.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -51,6 +61,10 @@ SCORE_TOL = 1e-5  # scoring vs the float64 numpy oracle
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
+# phase 7's buckets: (fabrics, blocks per fabric, commodities) of the 12-pod
+# and the 8-pod bucket of the 22-fabric fleet
+FLEET_BUCKETS = {"V12": (15, 96, 132), "V8": (7, 96, 56)}
+FLEET_TOL = 1e-3  # fleet vs per-fabric engine (tests/test_fleet_engine.py:96)
 SWEEP14_B = 672  # a 14-day sweep's batch (the batched kernels' PR 11 shape)
 TRACE_T = 4032  # 14 days of 5-minute TMs: the whole-trace baseline's block
 METRICS = ("mlu", "alu", "olr", "stretch", "loss")  # every phase tracks loss
@@ -122,7 +136,7 @@ def phase_card():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"device {name!r} x{count}")
+        f"device {name!r} x{count}; nvidia-smi name, power limit: {smi}")
     return smi, name, count
 
 
@@ -347,6 +361,114 @@ def phase_single_kernels():
             "max_abs_err": abs_e, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
             "shape": [ts, c, e], "status": "ported"}
+    return rows
+
+
+def _fleet_inputs(f, b, t, c, gen, n_blocks=None, n_pods=None, vp=None,
+                  queue=False):
+    """Fleet-kernel inputs on the card: ``n_blocks[fi]`` real blocks per
+    fabric (the rest all zeros, as the engine pads a ragged bucket) and, with
+    ``n_pods``, each fabric's commodities embedded in the ``vp``-pod layout
+    (zero demand, weights and capacity on padded commodities and links)."""
+    import torch
+
+    from repro_torch.core.fleet import commodity_slots
+
+    make = _queueloss_inputs if queue else (
+        lambda *a: _linkload_inputs(*a, exact=True))
+    args = [x.reshape((f, b) + x.shape[1:]).clone()
+            for x in make(f * b, t, c, c, gen)]
+    for fi in range(f):
+        if n_blocks is not None:
+            for x in args:
+                x[fi, n_blocks[fi]:] = 0.0
+        if n_pods is not None:
+            keep = torch.zeros(c, dtype=torch.bool, device="cuda")
+            keep[torch.as_tensor(commodity_slots(n_pods[fi], vp),
+                                 device="cuda")] = True
+            args[0][fi][..., ~keep] = 0.0  # demand of padded commodities
+            args[1][fi][:, ~keep, :] = 0.0  # their routes ...
+            args[1][fi][:, :, ~keep] = 0.0  # ... and padded links' load
+            for x in args[2:]:
+                x[fi][:, ~keep] = 0.0  # dead padded links
+    if queue:
+        args[3] = args[2] * 0.025  # buffers follow the capacities
+    return [x.contiguous() for x in args]
+
+
+def phase_fleet_kernels():
+    """The fleet entries (kernels #5/#6) at phase 7's two buckets and at a
+    ragged padded bucket, against their plain versions; times at both
+    buckets."""
+    import torch
+
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.linkload.ref import linkload_metrics_fleet_ref
+    from repro_torch.kernels.queueloss import ops as qlops
+    from repro_torch.kernels.queueloss.ref import queueloss_fleet_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ragged = dict(n_blocks=(5, 2, 4), n_pods=(6, 8, 7), vp=8)
+    rows, timed = {}, {"linkload": {}, "queueloss": {}}
+    for label, (f, b, c) in (*FLEET_BUCKETS.items(), ("ragged", (3, 5, 56))):
+        extra = ragged if label == "ragged" else {}
+        for name, t in (("linkload", MAIN_T), ("queueloss", MAIN_TS)):
+            queue = name == "queueloss"
+            args = _fleet_inputs(f, b, t, c, gen, queue=queue, **extra)
+            if queue:
+                def kernel():
+                    return qlops.queueloss_fleet(*args, 30.0)
+
+                def plain():
+                    return queueloss_fleet_ref(*args, 30.0)
+            else:
+                def kernel():
+                    return llops.linkload_fleet(*args, 0.8)
+
+                def plain():
+                    return linkload_metrics_fleet_ref(*args, 0.8)
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            abs_e, rel_e, worst = max_errs(out, ref)
+            msg = (f"phase 3: {name} (fleet) {label} {(f, b, t, c, c)}: max abs "
+                   f"err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
+                   f"|err|/(atol+rtol|ref|) {worst:.3f}")
+            if queue:
+                msg += f", total drop {float(ref[0].sum()):.3f} Gb"
+            log(msg)
+            if (worst > 1.0 or not all(bool(torch.isfinite(x).all()) for x in out)
+                    or (queue and float(ref[0].sum()) <= 0.0)):
+                fail(f"{name} (fleet) {label} disagrees with its plain version "
+                     f"(or drops nothing)")
+            if label == "ragged":
+                continue
+            fb = f * b
+            ms, plain_ms = time_cuda(kernel), time_cuda(plain)
+            n_outs = 2 if queue else 4
+            n_bytes = 4 * (fb * t * c + fb * c * c + (2 if queue else 1) * fb * c
+                           + n_outs * fb * t)
+            n_flops = 2 * fb * t * c * c + (6 if queue else 5) * fb * t * c
+            bnd, by = bound_ms(n_bytes, n_flops)
+            row = {"max_abs_err": abs_e, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bnd, "bound_by": by, "shape": [f, b, t, c, c]}
+            msg = (f"  {name} (fleet) {label} times: kernel {ms:.4f} ms, plain "
+                   f"{plain_ms:.4f} ms")
+            if not queue:
+                d3, w3 = (x.reshape((fb,) + x.shape[2:]) for x in args[:2])
+                row["yardstick_bmm_ms"] = time_cuda(lambda: torch.bmm(d3, w3))
+                msg += (f", torch.bmm of the load alone over F*B "
+                        f"{row['yardstick_bmm_ms']:.4f} ms")
+            log(f"{msg}, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+                f"{n_flops / 1e6:.1f} MFLOP)")
+            timed[name][label] = row
+    for name, entry, line in (("linkload", "linkload_fleet", 209),
+                              ("queueloss", "queueloss_fleet", 266)):
+        rows[name] = {
+            "name": entry, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
+            **timed[name]["V12"], "library_ms": None, "bucket_V8": timed[name]["V8"],
+            "status": "ported"}
     return rows
 
 
@@ -650,6 +772,148 @@ def phase_sequential(device, days: float = 7.0 + 1.0 / 12.0,
             "queueloss": counts["queueloss"]}
 
 
+def fleet_config(days: float = 8.0, interval_minutes: float = 5.0,
+                 spec_indices=None, **cc_over):
+    """Phase 7's jobs: every fleet fabric with its own trace, uniform topology
+    + hedging, the paper's default controller and one burst-loss
+    configuration for all (``cc.loss`` is part of the bucket key, so one
+    shared config keeps the fleet in its two padded-pod buckets)."""
+    from repro_torch.burst import LossConfig
+    from repro_torch.core import ControllerConfig, FleetJob, SolverConfig, Strategy
+    from repro_torch.core.fleet import (FLEET_SPECS, make_fabric, make_trace,
+                                        sub_burst_params)
+
+    cc = ControllerConfig(solver_backend="pdhg", backend="torch",
+                          loss=LossConfig(burst=sub_burst_params(FLEET_SPECS[20])),
+                          **cc_over)
+    jobs = []
+    for i in (range(len(FLEET_SPECS)) if spec_indices is None else spec_indices):
+        spec = FLEET_SPECS[i]
+        fab = make_fabric(spec)
+        jobs.append(FleetJob(fab, make_trace(spec, fab, days=days,
+                                             interval_minutes=interval_minutes),
+                             Strategy(nonuniform=False, hedging=True), cc,
+                             SolverConfig()))
+    return jobs
+
+
+def _agree_fleet(job, fl, off):
+    """A fleet job's result against the per-fabric batched engine's on the
+    same trace and config: equal counts, final topology and metric shapes;
+    p999 summaries rel ``FLEET_TOL`` (abs 1e-6) and transit fraction abs
+    ``FLEET_TOL`` — the reference's fleet contract
+    (tests/test_fleet_engine.py:96-115); per-epoch u* rel 2·tol."""
+    import numpy as np
+
+    name = job.fabric.name
+    rel = {k: abs(fl.summary[k] - off.summary[k]) / max(abs(off.summary[k]), 1e-12)
+           for k in fl.summary if k.startswith("p999")}
+    u_rel = float(np.max(np.abs(fl.u_star - off.u_star) / off.u_star))
+    tf = abs(fl.transit_fraction - off.transit_fraction)
+    same_iters = {k: int(np.sum(np.asarray(v.iters)
+                                == np.asarray(off.solver_stats.stages[k].iters)))
+                  for k, v in fl.solver_stats.stages.items()}
+    log(f"  {name} ({job.fabric.n_pods} pods) fleet vs per-fabric engine: "
+        f"n_routing {fl.n_routing_updates} / {off.n_routing_updates}, "
+        f"per-epoch u* worst rel diff {u_rel:.3e}, transit fraction diff "
+        f"{tf:.3e}, p999 rel diffs {rel}; epochs with equal PDHG iterations "
+        f"per stage {same_iters}; capped share {fl.solver_stats.frac_capped():.6f} "
+        f"/ {off.solver_stats.frac_capped():.6f}")
+    if (fl.n_routing_updates != off.n_routing_updates
+            or fl.n_topology_updates != off.n_topology_updates
+            or not np.array_equal(fl.final_topology, off.final_topology)
+            or fl.metrics.mlu.shape != off.metrics.mlu.shape):
+        fail(f"fleet {name}: counts, topology or shapes differ from the "
+             f"per-fabric engine")
+    if not u_rel <= 2 * job.cc.pdhg_tol:
+        fail(f"fleet {name}: per-epoch u* differs by {u_rel:.3e}")
+    bad = {k: v for k, v in rel.items()
+           if abs(fl.summary[k] - off.summary[k]) > FLEET_TOL * abs(off.summary[k]) + 1e-6}
+    if bad or tf > FLEET_TOL:
+        fail(f"fleet {name}: p999 {bad} / transit fraction {tf:.3e} outside "
+             f"the fleet contract {FLEET_TOL}")
+
+
+def phase_fleet(jobs, device, check=("F21", "F1", "F17")):
+    """Run ``jobs`` through the fleet engine once with the fleet kernels'
+    counters zeroed around it, check every result, and hold the fabrics
+    named in ``check`` against the per-fabric batched engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import run_controller, run_fleet
+    from repro_torch.core.engine import plan_controller
+    from repro_torch.core.fleet import fleet_bucket_key
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.queueloss import ops as qlops
+    from repro_torch.obs import SolverStats
+
+    buckets = {}
+    for pos, j in enumerate(jobs):
+        buckets.setdefault(fleet_bucket_key(j.fabric, j.cc, j.sc, j.trace), []).append(pos)
+    log(f"phase 7: fleet of {len(jobs)} fabrics, traces {jobs[0].trace.demand.shape[0]} "
+        f"intervals at {jobs[0].trace.interval_minutes} min, {jobs[0].strategy.name}; "
+        f"buckets {[(k[0], len(v)) for k, v in buckets.items()]}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    synchronize(device)
+    llops.fleet_launches = 0
+    qlops.fleet_launches = 0
+    t0 = time.perf_counter()
+    results = run_fleet(jobs, device=device)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = {"linkload": llops.fleet_launches, "queueloss": qlops.fleet_launches}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    plan_s = sum(r.stage_times["plan"] for r in results)
+    log(f"  fleet wall {wall:.3f} s: plan {plan_s:.3f} s ({len(jobs)} host plan walks), "
+        f"solve {sum(r.stage_times['solve'] for r in results):.3f} s (anchor "
+        f"{sum(r.stage_times['anchor'] for r in results):.3f} s), score "
+        f"{sum(r.stage_times['score'] for r in results):.3f} s; peak device "
+        f"memory {peak} B")
+    for key, pos in buckets.items():
+        st = SolverStats.merge([results[i].solver_stats for i in pos])
+        med, mx = _pdhg_iters(st)
+        capped = {jobs[i].fabric.name: round(results[i].solver_stats.frac_capped(), 6)
+                  for i in pos if results[i].solver_stats.frac_capped() > 0}
+        log(f"  bucket V={key[0]}: {len(pos)} fabrics, "
+            f"{sum(results[i].n_routing_updates for i in pos)} PDHG elements, "
+            f"solve {sum(results[i].stage_times['solve'] for i in pos):.3f} s, "
+            f"anchor {sum(results[i].stage_times['anchor'] for i in pos):.3f} s; "
+            f"PDHG median iterations {med}, max {mx}, fallbacks {st.n_fallbacks}, "
+            f"capped share per fabric where > 0 {capped}")
+    log(f"  fleet kernel launches {counts} for {len(buckets)} buckets")
+    if counts != {"linkload": len(buckets), "queueloss": len(buckets)}:
+        fail(f"fleet: expected one launch of each fleet kernel per bucket "
+             f"({len(buckets)}), got {counts}")
+    t0 = time.perf_counter()
+    worst = {}
+    for j, res in zip(jobs, results):
+        plan = plan_controller(j.trace, j.cc, False)
+        _check_result(res, j.trace.n_intervals - plan.agg, f"fleet {j.fabric.name}")
+        w = _rescore(j.trace, j.cc, res, [ep.start for ep in plan.epochs],
+                     [ep.stop for ep in plan.epochs])
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in w.items()}
+    log(f"  numpy-oracle re-score of all {len(jobs)} jobs "
+        f"({time.perf_counter() - t0:.2f} s): worst |err|/(atol+rtol|ref|) "
+        f"per metric {worst}")
+    if max(worst.values()) > 1.0:
+        fail("fleet: scores disagree with the numpy oracle")
+    t0 = time.perf_counter()
+    for j, res in zip(jobs, results):
+        if j.fabric.name in check:
+            off = run_controller(j.fabric, j.trace, j.strategy, j.cc, j.sc,
+                                 device=device)
+            _agree_fleet(j, res, off)
+    log(f"  per-fabric checks {list(check)}: {time.perf_counter() - t0:.3f} s")
+    p999 = {j.fabric.name: round(r.summary["p999_mlu"], 6)
+            for j, r in zip(jobs, results)}
+    log(f"  p999 MLU per fabric {p999}; mean p999 loss "
+        f"{float(np.mean([r.summary['p999_loss'] for r in results])):.4e}")
+    return counts, {"wall_s": wall, "peak_bytes": peak}
+
+
 def main() -> int:
     import torch
 
@@ -673,6 +937,7 @@ def main() -> int:
     mark("build")
     rows = phase_kernels()
     single = phase_single_kernels()
+    fleet = phase_fleet_kernels()
     phase_pdhg_check()
     mark("kernels")
     config = sweep_config()
@@ -682,15 +947,19 @@ def main() -> int:
     mark("serve")
     seq_counts = phase_sequential(dev)
     mark("sequential")
+    fleet_counts, _ = phase_fleet(fleet_config(), dev)
+    mark("fleet")
     for key in rows:
         rows[key]["launches"] = counts[key]
     for key in single:
         single[key]["launches"] = serve_counts[key]
         single[key]["launches_sequential_phase"] = seq_counts[key]
+        fleet[key]["launches"] = fleet_counts[key]
     log(f"phase end times (s since start) {marks}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows["linkload"], rows["queueloss"],
-                                  single["linkload"], single["queueloss"]]}))
+                                  single["linkload"], single["queueloss"],
+                                  fleet["linkload"], fleet["queueloss"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

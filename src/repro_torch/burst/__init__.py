@@ -11,9 +11,11 @@
 
 from repro_torch.burst.expander import BurstParams, expand, from_fleet_spec
 from repro_torch.burst.queue import (LossConfig, interval_loss,
-                                     interval_loss_batched, link_buffer_gb)
+                                     interval_loss_batched,
+                                     interval_loss_fleet, link_buffer_gb)
 
 __all__ = [
     "BurstParams", "expand", "from_fleet_spec",
-    "LossConfig", "interval_loss", "interval_loss_batched", "link_buffer_gb",
+    "LossConfig", "interval_loss", "interval_loss_batched",
+    "interval_loss_fleet", "link_buffer_gb",
 ]

@@ -18,8 +18,9 @@ module for the model's timescale assumptions.
 
 Burst expansion (:func:`repro_torch.burst.expander.expand`) and the loss
 fractions stay float64 numpy on the host, as in the reference; the queue scan
-runs on the CUDA kernel (``backend="torch"``: one launch per block, or one
-per sweep batched) or the float64 numpy oracle (``backend="numpy"``).
+runs on the CUDA kernel (``backend="torch"``: one launch per block, one per
+sweep batched, or one per fleet bucket) or the float64 numpy oracle
+(``backend="numpy"``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 from repro_torch.burst.expander import BurstParams, expand
 
 __all__ = ["LossConfig", "link_buffer_gb", "interval_loss",
-           "interval_loss_batched", "queue_loss_numpy"]
+           "interval_loss_batched", "interval_loss_fleet", "queue_loss_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +175,84 @@ def interval_loss_batched(
                                          backend=backend, device=device)
     return [_loss_fractions(drop_b[i, : n * cfg.n_sub], s, n, cfg.n_sub, dt)
             for i, (s, n) in enumerate(zip(subs, lens))]
+
+
+def interval_loss_fleet(
+    blocks_fleet: list,
+    weights_fleet: list,
+    capacities_fleet: list,
+    interval_seconds: float,
+    cfg: LossConfig,
+    seeds_fleet: list,
+    backend: str = "torch",
+    slots_fleet: list | None = None,
+    device=None,
+) -> list:
+    """Per-interval loss fractions of many fabrics' sweeps in one queue scan.
+
+    Args:
+      blocks_fleet: per-fabric lists of ``(T_b, C)`` demand blocks in each
+        fabric's **native** commodity layout — burst expansion is
+        deterministic per (seed, block shape), so expanding a padded block
+        would draw other bursts than the per-fabric controller and break the
+        paired-seed contract.
+      weights_fleet: per-fabric ``(B_f, C_p, E_p)`` routing-weight stacks in
+        the (possibly padded) bucket layout.
+      capacities_fleet: per-fabric ``(B_f, E_p)`` capacities, same layout.
+      seeds_fleet: per-fabric lists of per-block burst seeds (the controller
+        uses ``cfg.seed + start``).
+      backend: ``"torch"`` (one launch of the fleet queueloss kernel) or
+        ``"numpy"``.
+      slots_fleet: per-fabric commodity-slot embeddings
+        (:func:`repro_torch.core.fleet.commodity_slots`) into the bucket
+        layout, whose width comes from ``weights_fleet``; ``None`` when the
+        blocks already match the weights.
+      device: the torch backend's device (``None`` = CUDA).
+
+    Burst expansion stays per block, per seed and in the native layout; the
+    expanded sub-samples are scattered into the bucket layout and zero-padded
+    to ``(F, B_max, TS_max, C_p)``.  Padded commodities carry zero demand
+    against zero capacity, and padded blocks and sub-steps only drain queues,
+    so neither ever drops.  Returns per-fabric lists of ``(T_b,)`` loss
+    fractions.
+    """
+    f = len(blocks_fleet)
+    if f == 0:
+        return []
+    dt = interval_seconds / cfg.n_sub
+    subs, lens = [], []
+    for blocks, seeds in zip(blocks_fleet, seeds_fleet):
+        row_subs, row_lens = [], []
+        for block, seed in zip(blocks, seeds):
+            block = np.asarray(block, np.float64)
+            row_lens.append(block.shape[0])
+            row_subs.append(expand(block, cfg.n_sub, cfg.burst, seed))
+        subs.append(row_subs)
+        lens.append(row_lens)
+    b_max = max(len(row) for row in subs)
+    ts_max = max((n for row in lens for n in row), default=1) * cfg.n_sub
+    c = np.asarray(weights_fleet[0]).shape[1]
+    e = np.asarray(weights_fleet[0]).shape[2]
+    sub_b = np.zeros((f, b_max, max(ts_max, 1), c), np.float64)
+    w_b = np.zeros((f, b_max, c, e), np.float64)
+    cap_b = np.zeros((f, b_max, e), np.float64)
+    buf_b = np.zeros((f, b_max, e), np.float64)
+    for fi in range(f):
+        slots = None if slots_fleet is None else slots_fleet[fi]
+        for bi, s in enumerate(subs[fi]):
+            if slots is None:
+                sub_b[fi, bi, : s.shape[0]] = s
+            else:  # embed the native-layout expansion into the bucket layout
+                sub_b[fi, bi, : s.shape[0], :][:, slots] = s
+        nb = len(subs[fi])
+        w_b[fi, :nb] = np.asarray(weights_fleet[fi], np.float64)
+        cap_b[fi, :nb] = np.asarray(capacities_fleet[fi], np.float64)
+        buf_b[fi, :nb] = link_buffer_gb(cap_b[fi, :nb], cfg.buffer_ms)
+    from repro_torch.kernels.queueloss import ops as qlops
+
+    drop_b, _ = qlops.queue_loss_fleet(sub_b, w_b, cap_b, buf_b, dt,
+                                       backend=backend, device=device)
+    return [[_loss_fractions(drop_b[fi, bi, : n * cfg.n_sub], s, n, cfg.n_sub,
+                             dt)
+             for bi, (s, n) in enumerate(zip(subs[fi], lens[fi]))]
+            for fi in range(f)]

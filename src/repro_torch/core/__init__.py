@@ -1,6 +1,6 @@
 """Gemini core on PyTorch — the counterpart of ``repro.core``: the batched
-controller engine and the sequential walk, their PDHG routing solver and
-scoring on the device, the predictor and the baselines, and
+controller engine, the sequential walk and the fleet engine, their PDHG
+routing solver and scoring on the device, the predictor and the baselines, and
 copies of the reference's framework-free modules (fabric graph, paths,
 traffic, synthetic fleet, scipy LPs, rounding, joint solver)."""
 
@@ -17,6 +17,7 @@ from repro_torch.core.controller import (ControllerConfig, ControllerResult,
 from repro_torch.core.engine import (ControllerPlan, PlanArtifacts,
                                      plan_artifacts, plan_controller,
                                      run_controller_batched)
+from repro_torch.core.fleet_engine import FleetJob, predict_fleet, run_fleet
 from repro_torch.burst import BurstParams, LossConfig
 
 __all__ = [
@@ -26,5 +27,6 @@ __all__ = [
     "route_metrics", "route_metrics_batched", "summarize", "ControllerConfig",
     "ControllerResult", "run_controller", "ControllerPlan", "PlanArtifacts",
     "plan_artifacts", "plan_controller", "run_controller_batched",
+    "FleetJob", "run_fleet", "predict_fleet",
     "BurstParams", "LossConfig",
 ]

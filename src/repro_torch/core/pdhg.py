@@ -1,6 +1,8 @@
 """Batched PDHG routing solver in PyTorch — the counterpart of
-``repro/core/jaxlp.py``'s batch path (:meth:`JaxRoutingSolver.solve_routing_batch`)
-and its streaming path (:meth:`JaxRoutingSolver.solve_routing_warm`, one epoch
+``repro/core/jaxlp.py``'s batch path (:meth:`JaxRoutingSolver.solve_routing_batch`),
+its fleet path (:meth:`JaxRoutingSolver.solve_routing_fleet`: many fabrics
+padded to one pod count, each element with its own pod mask) and its
+streaming path (:meth:`JaxRoutingSolver.solve_routing_warm`, one epoch
 warm-started from the previous epoch's iterates, :class:`RoutingWarmState`).
 
 The routing stages with a fixed topology are small structured LPs over the
@@ -23,6 +25,14 @@ carries an ``active`` mask and updates every state tensor with
 checks convergence at its own ``it % check_every == 0``.  Active elements
 share one iteration count, so ``active`` can only change at a check, and the
 host syncs once per check (``active`` read back), not once per iteration.
+
+Every core takes a per-element ``valid`` slot mask.  The fleet path embeds a
+fabric with ``v < V`` pods in the ``V``-pod layout and masks out padded
+endpoints and padded transit pods (:meth:`TorchRoutingSolver.valid_for_pods`):
+their zero-capacity links carry ``inv_cap = 0`` and would otherwise look like
+free capacity.  The reference pads the fleet batch to a quantum for jit-shape
+stability; nothing here is compiled per shape, so the port does not pad, and
+each element's result does not depend on the batch it is solved in.
 
 Matmuls run in full float32: the solver refuses to start with TF32 matmuls
 enabled (about 1e-3 relative error, above the certificate's tolerance).
@@ -511,28 +521,75 @@ class TorchRoutingSolver:
         carries an ``active`` mask for the elements that hedge), plus
         ``anchor_seconds``.
         """
+        b = np.asarray(tms).shape[0]
+        return self._solve_anchored(
+            tms, capacities, self.valid.expand(b, -1, -1, -1), [b // 2],
+            np.zeros(b, np.int64), hedging, deltas, skip_stage3)
+
+    def valid_for_pods(self, n_real: int) -> np.ndarray:
+        """(V, V, V) slot mask for a fabric with ``n_real ≤ V`` pods embedded
+        in this solver's ``V``-pod layout: commodities with a padded endpoint
+        vanish, and padded pods are excluded as transit — their zero-capacity
+        links carry ``inv_cap = 0`` and would otherwise look like free
+        capacity."""
+        v = self.V
+        ii, jj, kk = np.meshgrid(np.arange(v), np.arange(v), np.arange(v),
+                                 indexing="ij")
+        real = (ii < n_real) & (jj < n_real) & (kk < n_real)
+        return self.valid.cpu().numpy() & real
+
+    def solve_routing_fleet(self, tms: np.ndarray, capacities: np.ndarray,
+                            valids: np.ndarray, anchor_elems: np.ndarray,
+                            anchor_of: np.ndarray, hedging: bool,
+                            deltas: np.ndarray | None = None,
+                            skip_stage3: bool = False):
+        """Stages 1 → [2] → 3 for the routing epochs of *many fabrics* at once.
+
+        The flattened batch concatenates every fabric's epochs; element ``i``
+        belongs to the fabric whose anchor is ``anchor_elems[anchor_of[i]]``.
+        All ``F`` fabric anchors are solved cold in one batched call, then the
+        whole batch runs warm-started from its own fabric's anchor (primal and
+        dual iterates), stage by stage — the fleet-wide form of
+        :meth:`solve_routing_batch`'s anchor scheme.
+
+        Args:
+          tms: (N, m, C) critical TMs in this solver's (padded) layout.
+          capacities: (N, E) directed capacities (zero on padded links).
+          valids: (N, V, V, V) per-element slot masks (:meth:`valid_for_pods`).
+          anchor_elems: (F,) element index of each fabric's anchor epoch.
+          anchor_of: (N,) index into ``anchor_elems`` per element.
+          hedging / deltas / skip_stage3: as :meth:`solve_routing_batch`.
+
+        Returns what :meth:`solve_routing_batch` returns, for the N elements;
+        ``stats["anchor_seconds"]`` is the time of the F anchor solves.
+        """
+        valids = torch.as_tensor(np.asarray(valids, bool), device=self.device)
+        return self._solve_anchored(tms, capacities, valids, anchor_elems,
+                                    anchor_of, hedging, deltas, skip_stage3)
+
+    def _solve_anchored(self, tms, capacities, valids, anchor_elems, anchor_of,
+                        hedging, deltas, skip_stage3):
+        """The anchored pipeline shared by the batch and fleet paths: the
+        anchors (``anchor_elems``) solve cold, each element starts every
+        stage from the iterates of its anchor (``anchor_of``)."""
         _refuse_tf32()
         dev = self.device
         d3 = self._dense_tms(tms)
         ic = self._dense_inv_cap(capacities)
-        b = d3.shape[0]
-        a = b // 2  # anchor epoch
-        valid_b = self.valid.expand(b, -1, -1, -1)
-        valid_1 = self.valid[None]
+        n = d3.shape[0]
+        a_el = torch.as_tensor(np.asarray(anchor_elems, np.int64), device=dev)
+        ga = torch.as_tensor(np.asarray(anchor_of, np.int64), device=dev)
+        d_a, ic_a, v_a = d3[a_el], ic[a_el], valids[a_el]
         anchor_s = 0.0
 
-        def tile(x):
-            return x.expand((b,) + x.shape[1:])
-
         with obs.timed("pdhg.anchor", stage="mlu") as t:
-            d_a, ic_a = d3[a:a + 1], ic[a:a + 1]
             f_a, _, _, y_a, _ = self._mlu_core(
-                d_a, ic_a, valid_1, *self._mlu_inits(d_a, ic_a, valid_1))
+                d_a, ic_a, v_a, *self._mlu_inits(d_a, ic_a, v_a))
             synchronize(dev)
         anchor_s += t.seconds
-        with obs.span("pdhg.stage1", b=b):
-            f3, u, it1, _, gap1 = self._mlu_core(d3, ic, valid_b, tile(f_a),
-                                                 tile(y_a))
+        with obs.span("pdhg.stage1", n=n):
+            f3, u, it1, _, gap1 = self._mlu_core(d3, ic, valids, f_a[ga],
+                                                 y_a[ga])
         u_budget = u * 1.005 + 1e-9
         stats = {"stage1": self._stage_stats(it1, gap1)}
         r_star = None
@@ -542,14 +599,13 @@ class TorchRoutingSolver:
             dl = deltas32
             with obs.timed("pdhg.anchor", stage="risk") as t:
                 f2_a, _, _, y2_a, z2_a, _, _ = self._risk_core(
-                    d_a, ic_a, valid_1, u_budget[a:a + 1], dl[a:a + 1],
-                    *self._risk_inits(d_a, valid_1))
+                    d_a, ic_a, v_a, u_budget[a_el], dl[a_el],
+                    *self._risk_inits(d_a, v_a))
                 synchronize(dev)
             anchor_s += t.seconds
-            with obs.span("pdhg.stage2", b=b):
+            with obs.span("pdhg.stage2", n=n):
                 f3r, r, _, _, _, it2, gap2 = self._risk_core(
-                    d3, ic, valid_b, u_budget, dl, tile(f2_a), tile(y2_a),
-                    tile(z2_a))
+                    d3, ic, valids, u_budget, dl, f2_a[ga], y2_a[ga], z2_a[ga])
             use = dl > 0
             f3 = torch.where(_bc(use, f3), f3r, f3)
             r_star = torch.where(use, r, math.inf)
@@ -557,22 +613,22 @@ class TorchRoutingSolver:
                                                 active=use.cpu().numpy())
         if not skip_stage3:
             if r_star is None:
-                r_in = torch.full((b,), 1e9, device=dev)
-                dl_in = torch.zeros(b, device=dev)
+                r_in = torch.full((n,), 1e9, device=dev)
+                dl_in = torch.zeros(n, device=dev)
             else:
                 fin = torch.isfinite(r_star)
                 r_in = torch.where(fin, r_star * 1.005 + 1e-12, 1e9)
                 dl_in = torch.where(fin, deltas32, 0.0)
             with obs.timed("pdhg.anchor", stage="stretch") as t:
                 _, y3_a, _, _ = self._stretch_core(
-                    d_a, ic_a, valid_1, u_budget[a:a + 1], r_in[a:a + 1],
-                    dl_in[a:a + 1], f3[a:a + 1],
-                    torch.zeros((1, self.m, self.V, self.V), device=dev))
+                    d_a, ic_a, v_a, u_budget[a_el], r_in[a_el], dl_in[a_el],
+                    f3[a_el],
+                    torch.zeros((len(a_el), self.m, self.V, self.V), device=dev))
                 synchronize(dev)
             anchor_s += t.seconds
-            with obs.span("pdhg.stage3", b=b):
+            with obs.span("pdhg.stage3", n=n):
                 f3, _, it3, gap3 = self._stretch_core(
-                    d3, ic, valid_b, u_budget, r_in, dl_in, f3, tile(y3_a))
+                    d3, ic, valids, u_budget, r_in, dl_in, f3, y3_a[ga])
             stats["stage3"] = self._stage_stats(it3, gap3)
         f = self._flat_f(f3)
         out_r = None

@@ -12,8 +12,9 @@ OLR (fraction of links above the overload threshold) and stretch (total load
 over total demand).  Summaries report the p99.9 over intervals.  With a
 :class:`repro_torch.burst.LossConfig`, each interval also gets the burst-level
 loss fraction.  ``backend="torch"`` runs the linkload and queueloss CUDA
-kernels — one launch each per block (:func:`route_metrics`) or per sweep
-(:func:`route_metrics_batched`); ``"numpy"`` is the float64 oracle.
+kernels — one launch each per block (:func:`route_metrics`), per sweep
+(:func:`route_metrics_batched`) or per fleet bucket
+(:func:`route_metrics_fleet`); ``"numpy"`` is the float64 oracle.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import dataclasses
 import numpy as np
 
 __all__ = ["IntervalMetrics", "route_metrics", "route_metrics_batched",
-           "p999", "summarize"]
+           "route_metrics_fleet", "p999", "summarize"]
 
 
 def _concat_loss(a, a_size: int, b, b_size: int):
@@ -200,3 +201,98 @@ def route_metrics_batched(
     return IntervalMetrics(
         mlu=trim(mlu_b), alu=trim(alu_b), olr=trim(olr_b), stretch=trim(stretch_b),
         loss=np.concatenate(loss_list) if loss_list is not None else None)
+
+
+def route_metrics_fleet(
+    blocks_fleet: list,
+    weights_fleet: list,
+    caps_fleet: list,
+    overload_threshold: float = 0.8,
+    backend: str = "torch",
+    loss_cfg=None,
+    loss_seeds_fleet: list | None = None,
+    interval_seconds: float | None = None,
+    loss_blocks_fleet: list | None = None,
+    loss_slots_fleet: list | None = None,
+    device=None,
+) -> list:
+    """Single fused scoring pass over an entire fleet bucket.
+
+    Every fabric's scoring blocks are stacked onto a leading *fabric* axis:
+    on ``backend="torch"`` one launch of the fleet linkload kernel (and one of
+    the fleet queueloss kernel with ``loss_cfg``) scores the whole bucket.
+    The fleet engine pads all fabrics to one commodity/edge layout; the
+    block-count and interval-count padding happens here (padded blocks carry
+    zero demand against zero capacity and are trimmed before returning).
+
+    Args:
+      blocks_fleet: per-fabric lists of ``(T_b, C)`` demand blocks, in trace
+        order (lengths may differ within and across fabrics).
+      weights_fleet: per-fabric ``(B_f, C, E_d)`` routing-weight stacks.
+      caps_fleet: per-fabric ``(B_f, E_d)`` directed capacities.
+      backend: ``"torch"`` or ``"numpy"``.
+      loss_cfg / loss_seeds_fleet / interval_seconds: with a
+        :class:`repro_torch.burst.LossConfig` and per-fabric seed lists, also
+        computes burst-level loss fractions (paired seeds as in
+        :func:`route_metrics_batched`).
+      loss_blocks_fleet / loss_slots_fleet: when ``blocks_fleet`` lives in a
+        padded commodity layout, the same blocks in each fabric's native
+        layout and their commodity-slot embeddings
+        (:func:`repro_torch.core.fleet.commodity_slots`), so the burst
+        expansion draws what the per-fabric controller draws.
+      device: the torch backend's device (``None`` = CUDA).
+
+    Returns a list of per-fabric :class:`IntervalMetrics`, each in the layout
+    of the per-fabric controller's concatenated metrics.
+    """
+    from repro_torch.kernels.linkload import ops as llops
+
+    f = len(blocks_fleet)
+    if f == 0:
+        return []
+    lens = [[np.asarray(b).shape[0] for b in blocks] for blocks in blocks_fleet]
+    b_max = max(len(blocks) for blocks in blocks_fleet)
+    t_pad = max((n for row in lens for n in row), default=1)
+    c = np.asarray(weights_fleet[0]).shape[1]
+    e = np.asarray(weights_fleet[0]).shape[2]
+    demand_b = np.zeros((f, b_max, max(t_pad, 1), c), np.float64)
+    weights_b = np.zeros((f, b_max, c, e), np.float64)
+    caps_b = np.zeros((f, b_max, e), np.float64)
+    for fi, blocks in enumerate(blocks_fleet):
+        for bi, bl in enumerate(blocks):
+            demand_b[fi, bi, : lens[fi][bi]] = np.asarray(bl, np.float64)
+        nb = len(blocks)
+        weights_b[fi, :nb] = np.asarray(weights_fleet[fi], np.float64)
+        caps_b[fi, :nb] = np.asarray(caps_fleet[fi], np.float64)
+    mlu_b, alu_b, olr_b, tot_b = llops.link_metrics_fleet(
+        demand_b, weights_b, caps_b, overload_threshold, backend=backend,
+        device=device)
+    dem_tot = demand_b.sum(axis=3)  # (F, B, T_pad)
+    stretch_b = np.where(dem_tot > 1e-12,
+                         tot_b / np.maximum(dem_tot, 1e-12), 1.0)
+    loss_fleet = None
+    if loss_cfg is not None:
+        if interval_seconds is None or loss_seeds_fleet is None:
+            raise ValueError("loss tracking requires interval_seconds and seeds")
+        from repro_torch.burst import interval_loss_fleet
+
+        loss_fleet = interval_loss_fleet(
+            loss_blocks_fleet if loss_blocks_fleet is not None else blocks_fleet,
+            weights_fleet, caps_fleet, interval_seconds, loss_cfg,
+            loss_seeds_fleet, backend=backend, slots_fleet=loss_slots_fleet,
+            device=device)
+    out = []
+    for fi, blocks in enumerate(blocks_fleet):
+        def trim(arr):
+            if not blocks:
+                return np.zeros((0,))
+            return np.concatenate(
+                [np.asarray(arr[fi][bi][: lens[fi][bi]], np.float64)
+                 for bi in range(len(blocks))])
+
+        out.append(IntervalMetrics(
+            mlu=trim(mlu_b), alu=trim(alu_b), olr=trim(olr_b),
+            stretch=trim(stretch_b),
+            loss=(np.concatenate(loss_fleet[fi])
+                  if loss_fleet is not None else None)))
+    return out

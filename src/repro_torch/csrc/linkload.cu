@@ -1,13 +1,19 @@
-// Fused link-load metrics for the H100 (sm_90a): epoch-batched and single-block.
+// Fused link-load metrics for the H100 (sm_90a): epoch-batched, single-block
+// and fleet-batched.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/linkload/linkload.py :: linkload_pallas_batched
-//   (kernel body linkload_batched_kernel), entry linkload_batched below, and
+//   (kernel body linkload_batched_kernel), entry linkload_batched below,
 //   src/repro/kernels/linkload/linkload.py :: linkload_pallas
-//   (kernel body linkload_metrics_kernel), entry linkload_single below.  The TPU's
-//   single-block kernel is its batched one at B = 1 (one W, one inv_cap), so
-//   both entries launch the same body; the single-block one at B = 1.
-// For every epoch b and interval t it computes
+//   (kernel body linkload_metrics_kernel), entry linkload_single below, and
+//   src/repro/kernels/linkload/linkload.py :: linkload_pallas_fleet
+//   (kernel body linkload_fleet_kernel), entry linkload_fleet below.  The TPU's
+//   single-block kernel is its batched one at B = 1 (one W, one inv_cap), and
+//   its fleet kernel is the batched one with one more leading grid axis over
+//   fabrics, whose (fabric, block) pairs are independent and contiguous in the
+//   (F, B, ...) layout.  So all three entries launch the same body: over B
+//   epochs, over 1, and over the F*B (fabric, block) pairs.
+// For every epoch (or pair) b and interval t it computes
 //   load[t, e] = sum_c demand[b, t, c] * W[b, c, e],  util = load * inv_cap[b, e]
 // and returns per row: max_e util, sum_e util, #(util > thr), sum_e load.
 //
@@ -16,6 +22,12 @@
 // controller's shapes (B=672, T=3, C=E=132) W is 46.8 MB of the 48 MB the
 // kernel reads, about 14 us at 3.35 TB/s, against 70 MFLOP (1 us at the
 // 67 TFLOP/s f32 rate).
+//
+// Fleet.  The fleet engine scores a whole bucket of fabrics at once: at the
+// 22-fabric fleet's 12-pod bucket (F=15, B=96, T=3, C=E=132) W is 100 MB of
+// the 103 MB read, about 31 us at 3.35 TB/s; the grid is F*B*ceil(T/8) CTAs,
+// counted in 64 bits and refused above gridDim.x's limit.  Padded blocks of a
+// fabric with fewer than B blocks are all zeros and score zeros.
 //
 // Single block.  At the streaming controller's shape (T=3, C=E=132) the call
 // reads 72 KB (0.02 us at 3.35 TB/s): one CTA, bound by the launch.  Scoring a
@@ -41,6 +53,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;  // intervals per CTA (T-tile)
+constexpr long long kMaxGridX = 2147483647LL;  // gridDim.x limit
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -64,8 +77,8 @@ linkload_batched_kernel(const float* __restrict__ demand,   // (B, T, C)
   extern __shared__ float dem[];  // (kRows, C) demand tile
   __shared__ float red[4][kWarps][kRows];
 
-  const int b = blockIdx.x / n_ttiles;
-  const int t0 = (blockIdx.x % n_ttiles) * kRows;
+  const long long b = blockIdx.x / n_ttiles;  // epoch, or (fabric, block) pair
+  const int t0 = (int)(blockIdx.x % n_ttiles) * kRows;
   const int tid = threadIdx.x;
 
   const float* dem_b = demand + (size_t)b * T * C;
@@ -134,17 +147,24 @@ linkload_batched_kernel(const float* __restrict__ demand,   // (B, T, C)
   }
 }
 
+// Launch the body over `pairs` independent (T, C) x (C, E) problems.  The CTA
+// count is formed in 64 bits: a grid wider than gridDim.x allows is refused,
+// never truncated.
 int launch(const void* demand, const void* w, const void* inv_cap, float thr, void* mlu,
-           void* alu, void* olr, void* tot, int B, int T, int C, int E, void* stream) {
-  if (B == 0 || T == 0) return 0;
+           void* alu, void* olr, void* tot, long long pairs, int T, int C, int E,
+           void* stream) {
+  if (pairs < 0 || T < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (pairs == 0 || T == 0) return 0;
   const int n_ttiles = (T + kRows - 1) / kRows;
+  const long long n_ctas = pairs * n_ttiles;
+  if (n_ctas > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = (size_t)kRows * C * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         linkload_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  linkload_batched_kernel<<<dim3((unsigned)(B * n_ttiles)), kThreads, smem,
+  linkload_batched_kernel<<<dim3((unsigned)n_ctas), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(demand), static_cast<const float*>(w),
       static_cast<const float*>(inv_cap), thr, static_cast<float*>(mlu),
@@ -175,6 +195,16 @@ int linkload_single(const void* demand, const void* w, const void* inv_cap, floa
                     void* mlu, void* alu, void* olr, void* tot, int T, int C, int E,
                     void* stream) {
   return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
+}
+
+// F fabrics x B blocks: demand (F, B, T, C), w (F, B, C, E), inv_cap (F, B, E);
+// outputs (F, B, T) each.  Every (fabric, block) pair is scored on its own.
+int linkload_fleet(const void* demand, const void* w, const void* inv_cap, float thr,
+                   void* mlu, void* alu, void* olr, void* tot, int F, int B, int T, int C,
+                   int E, void* stream) {
+  if (F < 0 || B < 0) return (int)cudaErrorInvalidValue;
+  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, (long long)F * B, T, C, E,
+                stream);
 }
 
 }  // extern "C"

@@ -1,15 +1,21 @@
 // Fused link-load matmul + fluid-queue loss scan for the H100 (sm_90a):
-// epoch-batched and single-block.
+// epoch-batched, single-block and fleet-batched.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/queueloss/queueloss.py :: queueloss_pallas_batched
-//   (kernel body queueloss_batched_kernel), entry queueloss_batched below, and
+//   (kernel body queueloss_batched_kernel), entry queueloss_batched below,
 //   src/repro/kernels/queueloss/queueloss.py :: queueloss_pallas
-//   (kernel body queueloss_kernel), entry queueloss_single below.  The TPU's
-//   single-block kernel is its batched one at B = 1: one W, and one queue that
-//   starts empty at the call and carries across all of its sub-steps.  Both
-//   entries launch the same body; the single-block one at B = 1.
-// For every epoch b, link e and sub-step k in time order:
+//   (kernel body queueloss_kernel), entry queueloss_single below, and
+//   src/repro/kernels/queueloss/queueloss.py :: queueloss_pallas_fleet
+//   (kernel body queueloss_fleet_kernel), entry queueloss_fleet below.  The
+//   TPU's single-block kernel is its batched one at B = 1: one W, and one queue
+//   that starts empty at the call and carries across all of its sub-steps.  Its
+//   fleet kernel is the batched one with one more leading grid axis over
+//   fabrics, the queue re-zeroed whenever the (fabric, block) pair changes.  In
+//   the (F, B, ...) layout those pairs are contiguous and independent, so all
+//   three entries launch the same body: over B epochs, over 1, and over the
+//   F*B pairs, each starting from an empty queue.
+// For every epoch (or pair) b, link e and sub-step k in time order:
 //   load = sum_c demand[b, k, c] * W[b, c, e]
 //   x = q + (load - cap[b, e]) * dt;  drop += max(0, x - buf[b, e]);  q = clip(x, 0, buf[b, e])
 // with the queue empty at the start of every epoch.  Returns per sub-step the
@@ -19,6 +25,9 @@
 // TS=36, C=E=132) the kernel must read W (46.8 MB) and the sub-step demand
 // (12.8 MB), about 18 us at 3.35 TB/s, against 0.84 GFLOP (13 us at the
 // 67 TFLOP/s f32 rate).  The recurrence makes time sequential per link.
+// The fleet engine's 12-pod bucket of the 22-fabric fleet (F=15, B=96, TS=36,
+// C=E=132) reads 130 MB (39 us); its grid of F*B*ceil(E/128) CTAs is counted
+// in 64 bits and refused above gridDim.x's limit.
 // The single-block call of the streaming controller (TS=36, C=E=132) reads
 // 90 KB and does 1.25 MFLOP: two CTAs of 128 link-threads, bound by the launch.
 //
@@ -42,6 +51,7 @@ namespace {
 constexpr int kThreads = 128;  // links per CTA (E-tile)
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 8;  // sub-steps per staged demand chunk
+constexpr long long kMaxGridX = 2147483647LL;  // gridDim.x limit
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -60,8 +70,8 @@ queueloss_batched_kernel(const float* __restrict__ demand,  // (B, TS, C)
   extern __shared__ float dem[];  // (kSteps, C) demand chunk
   __shared__ float red[2][kWarps][kSteps];
 
-  const int b = blockIdx.x / n_etiles;
-  const int et = blockIdx.x % n_etiles;
+  const long long b = blockIdx.x / n_etiles;  // epoch, or (fabric, block) pair
+  const int et = (int)(blockIdx.x % n_etiles);
   const int tid = threadIdx.x;
   const int e = et * kThreads + tid;
   const bool live = e < E;
@@ -142,11 +152,20 @@ __global__ void sum_partials_kernel(const float* __restrict__ drop_part,
   load[i] = l;
 }
 
+// Launch the body over `pairs` independent queue walks, then the partials pass.
+// Grid sizes are formed in 64 bits: a grid wider than gridDim.x allows is
+// refused, never truncated.
 int launch(const void* demand, const void* w, const void* cap, const void* buf, float dt,
-           void* drop, void* load, void* drop_part, void* load_part, int B, int TS, int C,
-           int E, void* stream) {
-  if (B == 0 || TS == 0) return 0;
+           void* drop, void* load, void* drop_part, void* load_part, long long pairs, int TS,
+           int C, int E, void* stream) {
+  if (pairs < 0 || TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (pairs == 0 || TS == 0) return 0;
   const int n_etiles = E > 0 ? (E + kThreads - 1) / kThreads : 1;
+  const long long n_ctas = pairs * n_etiles;
+  const long long rows = pairs * TS;
+  const int threads = 256;
+  const long long n_sum_ctas = (rows + threads - 1) / threads;
+  if (n_ctas > kMaxGridX || n_sum_ctas > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = (size_t)kSteps * C * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -154,15 +173,13 @@ int launch(const void* demand, const void* w, const void* cap, const void* buf, 
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  queueloss_batched_kernel<<<dim3((unsigned)(B * n_etiles)), kThreads, smem, s>>>(
+  queueloss_batched_kernel<<<dim3((unsigned)n_ctas), kThreads, smem, s>>>(
       static_cast<const float*>(demand), static_cast<const float*>(w),
       static_cast<const float*>(cap), static_cast<const float*>(buf), dt,
       static_cast<float*>(drop_part), static_cast<float*>(load_part), TS, C, E, n_etiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * TS;
-  const int threads = 256;
-  sum_partials_kernel<<<dim3((unsigned)((rows + threads - 1) / threads)), threads, 0, s>>>(
+  sum_partials_kernel<<<dim3((unsigned)n_sum_ctas), threads, 0, s>>>(
       static_cast<const float*>(drop_part), static_cast<const float*>(load_part),
       static_cast<float*>(drop), static_cast<float*>(load), rows, n_etiles);
   return (int)cudaGetLastError();
@@ -194,6 +211,17 @@ int queueloss_single(const void* demand, const void* w, const void* cap, const v
                      float dt, void* drop, void* load, void* drop_part, void* load_part,
                      int TS, int C, int E, void* stream) {
   return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, 1, TS, C, E, stream);
+}
+
+// F fabrics x B blocks: demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E);
+// outputs (F, B, TS) each, partials (F, B, TS, nE).  The queue starts empty in
+// every (fabric, block) pair.
+int queueloss_fleet(const void* demand, const void* w, const void* cap, const void* buf,
+                    float dt, void* drop, void* load, void* drop_part, void* load_part, int F,
+                    int B, int TS, int C, int E, void* stream) {
+  if (F < 0 || B < 0) return (int)cudaErrorInvalidValue;
+  return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, (long long)F * B,
+                TS, C, E, stream);
 }
 
 }  // extern "C"

@@ -1,16 +1,18 @@
 """Wrappers for the fused link-load metrics kernel (``csrc/linkload.cu``).
 
 The counterpart of ``repro/kernels/linkload/ops.py``'s :func:`link_metrics`
-(one demand block under one weight matrix) and :func:`link_metrics_batched`
-(one block per routing epoch): live-link masking, capacity normalization and
+(one demand block under one weight matrix), :func:`link_metrics_batched`
+(one block per routing epoch) and :func:`link_metrics_fleet` (every block of
+every fabric in a fleet bucket): live-link masking, capacity normalization and
 the conversion of the kernel's raw accumulators (sums/counts) into the
 simulator's MLU / ALU / OLR / total-load metrics.  ``backend`` is ``"torch"``
 (the CUDA kernel on a CUDA device, its plain version on the CPU) or
 ``"numpy"`` (the float64 oracle).
 
-:func:`linkload` and :func:`linkload_batched` are the tensor-level wrappers:
-a CUDA tensor launches the kernel (and adds one to :data:`single_launches` or
-:data:`launches`), a CPU tensor runs the plain version in :mod:`.ref`.
+:func:`linkload`, :func:`linkload_batched` and :func:`linkload_fleet` are
+the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one to
+:data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a CPU
+tensor runs the plain version in :mod:`.ref`.
 Nothing falls back from one to the other.
 """
 
@@ -25,14 +27,17 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
 from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
+                                              linkload_metrics_fleet_ref,
                                               linkload_metrics_ref)
 
-__all__ = ["launches", "single_launches", "linkload", "linkload_batched",
-           "link_metrics", "link_metrics_batched"]
+__all__ = ["launches", "single_launches", "fleet_launches", "linkload",
+           "linkload_batched", "linkload_fleet", "link_metrics",
+           "link_metrics_batched", "link_metrics_fleet"]
 
 # kernel launches so far; set to 0 before a run to count its own
 launches = 0  # linkload_batched
 single_launches = 0  # linkload (one block)
+fleet_launches = 0  # linkload_fleet
 
 
 def _entry(name: str, n_dims: int):
@@ -105,6 +110,32 @@ def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
             (b, t, c, w.shape[2]))
     global launches
     launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+def linkload_fleet(demand: torch.Tensor, w: torch.Tensor,
+                   inv_cap: torch.Tensor, threshold: float):
+    """Per-row (mlu, alu_sum, olr_count, load_sum), each (F, B, T) float32.
+
+    demand (F, B, T, C), w (F, B, C, E), inv_cap (F, B, E) (0 = dead link;
+    all-zero padded blocks score zeros): contiguous float32, all on the CPU
+    (plain version) or all on one CUDA device (the kernel).
+    """
+    dev = placement("linkload_fleet", demand=demand, w=w, inv_cap=inv_cap)
+    if demand.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"linkload_fleet: demand and w must be 4-d, got "
+                         f"{tuple(demand.shape)}, {tuple(w.shape)}")
+    f, b, t, c = demand.shape
+    if w.shape[:3] != (f, b, c) or inv_cap.shape != (f, b, w.shape[3]):
+        raise ValueError(f"linkload_fleet: shapes {tuple(demand.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
+    if dev.type == "cpu":
+        return linkload_metrics_fleet_ref(demand, w, inv_cap, threshold)
+    out = torch.empty((4, f, b, t), dtype=torch.float32, device=dev)
+    _launch("linkload_fleet", dev, demand, w, inv_cap, threshold, out,
+            (f, b, t, c, w.shape[3]))
+    global fleet_launches
+    fleet_launches += 1
     return out[0], out[1], out[2], out[3]
 
 
@@ -189,6 +220,47 @@ def link_metrics_batched(demand, weights, capacities, threshold: float = 0.8,
         alu_sum = util.sum(axis=2)
         olr_cnt = (util > threshold).sum(axis=2)
         tot = load.sum(axis=2)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    return mlu, alu_sum / n_live, olr_cnt / n_live, tot
+
+
+def link_metrics_fleet(demand, weights, capacities, threshold: float = 0.8,
+                       backend: str = "torch", device=None):
+    """Fabric-batched link metrics: one call scores every scoring block of
+    every fabric in a fleet bucket.
+
+    Args:
+      demand: (F, B, T, C) per-(fabric, block) demand (zero rows and all-zero
+        padded blocks are scored and trimmed by the caller).
+      weights: (F, B, C, E) per-(fabric, block) routing-weight matrices.
+      capacities: (F, B, E) per-(fabric, block) directed capacities (zero on
+        padded links and padded blocks).
+      threshold: overload threshold of the OLR count.
+      backend: ``"torch"`` (one launch of the fleet kernel on a CUDA device)
+        or ``"numpy"``.
+      device: the torch backend's device (``None`` = CUDA).
+
+    Returns (mlu, alu, olr, total_load), each (F, B, T); ALU/OLR are averaged
+    over each (fabric, block)'s own live links.
+    """
+    demand = np.asarray(demand)
+    weights = np.asarray(weights)
+    n_live, inv_cap = _live_inv_cap(capacities)
+    n_live = n_live[..., None]  # (F, B, 1)
+    if backend == "torch":
+        dev = resolve_device(device)
+        mlu, alu_sum, olr_cnt, tot = (
+            x.cpu().numpy() for x in linkload_fleet(
+                _put(demand, dev), _put(weights, dev), _put(inv_cap, dev),
+                threshold))
+    elif backend == "numpy":
+        load = demand.astype(np.float64) @ weights.astype(np.float64)  # (F,B,T,E)
+        util = load * inv_cap[:, :, None, :]
+        mlu = util.max(axis=3)
+        alu_sum = util.sum(axis=3)
+        olr_cnt = (util > threshold).sum(axis=3)
+        tot = load.sum(axis=3)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return mlu, alu_sum / n_live, olr_cnt / n_live, tot

@@ -1,18 +1,19 @@
 """Wrappers for the fused queue-loss kernel (``csrc/queueloss.cu``).
 
 The counterpart of ``repro/kernels/queueloss/ops.py``'s :func:`queue_loss`
-(one sub-step block, one queue carried across it) and
-:func:`queue_loss_batched` (one block per routing epoch).  ``backend`` is
+(one sub-step block, one queue carried across it), :func:`queue_loss_batched`
+(one block per routing epoch) and :func:`queue_loss_fleet` (every block of
+every fabric in a fleet bucket).  ``backend`` is
 ``"torch"`` (the CUDA kernel on a CUDA device, its plain version on the CPU;
 float32) or ``"numpy"`` (the float64 oracle
 :func:`repro_torch.burst.queue.queue_loss_numpy`).  All implement the same
 finite-buffer fluid-queue recurrence; padded links get ``cap = buf = 0`` and
 carry zero load, so they never drop.
 
-:func:`queueloss` and :func:`queueloss_batched` are the tensor-level
-wrappers: a CUDA tensor launches the kernel (and adds one to
-:data:`single_launches` or :data:`launches`), a CPU tensor runs the plain
-version in :mod:`.ref`.  Nothing falls back from one to the other.
+:func:`queueloss`, :func:`queueloss_batched` and :func:`queueloss_fleet`
+are the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one
+to :data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a
+CPU tensor runs the plain version in :mod:`.ref`.  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -26,14 +27,17 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
 from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
+                                               queueloss_fleet_ref,
                                                queueloss_ref)
 
-__all__ = ["launches", "single_launches", "queueloss", "queueloss_batched",
-           "queue_loss", "queue_loss_batched"]
+__all__ = ["launches", "single_launches", "fleet_launches", "queueloss",
+           "queueloss_batched", "queueloss_fleet", "queue_loss",
+           "queue_loss_batched", "queue_loss_fleet"]
 
 # kernel launches so far; set to 0 before a run to count its own
 launches = 0  # queueloss_batched
 single_launches = 0  # queueloss (one block)
+fleet_launches = 0  # queueloss_fleet
 
 
 def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
@@ -111,6 +115,34 @@ def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
     return out
 
 
+def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
+                    buf: torch.Tensor, dt: float):
+    """Per-sub-step (drop_sum, load_sum), each (F, B, TS) float32.
+
+    demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E): contiguous
+    float32, all on the CPU (plain version) or all on one CUDA device (the
+    kernel).  The queue starts empty in every (fabric, block) pair.
+    """
+    dev = placement("queueloss_fleet", demand=demand, w=w, cap=cap, buf=buf)
+    if demand.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"queueloss_fleet: demand and w must be 4-d, got "
+                         f"{tuple(demand.shape)}, {tuple(w.shape)}")
+    f, b, ts, c = demand.shape
+    e = w.shape[3]
+    if (w.shape[:3] != (f, b, c) or cap.shape != (f, b, e)
+            or buf.shape != (f, b, e)):
+        raise ValueError(f"queueloss_fleet: shapes {tuple(demand.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(cap.shape)}, "
+                         f"{tuple(buf.shape)} disagree")
+    if dev.type == "cpu":
+        return queueloss_fleet_ref(demand, w, cap, buf, dt)
+    out = _launch("queueloss_fleet", dev, demand, w, cap, buf, dt,
+                  (f, b, ts, c, e))
+    global fleet_launches
+    fleet_launches += 1
+    return out
+
+
 def _put(x, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
@@ -167,5 +199,40 @@ def queue_loss_batched(demand, weights, capacities, buffers, dt: float,
     dev = resolve_device(device)
     drop, tot = queueloss_batched(_put(demand, dev), _put(weights, dev),
                                   _put(capacities, dev), _put(buffers, dev), dt)
+    return (drop.cpu().numpy().astype(np.float64),
+            tot.cpu().numpy().astype(np.float64))
+
+
+def queue_loss_fleet(demand, weights, capacities, buffers, dt: float,
+                     backend: str = "torch", device=None):
+    """Fabric-batched queue loss: one call scans every scoring block of every
+    fabric in a fleet bucket.
+
+    Args:
+      demand: (F, B, TS, C) sub-interval demand blocks (zero-padded trailing
+        sub-steps and all-zero padded blocks only drain queues, never drop).
+      weights: (F, B, C, E); capacities/buffers: (F, B, E); dt: sub-step
+        seconds.
+      backend: ``"torch"`` (one launch of the fleet kernel on a CUDA device)
+        or ``"numpy"`` (:func:`repro_torch.burst.queue.queue_loss_numpy` per
+        (fabric, block)).
+      device: the torch backend's device (``None`` = CUDA).
+
+    Queue state starts empty in every (fabric, block) pair.  Returns
+    (drop, tot), each (F, B, TS) float64.
+    """
+    if backend == "numpy":  # float64 end to end
+        from repro_torch.burst.queue import queue_loss_numpy
+
+        out = [[queue_loss_numpy(d, w, c, bf, dt)
+                for d, w, c, bf in zip(df, wf, cf, bff)]
+               for df, wf, cf, bff in zip(demand, weights, capacities, buffers)]
+        return (np.stack([[o[0] for o in row] for row in out]),
+                np.stack([[o[1] for o in row] for row in out]))
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve_device(device)
+    drop, tot = queueloss_fleet(_put(demand, dev), _put(weights, dev),
+                                _put(capacities, dev), _put(buffers, dev), dt)
     return (drop.cpu().numpy().astype(np.float64),
             tot.cpu().numpy().astype(np.float64))

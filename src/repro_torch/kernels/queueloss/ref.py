@@ -7,8 +7,8 @@ The counterpart of ``repro/kernels/queueloss/ref.py``.  Per directed link
     drop[k]  = max(0, x[k] - buf[e])                    # overflow (Gb)
     q[k+1]   = clip(x[k], 0, buf[e])
 
-Both functions materialize the load tensor ((TS, E), or (B, TS, E) batched)
-and walk the sub-steps in a Python loop; the wrappers in :mod:`.ops` run them
+The functions materialize the load tensor ((TS, E), (B, TS, E) batched, or
+(F, B, TS, E) for a fleet bucket) and walk the sub-steps in a Python loop; the wrappers in :mod:`.ops` run them
 for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernel
 (``csrc/queueloss.cu``) against them.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["queueloss_ref", "queueloss_batched_ref"]
+__all__ = ["queueloss_ref", "queueloss_batched_ref", "queueloss_fleet_ref"]
 
 
 def queueloss_ref(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
@@ -44,3 +44,17 @@ def queueloss_batched_ref(demand: torch.Tensor, w: torch.Tensor,
     drop = (torch.stack(drops, dim=1) if drops
             else load.new_zeros(load.shape[:2]))
     return drop, load.sum(dim=2)
+
+
+def queueloss_fleet_ref(demand: torch.Tensor, w: torch.Tensor,
+                        cap: torch.Tensor, buf: torch.Tensor, dt: float):
+    """demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E); the queue
+    starts empty in every (fabric, block) pair.  Returns (drop_sum,
+    load_sum), each (F, B, TS)."""
+    f, b, ts = demand.shape[:3]
+    e = w.shape[3]
+    drop, tot = queueloss_batched_ref(
+        demand.reshape((f * b,) + demand.shape[2:]),
+        w.reshape((f * b,) + w.shape[2:]), cap.reshape(f * b, e),
+        buf.reshape(f * b, e), dt)
+    return drop.reshape(f, b, ts), tot.reshape(f, b, ts)

@@ -1,0 +1,217 @@
+"""Port vs reference: the fleet-batched scoring path — kernels #5/#6 and
+what scores a fleet bucket through them.
+
+The same numpy inputs, made from a seed, go through the reference's fleet
+functions (``backend="pallas"``: the fleet Pallas kernels in interpret mode,
+as ``tests/test_fleet_engine.py`` runs them) and the port's (the plain
+PyTorch versions on the CPU, and the float64 numpy oracle).  The inputs are
+ragged (fabrics with fewer blocks than the bucket's ``b_max``, whose padded
+blocks are all zeros), carry dead links, and sit in a padded-pod layout
+(:func:`repro.core.fleet.commodity_slots`).
+
+Tolerances:
+* port vs the Pallas side: the kernel contract, rtol 3e-4 / atol 1e-4
+  (``tests/test_kernels_linkload.py``: float32 against float64);
+* the port's fleet path vs its own per-fabric batched path: rtol 1e-5 /
+  atol 1e-6, the reference's fleet-vs-batched contract
+  (``tests/test_fleet_engine.py:256``);
+* ``interval_loss_fleet`` on numpy: bit-equal to the reference's
+  (``tests/test_fleet_engine.py:207``: same expansion seeds, same queue).
+"""
+
+import dataclasses
+
+import jax  # noqa: F401  (both frameworks in one process; JAX stays on the CPU)
+import numpy as np
+import pytest
+import torch
+
+from repro.burst import BurstParams, LossConfig
+from repro.burst import interval_loss_fleet as ref_interval_loss_fleet
+from repro.core.fleet import commodity_slots, scatter_pad
+from repro.core.simulator import route_metrics_fleet as ref_route_metrics_fleet
+from repro.kernels.linkload import ops as ref_llops
+from repro.kernels.queueloss import ops as ref_qlops
+from repro_torch import interop
+from repro_torch.burst import interval_loss_batched, interval_loss_fleet
+from repro_torch.core.simulator import route_metrics_batched, route_metrics_fleet
+from repro_torch.kernels.linkload import ops as llops
+from repro_torch.kernels.queueloss import ops as qlops
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 3e-4, 1e-4  # kernel contract vs the Pallas side
+FLEET_RTOL, FLEET_ATOL = 1e-5, 1e-6  # fleet vs per-fabric batched
+NAMES = ("mlu", "alu", "olr", "tot")
+FIELDS = ("mlu", "alu", "olr", "stretch", "loss")
+LOSS = LossConfig(burst=BurstParams(rate=0.2, shape=1.6, scale=2.0, clip=8.0),
+                  n_sub=4, buffer_ms=25.0, seed=3)
+PORT_LOSS = interop.loss_config_from_dict(dataclasses.asdict(LOSS))
+
+
+def _fleet_arrays(seed, f, b, t, c, e, n_blocks):
+    """(F, B, T, C) demand, (F, B, C, E) weights, (F, B, E) capacities with
+    fabric ``fi``'s blocks past ``n_blocks[fi]`` all zero (padded) and ~10 %
+    dead links."""
+    rng = np.random.default_rng(seed)
+    d = rng.gamma(2.0, 10.0, (f, b, t, c))
+    w = rng.random((f, b, c, e)) * (rng.random((f, b, c, e)) > 0.5)
+    cap = rng.uniform(50, 500, (f, b, e))
+    cap[rng.random((f, b, e)) < 0.1] = 0.0
+    for fi, nb in enumerate(n_blocks):
+        d[fi, nb:], w[fi, nb:], cap[fi, nb:] = 0.0, 0.0, 0.0
+    return d, w, cap
+
+
+@pytest.mark.parametrize("f,b,t,c,e,n_blocks", [
+    (3, 4, 3, 56, 56, (4, 2, 3)),  # the 8-pod bucket's width
+    (2, 3, 13, 30, 30, (3, 1)),
+])
+def test_link_metrics_fleet_matches_reference(f, b, t, c, e, n_blocks):
+    d, w, cap = _fleet_arrays(f * 100 + t, f, b, t, c, e, n_blocks)
+    ref_pallas = ref_llops.link_metrics_fleet(d, w, cap, 0.8, backend="pallas")
+    ref_numpy = ref_llops.link_metrics_fleet(d, w, cap, 0.8, backend="numpy")
+    out = llops.link_metrics_fleet(d, w, cap, 0.8, backend="torch", device="cpu")
+    for a, r, p, name in zip(out, ref_numpy, ref_pallas, NAMES):
+        assert a.shape == (f, b, t), name
+        np.testing.assert_allclose(a, p, rtol=RTOL, atol=ATOL, err_msg=name)
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+    # padded blocks (no live link) score zeros, as the n_live clamp makes them
+    assert all((x[1, n_blocks[1]:] == 0).all() for x in out)
+    for a, r in zip(llops.link_metrics_fleet(d, w, cap, 0.8, backend="numpy"),
+                    ref_numpy):
+        np.testing.assert_array_equal(a, r)
+
+
+def test_link_metrics_fleet_matches_batched_per_fabric():
+    """Every (fabric, block) pair is scored on its own: the fleet call equals
+    the epoch-batched call fabric by fabric."""
+    d, w, cap = _fleet_arrays(7, 3, 4, 5, 30, 30, (4, 2, 3))
+    out = llops.link_metrics_fleet(d, w, cap, 0.8, device="cpu")
+    for fi in range(3):
+        ref = llops.link_metrics_batched(d[fi], w[fi], cap[fi], 0.8,
+                                         device="cpu")
+        for a, r, name in zip(out, ref, NAMES):
+            np.testing.assert_allclose(a[fi], r, rtol=FLEET_RTOL,
+                                       atol=FLEET_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("f,b,ts,c,e,n_blocks", [
+    (2, 3, 10, 12, 12, (3, 2)),  # tests/test_fleet_engine.py's shape
+    (3, 2, 13, 56, 56, (2, 1, 2)),
+])
+def test_queue_loss_fleet_matches_reference(f, b, ts, c, e, n_blocks):
+    rng = np.random.default_rng(f * 10 + ts)
+    demand = rng.uniform(0.0, 6.0, size=(f, b, ts, c))
+    w = rng.uniform(0.0, 1.0, size=(f, b, c, e))
+    cap = rng.uniform(1.0, 3.0, size=(f, b, e))
+    cap[rng.random((f, b, e)) < 0.1] = 0.0  # dead links
+    for fi, nb in enumerate(n_blocks):
+        demand[fi, nb:], w[fi, nb:], cap[fi, nb:] = 0.0, 0.0, 0.0
+    buf = 0.02 * cap
+    ref = ref_qlops.queue_loss_fleet(demand, w, cap, buf, 1.0, backend="pallas")
+    ref_np = ref_qlops.queue_loss_fleet(demand, w, cap, buf, 1.0, backend="numpy")
+    out = qlops.queue_loss_fleet(demand, w, cap, buf, 1.0, device="cpu")
+    assert float(ref[0].sum()) > 0.0  # the scenario drops
+    for a, r, name in zip(out, ref, ("drop", "tot")):
+        assert a.shape == (f, b, ts)
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+    for a, r in zip(qlops.queue_loss_fleet(demand, w, cap, buf, 1.0,
+                                           backend="numpy"), ref_np):
+        np.testing.assert_array_equal(a, r)
+    # the queue starts empty in every (fabric, block) pair
+    for fi in range(f):
+        d_b, t_b = qlops.queue_loss_batched(demand[fi], w[fi], cap[fi], buf[fi],
+                                            1.0, device="cpu")
+        np.testing.assert_allclose(out[0][fi], d_b, rtol=FLEET_RTOL, atol=1e-4)
+        np.testing.assert_allclose(out[1][fi], t_b, rtol=FLEET_RTOL, atol=1e-4)
+
+
+def _ragged_fleet(seed, vp, pods, lo, hi):
+    """Per-fabric native blocks (ragged block counts and lengths) plus their
+    bucket-layout embeddings (``vp`` padded pods), weights and capacities
+    with dead links, and burst seeds."""
+    rng = np.random.default_rng(seed)
+    cp = vp * (vp - 1)
+    native, padded, w_f, caps_f, seeds_f, slots_f = [], [], [], [], [], []
+    for fi, v in enumerate(pods):
+        c = v * (v - 1)
+        slots = commodity_slots(v, vp)
+        nb = 2 + fi
+        blocks = [rng.uniform(lo, hi, size=(3 + 2 * bi, c)) for bi in range(nb)]
+        w = np.zeros((nb, cp, cp))
+        w[:, slots[:, None], slots[None, :]] = rng.uniform(0.0, 1.0, (nb, c, c))
+        caps = scatter_pad(rng.uniform(5.0, 10.0, (nb, c)), slots, cp, axis=1)
+        caps[:, slots[-2:]] = 0.0  # dead links in every fabric
+        native.append(blocks)
+        padded.append([scatter_pad(bl, slots, cp, axis=1) for bl in blocks])
+        w_f.append(w)
+        caps_f.append(caps)
+        seeds_f.append([100 * fi + bi for bi in range(nb)])
+        slots_f.append(slots)
+    return native, padded, w_f, caps_f, seeds_f, slots_f
+
+
+def test_interval_loss_fleet_matches_reference():
+    """Burst expansion on each fabric's native blocks with the same seeds,
+    scattered into the padded bucket layout: bit-equal to the reference on
+    numpy; on the plain PyTorch version, within the kernel contract of the
+    Pallas side, and paired with the port's own per-fabric path."""
+    native, _, w_f, caps_f, seeds_f, slots_f = _ragged_fleet(1, 8, (6, 7, 8),
+                                                             0.0, 20.0)
+    ref_np = ref_interval_loss_fleet(native, w_f, caps_f, 60.0, LOSS, seeds_f,
+                                     backend="numpy", slots_fleet=slots_f)
+    out_np = interval_loss_fleet(native, w_f, caps_f, 60.0, PORT_LOSS, seeds_f,
+                                 backend="numpy", slots_fleet=slots_f)
+    ref_pl = ref_interval_loss_fleet(native, w_f, caps_f, 60.0, LOSS, seeds_f,
+                                     backend="pallas", slots_fleet=slots_f)
+    out = interval_loss_fleet(native, w_f, caps_f, 60.0, PORT_LOSS, seeds_f,
+                              slots_fleet=slots_f, device="cpu")
+    assert any(l.max() > 0 for row in ref_np for l in row)  # it drops
+    for fi in range(len(native)):
+        for a, r in zip(out_np[fi], ref_np[fi]):
+            np.testing.assert_array_equal(a, r)
+        for a, r in zip(out[fi], ref_pl[fi]):
+            np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL)
+        # paired with the per-fabric batched path in the fabric's own layout
+        sl = slots_f[fi]
+        own = interval_loss_batched(native[fi], w_f[fi][:, sl][:, :, sl],
+                                    caps_f[fi][:, sl], 60.0, PORT_LOSS,
+                                    seeds_f[fi],
+                                    device="cpu")
+        for a, r in zip(out[fi], own):
+            np.testing.assert_allclose(a, r, rtol=FLEET_RTOL, atol=FLEET_ATOL)
+
+
+@pytest.mark.parametrize("with_loss", [False, True])
+def test_route_metrics_fleet_matches_reference(with_loss):
+    """One fused scoring pass over a ragged, padded bucket against the
+    reference's (Pallas kernels in interpret mode) and against the port's
+    own per-fabric batched scoring."""
+    native, padded, w_f, caps_f, seeds_f, slots_f = _ragged_fleet(
+        2, 8, (6, 8, 7), 0.0, 40.0)
+    kw = {}
+    if with_loss:
+        kw = dict(loss_cfg=LOSS, loss_seeds_fleet=seeds_f, interval_seconds=60.0,
+                  loss_blocks_fleet=native, loss_slots_fleet=slots_f)
+    ref = ref_route_metrics_fleet(padded, w_f, caps_f, backend="pallas", **kw)
+    port_kw = dict(kw, loss_cfg=PORT_LOSS) if with_loss else {}
+    out = route_metrics_fleet(padded, w_f, caps_f, device="cpu", **port_kw)
+    fields = FIELDS if with_loss else FIELDS[:4]
+    for fi in range(len(native)):
+        for name in fields:
+            a, r = getattr(out[fi], name), getattr(ref[fi], name)
+            assert a.shape == r.shape == (sum(len(bl) for bl in native[fi]),)
+            np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+        own = route_metrics_batched(
+            padded[fi], w_f[fi], caps_f[fi], device="cpu",
+            loss_cfg=port_kw.get("loss_cfg"), interval_seconds=60.0,
+            loss_seeds=seeds_f[fi] if with_loss else None)
+        for name in fields:
+            if name == "loss":  # batched expands in the padded layout: unpaired
+                continue
+            np.testing.assert_allclose(getattr(out[fi], name),
+                                       getattr(own, name), rtol=FLEET_RTOL,
+                                       atol=FLEET_ATOL, err_msg=name)
+    if not with_loss:
+        assert all(m.loss is None for m in out)

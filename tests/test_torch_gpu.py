@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 batched entries at the batched engine's chip-scale shapes (B=672 epochs,
 T=3 / TS=36, C=E=132), the single-block entries at the streaming
-controller's (T=3 / TS=36) and the whole-trace baseline's (T=4032), and all
-at ragged shapes.  Marked ``gpu``: each test decides inside itself whether a
+controller's (T=3 / TS=36) and the whole-trace baseline's (T=4032), the
+fleet entries at the 22-fabric fleet's 12-pod bucket (F=15 fabrics, B=96
+blocks, C=E=132), and all at ragged shapes (fleet: all-zero padded blocks).  Marked ``gpu``: each test decides inside itself whether a
 card is present and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports the JAX package, which the
@@ -16,9 +17,11 @@ import torch
 
 from repro_torch.kernels.linkload import ops as llops
 from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
+                                              linkload_metrics_fleet_ref,
                                               linkload_metrics_ref)
 from repro_torch.kernels.queueloss import ops as qlops
 from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
+                                               queueloss_fleet_ref,
                                                queueloss_ref)
 
 RTOL, ATOL = 3e-4, 1e-4
@@ -98,3 +101,75 @@ def test_single_queueloss_kernel_matches_plain(gen, ts, c, e):
     assert float(ref[0].sum()) > 0.0
     for a, r in zip(out, ref):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+def _pad_blocks(n_blocks, *tensors):
+    """Zero every fabric's blocks past its own count (a ragged bucket)."""
+    for t in tensors:
+        for fi, nb in enumerate(n_blocks):
+            t[fi, nb:] = 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,b,t,c,e,n_blocks", [
+    (15, 96, 3, 132, 132, None), (3, 5, 13, 30, 200, (5, 2, 4))])
+def test_fleet_linkload_kernel_matches_plain(gen, f, b, t, c, e, n_blocks):
+    d = torch.randint(0, 16, (f, b, t, c), generator=gen, device="cuda").float()
+    w = torch.randint(0, 17, (f, b, c, e), generator=gen, device="cuda").float() / 16
+    cap = 20.0 + 40.0 * torch.rand((f, b, e), generator=gen, device="cuda")
+    inv_cap = torch.where(torch.rand((f, b, e), generator=gen, device="cuda") < 0.1,
+                          0.0, 1.0 / cap)
+    if n_blocks is not None:
+        _pad_blocks(n_blocks, d, w, inv_cap)
+    before = llops.fleet_launches
+    out = llops.linkload_fleet(d, w, inv_cap, 0.8)
+    ref = linkload_metrics_fleet_ref(d, w, inv_cap, 0.8)
+    assert llops.fleet_launches == before + 1
+    for a, r in zip(out, ref):
+        assert a.shape == (f, b, t)
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,b,ts,c,e,n_blocks", [
+    (15, 96, 36, 132, 132, None), (3, 4, 45, 30, 300, (4, 1, 3))])
+def test_fleet_queueloss_kernel_matches_plain(gen, f, b, ts, c, e, n_blocks):
+    d = torch.rand((f, b, ts, c), generator=gen, device="cuda") * 20.0
+    w = torch.rand((f, b, c, e), generator=gen, device="cuda")
+    w = w * (torch.rand((f, b, c, e), generator=gen, device="cuda") < 0.08)
+    cap = 40.0 + 80.0 * torch.rand((f, b, e), generator=gen, device="cuda")
+    cap = torch.where(torch.rand((f, b, e), generator=gen, device="cuda") < 0.1,
+                      0.0, cap)
+    if n_blocks is not None:
+        _pad_blocks(n_blocks, d, w, cap)
+    buf = cap * 0.025
+    before = qlops.fleet_launches
+    out = qlops.queueloss_fleet(d, w, cap, buf, 30.0)
+    ref = queueloss_fleet_ref(d, w, cap, buf, 30.0)
+    assert qlops.fleet_launches == before + 1
+    assert float(ref[0].sum()) > 0.0
+    for a, r in zip(out, ref):
+        assert a.shape == (f, b, ts)
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n_in", [("linkload", 3), ("queueloss", 4)])
+def test_fleet_entry_refuses_an_oversize_grid(gen, name, n_in):
+    """F·B pairs whose CTA count passes gridDim.x's limit (2^31 - 1) are
+    refused with cudaErrorInvalidConfiguration before anything launches:
+    the count is formed in 64 bits, never truncated, so the null pointers
+    below never reach a kernel."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = getattr(_build.library(name), f"{name}_fleet")
+    # n_in inputs, the threshold / dt, four outputs, F, B, T, C, E, stream
+    fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(*[None] * n_in, 0.8, *[None] * 4, 1 << 16, 1 << 16, 8, 4, 4,
+            torch.cuda.current_stream().cuda_stream)  # 2^32 pairs
+    assert rc == 9  # cudaErrorInvalidConfiguration
+    torch.cuda.synchronize()

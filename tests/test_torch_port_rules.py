@@ -25,7 +25,9 @@ import repro_torch.burst.expander as port_expander
 import repro_torch.core.fleet as port_fleet
 from repro.core import ControllerConfig as RefControllerConfig
 from repro_torch import interop
-from repro_torch.core import ControllerConfig, Strategy, run_controller
+from repro_torch.core import (ControllerConfig, FleetJob, Strategy,
+                              predict_fleet, run_controller, run_fleet)
+from repro_torch.core import fleet_engine
 from repro_torch.core.baselines import uniform_vlb_metrics
 from repro_torch.device import resolve_device
 from repro_torch.serve import StreamingController, TMStream
@@ -37,7 +39,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.core.engine, repro_torch.interop, "
             "repro_torch.kernels.linkload.ops, repro_torch.kernels.queueloss.ops, "
             "repro_torch.serve, repro_torch.core.predictor, "
-            "repro_torch.core.baselines, repro_torch.obs.audit\n"
+            "repro_torch.core.baselines, repro_torch.obs.audit, "
+            "repro_torch.core.fleet_engine\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -67,6 +70,10 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
         uniform_vlb_metrics(fab, trace)
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.warm_state_from_numpy({"f1": np.zeros(1), "y1": np.zeros(1)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fleet([FleetJob(fab, trace, Strategy(False, True))])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict_fleet([(fab, trace)])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -77,6 +84,46 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
 def test_later_slices_raise(over):
     with pytest.raises(NotImplementedError, match="later slice"):
         ControllerConfig(**over)
+
+
+def _port_fleet_job(small_fabric, small_trace, cc):
+    return FleetJob(
+        interop.fabric_from_numpy(small_fabric.name, small_fabric.radix,
+                                  small_fabric.speed),
+        interop.trace_from_numpy(small_trace.name, small_trace.demand,
+                                 small_trace.interval_minutes,
+                                 small_trace.n_pods),
+        Strategy(False, True), cc)
+
+
+@pytest.mark.parametrize("field", ["failures", "transition"])
+def test_fleet_job_of_a_later_slice_raises(small_fabric, small_trace, field):
+    """``run_fleet`` refuses a job with failure contingencies or transitions
+    (the config refuses them at construction; the engine checks again)."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ControllerConfig(**{field: object()})
+    cc = ControllerConfig()
+    object.__setattr__(cc, field, object())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        run_fleet([_port_fleet_job(small_fabric, small_trace, cc)],
+                  device="cpu")
+
+
+def test_fleet_sharding_raises(small_fabric, small_trace, monkeypatch):
+    """Sharding over several cards is a later slice: an explicit mesh, and
+    ``mesh="auto"`` with several CUDA devices visible, raise; ``"auto"`` on
+    one device and ``None`` run unsharded."""
+    job = _port_fleet_job(small_fabric, small_trace, ControllerConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
+        run_fleet([job], mesh=object(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
+        fleet_engine._check_mesh("auto", torch.device("cuda"))
+    fleet_engine._check_mesh("auto", torch.device("cpu"))
+    fleet_engine._check_mesh(None, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        predict_fleet([(job.fabric, job.trace)], contingency_weight=0.5,
+                      device="cpu")
 
 
 def test_sequential_engine_runs(small_fabric, small_trace):
