@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
 
 1. The card: ``nvidia-smi`` name and power limit, the torch device name and
    count.  No CUDA device means exit 1.
-2. Build both CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, in parallel; each carries a batched, a single-block and a fleet
-   entry) and print ptxas' registers/spills.
+2. Build the five CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
+   each, in parallel: linkload and queueloss, each with a batched, a
+   single-block and a fleet entry; flash attention, the RG-LRU scan and the
+   SSD chunk scan) and print ptxas' registers/spills.
 3. Hold each of the six kernel entries against its plain PyTorch version on
    the card: the batched ones at the batched engine's shapes (B=96 epochs of
    phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
@@ -20,6 +21,12 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    fabrics with fewer blocks than the bucket and a padded-pod layout); time
    kernel, plain version and the ``torch.bmm`` / ``torch.mm`` yardstick with
    CUDA events.  A small batched PDHG solve is held against scipy/HiGHS.
+   The model kernels at the shapes of phase 8's prefill and at ragged ones:
+   flash attention at recurrentgemma-9b's (B=2, S=4096, H=16, KV=1, hd=256,
+   window 2048, bf16; yardstick ``scaled_dot_product_attention`` with the
+   same mask), the RG-LRU scan at (2, 4096, 4096), the SSD chunk scan at
+   mamba2-130m's (B=4, H=24, S=4096, P=64, N=128, chunk 64, also against
+   itself at chunk 128).
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -43,6 +50,14 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    kernel.  Held against the per-fabric batched engine on F21 (12 pods), F1
    (11, padded to 12) and F17 (6, padded to 8), and every job re-scored
    through the numpy oracle.
+8. Model serving at full width and depth (random weights from a seed):
+   the prefill step (``repro_torch.launch.steps.make_prefill_step``) on
+   recurrentgemma-9b (bf16, B=2, S=4096: 12 flash-attention and 26 RG-LRU
+   launches) and on mamba2-130m (bf16, B=4, S=4096: 24 SSD launches), with
+   finite logits, times and peak memory; the kernels' forward against the
+   plain token-by-token decode in float32 (TF32 off) at B=2, S=64; and
+   ``repro_torch.launch.serve.serve`` with ``--full`` and the launcher's
+   defaults (16 requests, batch 4, prompt 32, gen 32) for both.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -60,6 +75,25 @@ LINK_RTOL, LINK_ATOL = 3e-4, 1e-4  # kernel contracts (f32 vs plain/f64)
 SCORE_TOL = 1e-5  # scoring vs the float64 numpy oracle
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
+LIBRARIES = ("linkload", "queueloss", "flash_attention", "rglru_scan", "ssd_chunk")
+# phase 8's prefill shapes: (arch, batch, seq) and the kernel launches of one
+# forward at full depth
+PREFILL = (("recurrentgemma-9b", 2, 4096,
+            {"flash_attention": 12, "rglru_scan": 26, "ssd_chunk": 0}),
+           ("mamba2-130m", 4, 4096,
+            {"flash_attention": 0, "rglru_scan": 0, "ssd_chunk": 24}))
+# the model kernels' contracts (tests/test_kernels_sweep.py): flash attention
+# 2e-3 in f32, RG-LRU 1e-4, SSD relative 1e-3; flash attention in bf16 is held
+# to its float32 plain version within the bound on bf16 rounding
+# (flash_attention/ref.py: bf16_rounding_bound), not to the reference's flat
+# 3e-2, which is as large as a typical output at the 2048-key window
+FLASH_F32_TOL, RGLRU_TOL, SSD_REL_TOL = 2e-3, 1e-4, 1e-3
+# decode (plain) against the kernels' forward in float32 at B=2, S=64: at
+# reduced widths on the CPU the two differ by at most 1.3e-5, on the card at
+# full width by 4.2e-4 on |logits| <= 3 (PERF.md); the reference's bf16 contract is 6e-2
+# (tests/test_arch_smoke.py)
+DECODE_TOL, DECODE_LEN = 1e-3, 64
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
 # phase 7's buckets: (fabrics, blocks per fabric, commodities) of the 12-pod
 # and the 8-pod bucket of the 22-fabric fleet
@@ -104,10 +138,11 @@ def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20):
     return times[len(times) // 2]
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    """Least time on an H100 SXM: bytes over HBM rate vs f32 operations over
-    the f32 rate; returns (ms, "bytes" | "operations")."""
-    tb, tf = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOP_PER_S
+def bound_ms(n_bytes: float, n_flops: float, flop_rate: float = F32_FLOP_PER_S):
+    """Least time on an H100 SXM: bytes over HBM rate vs operations over
+    ``flop_rate`` (f32 unless the work is bf16); returns
+    (ms, "bytes" | "operations")."""
+    tb, tf = n_bytes / HBM_BYTES_PER_S, n_flops / flop_rate
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -144,7 +179,7 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    secs = _build.build(["linkload", "queueloss"])
+    secs = _build.build(LIBRARIES)
     log(f"phase 2: built {sorted(secs)} in {time.perf_counter() - t0:.2f} s "
         f"(per library {({k: round(v, 2) for k, v in secs.items()})})")
     for name, text in sorted(_build.logs().items()):
@@ -469,6 +504,178 @@ def phase_fleet_kernels():
             "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
             **timed[name]["V12"], "library_ms": None, "bucket_V8": timed[name]["V8"],
             "status": "ported"}
+    return rows
+
+
+def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs inside the mask of one attention row."""
+    total = 0
+    for qi in range(sq):
+        hi = min(sk - 1, qi) if causal else sk - 1
+        lo = max(0, qi - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_model_kernels():
+    """Kernels #7-#9 at phase 8's prefill shapes and at ragged ones, against
+    their plain versions on the card; times at the prefill shapes, with
+    ``scaled_dot_product_attention`` (same mask, ``enable_gqa``) as flash
+    attention's yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import attention_ref, bf16_rounding_bound
+    from repro_torch.kernels.rglru_scan import ops as rlops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    rows = {}
+
+    # 7. flash attention: recurrentgemma-9b's local attention, and a ragged
+    # shape (hd 100, H/KV 4, non-causal window)
+    for label, (b, s, h, kv, hd, causal, window, dtype) in (
+            ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
+            ("ragged", (1, 1000, 8, 2, 100, False, 48, torch.float32))):
+        q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
+                   for n in (h, kv, kv))
+        args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+        out = faops.flash_attention_rows(q, k, v, **args)
+        if dtype == torch.bfloat16:
+            ref, tol = bf16_rounding_bound(q, k, v, **args)
+            contract = "the bf16 rounding bound 2^-7 (sum w|v| + |out|) + 1e-6"
+        else:
+            ref, tol = attention_ref(q, k, v, **args), FLASH_F32_TOL
+            contract = f"{FLASH_F32_TOL}"
+        torch.cuda.synchronize()
+        d = (out.float() - ref).abs()
+        err, worst = float(d.max()), float((d / tol).max())
+        del d, tol
+        log(f"phase 3: flash_attention {label} (B={b}, S={s}, H={h}, KV={kv}, "
+            f"hd={hd}, causal={causal}, window={window}, {dtype}): max abs err "
+            f"{err:.3e} against the float32 plain version, median |out| "
+            f"{float(ref.abs().median()):.3e}, worst |err|/tol {worst:.4f} "
+            f"(tol: {contract})")
+        if not worst <= 1.0 or not bool(torch.isfinite(out.float()).all()):
+            fail(f"flash_attention {label} disagrees with its plain version")
+        if label == "ragged":
+            continue
+        pairs = _band_pairs(s, s, causal, window) * b * h
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        n_flops = 4 * hd * pairs
+        q4, k4, v4 = q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd)
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        sdpa_err = float((sdpa().float().reshape(out.shape) - out.float()).abs().max())
+        ms = time_cuda(lambda: faops.flash_attention_rows(q, k, v, **args))
+        plain = time_cuda(lambda: attention_ref(q, k, v, **args))
+        lib = time_cuda(sdpa)
+        bnd, by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+        log(f"  flash_attention times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms (max abs diff to the "
+            f"kernel {sdpa_err:.3e}), bound {bnd:.4f} ms ({by}: "
+            f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP on {pairs} "
+            f"(q, k) pairs at the bf16 rate)")
+        rows["flash_attention"] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib, "shape": [b, s, h, kv, hd, window],
+            "status": "ported"}
+        del q, k, v, out, ref, q4, k4, v4
+
+    # 8. RG-LRU scan: recurrentgemma-9b's (B, S, d_model), and ragged shapes
+    for label, (b, s, d) in (("main", (2, 4096, 4096)), ("ragged", (3, 37, 31)),
+                             ("ragged2", (2, 513, 130))):
+        a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device=dev)
+        x = 0.5 * torch.randn((b, s, d), generator=gen, device=dev)
+        out, ref = rlops.rglru_scan(a, x), rglru_scan_ref(a, x)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        worst = float(((out - ref).abs() / (RGLRU_TOL + RGLRU_TOL * ref.abs())).max())
+        log(f"phase 3: rglru_scan {label} {(b, s, d)}: max abs err {err:.3e}, "
+            f"worst |err|/(atol+rtol|ref|) {worst:.3f} (contract {RGLRU_TOL})")
+        if worst > 1.0:
+            fail(f"rglru_scan {label} disagrees with its plain version")
+        if label != "main":
+            continue
+        n_bytes, n_flops = 3 * 4 * a.numel(), 2 * a.numel()
+        ms = time_cuda(lambda: rlops.rglru_scan(a, x))
+        plain = time_cuda(lambda: rglru_scan_ref(a, x))
+        bnd, by = bound_ms(n_bytes, n_flops)
+        log(f"  rglru_scan times: kernel {ms:.4f} ms, plain (log-step scan) "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB)")
+        rows["rglru_scan"] = {
+            "name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:40",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "shape": [b, s, d],
+            "status": "ported"}
+        del a, x, out, ref
+
+    # 9. SSD chunk scan: mamba2-130m's prefill, and a ragged shape whose
+    # chunk halves to 32
+    for label, (b, h, s, p, n, chunk) in (("main", (4, 24, 4096, 64, 128, 64)),
+                                          ("ragged", (1, 3, 96, 32, 16, 64))):
+        x = torch.randn((b, h, s, p), generator=gen, device=dev)
+        dt = 0.001 + 0.099 * torch.rand((b, h, s, 1), generator=gen, device=dev)
+        a = -(1.0 + 7.0 * torch.rand((h, 1, 1, 1), generator=gen, device=dev))
+        bm = torch.randn((b, 1, s, n), generator=gen, device=dev)
+        cm = torch.randn((b, 1, s, n), generator=gen, device=dev)
+        args = (x, dt, a, bm, cm)
+        q_len = chunk if s % chunk == 0 else 32
+        out, ref = sdops.ssd_scan(*args, chunk), ssd_chunk_ref(*args, q_len)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        log(f"phase 3: ssd_chunk {label} (B={b}, H={h}, S={s}, P={p}, N={n}, "
+            f"chunk {q_len}): max abs err {err:.3e}, relative {rel:.3e} "
+            f"(contract {SSD_REL_TOL})")
+        if not rel < SSD_REL_TOL:
+            fail(f"ssd_chunk {label} disagrees with its plain version")
+        if label != "main":
+            continue
+        # chunk invariance, the reference's 1e-4 (tests/test_kernels_sweep.py:104)
+        o128 = sdops.ssd_scan(*args, 128)
+        worst = float(((o128 - out).abs() / (1e-4 + 1e-4 * out.abs())).max())
+        log(f"  ssd_chunk chunk 64 vs 128: max abs diff "
+            f"{float((o128 - out).abs().max()):.3e}, worst |diff|/(atol+rtol|y|) "
+            f"{worst:.3f}")
+        if not worst <= 1.0:
+            fail("ssd_chunk is not chunk-invariant")
+        del o128
+        # B and C have one group, so C·Bᵀ (Q²N per chunk) is shared by all H
+        # heads; each head adds the masked product with x (Q²P) and the state
+        # read and update (2QNP) per chunk
+        n_chunks = b * h * (s // chunk)
+        n_flops = 2 * (b * (s // chunk) * chunk * chunk * n
+                       + n_chunks * (chunk * chunk * p + 2 * chunk * n * p))
+        n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + 2 * bm.numel())
+        ms = time_cuda(lambda: sdops.ssd_scan(*args, chunk))
+        plain = time_cuda(lambda: ssd_chunk_ref(*args, chunk))
+        bnd, by = bound_ms(n_bytes, n_flops)
+        log(f"  ssd_chunk times: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} "
+            f"GFLOP over {n_chunks} chunks)")
+        rows["ssd_chunk"] = {
+            "name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:65",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "shape": [b, h, s, p, n, chunk],
+            "status": "ported"}
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -914,6 +1121,162 @@ def phase_fleet(jobs, device, check=("F21", "F1", "F17")):
     return counts, {"wall_s": wall, "peak_bytes": peak}
 
 
+def _device_profile(fn, device, top: int = 8):
+    """One call of ``fn`` under ``torch.profiler``: the host wall time (ending
+    in a synchronize), the summed device time of its kernels, their share of
+    the wall time (the device's busy share; on one stream kernels do not
+    overlap) and the ``top`` kernels by device time, as (name, ms, calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import synchronize
+
+    synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize(device)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6  # us -> s
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                        for e in kernels[:top]]
+
+
+def phase_models(device):
+    """Model serving (phase 8): the prefill step of each ``PREFILL`` model at
+    full width and depth with the kernel counters zeroed around it, the
+    kernels' forward against the plain decode in float32 over
+    ``DECODE_LEN`` tokens, and the serving launcher."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.rglru_scan import ops as rlops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.api import build_model
+
+    wrappers = {"flash_attention": faops, "rglru_scan": rlops, "ssd_chunk": sdops}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def config(arch, dtype=None):
+        cfg = get_arch(arch)
+        return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+    def release():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    counts = dict.fromkeys(wrappers, 0)
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(8)
+    for arch, batch, s, expect in PREFILL:
+        cfg = config(arch)
+        model = build_model(cfg, device)
+        release()
+        t0 = time.perf_counter()
+        params = model.init(0)
+        synchronize(device)
+        t_init = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab, (batch, s), generator=gen, device=device)
+        step = make_prefill_step(model)
+        synchronize(device)
+        zero_counts()
+        t0 = time.perf_counter()
+        nxt = step(params, {"tokens": tokens})
+        synchronize(device)
+        t_step = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens})
+        synchronize(device)
+        t_fwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        same = bool(torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt))
+        n_params = sum(p.numel() for p in params.parameters())
+        log(f"phase 8: {cfg.name} prefill ({cfg.dtype}, {n_params} parameters, "
+            f"B={batch}, S={s}): init {t_init:.3f} s; prefill step {t_step:.3f} s "
+            f"({batch * s / t_step:.1f} tokens/s), warm forward {t_fwd:.3f} s "
+            f"({batch * s / t_fwd:.1f} tokens/s); kernel launches {got}; logits "
+            f"{tuple(logits.shape)} {logits.dtype}, finite {finite}, last-position "
+            f"argmax equals the step's token {same}; peak device memory {peak} B")
+        if got != expect:
+            fail(f"{cfg.name} prefill: expected kernel launches {expect}, got {got}")
+        if logits.shape != (batch, s, cfg.vocab) or not finite or not same:
+            fail(f"{cfg.name} prefill: logits mis-shaped, not finite, or not the "
+                 f"step's token")
+        for k, n in got.items():
+            counts[k] += n
+        del logits
+        wall, busy, top = _device_profile(
+            lambda: model.forward(params, {"tokens": tokens}), device)
+        log(f"  profiled forward: wall {wall:.3f} s, kernels {busy:.3f} s on the "
+            f"device (busy share {busy / wall:.3f}); top kernels (name, ms, "
+            f"calls) {[(n, round(ms, 3), c) for n, ms, c in top]}")
+        out[arch] = {"init_s": t_init, "prefill_step_s": t_step, "forward_s": t_fwd,
+                     "peak_bytes": peak, "params": n_params,
+                     "profiled_busy_share": busy / wall}
+        del params, tokens, nxt
+
+    # the kernels' forward against the plain token-by-token decode, float32
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch, *_ in PREFILL:
+            cfg = config(arch, "float32")
+            model = build_model(cfg, device)
+            release()
+            params = model.init(0)
+            tokens = torch.randint(0, cfg.vocab, (2, DECODE_LEN), generator=gen,
+                                   device=device)
+            t0 = time.perf_counter()
+            full = model.forward(params, {"tokens": tokens})
+            cache = model.init_cache(2, DECODE_LEN)
+            worst = err = 0.0
+            for pos in range(DECODE_LEN):
+                logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos)
+                d = (logits[:, 0] - full[:, pos]).abs()
+                err = max(err, float(d.max()))
+                worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+            synchronize(device)
+            log(f"phase 8: {cfg.name} float32 (TF32 off) decode vs forward, B=2, "
+                f"S={DECODE_LEN}: {time.perf_counter() - t0:.3f} s; max abs err "
+                f"{err:.3e}, |logits| max {float(full.abs().max()):.3f}, worst "
+                f"|err|/(tol+tol|ref|) {worst:.4f} (tol {DECODE_TOL}); peak device "
+                f"memory {torch.cuda.max_memory_allocated()} B")
+            if not worst <= 1.0:
+                fail(f"{cfg.name}: float32 decode disagrees with the forward")
+            out[arch]["decode_vs_forward_max_abs_err"] = err
+            del params, full, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # the serving launcher with --full and its defaults
+    for arch, *_ in PREFILL:
+        release()
+        zero_counts()
+        res = serve(arch, requests=16, batch=4, prompt_len=32, gen_len=32,
+                    full=True, device=device)
+        got = {k: w.launches for k, w in wrappers.items()}
+        log(f"phase 8: serve {json.dumps(res)}; kernel launches {got} (decode "
+            f"runs none); peak device memory {torch.cuda.max_memory_allocated()} B")
+        if res["requests"] != 16 or res["tokens_generated"] != 16 * 32:
+            fail(f"serve {arch}: {res}")
+        out[arch]["serve"] = res
+    release()
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -938,6 +1301,7 @@ def main() -> int:
     rows = phase_kernels()
     single = phase_single_kernels()
     fleet = phase_fleet_kernels()
+    model_rows = phase_model_kernels()
     phase_pdhg_check()
     mark("kernels")
     config = sweep_config()
@@ -949,17 +1313,24 @@ def main() -> int:
     mark("sequential")
     fleet_counts, _ = phase_fleet(fleet_config(), dev)
     mark("fleet")
+    model_counts, _ = phase_models(dev)
+    mark("models")
     for key in rows:
         rows[key]["launches"] = counts[key]
     for key in single:
         single[key]["launches"] = serve_counts[key]
         single[key]["launches_sequential_phase"] = seq_counts[key]
         fleet[key]["launches"] = fleet_counts[key]
+    for key in model_rows:
+        model_rows[key]["launches"] = model_counts[key]
     log(f"phase end times (s since start) {marks}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows["linkload"], rows["queueloss"],
                                   single["linkload"], single["queueloss"],
-                                  fleet["linkload"], fleet["queueloss"]]}))
+                                  fleet["linkload"], fleet["queueloss"],
+                                  model_rows["flash_attention"],
+                                  model_rows["rglru_scan"],
+                                  model_rows["ssd_chunk"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

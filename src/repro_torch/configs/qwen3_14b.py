@@ -1,0 +1,9 @@
+"""qwen3-14b [dense]: 40L d=5120 40H (GQA kv=8) ff=17408 vocab=151936;
+qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-14b", family="dense", n_layers=40, d_model=5120, n_heads=40,
+    n_kv_heads=8, d_ff=17408, vocab=151936, head_dim=128, qk_norm=True,
+    rope_theta=1_000_000.0,
+)

@@ -7,10 +7,11 @@ import torch
 __all__ = ["placement"]
 
 
-def placement(name: str, **tensors) -> torch.device:
+def placement(name: str, dtypes=(torch.float32,), **tensors) -> torch.device:
     """The one device all ``tensors`` lie on, after checking that the kernel
-    takes them: contiguous float32, all on the CPU or all on one CUDA device.
-    Raises ``ValueError`` otherwise (a wrapper never copies or casts)."""
+    takes them: contiguous, of one of ``dtypes`` (float32 unless the kernel
+    says otherwise), all on the CPU or all on one CUDA device.  Raises
+    ``ValueError`` otherwise (a wrapper never copies or casts)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
@@ -18,8 +19,8 @@ def placement(name: str, **tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     for arg, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: {arg} must be one of {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev

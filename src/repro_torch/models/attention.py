@@ -1,0 +1,103 @@
+"""Grouped-query attention with RoPE, optional qk-norm and sliding windows —
+the counterpart of ``repro/models/attention.py``.
+
+The full-sequence path (:func:`self_attention`, train / prefill) goes through
+the flash-attention wrapper: the CUDA kernel on the card, its plain version on
+the CPU.  One-token decode (:func:`decode_attention`) stays plain PyTorch, as
+in the reference, and writes the new key and value into the cache in place.
+Cross-attention waits for the audio family.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models.layers import dtype_of, init_dense, rms_norm, rope
+
+__all__ = ["NEG_INF", "init_attn_params", "self_attention", "decode_attention"]
+
+NEG_INF = -2.0e38
+
+
+def init_attn_params(gen, cfg, device) -> dict:
+    d, hd, dt = cfg.d_model, cfg.resolved_head_dim, dtype_of(cfg)
+    p = {
+        "wq": init_dense(gen, (d, cfg.n_heads * hd), dtype=dt, device=device),
+        "wk": init_dense(gen, (d, cfg.n_kv_heads * hd), dtype=dt, device=device),
+        "wv": init_dense(gen, (d, cfg.n_kv_heads * hd), dtype=dt, device=device),
+        "wo": init_dense(gen, (cfg.n_heads * hd, d), dtype=dt, device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(hd, dtype=dt, device=device)
+        p["k_norm"] = torch.zeros(hd, dtype=dt, device=device)
+    return p
+
+
+def _project_qkv(p, x, cfg, positions):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg):
+    """q (B,S,H,hd), k/v (B,T,KV,hd), mask (B,S,T) bool; GQA via head
+    grouping, scores and softmax in float32."""
+    hd = q.shape[-1]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    b, s, h, _ = q.shape
+    qg = q.reshape(b, s, cfg.n_kv_heads, groups, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / hd ** 0.5
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, hd)
+
+
+def _out_proj(p, out, cfg):
+    b, s = out.shape[:2]
+    return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
+
+
+def self_attention(p, x, cfg, window: int = 0):
+    """Full-sequence causal self-attention (train / prefill), through the
+    flash-attention kernel.  x (B, S, d); ``window`` 0 = global."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(p, out, cfg)
+
+
+def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
+                     ring: bool = False):
+    """One-token decode. x (B, 1, d); cache {"k","v"}: (B, S, KV, hd).
+
+    Returns (out (B, 1, d), cache).  ``pos`` is the position of the new
+    token (all sequences decode in lockstep).  The new key and value are
+    written into ``cache`` in place, at ``pos`` (``pos % S`` with
+    ``ring=True``: a sliding-window ring buffer whose keys are cached after
+    RoPE, so masking only excludes slots not yet written).
+    """
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    s = cache["k"].shape[1]
+    slot = pos % s if ring else pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    j = torch.arange(s, device=x.device)
+    mask = j <= pos
+    if not ring and window > 0:
+        mask = mask & (j > pos - window)
+    mask = mask.expand(b, 1, s)
+    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, cfg)
+    return _out_proj(p, out, cfg), cache

@@ -1,0 +1,60 @@
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embeddings, initializers —
+the counterpart of ``repro/models/layers.py``.  Weights keep the reference's
+(in, out) layout, so a product is ``x @ w``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["dtype_of", "rms_norm", "rope", "swiglu", "embed", "unembed",
+           "init_dense"]
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The torch dtype named by ``cfg.dtype`` ("bfloat16", "float32")."""
+    return getattr(torch, cfg.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm in float32, scaled by ``1 + scale`` (zero-initialized)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Rotary embedding of the two halves of the head dimension (not
+    interleaved pairs).  x: (..., S, H, D); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return x @ table.T
+
+
+def init_dense(gen: torch.Generator, shape, scale: float | None = None,
+               dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Normal(0, scale) in float32, cast to ``dtype``; ``scale`` defaults to
+    1/sqrt(fan_in) with fan_in = ``shape[-2]`` (``shape[0]`` for a vector)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    scale = scale if scale is not None else 1.0 / fan_in ** 0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)

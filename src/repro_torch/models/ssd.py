@@ -1,0 +1,164 @@
+"""Mamba2 SSD (state-space duality, arXiv:2405.21060) block — the
+counterpart of ``repro/models/ssd.py``.
+
+Selective SSM with scalar-per-head decay.  The full-sequence block
+(:func:`ssd_block`) goes through the SSD chunk wrapper in its (B, H, S, P)
+layout (the CUDA kernel on the card, the plain version on the CPU);
+:func:`ssd_chunked` is that plain version in the model's (B, S, H, P) layout:
+within a chunk the token mixing is a masked quadratic form, across chunks a
+compact state ``S (B, H, N, P)`` is carried.  :func:`ssd_block_step` is the
+one-token decode.
+
+Shapes: d_inner = 2·d_model, heads H = d_inner / 64 (head dim P = 64),
+one B/C group (G = 1), state size N = cfg.ssm_state.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_chunk import ops as sd
+from repro_torch.models.layers import dtype_of, init_dense
+
+__all__ = ["HEAD_P", "dims", "init_ssd_params", "ssd_chunked", "ssd_block",
+           "ssd_block_step"]
+
+HEAD_P = 64
+
+
+def dims(cfg):
+    d_inner = 2 * cfg.d_model
+    return d_inner, d_inner // HEAD_P, cfg.ssm_state
+
+
+def init_ssd_params(gen, cfg, device) -> dict:
+    d = cfg.d_model
+    d_inner, h, n = dims(cfg)
+    dt = dtype_of(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    a = 1.0 + 15.0 * torch.rand(h, generator=gen, **f32)  # uniform(1, 16)
+    return {
+        "w_in": init_dense(gen, (d, 2 * d_inner + 2 * n + h), dtype=dt, device=device),
+        "conv_w": init_dense(gen, (cfg.conv_width, d_inner + 2 * n), dtype=dt,
+                             device=device),
+        "a_log": torch.log(a),
+        "d_skip": torch.ones(h, **f32),
+        "dt_bias": torch.zeros(h, **f32),
+        "w_out": init_dense(gen, (d_inner, d), dtype=dt, device=device),
+        "norm_z": torch.zeros(d_inner, dtype=dt, device=device),
+    }
+
+
+def _split_proj(p, x, cfg):
+    d_inner, _, n = dims(cfg)
+    proj = x @ p.w_in
+    return torch.split(proj, [d_inner, d_inner, n, n, proj.shape[-1] - 2 * d_inner - 2 * n],
+                       dim=-1)  # z, xc, b, c, dt_raw
+
+
+def _conv(w, u, state=None):
+    """Depthwise causal conv1d + SiLU in float32; with ``state`` one decode
+    step, returning the new state."""
+    k = w.shape[0]
+    wf = w.float()
+    if state is not None:
+        window = torch.cat([state, u], dim=1)
+        out = torch.einsum("bkd,kd->bd", window.float(), wf)[:, None, :]
+        return F.silu(out).to(u.dtype), window[:, 1:, :]
+    s = u.shape[1]
+    pad = F.pad(u, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s].float() * wf[i] for i in range(k))
+    return F.silu(out).to(u.dtype), None
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int):
+    """Chunked SSD, the plain version. x (B,S,H,P) f32, dt (B,S,H) f32,
+    a (H,) f32 (negative), b/c (B,S,N) f32 (G=1).  Returns y (B,S,H,P) f32.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} must be divisible by chunk {chunk}")
+    nc = s // chunk
+    xr = x.reshape(bsz, nc, chunk, h, p)
+    dtr = dt.reshape(bsz, nc, chunk, h)
+    br = b.reshape(bsz, nc, chunk, n)
+    cr = c.reshape(bsz, nc, chunk, n)
+
+    lcum = torch.cumsum(dtr * a, dim=2)  # L_s, (B, nc, Q, H)
+
+    # intra-chunk quadratic term: y[s] += Σ_{t≤s} C_s·B_t exp(L_s − L_t) dt_t x_t
+    seg = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]  # (B,nc,Q,Q,H)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))
+    # clamp the masked (t > s) entries before exp: exp of a large positive
+    # masked-out value is inf
+    seg = torch.where(mask[None, None, :, :, None], seg, -1e30)
+    cb = torch.einsum("bcsn,bctn->bcst", cr, br)  # (B,nc,Q,Q)
+    att = cb[..., None] * torch.exp(seg) * dtr[:, :, None, :, :]  # (B,nc,Q,Q,H)
+    y_intra = torch.einsum("bcsth,bcthp->bcshp", att, xr)
+
+    # chunk-end states and the inter-chunk carry
+    tail = torch.exp(lcum[:, :, -1:, :] - lcum) * dtr  # exp(L_Q − L_t) dt_t
+    state_in = torch.einsum("bctn,bcthp->bchnp", br, xr * tail[..., None])
+    chunk_decay = torch.exp(lcum[:, :, -1, :])  # (B, nc, H)
+    starts = []
+    state = torch.zeros((bsz, h, n, p), dtype=x.dtype, device=x.device)
+    for ci in range(nc):
+        starts.append(state)
+        state = state * chunk_decay[:, ci, :, None, None] + state_in[:, ci]
+    s_starts = torch.stack(starts, dim=1)  # (B, nc, H, N, P)
+
+    y_inter = (torch.einsum("bcsn,bchnp->bcshp", cr, s_starts)
+               * torch.exp(lcum)[..., None])
+    return (y_intra + y_inter).reshape(bsz, s, h, p)
+
+
+def _gated_norm(y, z, norm_z, dtype):
+    """Gated RMSNorm (Mamba2's norm before the out-projection), float32."""
+    zf = F.silu(z.float())
+    yz = y.float() * zf
+    var = yz.square().mean(dim=-1, keepdim=True)
+    return (yz * torch.rsqrt(var + 1e-6) * (1.0 + norm_z.float())).to(dtype)
+
+
+def ssd_block(p, x, cfg, chunk: int = 64):
+    """Full-sequence Mamba2 block through the SSD chunk kernel.
+    x (B, S, d) -> (B, S, d)."""
+    d_inner, h, n = dims(cfg)
+    bsz, s, _ = x.shape
+    z, xc, b, c, dt_raw = _split_proj(p, x, cfg)
+    conv_out, _ = _conv(p.conv_w, torch.cat([xc, b, c], dim=-1))
+    xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, H)
+    a = -torch.exp(p.a_log)
+    xh = xc.float().reshape(bsz, s, h, HEAD_P)
+    y = sd.ssd_scan(xh.transpose(1, 2).contiguous(),
+                    dt.transpose(1, 2)[..., None].contiguous(),
+                    a.reshape(h, 1, 1, 1).contiguous(),
+                    b.float()[:, None].contiguous(), c.float()[:, None].contiguous(),
+                    chunk).transpose(1, 2)  # (B, S, H, P)
+    y = y + p.d_skip[:, None] * xh
+    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    return _gated_norm(y, z, p.norm_z, x.dtype) @ p.w_out
+
+
+def ssd_block_step(p, x_t, state, cfg):
+    """One-token decode. state: {"s": (B,H,N,P) f32, "conv": (B,K-1,convdim)};
+    returns (out, new state)."""
+    d_inner, h, n = dims(cfg)
+    z, xc, b, c, dt_raw = _split_proj(p, x_t, cfg)
+    conv_out, conv_state = _conv(p.conv_w, torch.cat([xc, b, c], dim=-1),
+                                 state["conv"])
+    xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p.dt_bias)[:, 0]  # (B, H)
+    a = -torch.exp(p.a_log)
+    bsz = x_t.shape[0]
+    xh = xc.float().reshape(bsz, h, HEAD_P)
+    decay = torch.exp(dt * a)  # (B, H)
+    s_new = (state["s"] * decay[:, :, None, None]
+             + torch.einsum("bh,bn,bhp->bhnp", dt, b[:, 0].float(), xh))
+    y = torch.einsum("bn,bhnp->bhp", c[:, 0].float(), s_new)
+    y = (y + p.d_skip[:, None] * xh).reshape(bsz, 1, d_inner)
+    out = _gated_norm(y, z, p.norm_z, x_t.dtype) @ p.w_out
+    return out, {"s": s_new, "conv": conv_state}

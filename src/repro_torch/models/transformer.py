@@ -1,0 +1,253 @@
+"""Unified decoder-only model for the ``dense``, ``hybrid`` and ``ssm``
+families — the counterpart of ``repro/models/transformer.py`` for serving.
+
+The reference stacks its layers (leading axis L) and runs them with
+``jax.lax.scan`` over ``jax.checkpoint``-wrapped blocks; here every layer is
+an entry of a ``ModuleList`` and the forward is a Python loop over them.
+Serving does not rematerialize, and one card needs no sharding constraints.
+
+Families:
+  dense  — pre-norm GQA attention + SwiGLU (qwen3/llama3/deepseek/gemma3);
+           gemma3's 5:1 local:global pattern gives each layer its window.
+  hybrid — Griffin super-blocks (rec, rec, local attention), plus trailing
+           recurrent blocks when L % 3 != 0 (recurrentgemma).
+  ssm    — Mamba2 SSD blocks (attention-free).
+``moe``, ``vlm`` and ``audio`` are later slices and raise.
+
+Decode carries a per-layer cache (lists of dicts, one entry per layer) and
+updates it in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssd as ssd_mod
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (dtype_of, embed, init_dense, rms_norm,
+                                       swiglu, unembed)
+from repro_torch.models.params import Params
+
+__all__ = ["FAMILIES", "DecoderLM", "check_family", "init_params",
+           "layer_window", "forward", "init_cache", "decode_step"]
+
+FAMILIES = ("dense", "hybrid", "ssm")
+
+
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is a later slice of the "
+            f"port (ROADMAP 2.9); this one serves {FAMILIES}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _mlp(gen, cfg, device) -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
+    return {"w_gate": init_dense(gen, (d, ff), dtype=dt, device=device),
+            "w_up": init_dense(gen, (d, ff), dtype=dt, device=device),
+            "w_down": init_dense(gen, (ff, d), dtype=dt, device=device)}
+
+
+def _norm(cfg, device):
+    return torch.zeros(cfg.d_model, dtype=dtype_of(cfg), device=device)
+
+
+def _attn_block(gen, cfg, device) -> dict:
+    return {"norm1": _norm(cfg, device),
+            "attn": attn.init_attn_params(gen, cfg, device),
+            "norm2": _norm(cfg, device),
+            "mlp": _mlp(gen, cfg, device)}
+
+
+def _rec_block(gen, cfg, device) -> dict:
+    return {"norm1": _norm(cfg, device),
+            "rec": rg.init_rglru_params(gen, cfg, device),
+            "norm2": _norm(cfg, device),
+            "mlp": _mlp(gen, cfg, device)}
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The parameter tree (nested dicts of tensors on ``device``, lists for
+    layers) with the reference's keys, drawn from ``gen``."""
+    check_family(cfg)
+    dt = dtype_of(cfg)
+    params = {"embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                                  dtype=dt, device=device),
+              "final_norm": _norm(cfg, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_dense(gen, (cfg.d_model, cfg.vocab), dtype=dt,
+                                       device=device)
+    if cfg.family == "hybrid":
+        n_super, n_tail = divmod(cfg.n_layers, 3)
+        params["super"] = [{"rec1": _rec_block(gen, cfg, device),
+                            "rec2": _rec_block(gen, cfg, device),
+                            "attn_blk": _attn_block(gen, cfg, device)}
+                           for _ in range(n_super)]
+        if n_tail:
+            params["tail"] = [_rec_block(gen, cfg, device) for _ in range(n_tail)]
+    elif cfg.family == "ssm":
+        params["blocks"] = [{"norm1": _norm(cfg, device),
+                             "ssd": ssd_mod.init_ssd_params(gen, cfg, device)}
+                            for _ in range(cfg.n_layers)]
+    else:
+        params["blocks"] = [_attn_block(gen, cfg, device)
+                            for _ in range(cfg.n_layers)]
+    return params
+
+
+def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
+    """The layer's attention window: 0 = global.  gemma3: every
+    (ratio+1)-th layer is global, the others local with cfg.window."""
+    if cfg.local_global_ratio and cfg.window:
+        period = cfg.local_global_ratio + 1
+        return 0 if layer_idx % period == period - 1 else cfg.window
+    return cfg.window
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _mlp_fwd(m, x):
+    return swiglu(x, m.w_gate, m.w_up, m.w_down)
+
+
+def _attn_block_fwd(blk, x, cfg, window):
+    x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, window=window)
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+
+
+def _rec_block_fwd(blk, x):
+    x = x + rg.recurrent_block(blk.rec, rms_norm(x, blk.norm1))
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+
+
+def backbone(params, x, cfg: ArchConfig):
+    """Apply all blocks to the embedded input x (B, S, d)."""
+    if cfg.family == "hybrid":
+        for sup in params.super:
+            x = _rec_block_fwd(sup.rec1, x)
+            x = _rec_block_fwd(sup.rec2, x)
+            x = _attn_block_fwd(sup.attn_blk, x, cfg, cfg.window)
+        for blk in params.tail if "tail" in params else ():
+            x = _rec_block_fwd(blk, x)
+    elif cfg.family == "ssm":
+        for blk in params.blocks:
+            x = x + ssd_mod.ssd_block(blk.ssd, rms_norm(x, blk.norm1), cfg,
+                                      chunk=cfg.ssd_chunk)
+    else:
+        for i, blk in enumerate(params.blocks):
+            x = _attn_block_fwd(blk, x, cfg, layer_window(cfg, i))
+    return x
+
+
+def _project_logits(params, x, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        return unembed(x, params.embed)  # (V, d) table
+    return x @ params.unembed
+
+
+@torch.inference_mode()
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits (B, S, V) for a full sequence of tokens (B, S)."""
+    check_family(cfg)
+    x = backbone(params, embed(tokens, params.embed), cfg)
+    return _project_logits(params, rms_norm(x, params.final_norm), cfg)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None) -> dict:
+    """Per-layer decode state, with KV caches of ``max_seq`` positions."""
+    check_family(cfg)
+    dt = dtype or dtype_of(cfg)
+    hd = cfg.resolved_head_dim
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv():
+        return {"k": zeros(batch, max_seq, cfg.n_kv_heads, hd),
+                "v": zeros(batch, max_seq, cfg.n_kv_heads, hd)}
+
+    if cfg.family == "ssm":
+        d_inner, h, n = ssd_mod.dims(cfg)
+        return {"blocks": [{"s": zeros(batch, h, n, ssd_mod.HEAD_P, dtype=torch.float32),
+                            "conv": zeros(batch, cfg.conv_width - 1, d_inner + 2 * n)}
+                           for _ in range(cfg.n_layers)]}
+    if cfg.family == "hybrid":
+        def rec_state():
+            return {"h": zeros(batch, cfg.d_model, dtype=torch.float32),
+                    "conv": zeros(batch, cfg.conv_width - 1, cfg.d_model)}
+
+        n_super, n_tail = divmod(cfg.n_layers, 3)
+        cache = {"super": [{"rec1": rec_state(), "rec2": rec_state(), "attn": kv()}
+                           for _ in range(n_super)]}
+        if n_tail:
+            cache["tail"] = [rec_state() for _ in range(n_tail)]
+        return cache
+    return {"blocks": [kv() for _ in range(cfg.n_layers)]}
+
+
+def _rec_step(blk, x, st):
+    out, st = rg.recurrent_block_step(blk.rec, rms_norm(x, blk.norm1), st)
+    x = x + out
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2)), st
+
+
+def _attn_step(blk, x, kv, pos, cfg, window):
+    out, kv = attn.decode_attention(blk.attn, rms_norm(x, blk.norm1), kv, pos, cfg,
+                                    window=window)
+    x = x + out
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2)), kv
+
+
+@torch.inference_mode()
+def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
+                cfg: ArchConfig):
+    """One new token for every sequence. token (B, 1) int; ``pos`` the
+    position of the new token.  Returns (logits (B, 1, V), cache), the cache
+    updated in place."""
+    check_family(cfg)
+    x = embed(token, params.embed)
+    if cfg.family == "ssm":
+        for i, blk in enumerate(params.blocks):
+            out, cache["blocks"][i] = ssd_mod.ssd_block_step(
+                blk.ssd, rms_norm(x, blk.norm1), cache["blocks"][i], cfg)
+            x = x + out
+    elif cfg.family == "hybrid":
+        for sup, st in zip(params.super, cache["super"]):
+            x, st["rec1"] = _rec_step(sup.rec1, x, st["rec1"])
+            x, st["rec2"] = _rec_step(sup.rec2, x, st["rec2"])
+            x, st["attn"] = _attn_step(sup.attn_blk, x, st["attn"], pos, cfg,
+                                       cfg.window)
+        for i, blk in enumerate(params.tail if "tail" in params else ()):
+            x, cache["tail"][i] = _rec_step(blk, x, cache["tail"][i])
+    else:
+        for i, blk in enumerate(params.blocks):
+            x, cache["blocks"][i] = _attn_step(blk, x, cache["blocks"][i], pos, cfg,
+                                               layer_window(cfg, i))
+    logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
+    return logits, cache
+
+
+class DecoderLM(Params):
+    """A decoder-only model: the parameter tree of :func:`init_params` as an
+    ``nn.Module`` (``state_dict`` keys follow the reference's parameter
+    paths) with the architecture it serves."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        check_family(cfg)
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, tokens, self.cfg)

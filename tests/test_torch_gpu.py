@@ -3,13 +3,22 @@ batched entries at the batched engine's chip-scale shapes (B=672 epochs,
 T=3 / TS=36, C=E=132), the single-block entries at the streaming
 controller's (T=3 / TS=36) and the whole-trace baseline's (T=4032), the
 fleet entries at the 22-fabric fleet's 12-pod bucket (F=15 fabrics, B=96
-blocks, C=E=132), and all at ragged shapes (fleet: all-zero padded blocks).  Marked ``gpu``: each test decides inside itself whether a
-card is present and skips without one.  Run on the card with
+blocks, C=E=132), and all at ragged shapes (fleet: all-zero padded blocks);
+the model kernels (flash attention, the RG-LRU scan, the SSD chunk scan) at
+the model shapes of recurrentgemma-9b and mamba2-130m and at ragged ones.
+Marked ``gpu``: each test decides inside itself whether a card is present
+and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports the JAX package, which the
 card's machine does not have).
 
-Tolerances are the plain-version contracts: rtol 3e-4, atol 1e-4.
+Tolerances are the plain-version contracts: rtol 3e-4, atol 1e-4 for the
+controller's kernels; for the model's those of the reference's kernel tests
+(``tests/test_kernels_sweep.py``): flash attention 2e-3 in float32, the
+RG-LRU scan 1e-4, the SSD scan relative 1e-3.  Flash attention in bfloat16 is
+held to its float32 plain version within the bound on bf16 rounding
+(``bf16_rounding_bound``), not to the reference's flat 3e-2, which is as large
+as a typical output at a 256-key window.
 """
 
 import pytest
@@ -19,10 +28,16 @@ from repro_torch.kernels.linkload import ops as llops
 from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
                                               linkload_metrics_fleet_ref,
                                               linkload_metrics_ref)
+from repro_torch.kernels.flash_attention import ops as faops
+from repro_torch.kernels.flash_attention.ref import attention_ref, bf16_rounding_bound
 from repro_torch.kernels.queueloss import ops as qlops
 from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
                                                queueloss_fleet_ref,
                                                queueloss_ref)
+from repro_torch.kernels.rglru_scan import ops as rlops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.ssd_chunk import ops as sdops
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 
 RTOL, ATOL = 3e-4, 1e-4
 
@@ -173,3 +188,68 @@ def test_fleet_entry_refuses_an_oversize_grid(gen, name, n_in):
             torch.cuda.current_stream().cuda_stream)  # 2^32 pairs
     assert rc == 9  # cudaErrorInvalidConfiguration
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,dtype,tol", [
+    (1, 1024, 4, 1, 256, True, 256, torch.bfloat16, None),  # recurrentgemma
+    (1, 1024, 4, 1, 256, True, 256, torch.float32, 2e-3),
+    (1, 1000, 4, 1, 100, False, 48, torch.float32, 2e-3),   # ragged
+    (2, 130, 4, 2, 32, True, 0, torch.float32, 2e-3)])
+def test_flash_attention_kernel_matches_plain(gen, b, s, h, kv, hd, causal,
+                                              window, dtype, tol):
+    q = torch.randn((b * h, s, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b * kv, s, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b * kv, s, hd), generator=gen, device="cuda").to(dtype)
+    args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+    before = faops.launches
+    out = faops.flash_attention_rows(q, k, v, **args)
+    assert faops.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    if tol is None:  # bf16: the float32 plain version within bf16 rounding
+        ref, bound = bf16_rounding_bound(q, k, v, **args)
+        assert float(((out.float() - ref).abs() / bound).max()) <= 1.0
+    else:
+        torch.testing.assert_close(out, attention_ref(q, k, v, **args),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(2, 4096, 4096), (3, 37, 31), (2, 513, 130)])
+def test_rglru_scan_kernel_matches_plain(gen, b, s, d):
+    a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device="cuda")
+    x = 0.5 * torch.randn((b, s, d), generator=gen, device="cuda")
+    before = rlops.launches
+    out = rlops.rglru_scan(a, x)
+    assert rlops.launches == before + 1
+    torch.testing.assert_close(out, rglru_scan_ref(a, x), rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(gen, b, h, s, p, n):
+    x = torch.randn((b, h, s, p), generator=gen, device="cuda")
+    dt = 0.001 + 0.099 * torch.rand((b, h, s, 1), generator=gen, device="cuda")
+    a = -(1.0 + 7.0 * torch.rand((h, 1, 1, 1), generator=gen, device="cuda"))
+    bm = torch.randn((b, 1, s, n), generator=gen, device="cuda")
+    cm = torch.randn((b, 1, s, n), generator=gen, device="cuda")
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (4, 24, 4096, 64, 128, 64),  # mamba2-130m
+    (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
+    (2, 2, 256, 64, 128, 128)])
+def test_ssd_chunk_kernel_matches_plain(gen, b, h, s, p, n, chunk):
+    args = _ssd_inputs(gen, b, h, s, p, n)
+    before = sdops.launches
+    out = sdops.ssd_scan(*args, chunk)
+    assert sdops.launches == before + 1
+    ref = ssd_chunk_ref(*args, chunk=min(chunk, 32) if s % chunk else chunk)
+    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_kernel_is_chunk_invariant(gen):
+    args = _ssd_inputs(gen, 1, 2, 256, 64, 64)
+    torch.testing.assert_close(sdops.ssd_scan(*args, 64), sdops.ssd_scan(*args, 128),
+                               rtol=1e-4, atol=1e-4)

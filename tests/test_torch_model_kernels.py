@@ -1,0 +1,156 @@
+"""The model kernels' plain PyTorch versions (what the wrappers run on a CPU
+tensor) against the reference's ``ops`` wrappers on the same numpy-seeded
+inputs, through both of the reference's backends: ``"pallas"`` (the Pallas
+kernel in interpret mode on the CPU) and ``"ref"`` (its jnp oracle).
+
+Tolerances are the reference's own (``tests/test_kernels_sweep.py``): flash
+attention 2e-3 in float32 and 3e-2 in bfloat16, the RG-LRU scan 1e-4, the
+SSD scan relative 1e-3 and chunk invariance 1e-4.  The bound on bf16
+rounding that the card holds the bf16 flash kernel to is tested here too.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro.kernels.rglru_scan import ops as jrl
+from repro.kernels.ssd_chunk import ops as jsd
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rglru_scan import ops as rl
+from repro_torch.kernels.ssd_chunk import ops as sd
+
+torch.set_num_threads(1)
+
+BACKENDS = ["pallas", "ref"]
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("b,sq,h,kv,hd,causal,window", [
+    (2, 128, 4, 2, 64, True, 0), (2, 130, 4, 1, 32, True, 48),
+    (1, 65, 4, 1, 100, False, 0), (1, 96, 2, 2, 64, False, 24)])
+def test_flash_attention_matches_reference(backend, b, sq, h, kv, hd, causal,
+                                           window, rng):
+    q = rng.normal(0, 1, (b, sq, h, hd)).astype(np.float32)
+    k = rng.normal(0, 1, (b, sq, kv, hd)).astype(np.float32)
+    v = rng.normal(0, 1, (b, sq, kv, hd)).astype(np.float32)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, window=window, backend=backend)
+    before = fa.launches
+    out = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window)
+    assert fa.launches == before  # the CPU runs the plain version
+    assert out.shape == (b, sq, h, hd)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_flash_attention_bf16_matches_reference(backend, rng):
+    shapes = ((2, 128, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64))
+    q, k, v = (rng.normal(0, 1, s).astype(np.float32) for s in shapes)
+    ref = jfa.flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                              window=32, backend=backend)
+    out = fa.flash_attention(*(_t(x, torch.bfloat16) for x in (q, k, v)), window=32)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("shift", [0, -1, 1])
+def test_bf16_rounding_bound_separates_a_window_one_key_off(shift, rng):
+    """The bound that the card's bf16 flash check uses, on one row at
+    recurrentgemma-9b's shape (S 4096, hd 256, window 2048): the kernel's
+    arithmetic (float32 scores and sums, the weights and the output rounded
+    to bfloat16) stays within it; a window one key short or long does not."""
+    s, hd, window = 4096, 256, 2048
+    q, k, v = (_t(rng.normal(0, 1, (1, s, hd)), torch.bfloat16) for _ in range(3))
+    mask = dict(n_heads=1, n_kv=1, causal=True)
+    ref, bound = fa_ref.bf16_rounding_bound(q, k, v, window=window, **mask)
+    if shift:
+        out = fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                   window=window + shift, **mask)
+    else:
+        scores = (q.float() @ k.float().transpose(1, 2)) / hd ** 0.5
+        i = torch.arange(s)
+        band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        scores = torch.where(band, scores, fa_ref.NEG_INF)
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        out = ((p.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)).bfloat16()
+    worst = float(((out.float() - ref).abs() / bound).max())
+    assert (worst <= 1.0) == (shift == 0), worst
+
+
+def test_flash_attention_wrapper_refuses_bad_inputs():
+    q = torch.zeros(8, 16, 32)
+    kv = torch.zeros(2, 16, 32)
+    args = dict(n_heads=4, n_kv=1, causal=True, window=0)
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa.flash_attention_rows(q, kv.bfloat16(), kv.bfloat16(), **args)
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention_rows(q, kv, kv, n_heads=4, n_kv=2, causal=True, window=0)
+    with pytest.raises(ValueError, match="one of"):
+        fa.flash_attention_rows(q.double(), kv.double(), kv.double(), **args)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_rows(q.transpose(1, 2), kv, kv, **args)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("b,s,d", [(2, 128, 128), (4, 37, 31), (2, 513, 130)])
+def test_rglru_scan_matches_reference(backend, b, s, d, rng):
+    a = rng.uniform(0.8, 0.999, (b, s, d)).astype(np.float32)
+    x = rng.normal(0, 0.5, (b, s, d)).astype(np.float32)
+    ref = jrl.rglru_scan(jnp.asarray(a), jnp.asarray(x), backend=backend)
+    before = rl.launches
+    out = rl.rglru_scan(_t(a), _t(x))
+    assert rl.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_scan_wrapper_refuses_bad_inputs():
+    with pytest.raises(ValueError, match="one \\(B, S, D\\)"):
+        rl.rglru_scan(torch.zeros(2, 4, 8), torch.zeros(2, 4, 7))
+    with pytest.raises(ValueError, match="float32"):
+        rl.rglru_scan(torch.zeros(2, 4, 8).double(), torch.zeros(2, 4, 8).double())
+
+
+def _ssd_inputs(rng, b, h, s, p, n):
+    return (rng.normal(0, 1, (b, h, s, p)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (b, h, s, 1)).astype(np.float32),
+            -rng.uniform(1, 8, (h, 1, 1, 1)).astype(np.float32),
+            rng.normal(0, 1, (b, 1, s, n)).astype(np.float32),
+            rng.normal(0, 1, (b, 1, s, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (1, 2, 128, 64, 32, 64), (2, 3, 256, 64, 128, 128), (1, 1, 64, 32, 16, 32),
+    (1, 2, 96, 32, 16, 64)])  # the last halves its chunk to 32
+def test_ssd_scan_matches_reference(backend, b, h, s, p, n, chunk, rng):
+    args = _ssd_inputs(rng, b, h, s, p, n)
+    # the reference's "ref" backend takes a chunk that divides S as it is
+    ref_chunk = chunk if backend == "pallas" or s % chunk == 0 else 32
+    ref = np.asarray(jsd.ssd_scan(*(jnp.asarray(x) for x in args), ref_chunk,
+                                  backend=backend))
+    before = sd.launches
+    out = sd.ssd_scan(*(_t(x) for x in args), chunk).numpy()
+    assert sd.launches == before
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-3
+
+
+def test_ssd_scan_is_chunk_invariant(rng):
+    """The chunk length does not change the result (the state carry is
+    exact)."""
+    args = [_t(x) for x in _ssd_inputs(rng, 1, 2, 256, 64, 64)]
+    np.testing.assert_allclose(sd.ssd_scan(*args, 64).numpy(),
+                               sd.ssd_scan(*args, 128).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_wrapper_refuses_bad_shapes(rng):
+    x, dt, a, b, c = (_t(v) for v in _ssd_inputs(rng, 1, 2, 64, 32, 16))
+    with pytest.raises(ValueError, match="disagree"):
+        sd.ssd_scan(x, dt[:, :1].contiguous(), a, b, c)

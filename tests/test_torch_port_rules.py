@@ -28,7 +28,11 @@ from repro_torch import interop
 from repro_torch.core import (ControllerConfig, FleetJob, Strategy,
                               predict_fleet, run_controller, run_fleet)
 from repro_torch.core import fleet_engine
+from repro_torch.configs import get_arch
 from repro_torch.core.baselines import uniform_vlb_metrics
+from repro_torch.launch.serve import serve
+from repro_torch.models import transformer as model_transformer
+from repro_torch.models.api import build_model
 from repro_torch.device import resolve_device
 from repro_torch.serve import StreamingController, TMStream
 
@@ -40,13 +44,43 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.linkload.ops, repro_torch.kernels.queueloss.ops, "
             "repro_torch.serve, repro_torch.core.predictor, "
             "repro_torch.core.baselines, repro_torch.obs.audit, "
-            "repro_torch.core.fleet_engine\n"
+            "repro_torch.core.fleet_engine, repro_torch.configs, "
+            "repro_torch.models.api, repro_torch.launch.steps, "
+            "repro_torch.launch.serve, repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.rglru_scan.ops, repro_torch.kernels.ssd_chunk.ops\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=dict(os.environ), timeout=300, check=True)
     assert out.stdout.strip() == ""
+
+
+def _imported_roots(path):
+    """Top-level package of every absolute import statement in the file at
+    ``path`` (a relative import stays inside its own package)."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_file_nor_chip_smoke_imports_jax_or_reference():
+    """Every module of ``src/repro_torch`` and ``chip_smoke.py`` (whose
+    imports sit inside its phase functions), read statement by statement."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = {str(f.relative_to(root)): sorted(r & {"jax", "jaxlib", "repro"})
+           for f in files for r in [_imported_roots(f)] if r & {"jax", "jaxlib", "repro"}}
+    assert bad == {}
 
 
 def test_default_device_raises_without_a_card(small_fabric, small_trace,
@@ -74,7 +108,36 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
         run_fleet([FleetJob(fab, trace, Strategy(False, True))])
     with pytest.raises(RuntimeError, match="CUDA"):
         predict_fleet([(fab, trace)])
+    cfg = get_arch("mamba2-130m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("mamba2-130m", requests=1, batch=1, prompt_len=2, gen_len=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.model_from_numpy(cfg, {})
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "dbrx-132b", "internvl2-1b",
+                                  "seamless-m4t-large-v2"])
+def test_model_families_of_later_slices_raise(arch):
+    """``moe``, ``vlm`` and ``audio`` are later slices: building the model,
+    its parameters or its cache raises."""
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model_transformer.init_params(torch.Generator(), cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model_transformer.init_cache(cfg, 1, 4, "cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        serve(arch, requests=1, batch=1, prompt_len=2, gen_len=1, device="cpu")
+
+
+def test_model_training_is_a_later_slice():
+    model = build_model(get_arch("llama3-8b").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model.loss(None, {})
 
 
 @pytest.mark.parametrize("over", [{"engine": "sequential", "transition": object()},
