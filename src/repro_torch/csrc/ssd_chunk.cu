@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan for the H100 (sm_90a), float32.
+// Mamba2 SSD chunked scan for the H100 (sm_90a), float32, chunk-parallel.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/ssd_chunk/ssd_chunk.py :: ssd_chunk_pallas
@@ -11,229 +11,506 @@
 //   S_out   = S_in * exp(L_Q) + (B * exp(L_Q - L))^T (dt * x)
 // and the (N, P) state S carries from chunk to chunk, starting at zero.
 //
-// What bounds it on this card: operations.  A chunk does four products
-// (Q x Q x N, Q x Q x P, Q x N x P, N x Q x P), 3.7 MFLOP at Q=64, N=128,
-// P=64; at mamba2-130m's prefill (B=4, H=24, S=4096) that is 22.5 GFLOP
-// (0.34 ms at the 67 TFLOP/s float32 rate) against 220 MB moved (0.07 ms).
+// What bounds it on this card: operations.  B and C have one group, so C B^T
+// (Q x Q x N a chunk) is shared by all heads; each head adds the masked
+// product with x (Q x Q x P) and the state's read and update (2 x Q x N x P).
+// At mamba2-130m's prefill (B=4, H=24, S=4096, Q=64, N=128, P=64) that is
+// 16.4 GFLOP (0.24 ms at the 67 TFLOP/s float32 rate) against 220 MB moved
+// (0.07 ms).  The products stay float32 FMAs: TF32's rounding of each input
+// (~5e-4) would break the 1e-4 chunk invariance.
 //
 // Design.  The TPU kernel carries the state in VMEM across a sequential grid
-// (b, h, chunk).  Here one CTA owns one (b, h) and walks its chunks in order
-// with the state in shared memory, so nothing carries between CTAs and no
-// atomics are needed: every run gives the same bits.  Per chunk the CTA
-// stages B, C and dt * x in shared memory (rows of B and C padded to an odd
-// stride, so a half-warp reading 16 rows at one n hits 16 banks), one warp
-// scans L, and 256 threads (16 x 16) compute 4 x 4 tiles of C B^T, then of
-// y, then 8 x 4 tiles of the state update, all with float32 FMAs.  The
-// masked scores are computed for 64 rows of s at a time, so a chunk of
-// Q = 128 still fits the 227 KB a block can have (231,680 B at N = 128,
-// P = 64); the launch opts into more than the 48 KB default.
+// (b, h, chunk); a CUDA grid has no order, and one CTA walking all of one
+// (b, h)'s chunks (the first port) left 36 of 132 SMs idle at B * H = 96,
+// synced 4-5 times a chunk and computed C B^T once per head.  The entry
+// splits the work in the order of sums of the plain version ssd_chunked
+// (models/ssd.py) and launches three kernels in order on the caller's
+// stream, through scratch the wrapper allocates:
+//   0. ssd_scan_kernel, one warp per (b, h, chunk): L, the weights
+//      w_t = exp(L_Q - L_t) dt_t and the decay exp(L_Q) (B * H * (2S + nc)
+//      floats).
+//   1. ssd_state_kernel, one CTA per (b, h, 32 rows of N): walks the chunks
+//      in order with its (32, P) slice of the state in registers, writes the
+//      state entering each chunk, S_in (B, H, nc, N, P), and adds the
+//      chunk's own (B * w)^T x.  The next chunk's B, x and w are copied in
+//      with cp.async while the current one is used, so only the carry is in
+//      order: 384 CTAs at the main shape, and no round trip of per-chunk
+//      partial states through device memory (a per-chunk state kernel and a
+//      separate carry pass moved 4 x 201 MB of scratch).
+//   2. ssd_out_kernel, one CTA per (b, chunk, group of kHeads heads), all
+//      chunks in parallel: C B^T once into shared memory for the group, then
+//      per head the masked scores ((C B^T) * exp(seg)), 64 rows at a time,
+//      and y = scores (dt * x) + (C S_in) * exp(L).
+// Every product is tiled 4 x 4 a thread with float4 reads of shared memory,
+// four steps of the sum at a time; rows that a warp reads down a column are
+// XOR-swizzled by 16-byte chunk, so those reads are free of bank conflicts.
+// Global memory is read in float4s where N, P and Q are multiples of 4 and
+// the tensors are 16-byte aligned, else element by element.
+// At Q = 128 the output kernel's C, B (then dt * x and S_in), C B^T and one
+// 64-row block of scores take 229,888 B of the 232,448 a block can have; at
+// Q = 64, 114,944 B, so two CTAs share an SM.  No atomics: every run gives
+// the same bits.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxQ = 128;     // the L scan: one warp, four steps a lane
-constexpr int kMaxN = 128;     // state update: rows ty + 16 i, i < 8
-constexpr int kMaxP = 64;      // y and state columns tx + 16 j, j < 4
-constexpr int kRows = 64;      // rows of s per pass over the masked scores
-constexpr int kSmemMax = 232448;  // 227 KB, the most a block can opt into
+constexpr int kThreads = 256;      // output kernel: 16 x 16
+constexpr int kStateThreads = 128; // state kernel: 8 x 16
+constexpr int kMaxQ = 128;         // the L scan: one warp, four steps a lane
+constexpr int kMaxN = 128;
+constexpr int kMaxP = 64;          // columns tx * 4 + j, tx < 16, j < 4
+constexpr int kNT = 32;            // state rows per CTA of the state kernel
+constexpr int kRows = 64;          // rows of s per pass over the masked scores
+constexpr int kHeads = 4;          // heads per CTA of the output kernel
+constexpr int kSmemMax = 232448;   // 227 KB, the most a block can opt into
 
-__host__ __device__ constexpr int odd_stride(int n) { return n | 1; }
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-__host__ __device__ constexpr size_t smem_floats(int Q, int N, int P) {
-  return 2 * (size_t)Q * odd_stride(N) + (size_t)Q * P + (size_t)kRows * odd_stride(Q) +
-         (size_t)N * P + 2 * (size_t)Q;
+// Offset of (row, col) in a row-major tile whose rows are ld floats (ld a
+// multiple of 32), its 16-byte chunks XOR-swizzled by row & 7.
+__device__ __forceinline__ int sw4(int row, int col, int ld) {
+  return row * ld + ((((col >> 2) ^ (row & 7)) << 2) | (col & 3));
 }
 
+// L = cumsum(dt * a) over a chunk of Q <= 128 steps, by one warp: four steps
+// a lane, then a warp scan; lane l returns its four steps in v
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dt_c, float ah, int Q,
+                                             float (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  float run = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int t = lane * 4 + u;
+    run += (t < Q) ? dt_c[t] * ah : 0.0f;
+    v[u] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const float excl = incl - run;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] += excl;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// 0. Per chunk of one (b, h): L = cumsum(dt * a), w_t = exp(L_Q - L_t) dt_t
+// and the decay exp(L_Q); one warp a chunk.
 __global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ a, const float* __restrict__ bm,
-                 const float* __restrict__ cm, float* __restrict__ y, int H, int S, int P,
-                 int N, int Q) {
-  extern __shared__ float smem[];
-  const int ldn = odd_stride(N), ldq = odd_stride(Q);
-  float* sB = smem;               // (Q, ldn)
-  float* sC = sB + Q * ldn;       // (Q, ldn)
-  float* sX = sC + Q * ldn;       // (Q, P): dt * x
-  float* sAtt = sX + Q * P;       // (kRows, ldq): (C B^T) * exp(seg), one row block
-  float* sS = sAtt + kRows * ldq; // (N, P): the carried state
-  float* sL = sS + N * P;         // (Q): L = cumsum(dt * a)
-  float* sT = sL + Q;             // (Q): exp(L_Q - L_t)
+ssd_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
+                float* __restrict__ lcum, float* __restrict__ w, float* __restrict__ decay,
+                int H, int S, int Q, int nc, long long n_warps) {
+  const long long wid = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (wid >= n_warps) return;  // whole warps only
+  const long long bh = wid / nc;
+  const int c = (int)(wid % nc), lane = threadIdx.x & 31;
+  const size_t off = (size_t)bh * S + (size_t)c * Q;
+  float v[4];
+  chunk_cumsum(dt + off, a[bh % H], Q, v);
+  const int u_last = (Q - 1) & 3;
+  const float last = u_last == 0 ? v[0] : u_last == 1 ? v[1] : u_last == 2 ? v[2] : v[3];
+  const float lq = __shfl_sync(0xffffffffu, last, (Q - 1) >> 2);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int t = lane * 4 + u;
+    if (t < Q) {
+      lcum[off + t] = v[u];
+      w[off + t] = expf(lq - v[u]) * dt[off + t];
+    }
+  }
+  if (lane == 0) decay[bh * nc + c] = expf(lq);
+}
 
-  const int bh = blockIdx.x, bi = bh / H, hi = bh - bi * H;
-  const float ah = a[hi];
-  const float* x_bh = x + (size_t)bh * S * P;
-  const float* dt_bh = dt + (size_t)bh * S;
-  const float* b_b = bm + (size_t)bi * S * N;
-  const float* c_b = cm + (size_t)bi * S * N;
-  float* y_bh = y + (size_t)bh * S * P;
+__host__ __device__ constexpr int state_stage_floats(int Q, int P) {
+  return round_up(Q, 4) * (kNT + round_up(P, 4) + 1);  // B, x, w
+}
+
+// 1. The state entering every chunk, in order over the chunks.
+__global__ void __launch_bounds__(kStateThreads)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+                 const float* __restrict__ w, const float* __restrict__ decay,
+                 float* __restrict__ s_in, int H, int S, int P, int N, int Q, int nc,
+                 int n_tiles, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldx = round_up(P, 4), qp = round_up(Q, 4), stage = state_stage_floats(Q, P);
+  const int nt = blockIdx.x % n_tiles;
+  const long long bh = blockIdx.x / n_tiles;
+  const int bi = (int)(bh / H);
+  const int n0 = nt * kNT;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* x_bh = x + (size_t)bh * S * P;
+  const float* w_bh = w + (size_t)bh * S;
+  const float* b_b = bm + (size_t)bi * S * N;
 
-  for (int i = tid; i < N * P; i += kThreads) sS[i] = 0.0f;
+  // stage s holds B[:, n0:n0+32] (qp, kNT), x (qp, ldx), w (qp); rows past
+  // Q, columns past N or P are zero and stay so
+  for (int st = 0; st < 2; ++st) {
+    float* base = smem + st * stage;
+    for (int i = tid; i < (qp - Q) * kNT; i += kStateThreads) base[Q * kNT + i] = 0.0f;
+    for (int i = tid; i < (qp - Q) * ldx; i += kStateThreads)
+      base[qp * kNT + Q * ldx + i] = 0.0f;
+    for (int i = Q + tid; i < qp; i += kStateThreads) base[qp * (kNT + ldx) + i] = 0.0f;
+  }
+  auto load = [&](int c) {
+    float* sB = smem + (c & 1) * stage;
+    float* sX = sB + qp * kNT;
+    float* sW = sX + qp * ldx;
+    const size_t t0 = (size_t)c * Q;
+    if (vec) {
+      for (int i = tid; i < Q * (kNT / 4); i += kStateThreads) {
+        const int t = i / (kNT / 4), n = (i % (kNT / 4)) * 4;
+        if (n0 + n < N)
+          cp_async16(sB + t * kNT + n, b_b + (t0 + t) * N + n0 + n);
+        else
+          *reinterpret_cast<float4*>(sB + t * kNT + n) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int i = tid; i < Q * (P / 4); i += kStateThreads)
+        cp_async16(sX + i * 4, x_bh + t0 * P + i * 4);  // ldx == P
+      for (int i = tid; i < Q / 4; i += kStateThreads) cp_async16(sW + i * 4, w_bh + t0 + i * 4);
+    } else {
+      for (int i = tid; i < Q * kNT; i += kStateThreads) {
+        const int t = i / kNT, n = i % kNT;
+        if (n0 + n < N)
+          cp_async4(sB + i, b_b + (t0 + t) * N + n0 + n);
+        else
+          sB[i] = 0.0f;
+      }
+      for (int i = tid; i < Q * ldx; i += kStateThreads) {
+        const int t = i / ldx, p = i % ldx;
+        if (p < P)
+          cp_async4(sX + i, x_bh + (t0 + t) * P + p);
+        else
+          sX[i] = 0.0f;
+      }
+      for (int i = tid; i < Q; i += kStateThreads) cp_async4(sW + i, w_bh + t0 + i);
+    }
+  };
 
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < Q * N; i += kThreads) {
-      const int t = i / N, n = i - t * N;
-      const size_t g = (size_t)(c0 + t) * N + n;
-      sB[t * ldn + n] = b_b[g];
-      sC[t * ldn + n] = c_b[g];
-    }
-    for (int i = tid; i < Q * P; i += kThreads)
-      sX[i] = x_bh[(size_t)c0 * P + i] * dt_bh[c0 + i / P];
-    if (tid < 32) {  // L = cumsum(dt * a): four steps a lane, then a warp scan
-      float v[4], run = 0.0f;
+  float st[4][4];  // the state rows n0 + ty*4 + i, columns tx*4 + j
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = tid * 4 + u;
-        run += (t < Q) ? dt_bh[c0 + t] * ah : 0.0f;
-        v[u] = run;
-      }
-      float incl = run;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += o;
-      }
-      const float excl = incl - run;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = tid * 4 + u;
-        if (t < Q) sL[t] = excl + v[u];
-      }
-    }
+    for (int j = 0; j < 4; ++j) st[i][j] = 0.0f;
+  __syncthreads();  // the zero padding is written before the copies land
+  load(0);
+  cp_async_commit();
+  const bool active = n0 + ty * 4 < N && tx * 4 < P;
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) load(c + 1);
+    cp_async_commit();
+    const float dq = decay[bh * nc + c];
+    cp_async_wait1();
     __syncthreads();
-    const float lq = sL[Q - 1];
-    for (int i = tid; i < Q; i += kThreads) sT[i] = expf(lq - sL[i]);
-
-    for (int s0 = 0; s0 < Q; s0 += kRows) {
-      const int t_end = min(Q, s0 + kRows);  // t <= s < s0 + kRows
-      for (int t0 = 0; t0 < t_end; t0 += 64) {
-        float acc[4][4];
+    if (active) {
+      const float* sB = smem + (c & 1) * stage;
+      const float* sX = sB + qp * kNT;
+      const float* sW = sX + qp * ldx;
+      float* out = s_in + (((size_t)bh * nc + c) * N + n0 + ty * 4) * P + tx * 4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        if (n0 + ty * 4 + i >= N) continue;
+        if (vec) {
+          *reinterpret_cast<float4*>(out + (size_t)i * P) =
+              make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+        } else {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int s = s0 + ty + 16 * i;
-            cv[i] = s < Q ? sC[s * ldn + n] : 0.0f;
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int t = t0 + tx + 16 * j;
-            bv[j] = t < Q ? sB[t * ldn + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int s = s0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int t = t0 + tx + 16 * j;
-            if (s < Q && t < t_end) {
-              const float seg = (s >= t) ? sL[s] - sL[t] : -1e30f;
-              sAtt[(ty + 16 * i) * ldq + t] = acc[i][j] * expf(seg);
-            }
-          }
+          for (int j = 0; j < 4; ++j)
+            if (tx * 4 + j < P) out[(size_t)i * P + j] = st[i][j];
         }
       }
-      __syncthreads();
-
-      float yi[4][4], ys[4][4];
+      float up[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) yi[i][j] = ys[i][j] = 0.0f;
-      for (int t = 0; t < t_end; ++t) {
-        float av[4], xv[4];
+        for (int j = 0; j < 4; ++j) up[i][j] = 0.0f;
+      for (int t = 0; t < qp; t += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(sW + t);
+        const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          av[i] = s0 + ty + 16 * i < Q ? sAtt[(ty + 16 * i) * ldq + t] : 0.0f;
+        for (int u = 0; u < 4; ++u) {
+          const float4 bv = *reinterpret_cast<const float4*>(sB + (t + u) * kNT + ty * 4);
+          const float4 xv = *reinterpret_cast<const float4*>(sX + (t + u) * ldx + tx * 4);
+          const float bs[4] = {bv.x * ws[u], bv.y * ws[u], bv.z * ws[u], bv.w * ws[u]};
+          const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          xv[j] = p < P ? sX[t * P + p] : 0.0f;
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) up[i][j] = fmaf(bs[i], xs[j], up[i][j]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) yi[i][j] = fmaf(av[i], xv[j], yi[i][j]);
       }
-      for (int n = 0; n < N; ++n) {
-        float cv[4], sv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int s = s0 + ty + 16 * i;
-          cv[i] = s < Q ? sC[s * ldn + n] : 0.0f;
-        }
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          sv[j] = p < P ? sS[n * P + p] : 0.0f;
+        for (int j = 0; j < 4; ++j) st[i][j] = st[i][j] * dq + up[i][j];
+    }
+    __syncthreads();  // stage c & 1 is refilled by the next iteration's load
+  }
+}
+
+// the output kernel's shared memory, in floats
+struct OutLayout {
+  int qr, ldc, lda, ldx, np, qp, region, total;
+  __host__ __device__ OutLayout(int Q, int N, int P) {
+    qr = round_up(Q, kRows);  // rows of C and B
+    ldc = round_up(N, 32);    // C, B rows (swizzled)
+    lda = round_up(Q, 32);    // score rows (swizzled)
+    ldx = round_up(P, 4);     // dt * x and S_in rows
+    np = round_up(N, 4);      // rows of S_in
+    qp = round_up(Q, 4);      // rows of dt * x, C B^T row stride
+    region = qr * ldc > (qp + np) * ldx ? qr * ldc : (qp + np) * ldx;
+    total = qr * ldc + region + Q * qp + kRows * lda + Q;
+  }
+};
+
+// 2. y for one (b, chunk) and up to kHeads heads, C B^T computed once.
+__global__ void __launch_bounds__(kThreads)
+ssd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ bm, const float* __restrict__ cm,
+               const float* __restrict__ lcum, const float* __restrict__ s_in,
+               float* __restrict__ y, int H, int S, int P, int N, int Q, int nc,
+               int n_groups, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const OutLayout lay(Q, N, P);
+  const int ldc = lay.ldc, lda = lay.lda, ldx = lay.ldx, qp = lay.qp;
+  float* sC = smem;                  // (qr, ldc) swizzled
+  float* sR = sC + lay.qr * ldc;     // B (qr, ldc) for C B^T, then per head:
+  float* sX = sR;                    //   (qp, ldx): dt * x
+  float* sS = sR + qp * ldx;         //   (np, ldx): the state entering the chunk
+  float* sCB = sR + lay.region;      // (Q, qp): C B^T, columns t <= s
+  float* sAtt = sCB + Q * qp;        // (kRows, lda) swizzled: one row block
+  float* sL = sAtt + kRows * lda;    // (Q): L
+
+  const int gi = blockIdx.x % n_groups;
+  const long long bc = blockIdx.x / n_groups;
+  const int c = (int)(bc % nc), bi = (int)(bc / nc);
+  const size_t t0 = (size_t)c * Q;
+  const float* b_c = bm + ((size_t)bi * S + t0) * N;
+  const float* c_c = cm + ((size_t)bi * S + t0) * N;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  {  // C and B: 32 threads a row, a float4 each
+    const int n = (tid & 31) * 4;
+    if (n < ldc) {
+      for (int t = tid >> 5; t < lay.qr; t += kThreads / 32) {
+        float4 cv = make_float4(0.f, 0.f, 0.f, 0.f), bv = cv;
+        if (t < Q && n < N) {
+          const float* cr = c_c + (size_t)t * N + n;
+          const float* br = b_c + (size_t)t * N + n;
+          if (vec) {
+            cv = *reinterpret_cast<const float4*>(cr);
+            bv = *reinterpret_cast<const float4*>(br);
+          } else {
+            cv.x = cr[0], bv.x = br[0];
+            if (n + 1 < N) cv.y = cr[1], bv.y = br[1];
+            if (n + 2 < N) cv.z = cr[2], bv.z = br[2];
+            if (n + 3 < N) cv.w = cr[3], bv.w = br[3];
+          }
         }
+        *reinterpret_cast<float4*>(sC + sw4(t, n, ldc)) = cv;
+        *reinterpret_cast<float4*>(sR + sw4(t, n, ldc)) = bv;
+      }
+    }
+  }
+  __syncthreads();
+  // C B^T on the 64 x 64 blocks on or below the diagonal: rows s0 + ty + 16i,
+  // columns tb + tx + 16j
+  for (int s0 = 0; s0 < Q; s0 += kRows) {
+    for (int tb = 0; tb <= s0; tb += kRows) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      for (int n = 0; n < lay.np; n += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cv[i] = *reinterpret_cast<const float4*>(sC + sw4(s0 + ty + 16 * i, n, ldc));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(sR + sw4(tb + tx + 16 * j, n, ldc));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) ys[i][j] = fmaf(cv[i], sv[j], ys[i][j]);
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(cv[i].w, bv[j].w,
+                             fmaf(cv[i].z, bv[j].z,
+                                  fmaf(cv[i].y, bv[j].y, fmaf(cv[i].x, bv[j].x, acc[i][j]))));
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int s = s0 + ty + 16 * i;
-        if (s >= Q) continue;
-        const float el = expf(sL[s]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) y_bh[(size_t)(c0 + s) * P + p] = yi[i][j] + ys[i][j] * el;
+          const int t = tb + tx + 16 * j;
+          if (s < Q && t < Q) sCB[s * qp + t] = acc[i][j];
         }
-      }
-      __syncthreads();  // sAtt is refilled, and sS updated, after this
-    }
-
-    // S_out = S_in * exp(L_Q) + (B * exp(L_Q - L))^T (dt * x); every thread
-    // reads and writes only its own entries of sS
-    const float dq = expf(lq);
-    float up[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) up[i][j] = 0.0f;
-    for (int t = 0; t < Q; ++t) {
-      const float tail = sT[t];
-      float bv[8], xv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int n = ty + 16 * i;
-        bv[i] = n < N ? sB[t * ldn + n] * tail : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tx + 16 * j;
-        xv[j] = p < P ? sX[t * P + p] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) up[i][j] = fmaf(bv[i], xv[j], up[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int n = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tx + 16 * j;
-        if (n < N && p < P) sS[n * P + p] = sS[n * P + p] * dq + up[i][j];
       }
     }
   }
+
+  const bool active = tx * 4 < P;  // this thread's columns tx*4 + j
+  const int h_end = min(H, (gi + 1) * kHeads);
+  for (int h = gi * kHeads; h < h_end; ++h) {
+    __syncthreads();  // C B^T is written; the previous head's reads are done
+    const long long bh = (long long)bi * H + h;
+    const float* x_c = x + ((size_t)bh * S + t0) * P;
+    const float* dt_c = dt + (size_t)bh * S + t0;
+    const float* s_c = s_in + ((size_t)bh * nc + c) * N * P;
+    {  // dt * x and S_in: 16 threads a row, a float4 each
+      const int p = tx * 4;
+      if (p < ldx) {
+        for (int t = ty; t < qp; t += kThreads / 16) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < Q && p < P) {
+            const float* xr = x_c + (size_t)t * P + p;
+            const float d = dt_c[t];
+            if (vec) {
+              v = *reinterpret_cast<const float4*>(xr);
+            } else {
+              v.x = xr[0];
+              if (p + 1 < P) v.y = xr[1];
+              if (p + 2 < P) v.z = xr[2];
+              if (p + 3 < P) v.w = xr[3];
+            }
+            v = make_float4(v.x * d, v.y * d, v.z * d, v.w * d);
+          }
+          *reinterpret_cast<float4*>(sX + t * ldx + p) = v;
+        }
+        for (int n = ty; n < lay.np; n += kThreads / 16) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (n < N && p < P) {
+            const float* sr = s_c + (size_t)n * P + p;
+            if (vec) {
+              v = *reinterpret_cast<const float4*>(sr);
+            } else {
+              v.x = sr[0];
+              if (p + 1 < P) v.y = sr[1];
+              if (p + 2 < P) v.z = sr[2];
+              if (p + 3 < P) v.w = sr[3];
+            }
+          }
+          *reinterpret_cast<float4*>(sS + n * ldx + p) = v;
+        }
+      }
+    }
+    for (int t = tid; t < Q; t += kThreads) sL[t] = lcum[(size_t)bh * S + t0 + t];
+    __syncthreads();
+
+    for (int s0 = 0; s0 < Q; s0 += kRows) {
+      const int t_end = min(Q, s0 + kRows);  // t <= s < s0 + kRows
+      const int t_pad = round_up(t_end, 4);
+      {  // the masked scores of rows s0..s0+63: 4 threads a row, 4 columns each
+        const int row = tid >> 2, s = s0 + row;
+        const float ls = s < Q ? sL[s] : 0.0f;
+        for (int t = (tid & 3) * 4; t < t_pad; t += 16) {
+          float v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int tt = t + u;
+            v[u] = (s < Q && tt <= s) ? sCB[s * qp + tt] * expf(ls - sL[tt]) : 0.0f;
+          }
+          *reinterpret_cast<float4*>(sAtt + sw4(row, t, lda)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      __syncthreads();
+
+      if (active) {
+        float yi[4][4], ys[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) yi[i][j] = ys[i][j] = 0.0f;
+        for (int t = 0; t < t_pad; t += 4) {
+          float4 av[4], xv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[i] = *reinterpret_cast<const float4*>(sAtt + sw4(ty + 16 * i, t, lda));
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            xv[u] = *reinterpret_cast<const float4*>(sX + (t + u) * ldx + tx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ar[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              yi[i][0] = fmaf(ar[u], xv[u].x, yi[i][0]);
+              yi[i][1] = fmaf(ar[u], xv[u].y, yi[i][1]);
+              yi[i][2] = fmaf(ar[u], xv[u].z, yi[i][2]);
+              yi[i][3] = fmaf(ar[u], xv[u].w, yi[i][3]);
+            }
+          }
+        }
+        for (int n = 0; n < lay.np; n += 4) {
+          float4 cv[4], sv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            cv[i] = *reinterpret_cast<const float4*>(sC + sw4(s0 + ty + 16 * i, n, ldc));
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            sv[u] = *reinterpret_cast<const float4*>(sS + (n + u) * ldx + tx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float cr[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              ys[i][0] = fmaf(cr[u], sv[u].x, ys[i][0]);
+              ys[i][1] = fmaf(cr[u], sv[u].y, ys[i][1]);
+              ys[i][2] = fmaf(cr[u], sv[u].z, ys[i][2]);
+              ys[i][3] = fmaf(cr[u], sv[u].w, ys[i][3]);
+            }
+          }
+        }
+        float* y_c = y + ((size_t)bh * S + t0) * P;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int s = s0 + ty + 16 * i;
+          if (s >= Q) continue;
+          const float el = expf(sL[s]);
+          float* yo = y_c + (size_t)s * P + tx * 4;
+          if (vec) {
+            *reinterpret_cast<float4*>(yo) =
+                make_float4(yi[i][0] + ys[i][0] * el, yi[i][1] + ys[i][1] * el,
+                            yi[i][2] + ys[i][2] * el, yi[i][3] + ys[i][3] * el);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (tx * 4 + j < P) yo[j] = yi[i][j] + ys[i][j] * el;
+          }
+        }
+      }
+      __syncthreads();  // sAtt is refilled after this
+    }
+  }
+}
+
+cudaError_t opt_in(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -244,26 +521,53 @@ const char* ssd_chunk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// s_in: scratch of B * H * (S / Q) * N * P floats; scan: of B * H * (2 S + S / Q)
 int ssd_chunk(const void* x, const void* dt, const void* a, const void* b, const void* c,
-              void* y, int B, int H, int S, int P, int N, int Q, void* stream) {
+              void* y, void* s_in, void* scan, int B, int H, int S, int P, int N, int Q,
+              void* stream) {
   if (B < 0 || H < 0 || S < 0 || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
       Q > kMaxQ || S % Q != 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_ctas = (long long)B * H;
-  if (n_ctas == 0 || S == 0) return 0;
-  if (n_ctas > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float) * smem_floats(Q, N, P);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ssd_chunk_kernel<<<dim3((unsigned)n_ctas), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(c), static_cast<float*>(y), H, S, P, N, Q);
+  if ((long long)B * H == 0 || S == 0) return 0;
+  const int nc = S / Q;
+  const int n_tiles = (N + kNT - 1) / kNT;
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const long long n_warps = (long long)B * H * nc;
+  const long long n_scan = (n_warps + kThreads / 32 - 1) / (kThreads / 32);
+  const long long n_state = (long long)B * H * n_tiles;
+  const long long n_out = (long long)B * nc * n_groups;
+  if (n_scan > 2147483647LL || n_state > 2147483647LL || n_out > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem_state = sizeof(float) * 2 * state_stage_floats(Q, P);
+  const size_t smem_out = sizeof(float) * OutLayout(Q, N, P).total;
+  if (smem_state > (size_t)kSmemMax || smem_out > (size_t)kSmemMax)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = opt_in((const void*)ssd_state_kernel, smem_state);
+  if (err == cudaSuccess) err = opt_in((const void*)ssd_out_kernel, smem_out);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* bf = static_cast<const float*>(b);
+  float* sf = static_cast<float*>(s_in);
+  float* lcum = static_cast<float*>(scan);
+  float* w = lcum + (size_t)B * H * S;
+  float* decay = w + (size_t)B * H * S;
+  // float4 copies need rows of whole float4s and 16-byte aligned tensors
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(s_in) | reinterpret_cast<uintptr_t>(w);
+  const int vec = N % 4 == 0 && P % 4 == 0 && Q % 4 == 0 && ptrs % 16 == 0;
+
+  ssd_scan_kernel<<<dim3((unsigned)n_scan), kThreads, 0, st>>>(
+      dtf, static_cast<const float*>(a), lcum, w, decay, H, S, Q, nc, n_warps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_state_kernel<<<dim3((unsigned)n_state), kStateThreads, smem_state, st>>>(
+      xf, bf, w, decay, sf, H, S, P, N, Q, nc, n_tiles, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_out_kernel<<<dim3((unsigned)n_out), kThreads, smem_out, st>>>(
+      xf, dtf, bf, static_cast<const float*>(c), lcum, sf, static_cast<float*>(y), H, S, P,
+      N, Q, nc, n_groups, vec);
   return (int)cudaGetLastError();
 }
 

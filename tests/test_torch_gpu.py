@@ -193,6 +193,10 @@ def test_fleet_entry_refuses_an_oversize_grid(gen, name, n_in):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window,dtype,tol", [
     (1, 1024, 4, 1, 256, True, 256, torch.bfloat16, None),  # recurrentgemma
+    (1, 4096, 2, 1, 256, True, 2048, torch.bfloat16, None),  # its band at S 4096
+    # ragged bf16: hd not a multiple of 16, Sq not a multiple of the q-tile
+    (1, 1000, 8, 2, 100, False, 48, torch.bfloat16, None),
+    (2, 130, 4, 2, 32, True, 0, torch.bfloat16, None),
     (1, 1024, 4, 1, 256, True, 256, torch.float32, 2e-3),
     (1, 1000, 4, 1, 100, False, 48, torch.float32, 2e-3),   # ragged
     (2, 130, 4, 2, 32, True, 0, torch.float32, 2e-3)])
@@ -212,6 +216,28 @@ def test_flash_attention_kernel_matches_plain(gen, b, s, h, kv, hd, causal,
     else:
         torch.testing.assert_close(out, attention_ref(q, k, v, **args),
                                    rtol=tol, atol=tol)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned allocation, so
+    its address is not a multiple of 16 bytes."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_takes_unaligned_views(gen):
+    """Tensors that are not 16-byte aligned take the element-by-element copies."""
+    q, k, v = (torch.randn((n, 300, 64), generator=gen, device="cuda").bfloat16()
+               for n in (4, 2, 2))
+    args = dict(n_heads=2, n_kv=1, causal=True, window=0)
+    ref, bound = bf16_rounding_bound(q, k, v, **args)
+    before = faops.launches
+    out = faops.flash_attention_rows(*map(_unaligned, (q, k, v)), **args)
+    assert faops.launches == before + 1
+    assert float(((out.float() - ref).abs() / bound).max()) <= 1.0
 
 
 @pytest.mark.gpu
@@ -238,7 +264,10 @@ def _ssd_inputs(gen, b, h, s, p, n):
 @pytest.mark.parametrize("b,h,s,p,n,chunk", [
     (4, 24, 4096, 64, 128, 64),  # mamba2-130m
     (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
-    (2, 2, 256, 64, 128, 128)])
+    (2, 2, 256, 64, 128, 128),
+    (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
+    (2, 2, 4096, 64, 128, 128),  # 32 chunks of 128
+    (1, 2, 37, 30, 18, 37)])     # Q, N, P not multiples of 4: scalar copies
 def test_ssd_chunk_kernel_matches_plain(gen, b, h, s, p, n, chunk):
     args = _ssd_inputs(gen, b, h, s, p, n)
     before = sdops.launches
@@ -253,3 +282,26 @@ def test_ssd_chunk_kernel_is_chunk_invariant(gen):
     args = _ssd_inputs(gen, 1, 2, 256, 64, 64)
     torch.testing.assert_close(sdops.ssd_scan(*args, 64), sdops.ssd_scan(*args, 128),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_kernel_is_deterministic(gen):
+    """No atomics: two calls at mamba2-130m's shape give the same bits."""
+    args = _ssd_inputs(gen, 4, 24, 4096, 64, 128)
+    before = sdops.launches
+    first = sdops.ssd_scan(*args, 64)
+    assert sdops.launches == before + 1
+    second = sdops.ssd_scan(*args, 64)
+    assert sdops.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_kernel_takes_unaligned_views(gen):
+    """Tensors that are not 16-byte aligned take the element-by-element copies."""
+    args = _ssd_inputs(gen, 1, 2, 256, 64, 64)
+    before = sdops.launches
+    out = sdops.ssd_scan(*map(_unaligned, args), 64)
+    assert sdops.launches == before + 1
+    ref = ssd_chunk_ref(*args, chunk=64)
+    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-3

@@ -85,6 +85,68 @@ def test_bf16_rounding_bound_separates_a_window_one_key_off(shift, rng):
     assert (worst <= 1.0) == (shift == 0), worst
 
 
+def _flash_tile_schedule(q, k, v, *, n_heads, n_kv, causal, window, tq=128, tk=64):
+    """The bf16 kernel's visit order (``csrc/flash_attention.cu``) in float32:
+    per (row, q-tile of ``tq`` rows), the ``tk``-key tiles from the first that
+    meets the band of some row of the tile to the last, keys past Sk
+    zero-filled and masked, masked scores ``-2e38``, online softmax.  Returns
+    the output and the number of rows that a later tile reset (alpha = 0
+    after a start of only masked keys)."""
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    rows = fa_ref.kv_rows(bh, n_heads, n_kv, q.device)
+    pad = (-sk) % tk
+    kf = torch.nn.functional.pad(k[rows], (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v[rows], (0, 0, 0, pad))
+    out, resets = torch.empty_like(q), 0
+    for q0 in range(0, sq, tq):
+        qi = torch.arange(q0, q0 + tq)[:, None]
+        qt = torch.nn.functional.pad(q[:, q0:q0 + tq], (0, 0, 0, q0 + tq - min(sq, q0 + tq)))
+        k_hi = min(sk, q0 + tq) if causal else sk
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        m = torch.full((bh, tq, 1), fa_ref.NEG_INF)
+        l = torch.zeros((bh, tq, 1))
+        acc = torch.zeros((bh, tq, hd))
+        for k0 in range(k_lo // tk * tk, k_hi, tk):
+            kj = torch.arange(k0, k0 + tk)[None, :]
+            ok = kj < sk
+            if causal:
+                ok = ok & (kj <= qi)
+            if window > 0:
+                ok = ok & (kj > qi - window)
+            s = (qt @ kf[:, k0:k0 + tk].transpose(1, 2)) / hd ** 0.5
+            s = torch.where(ok[None], s, fa_ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            resets += int(((alpha == 0) & (l > 0))[:, :sq - q0].sum())
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vf[:, k0:k0 + tk]
+            m = m_new
+        out[:, q0:q0 + tq] = (acc / l.clamp_min(1e-30))[:, :sq - q0]
+    return out, resets
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("window", [48, 1])
+def test_flash_tile_schedule_matches_reference(backend, window, rng):
+    """The bf16 kernel's schedule (128-row q-tiles, 64-key tiles, the first
+    visited tile per q-tile, -2e38 and the reset of a row that starts on
+    masked keys) gives the reference's answer, here in float32 on the CPU."""
+    b, s, h, kv, hd = 1, 300, 4, 2, 32
+    q = rng.normal(0, 1, (b, s, h, hd)).astype(np.float32)
+    k = rng.normal(0, 1, (b, s, kv, hd)).astype(np.float32)
+    v = rng.normal(0, 1, (b, s, kv, hd)).astype(np.float32)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, window=window, backend=backend)
+    rows = [_t(x).transpose(1, 2).reshape(-1, s, hd).contiguous() for x in (q, k, v)]
+    out, resets = _flash_tile_schedule(*rows, n_heads=h, n_kv=kv, causal=True,
+                                       window=window)
+    assert resets > 0  # some rows start on tiles with no valid key
+    np.testing.assert_allclose(out.reshape(b, h, s, hd).transpose(1, 2).numpy(),
+                               np.asarray(ref), rtol=2e-3, atol=2e-3)
+
+
 def test_flash_attention_wrapper_refuses_bad_inputs():
     q = torch.zeros(8, 16, 32)
     kv = torch.zeros(2, 16, 32)
