@@ -11,23 +11,28 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    each, in parallel: linkload and queueloss, each with a batched, a
    single-block and a fleet entry; flash attention, the RG-LRU scan and the
    SSD chunk scan) and print ptxas' registers/spills.
-3. Hold each of the six kernel entries against its plain PyTorch version on
-   the card: the batched ones at the batched engine's shapes (B=96 epochs of
-   phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
+3. Hold each of the nine kernel entries against its plain PyTorch version
+   on the card: the batched ones at the batched engine's shapes (B=96 epochs
+   of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
    single-block ones at the streaming controller's shapes (T=3 / TS=36) and
-   linkload at the whole-trace shape (T=4032), the fleet ones at phase 7's
-   two buckets (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at
-   C=E=56), each also at a ragged shape with dead links (the fleet ones:
-   fabrics with fewer blocks than the bucket and a padded-pod layout); time
-   kernel, plain version and the ``torch.bmm`` / ``torch.mm`` yardstick with
-   CUDA events.  A small batched PDHG solve is held against scipy/HiGHS.
-   The model kernels at the shapes of phase 8's prefill and at ragged ones:
+   linkload at the whole-trace shape (T=4032), the single-block queue loss
+   also at one sub-step and at TS=512 (past its cluster's shared memory: the
+   batched body over one pair), the fleet ones at phase 7's two buckets
+   (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at C=E=56), each also at
+   a ragged shape with dead links (the fleet ones: fabrics with fewer blocks
+   than the bucket and a padded-pod layout); time kernel, plain version and
+   the ``torch.bmm`` / ``torch.mm`` yardstick with CUDA events, and an empty
+   kernel through the single-block queue loss's ctypes path (the launch
+   floor).  A small batched PDHG solve is held against scipy/HiGHS.  The
+   model kernels at the shapes of phase 8's prefill and at ragged ones:
    flash attention at recurrentgemma-9b's (B=2, S=4096, H=16, KV=1, hd=256,
    window 2048, bf16; yardstick ``scaled_dot_product_attention`` with the
    same mask) and at a ragged shape (hd=100, non-causal window 48) in f32
-   and bf16, the RG-LRU scan at (2, 4096, 4096), the SSD chunk scan at
-   mamba2-130m's (B=4, H=24, S=4096, P=64, N=128, chunk 64, also against
-   itself at chunk 128 and, bit for bit, against a second call).
+   and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
+   D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
+   chunk 64, also against itself at chunk 128).  The three redesigned
+   kernels (RG-LRU, SSD, single-block queue loss) are also held bit for bit
+   against a second call.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -103,6 +108,10 @@ FLEET_TOL = 1e-3  # fleet vs per-fabric engine (tests/test_fleet_engine.py:96)
 SWEEP14_B = 672  # a 14-day sweep's batch (the batched kernels' PR 11 shape)
 TRACE_T = 4032  # 14 days of 5-minute TMs: the whole-trace baseline's block
 METRICS = ("mlu", "alu", "olr", "stretch", "loss")  # every phase tracks loss
+# card clock cycles time_cuda holds the card for before each timed call: 10 ms
+# at the H100's 1.98 GHz, above the host's time to issue any timed call (the
+# plain versions' Python loops included)
+HOLD_CYCLES = 20_000_000
 
 
 def log(*args):
@@ -119,7 +128,10 @@ def fail(msg: str):
 def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20):
     """Median milliseconds of ``fn()`` on the card, CUDA events around each
     call, with the 50 MB L2 flushed before every call (the engine finds its
-    inputs freshly copied, not resident)."""
+    inputs freshly copied, not resident).  After the flush the card is held
+    busy (``HOLD_CYCLES``) until the host has issued the call and the end
+    event, so that a call whose host side outlasts the flush is timed by its
+    device work alone, not by the host's time to issue it."""
     import torch
 
     flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
@@ -128,6 +140,7 @@ def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20):
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -137,6 +150,21 @@ def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds of host time per call of ``fn()`` (issue only: the card
+    is synchronized once, after the last call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(n_bytes: float, n_flops: float, flop_rate: float = F32_FLOP_PER_S):
@@ -366,8 +394,14 @@ def phase_single_kernels():
                                                      shape=[TRACE_T, c, e]),
         "status": "ported"}
 
+    # the redesigned single-block queue loss: the serve shape, a ragged one
+    # with dead links, one sub-step, and a long block (past one CTA's shared
+    # memory: the batched body over one pair)
+    lib = qlops._library()[0]
     for label, (ts, cc, ee) in (("serve", (MAIN_TS, c, e)),
-                                ("ragged", (45, 30, 300))):
+                                ("ragged", (45, 30, 300)),
+                                ("one_step", (1, c, e)),
+                                ("long", (512, c, e))):
         d, w, cap, buf = (x[0].contiguous()
                           for x in _queueloss_inputs(1, ts, cc, ee, gen))
         out = qlops.queueloss(d, w, cap, buf, 30.0)
@@ -375,29 +409,48 @@ def phase_single_kernels():
         torch.cuda.synchronize()
         abs_e, rel_e, worst = max_errs(out, ref)
         drops = float(ref[0].sum())
-        log(f"phase 3: queueloss (single) {label} {(ts, cc, ee)}: max abs err "
-            f"{abs_e:.3e}, max rel err {rel_e:.3e}, worst "
-            f"|err|/(atol+rtol|ref|) {worst:.3f}, total drop {drops:.3f} Gb")
+        # no atomics: a second call gives the same bits
+        same = all(torch.equal(x, y)
+                   for x, y in zip(qlops.queueloss(d, w, cap, buf, 30.0), out))
+        body = ("one launch" if lib.queueloss_single_fits(ts, cc, ee)
+                else "the batched body over one pair, two launches")
+        log(f"phase 3: queueloss (single) {label} {(ts, cc, ee)} ({body}): max "
+            f"abs err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
+            f"|err|/(atol+rtol|ref|) {worst:.3f}, total drop {drops:.3f} Gb; "
+            f"second call bit-equal {same}")
         if worst > 1.0 or drops <= 0.0:
             fail(f"queueloss (single) {label} disagrees with its plain version "
                  f"(or drops nothing)")
-        if label == "ragged":
+        if not same:
+            fail(f"queueloss (single) {label} is not deterministic")
+        if label != "serve":
             continue
         ms = time_cuda(lambda: qlops.queueloss(d, w, cap, buf, 30.0))
         plain = time_cuda(lambda: queueloss_ref(d, w, cap, buf, 30.0))
+        stream = torch.cuda.current_stream().cuda_stream
+        floor = time_cuda(lambda: lib.queueloss_noop(stream))
+        # the path this entry took before its own body: the batched body over
+        # one pair, then the partial sums (two launches)
+        batched = [x[None] for x in (d, w, cap, buf)]
+        prev = time_cuda(lambda: qlops.queueloss_batched(*batched, 30.0))
+        host = host_us(lambda: qlops.queueloss(d, w, cap, buf, 30.0))
         n_bytes = 4 * (ts * c + c * e + 2 * e + 2 * ts)
         n_flops = 2 * ts * c * e + 6 * ts * e
         bnd, by = bound_ms(n_bytes, n_flops)
         log(f"  queueloss (single) times: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}: "
-            f"{n_bytes / 1e6:.4f} MB, {n_flops / 1e6:.3f} MFLOP)")
+            f"{plain:.4f} ms, an empty kernel through the same ctypes path "
+            f"{floor:.4f} ms, the batched body over one pair {prev:.4f} ms, "
+            f"bound {bnd:.5f} ms ({by}: {n_bytes / 1e6:.4f} MB, "
+            f"{n_flops / 1e6:.3f} MFLOP); the wrapper's host time {host:.1f} us "
+            f"a call")
         rows["queueloss"] = {
             "name": "queueloss", "route": "cuda",
             "source": "src/repro_torch/csrc/queueloss.cu",
             "replaces": "src/repro/kernels/queueloss/queueloss.py:92",
             "max_abs_err": abs_e, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
-            "shape": [ts, c, e], "status": "ported"}
+            "launch_floor_ms": floor, "batched_body_ms": prev,
+            "host_us_per_call": host, "shape": [ts, c, e], "status": "redesigned"}
     return rows
 
 
@@ -597,22 +650,35 @@ def phase_model_kernels():
             "status": "redesigned"}
         del q, k, v, out, ref, q4, k4, v4
 
-    # 8. RG-LRU scan: recurrentgemma-9b's (B, S, d_model), and ragged shapes
-    for label, (b, s, d) in (("main", (2, 4096, 4096)), ("ragged", (3, 37, 31)),
-                             ("ragged2", (2, 513, 130))):
+    # 8. RG-LRU scan: recurrentgemma-9b's (B, S, d_model), the same at B = 1,
+    # and ragged shapes (S past a segment of the kernel, D not a multiple of 32)
+    b1_ms = None
+    for label, (b, s, d) in (("main", (2, 4096, 4096)), ("b1", (1, 4096, 4096)),
+                             ("ragged", (3, 37, 31)), ("ragged2", (2, 513, 130)),
+                             ("ragged3", (2, 4097, 4096))):
         a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device=dev)
         x = 0.5 * torch.randn((b, s, d), generator=gen, device=dev)
         out, ref = rlops.rglru_scan(a, x), rglru_scan_ref(a, x)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         worst = float(((out - ref).abs() / (RGLRU_TOL + RGLRU_TOL * ref.abs())).max())
+        # no atomics, a fixed order of the chunks: a second call, the same bits
+        same = bool(torch.equal(rlops.rglru_scan(a, x), out))
         log(f"phase 3: rglru_scan {label} {(b, s, d)}: max abs err {err:.3e}, "
-            f"worst |err|/(atol+rtol|ref|) {worst:.3f} (contract {RGLRU_TOL})")
+            f"worst |err|/(atol+rtol|ref|) {worst:.4f} (contract {RGLRU_TOL}); "
+            f"second call bit-equal {same}")
         if worst > 1.0:
             fail(f"rglru_scan {label} disagrees with its plain version")
-        if label != "main":
-            continue
+        if not same:
+            fail(f"rglru_scan {label} is not deterministic")
         n_bytes, n_flops = 3 * 4 * a.numel(), 2 * a.numel()
+        if label == "b1":
+            b1_ms = time_cuda(lambda: rlops.rglru_scan(a, x))
+            log(f"  rglru_scan at B = 1: kernel {b1_ms:.4f} ms, bound "
+                f"{bound_ms(n_bytes, n_flops)[0]:.4f} ms")
+        if label != "main":
+            del a, x, out, ref
+            continue
         ms = time_cuda(lambda: rlops.rglru_scan(a, x))
         plain = time_cuda(lambda: rglru_scan_ref(a, x))
         bnd, by = bound_ms(n_bytes, n_flops)
@@ -624,8 +690,9 @@ def phase_model_kernels():
             "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:40",
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "shape": [b, s, d],
-            "status": "ported"}
+            "status": "redesigned"}
         del a, x, out, ref
+    rows["rglru_scan"]["b1_ms"] = b1_ms
 
     # 9. SSD chunk scan: mamba2-130m's prefill, and a ragged shape whose
     # chunk halves to 32

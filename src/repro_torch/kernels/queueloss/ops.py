@@ -19,6 +19,7 @@ CPU tensor runs the plain version in :mod:`.ref`.  Nothing falls back from one t
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -40,29 +41,63 @@ single_launches = 0  # queueloss (one block)
 fleet_launches = 0  # queueloss_fleet
 
 
+# the C entries and the number of int dimensions each takes after the
+# pointers and dt: (TS, C, E), (B, TS, C, E), (F, B, TS, C, E)
+_ENTRIES = {"queueloss_single": 3, "queueloss_batched": 4, "queueloss_fleet": 5}
+_LIB = None  # (library, max commodities, links per block), set on first use
+
+
+def _library():
+    """The queue-loss library with every entry's ``argtypes`` and
+    ``restype`` set, and its two limits read, once per process."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.library("queueloss")
+        for name, n_dims in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_dims
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        for name in ("queueloss_max_commodities", "queueloss_links_per_block",
+                     "queueloss_single_fits"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.queueloss_single_fits.argtypes = [ctypes.c_int] * 3
+        lib.queueloss_noop.argtypes = [ctypes.c_void_p]
+        lib.queueloss_noop.restype = ctypes.c_int
+        _LIB = (lib, lib.queueloss_max_commodities(),
+                lib.queueloss_links_per_block())
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _single_fits(ts: int, c: int, e: int) -> bool:
+    """Whether a (TS, C) block under a (C, E) W takes the single-block body
+    (one launch, no partials) or the batched body over one pair."""
+    return bool(_library()[0].queueloss_single_fits(ts, c, e))
+
+
 def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
     """Launch the C entry ``name`` (four input pointers, dt, two outputs and
-    two partial buffers, ``dims`` ints, the stream); returns (drop, load)."""
-    lib = _build.library("queueloss")
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * len(dims)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.queueloss_links_per_block.restype = ctypes.c_int
-    lib.queueloss_max_commodities.restype = ctypes.c_int
+    two partial buffers, ``dims`` ints, the stream); returns (drop, load).
+    The single-block entry takes no partials where its block fits."""
+    lib, max_c, links = _library()
     *lead, ts, c, e = dims
-    if c > lib.queueloss_max_commodities():
+    if c > max_c:
         raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
-                         f"chunk ({lib.queueloss_max_commodities()})")
-    n_e = max(1, -(-e // lib.queueloss_links_per_block()))
+                         f"chunk ({max_c})")
     out = torch.empty((2, *lead, ts), dtype=torch.float32, device=dev)
-    part = torch.empty((2, *lead, ts, n_e), dtype=torch.float32, device=dev)
+    if name == "queueloss_single" and _single_fits(ts, c, e):
+        part_ptrs = (None, None)
+    else:
+        part = torch.empty((2, *lead, ts, max(1, -(-e // links))),
+                           dtype=torch.float32, device=dev)
+        part_ptrs = (part[0].data_ptr(), part[1].data_ptr())
     with torch.cuda.device(dev):
-        rc = fn(demand.data_ptr(), w.data_ptr(), cap.data_ptr(), buf.data_ptr(),
-                float(dt), out[0].data_ptr(), out[1].data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), *dims,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = getattr(lib, name)(demand.data_ptr(), w.data_ptr(), cap.data_ptr(),
+                                buf.data_ptr(), float(dt), out[0].data_ptr(),
+                                out[1].data_ptr(), *part_ptrs, *dims,
+                                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "queueloss", name, rc)
     return out[0], out[1]
 

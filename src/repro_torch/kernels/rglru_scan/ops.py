@@ -4,7 +4,9 @@ The counterpart of ``repro/kernels/rglru_scan/ops.py``'s :func:`rglru_scan`:
 a CUDA tensor launches the kernel (and adds one to :data:`launches`), a CPU
 tensor runs the plain version in :mod:`.ref`; nothing falls back from one to
 the other.  Unlike the TPU wrapper it pads nothing (no a=1 / b=0 tails): the
-kernel walks any S and masks the ragged channel edge itself.
+kernel walks any S and masks the ragged channel edge itself.  The kernel
+splits S into chunks scanned in parallel and combined in a fixed order, so
+its rounding differs from a sequential walk within the reference's 1e-4.
 """
 
 from __future__ import annotations
@@ -20,6 +22,19 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 __all__ = ["launches", "rglru_scan"]
 
 launches = 0  # kernel launches so far; set to 0 before a run to count its own
+_FN = None  # (library, entry) with argtypes set, on first use
+
+
+def _entry():
+    """The library and its ``rglru_scan`` entry, ``argtypes`` set once."""
+    global _FN
+    if _FN is None:
+        lib = _build.library("rglru_scan")
+        fn = lib.rglru_scan
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = (lib, fn)
+    return _FN
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,10 +51,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return rglru_scan_ref(a, b)
     bsz, s, d = a.shape
     h = torch.empty_like(a)
-    lib = _build.library("rglru_scan")
-    fn = lib.rglru_scan
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fn = _entry()
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, d,
                 torch.cuda.current_stream(dev).cuda_stream)

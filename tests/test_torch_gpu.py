@@ -1,11 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 batched entries at the batched engine's chip-scale shapes (B=672 epochs,
 T=3 / TS=36, C=E=132), the single-block entries at the streaming
-controller's (T=3 / TS=36) and the whole-trace baseline's (T=4032), the
-fleet entries at the 22-fabric fleet's 12-pod bucket (F=15 fabrics, B=96
-blocks, C=E=132), and all at ragged shapes (fleet: all-zero padded blocks);
+controller's (T=3 / TS=36), the whole-trace baseline's (T=4032) and, for
+the queue loss, one sub-step and a block past one cluster's shared memory
+(TS=512), the fleet entries at the 22-fabric fleet's 12-pod bucket (F=15
+fabrics, B=96 blocks, C=E=132), and all at ragged shapes (fleet: all-zero
+padded blocks);
 the model kernels (flash attention, the RG-LRU scan, the SSD chunk scan) at
-the model shapes of recurrentgemma-9b and mamba2-130m and at ragged ones.
+the model shapes of recurrentgemma-9b (the RG-LRU scan also at B = 1) and
+mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD and single-block
+queue-loss kernels give the same bits on two calls.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -100,15 +104,20 @@ def test_single_linkload_kernel_matches_plain(gen, t, c, e):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ts,c,e", [(36, 132, 132), (45, 30, 300)])
-def test_single_queueloss_kernel_matches_plain(gen, ts, c, e):
+def _single_queueloss_inputs(gen, ts, c, e):
     d = torch.rand((ts, c), generator=gen, device="cuda") * 20.0
     w = torch.rand((c, e), generator=gen, device="cuda")
     w = w * (torch.rand((c, e), generator=gen, device="cuda") < 0.08)
     cap = 40.0 + 80.0 * torch.rand(e, generator=gen, device="cuda")
     cap = torch.where(torch.rand(e, generator=gen, device="cuda") < 0.1, 0.0, cap)
-    buf = cap * 0.025
+    return d, w, cap, cap * 0.025
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,c,e", [(36, 132, 132), (45, 30, 300), (1, 132, 132),
+                                    (512, 132, 132)])  # the last: two launches
+def test_single_queueloss_kernel_matches_plain(gen, ts, c, e):
+    d, w, cap, buf = _single_queueloss_inputs(gen, ts, c, e)
     before = qlops.single_launches
     out = qlops.queueloss(d, w, cap, buf, 30.0)
     ref = queueloss_ref(d, w, cap, buf, 30.0)
@@ -116,6 +125,19 @@ def test_single_queueloss_kernel_matches_plain(gen, ts, c, e):
     assert float(ref[0].sum()) > 0.0
     for a, r in zip(out, ref):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_single_queueloss_kernel_is_deterministic(gen):
+    """No atomics: two calls at the streaming controller's shape give the
+    same bits, one launch counted each."""
+    args = _single_queueloss_inputs(gen, 36, 132, 132)
+    before = qlops.single_launches
+    first = qlops.queueloss(*args, 30.0)
+    assert qlops.single_launches == before + 1
+    second = qlops.queueloss(*args, 30.0)
+    assert qlops.single_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def _pad_blocks(n_blocks, *tensors):
@@ -241,7 +263,8 @@ def test_flash_attention_kernel_takes_unaligned_views(gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,d", [(2, 4096, 4096), (3, 37, 31), (2, 513, 130)])
+@pytest.mark.parametrize("b,s,d", [(2, 4096, 4096), (3, 37, 31), (2, 513, 130),
+                                   (1, 4096, 4096), (2, 4097, 4096)])
 def test_rglru_scan_kernel_matches_plain(gen, b, s, d):
     a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device="cuda")
     x = 0.5 * torch.randn((b, s, d), generator=gen, device="cuda")
@@ -249,6 +272,20 @@ def test_rglru_scan_kernel_matches_plain(gen, b, s, d):
     out = rlops.rglru_scan(a, x)
     assert rlops.launches == before + 1
     torch.testing.assert_close(out, rglru_scan_ref(a, x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_is_deterministic(gen):
+    """The chunks combine in a fixed order: two calls at recurrentgemma-9b's
+    shape give the same bits, one launch counted each."""
+    a = 0.8 + 0.199 * torch.rand((2, 4096, 4096), generator=gen, device="cuda")
+    x = 0.5 * torch.randn((2, 4096, 4096), generator=gen, device="cuda")
+    before = rlops.launches
+    first = rlops.rglru_scan(a, x)
+    assert rlops.launches == before + 1
+    second = rlops.rglru_scan(a, x)
+    assert rlops.launches == before + 2
+    assert torch.equal(first, second)
 
 
 def _ssd_inputs(gen, b, h, s, p, n):

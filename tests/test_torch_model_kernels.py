@@ -173,6 +173,52 @@ def test_rglru_scan_matches_reference(backend, b, s, d, rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
+def _rglru_chunk_schedule(a, b, *, warps=16, steps=8):
+    """The redesigned kernel's order (``csrc/rglru_scan.cu``) in float32: S
+    in segments of ``warps * steps`` rows (past S: a = 1, b = 0), each cut
+    into ``warps`` chunks of ``steps`` rows; per chunk the product of a and
+    the state from 0, then the chunks walked in order from the state
+    entering the segment, then every chunk re-run from its entering state."""
+    bsz, s, d = a.shape
+    seg = warps * steps
+    pad = (-s) % seg
+    a = torch.cat([a, torch.ones((bsz, pad, d))], 1).view(bsz, -1, warps, steps, d)
+    b = torch.cat([b, torch.zeros((bsz, pad, d))], 1).view(bsz, -1, warps, steps, d)
+    h = torch.empty_like(a)
+    carry = torch.zeros((bsz, d))
+    for g in range(a.shape[1]):
+        ag, bg = a[:, g], b[:, g]  # (B, warps, steps, D)
+        pa, ph = ag[:, :, 0], bg[:, :, 0]
+        for u in range(1, steps):
+            ph = ag[:, :, u] * ph + bg[:, :, u]
+            pa = pa * ag[:, :, u]
+        entering = []
+        for k in range(warps):
+            entering.append(carry)
+            carry = pa[:, k] * carry + ph[:, k]
+        hv = torch.stack(entering, 1)
+        for u in range(steps):
+            hv = ag[:, :, u] * hv + bg[:, :, u]
+            h[:, g, :, u] = hv
+    return h.view(bsz, -1, d)[:, :s]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("s,lo,hi", [
+    (256, 0.8, 0.999),   # two whole segments
+    (37, 0.8, 0.999),    # less than one segment
+    (513, 1e-6, 1e-3),   # ragged; chunk products underflow to 0
+    (513, 0.999, 1.0)])  # ragged; a near 1 carries across every segment
+def test_rglru_chunk_schedule_matches_reference(backend, s, lo, hi, rng):
+    """The chunk-parallel kernel's split and combine order gives the
+    reference's answer within its 1e-4, here in float32 on the CPU."""
+    a = rng.uniform(lo, hi, (2, s, 33)).astype(np.float32)
+    x = rng.normal(0, 0.5, (2, s, 33)).astype(np.float32)
+    ref = jrl.rglru_scan(jnp.asarray(a), jnp.asarray(x), backend=backend)
+    out = _rglru_chunk_schedule(_t(a), _t(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
 def test_rglru_scan_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="one \\(B, S, D\\)"):
         rl.rglru_scan(torch.zeros(2, 4, 8), torch.zeros(2, 4, 7))

@@ -110,6 +110,59 @@ def test_single_block_is_the_batched_kernel_at_one_epoch():
         torch.testing.assert_close(a, b[0])
 
 
+def _queueloss_cluster_schedule(demand, w, cap, buf, dt, *, cluster=8):
+    """The redesigned single-block kernel's split (``csrc/queueloss.cu``) in
+    float32: E cut into ``cluster`` slices of ceil(E / cluster) links; every
+    load summed over each quarter of c in order, then the quarters added; each
+    link's queue walked in order; per slice and sub-step the sum over its
+    links in order, then the slices in rank order.  Returns (drop, load),
+    each (TS,), and the drops per (sub-step, link)."""
+    ts, c = demand.shape
+    e = w.shape[1]
+    quarter = -(-c // 4)
+    load = None
+    for lo in range(0, 4 * quarter, quarter):
+        acc = torch.zeros((ts, e))
+        for ci in range(lo, min(c, lo + quarter)):
+            acc = acc + demand[:, ci:ci + 1] * w[ci]
+        load = acc if load is None else load + acc
+    drops = torch.empty((ts, e))
+    q = torch.zeros(e)
+    for k in range(ts):
+        x = q + (load[k] - cap) * dt
+        drops[k] = torch.clamp(x - buf, min=0.0)
+        q = torch.minimum(torch.clamp(x, min=0.0), buf)
+    es = -(-e // cluster)
+    out = []
+    for v in (drops, load):
+        total = torch.zeros(ts)
+        for r in range(cluster):
+            part = torch.zeros(ts)
+            for j in range(min(e, r * es), min(e, (r + 1) * es)):
+                part = part + v[:, j]
+            total = total + part
+        out.append(total)
+    return out[0], out[1], drops
+
+
+@pytest.mark.parametrize("ts,c,e", [(1, 30, 45), (36, 30, 45), (45, 20, 60),
+                                    (36, 12, 7)])  # the last: 7 links, 8 slices
+def test_queueloss_cluster_schedule_matches_reference(ts, c, e):
+    """The one-launch kernel's load-then-scan split and its order of sums
+    over links give the reference's Pallas kernel's answer (interpret mode);
+    padded links (cap = buf = 0, no load) never drop."""
+    d, w, cap, buf = _queue_inputs(7 * ts + e, ts, c, e)
+    cap[-1] = buf[-1] = 0.0  # at least one dead link
+    w[:, cap == 0.0] = 0.0  # dead links carry nothing, as padded ones
+    ref = ref_qlops.queue_loss(d, w, cap, buf, 25.0, backend="pallas")
+    drop, load, per_link = _queueloss_cluster_schedule(
+        *(torch.from_numpy(x.astype(np.float32)) for x in (d, w, cap, buf)), 25.0)
+    assert ref[0].sum() > 0.0, "parity must be exercised on real drops"
+    assert float(per_link[:, torch.from_numpy(cap == 0.0)].abs().sum()) == 0.0
+    for a, r in zip((drop, load), ref):
+        np.testing.assert_allclose(a.numpy(), r, rtol=RTOL, atol=ATOL)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     d, w = torch.zeros((3, 4)), torch.zeros((4, 5))
     with pytest.raises(ValueError, match="disagree"):
