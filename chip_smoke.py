@@ -14,25 +14,32 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
 3. Hold each of the nine kernel entries against its plain PyTorch version
    on the card: the batched ones at the batched engine's shapes (B=96 epochs
    of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
-   single-block ones at the streaming controller's shapes (T=3 / TS=36) and
-   linkload at the whole-trace shape (T=4032), the single-block queue loss
+   single-block ones at the streaming controller's shapes (T=3 / TS=36),
+   linkload also at the whole-trace shape (T=4032), at one row, on both
+   sides of its single-block body's row cut (the batched body over one pair
+   past it) and with W at a storage offset, the single-block queue loss
    also at one sub-step and at TS=512 (past its cluster's shared memory: the
    batched body over one pair), the fleet ones at phase 7's two buckets
-   (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at C=E=56), each also at
-   a ragged shape with dead links (the fleet ones: fabrics with fewer blocks
-   than the bucket and a padded-pod layout); time kernel, plain version and
-   the ``torch.bmm`` / ``torch.mm`` yardstick with CUDA events, and an empty
-   kernel through the single-block queue loss's ctypes path (the launch
-   floor).  A small batched PDHG solve is held against scipy/HiGHS.  The
+   (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at C=E=56), the fleet
+   queue loss also past its fleet body (TS=512: the batched body over the
+   F*B pairs), each also at a ragged shape with dead links (the fleet ones:
+   fabrics with fewer blocks than the bucket and a padded-pod layout); time
+   kernel, plain version and the ``torch.bmm`` / ``torch.mm`` yardstick with
+   CUDA events, the redesigned single-block linkload and fleet queue loss
+   beside the batched body they replaced on the same inputs (linkload over
+   T = 3, 12, 36, the cut, one past it and 4032), an empty kernel through
+   the single-block queue loss's ctypes path (the launch floor) and the
+   single-block wrappers' host time a call.  A small batched PDHG solve is
+   held against scipy/HiGHS.  The
    model kernels at the shapes of phase 8's prefill and at ragged ones:
    flash attention at recurrentgemma-9b's (B=2, S=4096, H=16, KV=1, hd=256,
    window 2048, bf16; yardstick ``scaled_dot_product_attention`` with the
    same mask) and at a ragged shape (hd=100, non-causal window 48) in f32
    and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
    D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
-   chunk 64, also against itself at chunk 128).  The three redesigned
-   kernels (RG-LRU, SSD, single-block queue loss) are also held bit for bit
-   against a second call.
+   chunk 64, also against itself at chunk 128).  The five redesigned
+   kernels (RG-LRU, SSD, single-block linkload and queue loss, fleet queue
+   loss) are also held bit for bit against a second call.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -341,10 +348,49 @@ def phase_kernels():
     return rows
 
 
+def _single_rows_cut(c: int, e: int) -> int:
+    """The longest block the single-block linkload body takes at (C, E)."""
+    from repro_torch.kernels.linkload import ops as llops
+
+    t = 0
+    while llops._single_fits(t + 1, c, e):
+        t += 1
+    return t
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned allocation: a
+    view with a storage offset, not 16-byte aligned."""
+    import torch
+
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _linkload_entry_setup():
+    """What the linkload wrapper did on every launch before it kept its
+    library: look the library up and set an entry's argument types."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("linkload")
+    fn = lib.linkload_single
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.linkload_max_commodities.restype = ctypes.c_int
+    lib.linkload_max_commodities()
+
+
 def phase_single_kernels():
     """The single-block entries at the streaming controller's shapes (T=3,
-    TS=36), linkload also at the whole-trace shape (T=4032), each at a ragged
-    shape with dead links too."""
+    TS=36), linkload also at the whole-trace shape (T=4032), at one row, on
+    both sides of its single-block body's row cut, with W at a storage offset,
+    and each at a ragged shape with dead links too; the redesigned bodies
+    also bit for bit against a second call, and timed beside the bodies they
+    replaced."""
     import torch
 
     from repro_torch.kernels.linkload import ops as llops
@@ -356,48 +402,91 @@ def phase_single_kernels():
     c = e = MAIN_C
     rows = {}
     timed = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    qlib = qlops._library()[0]
+    floor = time_cuda(lambda: qlib.queueloss_noop(stream))
+    cut = _single_rows_cut(c, e)
+    log(f"phase 3: linkload (single) body takes T <= {cut} at C=E={c} "
+        f"({llops._library()[0].linkload_single_smem_bytes(cut, c, e)} B of shared "
+        f"memory there, {llops._library()[0].linkload_single_smem_bytes(MAIN_T, c, e)} "
+        f"B at T={MAIN_T}); an empty kernel through the ctypes path {floor:.4f} ms")
+    grid = {}
     for label, (t, cc, ee), exact in (("serve", (MAIN_T, c, e), True),
                                       ("trace", (TRACE_T, c, e), True),
-                                      ("ragged", (13, 30, 200), False)):
+                                      ("ragged", (13, 30, 200), False),
+                                      ("one_row", (1, c, e), True),
+                                      ("unaligned_w", (MAIN_T, c, e), True),
+                                      ("rows12", (12, c, e), True),
+                                      ("rows36", (36, c, e), True),
+                                      ("at_cut", (cut, c, e), True),
+                                      ("past_cut", (cut + 1, c, e), True)):
         d, w, ic = (x[0].contiguous()
                     for x in _linkload_inputs(1, t, cc, ee, gen, exact))
+        if label == "unaligned_w":
+            w = _unaligned(w)
         out = llops.linkload(d, w, ic, 0.8)
         ref = linkload_metrics_ref(d, w, ic, 0.8)
         torch.cuda.synchronize()
         abs_e, rel_e, worst = max_errs(out, ref)
-        log(f"phase 3: linkload (single) {label} {(t, cc, ee)}: max abs err "
-            f"{abs_e:.3e}, max rel err {rel_e:.3e}, worst "
-            f"|err|/(atol+rtol|ref|) {worst:.3f}")
+        # no atomics: a second call gives the same bits
+        same = all(torch.equal(x, y) for x, y in zip(llops.linkload(d, w, ic, 0.8), out))
+        body = ("the single-block body" if llops._single_fits(t, cc, ee)
+                else "the batched body over one pair")
+        log(f"phase 3: linkload (single) {label} {(t, cc, ee)} ({body}): max abs err "
+            f"{abs_e:.3e}, max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) "
+            f"{worst:.3f}; second call bit-equal {same}")
         if worst > 1.0 or not all(bool(torch.isfinite(x).all()) for x in out):
             fail(f"linkload (single) {label} disagrees with its plain version")
-        if label == "ragged":
+        if not same:
+            fail(f"linkload (single) {label} is not deterministic")
+        if label in ("serve", "trace", "rows12", "rows36", "at_cut", "past_cut"):
+            # the entry beside the batched body over one pair (the path it
+            # took before its own body), at every T of the grid
+            new = time_cuda(lambda: llops.linkload(d, w, ic, 0.8))
+            old = time_cuda(lambda: llops.linkload_batched(d[None], w[None], ic[None], 0.8))
+            grid[t] = {"entry_ms": new, "batched_body_ms": old, "body": body}
+            log(f"  linkload (single) T={t}: entry ({body}) {new:.4f} ms, the batched "
+                f"body over one pair {old:.4f} ms")
+        if label not in ("serve", "trace"):
             continue
-        ms = time_cuda(lambda: llops.linkload(d, w, ic, 0.8))
+        ms = grid[t]["entry_ms"]
         plain = time_cuda(lambda: linkload_metrics_ref(d, w, ic, 0.8))
         mm = time_cuda(lambda: torch.mm(d, w))
         n_bytes = 4 * (t * c + c * e + e + 4 * t)
         n_flops = 2 * t * c * e + 5 * t * e
         bnd, by = bound_ms(n_bytes, n_flops)
+        msg = ""
+        if label == "serve":
+            host = host_us(lambda: llops.linkload(d, w, ic, 0.8))
+            host_before = host_us(lambda: (_linkload_entry_setup(),
+                                           llops.linkload(d, w, ic, 0.8)))
+            msg = (f"; the wrapper's host time {host:.1f} us a call, "
+                   f"{host_before:.1f} us with the per-call library lookup and "
+                   f"argtypes reset it did before")
+            timed["host"] = (host, host_before)
         log(f"  linkload (single) {label} times: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, torch.mm of the load alone {mm:.4f} ms, bound "
             f"{bnd:.5f} ms ({by}: {n_bytes / 1e6:.4f} MB, "
-            f"{n_flops / 1e6:.3f} MFLOP)")
+            f"{n_flops / 1e6:.3f} MFLOP){msg}")
         timed[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
                         "bound_by": by, "yardstick_mm_ms": mm,
+                        "batched_body_ms": grid[t]["batched_body_ms"],
                         "max_abs_err": abs_e}
     rows["linkload"] = {
         "name": "linkload", "route": "cuda",
         "source": "src/repro_torch/csrc/linkload.cu",
         "replaces": "src/repro/kernels/linkload/linkload.py:69",
-        **timed["serve"], "library_ms": None,
-        "shape": [MAIN_T, c, e], "whole_trace": dict(timed["trace"],
-                                                     shape=[TRACE_T, c, e]),
-        "status": "ported"}
+        **timed["serve"], "library_ms": None, "launch_floor_ms": floor,
+        "host_us_per_call": timed["host"][0],
+        "host_us_per_call_with_per_call_setup": timed["host"][1],
+        "shape": [MAIN_T, c, e], "single_max_rows": cut,
+        "t_grid": {str(k): v for k, v in grid.items()},
+        "whole_trace": dict(timed["trace"], shape=[TRACE_T, c, e]),
+        "status": "redesigned"}
 
     # the redesigned single-block queue loss: the serve shape, a ragged one
     # with dead links, one sub-step, and a long block (past one CTA's shared
     # memory: the batched body over one pair)
-    lib = qlops._library()[0]
     for label, (ts, cc, ee) in (("serve", (MAIN_TS, c, e)),
                                 ("ragged", (45, 30, 300)),
                                 ("one_step", (1, c, e)),
@@ -412,7 +501,7 @@ def phase_single_kernels():
         # no atomics: a second call gives the same bits
         same = all(torch.equal(x, y)
                    for x, y in zip(qlops.queueloss(d, w, cap, buf, 30.0), out))
-        body = ("one launch" if lib.queueloss_single_fits(ts, cc, ee)
+        body = ("one launch" if qlops._single_fits(ts, cc, ee)
                 else "the batched body over one pair, two launches")
         log(f"phase 3: queueloss (single) {label} {(ts, cc, ee)} ({body}): max "
             f"abs err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
@@ -427,8 +516,6 @@ def phase_single_kernels():
             continue
         ms = time_cuda(lambda: qlops.queueloss(d, w, cap, buf, 30.0))
         plain = time_cuda(lambda: queueloss_ref(d, w, cap, buf, 30.0))
-        stream = torch.cuda.current_stream().cuda_stream
-        floor = time_cuda(lambda: lib.queueloss_noop(stream))
         # the path this entry took before its own body: the batched body over
         # one pair, then the partial sums (two launches)
         batched = [x[None] for x in (d, w, cap, buf)]
@@ -488,8 +575,11 @@ def _fleet_inputs(f, b, t, c, gen, n_blocks=None, n_pods=None, vp=None,
 
 def phase_fleet_kernels():
     """The fleet entries (kernels #5/#6) at phase 7's two buckets and at a
-    ragged padded bucket, against their plain versions; times at both
-    buckets."""
+    ragged padded bucket, the queue loss also at a bucket past its fleet
+    body's limit (the batched body over the F*B pairs), against their plain
+    versions; the redesigned queue loss also bit for bit against a second
+    call; times at both buckets, the queue loss's beside the batched body
+    over the same pairs (the path it took before its own body)."""
     import torch
 
     from repro_torch.kernels.linkload import ops as llops
@@ -499,11 +589,17 @@ def phase_fleet_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     ragged = dict(n_blocks=(5, 2, 4), n_pods=(6, 8, 7), vp=8)
+    qlib = qlops._library()[0]
     rows, timed = {}, {"linkload": {}, "queueloss": {}}
-    for label, (f, b, c) in (*FLEET_BUCKETS.items(), ("ragged", (3, 5, 56))):
+    for label, (f, b, c) in (*FLEET_BUCKETS.items(), ("ragged", (3, 5, 56)),
+                             ("past_fits", (2, 3, 132))):
         extra = ragged if label == "ragged" else {}
         for name, t in (("linkload", MAIN_T), ("queueloss", MAIN_TS)):
             queue = name == "queueloss"
+            if label == "past_fits":
+                if not queue:
+                    continue
+                t = 512  # (512, 132) tiles outnumber one CTA's threads
             args = _fleet_inputs(f, b, t, c, gen, queue=queue, **extra)
             if queue:
                 def kernel():
@@ -523,14 +619,22 @@ def phase_fleet_kernels():
             msg = (f"phase 3: {name} (fleet) {label} {(f, b, t, c, c)}: max abs "
                    f"err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
                    f"|err|/(atol+rtol|ref|) {worst:.3f}")
+            same = True
             if queue:
-                msg += f", total drop {float(ref[0].sum()):.3f} Gb"
+                # no atomics: a second call gives the same bits
+                same = all(torch.equal(x, y) for x, y in zip(kernel(), out))
+                body = ("the fleet body, one launch" if qlops._fleet_fits(t, c, c)
+                        else "the batched body over the F*B pairs, two launches")
+                msg += (f", total drop {float(ref[0].sum()):.3f} Gb ({body}); second "
+                        f"call bit-equal {same}")
             log(msg)
             if (worst > 1.0 or not all(bool(torch.isfinite(x).all()) for x in out)
                     or (queue and float(ref[0].sum()) <= 0.0)):
                 fail(f"{name} (fleet) {label} disagrees with its plain version "
                      f"(or drops nothing)")
-            if label == "ragged":
+            if not same:
+                fail(f"{name} (fleet) {label} is not deterministic")
+            if label not in FLEET_BUCKETS:
                 continue
             fb = f * b
             ms, plain_ms = time_cuda(kernel), time_cuda(plain)
@@ -543,22 +647,35 @@ def phase_fleet_kernels():
                    "bound_ms": bnd, "bound_by": by, "shape": [f, b, t, c, c]}
             msg = (f"  {name} (fleet) {label} times: kernel {ms:.4f} ms, plain "
                    f"{plain_ms:.4f} ms")
-            if not queue:
-                d3, w3 = (x.reshape((fb,) + x.shape[2:]) for x in args[:2])
-                row["yardstick_bmm_ms"] = time_cuda(lambda: torch.bmm(d3, w3))
+            flat = [x.reshape((fb,) + x.shape[2:]) for x in args]
+            if queue:
+                row["batched_body_ms"] = time_cuda(
+                    lambda: qlops.queueloss_batched(*flat, 30.0))
+                row["smem_bytes"] = qlib.queueloss_fleet_smem_bytes(t, c, c)
+                # the two bodies sum in the same order at E <= 160: a check of
+                # what the fleet engine sees against the per-fabric engine
+                row["bit_equal_to_batched_body"] = all(
+                    torch.equal(x.reshape(fb, t), y)
+                    for x, y in zip(out, qlops.queueloss_batched(*flat, 30.0)))
+                msg += (f", the batched body over the same F*B pairs "
+                        f"{row['batched_body_ms']:.4f} ms (bit-equal outputs "
+                        f"{row['bit_equal_to_batched_body']}); {row['smem_bytes']} B "
+                        f"of shared memory a CTA")
+            else:
+                row["yardstick_bmm_ms"] = time_cuda(lambda: torch.bmm(*flat[:2]))
                 msg += (f", torch.bmm of the load alone over F*B "
                         f"{row['yardstick_bmm_ms']:.4f} ms")
             log(f"{msg}, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
                 f"{n_flops / 1e6:.1f} MFLOP)")
             timed[name][label] = row
-    for name, entry, line in (("linkload", "linkload_fleet", 209),
-                              ("queueloss", "queueloss_fleet", 266)):
+    for name, entry, line, status in (("linkload", "linkload_fleet", 209, "ported"),
+                                      ("queueloss", "queueloss_fleet", 266, "redesigned")):
         rows[name] = {
             "name": entry, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
             **timed[name]["V12"], "library_ms": None, "bucket_V8": timed[name]["V8"],
-            "status": "ported"}
+            "status": status}
     return rows
 
 

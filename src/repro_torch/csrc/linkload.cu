@@ -11,8 +11,11 @@
 //   single-block kernel is its batched one at B = 1 (one W, one inv_cap), and
 //   its fleet kernel is the batched one with one more leading grid axis over
 //   fabrics, whose (fabric, block) pairs are independent and contiguous in the
-//   (F, B, ...) layout.  So all three entries launch the same body: over B
-//   epochs, over 1, and over the F*B (fabric, block) pairs.
+//   (F, B, ...) layout.  So the batched and fleet entries launch the same body:
+//   over B epochs and over the F*B (fabric, block) pairs.  The single-block
+//   entry has a body of its own (below) wherever its block fits one CTA's
+//   shared memory, and launches the batched body over one pair where it does
+//   not.
 // For every epoch (or pair) b and interval t it computes
 //   load[t, e] = sum_c demand[b, t, c] * W[b, c, e],  util = load * inv_cap[b, e]
 // and returns per row: max_e util, sum_e util, #(util > thr), sum_e load.
@@ -30,21 +33,44 @@
 // fabric with fewer than B blocks are all zeros and score zeros.
 //
 // Single block.  At the streaming controller's shape (T=3, C=E=132) the call
-// reads 72 KB (0.02 us at 3.35 TB/s): one CTA, bound by the launch.  Scoring a
-// whole trace under one W (the baselines: T=4032) moves 2.3 MB but does
-// 143 MFLOP, so f32 operations bound it (2.1 us at 67 TFLOP/s); the grid is
-// 504 T-tiles, each re-reading the same 70 KB W from L2.
+// reads 72 KB (0.02 us at 3.35 TB/s) and does 0.05 M FMAs: what is left after
+// the launch is the latency of its dependent steps.  Scoring a whole trace
+// under one W (the baselines: T=4032) moves 2.3 MB but does 143 MFLOP, so f32
+// operations bound it (2.1 us at 67 TFLOP/s); it takes the batched body, whose
+// grid is 504 T-tiles, each re-reading the same 70 KB W from L2.
 //
-// Design.  The TPU kernel leans on its sequential grid: the four output
-// blocks stay resident across all (e, c) steps.  A CUDA grid gives no order,
-// so here one CTA owns one (epoch, T-tile) and walks all of E itself.  The
-// demand tile (kRows x C) is staged in shared memory; each thread owns the
-// columns e = tid, tid + kThreads, ..., reads W[b, :, e] once (neighbouring
-// threads read neighbouring addresses), contracts C with f32 FMAs (no TF32:
-// the contract is rtol 3e-4) and folds the finished column into per-row
-// partials.  A fixed-order block reduction (warp butterfly, then the warps in
-// order) writes each row, so there are no atomics and the outputs are the same
-// bits on every run.  Ragged T and E are masked here; the host pads nothing.
+// Design of the batched body.  The TPU kernel leans on its sequential grid:
+// the four output blocks stay resident across all (e, c) steps.  A CUDA grid
+// gives no order, so here one CTA owns one (epoch, T-tile) and walks all of E
+// itself.  The demand tile (kRows x C) is staged in shared memory; each thread
+// owns the columns e = tid, tid + kThreads, ..., reads W[b, :, e] once
+// (neighbouring threads read neighbouring addresses), contracts C with f32
+// FMAs (no TF32: the contract is rtol 3e-4) and folds the finished column into
+// per-row partials.  A fixed-order block reduction (warp butterfly, then the
+// warps in order) writes each row, so there are no atomics and the outputs are
+// the same bits on every run.  Ragged T and E are masked here; the host pads
+// nothing.
+//
+// Design of the single-block body: one launch of one CTA, one round trip to
+// memory.  The batched body at B = 1 is one CTA of 128 threads, each walking
+// its W column through 132 dependent loads (0.04 ms).  Here one CTA of
+// kSingleThreads threads
+//   1. copies all of W (C, E), the demand transposed to (C, T padded to 4) and
+//      inv_cap into shared memory with cp.async, every copy in flight at once
+//      (16-byte copies of W where its address and row length allow, 4-byte
+//      ones otherwise; nothing past the tensors is read);
+//   2. forms the (T, E) loads from shared memory: a thread owns kLoadRows rows
+//      x kLoadLinks neighbouring links over one quarter of C, so per commodity
+//      it reads a float2 of W and a broadcast float4 of demand for eight f32
+//      FMAs, over its quarter of c in order;
+//   3. a warp per row adds the quarters in order, forms util = load * inv_cap
+//      and folds max, sum util, #(util > thr) and sum load over the links
+//      e = lane, lane + 32, ... in order, then a warp butterfly; lane 0 writes.
+// No atomics: the same bits on every call.  Its 0.05 M FMAs fit one SM, so no
+// cluster is needed (the single-block queue loss, 0.63 M FMAs, needed eight).
+// linkload_single_fits() sends a block to this body while it fits shared
+// memory and T <= kSingleMaxRows; longer blocks (the whole-trace baseline)
+// take the batched body, whose T-tiles spread over the card.
 
 #include <cuda_runtime.h>
 
@@ -173,6 +199,143 @@ int launch(const void* demand, const void* w, const void* inv_cap, float thr, vo
   return (int)cudaGetLastError();
 }
 
+constexpr int kSingleThreads = 384;  // threads of the single-block CTA
+constexpr int kSingleWarps = kSingleThreads / 32;
+constexpr int kLoadRows = 4;   // rows per thread in the load product
+constexpr int kLoadLinks = 2;  // links per thread in the load product
+constexpr int kParts = 4;      // the commodities, cut in four per load
+// Longest block the single-block body takes.  At C = E = 132 its shared
+// memory ends first, at T = 60, where it still beats the batched body over one
+// pair (chip_smoke.py phase 3); the cut keeps long blocks of narrower fabrics,
+// whose work grows with T on one SM, on the batched body's many CTAs.
+constexpr int kSingleMaxRows = 64;
+constexpr int kSmemFloats = 227 * 1024 / 4;  // shared memory a CTA can take
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Floats of shared memory the single-block body needs: W (C, ESP), the demand
+// (C, TP), the kParts partial loads (T, ESP) each and inv_cap (ESP), with
+// ESP = E and TP = T rounded up to 4.
+__host__ inline long long single_smem_floats(int T, int C, int E) {
+  const long long esp = round_up(E, 4), tp = round_up(T, kLoadRows);
+  return (long long)C * esp + (long long)C * tp + kParts * (long long)T * esp + esp;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__global__ void __launch_bounds__(kSingleThreads)
+linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
+                       const float* __restrict__ w,        // (C, E)
+                       const float* __restrict__ inv_cap,  // (E,), 0 = dead link
+                       float thr, float* __restrict__ mlu, float* __restrict__ alu,
+                       float* __restrict__ olr, float* __restrict__ tot,  // (T,) each
+                       int T, int C, int E) {
+  const int ESP = round_up(E, 4), TP = round_up(T, kLoadRows);
+  const size_t plane = (size_t)T * ESP;  // one (T, ESP) array
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);  // (C, ESP): W
+  float* dem = ws + (size_t)C * ESP;            // (C, TP), zero past T
+  float* ld = dem + (size_t)C * TP;             // (kParts, T, ESP) partial loads
+  float* ic = ld + kParts * plane;              // (ESP,) inv_cap
+  const int tid = threadIdx.x;
+
+  // 1. stage W, the demand (transposed) and inv_cap: every copy asynchronous,
+  //    so all of them are in flight at once
+  if ((reinterpret_cast<size_t>(w) & 15) == 0 && E % 4 == 0) {  // ESP == E
+    for (int i = tid; i < C * E / 4; i += kSingleThreads) cp_async16(ws + 4 * i, w + 4 * i);
+  } else if (E > 0 && E <= kSingleThreads) {  // thread (c0, j) copies rows c0, c0 + c_step, ...
+    const int c_step = kSingleThreads / E, j = tid % E;
+    if (tid < c_step * E)
+      for (int c = tid / E; c < C; c += c_step) cp_async4(ws + (size_t)c * ESP + j, w + (size_t)c * E + j);
+  } else {  // more links than threads
+    for (int c = 0; c < C; ++c)
+      for (int j = tid; j < E; j += kSingleThreads)
+        cp_async4(ws + (size_t)c * ESP + j, w + (size_t)c * E + j);
+  }
+  for (int c = tid; c < C; c += kSingleThreads) {
+    for (int k = 0; k < T; ++k) cp_async4(dem + (size_t)c * TP + k, demand + (size_t)k * C + c);
+    for (int k = T; k < TP; ++k) dem[(size_t)c * TP + k] = 0.0f;
+  }
+  for (int j = tid; j < E; j += kSingleThreads) cp_async4(ic + j, inv_cap + j);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. the (T, E) loads: a thread per (quarter of c, kLoadRows rows,
+  //    kLoadLinks neighbouring links); per commodity one float2 of W and a
+  //    broadcast float4 of demand, f32 FMAs over its quarter of c in order
+  const int n_kg = TP / kLoadRows, n_lg = (E + kLoadLinks - 1) / kLoadLinks;
+  const int c_part = (C + kParts - 1) / kParts;
+  const int n_items = kParts * n_kg * n_lg;
+  for (int item = tid; item < n_items; item += kSingleThreads) {
+    const int p = item / (n_kg * n_lg), rest = item - p * (n_kg * n_lg);
+    const int kg = rest / n_lg, j = (rest - kg * n_lg) * kLoadLinks;
+    float acc[kLoadRows][kLoadLinks];
+#pragma unroll
+    for (int u = 0; u < kLoadRows; ++u) acc[u][0] = acc[u][1] = 0.0f;
+    const float* dk = dem + kg * kLoadRows;
+    const int c_end = min(C, (p + 1) * c_part);
+#pragma unroll 4
+    for (int c = p * c_part; c < c_end; ++c) {
+      const float2 wv = *reinterpret_cast<const float2*>(ws + (size_t)c * ESP + j);
+      const float4 d = *reinterpret_cast<const float4*>(dk + (size_t)c * TP);
+      acc[0][0] = fmaf(d.x, wv.x, acc[0][0]);
+      acc[1][0] = fmaf(d.y, wv.x, acc[1][0]);
+      acc[2][0] = fmaf(d.z, wv.x, acc[2][0]);
+      acc[3][0] = fmaf(d.w, wv.x, acc[3][0]);
+      acc[0][1] = fmaf(d.x, wv.y, acc[0][1]);
+      acc[1][1] = fmaf(d.y, wv.y, acc[1][1]);
+      acc[2][1] = fmaf(d.z, wv.y, acc[2][1]);
+      acc[3][1] = fmaf(d.w, wv.y, acc[3][1]);
+    }
+    float* ld_p = ld + p * plane;
+#pragma unroll
+    for (int u = 0; u < kLoadRows; ++u) {
+      const int k = kg * kLoadRows + u;
+      if (k < T) {
+        ld_p[(size_t)k * ESP + j] = acc[u][0];
+        if (j + 1 < E) ld_p[(size_t)k * ESP + j + 1] = acc[u][1];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. a warp per row: the quarters added in order, util, and the four
+  //    metrics over the lane's links in order, then a warp butterfly
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int t = warp; t < T; t += kSingleWarps) {
+    const float* row = ld + (size_t)t * ESP;
+    float m = 0.0f, a = 0.0f, n = 0.0f, s = 0.0f;
+    for (int e = lane; e < E; e += 32) {
+      float l = row[e];
+#pragma unroll
+      for (int pi = 1; pi < kParts; ++pi) l += row[pi * plane + e];
+      const float util = l * ic[e];
+      m = fmaxf(m, util);
+      a += util;
+      n += (util > thr) ? 1.0f : 0.0f;
+      s += l;
+    }
+    m = warp_max(m);
+    a = warp_sum(a);
+    n = warp_sum(n);
+    s = warp_sum(s);
+    if (lane == 0) {
+      mlu[t] = m;
+      alu[t] = a;
+      olr[t] = n;
+      tot[t] = s;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -190,11 +353,37 @@ int linkload_batched(const void* demand, const void* w, const void* inv_cap, flo
   return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
 }
 
+// 1 if one (T, C) block under a (C, E) W takes the single-block body (one
+// CTA), 0 if it takes the batched body over one pair.
+int linkload_single_fits(int T, int C, int E) {
+  return T >= 0 && C >= 0 && E >= 0 && T <= kSingleMaxRows &&
+         single_smem_floats(T, C, E) <= kSmemFloats;
+}
+
+// Bytes of shared memory the single-block body takes at (T, C, E).
+long long linkload_single_smem_bytes(int T, int C, int E) {
+  return single_smem_floats(T, C, E) * (long long)sizeof(float);
+}
+
 // One (T, C) block under one (C, E) weight matrix and one (E,) inv_cap.
 int linkload_single(const void* demand, const void* w, const void* inv_cap, float thr,
                     void* mlu, void* alu, void* olr, void* tot, int T, int C, int E,
                     void* stream) {
-  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
+  if (T < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (!linkload_single_fits(T, C, E))
+    return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
+  if (T == 0) return 0;
+  const size_t smem = (size_t)linkload_single_smem_bytes(T, C, E);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        linkload_single_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  linkload_single_kernel<<<1, kSingleThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(demand), static_cast<const float*>(w),
+      static_cast<const float*>(inv_cap), thr, static_cast<float*>(mlu),
+      static_cast<float*>(alu), static_cast<float*>(olr), static_cast<float*>(tot), T, C, E);
+  return (int)cudaGetLastError();
 }
 
 // F fabrics x B blocks: demand (F, B, T, C), w (F, B, C, E), inv_cap (F, B, E);

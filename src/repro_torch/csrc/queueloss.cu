@@ -12,11 +12,10 @@
 //   that starts empty at the call and carries across all of its sub-steps.  Its
 //   fleet kernel is the batched one with one more leading grid axis over
 //   fabrics, the queue re-zeroed whenever the (fabric, block) pair changes.  In
-//   the (F, B, ...) layout those pairs are contiguous and independent, so the
-//   batched and fleet entries launch the same body: over B epochs and over the
-//   F*B pairs, each starting from an empty queue.  The single-block entry has a
-//   body of its own (below) wherever its block fits one CTA's shared memory,
-//   and launches the batched body over one pair where it does not.
+//   the (F, B, ...) layout those pairs are contiguous and independent, each
+//   starting from an empty queue.  The single-block and the fleet entries each
+//   have a body of their own (below) wherever the shape fits it, and launch
+//   the batched body (over one pair, or over the F*B pairs) where it does not.
 // For every epoch (or pair) b, link e and sub-step k in time order:
 //   load = sum_c demand[b, k, c] * W[b, c, e]
 //   x = q + (load - cap[b, e]) * dt;  drop += max(0, x - buf[b, e]);  q = clip(x, 0, buf[b, e])
@@ -28,8 +27,9 @@
 // (12.8 MB), about 18 us at 3.35 TB/s, against 0.84 GFLOP (13 us at the
 // 67 TFLOP/s f32 rate).  The recurrence makes time sequential per link.
 // The fleet engine's 12-pod bucket of the 22-fabric fleet (F=15, B=96, TS=36,
-// C=E=132) reads 130 MB (39 us); its grid of F*B*ceil(E/128) CTAs is counted
-// in 64 bits and refused above gridDim.x's limit.
+// C=E=132) reads 130 MB (39 us) and does 1.81 GFLOP (27 us); its grid of one
+// CTA per (fabric, block) pair is counted in 64 bits and refused above
+// gridDim.x's limit.
 // The single-block call of the streaming controller (TS=36, C=E=132) reads
 // 90 KB and does 1.25 MFLOP: bound by the launch and by the latency of its
 // dependent steps, not by bytes or operations.
@@ -69,6 +69,35 @@
 //      sub-steps k = r (mod 8) through distributed shared memory, adds them
 //      in rank order and writes the outputs; a last barrier keeps each CTA's
 //      shared memory alive until the others have read it.
+//
+// Design of the fleet body: one CTA per (fabric, block) pair, W read once, one
+// launch.  The batched body over the F*B pairs re-reads each W column once per
+// 8-sub-step chunk (5 times at TS = 36, 100 MB of W against a 50 MB L2),
+// launches a second, 97 %-idle E-tile at E = 132 and sums the tiles' partials
+// in a second launch.  Here one CTA owns all E links of one pair:
+//   1. it copies the pair's demand once, transposed to (C, TS rounded up to
+//      kFleetRows), and its cap/buf into shared memory with cp.async;
+//   2. it streams W through shared memory in slabs of kFleetSlab commodities,
+//      double-buffered with cp.async (16-byte copies where W's address and row
+//      length allow), so the next slab is in flight while this one is used
+//      and W leaves device memory once;
+//   3. a thread owns kFleetRows sub-steps x 4 neighbouring links of the
+//      (TS, E) loads in registers: per commodity two float4s of demand and a
+//      float4 of W for 32 f32 FMAs, every commodity in order;
+//   4. the loads go to shared memory (over the dead slabs) and a thread a link
+//      walks its queue through the TS sub-steps, reading kWalk steps ahead;
+//      per sub-step a warp butterfly sums the drops and the loads of the
+//      warp's 32 links;
+//   5. a thread a sub-step adds the warps' sums in order and writes the pair's
+//      outputs: no partials, no second launch.
+// Each link's load is summed over c in the batched body's order, and for
+// E <= 160 the sums over links fall in its order too (a butterfly per 32
+// links, then the warps of the first 128 links, then the rest).  What holds
+// this body back on the card is its FMA loop, issued from shared memory, not
+// its bytes or its occupancy (PERF.md: more CTAs an SM, 8 x 8 tiles, warp-wide
+// demand reads and other shared-memory layouts did not beat it).
+// queueloss_fleet_fits() sends a bucket to this body while its tiles and its
+// links fit one CTA's threads and its shared memory one CTA.
 // No atomics anywhere: every entry gives the same bits on every call.  Padded
 // sub-steps (zero demand) only drain the queue, and threads past E carry no
 // link, so neither ever drops.
@@ -375,6 +404,201 @@ queueloss_single_kernel(const float* __restrict__ demand,  // (TS, C)
   cluster.sync();  // no CTA leaves while another still reads its partials
 }
 
+constexpr int kFleetRows = 8;   // sub-steps per thread in the fleet body
+constexpr int kFleetSlab = 16;  // commodities per staged W slab
+constexpr int kFleetMaxThreads = 512;
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Threads of the fleet body: one per tile (kFleetRows sub-steps x 4 links) or
+// per link, whichever is more, in whole warps.
+__host__ inline long long fleet_threads(int TS, int E) {
+  const long long tiles = (long long)(round_up(TS, kFleetRows) / kFleetRows) * (round_up(E, 4) / 4);
+  const long long n = tiles > E ? tiles : E;
+  return n < 32 ? 32 : (n + 31) / 32 * 32;
+}
+
+// Floats of the region that holds first the two W slabs, then the loads
+// (TS, ESP); and of all of the body's shared memory: the demand (C, KP), that
+// region, cap and buf (ESP each) and the per-warp sums of the drops and the
+// loads (2, warps, TS).  KP and ESP are TS and E rounded up to kFleetRows and 4.
+__host__ __device__ inline long long fleet_region_floats(int TS, int E) {
+  const long long esp = round_up(E, 4);
+  const long long slabs = 2LL * kFleetSlab * esp, plane = (long long)TS * esp;
+  return slabs > plane ? slabs : plane;
+}
+__host__ inline long long fleet_smem_floats(int TS, int C, int E) {
+  return (long long)C * round_up(TS, kFleetRows) + fleet_region_floats(TS, E) +
+         2LL * round_up(E, 4) + 2 * (fleet_threads(TS, E) / 32) * TS;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Copy slab s of a pair's W (its rows [s * kFleetSlab, ...) of (C, E)) into
+// dst, row stride ESP: 16-byte copies where `vec` (W's address 16-byte aligned
+// and E % 4 == 0, so ESP == E), else 4-byte ones, thread (r0, j) taking the
+// rows r0, r0 + nthr / E, ... of link j.
+__device__ __forceinline__ void copy_slab(float* dst, const float* w_p, int s, int C, int E,
+                                          int ESP, bool vec) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int rows = min(kFleetSlab, C - s * kFleetSlab);
+  const float* src = w_p + (size_t)s * kFleetSlab * E;
+  if (vec) {
+    for (int i = tid; i < rows * E / 4; i += nthr) cp_async16(dst + 4 * i, src + 4 * i);
+  } else if (E > 0 && E <= nthr) {
+    const int r_step = nthr / E, j = tid % E;
+    if (tid < r_step * E)
+      for (int r = tid / E; r < rows; r += r_step)
+        cp_async4(dst + (size_t)r * ESP + j, src + (size_t)r * E + j);
+  } else {
+    for (int r = 0; r < rows; ++r)
+      for (int j = tid; j < E; j += nthr) cp_async4(dst + (size_t)r * ESP + j, src + (size_t)r * E + j);
+  }
+}
+
+__global__ void __launch_bounds__(kFleetMaxThreads)
+queueloss_fleet_kernel(const float* __restrict__ demand,  // (P, TS, C)
+                       const float* __restrict__ w,       // (P, C, E)
+                       const float* __restrict__ cap,     // (P, E) Gb/s
+                       const float* __restrict__ buf,     // (P, E) Gb
+                       float dt, float* __restrict__ drop,  // (P, TS)
+                       float* __restrict__ load,            // (P, TS)
+                       int TS, int C, int E) {
+  const long long pair = blockIdx.x;  // (fabric, block) pair
+  const int KP = round_up(TS, kFleetRows), ESP = round_up(E, 4);
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ float4 smem4[];
+  float* dem = reinterpret_cast<float*>(smem4);     // (C, KP), zero past TS
+  float* region = dem + (size_t)C * KP;             // W slabs, then the loads
+  float* cb = region + fleet_region_floats(TS, E);  // cap (ESP), then buf (ESP)
+  float* red = cb + 2 * ESP;                        // (2, warps, TS) sums
+  const float* dem_p = demand + (size_t)pair * TS * C;
+  const float* w_p = w + (size_t)pair * C * E;
+
+  // 1. the demand (transposed) and cap/buf, in the first copy group
+  for (int c = tid; c < C; c += nthr) {
+    for (int k = 0; k < TS; ++k) cp_async4(dem + (size_t)c * KP + k, dem_p + (size_t)k * C + c);
+    for (int k = TS; k < KP; ++k) dem[(size_t)c * KP + k] = 0.0f;
+  }
+  for (int j = tid; j < E; j += nthr) {
+    cp_async4(cb + j, cap + (size_t)pair * E + j);
+    cp_async4(cb + ESP + j, buf + (size_t)pair * E + j);
+  }
+
+  // 2. W in slabs of kFleetSlab rows, slab s into buffer s % 2
+  const bool vec = (reinterpret_cast<size_t>(w_p) & 15) == 0 && E % 4 == 0;
+  const int n_slabs = (C + kFleetSlab - 1) / kFleetSlab;
+  for (int s = 0; s < 2; ++s) {
+    if (s < n_slabs) copy_slab(region + (size_t)s * kFleetSlab * ESP, w_p, s, C, E, ESP, vec);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // 3. this thread's tile of the loads: kFleetRows sub-steps x 4 links; per
+  //    commodity two float4s of demand and a float4 of W for 32 f32 FMAs,
+  //    every commodity in order
+  const int n_lq = ESP / 4;
+  const bool has_tile = tid < (KP / kFleetRows) * n_lq;
+  const int kg = has_tile ? tid / n_lq : 0, j4 = has_tile ? (tid - kg * n_lq) * 4 : 0;
+  float acc[kFleetRows][4];
+#pragma unroll
+  for (int u = 0; u < kFleetRows; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
+  const float* dk = dem + kg * kFleetRows;
+  for (int s = 0; s < n_slabs; ++s) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // slab s has landed
+    __syncthreads();
+    if (has_tile) {
+      const float* ws = region + (size_t)(s & 1) * kFleetSlab * ESP + j4;
+      const int c0 = s * kFleetSlab, rows = min(kFleetSlab, C - c0);
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        const float4 wv = *reinterpret_cast<const float4*>(ws + (size_t)r * ESP);
+        const float4 d0 = *reinterpret_cast<const float4*>(dk + (size_t)(c0 + r) * KP);
+        const float4 d1 = *reinterpret_cast<const float4*>(dk + (size_t)(c0 + r) * KP + 4);
+        const float dv[kFleetRows] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int u = 0; u < kFleetRows; ++u) {
+          acc[u][0] = fmaf(dv[u], wv.x, acc[u][0]);
+          acc[u][1] = fmaf(dv[u], wv.y, acc[u][1]);
+          acc[u][2] = fmaf(dv[u], wv.z, acc[u][2]);
+          acc[u][3] = fmaf(dv[u], wv.w, acc[u][3]);
+        }
+      }
+    }
+    __syncthreads();  // every reader of buffer s % 2 is done
+    if (s + 2 < n_slabs)
+      copy_slab(region + (size_t)(s & 1) * kFleetSlab * ESP, w_p, s + 2, C, E, ESP, vec);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // the demand and cap/buf have landed even where C == 0
+
+  // 4. the loads over the dead slabs
+  float* ld = region;  // (TS, ESP)
+  if (has_tile) {
+#pragma unroll
+    for (int u = 0; u < kFleetRows; ++u) {
+      const int k = kg * kFleetRows + u;
+      if (k < TS)
+        *reinterpret_cast<float4*>(ld + (size_t)k * ESP + j4) =
+            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    }
+  }
+  __syncthreads();
+
+  // 5. each link's queue through the TS sub-steps in order (a thread a link,
+  //    reading kWalk steps ahead); per sub-step the drops and the loads of the
+  //    warp's 32 links summed by a warp butterfly, into red
+  const int n_link_warps = (E + 31) / 32;  // E <= threads: one link a thread
+  if (warp < n_link_warps) {
+    const int j = tid;
+    const bool live = j < E;
+    const float cap_e = live ? cb[j] : 0.0f, buf_e = live ? cb[ESP + j] : 0.0f;
+    float* red_d = red + (size_t)warp * TS;
+    float* red_l = red + (size_t)(n_link_warps + warp) * TS;
+    float q = 0.0f;  // the queue starts empty in every pair
+    float next[kWalk];
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) next[u] = (live && u < TS) ? ld[(size_t)u * ESP + j] : 0.0f;
+    for (int k0 = 0; k0 < TS; k0 += kWalk) {
+      float cur[kWalk];
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        cur[u] = next[u];
+        const int k = k0 + kWalk + u;
+        next[u] = (live && k < TS) ? ld[(size_t)k * ESP + j] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        if (k0 + u < TS) {  // the same in every lane
+          const float x = q + (cur[u] - cap_e) * dt;
+          const float d = warp_sum(fmaxf(x - buf_e, 0.0f));
+          const float l = warp_sum(cur[u]);
+          q = fminf(fmaxf(x, 0.0f), buf_e);
+          if (lane == 0) {
+            red_d[k0 + u] = d;
+            red_l[k0 + u] = l;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 6. per sub-step the warps' sums in order: the pair's outputs
+  for (int k = tid; k < TS; k += nthr) {
+    float d = 0.0f, l = 0.0f;
+    for (int wi = 0; wi < n_link_warps; ++wi) {
+      d += red[(size_t)wi * TS + k];
+      l += red[(size_t)(n_link_warps + wi) * TS + k];
+    }
+    drop[(size_t)pair * TS + k] = d;
+    load[(size_t)pair * TS + k] = l;
+  }
+}
+
 __global__ void noop_kernel() {}
 
 // Launch the body over `pairs` independent queue walks, then the partials pass.
@@ -469,15 +693,47 @@ int queueloss_noop(void* stream) {
   return (int)cudaGetLastError();
 }
 
+// 1 if a fleet bucket of (TS, C) blocks under (C, E) weights takes the fleet
+// body (one CTA per pair, one launch), 0 if it takes the batched body over the
+// F*B pairs.
+int queueloss_fleet_fits(int TS, int C, int E) {
+  return TS >= 0 && C >= 0 && E >= 0 && fleet_threads(TS, E) <= kFleetMaxThreads &&
+         fleet_smem_floats(TS, C, E) <= kSingleSmemFloats;
+}
+
+// Bytes of shared memory the fleet body takes at (TS, C, E).
+long long queueloss_fleet_smem_bytes(int TS, int C, int E) {
+  return fleet_smem_floats(TS, C, E) * (long long)sizeof(float);
+}
+
 // F fabrics x B blocks: demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E);
-// outputs (F, B, TS) each, partials (F, B, TS, nE).  The queue starts empty in
-// every (fabric, block) pair.
+// outputs (F, B, TS) each.  The queue starts empty in every (fabric, block)
+// pair.  drop_part/load_part, (F, B, TS, nE) each, are read only where the
+// bucket does not fit the fleet body (they may be null where it does).
 int queueloss_fleet(const void* demand, const void* w, const void* cap, const void* buf,
                     float dt, void* drop, void* load, void* drop_part, void* load_part, int F,
                     int B, int TS, int C, int E, void* stream) {
-  if (F < 0 || B < 0) return (int)cudaErrorInvalidValue;
-  return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, (long long)F * B,
-                TS, C, E, stream);
+  if (F < 0 || B < 0 || TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  const long long pairs = (long long)F * B;
+  if (!queueloss_fleet_fits(TS, C, E)) {
+    if (drop_part == nullptr || load_part == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, pairs, TS, C, E,
+                  stream);
+  }
+  if (pairs > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
+  if (pairs == 0 || TS == 0) return 0;
+  const size_t smem = (size_t)queueloss_fleet_smem_bytes(TS, C, E);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        queueloss_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  queueloss_fleet_kernel<<<dim3((unsigned)pairs), (unsigned)fleet_threads(TS, E), smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(demand), static_cast<const float*>(w),
+      static_cast<const float*>(cap), static_cast<const float*>(buf), dt,
+      static_cast<float*>(drop), static_cast<float*>(load), TS, C, E);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

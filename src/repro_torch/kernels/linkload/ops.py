@@ -19,6 +19,7 @@ Nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -40,30 +41,51 @@ single_launches = 0  # linkload (one block)
 fleet_launches = 0  # linkload_fleet
 
 
-def _entry(name: str, n_dims: int):
-    """The C entry ``name`` of the linkload library, with its argument types:
-    three input pointers, the threshold, four output pointers, ``n_dims``
-    ints and the stream."""
-    lib = _build.library("linkload")
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_dims
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.linkload_max_commodities.restype = ctypes.c_int
-    return lib, fn
+# the C entries and the number of int dimensions each takes after the
+# pointers and the threshold: (T, C, E), (B, T, C, E), (F, B, T, C, E)
+_ENTRIES = {"linkload_single": 3, "linkload_batched": 4, "linkload_fleet": 5}
+_LIB = None  # (library, max commodities), set on first use
+
+
+def _library():
+    """The linkload library with every entry's ``argtypes`` and ``restype``
+    set, and its commodity limit read, once per process."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.library("linkload")
+        for name, n_dims in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_dims
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        lib.linkload_max_commodities.restype = ctypes.c_int
+        lib.linkload_single_fits.argtypes = [ctypes.c_int] * 3
+        lib.linkload_single_fits.restype = ctypes.c_int
+        lib.linkload_single_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.linkload_single_smem_bytes.restype = ctypes.c_longlong
+        _LIB = (lib, lib.linkload_max_commodities())
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _single_fits(t: int, c: int, e: int) -> bool:
+    """Whether a (T, C) block under a (C, E) W takes the single-block body
+    (one CTA) or the batched body over one pair."""
+    return bool(_library()[0].linkload_single_fits(t, c, e))
 
 
 def _launch(name: str, dev, demand, w, inv_cap, threshold, out, dims):
-    lib, fn = _entry(name, len(dims))
-    c, c_max = dims[-2], lib.linkload_max_commodities()
+    lib, c_max = _library()
+    c = dims[-2]
     if c > c_max:
         raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
                          f"tile ({c_max})")
     with torch.cuda.device(dev):
-        rc = fn(demand.data_ptr(), w.data_ptr(), inv_cap.data_ptr(),
-                float(threshold), *(o.data_ptr() for o in out), *dims,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = getattr(lib, name)(
+            demand.data_ptr(), w.data_ptr(), inv_cap.data_ptr(),
+            float(threshold), *(o.data_ptr() for o in out), *dims,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "linkload", name, rc)
 
 

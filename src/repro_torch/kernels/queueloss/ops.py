@@ -60,9 +60,12 @@ def _library():
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         for name in ("queueloss_max_commodities", "queueloss_links_per_block",
-                     "queueloss_single_fits"):
+                     "queueloss_single_fits", "queueloss_fleet_fits"):
             getattr(lib, name).restype = ctypes.c_int
-        lib.queueloss_single_fits.argtypes = [ctypes.c_int] * 3
+        for name in ("queueloss_single_fits", "queueloss_fleet_fits",
+                     "queueloss_fleet_smem_bytes"):
+            getattr(lib, name).argtypes = [ctypes.c_int] * 3
+        lib.queueloss_fleet_smem_bytes.restype = ctypes.c_longlong
         lib.queueloss_noop.argtypes = [ctypes.c_void_p]
         lib.queueloss_noop.restype = ctypes.c_int
         _LIB = (lib, lib.queueloss_max_commodities(),
@@ -77,17 +80,27 @@ def _single_fits(ts: int, c: int, e: int) -> bool:
     return bool(_library()[0].queueloss_single_fits(ts, c, e))
 
 
+@functools.lru_cache(maxsize=None)
+def _fleet_fits(ts: int, c: int, e: int) -> bool:
+    """Whether a fleet bucket of (TS, C) blocks under (C, E) weights takes the
+    fleet body (one CTA per pair, one launch, no partials) or the batched
+    body over its F*B pairs."""
+    return bool(_library()[0].queueloss_fleet_fits(ts, c, e))
+
+
 def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
     """Launch the C entry ``name`` (four input pointers, dt, two outputs and
     two partial buffers, ``dims`` ints, the stream); returns (drop, load).
-    The single-block entry takes no partials where its block fits."""
+    The single-block and fleet entries take no partials where their own
+    bodies take the shape."""
     lib, max_c, links = _library()
     *lead, ts, c, e = dims
     if c > max_c:
         raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
                          f"chunk ({max_c})")
     out = torch.empty((2, *lead, ts), dtype=torch.float32, device=dev)
-    if name == "queueloss_single" and _single_fits(ts, c, e):
+    if ((name == "queueloss_single" and _single_fits(ts, c, e))
+            or (name == "queueloss_fleet" and _fleet_fits(ts, c, e))):
         part_ptrs = (None, None)
     else:
         part = torch.empty((2, *lead, ts, max(1, -(-e // links))),

@@ -127,6 +127,84 @@ def test_queue_loss_fleet_matches_reference(f, b, ts, c, e, n_blocks):
         np.testing.assert_allclose(out[1][fi], t_b, rtol=FLEET_RTOL, atol=1e-4)
 
 
+def _butterfly(v):
+    """Lane 0's sum after a warp's xor butterfly over the last axis (32
+    lanes)."""
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ off]
+    return v[..., 0]
+
+
+def _queueloss_fleet_schedule(demand, w, cap, buf, dt):
+    """The fleet queue-loss body's order (``csrc/queueloss.cu``) in float32:
+    per (fabric, block) pair every load summed over c in order (the W slabs
+    and register tiles keep that order); each link's queue walked from empty
+    through the sub-steps; per sub-step, the drops and the loads of each
+    warp's 32 links (link 32 w + lane) summed by a warp butterfly, then the
+    warps in order.  Returns (drop, load), each (F, B, TS), and the drops per
+    (sub-step, link), (F, B, TS, E)."""
+    f, b, ts, c = demand.shape
+    e = w.shape[3]
+    load = torch.zeros((f, b, ts, e))
+    for ci in range(c):
+        load = load + demand[..., ci:ci + 1] * w[:, :, ci:ci + 1, :]
+    drops = torch.empty((f, b, ts, e))
+    q = torch.zeros((f, b, e))
+    for k in range(ts):
+        x = q + (load[:, :, k] - cap) * dt
+        drops[:, :, k] = torch.clamp(x - buf, min=0.0)
+        q = torch.minimum(torch.clamp(x, min=0.0), buf)
+    warps = -(-e // 32)
+    out = []
+    for v in (drops, load):
+        per_warp = _butterfly(torch.nn.functional.pad(v, (0, 32 * warps - e)).reshape(
+            (f, b, ts, warps, 32)))
+        total = torch.zeros((f, b, ts))
+        for wi in range(warps):
+            total = total + per_warp[..., wi]
+        out.append(total)
+    return out[0], out[1], drops
+
+
+@pytest.mark.parametrize("f,b,ts,c,n_blocks,pods", [
+    (2, 3, 10, 12, (3, 2), None),          # tests/test_fleet_engine.py's shape
+    (3, 2, 13, 56, (2, 1, 2), None),       # the 8-pod bucket's width
+    (3, 3, 9, 56, (3, 1, 2), (6, 8, 7)),   # padded pods in the 8-pod layout
+    (1, 2, 36, 132, (2,), None)])          # the 12-pod bucket's width, E > 128
+def test_queueloss_fleet_schedule_matches_reference(f, b, ts, c, n_blocks, pods):
+    """The fleet kernel's load-then-walk split and its order of sums over
+    links give the reference's fleet Pallas kernel's answer (interpret
+    mode), over ragged blocks (all-zero padded blocks), dead links and padded
+    pods; padded links (no load, cap = buf = 0) never drop."""
+    rng = np.random.default_rng(17 * ts + c)
+    demand = rng.uniform(0.0, 6.0, size=(f, b, ts, c))
+    w = rng.uniform(0.0, 1.0, size=(f, b, c, c)) * (rng.random((f, b, c, c)) < 0.4)
+    cap = rng.uniform(1.0, 3.0, size=(f, b, c))
+    cap[rng.random((f, b, c)) < 0.1] = 0.0  # dead links
+    padded = np.zeros((f, c), bool)
+    for fi, nb in enumerate(n_blocks):
+        demand[fi, nb:], w[fi, nb:], cap[fi, nb:] = 0.0, 0.0, 0.0
+        if pods is not None:
+            padded[fi] = True
+            padded[fi, commodity_slots(pods[fi], 8)] = False
+            demand[fi][..., padded[fi]] = 0.0
+            w[fi][:, padded[fi], :] = 0.0
+            w[fi][:, :, padded[fi]] = 0.0
+            cap[fi][:, padded[fi]] = 0.0
+    buf = 0.02 * cap
+    ref = ref_qlops.queue_loss_fleet(demand, w, cap, buf, 1.0, backend="pallas")
+    drop, load, per_link = _queueloss_fleet_schedule(
+        *(torch.from_numpy(x.astype(np.float32)) for x in (demand, w, cap, buf)), 1.0)
+    assert float(ref[0].sum()) > 0.0  # the scenario drops
+    for a, r, name in zip((drop, load), ref, ("drop", "tot")):
+        assert a.shape == (f, b, ts)
+        np.testing.assert_allclose(a.numpy(), r, rtol=RTOL, atol=ATOL, err_msg=name)
+    for fi, nb in enumerate(n_blocks):
+        assert float(per_link[fi, nb:].abs().sum()) == 0.0  # padded blocks
+        assert float(per_link[fi][..., torch.from_numpy(padded[fi])].abs().sum()) == 0.0
+
+
 def _ragged_fleet(seed, vp, pods, lo, hi):
     """Per-fabric native blocks (ragged block counts and lengths) plus their
     bucket-layout embeddings (``vp`` padded pods), weights and capacities

@@ -4,12 +4,16 @@ T=3 / TS=36, C=E=132), the single-block entries at the streaming
 controller's (T=3 / TS=36), the whole-trace baseline's (T=4032) and, for
 the queue loss, one sub-step and a block past one cluster's shared memory
 (TS=512), the fleet entries at the 22-fabric fleet's 12-pod bucket (F=15
-fabrics, B=96 blocks, C=E=132), and all at ragged shapes (fleet: all-zero
-padded blocks);
+fabrics, B=96 blocks, C=E=132), the fleet queue loss also at its 8-pod bucket
+(F=7, C=E=56) and past its fleet body (TS=512), the single-block linkload at
+one row and on both sides of its single-block body's row cut, and all at
+ragged shapes (fleet: all-zero padded blocks);
 the model kernels (flash attention, the RG-LRU scan, the SSD chunk scan) at
 the model shapes of recurrentgemma-9b (the RG-LRU scan also at B = 1) and
-mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD and single-block
-queue-loss kernels give the same bits on two calls.
+mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD, single-block
+linkload, single-block queue-loss and fleet queue-loss kernels give the same
+bits on two calls, and the single-block linkload and the model kernels take
+tensors that are not 16-byte aligned.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -88,20 +92,64 @@ def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("t,c,e", [(3, 132, 132), (4032, 132, 132), (13, 30, 200)])
-def test_single_linkload_kernel_matches_plain(gen, t, c, e):
+def _single_rows_cut(c, e):
+    """The longest block the single-block linkload body takes at (C, E)."""
+    t = 0
+    while llops._single_fits(t + 1, c, e):
+        t += 1
+    return t
+
+
+def _single_linkload_inputs(gen, t, c, e):
+    # dyadic data: every load is exact in f32, so OLR cannot flip on a tie
     d = torch.randint(0, 16, (t, c), generator=gen, device="cuda").float()
     w = torch.randint(0, 17, (c, e), generator=gen, device="cuda").float() / 16
     cap = 20.0 + 40.0 * torch.rand(e, generator=gen, device="cuda")
     inv_cap = torch.where(torch.rand(e, generator=gen, device="cuda") < 0.1,
                           0.0, 1.0 / cap)
+    return d, w, inv_cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c,e", [(3, 132, 132), (4032, 132, 132), (13, 30, 200),
+                                   (1, 132, 132), ("cut", 132, 132),
+                                   ("past_cut", 132, 132)])
+def test_single_linkload_kernel_matches_plain(gen, t, c, e):
+    """The single-block body up to its row cut, the batched body over one
+    pair past it (the whole-trace T = 4032 among them); one launch each."""
+    if isinstance(t, str):
+        t = _single_rows_cut(c, e) + (t == "past_cut")
+    assert llops._single_fits(t, c, e) == (t <= _single_rows_cut(c, e))
+    if t == 4032:
+        assert not llops._single_fits(t, c, e)
+    d, w, inv_cap = _single_linkload_inputs(gen, t, c, e)
     before = llops.single_launches
     out = llops.linkload(d, w, inv_cap, 0.8)
     ref = linkload_metrics_ref(d, w, inv_cap, 0.8)
     assert llops.single_launches == before + 1
     for a, r in zip(out, ref):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_single_linkload_kernel_takes_unaligned_w(gen):
+    """W at a storage offset (not 16-byte aligned) takes the 4-byte copies."""
+    d, w, inv_cap = _single_linkload_inputs(gen, 3, 132, 132)
+    out = llops.linkload(d, _unaligned(w), inv_cap, 0.8)
+    for a, r in zip(out, linkload_metrics_ref(d, w, inv_cap, 0.8)):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_single_linkload_kernel_is_deterministic(gen):
+    """No atomics: two calls at the streaming controller's shape give the
+    same bits, one launch counted each."""
+    args = _single_linkload_inputs(gen, 3, 132, 132)
+    before = llops.single_launches
+    first = llops.linkload(*args, 0.8)
+    second = llops.linkload(*args, 0.8)
+    assert llops.single_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def _single_queueloss_inputs(gen, ts, c, e):
@@ -167,10 +215,7 @@ def test_fleet_linkload_kernel_matches_plain(gen, f, b, t, c, e, n_blocks):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("f,b,ts,c,e,n_blocks", [
-    (15, 96, 36, 132, 132, None), (3, 4, 45, 30, 300, (4, 1, 3))])
-def test_fleet_queueloss_kernel_matches_plain(gen, f, b, ts, c, e, n_blocks):
+def _fleet_queueloss_inputs(gen, f, b, ts, c, e, n_blocks):
     d = torch.rand((f, b, ts, c), generator=gen, device="cuda") * 20.0
     w = torch.rand((f, b, c, e), generator=gen, device="cuda")
     w = w * (torch.rand((f, b, c, e), generator=gen, device="cuda") < 0.08)
@@ -179,7 +224,17 @@ def test_fleet_queueloss_kernel_matches_plain(gen, f, b, ts, c, e, n_blocks):
                       0.0, cap)
     if n_blocks is not None:
         _pad_blocks(n_blocks, d, w, cap)
-    buf = cap * 0.025
+    return d, w, cap, cap * 0.025
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,b,ts,c,e,n_blocks", [
+    (15, 96, 36, 132, 132, None), (3, 4, 45, 30, 300, (4, 1, 3)),
+    (7, 96, 36, 56, 56, None),     # the 8-pod bucket
+    (2, 3, 512, 132, 132, None)])  # past the fleet body: the batched body
+def test_fleet_queueloss_kernel_matches_plain(gen, f, b, ts, c, e, n_blocks):
+    assert qlops._fleet_fits(ts, c, e) == (ts != 512)
+    d, w, cap, buf = _fleet_queueloss_inputs(gen, f, b, ts, c, e, n_blocks)
     before = qlops.fleet_launches
     out = qlops.queueloss_fleet(d, w, cap, buf, 30.0)
     ref = queueloss_fleet_ref(d, w, cap, buf, 30.0)
@@ -188,6 +243,18 @@ def test_fleet_queueloss_kernel_matches_plain(gen, f, b, ts, c, e, n_blocks):
     for a, r in zip(out, ref):
         assert a.shape == (f, b, ts)
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_fleet_queueloss_kernel_is_deterministic(gen):
+    """No atomics: two calls at the 12-pod bucket give the same bits, one
+    launch counted each."""
+    args = _fleet_queueloss_inputs(gen, 15, 96, 36, 132, 132, None)
+    before = qlops.fleet_launches
+    first = qlops.queueloss_fleet(*args, 30.0)
+    second = qlops.queueloss_fleet(*args, 30.0)
+    assert qlops.fleet_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.gpu

@@ -163,6 +163,90 @@ def test_queueloss_cluster_schedule_matches_reference(ts, c, e):
         np.testing.assert_allclose(a.numpy(), r, rtol=RTOL, atol=ATOL)
 
 
+def _butterfly(v, op=torch.add):
+    """Lane 0's value after a warp's xor butterfly over the last axis (32
+    lanes): ``v[i] = op(v[i], v[i ^ off])`` for off = 16, 8, 4, 2, 1."""
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = op(v, v[..., lane ^ off])
+    return v[..., 0]
+
+
+def _lanes(x):
+    """``x`` (..., E) cut into rounds of 32 lanes (..., rounds, 32): lane l
+    owns the links l, l + 32, ... in order; past E, zeros."""
+    e = x.shape[-1]
+    rounds = -(-e // 32)
+    return torch.nn.functional.pad(x, (0, 32 * rounds - e)).reshape(
+        x.shape[:-1] + (rounds, 32))
+
+
+def _linkload_single_schedule(demand, w, inv_cap, thr):
+    """The single-block linkload body's split (``csrc/linkload.cu``) in
+    float32: every load summed over each quarter of c in order, then the
+    quarters added in order; util = load * inv_cap; per row, each lane folds
+    max, sum util, #(util > thr) and sum load over its links in order
+    (starting from 0), then a warp butterfly.  Returns (mlu, alu_sum,
+    olr_count, load_sum), each (T,)."""
+    t, c = demand.shape
+    quarter = -(-c // 4)
+    load = None
+    for lo in range(0, 4 * quarter, quarter):
+        acc = torch.zeros((t, w.shape[1]))
+        for ci in range(lo, min(c, lo + quarter)):
+            acc = acc + demand[:, ci:ci + 1] * w[ci]
+        load = acc if load is None else load + acc
+    util = load * inv_cap
+    u, l = _lanes(util), _lanes(load)
+    m = a = n = s = torch.zeros((t, 32))
+    for r in range(u.shape[1]):
+        m = torch.maximum(m, u[:, r])
+        a = a + u[:, r]
+        n = n + (u[:, r] > thr).float()
+        s = s + l[:, r]
+    return (_butterfly(m, torch.maximum), _butterfly(a), _butterfly(n),
+            _butterfly(s))
+
+
+def _dyadic_link_inputs(seed, t, c, e):
+    """Demand in {0..15} and weights in sixteenths: every load is exact in
+    f32 whatever the order of its sum, so OLR cannot flip on a rounding
+    tie; capacities put utilizations on both sides of 0.8."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 16, (t, c)).astype(np.float64)
+    w = rng.integers(0, 17, (c, e)) / 16.0 * (rng.random((c, e)) < 0.3)
+    load = d @ w
+    cap = np.maximum(load.max(axis=0), 1.0) * rng.uniform(0.6, 1.6, e)
+    cap[rng.random(e) < 0.1] = 0.0  # dead links
+    return d, w, cap
+
+
+@pytest.mark.parametrize("t,c,e,dyadic", [
+    (3, 132, 132, False),  # the streaming controller's block
+    (1, 30, 45, False), (13, 30, 200, False),  # one row; ragged, E > 128
+    (6, 12, 7, False),     # fewer links than lanes, C < 4 per quarter
+    (3, 132, 132, True), (11, 56, 40, True)])
+def test_linkload_single_schedule_matches_reference(t, c, e, dyadic):
+    """The one-CTA kernel's quarters of C and its order of sums over links
+    give the reference's Pallas kernel's answer (interpret mode); on dyadic
+    data, where every load is exact, the OLR counts are equal."""
+    make = _dyadic_link_inputs if dyadic else _link_inputs
+    d, w, cap = make(31 * t + e, t, c, e)
+    ref = ref_llops.link_metrics(d, w, cap, 0.8, backend="pallas")
+    live = cap > 1e-9
+    n_live = max(int(live.sum()), 1)
+    inv_cap = np.where(live, 1.0 / np.maximum(cap, 1e-9), 0.0)
+    out = _linkload_single_schedule(
+        *(torch.from_numpy(x.astype(np.float32)) for x in (d, w, inv_cap)), 0.8)
+    mlu, alu_sum, olr_cnt, tot = (x.numpy() for x in out)
+    for a, r, name in zip((mlu, alu_sum / n_live, olr_cnt / n_live, tot), ref, NAMES):
+        assert a.shape == (t,), name
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+    if dyadic:
+        assert 0 < olr_cnt.sum() < t * n_live  # the threshold bites, not everywhere
+        np.testing.assert_array_equal(olr_cnt / n_live, ref[2].astype(np.float32))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     d, w = torch.zeros((3, 4)), torch.zeros((4, 5))
     with pytest.raises(ValueError, match="disagree"):
