@@ -13,33 +13,37 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    SSD chunk scan) and print ptxas' registers/spills.
 3. Hold each of the nine kernel entries against its plain PyTorch version
    on the card: the batched ones at the batched engine's shapes (B=96 epochs
-   of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the
+   of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the batched
+   queue loss also past its fleet body (TS=512: the E-tiled body), the
    single-block ones at the streaming controller's shapes (T=3 / TS=36),
-   linkload also at the whole-trace shape (T=4032), at one row, on both
-   sides of its single-block body's row cut (the batched body over one pair
-   past it) and with W at a storage offset, the single-block queue loss
-   also at one sub-step and at TS=512 (past its cluster's shared memory: the
-   batched body over one pair), the fleet ones at phase 7's two buckets
-   (F=15 fabrics x B=96 blocks at C=E=132, F=7 x 96 at C=E=56), the fleet
-   queue loss also past its fleet body (TS=512: the batched body over the
-   F*B pairs), each also at a ragged shape with dead links (the fleet ones:
-   fabrics with fewer blocks than the bucket and a padded-pod layout); time
-   kernel, plain version and the ``torch.bmm`` / ``torch.mm`` yardstick with
-   CUDA events, the redesigned single-block linkload and fleet queue loss
-   beside the batched body they replaced on the same inputs (linkload over
-   T = 3, 12, 36, the cut, one past it and 4032), an empty kernel through
-   the single-block queue loss's ctypes path (the launch floor) and the
-   single-block wrappers' host time a call.  A small batched PDHG solve is
-   held against scipy/HiGHS.  The
+   linkload also at the whole-trace shape (T=4032), at one row, on both sides
+   of its staged body's row cut (the batched body over one pair past it) and
+   with W at a storage offset, the single-block queue loss also at one
+   sub-step and at TS=512 (past its cluster's shared memory: the E-tiled body
+   over one pair), the fleet ones at phase 7's two buckets (F=15 fabrics x
+   B=96 blocks at C=E=132, F=7 x 96 at C=E=56) and past their bodies (the
+   linkload one row past the staged body's cut: the batched body; the queue
+   loss at TS=512: the E-tiled body over the F*B pairs), the fleet linkload
+   also with W at a storage offset, each also at a ragged shape with dead
+   links (the fleet ones: fabrics with fewer blocks than the bucket and a
+   padded-pod layout); time kernel, plain version and the ``torch.bmm`` /
+   ``torch.mm`` yardstick with CUDA events, each redesigned controller kernel
+   beside the body it launched before on the same inputs (the single-block
+   linkload over T = 3, 12, 36, the cut, one past it and 4032; the fleet
+   linkload also at the cut, and beside a sum of its W and after an L2 flush
+   by reads), an empty kernel through the single-block queue loss's ctypes
+   path (the launch floor) and the single-block wrappers' host time a call.
+   A small batched PDHG solve is held against scipy/HiGHS.  The
    model kernels at the shapes of phase 8's prefill and at ragged ones:
    flash attention at recurrentgemma-9b's (B=2, S=4096, H=16, KV=1, hd=256,
    window 2048, bf16; yardstick ``scaled_dot_product_attention`` with the
    same mask) and at a ragged shape (hd=100, non-causal window 48) in f32
    and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
    D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
-   chunk 64, also against itself at chunk 128).  The five redesigned
-   kernels (RG-LRU, SSD, single-block linkload and queue loss, fleet queue
-   loss) are also held bit for bit against a second call.
+   chunk 64, also against itself at chunk 128).  The seven redesigned
+   kernels (RG-LRU, SSD, single-block linkload and queue loss, fleet
+   linkload and queue loss, batched queue loss) are also held bit for bit
+   against a second call.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -132,21 +136,28 @@ def fail(msg: str):
 # ---- timing and bounds -------------------------------------------------------
 
 
-def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20):
+def time_cuda(fn, reps: int = 20, flush_bytes: int = 256 << 20,
+              read_flush: bool = False):
     """Median milliseconds of ``fn()`` on the card, CUDA events around each
     call, with the 50 MB L2 flushed before every call (the engine finds its
     inputs freshly copied, not resident).  After the flush the card is held
     busy (``HOLD_CYCLES``) until the host has issued the call and the end
     event, so that a call whose host side outlasts the flush is timed by its
-    device work alone, not by the host's time to issue it."""
+    device work alone, not by the host's time to issue it.  The flush zeroes
+    a buffer, which leaves L2 full of dirty lines that the timed call writes
+    back as it reads; ``read_flush`` flushes by summing the buffer instead,
+    which leaves clean lines."""
     import torch
 
-    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    flush = torch.zeros(flush_bytes // 4, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -309,42 +320,62 @@ def phase_kernels():
         **timed["main"], "library_ms": None, "sweep14": timed["sweep14"],
         "status": "ported"}
 
-    # queueloss: main-path shapes and a ragged shape with dead links
+    # queueloss: main-path shapes, a ragged shape with dead links and a block
+    # past the fleet body (the E-tiled body and its partials pass); the
+    # redesigned entry also bit for bit against a second call and timed beside
+    # the E-tiled body it launched before on the same inputs
+    qlib = qlops._library()[0]
     timed = {}
     for label, shape in (("main", (MAIN_B, MAIN_TS, c, e)),
                          ("sweep14", (SWEEP14_B, MAIN_TS, c, e)),
-                         ("ragged", (4, 45, 30, 300))):
+                         ("ragged", (4, 45, 30, 300)),
+                         ("past_fits", (4, 512, c, e))):
         args = _queueloss_inputs(*shape, gen)
         out = qlops.queueloss_batched(*args, 30.0)
         ref = queueloss_batched_ref(*args, 30.0)
         torch.cuda.synchronize()
         abs_e, rel_e, worst = max_errs(out, ref)
         drops = float(ref[0].sum())
-        log(f"phase 3: queueloss {label} {shape}: max abs err {abs_e:.3e}, "
+        # no atomics: a second call gives the same bits
+        same = all(torch.equal(x, y)
+                   for x, y in zip(qlops.queueloss_batched(*args, 30.0), out))
+        body = ("the fleet body, one launch" if qlops._fleet_fits(*shape[1:])
+                else "the E-tiled body, two launches")
+        log(f"phase 3: queueloss {label} {shape} ({body}): max abs err {abs_e:.3e}, "
             f"max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) {worst:.3f}, "
-            f"total drop {drops:.3f} Gb")
+            f"total drop {drops:.3f} Gb; second call bit-equal {same}")
         if worst > 1.0 or drops <= 0.0:
             fail(f"queueloss {label} disagrees with its plain version "
                  f"(or drops nothing)")
-        if label == "ragged":
+        if not same:
+            fail(f"queueloss {label} is not deterministic")
+        if label in ("ragged", "past_fits"):
             continue
         bq, ts = shape[0], shape[1]
         ms = time_cuda(lambda: qlops.queueloss_batched(*args, 30.0))
+        old = time_cuda(lambda: qlops._queueloss_tiles(*args, 30.0))
         plain = time_cuda(lambda: queueloss_batched_ref(*args, 30.0))
+        # the fleet body sums the links in the E-tiled body's order at E <= 160
+        equal = all(torch.equal(x, y)
+                    for x, y in zip(out, qlops._queueloss_tiles(*args, 30.0)))
+        smem = qlib.queueloss_fleet_smem_bytes(ts, c, e)
         n_bytes = 4 * (bq * ts * c + bq * c * e + 2 * bq * e + 2 * bq * ts)
         n_flops = 2 * bq * ts * c * e + 6 * bq * ts * e
         bnd, by = bound_ms(n_bytes, n_flops)
-        log(f"  queueloss {label} times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
-            f"{n_flops / 1e6:.1f} MFLOP)")
+        log(f"  queueloss {label} times: kernel {ms:.4f} ms, the E-tiled body it "
+            f"launched before {old:.4f} ms (bit-equal outputs {equal}), plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+            f"{n_flops / 1e6:.1f} MFLOP); {smem} B of shared memory a CTA")
         timed[label] = {"max_abs_err": abs_e, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bnd, "bound_by": by, "shape": list(shape)}
+                        "bound_ms": bnd, "bound_by": by, "tiled_body_ms": old,
+                        "bit_equal_to_tiled_body": equal, "smem_bytes": smem,
+                        "shape": list(shape)}
     rows["queueloss"] = {
         "name": "queueloss_batched", "route": "cuda",
         "source": "src/repro_torch/csrc/queueloss.cu",
         "replaces": "src/repro/kernels/queueloss/queueloss.py:178",
         **timed["main"], "library_ms": None, "sweep14": timed["sweep14"],
-        "status": "ported"}
+        "status": "redesigned"}
     return rows
 
 
@@ -387,7 +418,7 @@ def _linkload_entry_setup():
 def phase_single_kernels():
     """The single-block entries at the streaming controller's shapes (T=3,
     TS=36), linkload also at the whole-trace shape (T=4032), at one row, on
-    both sides of its single-block body's row cut, with W at a storage offset,
+    both sides of its staged body's row cut, with W at a storage offset,
     and each at a ragged shape with dead links too; the redesigned bodies
     also bit for bit against a second call, and timed beside the bodies they
     replaced."""
@@ -430,7 +461,7 @@ def phase_single_kernels():
         abs_e, rel_e, worst = max_errs(out, ref)
         # no atomics: a second call gives the same bits
         same = all(torch.equal(x, y) for x, y in zip(llops.linkload(d, w, ic, 0.8), out))
-        body = ("the single-block body" if llops._single_fits(t, cc, ee)
+        body = ("the staged body" if llops._single_fits(t, cc, ee)
                 else "the batched body over one pair")
         log(f"phase 3: linkload (single) {label} {(t, cc, ee)} ({body}): max abs err "
             f"{abs_e:.3e}, max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) "
@@ -486,7 +517,7 @@ def phase_single_kernels():
 
     # the redesigned single-block queue loss: the serve shape, a ragged one
     # with dead links, one sub-step, and a long block (past one CTA's shared
-    # memory: the batched body over one pair)
+    # memory: the E-tiled body over one pair)
     for label, (ts, cc, ee) in (("serve", (MAIN_TS, c, e)),
                                 ("ragged", (45, 30, 300)),
                                 ("one_step", (1, c, e)),
@@ -502,7 +533,7 @@ def phase_single_kernels():
         same = all(torch.equal(x, y)
                    for x, y in zip(qlops.queueloss(d, w, cap, buf, 30.0), out))
         body = ("one launch" if qlops._single_fits(ts, cc, ee)
-                else "the batched body over one pair, two launches")
+                else "the E-tiled body over one pair, two launches")
         log(f"phase 3: queueloss (single) {label} {(ts, cc, ee)} ({body}): max "
             f"abs err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
             f"|err|/(atol+rtol|ref|) {worst:.3f}, total drop {drops:.3f} Gb; "
@@ -516,17 +547,17 @@ def phase_single_kernels():
             continue
         ms = time_cuda(lambda: qlops.queueloss(d, w, cap, buf, 30.0))
         plain = time_cuda(lambda: queueloss_ref(d, w, cap, buf, 30.0))
-        # the path this entry took before its own body: the batched body over
+        # the path this entry took before its own body: the E-tiled body over
         # one pair, then the partial sums (two launches)
         batched = [x[None] for x in (d, w, cap, buf)]
-        prev = time_cuda(lambda: qlops.queueloss_batched(*batched, 30.0))
+        prev = time_cuda(lambda: qlops._queueloss_tiles(*batched, 30.0))
         host = host_us(lambda: qlops.queueloss(d, w, cap, buf, 30.0))
         n_bytes = 4 * (ts * c + c * e + 2 * e + 2 * ts)
         n_flops = 2 * ts * c * e + 6 * ts * e
         bnd, by = bound_ms(n_bytes, n_flops)
         log(f"  queueloss (single) times: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, an empty kernel through the same ctypes path "
-            f"{floor:.4f} ms, the batched body over one pair {prev:.4f} ms, "
+            f"{floor:.4f} ms, the E-tiled body over one pair {prev:.4f} ms, "
             f"bound {bnd:.5f} ms ({by}: {n_bytes / 1e6:.4f} MB, "
             f"{n_flops / 1e6:.3f} MFLOP); the wrapper's host time {host:.1f} us "
             f"a call")
@@ -536,7 +567,7 @@ def phase_single_kernels():
             "replaces": "src/repro/kernels/queueloss/queueloss.py:92",
             "max_abs_err": abs_e, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
-            "launch_floor_ms": floor, "batched_body_ms": prev,
+            "launch_floor_ms": floor, "tiled_body_ms": prev,
             "host_us_per_call": host, "shape": [ts, c, e], "status": "redesigned"}
     return rows
 
@@ -574,12 +605,15 @@ def _fleet_inputs(f, b, t, c, gen, n_blocks=None, n_pods=None, vp=None,
 
 
 def phase_fleet_kernels():
-    """The fleet entries (kernels #5/#6) at phase 7's two buckets and at a
-    ragged padded bucket, the queue loss also at a bucket past its fleet
-    body's limit (the batched body over the F*B pairs), against their plain
-    versions; the redesigned queue loss also bit for bit against a second
-    call; times at both buckets, the queue loss's beside the batched body
-    over the same pairs (the path it took before its own body)."""
+    """The fleet entries (kernels #5/#6) at phase 7's two buckets, at a ragged
+    padded bucket and past their bodies' limits (the linkload one row past its
+    staged body's cut: the batched body; the queue loss at TS=512: the E-tiled
+    body), the linkload also with W at a storage offset, against their plain
+    versions and bit for bit against a second call; times at both buckets
+    beside the bodies they launched before on the same pairs (the batched
+    linkload body, the E-tiled queue-loss body), the linkload's also beside
+    ``torch.bmm`` of the load alone and a sum of W (a read of its bytes), each
+    also after an L2 flush by reads, and at the staged body's row cut."""
     import torch
 
     from repro_torch.kernels.linkload import ops as llops
@@ -589,44 +623,51 @@ def phase_fleet_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     ragged = dict(n_blocks=(5, 2, 4), n_pods=(6, 8, 7), vp=8)
-    qlib = qlops._library()[0]
+    llib, qlib = llops._library()[0], qlops._library()[0]
+    cut = _single_rows_cut(MAIN_C, MAIN_C)
     rows, timed = {}, {"linkload": {}, "queueloss": {}}
     for label, (f, b, c) in (*FLEET_BUCKETS.items(), ("ragged", (3, 5, 56)),
-                             ("past_fits", (2, 3, 132))):
+                             ("past_fits", (2, 3, 132)), ("unaligned_w", (3, 5, 132))):
         extra = ragged if label == "ragged" else {}
         for name, t in (("linkload", MAIN_T), ("queueloss", MAIN_TS)):
             queue = name == "queueloss"
+            if label == "unaligned_w" and queue:
+                continue
             if label == "past_fits":
-                if not queue:
-                    continue
-                t = 512  # (512, 132) tiles outnumber one CTA's threads
+                # one row past the staged body's cut; (512, 132) tiles outnumber
+                # one CTA's threads
+                t = 512 if queue else cut + 1
             args = _fleet_inputs(f, b, t, c, gen, queue=queue, **extra)
+            if label == "unaligned_w":
+                args[1] = _unaligned(args[1])
             if queue:
                 def kernel():
                     return qlops.queueloss_fleet(*args, 30.0)
 
                 def plain():
                     return queueloss_fleet_ref(*args, 30.0)
+
+                body = ("the fleet body, one launch" if qlops._fleet_fits(t, c, c)
+                        else "the E-tiled body over the F*B pairs, two launches")
             else:
                 def kernel():
                     return llops.linkload_fleet(*args, 0.8)
 
                 def plain():
                     return linkload_metrics_fleet_ref(*args, 0.8)
+
+                body = ("the staged body" if llops._single_fits(t, c, c)
+                        else "the batched body over the F*B pairs")
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             abs_e, rel_e, worst = max_errs(out, ref)
-            msg = (f"phase 3: {name} (fleet) {label} {(f, b, t, c, c)}: max abs "
-                   f"err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
-                   f"|err|/(atol+rtol|ref|) {worst:.3f}")
-            same = True
+            # no atomics: a second call gives the same bits
+            same = all(torch.equal(x, y) for x, y in zip(kernel(), out))
+            msg = (f"phase 3: {name} (fleet) {label} {(f, b, t, c, c)} ({body}): max "
+                   f"abs err {abs_e:.3e}, max rel err {rel_e:.3e}, worst "
+                   f"|err|/(atol+rtol|ref|) {worst:.3f}; second call bit-equal {same}")
             if queue:
-                # no atomics: a second call gives the same bits
-                same = all(torch.equal(x, y) for x, y in zip(kernel(), out))
-                body = ("the fleet body, one launch" if qlops._fleet_fits(t, c, c)
-                        else "the batched body over the F*B pairs, two launches")
-                msg += (f", total drop {float(ref[0].sum()):.3f} Gb ({body}); second "
-                        f"call bit-equal {same}")
+                msg += f", total drop {float(ref[0].sum()):.3f} Gb"
             log(msg)
             if (worst > 1.0 or not all(bool(torch.isfinite(x).all()) for x in out)
                     or (queue and float(ref[0].sum()) <= 0.0)):
@@ -649,33 +690,68 @@ def phase_fleet_kernels():
                    f"{plain_ms:.4f} ms")
             flat = [x.reshape((fb,) + x.shape[2:]) for x in args]
             if queue:
-                row["batched_body_ms"] = time_cuda(
-                    lambda: qlops.queueloss_batched(*flat, 30.0))
+                row["tiled_body_ms"] = time_cuda(
+                    lambda: qlops._queueloss_tiles(*flat, 30.0))
                 row["smem_bytes"] = qlib.queueloss_fleet_smem_bytes(t, c, c)
                 # the two bodies sum in the same order at E <= 160: a check of
                 # what the fleet engine sees against the per-fabric engine
-                row["bit_equal_to_batched_body"] = all(
+                row["bit_equal_to_tiled_body"] = all(
                     torch.equal(x.reshape(fb, t), y)
-                    for x, y in zip(out, qlops.queueloss_batched(*flat, 30.0)))
-                msg += (f", the batched body over the same F*B pairs "
-                        f"{row['batched_body_ms']:.4f} ms (bit-equal outputs "
-                        f"{row['bit_equal_to_batched_body']}); {row['smem_bytes']} B "
+                    for x, y in zip(out, qlops._queueloss_tiles(*flat, 30.0)))
+                msg += (f", the E-tiled body over the same F*B pairs "
+                        f"{row['tiled_body_ms']:.4f} ms (bit-equal outputs "
+                        f"{row['bit_equal_to_tiled_body']}); {row['smem_bytes']} B "
                         f"of shared memory a CTA")
             else:
+                row["batched_body_ms"] = time_cuda(
+                    lambda: llops.linkload_batched(*flat, 0.8))
                 row["yardstick_bmm_ms"] = time_cuda(lambda: torch.bmm(*flat[:2]))
-                msg += (f", torch.bmm of the load alone over F*B "
-                        f"{row['yardstick_bmm_ms']:.4f} ms")
+                row["yardstick_w_sum_ms"] = time_cuda(lambda: args[1].sum())
+                # the flush by zeroing leaves ~50 MB of dirty lines in L2, which
+                # the timed call writes back; a flush by reads leaves clean ones
+                row["read_flush_ms"] = time_cuda(kernel, read_flush=True)
+                row["read_flush_w_sum_ms"] = time_cuda(lambda: args[1].sum(),
+                                                       read_flush=True)
+                row["threads"] = llib.linkload_staged_threads(t, c)
+                row["smem_bytes"] = llib.linkload_single_smem_bytes(t, c, c)
+                # one body, one order of sums: each pair's bits are the
+                # single-block entry's
+                row["bit_equal_to_single_entry"] = all(
+                    torch.equal(x[fi, bi], y)
+                    for fi, bi in ((0, 0), (f - 1, b - 1))
+                    for x, y in zip(out, llops.linkload(
+                        *(a[fi, bi].contiguous() for a in args), 0.8)))
+                msg += (f", the batched body over the same F*B pairs "
+                        f"{row['batched_body_ms']:.4f} ms, torch.bmm of the load "
+                        f"alone {row['yardstick_bmm_ms']:.4f} ms, a sum of W "
+                        f"{row['yardstick_w_sum_ms']:.4f} ms; after an L2 flush by "
+                        f"reads: kernel {row['read_flush_ms']:.4f} ms, sum of W "
+                        f"{row['read_flush_w_sum_ms']:.4f} ms; a CTA of "
+                        f"{row['threads']} threads and {row['smem_bytes']} B of "
+                        f"shared memory a pair; bit-equal to the single-block "
+                        f"entry {row['bit_equal_to_single_entry']}")
             log(f"{msg}, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
                 f"{n_flops / 1e6:.1f} MFLOP)")
             timed[name][label] = row
-    for name, entry, line, status in (("linkload", "linkload_fleet", 209, "ported"),
-                                      ("queueloss", "queueloss_fleet", 266, "redesigned")):
+    # the staged body at its longest block beside the batched body it hands
+    # longer blocks to, over the 12-pod bucket's pairs of four fabrics
+    args = _fleet_inputs(4, 96, cut, MAIN_C, gen)
+    flat = [x.reshape((4 * 96,) + x.shape[2:]) for x in args]
+    at_cut = {"shape": [4, 96, cut, MAIN_C, MAIN_C],
+              "ms": time_cuda(lambda: llops.linkload_fleet(*args, 0.8)),
+              "batched_body_ms": time_cuda(lambda: llops.linkload_batched(*flat, 0.8))}
+    log(f"  linkload (fleet) at the staged body's cut T={cut} (4, 96): staged body "
+        f"{at_cut['ms']:.4f} ms, the batched body over the same pairs "
+        f"{at_cut['batched_body_ms']:.4f} ms")
+    for name, entry, line in (("linkload", "linkload_fleet", 209),
+                              ("queueloss", "queueloss_fleet", 266)):
         rows[name] = {
             "name": entry, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
             **timed[name]["V12"], "library_ms": None, "bucket_V8": timed[name]["V8"],
-            "status": status}
+            "status": "redesigned"}
+    rows["linkload"]["at_cut"] = at_cut
     return rows
 
 

@@ -11,26 +11,40 @@
 //   single-block kernel is its batched one at B = 1 (one W, one inv_cap), and
 //   its fleet kernel is the batched one with one more leading grid axis over
 //   fabrics, whose (fabric, block) pairs are independent and contiguous in the
-//   (F, B, ...) layout.  So the batched and fleet entries launch the same body:
-//   over B epochs and over the F*B (fabric, block) pairs.  The single-block
-//   entry has a body of its own (below) wherever its block fits one CTA's
-//   shared memory, and launches the batched body over one pair where it does
-//   not.
+//   (F, B, ...) layout.
 // For every epoch (or pair) b and interval t it computes
 //   load[t, e] = sum_c demand[b, t, c] * W[b, c, e],  util = load * inv_cap[b, e]
 // and returns per row: max_e util, sum_e util, #(util > thr), sum_e load.
+//
+// Which body each entry takes, and why.  Two bodies below:
+//   * the batched body: a CTA per (epoch, 8-row T-tile), a thread per link
+//     column walking W through dependent 4-byte loads;
+//   * the staged body: a CTA per pair that copies all of the pair's W, its
+//     demand and inv_cap into shared memory in one cp.async round trip, then
+//     scores it from there.
+// linkload_single is the staged body over one pair (5.4x faster than the
+// batched body over one pair, PERF.md).  linkload_fleet is the staged body
+// over the F*B pairs: each W is read once, a CTA keeps its whole 70 KB in
+// flight, and the card's block scheduler hands each SM its next pair as one
+// finishes.  The batched body over the same pairs kept a few bytes in flight
+// a thread, launched an idle second link column for 4 of 132 links and 5 idle
+// rows of 8, and ran at a quarter of the HBM rate (times in PERF.md §6).
+// Persistent CTAs walking the pairs through a ring of 2-8 stages,
+// with 16-byte cp.async or TMA bulk copies, were no faster at either of the
+// fleet's buckets.  Both entries take the batched body past the staged
+// body's limits (T > kStagedMaxRows, or its shared memory; T = 60 at
+// C = E = 132).  linkload_batched keeps the batched body.  The staged body sums
+// each load over c in its own order (quarters of C), so the fleet entry's
+// bits are the single entry's for each pair, not the batched body's; both
+// keep the rtol 3e-4 contract.
 //
 // What bounds it on this card: bytes.  Every epoch carries its own routing
 // weights, so W (B*C*E floats) is read once and used for only T rows; at the
 // controller's shapes (B=672, T=3, C=E=132) W is 46.8 MB of the 48 MB the
 // kernel reads, about 14 us at 3.35 TB/s, against 70 MFLOP (1 us at the
-// 67 TFLOP/s f32 rate).
-//
-// Fleet.  The fleet engine scores a whole bucket of fabrics at once: at the
-// 22-fabric fleet's 12-pod bucket (F=15, B=96, T=3, C=E=132) W is 100 MB of
-// the 103 MB read, about 31 us at 3.35 TB/s; the grid is F*B*ceil(T/8) CTAs,
-// counted in 64 bits and refused above gridDim.x's limit.  Padded blocks of a
-// fabric with fewer than B blocks are all zeros and score zeros.
+// 67 TFLOP/s f32 rate).  At the 22-fabric fleet's 12-pod bucket (F=15, B=96,
+// T=3, C=E=132) W is 100 MB of the 103 MB read, about 31 us; padded blocks of
+// a fabric with fewer than B blocks are all zeros and score zeros.
 //
 // Single block.  At the streaming controller's shape (T=3, C=E=132) the call
 // reads 72 KB (0.02 us at 3.35 TB/s) and does 0.05 M FMAs: what is left after
@@ -47,30 +61,25 @@
 // (neighbouring threads read neighbouring addresses), contracts C with f32
 // FMAs (no TF32: the contract is rtol 3e-4) and folds the finished column into
 // per-row partials.  A fixed-order block reduction (warp butterfly, then the
-// warps in order) writes each row, so there are no atomics and the outputs are
-// the same bits on every run.  Ragged T and E are masked here; the host pads
-// nothing.
+// warps in order) writes each row.  Ragged T and E are masked here; the host
+// pads nothing.
 //
-// Design of the single-block body: one launch of one CTA, one round trip to
-// memory.  The batched body at B = 1 is one CTA of 128 threads, each walking
-// its W column through 132 dependent loads (0.04 ms).  Here one CTA of
-// kSingleThreads threads
-//   1. copies all of W (C, E), the demand transposed to (C, T padded to 4) and
-//      inv_cap into shared memory with cp.async, every copy in flight at once
-//      (16-byte copies of W where its address and row length allow, 4-byte
-//      ones otherwise; nothing past the tensors is read);
-//   2. forms the (T, E) loads from shared memory: a thread owns kLoadRows rows
-//      x kLoadLinks neighbouring links over one quarter of C, so per commodity
-//      it reads a float2 of W and a broadcast float4 of demand for eight f32
+// Design of the staged body, per pair (one CTA of staged_threads(T, E)
+// threads, one per item of step 2, at most kStagedThreads):
+//   1. its W (C, E), the demand transposed to (C, T padded to 4) and inv_cap
+//      are copied into shared memory with cp.async, every copy in flight at
+//      once (16-byte copies of W where its address and row length allow,
+//      4-byte ones otherwise; nothing past the tensors is read);
+//   2. the (T, E) loads from shared memory: a thread owns kLoadRows rows x
+//      kLoadLinks neighbouring links over one quarter of C, so per commodity it
+//      reads a float2 of W and a broadcast float4 of demand for eight f32
 //      FMAs, over its quarter of c in order;
 //   3. a warp per row adds the quarters in order, forms util = load * inv_cap
 //      and folds max, sum util, #(util > thr) and sum load over the links
 //      e = lane, lane + 32, ... in order, then a warp butterfly; lane 0 writes.
-// No atomics: the same bits on every call.  Its 0.05 M FMAs fit one SM, so no
-// cluster is needed (the single-block queue loss, 0.63 M FMAs, needed eight).
-// linkload_single_fits() sends a block to this body while it fits shared
-// memory and T <= kSingleMaxRows; longer blocks (the whole-trace baseline)
-// take the batched body, whose T-tiles spread over the card.
+// The pair count is formed in 64 bits and refused above gridDim.x's limit, as
+// the batched body's grid is.
+// No atomics anywhere: every entry gives the same bits on every call.
 
 #include <cuda_runtime.h>
 
@@ -173,9 +182,9 @@ linkload_batched_kernel(const float* __restrict__ demand,   // (B, T, C)
   }
 }
 
-// Launch the body over `pairs` independent (T, C) x (C, E) problems.  The CTA
-// count is formed in 64 bits: a grid wider than gridDim.x allows is refused,
-// never truncated.
+// Launch the batched body over `pairs` independent (T, C) x (C, E) problems.
+// The CTA count is formed in 64 bits: a grid wider than gridDim.x allows is
+// refused, never truncated.
 int launch(const void* demand, const void* w, const void* inv_cap, float thr, void* mlu,
            void* alu, void* olr, void* tot, long long pairs, int T, int C, int E,
            void* stream) {
@@ -199,26 +208,35 @@ int launch(const void* demand, const void* w, const void* inv_cap, float thr, vo
   return (int)cudaGetLastError();
 }
 
-constexpr int kSingleThreads = 384;  // threads of the single-block CTA
-constexpr int kSingleWarps = kSingleThreads / 32;
+constexpr int kStagedThreads = 384;  // most threads of a staged-body CTA
 constexpr int kLoadRows = 4;   // rows per thread in the load product
 constexpr int kLoadLinks = 2;  // links per thread in the load product
 constexpr int kParts = 4;      // the commodities, cut in four per load
-// Longest block the single-block body takes.  At C = E = 132 its shared
-// memory ends first, at T = 60, where it still beats the batched body over one
-// pair (chip_smoke.py phase 3); the cut keeps long blocks of narrower fabrics,
+// Longest block the staged body takes.  At C = E = 132 its shared memory ends
+// first, at T = 60, where it still beats the batched body over one pair
+// (chip_smoke.py phase 3); the cut keeps long blocks of narrower fabrics,
 // whose work grows with T on one SM, on the batched body's many CTAs.
-constexpr int kSingleMaxRows = 64;
+constexpr int kStagedMaxRows = 64;
 constexpr int kSmemFloats = 227 * 1024 / 4;  // shared memory a CTA can take
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Floats of shared memory the single-block body needs: W (C, ESP), the demand
+// Floats of shared memory the staged body needs: W (C, ESP), the demand
 // (C, TP), the kParts partial loads (T, ESP) each and inv_cap (ESP), with
 // ESP = E and TP = T rounded up to 4.
-__host__ inline long long single_smem_floats(int T, int C, int E) {
+__host__ inline long long staged_smem_floats(int T, int C, int E) {
   const long long esp = round_up(E, 4), tp = round_up(T, kLoadRows);
   return (long long)C * esp + (long long)C * tp + kParts * (long long)T * esp + esp;
+}
+
+// Threads of a staged-body CTA: one per item of the load product (a quarter
+// of C, kLoadRows rows, kLoadLinks links), in whole warps, at most
+// kStagedThreads (the 8-pod bucket's 112 items take 128 threads, not 384).
+__host__ inline int staged_threads(int T, int E) {
+  const long long items = (long long)kParts * (round_up(T, kLoadRows) / kLoadRows) *
+                          ((E + kLoadLinks - 1) / kLoadLinks);
+  const long long n = (items + 31) / 32 * 32;
+  return n < 32 ? 32 : n > kStagedThreads ? kStagedThreads : (int)n;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -231,13 +249,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-__global__ void __launch_bounds__(kSingleThreads)
-linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
-                       const float* __restrict__ w,        // (C, E)
-                       const float* __restrict__ inv_cap,  // (E,), 0 = dead link
+__global__ void __launch_bounds__(kStagedThreads)
+linkload_staged_kernel(const float* __restrict__ demand,   // (P, T, C)
+                       const float* __restrict__ w,        // (P, C, E)
+                       const float* __restrict__ inv_cap,  // (P, E), 0 = dead link
                        float thr, float* __restrict__ mlu, float* __restrict__ alu,
-                       float* __restrict__ olr, float* __restrict__ tot,  // (T,) each
+                       float* __restrict__ olr, float* __restrict__ tot,  // (P, T) each
                        int T, int C, int E) {
+  const long long pair = blockIdx.x;
   const int ESP = round_up(E, 4), TP = round_up(T, kLoadRows);
   const size_t plane = (size_t)T * ESP;  // one (T, ESP) array
   extern __shared__ float4 smem4[];
@@ -245,26 +264,29 @@ linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
   float* dem = ws + (size_t)C * ESP;            // (C, TP), zero past T
   float* ld = dem + (size_t)C * TP;             // (kParts, T, ESP) partial loads
   float* ic = ld + kParts * plane;              // (ESP,) inv_cap
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const float* w_p = w + (size_t)pair * C * E;
+  const float* dem_p = demand + (size_t)pair * T * C;
+  const float* ic_p = inv_cap + (size_t)pair * E;
 
   // 1. stage W, the demand (transposed) and inv_cap: every copy asynchronous,
-  //    so all of them are in flight at once
-  if ((reinterpret_cast<size_t>(w) & 15) == 0 && E % 4 == 0) {  // ESP == E
-    for (int i = tid; i < C * E / 4; i += kSingleThreads) cp_async16(ws + 4 * i, w + 4 * i);
-  } else if (E > 0 && E <= kSingleThreads) {  // thread (c0, j) copies rows c0, c0 + c_step, ...
-    const int c_step = kSingleThreads / E, j = tid % E;
+  //    so all of them are in flight at once (W's address and row length are
+  //    checked here: the wrapper passes views at a storage offset)
+  if ((reinterpret_cast<size_t>(w_p) & 15) == 0 && E % 4 == 0) {  // ESP == E
+    for (int i = tid; i < C * E / 4; i += nthr) cp_async16(ws + 4 * i, w_p + 4 * i);
+  } else if (E > 0 && E <= nthr) {  // thread (c0, j) copies rows c0, c0 + c_step, ...
+    const int c_step = nthr / E, j = tid % E;
     if (tid < c_step * E)
-      for (int c = tid / E; c < C; c += c_step) cp_async4(ws + (size_t)c * ESP + j, w + (size_t)c * E + j);
+      for (int c = tid / E; c < C; c += c_step) cp_async4(ws + (size_t)c * ESP + j, w_p + (size_t)c * E + j);
   } else {  // more links than threads
     for (int c = 0; c < C; ++c)
-      for (int j = tid; j < E; j += kSingleThreads)
-        cp_async4(ws + (size_t)c * ESP + j, w + (size_t)c * E + j);
+      for (int j = tid; j < E; j += nthr) cp_async4(ws + (size_t)c * ESP + j, w_p + (size_t)c * E + j);
   }
-  for (int c = tid; c < C; c += kSingleThreads) {
-    for (int k = 0; k < T; ++k) cp_async4(dem + (size_t)c * TP + k, demand + (size_t)k * C + c);
+  for (int c = tid; c < C; c += nthr) {
+    for (int k = 0; k < T; ++k) cp_async4(dem + (size_t)c * TP + k, dem_p + (size_t)k * C + c);
     for (int k = T; k < TP; ++k) dem[(size_t)c * TP + k] = 0.0f;
   }
-  for (int j = tid; j < E; j += kSingleThreads) cp_async4(ic + j, inv_cap + j);
+  for (int j = tid; j < E; j += nthr) cp_async4(ic + j, ic_p + j);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -274,7 +296,7 @@ linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
   const int n_kg = TP / kLoadRows, n_lg = (E + kLoadLinks - 1) / kLoadLinks;
   const int c_part = (C + kParts - 1) / kParts;
   const int n_items = kParts * n_kg * n_lg;
-  for (int item = tid; item < n_items; item += kSingleThreads) {
+  for (int item = tid; item < n_items; item += nthr) {
     const int p = item / (n_kg * n_lg), rest = item - p * (n_kg * n_lg);
     const int kg = rest / n_lg, j = (rest - kg * n_lg) * kLoadLinks;
     float acc[kLoadRows][kLoadLinks];
@@ -310,7 +332,7 @@ linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
   // 3. a warp per row: the quarters added in order, util, and the four
   //    metrics over the lane's links in order, then a warp butterfly
   const int lane = tid & 31, warp = tid >> 5;
-  for (int t = warp; t < T; t += kSingleWarps) {
+  for (int t = warp; t < T; t += nthr / 32) {
     const float* row = ld + (size_t)t * ESP;
     float m = 0.0f, a = 0.0f, n = 0.0f, s = 0.0f;
     for (int e = lane; e < E; e += 32) {
@@ -328,12 +350,34 @@ linkload_single_kernel(const float* __restrict__ demand,   // (T, C)
     n = warp_sum(n);
     s = warp_sum(s);
     if (lane == 0) {
-      mlu[t] = m;
-      alu[t] = a;
-      olr[t] = n;
-      tot[t] = s;
+      const size_t o = (size_t)pair * T + t;
+      mlu[o] = m;
+      alu[o] = a;
+      olr[o] = n;
+      tot[o] = s;
     }
   }
+}
+
+// Launch the staged body over `pairs` pairs, one CTA each.  The pair count is
+// formed in 64 bits: a grid wider than gridDim.x allows is refused.
+int launch_staged(const void* demand, const void* w, const void* inv_cap, float thr,
+                  void* mlu, void* alu, void* olr, void* tot, long long pairs, int T, int C,
+                  int E, void* stream) {
+  if (pairs > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
+  if (pairs == 0 || T == 0) return 0;
+  const size_t smem = (size_t)staged_smem_floats(T, C, E) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        linkload_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  linkload_staged_kernel<<<dim3((unsigned)pairs), staged_threads(T, E), smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(demand), static_cast<const float*>(w),
+      static_cast<const float*>(inv_cap), thr, static_cast<float*>(mlu),
+      static_cast<float*>(alu), static_cast<float*>(olr), static_cast<float*>(tot), T, C, E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -353,17 +397,19 @@ int linkload_batched(const void* demand, const void* w, const void* inv_cap, flo
   return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
 }
 
-// 1 if one (T, C) block under a (C, E) W takes the single-block body (one
-// CTA), 0 if it takes the batched body over one pair.
+// 1 if (T, C) blocks under (C, E) weights take the staged body (one CTA a
+// block, in the single-block and the fleet entry), 0 if they take the
+// batched body.
 int linkload_single_fits(int T, int C, int E) {
-  return T >= 0 && C >= 0 && E >= 0 && T <= kSingleMaxRows &&
-         single_smem_floats(T, C, E) <= kSmemFloats;
+  return T >= 0 && C >= 0 && E >= 0 && T <= kStagedMaxRows &&
+         staged_smem_floats(T, C, E) <= kSmemFloats;
 }
 
-// Bytes of shared memory the single-block body takes at (T, C, E).
+// Bytes of shared memory and threads of a staged-body CTA at (T, C, E).
 long long linkload_single_smem_bytes(int T, int C, int E) {
-  return single_smem_floats(T, C, E) * (long long)sizeof(float);
+  return staged_smem_floats(T, C, E) * (long long)sizeof(float);
 }
+int linkload_staged_threads(int T, int E) { return staged_threads(T, E); }
 
 // One (T, C) block under one (C, E) weight matrix and one (E,) inv_cap.
 int linkload_single(const void* demand, const void* w, const void* inv_cap, float thr,
@@ -372,18 +418,7 @@ int linkload_single(const void* demand, const void* w, const void* inv_cap, floa
   if (T < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
   if (!linkload_single_fits(T, C, E))
     return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
-  if (T == 0) return 0;
-  const size_t smem = (size_t)linkload_single_smem_bytes(T, C, E);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        linkload_single_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  linkload_single_kernel<<<1, kSingleThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(demand), static_cast<const float*>(w),
-      static_cast<const float*>(inv_cap), thr, static_cast<float*>(mlu),
-      static_cast<float*>(alu), static_cast<float*>(olr), static_cast<float*>(tot), T, C, E);
-  return (int)cudaGetLastError();
+  return launch_staged(demand, w, inv_cap, thr, mlu, alu, olr, tot, 1, T, C, E, stream);
 }
 
 // F fabrics x B blocks: demand (F, B, T, C), w (F, B, C, E), inv_cap (F, B, E);
@@ -391,9 +426,11 @@ int linkload_single(const void* demand, const void* w, const void* inv_cap, floa
 int linkload_fleet(const void* demand, const void* w, const void* inv_cap, float thr,
                    void* mlu, void* alu, void* olr, void* tot, int F, int B, int T, int C,
                    int E, void* stream) {
-  if (F < 0 || B < 0) return (int)cudaErrorInvalidValue;
-  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, (long long)F * B, T, C, E,
-                stream);
+  if (F < 0 || B < 0 || T < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  const long long pairs = (long long)F * B;
+  if (!linkload_single_fits(T, C, E))
+    return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, pairs, T, C, E, stream);
+  return launch_staged(demand, w, inv_cap, thr, mlu, alu, olr, tot, pairs, T, C, E, stream);
 }
 
 }  // extern "C"

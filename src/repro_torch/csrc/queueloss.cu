@@ -13,9 +13,27 @@
 //   fleet kernel is the batched one with one more leading grid axis over
 //   fabrics, the queue re-zeroed whenever the (fabric, block) pair changes.  In
 //   the (F, B, ...) layout those pairs are contiguous and independent, each
-//   starting from an empty queue.  The single-block and the fleet entries each
-//   have a body of their own (below) wherever the shape fits it, and launch
-//   the batched body (over one pair, or over the F*B pairs) where it does not.
+//   starting from an empty queue, just as the batched kernel's epochs are.
+//
+// Which body each entry takes, and why.  Three bodies below:
+//   * the E-tiled body: a CTA per (epoch, 128-link E-tile), W re-read once
+//     per 8-sub-step chunk, the tiles' partial sums added by a second launch;
+//   * the cluster body: one block on an 8-CTA cluster (queueloss_single);
+//   * the fleet body: one CTA per epoch or pair that owns all of its links
+//     and streams its W once (one launch, no partials).
+// queueloss_batched and queueloss_fleet take the fleet body wherever its
+// tiles and links fit one CTA's threads and its shared memory one CTA
+// (queueloss_fleet_fits; TS <= 120 at C = E = 132): the batched engine's B = 96
+// epochs are 96 CTAs, one wave, where the E-tiled body launched a second,
+// 97 %-idle E-tile an epoch at E = 132, read W 5 times at TS = 36 and summed
+// partials in a second launch (times in PERF.md §6).  Cutting each
+// epoch's links over a cluster of 2 or 4 CTAs (to fill the 132 SMs) was
+// slower in the same run: each CTA still walks 36 dependent sub-steps, and
+// the cluster adds its barriers.  queueloss_single takes the cluster body
+// while it fits shared memory.  Past their bodies' limits all three take the
+// E-tiled body; queueloss_tiles launches it whatever the shape, for
+// comparisons.  The fleet body sums the links in the E-tiled body's order
+// for E <= 160, so there the batched entry's bits did not change.
 // For every epoch (or pair) b, link e and sub-step k in time order:
 //   load = sum_c demand[b, k, c] * W[b, c, e]
 //   x = q + (load - cap[b, e]) * dt;  drop += max(0, x - buf[b, e]);  q = clip(x, 0, buf[b, e])
@@ -34,7 +52,7 @@
 // 90 KB and does 1.25 MFLOP: bound by the launch and by the latency of its
 // dependent steps, not by bytes or operations.
 //
-// Design of the batched body.  The TPU kernel carries the whole queue vector
+// Design of the E-tiled body.  The TPU kernel carries the whole queue vector
 // in VMEM scratch across sequential time tiles.  Here one CTA owns one (epoch,
 // E-tile) and one thread owns one link, so the queue lives in a register for
 // the whole walk and nothing is carried between CTAs.  The CTA stages kSteps
@@ -46,7 +64,7 @@
 // second small kernel sums the nE partials in order.
 //
 // Design of the single-block body: load-parallel, one launch.  Walking 5
-// demand chunks x 132 commodities of dependent W loads in 2 CTAs (the batched
+// demand chunks x 132 commodities of dependent W loads in 2 CTAs (the E-tiled
 // body at B = 1) then summing 2 partials in a second launch took 0.05 ms.
 // One CTA doing all of the work below stays slower than the launch: the 0.63 M
 // FMAs of the load run on one SM.  So the block goes to a thread-block cluster
@@ -71,7 +89,7 @@
 //      shared memory alive until the others have read it.
 //
 // Design of the fleet body: one CTA per (fabric, block) pair, W read once, one
-// launch.  The batched body over the F*B pairs re-reads each W column once per
+// launch.  The E-tiled body over the F*B pairs re-reads each W column once per
 // 8-sub-step chunk (5 times at TS = 36, 100 MB of W against a 50 MB L2),
 // launches a second, 97 %-idle E-tile at E = 132 and sums the tiles' partials
 // in a second launch.  Here one CTA owns all E links of one pair:
@@ -90,14 +108,12 @@
 //      warp's 32 links;
 //   5. a thread a sub-step adds the warps' sums in order and writes the pair's
 //      outputs: no partials, no second launch.
-// Each link's load is summed over c in the batched body's order, and for
+// Each link's load is summed over c in the E-tiled body's order, and for
 // E <= 160 the sums over links fall in its order too (a butterfly per 32
 // links, then the warps of the first 128 links, then the rest).  What holds
 // this body back on the card is its FMA loop, issued from shared memory, not
 // its bytes or its occupancy (PERF.md: more CTAs an SM, 8 x 8 tiles, warp-wide
 // demand reads and other shared-memory layouts did not beat it).
-// queueloss_fleet_fits() sends a bucket to this body while its tiles and its
-// links fit one CTA's threads and its shared memory one CTA.
 // No atomics anywhere: every entry gives the same bits on every call.  Padded
 // sub-steps (zero demand) only drain the queue, and threads past E carry no
 // link, so neither ever drops.
@@ -119,7 +135,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-queueloss_batched_kernel(const float* __restrict__ demand,  // (B, TS, C)
+queueloss_tiles_kernel(const float* __restrict__ demand,  // (B, TS, C)
                          const float* __restrict__ w,       // (B, C, E)
                          const float* __restrict__ cap,     // (B, E) Gb/s
                          const float* __restrict__ buf,     // (B, E) Gb
@@ -601,14 +617,15 @@ queueloss_fleet_kernel(const float* __restrict__ demand,  // (P, TS, C)
 
 __global__ void noop_kernel() {}
 
-// Launch the body over `pairs` independent queue walks, then the partials pass.
-// Grid sizes are formed in 64 bits: a grid wider than gridDim.x allows is
-// refused, never truncated.
-int launch(const void* demand, const void* w, const void* cap, const void* buf, float dt,
-           void* drop, void* load, void* drop_part, void* load_part, long long pairs, int TS,
-           int C, int E, void* stream) {
+// Launch the E-tiled body over `pairs` independent queue walks, then the
+// partials pass.  Grid sizes are formed in 64 bits: a grid wider than
+// gridDim.x allows is refused, never truncated.
+int launch_tiles(const void* demand, const void* w, const void* cap, const void* buf, float dt,
+                 void* drop, void* load, void* drop_part, void* load_part, long long pairs,
+                 int TS, int C, int E, void* stream) {
   if (pairs < 0 || TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
   if (pairs == 0 || TS == 0) return 0;
+  if (drop_part == nullptr || load_part == nullptr) return (int)cudaErrorInvalidValue;
   const int n_etiles = E > 0 ? (E + kThreads - 1) / kThreads : 1;
   const long long n_ctas = pairs * n_etiles;
   const long long rows = pairs * TS;
@@ -618,11 +635,11 @@ int launch(const void* demand, const void* w, const void* cap, const void* buf, 
   const size_t smem = (size_t)kSteps * C * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        queueloss_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        queueloss_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  queueloss_batched_kernel<<<dim3((unsigned)n_ctas), kThreads, smem, s>>>(
+  queueloss_tiles_kernel<<<dim3((unsigned)n_ctas), kThreads, smem, s>>>(
       static_cast<const float*>(demand), static_cast<const float*>(w),
       static_cast<const float*>(cap), static_cast<const float*>(buf), dt,
       static_cast<float*>(drop_part), static_cast<float*>(load_part), TS, C, E, n_etiles);
@@ -631,6 +648,26 @@ int launch(const void* demand, const void* w, const void* cap, const void* buf, 
   sum_partials_kernel<<<dim3((unsigned)n_sum_ctas), threads, 0, s>>>(
       static_cast<const float*>(drop_part), static_cast<const float*>(load_part),
       static_cast<float*>(drop), static_cast<float*>(load), rows, n_etiles);
+  return (int)cudaGetLastError();
+}
+
+// Launch the fleet body over `pairs` queue walks, one CTA a pair.  The grid
+// is formed in 64 bits and refused above gridDim.x's limit.
+int launch_fleet(const void* demand, const void* w, const void* cap, const void* buf, float dt,
+                 void* drop, void* load, long long pairs, int TS, int C, int E, void* stream) {
+  if (pairs > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
+  if (pairs == 0 || TS == 0) return 0;
+  const size_t smem = (size_t)fleet_smem_floats(TS, C, E) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        queueloss_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  queueloss_fleet_kernel<<<dim3((unsigned)pairs), (unsigned)fleet_threads(TS, E), smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(demand), static_cast<const float*>(w),
+      static_cast<const float*>(cap), static_cast<const float*>(buf), dt,
+      static_cast<float*>(drop), static_cast<float*>(load), TS, C, E);
   return (int)cudaGetLastError();
 }
 
@@ -649,14 +686,45 @@ const char* queueloss_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// 1 if a bucket of (TS, C) blocks under (C, E) weights takes the fleet body
+// (one CTA per pair, one launch; the batched entry's epochs are its pairs),
+// 0 if it takes the E-tiled body and its partials pass.
+int queueloss_fleet_fits(int TS, int C, int E) {
+  return TS >= 0 && C >= 0 && E >= 0 && fleet_threads(TS, E) <= kFleetMaxThreads &&
+         fleet_smem_floats(TS, C, E) <= kSingleSmemFloats;
+}
+
+// Bytes of shared memory the fleet body takes at (TS, C, E).
+long long queueloss_fleet_smem_bytes(int TS, int C, int E) {
+  return fleet_smem_floats(TS, C, E) * (long long)sizeof(float);
+}
+
+// B epochs: demand (B, TS, C), w (B, C, E), cap/buf (B, E); outputs (B, TS)
+// each; the queue starts empty in every epoch.  drop_part/load_part, (B, TS,
+// nE) each, are read only where the shape does not fit the fleet body (they
+// may be null where it does).
 int queueloss_batched(const void* demand, const void* w, const void* cap, const void* buf,
                       float dt, void* drop, void* load, void* drop_part, void* load_part,
                       int B, int TS, int C, int E, void* stream) {
-  return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, B, TS, C, E, stream);
+  if (B < 0 || TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (!queueloss_fleet_fits(TS, C, E))
+    return launch_tiles(demand, w, cap, buf, dt, drop, load, drop_part, load_part, B, TS, C, E,
+                        stream);
+  return launch_fleet(demand, w, cap, buf, dt, drop, load, B, TS, C, E, stream);
+}
+
+// The E-tiled body and its partials pass over B epochs whatever the shape
+// (what the batched entry launched before it took the fleet body; the
+// partials are required): for comparisons only.
+int queueloss_tiles(const void* demand, const void* w, const void* cap, const void* buf,
+                    float dt, void* drop, void* load, void* drop_part, void* load_part, int B,
+                    int TS, int C, int E, void* stream) {
+  return launch_tiles(demand, w, cap, buf, dt, drop, load, drop_part, load_part, B, TS, C, E,
+                      stream);
 }
 
 // 1 if one (TS, C) block under a (C, E) W takes the single-block body (one
-// launch, no partials), 0 if it takes the batched body over one pair.
+// launch, no partials), 0 if it takes the E-tiled body over one pair.
 int queueloss_single_fits(int TS, int C, int E) {
   return TS >= 0 && C >= 0 && E >= 0 && single_smem_floats(TS, C, E) <= kSingleSmemFloats;
 }
@@ -668,11 +736,9 @@ int queueloss_single(const void* demand, const void* w, const void* cap, const v
                      float dt, void* drop, void* load, void* drop_part, void* load_part,
                      int TS, int C, int E, void* stream) {
   if (TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
-  if (!queueloss_single_fits(TS, C, E)) {
-    if (drop_part == nullptr || load_part == nullptr) return (int)cudaErrorInvalidValue;
-    return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, 1, TS, C, E,
-                  stream);
-  }
+  if (!queueloss_single_fits(TS, C, E))
+    return launch_tiles(demand, w, cap, buf, dt, drop, load, drop_part, load_part, 1, TS, C, E,
+                        stream);
   if (TS == 0) return 0;
   const size_t smem = (size_t)single_smem_floats(TS, C, E) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -693,19 +759,6 @@ int queueloss_noop(void* stream) {
   return (int)cudaGetLastError();
 }
 
-// 1 if a fleet bucket of (TS, C) blocks under (C, E) weights takes the fleet
-// body (one CTA per pair, one launch), 0 if it takes the batched body over the
-// F*B pairs.
-int queueloss_fleet_fits(int TS, int C, int E) {
-  return TS >= 0 && C >= 0 && E >= 0 && fleet_threads(TS, E) <= kFleetMaxThreads &&
-         fleet_smem_floats(TS, C, E) <= kSingleSmemFloats;
-}
-
-// Bytes of shared memory the fleet body takes at (TS, C, E).
-long long queueloss_fleet_smem_bytes(int TS, int C, int E) {
-  return fleet_smem_floats(TS, C, E) * (long long)sizeof(float);
-}
-
 // F fabrics x B blocks: demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E);
 // outputs (F, B, TS) each.  The queue starts empty in every (fabric, block)
 // pair.  drop_part/load_part, (F, B, TS, nE) each, are read only where the
@@ -715,25 +768,10 @@ int queueloss_fleet(const void* demand, const void* w, const void* cap, const vo
                     int B, int TS, int C, int E, void* stream) {
   if (F < 0 || B < 0 || TS < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
   const long long pairs = (long long)F * B;
-  if (!queueloss_fleet_fits(TS, C, E)) {
-    if (drop_part == nullptr || load_part == nullptr) return (int)cudaErrorInvalidValue;
-    return launch(demand, w, cap, buf, dt, drop, load, drop_part, load_part, pairs, TS, C, E,
-                  stream);
-  }
-  if (pairs > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
-  if (pairs == 0 || TS == 0) return 0;
-  const size_t smem = (size_t)queueloss_fleet_smem_bytes(TS, C, E);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        queueloss_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  queueloss_fleet_kernel<<<dim3((unsigned)pairs), (unsigned)fleet_threads(TS, E), smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(demand), static_cast<const float*>(w),
-      static_cast<const float*>(cap), static_cast<const float*>(buf), dt,
-      static_cast<float*>(drop), static_cast<float*>(load), TS, C, E);
-  return (int)cudaGetLastError();
+  if (!queueloss_fleet_fits(TS, C, E))
+    return launch_tiles(demand, w, cap, buf, dt, drop, load, drop_part, load_part, pairs, TS, C,
+                        E, stream);
+  return launch_fleet(demand, w, cap, buf, dt, drop, load, pairs, TS, C, E, stream);
 }
 
 }  // extern "C"

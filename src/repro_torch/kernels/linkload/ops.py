@@ -64,14 +64,16 @@ def _library():
         lib.linkload_single_fits.restype = ctypes.c_int
         lib.linkload_single_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.linkload_single_smem_bytes.restype = ctypes.c_longlong
+        lib.linkload_staged_threads.argtypes = [ctypes.c_int] * 2
+        lib.linkload_staged_threads.restype = ctypes.c_int
         _LIB = (lib, lib.linkload_max_commodities())
     return _LIB
 
 
 @functools.lru_cache(maxsize=None)
 def _single_fits(t: int, c: int, e: int) -> bool:
-    """Whether a (T, C) block under a (C, E) W takes the single-block body
-    (one CTA) or the batched body over one pair."""
+    """Whether (T, C) blocks under (C, E) weights take the staged body (one
+    CTA a block; the single-block and the fleet entry) or the batched body."""
     return bool(_library()[0].linkload_single_fits(t, c, e))
 
 

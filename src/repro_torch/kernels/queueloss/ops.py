@@ -43,7 +43,8 @@ fleet_launches = 0  # queueloss_fleet
 
 # the C entries and the number of int dimensions each takes after the
 # pointers and dt: (TS, C, E), (B, TS, C, E), (F, B, TS, C, E)
-_ENTRIES = {"queueloss_single": 3, "queueloss_batched": 4, "queueloss_fleet": 5}
+_ENTRIES = {"queueloss_single": 3, "queueloss_batched": 4, "queueloss_fleet": 5,
+            "queueloss_tiles": 4}
 _LIB = None  # (library, max commodities, links per block), set on first use
 
 
@@ -82,17 +83,17 @@ def _single_fits(ts: int, c: int, e: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _fleet_fits(ts: int, c: int, e: int) -> bool:
-    """Whether a fleet bucket of (TS, C) blocks under (C, E) weights takes the
-    fleet body (one CTA per pair, one launch, no partials) or the batched
-    body over its F*B pairs."""
+    """Whether (TS, C) blocks under (C, E) weights take the fleet body (one
+    CTA per pair or epoch, one launch, no partials) or the E-tiled body and
+    its partials pass; the batched and fleet entries share it."""
     return bool(_library()[0].queueloss_fleet_fits(ts, c, e))
 
 
 def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
     """Launch the C entry ``name`` (four input pointers, dt, two outputs and
     two partial buffers, ``dims`` ints, the stream); returns (drop, load).
-    The single-block and fleet entries take no partials where their own
-    bodies take the shape."""
+    The single-block, batched and fleet entries take no partials where their
+    own bodies take the shape."""
     lib, max_c, links = _library()
     *lead, ts, c, e = dims
     if c > max_c:
@@ -100,7 +101,8 @@ def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
                          f"chunk ({max_c})")
     out = torch.empty((2, *lead, ts), dtype=torch.float32, device=dev)
     if ((name == "queueloss_single" and _single_fits(ts, c, e))
-            or (name == "queueloss_fleet" and _fleet_fits(ts, c, e))):
+            or (name in ("queueloss_batched", "queueloss_fleet")
+                and _fleet_fits(ts, c, e))):
         part_ptrs = (None, None)
     else:
         part = torch.empty((2, *lead, ts, max(1, -(-e // links))),
@@ -161,6 +163,17 @@ def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def _queueloss_tiles(demand, w, cap, buf, dt: float):
+    """The E-tiled body and its partials pass over B epochs on the card,
+    whatever the shape (what :func:`queueloss_batched` launched before it took
+    the fleet body): for comparisons in ``chip_smoke.py`` and the card tests;
+    no launch is counted."""
+    dev = placement("queueloss_tiles", demand=demand, w=w, cap=cap, buf=buf)
+    b, ts, c = demand.shape
+    return _launch("queueloss_tiles", dev, demand, w, cap, buf, dt,
+                   (b, ts, c, w.shape[2]))
 
 
 def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,

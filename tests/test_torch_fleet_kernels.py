@@ -127,12 +127,12 @@ def test_queue_loss_fleet_matches_reference(f, b, ts, c, e, n_blocks):
         np.testing.assert_allclose(out[1][fi], t_b, rtol=FLEET_RTOL, atol=1e-4)
 
 
-def _butterfly(v):
-    """Lane 0's sum after a warp's xor butterfly over the last axis (32
-    lanes)."""
+def _butterfly(v, op=torch.add):
+    """Lane 0's value after a warp's xor butterfly over the last axis (32
+    lanes): ``v[i] = op(v[i], v[i ^ off])`` for off = 16, 8, 4, 2, 1."""
     lane = torch.arange(32)
     for off in (16, 8, 4, 2, 1):
-        v = v + v[..., lane ^ off]
+        v = op(v, v[..., lane ^ off])
     return v[..., 0]
 
 
@@ -203,6 +203,114 @@ def test_queueloss_fleet_schedule_matches_reference(f, b, ts, c, n_blocks, pods)
     for fi, nb in enumerate(n_blocks):
         assert float(per_link[fi, nb:].abs().sum()) == 0.0  # padded blocks
         assert float(per_link[fi][..., torch.from_numpy(padded[fi])].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("b,ts,c", [(3, 36, 132), (4, 13, 56), (2, 9, 12)])
+def test_queueloss_batched_schedule_matches_reference(b, ts, c):
+    """The batched entry takes the fleet body over its epochs: the fleet
+    schedule at F = 1 (E > 128 among the shapes) gives the reference's
+    epoch-batched Pallas kernel's answer (interpret mode), with dead links and
+    the queue empty at the start of every epoch."""
+    rng = np.random.default_rng(23 * ts + c)
+    demand = rng.uniform(0.0, 6.0, size=(b, ts, c))
+    w = rng.uniform(0.0, 1.0, size=(b, c, c)) * (rng.random((b, c, c)) < 0.4)
+    cap = rng.uniform(1.0, 3.0, size=(b, c))
+    cap[rng.random((b, c)) < 0.1] = 0.0  # dead links
+    w *= (cap > 0.0)[:, None, :]  # dead links carry nothing, as padded ones
+    buf = 0.02 * cap
+    ref = ref_qlops.queue_loss_batched(demand, w, cap, buf, 1.0, backend="pallas")
+    drop, load, per_link = _queueloss_fleet_schedule(
+        *(torch.from_numpy(x.astype(np.float32))[None] for x in (demand, w, cap, buf)), 1.0)
+    assert float(ref[0].sum()) > 0.0  # the scenario drops
+    for a, r, name in zip((drop[0], load[0]), ref, ("drop", "tot")):
+        assert a.shape == (b, ts)
+        np.testing.assert_allclose(a.numpy(), r, rtol=RTOL, atol=ATOL, err_msg=name)
+    dead = torch.from_numpy(cap == 0.0)[:, None, :].expand_as(per_link[0])
+    assert float(per_link[0][dead].abs().sum()) == 0.0  # dead links never drop
+
+
+def _linkload_staged_schedule(demand, w, inv_cap, thr):
+    """The fleet linkload's staged body (``csrc/linkload.cu``) in float32, per
+    (fabric, block) pair: every load summed over each quarter of c in order,
+    then the quarters added in order; util = load * inv_cap; per row, lane l
+    folds max, sum util, #(util > thr) and sum load over the links l, l + 32,
+    ... in order (from 0), then a warp butterfly.  Returns (mlu, alu_sum,
+    olr_count, load_sum), each (F, B, T)."""
+    c, e = w.shape[-2:]
+    quarter = -(-c // 4)
+    load = None
+    for lo in range(0, 4 * quarter, quarter):
+        acc = torch.zeros(demand.shape[:-1] + (e,))
+        for ci in range(lo, min(c, lo + quarter)):
+            acc = acc + demand[..., ci:ci + 1] * w[..., ci:ci + 1, :]
+        load = acc if load is None else load + acc
+    util = load * inv_cap[..., None, :]
+    rounds = -(-e // 32)
+
+    def lanes(x):  # (..., E) -> (..., rounds, 32), zeros past E
+        x = torch.nn.functional.pad(x, (0, 32 * rounds - e))
+        return x.reshape(x.shape[:-1] + (rounds, 32))
+
+    u, l = lanes(util), lanes(load)
+    m = a = n = s = torch.zeros(util.shape[:-1] + (32,))
+    for r in range(rounds):
+        m = torch.maximum(m, u[..., r, :])
+        a = a + u[..., r, :]
+        n = n + (u[..., r, :] > thr).float()
+        s = s + l[..., r, :]
+    return (_butterfly(m, torch.maximum), _butterfly(a), _butterfly(n),
+            _butterfly(s))
+
+
+@pytest.mark.parametrize("f,b,t,c,n_blocks,pods,dyadic", [
+    (2, 3, 3, 56, (3, 1), None, False),          # the 8-pod bucket's width
+    (3, 3, 3, 56, (3, 1, 2), (6, 8, 7), False),  # padded pods in the 8-pod layout
+    (1, 2, 3, 132, (2,), None, False),           # the 12-pod bucket's width, E > 128
+    (2, 2, 5, 132, (2, 1), None, True),          # E > 128, a tie-free OLR
+    (3, 2, 7, 56, (2, 1, 2), (8, 6, 7), True)])  # padded pods, a tie-free OLR
+def test_linkload_staged_schedule_matches_reference(f, b, t, c, n_blocks, pods,
+                                                  dyadic):
+    """The fleet kernel's quarters of C and its order of sums over links give
+    the reference's fleet Pallas kernel's answer (interpret mode), over
+    ragged blocks (all-zero padded blocks score zeros), dead links and padded
+    pods; on dyadic data, where every load is exact in float32, the OLR counts
+    are equal."""
+    rng = np.random.default_rng(19 * t + c + f)
+    if dyadic:  # demand in {0..15}, weights in sixteenths
+        demand = rng.integers(0, 16, (f, b, t, c)).astype(np.float64)
+        w = rng.integers(0, 17, (f, b, c, c)) / 16.0 * (rng.random((f, b, c, c)) < 0.3)
+        load = np.einsum("fbtc,fbce->fbte", demand, w)
+        cap = np.maximum(load.max(axis=2), 1.0) * rng.uniform(0.6, 1.6, (f, b, c))
+    else:
+        demand = rng.gamma(2.0, 10.0, (f, b, t, c))
+        w = rng.random((f, b, c, c)) * (rng.random((f, b, c, c)) < 0.5)
+        cap = rng.uniform(50, 500, (f, b, c))
+    cap[rng.random((f, b, c)) < 0.1] = 0.0  # dead links
+    padded = np.zeros((f, c), bool)
+    for fi, nb in enumerate(n_blocks):
+        demand[fi, nb:], w[fi, nb:], cap[fi, nb:] = 0.0, 0.0, 0.0
+        if pods is not None:
+            padded[fi] = True
+            padded[fi, commodity_slots(pods[fi], 8)] = False
+            demand[fi][..., padded[fi]] = 0.0
+            w[fi][:, padded[fi], :] = 0.0
+            w[fi][:, :, padded[fi]] = 0.0
+            cap[fi][:, padded[fi]] = 0.0
+    ref = ref_llops.link_metrics_fleet(demand, w, cap, 0.8, backend="pallas")
+    live = cap > 1e-9
+    n_live = np.maximum(live.sum(axis=-1), 1)[..., None]
+    inv_cap = np.where(live, 1.0 / np.maximum(cap, 1e-9), 0.0)
+    out = _linkload_staged_schedule(
+        *(torch.from_numpy(x.astype(np.float32)) for x in (demand, w, inv_cap)), 0.8)
+    mlu, alu_sum, olr_cnt, tot = (x.numpy() for x in out)
+    for a, r, name in zip((mlu, alu_sum / n_live, olr_cnt / n_live, tot), ref, NAMES):
+        assert a.shape == (f, b, t), name
+        np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL, err_msg=name)
+    for fi, nb in enumerate(n_blocks):  # padded blocks score zeros
+        assert all(float(np.abs(x[fi, nb:]).sum()) == 0.0 for x in (mlu, alu_sum, olr_cnt, tot))
+    if dyadic:
+        assert 0 < olr_cnt.sum() < olr_cnt.size * c  # the threshold bites, not everywhere
+        np.testing.assert_array_equal(olr_cnt, np.rint(ref[2] * n_live))
 
 
 def _ragged_fleet(seed, vp, pods, lo, hi):

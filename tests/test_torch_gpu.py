@@ -1,19 +1,21 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-batched entries at the batched engine's chip-scale shapes (B=672 epochs,
-T=3 / TS=36, C=E=132), the single-block entries at the streaming
-controller's (T=3 / TS=36), the whole-trace baseline's (T=4032) and, for
-the queue loss, one sub-step and a block past one cluster's shared memory
-(TS=512), the fleet entries at the 22-fabric fleet's 12-pod bucket (F=15
-fabrics, B=96 blocks, C=E=132), the fleet queue loss also at its 8-pod bucket
-(F=7, C=E=56) and past its fleet body (TS=512), the single-block linkload at
-one row and on both sides of its single-block body's row cut, and all at
+batched entries at the batched engine's chip-scale shapes (B=672 and 96
+epochs, T=3 / TS=36, C=E=132), the batched queue loss also past its fleet
+body (TS=512), the single-block entries at the streaming controller's (T=3 /
+TS=36), the whole-trace baseline's (T=4032) and, for the queue loss, one
+sub-step and a block past one cluster's shared memory (TS=512), the fleet
+entries at the 22-fabric fleet's 12-pod bucket (F=15 fabrics, B=96 blocks,
+C=E=132) and 8-pod bucket (F=7, C=E=56), the fleet queue loss also past its
+fleet body (TS=512), the single-block and fleet linkload on both sides of
+their staged body's row cut and the single-block one at one row, and all at
 ragged shapes (fleet: all-zero padded blocks);
 the model kernels (flash attention, the RG-LRU scan, the SSD chunk scan) at
 the model shapes of recurrentgemma-9b (the RG-LRU scan also at B = 1) and
 mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD, single-block
-linkload, single-block queue-loss and fleet queue-loss kernels give the same
-bits on two calls, and the single-block linkload and the model kernels take
-tensors that are not 16-byte aligned.
+linkload and queue-loss, fleet linkload and queue-loss and batched
+queue-loss kernels give the same bits on two calls, and the single-block and
+fleet linkload and the model kernels take tensors that are not 16-byte
+aligned.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -74,15 +76,24 @@ def test_linkload_kernel_matches_plain(gen, b, t, c, e):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,ts,c,e", [(672, 36, 132, 132), (4, 45, 30, 300)])
-def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
+def _batched_queueloss_inputs(gen, b, ts, c, e):
     d = torch.rand((b, ts, c), generator=gen, device="cuda") * 20.0
     w = torch.rand((b, c, e), generator=gen, device="cuda")
     w = w * (torch.rand((b, c, e), generator=gen, device="cuda") < 0.08)
     cap = 40.0 + 80.0 * torch.rand((b, e), generator=gen, device="cuda")
     cap = torch.where(torch.rand((b, e), generator=gen, device="cuda") < 0.1, 0.0, cap)
-    buf = cap * 0.025
+    return d, w, cap, cap * 0.025
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ts,c,e", [(672, 36, 132, 132), (4, 45, 30, 300),
+                                      (96, 36, 132, 132),   # the batched engine's
+                                      (4, 512, 132, 132)])  # past the fleet body
+def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
+    """The fleet body over the epochs where it fits, the E-tiled body and its
+    partials pass past it (TS = 512); one launch counted either way."""
+    assert qlops._fleet_fits(ts, c, e) == (ts != 512)
+    d, w, cap, buf = _batched_queueloss_inputs(gen, b, ts, c, e)
     before = qlops.launches
     out = qlops.queueloss_batched(d, w, cap, buf, 30.0)
     ref = queueloss_batched_ref(d, w, cap, buf, 30.0)
@@ -92,8 +103,22 @@ def test_queueloss_kernel_matches_plain(gen, b, ts, c, e):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.gpu
+def test_batched_queueloss_kernel_is_deterministic(gen):
+    """No atomics: two calls at the batched engine's shape give the same
+    bits, one launch counted each; at E <= 160 they are the E-tiled body's
+    bits too (the fleet body sums the links in its order)."""
+    args = _batched_queueloss_inputs(gen, 96, 36, 132, 132)
+    before = qlops.launches
+    first = qlops.queueloss_batched(*args, 30.0)
+    second = qlops.queueloss_batched(*args, 30.0)
+    assert qlops.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(first, qlops._queueloss_tiles(*args, 30.0)))
+
+
 def _single_rows_cut(c, e):
-    """The longest block the single-block linkload body takes at (C, E)."""
+    """The longest block the staged linkload body takes at (C, E)."""
     t = 0
     while llops._single_fits(t + 1, c, e):
         t += 1
@@ -195,10 +220,8 @@ def _pad_blocks(n_blocks, *tensors):
             t[fi, nb:] = 0.0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("f,b,t,c,e,n_blocks", [
-    (15, 96, 3, 132, 132, None), (3, 5, 13, 30, 200, (5, 2, 4))])
-def test_fleet_linkload_kernel_matches_plain(gen, f, b, t, c, e, n_blocks):
+def _fleet_linkload_inputs(gen, f, b, t, c, e, n_blocks=None):
+    # dyadic data: every load is exact in f32, so OLR cannot flip on a tie
     d = torch.randint(0, 16, (f, b, t, c), generator=gen, device="cuda").float()
     w = torch.randint(0, 17, (f, b, c, e), generator=gen, device="cuda").float() / 16
     cap = 20.0 + 40.0 * torch.rand((f, b, e), generator=gen, device="cuda")
@@ -206,12 +229,53 @@ def test_fleet_linkload_kernel_matches_plain(gen, f, b, t, c, e, n_blocks):
                           0.0, 1.0 / cap)
     if n_blocks is not None:
         _pad_blocks(n_blocks, d, w, inv_cap)
+    return d, w, inv_cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,b,t,c,e,n_blocks", [
+    (15, 96, 3, 132, 132, None), (3, 5, 13, 30, 200, (5, 2, 4)),
+    (7, 96, 3, 56, 56, None),          # the 8-pod bucket
+    (2, 3, "cut", 132, 132, None),     # the staged body's longest block
+    (2, 3, "past_cut", 132, 132, None)])  # past it: the batched body
+def test_fleet_linkload_kernel_matches_plain(gen, f, b, t, c, e, n_blocks):
+    """The staged body up to its row cut, the batched body over the F*B
+    pairs past it; one launch counted either way."""
+    if isinstance(t, str):
+        t = _single_rows_cut(c, e) + (t == "past_cut")
+    assert llops._single_fits(t, c, e) == (t <= _single_rows_cut(c, e))
+    d, w, inv_cap = _fleet_linkload_inputs(gen, f, b, t, c, e, n_blocks)
     before = llops.fleet_launches
     out = llops.linkload_fleet(d, w, inv_cap, 0.8)
     ref = linkload_metrics_fleet_ref(d, w, inv_cap, 0.8)
     assert llops.fleet_launches == before + 1
     for a, r in zip(out, ref):
         assert a.shape == (f, b, t)
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_fleet_linkload_kernel_is_deterministic(gen):
+    """No atomics: two calls at the 12-pod bucket give the same bits, one
+    launch counted each; each pair's bits are the single-block entry's (one
+    body, one order of sums)."""
+    args = _fleet_linkload_inputs(gen, 15, 96, 3, 132, 132)
+    before = llops.fleet_launches
+    first = llops.linkload_fleet(*args, 0.8)
+    second = llops.linkload_fleet(*args, 0.8)
+    assert llops.fleet_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    for fi, bi in ((0, 0), (7, 50), (14, 95)):
+        single = llops.linkload(*(x[fi, bi].contiguous() for x in args), 0.8)
+        assert all(torch.equal(x[fi, bi], y) for x, y in zip(first, single))
+
+
+@pytest.mark.gpu
+def test_fleet_linkload_kernel_takes_unaligned_w(gen):
+    """W at a storage offset (not 16-byte aligned) takes the 4-byte copies."""
+    d, w, inv_cap = _fleet_linkload_inputs(gen, 15, 96, 3, 132, 132)
+    out = llops.linkload_fleet(d, _unaligned(w), inv_cap, 0.8)
+    for a, r in zip(out, linkload_metrics_fleet_ref(d, w, inv_cap, 0.8)):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
