@@ -14,6 +14,9 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
 3. Hold each of the nine kernel entries against its plain PyTorch version
    on the card: the batched ones at the batched engine's shapes (B=96 epochs
    of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the batched
+   linkload also at a ragged shape, at its staged body's row cut and one row
+   past it (the batched body) and with W at a storage offset, and bit for bit
+   against the single-block and fleet entries, the batched
    queue loss also past its fleet body (TS=512: the E-tiled body), the
    single-block ones at the streaming controller's shapes (T=3 / TS=36),
    linkload also at the whole-trace shape (T=4032), at one row, on both sides
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    links (the fleet ones: fabrics with fewer blocks than the bucket and a
    padded-pod layout); time kernel, plain version and the ``torch.bmm`` /
    ``torch.mm`` yardstick with CUDA events, each redesigned controller kernel
-   beside the body it launched before on the same inputs (the single-block
+   beside the body it launched before on the same inputs (the batched
+   linkload body through its comparison entry, which counts no launch; the
+   batched linkload at both batched shapes; the single-block
    linkload over T = 3, 12, 36, the cut, one past it and 4032; the fleet
    linkload also at the cut, and beside a sum of its W and after an L2 flush
    by reads), an empty kernel through the single-block queue loss's ctypes
@@ -40,10 +45,9 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    same mask) and at a ragged shape (hd=100, non-causal window 48) in f32
    and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
    D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
-   chunk 64, also against itself at chunk 128).  The seven redesigned
-   kernels (RG-LRU, SSD, single-block linkload and queue loss, fleet
-   linkload and queue loss, batched queue loss) are also held bit for bit
-   against a second call.
+   chunk 64, also against itself at chunk 128).  The eight redesigned
+   kernels (RG-LRU, SSD, and the batched, single-block and fleet linkload and
+   queue loss) are also held bit for bit against a second call.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -75,6 +79,16 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    plain token-by-token decode in float32 (TF32 off) at B=2, S=64; and
    ``repro_torch.launch.serve.serve`` with ``--full`` and the launcher's
    defaults (16 requests, batch 4, prompt 32, gen 32) for both.
+9. The transition sweep: phase 4's configuration with a topology update
+   every 12 hours (two joint solves) executed as drain stages over 4 patch
+   panels (``TransitionConfig(n_panels=4, stage_intervals=1,
+   decide=False)``).  One plan walk (the joint solves and the §4.6 gate,
+   whose old/new/stage routing re-solves are one PDHG batch), then
+   ``execute_plan`` twice on the same plan: as planned (the stage blocks on
+   the batch axis of one launch each of the batched kernels) and with the
+   staging dropped.  Bit-equal splits and bit-equal metrics outside the
+   staged epochs; the staged epochs against the float64 numpy oracle from
+   the gate's stage weights and capacities.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -283,42 +297,75 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
 
-    # linkload: main-path shapes (exact-arithmetic data) and a ragged shape
+    # linkload: main-path shapes (exact-arithmetic data), a ragged shape, the
+    # staged body's longest block and one row past it (the batched body), and
+    # W at a storage offset; bit for bit against a second call; at the two
+    # main shapes timed beside the batched body it launched before (through
+    # the comparison entry, which counts no launch) on the same inputs
     t, c, e = MAIN_T, MAIN_C, MAIN_C
+    cut = _single_rows_cut(c, e)
+    llib = llops._library()[0]
     timed = {}
     for label, shape, exact in (("main", (MAIN_B, t, c, e), True),
                                 ("sweep14", (SWEEP14_B, t, c, e), True),
-                                ("ragged", (4, 13, 30, 200), False)):
+                                ("ragged", (4, 13, 30, 200), False),
+                                ("at_cut", (8, cut, c, e), True),
+                                ("past_cut", (8, cut + 1, c, e), True),
+                                ("unaligned_w", (MAIN_B, t, c, e), True)):
         args = _linkload_inputs(*shape, gen, exact)
+        if label == "unaligned_w":
+            args = (args[0], _unaligned(args[1]), args[2])
         out = llops.linkload_batched(*args, 0.8)
         ref = linkload_metrics_batched_ref(*args, 0.8)
         torch.cuda.synchronize()
         abs_e, rel_e, worst = max_errs(out, ref)
-        log(f"phase 3: linkload {label} {shape}: max abs err {abs_e:.3e}, "
-            f"max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) {worst:.3f}")
+        # no atomics: a second call gives the same bits
+        same = all(torch.equal(x, y)
+                   for x, y in zip(llops.linkload_batched(*args, 0.8), out))
+        body = ("the staged body" if llops._single_fits(*shape[1:])
+                else "the batched body")
+        log(f"phase 3: linkload {label} {shape} ({body}): max abs err {abs_e:.3e}, "
+            f"max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) {worst:.3f}; "
+            f"second call bit-equal {same}")
         if worst > 1.0 or not all(bool(torch.isfinite(x).all()) for x in out):
             fail(f"linkload {label} disagrees with its plain version")
-        if label == "ragged":
+        if not same:
+            fail(f"linkload {label} is not deterministic")
+        if label not in ("main", "sweep14"):
             continue
         b = shape[0]
+        # one body, one order of sums: each epoch's bits are the single-block
+        # entry's and the fleet entry's at F = 1
+        fleet = llops.linkload_fleet(*(x[None] for x in args), 0.8)
+        equal = all(torch.equal(x, y[0]) for x, y in zip(out, fleet)) and all(
+            torch.equal(x[bi], y)
+            for bi in (0, b // 2, b - 1)
+            for x, y in zip(out, llops.linkload(*(a[bi] for a in args), 0.8)))
         ms = time_cuda(lambda: llops.linkload_batched(*args, 0.8))
+        old = time_cuda(lambda: llops._linkload_tiles(*args, 0.8))
         plain = time_cuda(lambda: linkload_metrics_batched_ref(*args, 0.8))
         bmm = time_cuda(lambda: torch.bmm(args[0], args[1]))
         n_bytes = 4 * (b * t * c + b * c * e + b * e + 4 * b * t)
         n_flops = 2 * b * t * c * e + 5 * b * t * e
         bnd, by = bound_ms(n_bytes, n_flops)
-        log(f"  linkload {label} times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.bmm of the load alone {bmm:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e6:.1f} MFLOP)")
+        log(f"  linkload {label} times: kernel {ms:.4f} ms, the batched body it "
+            f"launched before {old:.4f} ms, plain {plain:.4f} ms, torch.bmm of the "
+            f"load alone {bmm:.4f} ms, bound {bnd:.4f} ms ({by}: "
+            f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e6:.1f} MFLOP); a CTA of "
+            f"{llib.linkload_staged_threads(t, e)} threads and "
+            f"{llib.linkload_single_smem_bytes(t, c, e)} B of shared memory an "
+            f"epoch; bit-equal to the single-block and fleet entries {equal}")
+        if not equal:
+            fail(f"linkload {label}: the staged body's bits differ between entries")
         timed[label] = {"max_abs_err": abs_e, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd, "bound_by": by, "yardstick_bmm_ms": bmm,
-                        "shape": list(shape)}
+                        "batched_body_ms": old, "shape": list(shape)}
     rows["linkload"] = {
         "name": "linkload_batched", "route": "cuda",
         "source": "src/repro_torch/csrc/linkload.cu",
         "replaces": "src/repro/kernels/linkload/linkload.py:136",
         **timed["main"], "library_ms": None, "sweep14": timed["sweep14"],
-        "status": "ported"}
+        "status": "redesigned"}
 
     # queueloss: main-path shapes, a ragged shape with dead links and a block
     # past the fleet body (the E-tiled body and its partials pass); the
@@ -474,7 +521,7 @@ def phase_single_kernels():
             # the entry beside the batched body over one pair (the path it
             # took before its own body), at every T of the grid
             new = time_cuda(lambda: llops.linkload(d, w, ic, 0.8))
-            old = time_cuda(lambda: llops.linkload_batched(d[None], w[None], ic[None], 0.8))
+            old = time_cuda(lambda: llops._linkload_tiles(d[None], w[None], ic[None], 0.8))
             grid[t] = {"entry_ms": new, "batched_body_ms": old, "body": body}
             log(f"  linkload (single) T={t}: entry ({body}) {new:.4f} ms, the batched "
                 f"body over one pair {old:.4f} ms")
@@ -704,7 +751,7 @@ def phase_fleet_kernels():
                         f"of shared memory a CTA")
             else:
                 row["batched_body_ms"] = time_cuda(
-                    lambda: llops.linkload_batched(*flat, 0.8))
+                    lambda: llops._linkload_tiles(*flat, 0.8))
                 row["yardstick_bmm_ms"] = time_cuda(lambda: torch.bmm(*flat[:2]))
                 row["yardstick_w_sum_ms"] = time_cuda(lambda: args[1].sum())
                 # the flush by zeroing leaves ~50 MB of dirty lines in L2, which
@@ -739,7 +786,7 @@ def phase_fleet_kernels():
     flat = [x.reshape((4 * 96,) + x.shape[2:]) for x in args]
     at_cut = {"shape": [4, 96, cut, MAIN_C, MAIN_C],
               "ms": time_cuda(lambda: llops.linkload_fleet(*args, 0.8)),
-              "batched_body_ms": time_cuda(lambda: llops.linkload_batched(*flat, 0.8))}
+              "batched_body_ms": time_cuda(lambda: llops._linkload_tiles(*flat, 0.8))}
     log(f"  linkload (fleet) at the staged body's cut T={cut} (4, 96): staged body "
         f"{at_cut['ms']:.4f} ms, the batched body over the same pairs "
         f"{at_cut['batched_body_ms']:.4f} ms")
@@ -1389,6 +1436,169 @@ def phase_fleet(jobs, device, check=("F21", "F1", "F17")):
     return counts, {"wall_s": wall, "peak_bytes": peak}
 
 
+def transition_config(days: float = 8.0, interval_minutes: float = 5.0,
+                      spec_index=20, topology_interval_days: float = 0.5,
+                      **cc_over):
+    """Phase 9's configuration: phase 4's (F21, Gemini, burst loss) with a
+    topology update every ``topology_interval_days`` (two joint solves over
+    the 8-day trace's scored day: the gate runs at the second) executed as
+    drain stages over 4 patch panels, one interval a stage, every update
+    applied (``decide=False`` forces the staging)."""
+    from repro_torch.transition import TransitionConfig
+
+    return sweep_config(days=days, interval_minutes=interval_minutes,
+                        spec_index=spec_index,
+                        topology_interval_days=topology_interval_days,
+                        transition=TransitionConfig(n_panels=4, stage_intervals=1,
+                                                    decide=False), **cc_over)
+
+
+def phase_transition(fab, trace, strategy, cc, sc, device):
+    """The transition sweep: one plan walk (the joint topology solves and
+    the §4.6 gate, whose old/new/stage routing re-solves are one PDHG batch),
+    then the batched execute twice on the same plan — as planned, and with
+    every epoch's drain staging dropped.  The two give bit-equal splits (the
+    same PDHG batch on the same inputs) and bit-equal metrics wherever no
+    stage scored: every interval of the unstaged epochs, and the link
+    metrics of a staged epoch's remaining intervals (each block is its own
+    CTA of kernels #1/#2, so the extra stage blocks move no other block's
+    bits; a staged epoch's remainder starts its own queue under its own
+    burst seed, so its loss is held to the oracle instead).  A staged
+    epoch's intervals are re-scored through the float64 numpy oracle from
+    the gate's stage weights and capacities.  Returns the launch counts of
+    the planned execute and the phase's times."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.engine import execute_plan, plan_artifacts
+    from repro_torch.core.paths import build_paths, routing_weight_matrices
+    from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.core.simulator import route_metrics_batched
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.queueloss import ops as qlops
+    from repro_torch.transition import stage_partition
+
+    log(f"phase 9: transition sweep {fab.name} ({fab.n_pods} pods), trace "
+        f"{trace.demand.shape} at {trace.interval_minutes} min, {cc}")
+    batches = []  # the PDHG batches of the plan walk: the gate's
+    solve_batch = TorchRoutingSolver.solve_routing_batch
+
+    def counted(self, tms, caps, *args, **kwargs):
+        batches.append(int(np.shape(caps)[0]))
+        return solve_batch(self, tms, caps, *args, **kwargs)
+
+    TorchRoutingSolver.solve_routing_batch = counted
+    t0 = time.perf_counter()
+    try:
+        art = plan_artifacts(fab, trace, strategy, cc, sc, device=device)
+    finally:
+        TorchRoutingSolver.solve_routing_batch = solve_batch
+    synchronize(device)
+    t_plan = time.perf_counter() - t0
+    staged = [i for i, ev in enumerate(art.staging) if ev is not None]
+    log(f"  plan walk {t_plan:.3f} s: {art.n_topology} topology updates "
+        f"({art.plan.n_topology} joint solves, {art.solver_seconds - art.transition_seconds:.3f} s), "
+        f"gate {art.transition_seconds:.3f} s in {len(batches)} PDHG batch(es) of "
+        f"{batches} elements; staged epochs {staged}")
+    for e in art.transition_log:
+        log(f"  transition {e}")
+    if art.plan.n_topology < 2 or not art.transition_log or not staged:
+        fail(f"transition: expected two joint solves and a staged update, got "
+             f"{art.plan.n_topology} solves, log {art.transition_log}")
+    for i in staged:
+        ev = art.staging[i]
+        if ev.n_stages < 1 or not np.isfinite(ev.stage_u).all():
+            fail(f"transition: epoch {i} has {ev.n_stages} stages, u {ev.stage_u}")
+    if len(batches) != len(art.transition_log):
+        fail(f"transition: expected one PDHG batch per evaluated update, got {batches}")
+
+    runs, counts, walls = {}, {}, {}
+    for label, a in (("staged", art),
+                     ("unstaged", dataclasses.replace(
+                         art, staging=(None,) * len(art.staging)))):
+        synchronize(device)
+        llops.launches = qlops.launches = 0
+        llops.single_launches = qlops.single_launches = 0
+        t0 = time.perf_counter()
+        runs[label] = execute_plan(fab, trace, strategy, cc, sc, a, device=device)
+        synchronize(device)
+        walls[label] = time.perf_counter() - t0
+        counts[label] = {"linkload": llops.launches, "queueloss": qlops.launches,
+                         "single": llops.single_launches + qlops.single_launches}
+        log(f"  execute ({label}) {walls[label]:.3f} s: stage_times "
+            f"{runs[label].stage_times}; kernel launches {counts[label]}")
+        if counts[label] != {"linkload": 1, "queueloss": 1, "single": 0}:
+            fail(f"transition: the {label} execute did not launch #1 and #2 once")
+    on, off = runs["staged"], runs["unstaged"]
+    _check_result(on, trace.n_intervals - art.plan.agg, "transition")
+    same_splits = bool(np.array_equal(on.splits, off.splits))
+
+    # intervals (metric rows) of each staged epoch: its stage spans, then its
+    # remainder on the new steady topology
+    agg = art.plan.agg
+    stage_rows = np.zeros(on.metrics.mlu.shape, bool)
+    epoch_rows = np.zeros(on.metrics.mlu.shape, bool)
+    w_b = routing_weight_matrices(build_paths(fab.n_pods), on.splits)
+    blocks, ws, caps, seeds = [], [], [], []
+    for i in staged:
+        ep, ev = art.plan.epochs[i], art.staging[i]
+        block = trace.demand[ep.start: ep.stop]
+        spans, sp_seeds, rem_lo, rem_seed = stage_partition(
+            ev, block.shape[0], ep.start, cc.loss.seed)
+        for (k, lo, hi), seed in zip(spans, sp_seeds):
+            blocks.append(block[lo:hi])
+            ws.append(ev.stage_w[k])
+            caps.append(ev.stage_caps[k])
+            seeds.append(seed)
+            stage_rows[ep.start - agg + lo: ep.start - agg + hi] = True
+        if rem_lo < block.shape[0]:
+            blocks.append(block[rem_lo:])
+            ws.append(w_b[i])
+            caps.append(art.caps[i])
+            seeds.append(rem_seed)
+        epoch_rows[ep.start - agg: ep.stop - agg] = True
+    oracle = route_metrics_batched(
+        blocks, np.stack(ws), np.stack(caps), cc.overload_threshold,
+        backend="numpy", loss_cfg=cc.loss, loss_seeds=seeds,
+        interval_seconds=trace.interval_minutes * 60.0)
+    worst = {f: float(np.max(np.abs(getattr(on.metrics, f)[epoch_rows] - r)
+                             / (SCORE_TOL + SCORE_TOL * np.abs(r))))
+             for f in METRICS for r in [getattr(oracle, f)]}
+    rest = ~epoch_rows
+    link = ("mlu", "alu", "olr", "stretch")
+    equal_rest = {f: bool(np.array_equal(getattr(on.metrics, f)[rest],
+                                         getattr(off.metrics, f)[rest]))
+                  for f in METRICS}
+    rem_rows = epoch_rows & ~stage_rows
+    equal_rem = {f: bool(np.array_equal(getattr(on.metrics, f)[rem_rows],
+                                        getattr(off.metrics, f)[rem_rows]))
+                 for f in link}
+    moved = float(np.max(np.abs(on.metrics.mlu[stage_rows] - off.metrics.mlu[stage_rows])))
+    log(f"  staged vs unstaged execute: splits bit-equal {same_splits}; the "
+        f"{int(rest.sum())} intervals of unstaged epochs bit-equal per metric "
+        f"{equal_rest}; the {int(rem_rows.sum())} remaining intervals of staged "
+        f"epochs bit-equal per link metric {equal_rem}; the {int(stage_rows.sum())} "
+        f"stage intervals' MLU moved by up to {moved:.4e}")
+    log(f"  staged epochs' {int(epoch_rows.sum())} intervals vs the float64 "
+        f"oracle from the gate's stage weights and capacities: worst "
+        f"|err|/(atol+rtol|ref|) per metric {worst}")
+    log(f"  summaries: staged {on.summary}; unstaged {off.summary}")
+    if not same_splits:
+        fail("transition: the two executes' splits differ")
+    if not all(equal_rest.values()) or not all(equal_rem.values()):
+        fail("transition: metrics outside the staged spans moved")
+    if max(worst.values()) > 1.0:
+        fail("transition: staged intervals disagree with the numpy oracle")
+    return counts["staged"], {"plan_s": t_plan, "gate_s": art.transition_seconds,
+                              "gate_batches": batches,
+                              "execute_s": walls["staged"],
+                              "execute_unstaged_s": walls["unstaged"],
+                              "staged_epochs": staged,
+                              "n_stages": [art.staging[i].n_stages for i in staged]}
+
+
 def _device_profile(fn, device, top: int = 8):
     """One call of ``fn`` under ``torch.profiler``: the host wall time (ending
     in a synchronize), the summed device time of its kernels, their share of
@@ -1583,8 +1793,11 @@ def main() -> int:
     mark("fleet")
     model_counts, _ = phase_models(dev)
     mark("models")
+    transition_counts, _ = phase_transition(*transition_config(), device=dev)
+    mark("transition")
     for key in rows:
         rows[key]["launches"] = counts[key]
+        rows[key]["launches_transition_phase"] = transition_counts[key]
     for key in single:
         single[key]["launches"] = serve_counts[key]
         single[key]["launches_sequential_phase"] = seq_counts[key]

@@ -13,9 +13,19 @@ routing solves and one launch each of the epoch-batched linkload and
 queueloss CUDA kernels per sweep.  ``engine="sequential"`` walks the trace
 epoch by epoch (:func:`run_controller` below): one routing solve and one
 :func:`repro_torch.core.simulator.route_metrics` call — one launch each of
-the single-block kernels — per epoch.  Reconfiguration transitions and
-failure contingencies come with later slices; asking for them raises
-``NotImplementedError``.
+the single-block kernels — per epoch.
+
+With ``ControllerConfig.transition`` set (a
+:class:`repro_torch.transition.TransitionConfig`), topology updates stop being
+instantaneous and free: each one is diffed onto patch panels (§A, Thm. 4),
+executed as a scheduled sequence of panel drain stages whose residual
+capacities the first intervals of the topology epoch are scored under (one
+more batch of the epoch-batched kernels), and gated by the §4.6
+benefit-vs-disruption :func:`repro_torch.transition.should_reconfigure` rule
+(skipped updates count in ``ControllerResult.n_skipped_topology``).  Unset
+(the default), controller output is bit-identical to the instantaneous
+behavior.  Failure contingencies come with a later slice; asking for them
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from repro_torch.core.simulator import IntervalMetrics, route_metrics, summarize
 from repro_torch.core.solver import GeminiSolution, SolverConfig, Strategy, solve
 from repro_torch.core.traffic import Trace
 from repro_torch.device import resolve_device
+from repro_torch.transition.config import TransitionConfig
 
 __all__ = ["ControllerConfig", "ControllerResult", "run_controller"]
 
@@ -69,13 +80,18 @@ class ControllerConfig:
     pdhg_max_iters: int = 3000  # PDHG iteration cap per stage
     pdhg_tol: float = 1e-2  # PDHG certified-gap / objective-stall tolerance
     solver_precision: str = "f32"  # "bf16" lands in a later slice
-    transition: object = None  # reconfiguration transitions: a later slice
+    # reconfiguration-transition modeling (repro_torch.transition): None (the
+    # default) keeps topology updates instantaneous and free, bit-identical
+    # to the controller without transitions
+    transition: TransitionConfig | None = None
     failures: object = None  # failure contingencies: a later slice
     kmeans_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.transition is not None:
-            raise _later_slice("ControllerConfig.transition")
+        if self.transition is not None and not self.realize_topology:
+            # panel decomposition (Thm. 4) needs integer, even-degree topologies
+            raise ValueError(
+                "ControllerConfig.transition requires realize_topology")
         if self.failures is not None:
             raise _later_slice("ControllerConfig.failures")
         if self.engine not in ("batched", "sequential"):
@@ -100,18 +116,22 @@ class ControllerResult:
     final_topology: np.ndarray  # integer trunks if realized
     transit_fraction: float
     solver_seconds: float
+    # topology updates vetoed by the §4.6 benefit-vs-disruption rule
     n_skipped_topology: int = 0
+    # one dict per evaluated transition (see TransitionEval.log_entry)
     transition_log: tuple = ()
     # wall-time breakdown by controller phase: plan / anchor / solve / score
-    # ("anchor" is the anchor-solve share of "solve"); each phase ends in a
-    # host read of its results, so device work is inside its time
+    # / transition ("anchor" is the anchor-solve share of "solve",
+    # "transition", the gate's evaluation, part of "plan"); each phase ends
+    # in a host read of its results, so device work is inside its time
     stage_times: dict = dataclasses.field(default_factory=dict)
     # repro_torch.obs.SolverStats (per-epoch PDHG iterations / certified
     # gaps / restarts); None on the scipy backend
     solver_stats: object = None
     contingency: object = None
     # what the sweep scored, per routing epoch: path splits (B, P) and
-    # realized directed capacities (B, E) — enough to re-score it — and the
+    # realized directed capacities (B, E) — enough to re-score it outside
+    # drain stages, which score under their own TransitionEval — and the
     # stage-1 MLU bound u* (B,) each routing solve certified
     splits: np.ndarray | None = None
     capacities: np.ndarray | None = None
@@ -156,7 +176,9 @@ def run_controller(
 
     metrics = IntervalMetrics.empty()
     n_routing, n_topology, solver_s = 0, 0, 0.0
+    n_skipped, transition_log = 0, []
     transit_mass, transit_n = 0.0, 0
+    tc = cc.transition
     phases = obs.PhaseTimes()
     pdhg_raws: list = []
     n_fallbacks = 0
@@ -174,19 +196,32 @@ def run_controller(
             tms = clustering.critical_tms(window, k=cc.k_critical,
                                           seed=n_routing, dtype=kmeans_dtype,
                                           device=dev)
+        staged = None  # TransitionEval whose drain stages score this epoch
         if strategy.nonuniform and (sol is None or start >= next_topo):
             with phases("plan"):
                 # full joint solve: new topology + routing
                 sol = solve(fabric, tms, strategy, sc, window_demand=window)
                 solver_s += sol.solve_seconds
-                n_realized = (realize(fabric, sol.n_e)[0]
-                              if cc.realize_topology else sol.n_e)
-                cap = fabric.capacities(n_realized)
-            n_topology += 1
-            obs.event("controller.topology_applied", start=start,
-                      fabric=fabric.name)
-            obs.metrics.inc("controller.topology_updates",
-                            fabric=fabric.name, outcome="applied")
+                cand = (realize(fabric, sol.n_e)[0]
+                        if cc.realize_topology else sol.n_e)
+                cand_cap = fabric.capacities(cand)
+            apply = True
+            if tc is not None and n_realized is not None:
+                apply, staged, ev, ev_s = _transition_gate(
+                    fabric, tms, n_realized, cand, tc, cc, sc,
+                    delta=sol.delta, hedging=strategy.hedging,
+                    horizon_intervals=topo_step, device=dev)
+                solver_s += ev_s
+                phases.add("transition", ev_s)
+                phases.add("plan", ev_s)  # transition ⊆ plan (shared schema)
+                if ev is not None:
+                    transition_log.append(ev.log_entry(start, apply))
+            if apply:
+                n_realized, cap = cand, cand_cap
+                n_topology += 1
+            else:
+                n_skipped += 1
+            _count_topology_update(fabric, start, apply)
             next_topo = start + topo_step
         elif cap is None:
             # uniform strategies: fix the (realized) uniform topology once
@@ -215,12 +250,20 @@ def run_controller(
             obs.quality.record_epoch_quality(fabric.name, tms, block)
             # the burst seed is a pure function of (cc.loss.seed, start), so
             # strategies walking the same starts stay paired
-            loss_cfg = (dataclasses.replace(cc.loss, seed=cc.loss.seed + start)
+            rem_lo, rem_seed = 0, (cc.loss.seed + start if cc.loss is not None
+                                   else None)
+            if staged is not None:
+                stage_m, rem_lo, rem_seed = _score_stages(
+                    block, staged, cc, trace, start, device=dev)
+                metrics = metrics.concat(stage_m)
+            loss_cfg = (dataclasses.replace(cc.loss, seed=rem_seed)
                         if cc.loss is not None else None)
-            metrics = metrics.concat(route_metrics(
-                block, w, cap, cc.overload_threshold, backend=cc.backend,
-                loss_cfg=loss_cfg,
-                interval_seconds=trace.interval_minutes * 60.0, device=dev))
+            if block.shape[0] - rem_lo > 0:
+                metrics = metrics.concat(route_metrics(
+                    block[rem_lo:], w, cap, cc.overload_threshold,
+                    backend=cc.backend, loss_cfg=loss_cfg,
+                    interval_seconds=trace.interval_minutes * 60.0,
+                    device=dev))
 
     obs.quality.record_interval_metrics(fabric.name, metrics)
     solver_stats = None
@@ -237,12 +280,84 @@ def run_controller(
         final_topology=np.asarray(n_realized),
         transit_fraction=transit_mass / max(transit_n, 1),
         solver_seconds=solver_s,
+        n_skipped_topology=n_skipped,
+        transition_log=tuple(transition_log),
         stage_times=phases.times,
         solver_stats=solver_stats,
         splits=np.stack(f_epochs),
         capacities=np.stack(cap_epochs),
         u_star=np.asarray(u_epochs, np.float64),
     )
+
+
+def _count_topology_update(fabric, start: int, applied: bool) -> None:
+    """The trace event and the metrics counter of one topology update,
+    applied or vetoed by the gate (every engine records them alike)."""
+    outcome = "applied" if applied else "skipped"
+    obs.event(f"controller.topology_{outcome}", start=start, fabric=fabric.name)
+    obs.metrics.inc("controller.topology_updates", fabric=fabric.name,
+                    outcome=outcome)
+
+
+def _transition_gate(fabric, tms, n_old, n_new, tc, cc, sc, *,
+                     delta, hedging, horizon_intervals, device=None):
+    """Evaluate a topology change and decide whether to apply it.
+
+    The single gating implementation shared by the sequential walk, the
+    batched engine and the streaming controller (their decision semantics
+    must never drift — parity is test-enforced).  The evaluation's routing
+    re-solves run as one PDHG batch on ``device``.  Returns ``(apply,
+    staged, ev, seconds)``: the decision, the :class:`TransitionEval` whose
+    drain stages the epoch scores under (None when skipping or modeling
+    instantaneously), the evaluation for transition-log bookkeeping (None
+    when the change needs no jumper moves and is applied for free), and the
+    evaluation wall-clock (ending in a host read of the solves).
+    """
+    from repro_torch.transition import evaluate_transition, should_reconfigure
+
+    with obs.timed("transition.evaluate") as t:
+        ev = evaluate_transition(fabric, tms, n_old, n_new, tc, cc, sc,
+                                 delta=delta, hedging=hedging,
+                                 horizon_intervals=horizon_intervals,
+                                 device=device)
+    if ev is None:
+        return True, None, None, t.seconds
+    # the reference's failure-aware blend (cc.failures.contingency_weight)
+    # comes with the failures slice; ControllerConfig refuses failures
+    apply = (should_reconfigure(ev.benefit, ev.disruption, tc.hysteresis,
+                                fabric=fabric.name)
+             if tc.decide else True)
+    staged = ev if apply and not tc.instantaneous else None
+    if staged is not None:
+        obs.event("transition.staged", n_stages=ev.n_stages,
+                  moves=ev.diff.total_moves)
+    return apply, staged, ev, t.seconds
+
+
+def _score_stages(block, ev, cc, trace, start, device=None):
+    """Score a topology epoch's leading drain stages in one batched call.
+
+    The stages map onto the leading batch axis of
+    :func:`repro_torch.core.simulator.route_metrics_batched` (one launch each
+    of the epoch-batched linkload and queueloss kernels on ``device``); span
+    and burst-seed arithmetic comes from the engine-shared
+    :func:`repro_torch.transition.stage_partition`.  Returns ``(metrics,
+    rem_lo, rem_seed)``: the concatenated staged metrics, the offset at which
+    the steady new topology takes over, and its burst seed.
+    """
+    from repro_torch.core.simulator import route_metrics_batched
+    from repro_torch.transition import stage_partition
+
+    spans, seeds, rem_lo, rem_seed = stage_partition(
+        ev, block.shape[0], start,
+        cc.loss.seed if cc.loss is not None else None)
+    idx = [k for k, _, _ in spans]
+    stage_m = route_metrics_batched(
+        [block[lo:hi] for _, lo, hi in spans],
+        ev.stage_w[idx], ev.stage_caps[idx], cc.overload_threshold,
+        backend=cc.backend, loss_cfg=cc.loss, loss_seeds=seeds,
+        interval_seconds=trace.interval_minutes * 60.0, device=device)
+    return stage_m, rem_lo, rem_seed
 
 
 def _solve_routing_only(fabric, tms, strategy, sc, window, capacities,

@@ -5,14 +5,18 @@ counterpart of ``repro/core/engine.py``.
    epoch's window, critical TMs (k-means Lloyd iterations on the device),
    burst estimate δ and topology epochs.  Joint topology solves (the rare,
    daily events) run on the host through scipy/HiGHS and are realized before
-   use.
+   use.  With ``ControllerConfig.transition`` set, every topology update
+   after the first goes through the §4.6 gate
+   (:func:`repro_torch.core.controller._transition_gate`: one PDHG batch
+   over the old, new and drain-stage capacities on the device).
 2. **Solve**: every routing-only epoch shares shape ``(m, C)`` and a
    per-epoch capacity vector, so all epochs go through one batched PDHG call
    on the device (:meth:`repro_torch.core.pdhg.TorchRoutingSolver.solve_routing_batch`)
    — or through scipy/HiGHS one by one with ``solver_backend="scipy"``.
 3. **Score**: one :func:`repro_torch.core.simulator.route_metrics_batched`
    call scores the whole sweep — one launch each of the epoch-batched
-   linkload and queueloss CUDA kernels, burst loss included.
+   linkload and queueloss CUDA kernels, burst loss included; drain stages
+   slot in as extra blocks on the same batch axis.
 
 The device is explicit: :func:`run_controller_batched` threads it into the
 k-means, the solver and the scoring calls.
@@ -188,17 +192,21 @@ def pdhg_finite_fallback(fabric, tms_seq, caps_b, deltas_b, sc,
 @dataclasses.dataclass
 class PlanArtifacts:
     """Output of the controller's plan walk (phase 1): per-epoch critical
-    TMs, burst sizes and realized capacities, plus the topology-update
-    bookkeeping the final result reports."""
+    TMs, burst sizes, realized capacities and staged transitions, plus the
+    topology-update bookkeeping the final result reports."""
 
     plan: ControllerPlan
     tms: tuple  # per-epoch (m_i, C) critical TMs (unpadded — scipy path)
     deltas: np.ndarray  # (B,) burst sizes (0 without hedging)
     caps: np.ndarray  # (B, E) realized directed capacities per epoch
+    staging: tuple  # per-epoch TransitionEval | None (drain-staged epochs)
     n_topology: int
+    n_skipped: int
+    transition_log: tuple
     n_realized: np.ndarray  # final realized topology (trunk counts)
-    solver_seconds: float  # topology-solve wall clock
+    solver_seconds: float  # topology-solve + transition-eval wall clock
     plan_seconds: float = 0.0  # whole plan-walk wall clock (phase "plan")
+    transition_seconds: float = 0.0  # gate-evaluation share of the plan walk
 
     def tms_padded(self, k: int) -> np.ndarray:
         """Critical TMs zero-padded to the static ``k`` rows, stacked (B, m, C)."""
@@ -209,12 +217,16 @@ def plan_artifacts(fabric: Fabric, trace: Trace, strategy: Strategy,
                    cc, sc: SolverConfig, device=None) -> PlanArtifacts:
     """Phase 1: walk the trace computing windows, critical TMs, and topology
     epochs (joint topology solves run sequentially through scipy/HiGHS)."""
+    from repro_torch.core.controller import (_count_topology_update,
+                                             _transition_gate)
+
     dev = resolve_device(device)
     kmeans_dtype = getattr(torch, cc.kmeans_dtype)
     plan = plan_controller(trace, cc, strategy.nonuniform)
-    solver_s = 0.0
-    tms_list, deltas, caps_list = [], [], []
-    n_topology = 0
+    solver_s, transition_s = 0.0, 0.0
+    tc = cc.transition
+    tms_list, deltas, caps_list, staging = [], [], [], []
+    n_topology, n_skipped, transition_log = 0, 0, []
     cap: np.ndarray | None = None
     n_realized: np.ndarray | None = None
     with obs.timed("engine.plan", fabric=fabric.name) as t_plan:
@@ -227,17 +239,29 @@ def plan_artifacts(fabric: Fabric, trace: Trace, strategy: Strategy,
             if strategy.hedging:
                 delta = (sc.delta if sc.delta is not None
                          else estimate_delta(window, sc.delta_quantile))
+            staged = None  # TransitionEval whose drain stages score this epoch
             if ep.topo_solve:
                 sol = solve(fabric, tms, strategy, sc, window_demand=window)
                 solver_s += sol.solve_seconds
-                n_realized = (realize(fabric, sol.n_e)[0]
-                              if cc.realize_topology else sol.n_e)
-                cap = fabric.capacities(n_realized)
-                n_topology += 1
-                obs.event("controller.topology_applied", start=ep.start,
-                          fabric=fabric.name)
-                obs.metrics.inc("controller.topology_updates",
-                                fabric=fabric.name, outcome="applied")
+                cand = (realize(fabric, sol.n_e)[0]
+                        if cc.realize_topology else sol.n_e)
+                cand_cap = fabric.capacities(cand)
+                apply = True
+                if tc is not None and n_realized is not None:
+                    apply, staged, ev, ev_s = _transition_gate(
+                        fabric, tms, n_realized, cand, tc, cc, sc,
+                        delta=delta, hedging=strategy.hedging,
+                        horizon_intervals=plan.topo_step, device=dev)
+                    solver_s += ev_s
+                    transition_s += ev_s
+                    if ev is not None:
+                        transition_log.append(ev.log_entry(ep.start, apply))
+                if apply:
+                    n_realized, cap = cand, cand_cap
+                    n_topology += 1
+                else:
+                    n_skipped += 1
+                _count_topology_update(fabric, ep.start, apply)
             elif cap is None:
                 n0 = uniform_topology(fabric)
                 n_realized = (realize(fabric, n0)[0]
@@ -246,26 +270,52 @@ def plan_artifacts(fabric: Fabric, trace: Trace, strategy: Strategy,
             tms_list.append(tms)
             deltas.append(delta)
             caps_list.append(cap)
+            staging.append(staged)
     return PlanArtifacts(
         plan=plan, tms=tuple(tms_list), deltas=np.asarray(deltas),
-        caps=np.stack(caps_list), n_topology=n_topology,
+        caps=np.stack(caps_list), staging=tuple(staging),
+        n_topology=n_topology, n_skipped=n_skipped,
+        transition_log=tuple(transition_log),
         n_realized=np.asarray(n_realized), solver_seconds=solver_s,
-        plan_seconds=t_plan.seconds)
+        plan_seconds=t_plan.seconds, transition_seconds=transition_s)
 
 
 def plan_score_blocks(trace: Trace, art: PlanArtifacts, w_b: np.ndarray,
                       caps: np.ndarray, cc):
     """Assemble one sweep's scoring blocks in trace order.
 
+    Drain stages slot in as extra blocks on the same leading batch axis, so a
+    transition-heavy sweep still scores in one launch of each epoch-batched
+    kernel.  ``w_b``/``caps`` may live in a padded commodity layout (fleet
+    engine) — staged epochs' ``stage_w``/``stage_caps`` are taken from
+    ``art.staging`` as-is, so callers in a padded layout must pad those too.
+
     Returns ``(blocks, block_w, block_caps, loss_seeds)``; ``blocks`` are
     (T_b, C) demand slices of ``trace`` and each block's burst seed is
-    ``cc.loss.seed + start`` (paired with the reference controller)."""
+    ``cc.loss.seed`` plus its first interval (paired with the reference
+    controller)."""
+    from repro_torch.transition import stage_partition
+
     blocks, block_w, block_caps, loss_seeds = [], [], [], []
     for i, ep in enumerate(art.plan.epochs):
-        blocks.append(trace.demand[ep.start: ep.stop])
-        block_w.append(w_b[i])
-        block_caps.append(caps[i])
-        loss_seeds.append(cc.loss.seed + ep.start if cc.loss is not None else 0)
+        block = trace.demand[ep.start: ep.stop]
+        rem_lo, rem_seed = 0, (cc.loss.seed + ep.start
+                               if cc.loss is not None else None)
+        ev = art.staging[i]
+        if ev is not None:
+            spans, seeds, rem_lo, rem_seed = stage_partition(
+                ev, block.shape[0], ep.start,
+                cc.loss.seed if cc.loss is not None else None)
+            for s, (k, lo, hi) in enumerate(spans):
+                blocks.append(block[lo:hi])
+                block_w.append(ev.stage_w[k])
+                block_caps.append(ev.stage_caps[k])
+                loss_seeds.append(seeds[s] if seeds is not None else 0)
+        if block.shape[0] - rem_lo > 0:
+            blocks.append(block[rem_lo:])
+            block_w.append(w_b[i])
+            block_caps.append(caps[i])
+            loss_seeds.append(rem_seed if rem_seed is not None else 0)
     return blocks, block_w, block_caps, loss_seeds
 
 
@@ -289,6 +339,8 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
     solver_s = art.solver_seconds
     phases = obs.PhaseTimes()
     phases.add("plan", art.plan_seconds)
+    if art.transition_seconds:
+        phases.add("transition", art.transition_seconds)
     solver_stats = None
 
     # ---- phase 2: batched routing-only solves -------------------------------
@@ -344,6 +396,8 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
         final_topology=np.asarray(art.n_realized),
         transit_fraction=transit_fraction_of(paths, f_b),
         solver_seconds=solver_s,
+        n_skipped_topology=art.n_skipped,
+        transition_log=art.transition_log,
         stage_times=phases.times,
         solver_stats=solver_stats,
         splits=f_b,

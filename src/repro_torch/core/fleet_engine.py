@@ -6,8 +6,9 @@ re-optimized on rolling windows (paper §5).  :func:`run_fleet` runs every
 job's controller sweep in three fleet-wide phases:
 
 1. **Plan** — :func:`repro_torch.core.engine.plan_artifacts` per (fabric,
-   trace, strategy) job: windows, critical TMs (k-means on the device) and
-   the rare joint topology solves (host scipy/HiGHS).
+   trace, strategy) job: windows, critical TMs (k-means on the device), the
+   rare joint topology solves (host scipy/HiGHS) and, with
+   ``ControllerConfig.transition`` set, the §4.6 gate of each update.
 2. **Bucket + solve** — jobs are bucketed by padded shape
    (:func:`repro_torch.core.fleet.fleet_bucket_key`: pods rounded up to a
    quantum, critical-TM count, PDHG settings, scoring config).  Within a
@@ -19,13 +20,14 @@ job's controller sweep in three fleet-wide phases:
 3. **Fused scoring** — every job's scoring blocks stack onto a leading
    fabric axis, and one :func:`repro_torch.core.simulator.route_metrics_fleet`
    call — one launch each of the fleet linkload and queueloss CUDA kernels —
-   scores the whole bucket.
+   scores the whole bucket, drain stages (padded into the bucket's layout)
+   included.
 
 Jobs whose ``solver_backend`` is not ``"pdhg"`` go through the per-fabric
 :func:`repro_torch.core.engine.execute_plan`.  The port runs on one device:
 sharding the batch over several cards (the reference's ``mesh``) comes with
 a later slice, and asking for it raises ``NotImplementedError``, as do jobs
-with failure contingencies or reconfiguration transitions.
+with failure contingencies.
 """
 
 from __future__ import annotations
@@ -133,10 +135,9 @@ def run_fleet(jobs, *, pod_quantum: int = 4, mesh="auto", device=None) -> list:
             j = FleetJob(*j)
         cc = j.cc if j.cc is not None else ControllerConfig()
         sc = j.sc if j.sc is not None else SolverConfig()
-        for field in ("transition", "failures"):
-            if getattr(cc, field) is not None:
-                raise NotImplementedError(
-                    f"ControllerConfig.{field} lands in a later slice of the port")
+        if cc.failures is not None:
+            raise NotImplementedError(
+                "ControllerConfig.failures lands in a later slice of the port")
         resolved.append((j, cc, sc))
 
     # ---- phase 1: per-fabric plan walks (sequential topology solves) --------
@@ -230,8 +231,20 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             j, cc, sc = resolved[i]
             slots, caps_p = slots_of[i], caps_p_of[i]
             w_b = routing_weight_matrices(paths_p, f_n[lo:hi])  # (B, Cp, Ep)
+            art = arts[i]
+            if any(ev is not None for ev in art.staging):
+                # staged epochs score under padded stage weights/capacities too
+                art = dataclasses.replace(art, staging=tuple(
+                    None if ev is None else dataclasses.replace(
+                        ev,
+                        stage_w=scatter_pad(scatter_pad(ev.stage_w, slots, cp,
+                                                        axis=1),
+                                            slots, cp, axis=2),
+                        stage_caps=scatter_pad(ev.stage_caps, slots, cp,
+                                               axis=1))
+                    for ev in art.staging))
             blocks, block_w, block_caps, loss_seeds = plan_score_blocks(
-                j.trace, arts[i], w_b, caps_p, cc)
+                j.trace, art, w_b, caps_p, cc)
             blocks_fleet.append([scatter_pad(np.asarray(bl, np.float64), slots,
                                              cp, axis=1) for bl in blocks])
             native_blocks_fleet.append(blocks)
@@ -259,6 +272,8 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
                     j.fabric.name, tms, j.trace.demand[ep.start: ep.stop])
         phases = obs.PhaseTimes()
         phases.add("plan", art.plan_seconds)
+        if art.transition_seconds:
+            phases.add("transition", art.transition_seconds)
         phases.add("solve", solve_s / len(idxs))
         phases.add("anchor", anchor_share)
         phases.add("score", t_score.seconds / len(idxs))
@@ -271,6 +286,8 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             final_topology=np.asarray(art.n_realized),
             transit_fraction=transit_fraction_of(paths_p, f_n[lo:hi]),
             solver_seconds=art.solver_seconds + solve_s / len(idxs),
+            n_skipped_topology=art.n_skipped,
+            transition_log=art.transition_log,
             stage_times=phases.times,
             solver_stats=stats_of[i],
             splits=_native_splits(f_n[lo:hi], j.fabric.n_pods, vp,

@@ -22,21 +22,27 @@
 //   * the staged body: a CTA per pair that copies all of the pair's W, its
 //     demand and inv_cap into shared memory in one cp.async round trip, then
 //     scores it from there.
-// linkload_single is the staged body over one pair (5.4x faster than the
-// batched body over one pair, PERF.md).  linkload_fleet is the staged body
-// over the F*B pairs: each W is read once, a CTA keeps its whole 70 KB in
-// flight, and the card's block scheduler hands each SM its next pair as one
-// finishes.  The batched body over the same pairs kept a few bytes in flight
-// a thread, launched an idle second link column for 4 of 132 links and 5 idle
-// rows of 8, and ran at a quarter of the HBM rate (times in PERF.md §6).
-// Persistent CTAs walking the pairs through a ring of 2-8 stages,
-// with 16-byte cp.async or TMA bulk copies, were no faster at either of the
-// fleet's buckets.  Both entries take the batched body past the staged
-// body's limits (T > kStagedMaxRows, or its shared memory; T = 60 at
-// C = E = 132).  linkload_batched keeps the batched body.  The staged body sums
-// each load over c in its own order (quarters of C), so the fleet entry's
-// bits are the single entry's for each pair, not the batched body's; both
-// keep the rtol 3e-4 contract.
+// All three entries take the staged body wherever it fits (T <=
+// kStagedMaxRows and its shared memory: T <= 60 at C = E = 132), and the
+// batched body past that.  linkload_single is the staged body over one pair
+// (5.4x faster than the batched body over one pair, PERF.md).  linkload_batched
+// and linkload_fleet are the staged body over their B or F*B pairs: each W is
+// read once, a CTA keeps its whole 70 KB in flight, two CTAs share an SM at
+// (3, 132, 132), and the card's block scheduler hands each SM its next pair
+// as one finishes.  The batched body over the same pairs keeps a few bytes
+// in flight a thread, launches an idle second link column for 4 of 132 links
+// and 5 idle rows of 8, and runs at a quarter of the HBM rate (times in
+// PERF.md §6).  Persistent CTAs walking the pairs through a ring of 2-8
+// stages, with 16-byte cp.async or TMA bulk copies, were no faster at either
+// of the fleet's buckets.  Past the cut the batched body's many CTAs take
+// long blocks, whose staged work would grow with T on one SM.
+// linkload_tiles launches the batched body whatever the shape, for
+// comparisons.  The staged body sums each load over c in its own order
+// (quarters of C), so every pair's bits are the same in all three entries
+// (a pair of the batched engine, a pair of a fleet bucket and a single block
+// give the same bits on the same inputs), and not the batched body's; both
+// keep the rtol 3e-4 contract.  A pair's bits never depend on the other
+// pairs of the launch: stage blocks added to a batch cannot move an epoch's.
 //
 // What bounds it on this card: bytes.  Every epoch carries its own routing
 // weights, so W (B*C*E floats) is read once and used for only T rows; at the
@@ -391,18 +397,29 @@ const char* linkload_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int linkload_batched(const void* demand, const void* w, const void* inv_cap, float thr,
-                     void* mlu, void* alu, void* olr, void* tot, int B, int T, int C, int E,
-                     void* stream) {
-  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
-}
-
 // 1 if (T, C) blocks under (C, E) weights take the staged body (one CTA a
-// block, in the single-block and the fleet entry), 0 if they take the
-// batched body.
+// block, in all three entries), 0 if they take the batched body.
 int linkload_single_fits(int T, int C, int E) {
   return T >= 0 && C >= 0 && E >= 0 && T <= kStagedMaxRows &&
          staged_smem_floats(T, C, E) <= kSmemFloats;
+}
+
+// B epochs: demand (B, T, C), w (B, C, E), inv_cap (B, E); outputs (B, T) each.
+int linkload_batched(const void* demand, const void* w, const void* inv_cap, float thr,
+                     void* mlu, void* alu, void* olr, void* tot, int B, int T, int C, int E,
+                     void* stream) {
+  if (B < 0 || T < 0 || C < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (!linkload_single_fits(T, C, E))
+    return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
+  return launch_staged(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
+}
+
+// The batched body over B epochs whatever the shape (what linkload_batched
+// launched before it took the staged body), for comparisons.
+int linkload_tiles(const void* demand, const void* w, const void* inv_cap, float thr,
+                   void* mlu, void* alu, void* olr, void* tot, int B, int T, int C, int E,
+                   void* stream) {
+  return launch(demand, w, inv_cap, thr, mlu, alu, olr, tot, B, T, C, E, stream);
 }
 
 // Bytes of shared memory and threads of a staged-body CTA at (T, C, E).

@@ -25,6 +25,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.serve import ServeConfig
+from repro_torch.transition import TransitionConfig
 
 __all__ = ["fabric_from_numpy", "trace_from_numpy", "strategy_from_dict",
            "solver_config_from_dict", "loss_config_from_dict",
@@ -62,11 +63,14 @@ def loss_config_from_dict(d: dict | None) -> LossConfig | None:
 
 def controller_config_from_dict(d: dict) -> ControllerConfig:
     """``ControllerConfig`` from the reference's fields.  ``backend`` maps
-    "pallas"/"jax" to "torch" and keeps "numpy"; a set ``transition`` or
+    "pallas"/"jax" to "torch" and keeps "numpy"; ``transition`` (the
+    reference's ``TransitionConfig`` fields) becomes the port's; a set
     ``failures`` is passed on, and the port's config refuses it."""
     d = dict(d)
     d["backend"] = _BACKENDS[d["backend"]]
     d["loss"] = loss_config_from_dict(d.get("loss"))
+    if d.get("transition") is not None:
+        d["transition"] = TransitionConfig(**d["transition"])
     return ControllerConfig(**d)
 
 

@@ -43,7 +43,8 @@ fleet_launches = 0  # linkload_fleet
 
 # the C entries and the number of int dimensions each takes after the
 # pointers and the threshold: (T, C, E), (B, T, C, E), (F, B, T, C, E)
-_ENTRIES = {"linkload_single": 3, "linkload_batched": 4, "linkload_fleet": 5}
+_ENTRIES = {"linkload_single": 3, "linkload_batched": 4, "linkload_fleet": 5,
+            "linkload_tiles": 4}
 _LIB = None  # (library, max commodities), set on first use
 
 
@@ -73,7 +74,7 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _single_fits(t: int, c: int, e: int) -> bool:
     """Whether (T, C) blocks under (C, E) weights take the staged body (one
-    CTA a block; the single-block and the fleet entry) or the batched body."""
+    CTA a block, in every entry) or the batched body."""
     return bool(_library()[0].linkload_single_fits(t, c, e))
 
 
@@ -134,6 +135,19 @@ def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
             (b, t, c, w.shape[2]))
     global launches
     launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+def _linkload_tiles(demand, w, inv_cap, threshold: float):
+    """The batched body over B epochs on the card, whatever the shape (what
+    :func:`linkload_batched` launched before it took the staged body): for
+    comparisons in ``chip_smoke.py`` and the card tests; no launch is
+    counted."""
+    dev = placement("linkload_tiles", demand=demand, w=w, inv_cap=inv_cap)
+    b, t, c = demand.shape
+    out = torch.empty((4, b, t), dtype=torch.float32, device=dev)
+    _launch("linkload_tiles", dev, demand, w, inv_cap, threshold, out,
+            (b, t, c, w.shape[2]))
     return out[0], out[1], out[2], out[3]
 
 

@@ -10,8 +10,9 @@ All layers are off by default and free when off:
   attached to ``ControllerResult.solver_stats``.
 * **Fleet metrics** (:mod:`.metrics` + :mod:`.quality`): labeled counters /
   gauges / histograms of per-fabric MLU, loss and stretch series.
-* **Decision audit** (:mod:`.audit`): every ``pick_best`` with its full
-  input vector, replayable from the record alone.
+* **Decision audit** (:mod:`.audit`): every ``should_reconfigure`` and
+  ``pick_best`` with its full input vector, replayable from the record
+  alone.
 """
 
 from . import audit, metrics, quality

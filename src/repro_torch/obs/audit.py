@@ -1,8 +1,5 @@
 """Decision audit log: every controller decision with its full input vector
-— a copy of ``repro/obs/audit.py`` with its imports rewritten.  In this slice
-of the port :func:`replay` re-derives ``pick_best`` records; a
-``should_reconfigure`` record raises ``NotImplementedError`` until the
-``transition`` package is ported.
+— a copy of ``repro/obs/audit.py`` with its imports rewritten.
 
 Gemini is a monitoring-driven controller: §4.6 decides *when* to reconfigure
 (benefit vs disruption, hysteresis, contingency blends) and *which* strategy
@@ -139,9 +136,14 @@ def replay(rec: dict):
     """
     kind = rec.get("kind")
     if kind == "should_reconfigure":
-        raise NotImplementedError(
-            "replaying should_reconfigure lands in a later slice of the port "
-            "(the transition package)")
+        from repro_torch.transition.config import should_reconfigure
+
+        with _suspended():
+            return should_reconfigure(
+                rec["benefit"], rec["disruption"], rec["hysteresis"],
+                contingency_weight=rec.get("contingency_weight"),
+                benefit_worst=rec.get("benefit_worst"),
+                disruption_worst=rec.get("disruption_worst"))
     if kind == "pick_best":
         from repro_torch.core.predictor import pick_best
 

@@ -16,9 +16,10 @@ stream:
   finished epoch's intervals are scored under the weights that served them
   (one launch each of the single-block linkload and queueloss kernels);
 * at each routing-epoch boundary it re-plans — critical TMs from the window
-  (k-means on the device), the joint topology solve when one is due, then a
-  routing-only PDHG solve on the device **warm-started from the previous
-  epoch's primal/dual iterates**
+  (k-means on the device), the joint topology solve when one is due, gated
+  by :func:`repro_torch.transition.should_reconfigure` when
+  ``ControllerConfig.transition`` is set, then a routing-only PDHG solve on
+  the device **warm-started from the previous epoch's primal/dual iterates**
   (:meth:`repro_torch.core.pdhg.TorchRoutingSolver.solve_routing_warm`);
 * per-epoch *time-to-new-weights* is measured (TM arrival → installed weight
   matrix, the splits read back to the host, so device work is inside it) and
@@ -29,9 +30,10 @@ stream:
 Replay parity is the correctness contract (test-enforced against the
 reference): run over a recorded trace, the streaming walk makes the same
 epoch boundaries, topology updates and routing solves as the offline
-engines — identical on the scipy backend, within solver tolerance on PDHG.
-Reconfiguration transitions (the §4.6 gate) come with a later slice of the
-port; ``ControllerConfig`` refuses them.
+engines — identical on the scipy backend, within solver tolerance on PDHG —
+the same topology-update decisions included.  A staged epoch's drain stages
+score in one launch each of the epoch-batched kernels, the rest of the epoch
+on the single-block kernels.
 """
 
 from __future__ import annotations
@@ -159,12 +161,15 @@ class StreamingController:
         self._next_topo = self.agg
         self._first_epoch = True
         self._n_topology = 0
+        self._n_skipped = 0
+        self._transition_log: list = []
         self._n_realized: np.ndarray | None = None
         self._cap: np.ndarray | None = None
         self._w: np.ndarray | None = None
         self._warm_state = None  # RoutingWarmState carried epoch -> epoch
         self._f_epochs: list = []  # per-epoch splits (transit fraction)
         self._cap_epochs: list = []  # per-epoch capacities the splits target
+        self._staged = None  # TransitionEval draining the current epoch
         self._tms_prev = None  # critical TMs of the epoch being scored
         self._block: list = []  # current epoch's scored-interval buffer
         self._block_start = 0
@@ -224,8 +229,8 @@ class StreamingController:
                     delta = (self.sc.delta if self.sc.delta is not None
                              else estimate_delta(window,
                                                  self.sc.delta_quantile))
-                topo_solved = self._maybe_topology(start, window, tms)
-                topo_applied = topo_solved
+                topo_solved, topo_applied = self._maybe_topology(
+                    start, window, tms, delta)
             with self._phases("solve", "serve.solve"):
                 u_star = self._solve_routing(tms, delta)
         latency = time.perf_counter() - t_arrival
@@ -255,33 +260,49 @@ class StreamingController:
         obs.event("serve.strategy_choice", fabric=self.fabric.name,
                   strategy=self.strategy.name)
 
-    def _maybe_topology(self, start, window, tms) -> bool:
-        """Joint topology solve when one is due; mirrors the offline plan
-        walk.  Returns whether one ran (and was installed)."""
-        cc, sc = self.cc, self.sc
+    def _maybe_topology(self, start, window, tms, delta):
+        """Joint topology solve when one is due, and the §4.6 gate; mirrors
+        the offline plan walk.  Returns (solved, installed)."""
+        from repro_torch.core.controller import (_count_topology_update,
+                                                 _transition_gate)
+
+        cc, sc, tc = self.cc, self.sc, self.cc.transition
+        self._staged = None
         if self.strategy.nonuniform and (self._first_epoch
                                          or start >= self._next_topo):
             sol = solve(self.fabric, tms, self.strategy, sc,
                         window_demand=window)
             self._solver_s += sol.solve_seconds
-            self._n_realized = (realize(self.fabric, sol.n_e)[0]
-                                if cc.realize_topology else sol.n_e)
-            self._cap = self.fabric.capacities(self._n_realized)
-            self._n_topology += 1
-            obs.event("controller.topology_applied", start=start,
-                      fabric=self.fabric.name)
-            obs.metrics.inc("controller.topology_updates",
-                            fabric=self.fabric.name, outcome="applied")
+            cand = (realize(self.fabric, sol.n_e)[0]
+                    if cc.realize_topology else sol.n_e)
+            apply = True
+            if tc is not None and self._n_realized is not None:
+                apply, staged, ev, ev_s = _transition_gate(
+                    self.fabric, tms, self._n_realized, cand, tc, cc, sc,
+                    delta=delta, hedging=self.strategy.hedging,
+                    horizon_intervals=self.topo_step, device=self.device)
+                self._solver_s += ev_s
+                self._phases.add("transition", ev_s)
+                self._staged = staged
+                if ev is not None:
+                    self._transition_log.append(ev.log_entry(start, apply))
+            if apply:
+                self._n_realized = cand
+                self._cap = self.fabric.capacities(cand)
+                self._n_topology += 1
+            else:
+                self._n_skipped += 1
+            _count_topology_update(self.fabric, start, apply)
             self._next_topo = start + self.topo_step
             self._first_epoch = False
-            return True
+            return True, apply
         if self._cap is None:  # uniform strategies: realize uniform once
             n0 = uniform_topology(self.fabric)
             self._n_realized = (realize(self.fabric, n0)[0]
                                 if cc.realize_topology else n0)
             self._cap = self.fabric.capacities(self._n_realized)
         self._first_epoch = False
-        return False
+        return False, False
 
     def _solve_routing(self, tms, delta) -> float:
         """Routing-only re-solve on the installed capacities; installs the
@@ -323,8 +344,8 @@ class StreamingController:
 
     def _score_block(self) -> None:
         """Score the just-finished epoch's buffered intervals under the
-        weights that served them — the offline walks' arithmetic, deferred
-        off the decision path."""
+        weights that served them (drain stages included) — the offline
+        walks' arithmetic, deferred off the decision path."""
         if not self._block:
             return
         cc = self.cc
@@ -337,13 +358,24 @@ class StreamingController:
                                                  self._tms_prev, block)
             # the burst seed is a pure function of (cc.loss.seed, start), as
             # in the offline walks, so comparisons stay paired
-            loss_cfg = (dataclasses.replace(cc.loss, seed=cc.loss.seed + start)
-                        if cc.loss is not None else None)
-            self._metrics = self._metrics.concat(route_metrics(
-                block, self._w, self._cap, cc.overload_threshold,
-                backend=cc.backend, loss_cfg=loss_cfg,
-                interval_seconds=self.stream.interval_minutes * 60.0,
-                device=self.device))
+            rem_lo, rem_seed = 0, (cc.loss.seed + start
+                                   if cc.loss is not None else None)
+            if self._staged is not None:
+                from repro_torch.core.controller import _score_stages
+
+                stage_m, rem_lo, rem_seed = _score_stages(
+                    block, self._staged, cc, self.stream, start,
+                    device=self.device)
+                self._metrics = self._metrics.concat(stage_m)
+                self._staged = None
+            if block.shape[0] - rem_lo > 0:
+                loss_cfg = (dataclasses.replace(cc.loss, seed=rem_seed)
+                            if cc.loss is not None else None)
+                self._metrics = self._metrics.concat(route_metrics(
+                    block[rem_lo:], self._w, self._cap, cc.overload_threshold,
+                    backend=cc.backend, loss_cfg=loss_cfg,
+                    interval_seconds=self.stream.interval_minutes * 60.0,
+                    device=self.device))
 
     # ---- finalize ------------------------------------------------------------
 
@@ -373,6 +405,8 @@ class StreamingController:
             transit_fraction=(transit_fraction_of(self.paths, f_b)
                               if len(f_b) else 0.0),
             solver_seconds=self._solver_s,
+            n_skipped_topology=self._n_skipped,
+            transition_log=tuple(self._transition_log),
             stage_times=self._phases.times,
             solver_stats=solver_stats,
             splits=f_b,

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 batched entries at the batched engine's chip-scale shapes (B=672 and 96
-epochs, T=3 / TS=36, C=E=132), the batched queue loss also past its fleet
-body (TS=512), the single-block entries at the streaming controller's (T=3 /
+epochs, T=3 / TS=36, C=E=132), the batched linkload also on both sides of its
+staged body's row cut, with W at a storage offset, bit for bit against the
+single-block and fleet entries, and its old body through the comparison
+entry, the batched queue loss also past its fleet body (TS=512), the
+single-block entries at the streaming controller's (T=3 /
 TS=36), the whole-trace baseline's (T=4032) and, for the queue loss, one
 sub-step and a block past one cluster's shared memory (TS=512), the fleet
 entries at the 22-fabric fleet's 12-pod bucket (F=15 fabrics, B=96 blocks,
@@ -11,11 +14,11 @@ their staged body's row cut and the single-block one at one row, and all at
 ragged shapes (fleet: all-zero padded blocks);
 the model kernels (flash attention, the RG-LRU scan, the SSD chunk scan) at
 the model shapes of recurrentgemma-9b (the RG-LRU scan also at B = 1) and
-mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD, single-block
-linkload and queue-loss, fleet linkload and queue-loss and batched
-queue-loss kernels give the same bits on two calls, and the single-block and
-fleet linkload and the model kernels take tensors that are not 16-byte
-aligned.
+mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD, batched,
+single-block and fleet linkload and queue-loss kernels give the same bits on
+two calls, and the linkload entries and the model kernels take tensors that
+are not 16-byte aligned; and a small transition sweep, whose drain-stage
+blocks move no other block's bits.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -59,20 +62,72 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,t,c,e", [(672, 3, 132, 132), (4, 13, 30, 200)])
-def test_linkload_kernel_matches_plain(gen, b, t, c, e):
+def _batched_linkload_inputs(gen, b, t, c, e):
     # dyadic data: every load is exact in f32, so OLR cannot flip on a tie
     d = torch.randint(0, 16, (b, t, c), generator=gen, device="cuda").float()
     w = torch.randint(0, 17, (b, c, e), generator=gen, device="cuda").float() / 16
     cap = 20.0 + 40.0 * torch.rand((b, e), generator=gen, device="cuda")
     inv_cap = torch.where(torch.rand((b, e), generator=gen, device="cuda") < 0.1,
                           0.0, 1.0 / cap)
+    return d, w, inv_cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,e", [(672, 3, 132, 132), (4, 13, 30, 200),
+                                     (96, 3, 132, 132),        # the batched engine's
+                                     (5, "cut", 132, 132),      # the staged body's longest
+                                     (5, "past_cut", 132, 132)])  # the batched body
+def test_linkload_kernel_matches_plain(gen, b, t, c, e):
+    """The staged body over the epochs up to its row cut, the batched body
+    past it; one launch counted either way, the same bits on a second call."""
+    if isinstance(t, str):
+        t = _single_rows_cut(c, e) + (t == "past_cut")
+    assert llops._single_fits(t, c, e) == (t <= _single_rows_cut(c, e))
+    d, w, inv_cap = _batched_linkload_inputs(gen, b, t, c, e)
     before = llops.launches
     out = llops.linkload_batched(d, w, inv_cap, 0.8)
     ref = linkload_metrics_batched_ref(d, w, inv_cap, 0.8)
     assert llops.launches == before + 1
     for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+    second = llops.linkload_batched(d, w, inv_cap, 0.8)
+    assert all(torch.equal(x, y) for x, y in zip(out, second))
+
+
+@pytest.mark.gpu
+def test_linkload_kernel_takes_unaligned_w(gen):
+    """W at a storage offset (not 16-byte aligned) takes the 4-byte copies."""
+    d, w, inv_cap = _batched_linkload_inputs(gen, 96, 3, 132, 132)
+    out = llops.linkload_batched(d, _unaligned(w), inv_cap, 0.8)
+    for a, r in zip(out, linkload_metrics_batched_ref(d, w, inv_cap, 0.8)):
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [96, 672])
+def test_linkload_kernel_is_the_single_and_fleet_entries_bits(gen, b):
+    """One body, one order of sums: each epoch's bits are the single-block
+    entry's and the fleet entry's at F = 1, so the batched engine scores an
+    epoch as the streaming controller and the fleet engine do."""
+    args = _batched_linkload_inputs(gen, b, 3, 132, 132)
+    out = llops.linkload_batched(*args, 0.8)
+    fleet = llops.linkload_fleet(*(x[None] for x in args), 0.8)
+    assert all(torch.equal(x, y[0]) for x, y in zip(out, fleet))
+    for bi in (0, b // 2, b - 1):
+        single = llops.linkload(*(x[bi] for x in args), 0.8)
+        assert all(torch.equal(x[bi], y) for x, y in zip(out, single))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,e", [(96, 3, 132, 132), (4, 13, 30, 200)])
+def test_linkload_batched_body_matches_plain(gen, b, t, c, e):
+    """The comparison entry (the batched body whatever the shape) against
+    the plain version; it counts no launch."""
+    d, w, inv_cap = _batched_linkload_inputs(gen, b, t, c, e)
+    before = llops.launches
+    out = llops._linkload_tiles(d, w, inv_cap, 0.8)
+    assert llops.launches == before
+    for a, r in zip(out, linkload_metrics_batched_ref(d, w, inv_cap, 0.8)):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
@@ -473,3 +528,50 @@ def test_ssd_chunk_kernel_takes_unaligned_views(gen):
     assert sdops.launches == before + 1
     ref = ssd_chunk_ref(*args, chunk=64)
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_transition_sweep_moves_no_unstaged_block(gen):
+    """A small transition sweep on the card (F18, 6 pods, forced staging):
+    one plan, executed as planned and with its drain staging dropped.  The
+    splits are bit-equal (the same PDHG batch), and so is every interval of
+    an unstaged epoch: each block is its own CTA of #1 and #2, so the extra
+    stage blocks move no other block's bits.  The stage intervals do move,
+    and each execute launches #1 and #2 once."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.burst import LossConfig
+    from repro_torch.core import ControllerConfig, SolverConfig, Strategy
+    from repro_torch.core.engine import execute_plan, plan_artifacts
+    from repro_torch.core.fleet import (FLEET_SPECS, make_fabric, make_trace,
+                                        sub_burst_params)
+    from repro_torch.transition import TransitionConfig
+
+    spec = FLEET_SPECS[17]
+    fab = make_fabric(spec)
+    trace = make_trace(spec, fab, days=4.0, interval_minutes=60.0)
+    cc = ControllerConfig(routing_interval_hours=3.0, topology_interval_days=1.0,
+                          aggregation_days=2.0, k_critical=4,
+                          loss=LossConfig(burst=sub_burst_params(spec)),
+                          transition=TransitionConfig(decide=False))
+    strategy, sc = Strategy(True, True), SolverConfig()
+    art = plan_artifacts(fab, trace, strategy, cc, sc, device="cuda")
+    staged = [i for i, ev in enumerate(art.staging) if ev is not None]
+    assert staged and art.transition_log
+    runs = []
+    for a in (art, dataclasses.replace(art, staging=(None,) * len(art.staging))):
+        before = (llops.launches, qlops.launches)
+        runs.append(execute_plan(fab, trace, strategy, cc, sc, a, device="cuda"))
+        assert (llops.launches, qlops.launches) == (before[0] + 1, before[1] + 1)
+    on, off = runs
+    np.testing.assert_array_equal(on.splits, off.splits)
+    rows = np.zeros(on.metrics.mlu.shape, bool)
+    for i in staged:
+        ep = art.plan.epochs[i]
+        rows[ep.start - art.plan.agg: ep.stop - art.plan.agg] = True
+    for field in ("mlu", "alu", "olr", "stretch", "loss"):
+        np.testing.assert_array_equal(getattr(on.metrics, field)[~rows],
+                                      getattr(off.metrics, field)[~rows])
+    assert not np.array_equal(on.metrics.mlu[rows], off.metrics.mlu[rows])

@@ -26,7 +26,8 @@ import repro_torch.core.fleet as port_fleet
 from repro.core import ControllerConfig as RefControllerConfig
 from repro_torch import interop
 from repro_torch.core import (ControllerConfig, FleetJob, Strategy,
-                              predict_fleet, run_controller, run_fleet)
+                              TransitionConfig, predict_fleet, run_controller,
+                              run_fleet)
 from repro_torch.core import fleet_engine
 from repro_torch.configs import get_arch
 from repro_torch.core.baselines import uniform_vlb_metrics
@@ -47,7 +48,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.fleet_engine, repro_torch.configs, "
             "repro_torch.models.api, repro_torch.launch.steps, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.kernels.rglru_scan.ops, repro_torch.kernels.ssd_chunk.ops\n"
+            "repro_torch.kernels.rglru_scan.ops, repro_torch.kernels.ssd_chunk.ops, "
+            "repro_torch.transition, repro_torch.core.patch_panels\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -140,13 +142,23 @@ def test_model_training_is_a_later_slice():
         model.loss(None, {})
 
 
-@pytest.mark.parametrize("over", [{"engine": "sequential", "transition": object()},
-                                  {"transition": object()},
-                                  {"failures": object()},
+@pytest.mark.parametrize("over", [{"failures": object()},
                                   {"solver_precision": "bf16"}])
 def test_later_slices_raise(over):
     with pytest.raises(NotImplementedError, match="later slice"):
         ControllerConfig(**over)
+
+
+@pytest.mark.parametrize("engine", ["sequential", "batched"])
+def test_transition_requires_realized_topologies(engine):
+    """Panel decomposition (Thm. 4) needs integer, even-degree topologies:
+    ``transition`` without ``realize_topology`` raises ``ValueError`` in
+    every engine, as the reference does (here at construction)."""
+    with pytest.raises(ValueError, match="realize_topology"):
+        ControllerConfig(engine=engine, transition=TransitionConfig(),
+                         realize_topology=False)
+    assert ControllerConfig(engine=engine,
+                            transition=TransitionConfig()).transition.n_panels == 4
 
 
 def _port_fleet_job(small_fabric, small_trace, cc):
@@ -159,10 +171,10 @@ def _port_fleet_job(small_fabric, small_trace, cc):
         Strategy(False, True), cc)
 
 
-@pytest.mark.parametrize("field", ["failures", "transition"])
+@pytest.mark.parametrize("field", ["failures"])
 def test_fleet_job_of_a_later_slice_raises(small_fabric, small_trace, field):
-    """``run_fleet`` refuses a job with failure contingencies or transitions
-    (the config refuses them at construction; the engine checks again)."""
+    """``run_fleet`` refuses a job with failure contingencies (the config
+    refuses them at construction; the engine checks again)."""
     with pytest.raises(NotImplementedError, match="later slice"):
         ControllerConfig(**{field: object()})
     cc = ControllerConfig()
@@ -207,9 +219,17 @@ def test_sequential_engine_runs(small_fabric, small_trace):
 
 
 def test_controller_config_carries_reference_fields():
+    from repro.core import TransitionConfig as RefTransitionConfig
+
     ref = dataclasses.asdict(RefControllerConfig(backend="pallas",
                                                  solver_backend="pdhg"))
     port = interop.controller_config_from_dict(ref)
+    tc = RefTransitionConfig(n_panels=3, stage_intervals=2, decide=False,
+                             hysteresis=0.5, instantaneous=True)
+    carried = interop.controller_config_from_dict(
+        dict(ref, transition=dataclasses.asdict(tc))).transition
+    assert isinstance(carried, TransitionConfig)
+    assert dataclasses.asdict(carried) == dataclasses.asdict(tc)
     assert set(ref) <= set(dataclasses.asdict(port))
     assert port.backend == "torch" and port.solver_backend == "pdhg"
     assert interop.controller_config_from_dict(

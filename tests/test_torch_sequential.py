@@ -15,7 +15,8 @@ epoch scores through ``route_metrics`` — the single-block kernels' path.
     within 9.5e-7, p999_mlu within 1.7e-6, identical iteration counts.
 
 ``pick_best`` and ``predict_from_window`` choose what the reference chooses,
-and the port's decision audit replays ``pick_best`` records.
+and the port's decision audit replays ``pick_best`` and
+``should_reconfigure`` records.
 """
 
 import dataclasses
@@ -144,9 +145,8 @@ def test_pick_best_matches_reference_and_replays(objective, cushion):
     assert choice == ref_pick_best(PER_STRATEGY, cushion, objective=objective)
     assert len(recs) == 1 and recs[0]["chosen"] == choice
     assert obs.audit.verify(recs) == []
-    with pytest.raises(NotImplementedError, match="later slice"):
-        obs.audit.replay({"kind": "should_reconfigure", "benefit": 1.0,
-                          "disruption": 0.0, "hysteresis": 0.0})
+    assert obs.audit.replay({"kind": "should_reconfigure", "benefit": 1.0,
+                             "disruption": 0.0, "hysteresis": 0.0}) is True
     with pytest.raises(NotImplementedError, match="later slice"):
         pick_best(PER_STRATEGY, cushion, objective=objective,
                   contingency_weight=0.5)
