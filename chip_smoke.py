@@ -89,6 +89,18 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    staging dropped.  Bit-equal splits and bit-equal metrics outside the
    staged epochs; the staged epochs against the float64 numpy oracle from
    the gate's stage weights and capacities.
+10. Failure contingencies and bf16 PDHG on phase 9's plan (no new joint
+   solve): ``execute_plan`` with 64 fixed-routing scenarios of link, trunk,
+   panel and pod failures (``repro_torch.failures``; one launch each of the
+   fleet kernels over the 64 x 98 (scenario, block) rows), bit-equal to
+   phase 9's staged execute in its own metrics and splits, against the
+   per-scenario loop of ``route_metrics_batched`` (#1/#2) and the float64
+   oracle; #5/#6 on the operands of that fused launch (dead links carrying
+   live W) against their plain versions, timed; re-solve mode (8 scenarios:
+   one PDHG batch of 8 x 98 elements) no worse than fixed routing; the
+   fleet engine with 16 scenarios on F21, F1 and F17 against the per-fabric
+   engine; and the execute with ``solver_precision="bf16"`` against f32
+   (per-epoch u* within 3 %, the p99.9 MLU within 1 %).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -1596,7 +1608,374 @@ def phase_transition(fab, trace, strategy, cc, sc, device):
                               "execute_s": walls["staged"],
                               "execute_unstaged_s": walls["unstaged"],
                               "staged_epochs": staged,
-                              "n_stages": [art.staging[i].n_stages for i in staged]}
+                              "n_stages": [art.staging[i].n_stages for i in staged],
+                              "art": art, "staged_result": on}
+
+
+# phase 10's failure model: a mix of link, trunk, panel and pod
+# failures; 64 scenarios for fixed routing, 8 for the re-solve, 16 a fleet job
+FAILURES = dict(p_link=0.02, p_trunk=0.01, p_panel=0.1, p_pod=0.02)
+CONT_REL_TOL = 1e-3  # fleet vs per-fabric contingency (tests/test_failures.py:152)
+BF16_REL_TOL = 0.01  # the reference's bf16 accuracy target (tests/test_solver_precision.py)
+# upper limit on a bf16 epoch's u* above f32's: over the worst sound readings
+# on F21 (1.60 % on the card, 2.10 % on the CPU sweep; PERF.md §6), so that a
+# bf16 path that stops converging crosses it
+BF16_EPOCH_REL_LIMIT = 0.03
+
+
+def _fused_kernel_rows(captured, n_pairs_shape):
+    """#5 and #6 on the operands the fused contingency launch gave them:
+    against their plain versions, bit for bit against a second call, timed
+    beside the plain versions, with their bounds."""
+    import torch
+
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.linkload.ref import linkload_metrics_fleet_ref
+    from repro_torch.kernels.queueloss import ops as qlops
+    from repro_torch.kernels.queueloss.ref import queueloss_fleet_ref
+
+    rows = {}
+    for name, entry, ref in (
+            ("linkload", llops.linkload_fleet, linkload_metrics_fleet_ref),
+            ("queueloss", qlops.queueloss_fleet, queueloss_fleet_ref)):
+        args = captured[name]
+        f, b, t, c = args[0].shape
+        e = args[1].shape[3]
+        queue = name == "queueloss"
+        dead = int((args[2] == 0).sum())  # inv_cap (#5) or cap (#6) of dead links
+        live_w_on_dead = float((args[1].sum(dim=2) * (args[2] == 0)).sum())
+
+        def kernel():
+            return entry(*args)
+
+        def plain():
+            return ref(*args)
+
+        out, want = kernel(), plain()
+        torch.cuda.synchronize()
+        abs_e, rel_e, worst = max_errs(out, want)
+        same = all(torch.equal(x, y) for x, y in zip(kernel(), out))
+        ms, plain_ms = time_cuda(kernel), time_cuda(plain)
+        fb = f * b
+        n_outs = 2 if queue else 4
+        n_bytes = 4 * (fb * t * c + fb * c * e + (2 if queue else 1) * fb * e
+                       + n_outs * fb * t)
+        n_flops = 2 * fb * t * c * e + (6 if queue else 5) * fb * t * e
+        bnd, by = bound_ms(n_bytes, n_flops)
+        log(f"phase 10: {name} (fleet) at the fused contingency shape "
+            f"{(f, b, t, c, e)} ({n_pairs_shape}): {dead} dead (pair, link) "
+            f"entries carrying {live_w_on_dead:.1f} of W; max abs err {abs_e:.3e}, "
+            f"max rel err {rel_e:.3e}, worst |err|/(atol+rtol|ref|) {worst:.3f}; "
+            f"second call bit-equal {same}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+            f"{n_flops / 1e6:.1f} MFLOP)")
+        if worst > 1.0 or not same or dead == 0 or live_w_on_dead <= 0.0:
+            fail(f"failures: {name} (fleet) at the fused shape disagrees with its "
+                 f"plain version, is not deterministic, or saw no dead link "
+                 f"carrying W")
+        rows[name] = {"shape": [f, b, t, c, e], "max_abs_err": abs_e, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+    return rows
+
+
+def phase_failures(fab, trace, strategy, cc, sc, art, staged, device):
+    """Failure contingencies and bf16 PDHG on phase 9's plan (no new joint
+    solve): (1) ``execute_plan`` with 64 fixed-routing scenarios — its
+    metrics and splits bit-equal to phase 9's staged execute, its one fused
+    launch of #5/#6 against the per-scenario loop of #1/#2 and the float64
+    oracle; (2) #5/#6 at that fused shape on the plan's own operands (dead
+    links carrying live W) against their plain versions; (3) re-solve mode
+    (8 scenarios: one PDHG batch over scenario × block) no worse than fixed
+    routing; (4) the fleet engine with 16 scenarios on F21, F1 and F17
+    against the per-fabric engine; (5) the execute with bf16 PDHG against
+    f32 (its reported u the float32 evaluation of its flows; every epoch's
+    u* between the f32 solve's certified bound and 3 % above f32's; the
+    p99.9 MLU under the solved routing within 1 % of f32's; the time per
+    iteration reported).  Returns the fleet kernels' launches in (1) and
+    the phase's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import run_controller, run_fleet
+    from repro_torch.core.engine import execute_plan, plan_score_blocks
+    from repro_torch.core.paths import build_paths, routing_weight_matrices
+    from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.core.simulator import p999, route_metrics_batched
+    from repro_torch.device import synchronize
+    from repro_torch.failures import (FailureConfig, contingency_metrics,
+                                      report_from_metrics, sample_masks)
+    from repro_torch.transition import stage_partition
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.queueloss import ops as qlops
+
+    fcfg = FailureConfig(n_scenarios=64, **FAILURES)
+    cc_f = dataclasses.replace(cc, failures=fcfg)
+    log(f"phase 10: failure contingencies on phase 9's plan ({fab.name}, "
+        f"{len(art.plan.epochs)} epochs), {fcfg}")
+    out = {}
+
+    # (1) fixed routing: the main path, counts zeroed around it
+    torch.cuda.reset_peak_memory_stats()
+    synchronize(device)
+    llops.launches = qlops.launches = 0
+    llops.fleet_launches = qlops.fleet_launches = 0
+    t0 = time.perf_counter()
+    res = execute_plan(fab, trace, strategy, cc_f, sc, art, device=device)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = {"linkload": llops.fleet_launches, "queueloss": qlops.fleet_launches}
+    batched = {"linkload": llops.launches, "queueloss": qlops.launches}
+    rep = res.contingency
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  execute with {fcfg.n_scenarios} fixed-routing scenarios {wall:.3f} s: "
+        f"stage_times {res.stage_times}; launches: fleet {counts}, batched "
+        f"{batched}; peak device memory {peak} B")
+    log(f"  report: worst / mean p99.9 MLU {rep.worst_p999_mlu:.6f} / "
+        f"{float(rep.p999_mlu.mean()):.6f}, worst / mean p99.9 loss "
+        f"{rep.worst_p999_loss:.6e} / {float(rep.p999_loss.mean()):.6e}; failed "
+        f"links per scenario min {int(rep.n_failed_links.min())} max "
+        f"{int(rep.n_failed_links.max())}")
+    if counts != {"linkload": 1, "queueloss": 1} or batched != {
+            "linkload": 1, "queueloss": 1}:
+        fail(f"failures: expected one launch each of #1/#2 (scoring) and of "
+             f"#5/#6 (the contingencies), got {batched} / {counts}")
+    same_splits = bool(np.array_equal(res.splits, staged.splits))
+    same_metrics = {f: bool(np.array_equal(getattr(res.metrics, f),
+                                           getattr(staged.metrics, f)))
+                    for f in METRICS}
+    log(f"  against phase 9's staged execute: splits bit-equal {same_splits}, "
+        f"metrics bit-equal {same_metrics}")
+    if not same_splits or not all(same_metrics.values()):
+        fail("failures: the execute with contingencies moved the plan's own "
+             "scores (the failures=None contract)")
+    out.update(execute_s=wall, failures_s=res.stage_times["failures"],
+               peak_bytes=peak, worst_p999_mlu=rep.worst_p999_mlu,
+               worst_p999_loss=rep.worst_p999_loss)
+
+    # the scoring inputs the evaluator saw, rebuilt from the plan
+    w_b = routing_weight_matrices(build_paths(fab.n_pods), res.splits)
+    blocks, block_w, block_caps, seeds, _ = plan_score_blocks(
+        trace, art, w_b, art.caps, cc)
+    w_all, caps_all = np.stack(block_w), np.stack(block_caps)
+    scen, masks = sample_masks(fab, fcfg)
+    kw = dict(loss_cfg=cc.loss, loss_seeds=seeds,
+              interval_seconds=trace.interval_minutes * 60.0)
+    # (2) the fused launch again, its operands captured for the kernel checks
+    captured = {}
+    wrapped = {"linkload": (llops, "linkload_fleet"),
+               "queueloss": (qlops, "queueloss_fleet")}
+    originals = {k: getattr(m, n) for k, (m, n) in wrapped.items()}
+    for key, (mod, attr) in wrapped.items():
+        def keep(*args, _key=key):
+            captured[_key] = args
+            return originals[_key](*args)
+        setattr(mod, attr, keep)
+    try:
+        synchronize(device)
+        t0 = time.perf_counter()
+        fused = contingency_metrics(blocks, w_all, caps_all, masks,
+                                    cc.overload_threshold, backend="torch",
+                                    device=device, **kw)
+        synchronize(device)
+        t_fused = time.perf_counter() - t0
+    finally:
+        for key, (mod, attr) in wrapped.items():
+            setattr(mod, attr, originals[key])
+    again = report_from_metrics(scen, fused, resolve=False)
+    if not (np.array_equal(again.p999_mlu, rep.p999_mlu)
+            and np.array_equal(again.p999_loss, rep.p999_loss)):
+        fail("failures: the fused call does not reproduce the execute's report")
+    kernel_rows = _fused_kernel_rows(
+        captured, f"{fcfg.n_scenarios} scenarios x {len(blocks)} blocks")
+    captured.clear()
+    torch.cuda.empty_cache()
+    # the per-scenario loop on #1/#2 and the float64 oracle
+    t0 = time.perf_counter()
+    loop_worst = 0.0
+    for k in range(fcfg.n_scenarios):
+        loop = route_metrics_batched(
+            blocks, w_all, caps_all * masks[k][None, :], cc.overload_threshold,
+            backend="torch", device=device, **kw)
+        loop_worst = max(loop_worst, max(
+            float(np.max(np.abs(getattr(fused[k], f) - getattr(loop, f))))
+            for f in METRICS))
+    t_loop = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = contingency_metrics(blocks, w_all, caps_all, masks,
+                                 cc.overload_threshold, backend="numpy", **kw)
+    t_oracle = time.perf_counter() - t0
+    oracle_worst = {f: max(float(np.max(np.abs(getattr(a, f) - getattr(o, f))
+                                        / (SCORE_TOL + SCORE_TOL
+                                           * np.abs(getattr(o, f)))))
+                           for a, o in zip(fused, oracle))
+                    for f in METRICS}
+    log(f"  fused call {t_fused:.3f} s; per-scenario loop of "
+        f"{fcfg.n_scenarios} route_metrics_batched calls ({t_loop:.3f} s): worst "
+        f"|fused - loop| {loop_worst:.3e}; float64 oracle ({t_oracle:.3f} s): worst "
+        f"|err|/(atol+rtol|ref|) per metric {oracle_worst}")
+    if loop_worst > SCORE_TOL or max(oracle_worst.values()) > 1.0:
+        fail("failures: the fused contingency launch disagrees with the "
+             "per-scenario loop or the numpy oracle")
+    out.update(fused_s=t_fused, loop_s=t_loop, oracle_s=t_oracle)
+
+    # (3) re-solve mode: one PDHG batch over (scenario x block)
+    fc8 = FailureConfig(n_scenarios=8, resolve=True, **FAILURES)
+    batches = []
+    solve_batch = TorchRoutingSolver.solve_routing_batch
+
+    def counted(self, tms, caps, *args, **kwargs):
+        batches.append(int(np.shape(caps)[0]))
+        return solve_batch(self, tms, caps, *args, **kwargs)
+
+    TorchRoutingSolver.solve_routing_batch = counted
+    synchronize(device)
+    t0 = time.perf_counter()
+    try:
+        res_r = execute_plan(fab, trace, strategy,
+                             dataclasses.replace(cc, failures=fc8), sc, art,
+                             device=device)
+    finally:
+        TorchRoutingSolver.solve_routing_batch = solve_batch
+    synchronize(device)
+    t_rs = time.perf_counter() - t0
+    scen8, masks8 = sample_masks(fab, fc8)
+    fixed8 = report_from_metrics(
+        scen8, contingency_metrics(blocks, w_all, caps_all, masks8,
+                                  cc.overload_threshold, backend="torch",
+                                  device=device, **kw), resolve=False)
+    log(f"  re-solve execute {t_rs:.3f} s (failures stage "
+        f"{res_r.stage_times['failures']:.3f} s): PDHG batches {batches}, "
+        f"{res_r.contingency.n_fallbacks} scipy fallbacks; worst p99.9 MLU "
+        f"re-solved {res_r.contingency.worst_p999_mlu:.6f} vs fixed routing "
+        f"{fixed8.worst_p999_mlu:.6f} on the same 8 scenarios")
+    if not (res_r.contingency.resolve and len(batches) == 2
+            and batches[1] == fc8.n_scenarios * len(blocks)):
+        fail(f"failures: re-solve did not run one PDHG batch of "
+             f"{fc8.n_scenarios} x {len(blocks)} elements ({batches})")
+    if not res_r.contingency.worst_p999_mlu <= fixed8.worst_p999_mlu + 1e-6:
+        fail("failures: re-solved routing is worse than fixed routing")
+    out.update(resolve_s=res_r.stage_times["failures"],
+               resolve_fallbacks=res_r.contingency.n_fallbacks)
+
+    # (4) the fleet engine with contingencies against the per-fabric engine
+    jobs = fleet_config(spec_indices=(20, 0, 16), failures=FailureConfig(
+        n_scenarios=16, **FAILURES))
+    llops.fleet_launches = qlops.fleet_launches = 0
+    synchronize(device)
+    t0 = time.perf_counter()
+    fleet = run_fleet(jobs, device=device)
+    synchronize(device)
+    t_fleet = time.perf_counter() - t0
+    fleet_counts = {"linkload": llops.fleet_launches,
+                    "queueloss": qlops.fleet_launches}
+    log(f"  fleet of {[j.fabric.name for j in jobs]} with 16 scenarios each "
+        f"{t_fleet:.3f} s; fleet kernel launches {fleet_counts} (scoring and "
+        f"contingencies, per bucket)")
+    t0 = time.perf_counter()
+    for j, fl in zip(jobs, fleet):
+        off = run_controller(j.fabric, j.trace, j.strategy, j.cc, j.sc,
+                             device=device)
+        rel = {k: abs(fl.summary[k] - off.summary[k]) / max(abs(off.summary[k]), 1e-12)
+               for k in ("cont_worst_p999_mlu", "cont_mean_p999_mlu")}
+        log(f"  {j.fabric.name} fleet vs per-fabric contingencies: fleet "
+            f"{fl.contingency.worst_p999_mlu:.6f} / {float(fl.contingency.p999_mlu.mean()):.6f}, "
+            f"per-fabric {off.contingency.worst_p999_mlu:.6f} / "
+            f"{float(off.contingency.p999_mlu.mean()):.6f}; rel diffs {rel}")
+        if max(rel.values()) > CONT_REL_TOL:
+            fail(f"failures: fleet {j.fabric.name} contingencies outside rel "
+                 f"{CONT_REL_TOL} of the per-fabric engine")
+    log(f"  per-fabric checks {time.perf_counter() - t0:.3f} s")
+    out.update(fleet_s=t_fleet)
+
+    # (5) bf16 PDHG on the same plan against f32 (phase 9's staged execute).
+    # Held: the reported u is the float32 evaluation of the flows; every
+    # epoch's u* lies between the f32 solve's certified lower bound
+    # u*(1 - tol) and BF16_EPOCH_REL_LIMIT above f32's (the reference's 1 %
+    # per epoch is out of reach on F21: the bf16 iterate stalls above it,
+    # PERF.md); the sweep's p99.9 MLU under the solved routing is within
+    # BF16_REL_TOL of f32's; the scores are finite.  Reported: the time per
+    # iteration.
+    cc_b = dataclasses.replace(cc, solver_precision="bf16")
+    synchronize(device)
+    t0 = time.perf_counter()
+    res_b = execute_plan(fab, trace, strategy, cc_b, sc, art, device=device)
+    synchronize(device)
+    t_b = time.perf_counter() - t0
+    _check_result(res_b, trace.n_intervals - art.plan.agg, "bf16 execute")
+    u_rel = (res_b.u_star - staged.u_star) / staged.u_star
+    agg = art.plan.agg
+    solved = np.ones(res_b.metrics.mlu.shape, bool)  # rows under the solved routing
+    for i, ev in enumerate(art.staging):
+        if ev is not None:
+            ep = art.plan.epochs[i]
+            spans = stage_partition(ev, ep.stop - ep.start, ep.start,
+                                    cc.loss.seed)[0]
+            for _, lo, hi in spans:
+                solved[ep.start - agg + lo: ep.start - agg + hi] = False
+    p999_f32 = p999(staged.metrics.mlu[solved])
+    p999_rel = (p999(res_b.metrics.mlu[solved]) - p999_f32) / p999_f32
+    med_b, _ = _pdhg_iters(res_b.solver_stats)
+    med_f, _ = _pdhg_iters(staged.solver_stats)
+    tms, caps = art.tms_padded(cc.k_critical), art.caps
+    per_iter, s1 = {}, None
+    for precision in ("f32", "bf16"):
+        # the stage-1 loop at a fixed count (tol 0: no element exits early)
+        solver = TorchRoutingSolver(fab, cc.k_critical, max_iters=300, tol=0.0,
+                                    precision=precision, device=device)
+        d3, ic = solver._dense_tms(tms), solver._dense_inv_cap(caps)
+        valid = solver.valid.expand(caps.shape[0], -1, -1, -1)
+        inits = solver._mlu_inits(d3, ic, valid)
+        solver._mlu_core(d3, ic, valid, *inits)  # warm-up
+        synchronize(device)
+        t0 = time.perf_counter()
+        solver._mlu_core(d3, ic, valid, *inits)
+        synchronize(device)
+        per_iter[precision] = (time.perf_counter() - t0) / 300 * 1e3
+    # the stage-1 u a bf16 solve reports is the float32 evaluation of its flows
+    solver = TorchRoutingSolver(fab, cc.k_critical, max_iters=cc.pdhg_max_iters,
+                                tol=cc.pdhg_tol, precision="bf16", device=device)
+    s1 = solver.solve_routing_batch(tms, caps, hedging=False, skip_stage3=True)
+    f3 = torch.zeros((caps.shape[0], solver.V ** 3), device=device)
+    f3[:, torch.as_tensor(solver._path_slot, device=device)] = torch.from_numpy(
+        s1["f"].astype(np.float32)).to(device)
+    u32 = solver._util_f32(f3.reshape((-1,) + (solver.V,) * 3),
+                           solver._dense_tms(tms), solver._dense_inv_cap(caps))
+    u_is_f32 = bool(np.array_equal(
+        u32.reshape(caps.shape[0], -1).amax(1).cpu().numpy().astype(np.float64),
+        s1["u_star"]))
+    above_bound = float((res_b.u_star / (staged.u_star * (1 - cc.pdhg_tol))).min())
+    capped = float(np.mean(np.asarray(res_b.solver_stats.stages["stage1"].iters)
+                           >= cc.pdhg_max_iters))
+    log(f"  bf16 PDHG execute {t_b:.3f} s: solve {res_b.stage_times['solve']:.3f} s "
+        f"(anchor {res_b.stage_times['anchor']:.3f} s) vs f32 "
+        f"{staged.stage_times['solve']:.3f} s (anchor "
+        f"{staged.stage_times['anchor']:.3f} s); median iterations bf16 {med_b}, "
+        f"f32 {med_f}; bf16 stage 1 capped at {cc.pdhg_max_iters} in "
+        f"{capped:.3f} of the epochs; stage-1 loop per iteration at B = "
+        f"{caps.shape[0]}: f32 {per_iter['f32']:.3f} ms, bf16 "
+        f"{per_iter['bf16']:.3f} ms")
+    log(f"  bf16 vs f32 per-epoch u*: rel diff median {float(np.median(u_rel)):.3e}, "
+        f"max {float(u_rel.max()):.3e}, min {float(u_rel.min()):.3e}, share within "
+        f"1 % {float(np.mean(np.abs(u_rel) <= BF16_REL_TOL)):.3f}; p99.9 MLU over the "
+        f"{int(solved.sum())} intervals under the solved routing rel diff "
+        f"{p999_rel:.3e}; min u*_bf16 / (u*_f32 (1 - tol)) {above_bound:.6f}; "
+        f"stage-1 u is the f32 evaluation of the flows {u_is_f32}")
+    if not u_is_f32 or above_bound < 1.0 - 1e-6:
+        fail("failures: a bf16 u is not the float32 evaluation of its flows, or "
+             "falls below the f32 solve's certified lower bound")
+    if float(u_rel.max()) > BF16_EPOCH_REL_LIMIT:
+        fail(f"failures: a bf16 epoch's u* lies {float(u_rel.max()):.3e} above "
+             f"f32's, over the {BF16_EPOCH_REL_LIMIT} limit")
+    if abs(p999_rel) > BF16_REL_TOL:
+        fail(f"failures: the bf16 sweep's p99.9 MLU is {p999_rel:.3e} off f32's, "
+             f"outside {BF16_REL_TOL}")
+    out.update(bf16_solve_s=res_b.stage_times["solve"],
+               f32_solve_s=staged.stage_times["solve"], bf16_iters=med_b,
+               f32_iters=med_f, per_iter_ms=per_iter,
+               u_rel_max=float(u_rel.max()), p999_rel=p999_rel)
+    return counts, kernel_rows, out
 
 
 def _device_profile(fn, device, top: int = 8):
@@ -1793,8 +2172,12 @@ def main() -> int:
     mark("fleet")
     model_counts, _ = phase_models(dev)
     mark("models")
-    transition_counts, _ = phase_transition(*transition_config(), device=dev)
+    config9 = transition_config()
+    transition_counts, phase9 = phase_transition(*config9, device=dev)
     mark("transition")
+    failure_counts, fused_rows, _ = phase_failures(
+        *config9, phase9["art"], phase9["staged_result"], device=dev)
+    mark("failures")
     for key in rows:
         rows[key]["launches"] = counts[key]
         rows[key]["launches_transition_phase"] = transition_counts[key]
@@ -1802,6 +2185,8 @@ def main() -> int:
         single[key]["launches"] = serve_counts[key]
         single[key]["launches_sequential_phase"] = seq_counts[key]
         fleet[key]["launches"] = fleet_counts[key]
+        fleet[key]["launches_failures_phase"] = failure_counts[key]
+        fleet[key]["failures_shape"] = fused_rows[key]
     for key in model_rows:
         model_rows[key]["launches"] = model_counts[key]
     log(f"phase end times (s since start) {marks}")

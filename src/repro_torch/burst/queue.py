@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.burst.expander import BurstParams, expand
+from repro_torch.device import fleet_rows
 
 __all__ = ["LossConfig", "link_buffer_gb", "interval_loss",
            "interval_loss_batched", "interval_loss_fleet", "queue_loss_numpy"]
@@ -187,6 +188,8 @@ def interval_loss_fleet(
     backend: str = "torch",
     slots_fleet: list | None = None,
     device=None,
+    rows: np.ndarray | None = None,
+    weights_op=None,
 ) -> list:
     """Per-interval loss fractions of many fabrics' sweeps in one queue scan.
 
@@ -208,6 +211,14 @@ def interval_loss_fleet(
         layout, whose width comes from ``weights_fleet``; ``None`` when the
         blocks already match the weights.
       device: the torch backend's device (``None`` = CUDA).
+      rows: ``(F,)`` entries of the lists above, one per scanned row: row
+        ``r`` scans entry ``rows[r]``'s blocks under ``capacities_fleet[r]``
+        (each entry is expanded once and goes to the device once).
+        ``None``: one row per entry.
+      weights_op: the ``(F, B_max, C_p, E_p)`` weights operand of these rows
+        as :func:`repro_torch.core.simulator.route_metrics_fleet` built it
+        for its linkload launch (on ``"torch"`` a tensor on the device);
+        ``None`` builds it from ``weights_fleet``.
 
     Burst expansion stays per block, per seed and in the native layout; the
     expanded sub-samples are scattered into the bucket layout and zero-padded
@@ -216,9 +227,10 @@ def interval_loss_fleet(
     so neither ever drops.  Returns per-fabric lists of ``(T_b,)`` loss
     fractions.
     """
-    f = len(blocks_fleet)
+    f = len(capacities_fleet)
     if f == 0:
         return []
+    src = np.arange(f) if rows is None else np.asarray(rows, np.int64)
     dt = interval_seconds / cfg.n_sub
     subs, lens = [], []
     for blocks, seeds in zip(blocks_fleet, seeds_fleet):
@@ -233,26 +245,32 @@ def interval_loss_fleet(
     ts_max = max((n for row in lens for n in row), default=1) * cfg.n_sub
     c = np.asarray(weights_fleet[0]).shape[1]
     e = np.asarray(weights_fleet[0]).shape[2]
-    sub_b = np.zeros((f, b_max, max(ts_max, 1), c), np.float64)
-    w_b = np.zeros((f, b_max, c, e), np.float64)
+    j = len(blocks_fleet)
+    sub_b = np.zeros((j, b_max, max(ts_max, 1), c), np.float64)
     cap_b = np.zeros((f, b_max, e), np.float64)
     buf_b = np.zeros((f, b_max, e), np.float64)
-    for fi in range(f):
+    for fi in range(j):
         slots = None if slots_fleet is None else slots_fleet[fi]
         for bi, s in enumerate(subs[fi]):
             if slots is None:
                 sub_b[fi, bi, : s.shape[0]] = s
             else:  # embed the native-layout expansion into the bucket layout
                 sub_b[fi, bi, : s.shape[0], :][:, slots] = s
-        nb = len(subs[fi])
-        w_b[fi, :nb] = np.asarray(weights_fleet[fi], np.float64)
-        cap_b[fi, :nb] = np.asarray(capacities_fleet[fi], np.float64)
-        buf_b[fi, :nb] = link_buffer_gb(cap_b[fi, :nb], cfg.buffer_ms)
+    if weights_op is None:
+        w_b = np.zeros((j, b_max, c, e), np.float64)
+        for fi in range(j):
+            w_b[fi, :len(subs[fi])] = np.asarray(weights_fleet[fi], np.float64)
+        weights_op = fleet_rows(w_b, rows, backend, device)
+    for r in range(f):
+        nb = len(subs[src[r]])
+        cap_b[r, :nb] = np.asarray(capacities_fleet[r], np.float64)
+        buf_b[r, :nb] = link_buffer_gb(cap_b[r, :nb], cfg.buffer_ms)
     from repro_torch.kernels.queueloss import ops as qlops
 
-    drop_b, _ = qlops.queue_loss_fleet(sub_b, w_b, cap_b, buf_b, dt,
-                                       backend=backend, device=device)
-    return [[_loss_fractions(drop_b[fi, bi, : n * cfg.n_sub], s, n, cfg.n_sub,
+    drop_b, _ = qlops.queue_loss_fleet(
+        fleet_rows(sub_b, rows, backend, device), weights_op, cap_b, buf_b,
+        dt, backend=backend, device=device)
+    return [[_loss_fractions(drop_b[r, bi, : n * cfg.n_sub], s, n, cfg.n_sub,
                              dt)
-             for bi, (s, n) in enumerate(zip(subs[fi], lens[fi]))]
-            for fi in range(f)]
+             for bi, (s, n) in enumerate(zip(subs[src[r]], lens[src[r]]))]
+            for r in range(f)]

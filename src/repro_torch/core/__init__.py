@@ -3,7 +3,8 @@ controller engine, the sequential walk and the fleet engine, their PDHG
 routing solver and scoring on the device, the predictor and the baselines, and
 copies of the reference's framework-free modules (fabric graph, paths,
 traffic, synthetic fleet, scipy LPs, rounding, patch panels, joint
-solver)."""
+solver).  The failure contingencies' config and report are re-exported from
+:mod:`repro_torch.failures`."""
 
 from repro_torch.core.graph import Fabric, uniform_topology
 from repro_torch.core.paths import PathSet, build_paths, routing_weight_matrix
@@ -20,6 +21,8 @@ from repro_torch.core.engine import (ControllerPlan, PlanArtifacts,
                                      run_controller_batched)
 from repro_torch.core.fleet_engine import FleetJob, predict_fleet, run_fleet
 from repro_torch.burst import BurstParams, LossConfig
+from repro_torch.failures.config import FailureConfig
+from repro_torch.failures.evaluate import ContingencyReport
 from repro_torch.transition import TransitionConfig, should_reconfigure
 
 __all__ = [
@@ -30,5 +33,6 @@ __all__ = [
     "ControllerResult", "run_controller", "ControllerPlan", "PlanArtifacts",
     "plan_artifacts", "plan_controller", "run_controller_batched",
     "FleetJob", "run_fleet", "predict_fleet",
-    "BurstParams", "LossConfig", "TransitionConfig", "should_reconfigure",
+    "BurstParams", "LossConfig", "ContingencyReport", "FailureConfig",
+    "TransitionConfig", "should_reconfigure",
 ]

@@ -24,8 +24,16 @@ more batch of the epoch-batched kernels), and gated by the §4.6
 benefit-vs-disruption :func:`repro_torch.transition.should_reconfigure` rule
 (skipped updates count in ``ControllerResult.n_skipped_topology``).  Unset
 (the default), controller output is bit-identical to the instantaneous
-behavior.  Failure contingencies come with a later slice; asking for them
-raises ``NotImplementedError``.
+behavior.
+
+With ``ControllerConfig.failures`` set (a
+:class:`repro_torch.failures.FailureConfig`), the sweep's scored plan is
+additionally evaluated under sampled failure contingencies
+(:func:`repro_torch.failures.evaluate_plan`: one launch of the fleet kernels
+over (scenario × block) rows), the summary gains ``cont_*`` keys and
+``ControllerResult.contingency`` its report; with ``contingency_weight`` set
+the transition gate blends in the worst-contingency benefit and disruption.
+Unset, the output is bit-identical to the controller without the subsystem.
 """
 
 from __future__ import annotations
@@ -45,13 +53,10 @@ from repro_torch.core.simulator import IntervalMetrics, route_metrics, summarize
 from repro_torch.core.solver import GeminiSolution, SolverConfig, Strategy, solve
 from repro_torch.core.traffic import Trace
 from repro_torch.device import resolve_device
+from repro_torch.failures.config import FailureConfig
 from repro_torch.transition.config import TransitionConfig
 
 __all__ = ["ControllerConfig", "ControllerResult", "run_controller"]
-
-
-def _later_slice(what: str):
-    return NotImplementedError(f"{what} lands in a later slice of the port")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +84,17 @@ class ControllerConfig:
     solver_backend: str = "pdhg"  # routing-only solves: pdhg | scipy
     pdhg_max_iters: int = 3000  # PDHG iteration cap per stage
     pdhg_tol: float = 1e-2  # PDHG certified-gap / objective-stall tolerance
-    solver_precision: str = "f32"  # "bf16" lands in a later slice
+    # PDHG arithmetic: "f32" (exact) or "bf16" — the hot loop's load
+    # operator and its adjoint take bf16 operands with f32 accumulation;
+    # projections, step sizes and the duality-gap certificate stay f32
+    solver_precision: str = "f32"
     # reconfiguration-transition modeling (repro_torch.transition): None (the
     # default) keeps topology updates instantaneous and free, bit-identical
     # to the controller without transitions
     transition: TransitionConfig | None = None
-    failures: object = None  # failure contingencies: a later slice
+    # contingency analysis (repro_torch.failures): None (the default) skips
+    # it — output bit-identical to the controller without it
+    failures: FailureConfig | None = None
     kmeans_dtype: str = "float32"
 
     def __post_init__(self):
@@ -92,12 +102,11 @@ class ControllerConfig:
             # panel decomposition (Thm. 4) needs integer, even-degree topologies
             raise ValueError(
                 "ControllerConfig.transition requires realize_topology")
-        if self.failures is not None:
-            raise _later_slice("ControllerConfig.failures")
         if self.engine not in ("batched", "sequential"):
             raise ValueError(f"unknown engine {self.engine!r}")
-        if self.solver_precision != "f32":
-            raise _later_slice(f"solver_precision={self.solver_precision!r}")
+        if self.solver_precision not in ("f32", "bf16"):
+            raise ValueError(
+                f"unknown solver_precision {self.solver_precision!r}")
         if self.backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.solver_backend not in ("pdhg", "scipy"):
@@ -128,6 +137,8 @@ class ControllerResult:
     # repro_torch.obs.SolverStats (per-epoch PDHG iterations / certified
     # gaps / restarts); None on the scipy backend
     solver_stats: object = None
+    # repro_torch.failures.ContingencyReport (per-scenario worst/mean MLU
+    # and loss under the sampled failure set); None unless cc.failures
     contingency: object = None
     # what the sweep scored, per routing epoch: path splits (B, P) and
     # realized directed capacities (B, E) — enough to re-score it outside
@@ -183,6 +194,9 @@ def run_controller(
     pdhg_raws: list = []
     n_fallbacks = 0
     f_epochs, cap_epochs, u_epochs = [], [], []
+    # scoring inputs kept for the contingency evaluation after the walk (in
+    # the block order of the batched engine's plan_score_blocks)
+    c_blocks, c_w, c_caps, c_seeds, c_tms, c_deltas = [], [], [], [], [], []
 
     sol: GeminiSolution | None = None
     n_realized: np.ndarray | None = None
@@ -253,9 +267,17 @@ def run_controller(
             rem_lo, rem_seed = 0, (cc.loss.seed + start if cc.loss is not None
                                    else None)
             if staged is not None:
-                stage_m, rem_lo, rem_seed = _score_stages(
+                stage_m, spans, seeds, rem_lo, rem_seed = _score_stages(
                     block, staged, cc, trace, start, device=dev)
                 metrics = metrics.concat(stage_m)
+                if cc.failures is not None:
+                    for s, (k, lo, hi) in enumerate(spans):
+                        c_blocks.append(block[lo:hi])
+                        c_w.append(staged.stage_w[k])
+                        c_caps.append(staged.stage_caps[k])
+                        c_seeds.append(seeds[s] if seeds is not None else 0)
+                        c_tms.append(tms)
+                        c_deltas.append(sol.delta)
             loss_cfg = (dataclasses.replace(cc.loss, seed=rem_seed)
                         if cc.loss is not None else None)
             if block.shape[0] - rem_lo > 0:
@@ -264,6 +286,33 @@ def run_controller(
                     backend=cc.backend, loss_cfg=loss_cfg,
                     interval_seconds=trace.interval_minutes * 60.0,
                     device=dev))
+                if cc.failures is not None:
+                    c_blocks.append(block[rem_lo:])
+                    c_w.append(w)
+                    c_caps.append(cap)
+                    c_seeds.append(rem_seed if rem_seed is not None else 0)
+                    c_tms.append(tms)
+                    c_deltas.append(sol.delta)
+
+    summary = summarize(metrics)
+    contingency = None
+    if cc.failures is not None and c_blocks:
+        from repro_torch.core.engine import _pad_tms
+        from repro_torch.failures import evaluate_plan
+
+        with phases("failures"):
+            contingency = evaluate_plan(
+                fabric, cc, sc, c_blocks, np.stack(c_w), np.stack(c_caps),
+                c_seeds if cc.loss is not None else None,
+                trace.interval_minutes * 60.0,
+                tms_blocks=(np.stack([_pad_tms(np.asarray(t, float),
+                                               cc.k_critical)
+                                      for t in c_tms])
+                            if cc.failures.resolve else None),
+                deltas=(np.asarray(c_deltas)
+                        if cc.failures.resolve else None),
+                device=dev)
+            summary.update(contingency.summary_update())
 
     obs.quality.record_interval_metrics(fabric.name, metrics)
     solver_stats = None
@@ -274,7 +323,7 @@ def run_controller(
     return ControllerResult(
         strategy=strategy,
         metrics=metrics,
-        summary=summarize(metrics),
+        summary=summary,
         n_routing_updates=n_routing,
         n_topology_updates=n_topology,
         final_topology=np.asarray(n_realized),
@@ -284,6 +333,7 @@ def run_controller(
         transition_log=tuple(transition_log),
         stage_times=phases.times,
         solver_stats=solver_stats,
+        contingency=contingency,
         splits=np.stack(f_epochs),
         capacities=np.stack(cap_epochs),
         u_star=np.asarray(u_epochs, np.float64),
@@ -322,11 +372,23 @@ def _transition_gate(fabric, tms, n_old, n_new, tc, cc, sc, *,
                                  device=device)
     if ev is None:
         return True, None, None, t.seconds
-    # the reference's failure-aware blend (cc.failures.contingency_weight)
-    # comes with the failures slice; ControllerConfig refuses failures
-    apply = (should_reconfigure(ev.benefit, ev.disruption, tc.hysteresis,
-                                fabric=fabric.name)
-             if tc.decide else True)
+    if tc.decide:
+        fcfg = cc.failures
+        if fcfg is not None and fcfg.contingency_weight is not None:
+            # failure-aware gate: blend in the worst-contingency benefit /
+            # disruption pair (fixed-routing re-scores under sampled masks)
+            from repro_torch.failures import transition_worst_case
+
+            b_w, d_w = transition_worst_case(fabric, tms, ev, fcfg)
+            apply = should_reconfigure(
+                ev.benefit, ev.disruption, tc.hysteresis,
+                contingency_weight=fcfg.contingency_weight,
+                benefit_worst=b_w, disruption_worst=d_w, fabric=fabric.name)
+        else:
+            apply = should_reconfigure(ev.benefit, ev.disruption,
+                                       tc.hysteresis, fabric=fabric.name)
+    else:
+        apply = True
     staged = ev if apply and not tc.instantaneous else None
     if staged is not None:
         obs.event("transition.staged", n_stages=ev.n_stages,
@@ -342,8 +404,10 @@ def _score_stages(block, ev, cc, trace, start, device=None):
     of the epoch-batched linkload and queueloss kernels on ``device``); span
     and burst-seed arithmetic comes from the engine-shared
     :func:`repro_torch.transition.stage_partition`.  Returns ``(metrics,
-    rem_lo, rem_seed)``: the concatenated staged metrics, the offset at which
-    the steady new topology takes over, and its burst seed.
+    spans, seeds, rem_lo, rem_seed)``: the concatenated staged metrics, the
+    scored stage spans and their burst seeds (the contingency collector
+    replays them), the offset at which the steady new topology takes over,
+    and its burst seed.
     """
     from repro_torch.core.simulator import route_metrics_batched
     from repro_torch.transition import stage_partition
@@ -357,7 +421,7 @@ def _score_stages(block, ev, cc, trace, start, device=None):
         ev.stage_w[idx], ev.stage_caps[idx], cc.overload_threshold,
         backend=cc.backend, loss_cfg=cc.loss, loss_seeds=seeds,
         interval_seconds=trace.interval_minutes * 60.0, device=device)
-    return stage_m, rem_lo, rem_seed
+    return stage_m, spans, seeds, rem_lo, rem_seed
 
 
 def _solve_routing_only(fabric, tms, strategy, sc, window, capacities,

@@ -17,6 +17,9 @@ counterpart of ``repro/core/engine.py``.
    call scores the whole sweep — one launch each of the epoch-batched
    linkload and queueloss CUDA kernels, burst loss included; drain stages
    slot in as extra blocks on the same batch axis.
+4. **Contingencies** (``ControllerConfig.failures`` set): the same scoring
+   blocks under sampled failure masks, one launch of the fleet kernels over
+   (scenario × block) rows (:func:`repro_torch.failures.evaluate_plan`).
 
 The device is explicit: :func:`run_controller_batched` threads it into the
 k-means, the solver and the scoring calls.
@@ -290,13 +293,15 @@ def plan_score_blocks(trace: Trace, art: PlanArtifacts, w_b: np.ndarray,
     engine) — staged epochs' ``stage_w``/``stage_caps`` are taken from
     ``art.staging`` as-is, so callers in a padded layout must pad those too.
 
-    Returns ``(blocks, block_w, block_caps, loss_seeds)``; ``blocks`` are
-    (T_b, C) demand slices of ``trace`` and each block's burst seed is
-    ``cc.loss.seed`` plus its first interval (paired with the reference
-    controller)."""
+    Returns ``(blocks, block_w, block_caps, loss_seeds, block_epoch)``;
+    ``blocks`` are (T_b, C) demand slices of ``trace``, each block's burst
+    seed is ``cc.loss.seed`` plus its first interval (paired with the
+    reference controller), and ``block_epoch`` maps each block to its
+    routing epoch (the contingency re-solve needs each block's critical TMs
+    and burst size)."""
     from repro_torch.transition import stage_partition
 
-    blocks, block_w, block_caps, loss_seeds = [], [], [], []
+    blocks, block_w, block_caps, loss_seeds, block_epoch = [], [], [], [], []
     for i, ep in enumerate(art.plan.epochs):
         block = trace.demand[ep.start: ep.stop]
         rem_lo, rem_seed = 0, (cc.loss.seed + ep.start
@@ -311,12 +316,14 @@ def plan_score_blocks(trace: Trace, art: PlanArtifacts, w_b: np.ndarray,
                 block_w.append(ev.stage_w[k])
                 block_caps.append(ev.stage_caps[k])
                 loss_seeds.append(seeds[s] if seeds is not None else 0)
+                block_epoch.append(i)
         if block.shape[0] - rem_lo > 0:
             blocks.append(block[rem_lo:])
             block_w.append(w_b[i])
             block_caps.append(caps[i])
             loss_seeds.append(rem_seed if rem_seed is not None else 0)
-    return blocks, block_w, block_caps, loss_seeds
+            block_epoch.append(i)
+    return blocks, block_w, block_caps, loss_seeds, block_epoch
 
 
 def transit_fraction_of(paths, f_b: np.ndarray) -> float:
@@ -329,7 +336,8 @@ def transit_fraction_of(paths, f_b: np.ndarray) -> float:
 def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
                  cc, sc: SolverConfig, art: PlanArtifacts, device=None):
     """Phases 2–3: batched routing-only solves + single-pass batched scoring
-    for one planned sweep."""
+    for one planned sweep, then the contingency analysis when
+    ``cc.failures`` is set."""
     from repro_torch.core.controller import ControllerResult
 
     dev = resolve_device(device)
@@ -371,7 +379,7 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
     # ---- phase 3: single-pass batched scoring -------------------------------
     with phases("score", "engine.score"):
         w_b = routing_weight_matrices(paths, f_b)
-        blocks, block_w, block_caps, loss_seeds = \
+        blocks, block_w, block_caps, loss_seeds, block_epoch = \
             plan_score_blocks(trace, art, w_b, caps, cc)
         metrics = route_metrics_batched(
             blocks, np.stack(block_w), np.stack(block_caps),
@@ -387,6 +395,24 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
             obs.quality.record_epoch_quality(
                 fabric.name, tms, trace.demand[ep.start: ep.stop])
 
+    # ---- contingency analysis (optional; cc.failures=None skips) ------------
+    contingency = None
+    if cc.failures is not None:
+        from repro_torch.failures import evaluate_plan
+
+        with phases("failures", "engine.failures"):
+            ep_idx = np.asarray(block_epoch)
+            resolve = cc.failures.resolve
+            contingency = evaluate_plan(
+                fabric, cc, sc, blocks, np.stack(block_w),
+                np.stack(block_caps),
+                loss_seeds if cc.loss is not None else None,
+                trace.interval_minutes * 60.0,
+                tms_blocks=(art.tms_padded(cc.k_critical)[ep_idx]
+                            if resolve else None),
+                deltas=art.deltas[ep_idx] if resolve else None, device=dev)
+            summary.update(contingency.summary_update())
+
     return ControllerResult(
         strategy=strategy,
         metrics=metrics,
@@ -400,6 +426,7 @@ def execute_plan(fabric: Fabric, trace: Trace, strategy: Strategy,
         transition_log=art.transition_log,
         stage_times=phases.times,
         solver_stats=solver_stats,
+        contingency=contingency,
         splits=f_b,
         capacities=caps,
         u_star=u_b,

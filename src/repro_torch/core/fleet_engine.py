@@ -22,12 +22,17 @@ job's controller sweep in three fleet-wide phases:
    call — one launch each of the fleet linkload and queueloss CUDA kernels —
    scores the whole bucket, drain stages (padded into the bucket's layout)
    included.
+4. **Contingencies** (jobs with ``ControllerConfig.failures`` set) — the
+   fixed-routing jobs of a bucket stay in its padded layout and every (job,
+   scenario) pair becomes one more row of ONE
+   :func:`repro_torch.failures.evaluate.contingency_metrics_jobs` call;
+   re-solve jobs drop to their native layout and go through
+   :func:`repro_torch.failures.evaluate_plan`.
 
 Jobs whose ``solver_backend`` is not ``"pdhg"`` go through the per-fabric
 :func:`repro_torch.core.engine.execute_plan`.  The port runs on one device:
 sharding the batch over several cards (the reference's ``mesh``) comes with
-a later slice, and asking for it raises ``NotImplementedError``, as do jobs
-with failure contingencies.
+a later slice, and asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -135,9 +140,6 @@ def run_fleet(jobs, *, pod_quantum: int = 4, mesh="auto", device=None) -> list:
             j = FleetJob(*j)
         cc = j.cc if j.cc is not None else ControllerConfig()
         sc = j.sc if j.sc is not None else SolverConfig()
-        if cc.failures is not None:
-            raise NotImplementedError(
-                "ControllerConfig.failures lands in a later slice of the port")
         resolved.append((j, cc, sc))
 
     # ---- phase 1: per-fabric plan walks (sequential topology solves) --------
@@ -227,6 +229,7 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
         cc0 = resolved[idxs[0]][1]  # scoring config is part of the bucket key
         blocks_fleet, w_fleet, caps_fleet, seeds_fleet = [], [], [], []
         native_blocks_fleet, slots_fleet = [], []  # burst expansion needs these
+        w_items = []
         for i, (lo, hi) in zip(idxs, spans):
             j, cc, sc = resolved[i]
             slots, caps_p = slots_of[i], caps_p_of[i]
@@ -243,7 +246,7 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
                         stage_caps=scatter_pad(ev.stage_caps, slots, cp,
                                                axis=1))
                     for ev in art.staging))
-            blocks, block_w, block_caps, loss_seeds = plan_score_blocks(
+            blocks, block_w, block_caps, loss_seeds, _ = plan_score_blocks(
                 j.trace, art, w_b, caps_p, cc)
             blocks_fleet.append([scatter_pad(np.asarray(bl, np.float64), slots,
                                              cp, axis=1) for bl in blocks])
@@ -252,6 +255,7 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             w_fleet.append(np.stack(block_w))
             caps_fleet.append(np.stack(block_caps))
             seeds_fleet.append(loss_seeds)
+            w_items.append(w_b)
         metrics_fleet = route_metrics_fleet(
             blocks_fleet, w_fleet, caps_fleet, cc0.overload_threshold,
             backend=cc0.backend, loss_cfg=cc0.loss,
@@ -259,6 +263,10 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             interval_seconds=key[-1] * 60.0,
             loss_blocks_fleet=native_blocks_fleet, loss_slots_fleet=slots_fleet,
             device=dev)
+
+    cont_of, fail_share = _bucket_contingencies(
+        key, idxs, resolved, arts, dev, blocks_fleet, w_fleet, caps_fleet,
+        seeds_fleet, native_blocks_fleet, slots_fleet, w_items)
 
     for pos, (i, (lo, hi)) in enumerate(zip(idxs, spans)):
         j, cc, sc = resolved[i]
@@ -270,6 +278,8 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             for ep, tms in zip(art.plan.epochs, art.tms):
                 obs.quality.record_epoch_quality(
                     j.fabric.name, tms, j.trace.demand[ep.start: ep.stop])
+        if i in cont_of:
+            summary.update(cont_of[i].summary_update())
         phases = obs.PhaseTimes()
         phases.add("plan", art.plan_seconds)
         if art.transition_seconds:
@@ -277,6 +287,8 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
         phases.add("solve", solve_s / len(idxs))
         phases.add("anchor", anchor_share)
         phases.add("score", t_score.seconds / len(idxs))
+        if i in cont_of:
+            phases.add("failures", fail_share)
         results[i] = ControllerResult(
             strategy=j.strategy,
             metrics=metrics,
@@ -290,11 +302,89 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
             transition_log=art.transition_log,
             stage_times=phases.times,
             solver_stats=stats_of[i],
+            contingency=cont_of.get(i),
             splits=_native_splits(f_n[lo:hi], j.fabric.n_pods, vp,
                                   slots_of[i]),
             capacities=art.caps,
             u_star=u_n[lo:hi],
         )
+
+
+def _bucket_contingencies(key, idxs, resolved, arts, dev, blocks_fleet,
+                          w_fleet, caps_fleet, seeds_fleet,
+                          native_blocks_fleet, slots_fleet, w_items):
+    """Contingency analysis of a bucket's jobs with ``cc.failures`` set.
+
+    Fixed-routing jobs stay in the padded bucket layout (their native masks
+    embedded by ``scatter_pad`` over the job's commodity slots): every (job,
+    scenario) pair is one more row of a single fused
+    :func:`contingency_metrics_jobs` call.  Re-solve jobs drop to their
+    fabric's native layout (routing is re-solved per scenario in its own
+    flattened PDHG batch).  Returns ``(reports by job index, seconds per
+    evaluated job)``.
+    """
+    cont_of: dict = {}
+    if all(resolved[i][1].failures is None for i in idxs):
+        return cont_of, 0.0
+    from repro_torch.failures import (evaluate_plan, report_from_metrics,
+                                      sample_masks)
+    from repro_torch.failures.evaluate import (EvalJob,
+                                               contingency_metrics_jobs,
+                                               record_contingency_gauges)
+
+    vp, m = key[0], key[1]
+    cp = vp * (vp - 1)
+    cc0 = resolved[idxs[0]][1]  # scoring config is part of the bucket key
+    with obs.timed("fleet.failures", bucket_pods=vp) as t_fail:
+        fixed_pos = [pos for pos, i in enumerate(idxs)
+                     if resolved[i][1].failures is not None
+                     and not resolved[i][1].failures.resolve]
+        scen_of, ejobs = {}, []
+        for pos in fixed_pos:
+            i = idxs[pos]
+            j, cc, sc = resolved[i]
+            scen, masks = sample_masks(j.fabric, cc.failures)
+            scen_of[i] = scen
+            ejobs.append(EvalJob(
+                blocks=blocks_fleet[pos], weights=w_fleet[pos],
+                caps=caps_fleet[pos],
+                masks=scatter_pad(masks, slots_fleet[pos], cp, axis=1),
+                loss_seeds=seeds_fleet[pos],
+                native_blocks=native_blocks_fleet[pos],
+                slots=slots_fleet[pos]))
+        if ejobs:
+            per_job = contingency_metrics_jobs(
+                ejobs, cc0.overload_threshold, backend=cc0.backend,
+                loss_cfg=cc0.loss, interval_seconds=key[-1] * 60.0,
+                device=dev)
+            for pos, ms in zip(fixed_pos, per_job):
+                i = idxs[pos]
+                j = resolved[i][0]
+                rep = report_from_metrics(scen_of[i], ms, resolve=False)
+                cont_of[i] = rep
+                obs.event("failures.evaluated", fabric=j.fabric.name,
+                          n_scenarios=rep.n_scenarios, resolve=False,
+                          worst_p999_mlu=rep.worst_p999_mlu,
+                          worst_p999_loss=rep.worst_p999_loss)
+                record_contingency_gauges(j.fabric.name, rep)
+        for pos, i in enumerate(idxs):
+            j, cc, sc = resolved[i]
+            if cc.failures is None or not cc.failures.resolve:
+                continue
+            art = arts[i]
+            slots = slots_fleet[pos]
+            w_nat = w_items[pos][:, slots][:, :, slots]
+            (blocks, block_w, block_caps, loss_seeds,
+             block_epoch) = plan_score_blocks(j.trace, art, w_nat, art.caps,
+                                              cc)
+            ep_idx = np.asarray(block_epoch)
+            cont_of[i] = evaluate_plan(
+                j.fabric, cc, sc, blocks, np.stack(block_w),
+                np.stack(block_caps),
+                loss_seeds if cc.loss is not None else None, key[-1] * 60.0,
+                tms_blocks=art.tms_padded(m)[ep_idx],
+                deltas=art.deltas[ep_idx], device=dev)
+    return cont_of, t_fail.seconds / max(len(cont_of), 1)
 
 
 def predict_fleet(fleet, cc=None, sc=None, cushion: float = 0.05,
@@ -309,19 +399,16 @@ def predict_fleet(fleet, cc=None, sc=None, cushion: float = 0.05,
 
     Args:
       fleet: list of ``(fabric, training_trace)`` pairs.
-      contingency_weight: the failure-aware blend raises
-        ``NotImplementedError`` until the ``failures`` package is ported;
-        ``None`` (default) is the expected-case selection.
+      contingency_weight: with ``cc.failures`` set, blend each strategy's
+        expected-case and worst-contingency objective through
+        :func:`repro_torch.failures.policy.pick_best_contingency`; ``None``
+        (default) keeps the expected-case selection.
 
     Returns a list of :class:`~repro_torch.core.predictor.Prediction`, in
     order.
     """
     from repro_torch.core.predictor import Prediction, pick_best
 
-    if contingency_weight is not None:
-        raise NotImplementedError(
-            "predict_fleet(contingency_weight=...) lands in a later slice of "
-            "the port (the failures package)")
     jobs = [FleetJob(fabric, trace, strat, cc, sc)
             for fabric, trace in fleet for strat in strategies]
     res = run_fleet(jobs, mesh=mesh, pod_quantum=pod_quantum, device=device)
@@ -332,6 +419,7 @@ def predict_fleet(fleet, cc=None, sc=None, cushion: float = 0.05,
         per = {strategies[si].name: res[fi * k + si].summary
                for si in range(k)}
         choice = pick_best(per, cushion, objective=objective,
+                           contingency_weight=contingency_weight,
                            fabric=fabric.name)
         obs.event("predictor.strategy_choice", fabric=fabric.name,
                   strategy=choice, hedging=by_name[choice].hedging)

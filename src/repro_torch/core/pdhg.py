@@ -36,6 +36,12 @@ each element's result does not depend on the batch it is solved in.
 
 Matmuls run in full float32: the solver refuses to start with TF32 matmuls
 enabled (about 1e-3 relative error, above the certificate's tolerance).
+``precision="bf16"`` is the reference's mixed-precision inner loop: the load
+operator and its adjoint in the iteration steps take bf16-rounded operands
+and accumulate in float32 (:func:`_bmm_bf16`), while the projections, the
+step sizes (the power iteration) and every convergence check, certificate
+and returned utilization use the exact float32 pair (``_util_f32``,
+``_util_adj_f32``).
 """
 
 from __future__ import annotations
@@ -155,6 +161,20 @@ def _refuse_tf32() -> None:
             "carry ~1e-3 relative error, above the PDHG certificate's")
 
 
+def _bmm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over a batch of bf16 matrices, accumulated and returned in
+    float32 (the reference's ``preferred_element_type=float32``).
+
+    On CUDA one bf16 GEMM with a float32 output (``aten::bmm.dtype``, the
+    tensor cores; the output is never rounded to bf16).  The CPU has no such
+    kernel, so there the operands go up to float32 first: the product of two
+    bf16 values is exact in float32, so it is the same arithmetic.
+    """
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _amax(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).amax(1)
 
@@ -176,10 +196,11 @@ class TorchRoutingSolver:
                  check_every: int = 100, tol: float = 5e-3,
                  restart_every: int = 150, dual_topk: int = 128,
                  precision: str = "f32", device=None):
-        if precision != "f32":
-            raise NotImplementedError(
-                f"PDHG precision {precision!r} lands in a later slice of the port")
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"unknown PDHG precision {precision!r}")
         _refuse_tf32()
+        self.precision = precision
+        self._mp = precision == "bf16"
         self.fabric = fabric
         self.m = m
         self.max_iters = max_iters
@@ -244,28 +265,72 @@ class TorchRoutingSolver:
 
     # ---- linear operators on the pod tensor ---------------------------------
 
-    def _util(self, f3, d3, ic):
-        """U[b, t, a, c] = capacity-normalized load of edge (a, c) under TM t."""
+    def _util_f32(self, f3, d3, ic):
+        """U[b, t, a, c] = capacity-normalized load of edge (a, c) under TM t
+        — always float32 (the certificate / reported-objective path)."""
         load1 = torch.einsum("bmij,bijk->bmik", d3, f3)  # first hops (+ direct)
         load2 = torch.einsum("bmij,bijk->bmkj", d3, f3 * self.mask_kj)
         return (load1 + load2) * ic[:, None]
 
-    def _util_adj(self, y, d3, ic):
-        """Adjoint: y (B, m, V, V) → gradient on f3 (B, V, V, V)."""
+    def _util_adj_f32(self, y, d3, ic):
+        """Adjoint: y (B, m, V, V) → gradient on f3 (B, V, V, V) — always
+        float32."""
         yn = y * ic[:, None]
         g1 = torch.einsum("bmij,bmik->bijk", d3, yn)
         g2 = torch.einsum("bmij,bmkj->bijk", d3, yn) * self.mask_kj
         return g1 + g2
 
+    def _util(self, f3, d3, ic):
+        """Hot-loop load operator: with ``precision="bf16"`` ``d3``, ``f3``
+        and ``f3·mask_kj`` are rounded to bf16, the products accumulate in
+        float32 and ``ic`` multiplies afterwards in float32; the exact
+        float32 operator otherwise."""
+        if not self._mp:
+            return self._util_f32(f3, d3, ic)
+        bf, b, m, v = torch.bfloat16, d3.shape[0], d3.shape[1], self.V
+        d3c = d3.to(bf)
+        fk = (f3 * self.mask_kj).to(bf)
+        # load1[b, m, i, k] = Σ_j d3[b, m, i, j] f3[b, i, j, k]: an (m × V)
+        # by (V × V) product per (b, i)
+        load1 = _bmm_bf16(d3c.permute(0, 2, 1, 3).reshape(b * v, m, v),
+                          f3.to(bf).reshape(b * v, v, v))
+        load1 = load1.reshape(b, v, m, v).permute(0, 2, 1, 3)
+        # load2[b, m, k, j] = Σ_i d3[b, m, i, j] fk[b, i, j, k]: per (b, j)
+        load2 = _bmm_bf16(d3c.permute(0, 3, 1, 2).reshape(b * v, m, v),
+                          fk.permute(0, 2, 1, 3).reshape(b * v, v, v))
+        load2 = load2.reshape(b, v, m, v).permute(0, 2, 3, 1)
+        return (load1 + load2) * ic[:, None]
+
+    def _util_adj(self, y, d3, ic):
+        """Hot-loop adjoint: with ``precision="bf16"`` ``y·ic`` and ``d3``
+        are rounded to bf16 before the products (float32 accumulation); the
+        exact float32 adjoint otherwise."""
+        if not self._mp:
+            return self._util_adj_f32(y, d3, ic)
+        bf, b, m, v = torch.bfloat16, d3.shape[0], d3.shape[1], self.V
+        yn = (y * ic[:, None]).to(bf)
+        d3c = d3.to(bf)
+        # g1[b, i, j, k] = Σ_m d3[b, m, i, j] yn[b, m, i, k]: per (b, i)
+        g1 = _bmm_bf16(d3c.permute(0, 2, 3, 1).reshape(b * v, v, m),
+                       yn.permute(0, 2, 1, 3).reshape(b * v, m, v))
+        g1 = g1.reshape(b, v, v, v)
+        # g2[b, i, j, k] = Σ_m d3[b, m, i, j] yn[b, m, k, j]: per (b, j)
+        g2 = _bmm_bf16(d3c.permute(0, 3, 2, 1).reshape(b * v, v, m),
+                       yn.permute(0, 3, 1, 2).reshape(b * v, m, v))
+        g2 = g2.reshape(b, v, v, v).permute(0, 2, 1, 3) * self.mask_kj
+        return g1 + g2
+
     def _opnorm(self, d3, ic, valid, iters: int = 30):
-        """Power iteration for ‖U‖ per element (as an operator on f3)."""
+        """Power iteration for ‖U‖ per element (as an operator on f3) — in
+        float32 whatever the precision (the step sizes it sets gate
+        convergence)."""
         vv = valid.to(d3.dtype)
         vv = vv / _bc(torch.linalg.vector_norm(vv.reshape(vv.shape[0], -1), dim=1), vv)
         for _ in range(iters):
-            v2 = self._util_adj(self._util(vv, d3, ic), d3, ic)
+            v2 = self._util_adj_f32(self._util_f32(vv, d3, ic), d3, ic)
             nrm = torch.linalg.vector_norm(v2.reshape(v2.shape[0], -1), dim=1)
             vv = v2 / _bc(nrm + 1e-30, v2)
-        u = self._util(vv, d3, ic)
+        u = self._util_f32(vv, d3, ic)
         return torch.linalg.vector_norm(u.reshape(u.shape[0], -1), dim=1)
 
     def _proj_f(self, f3, valid):
@@ -372,8 +437,8 @@ class TorchRoutingSolver:
         def check(s, last):
             # exact duality gap of the matrix game: primal = max util of f;
             # dual lower bound = min_f' <y, U f'> (closed form)
-            obj = _amax(self._util(s["f"], d3, ic))
-            lb = self._dual_min(self._util_adj(s["y"], d3, ic), valid)
+            obj = _amax(self._util_f32(s["f"], d3, ic))
+            lb = self._dual_min(self._util_adj_f32(s["y"], d3, ic), valid)
             ok = obj - lb <= self.tol * torch.clamp(obj, min=1e-6)
             return ok, obj, (obj - lb) / torch.clamp(obj, min=1e-6)
 
@@ -381,7 +446,7 @@ class TorchRoutingSolver:
         state = {"f": f0, "y": y0, "fa": f0, "ya": y0,
                  "k": torch.zeros(b, device=self.device)}
         s, it, gap = self._run(state, step, check)
-        return s["f"], _amax(self._util(s["f"], d3, ic)), it, s["y"], gap
+        return s["f"], _amax(self._util_f32(s["f"], d3, ic)), it, s["y"], gap
 
     # ---- stage 2: min r  ≡  min_f max(δ f / C) s.t. U(f) ≤ u* ---------------
 
@@ -430,8 +495,8 @@ class TorchRoutingSolver:
             # minuscule, where the last-iterate bound oscillates)
             f, y, z = s["f"], s["y"], s["z"]
             obj = _amax(risk_of(f))
-            u_chk = _amax(self._util(f, d3, ic))
-            coeff = (self._util_adj(y, d3, ic)
+            u_chk = _amax(self._util_f32(f, d3, ic))
+            coeff = (self._util_adj_f32(y, d3, ic)
                      + dl3 * (z[..., 0] * ic0 + z[..., 1] * ic1))
             lb = self._dual_min(coeff, valid) - u_star * _sum(y)
             scale = torch.clamp(obj, min=1e-9)
@@ -445,7 +510,7 @@ class TorchRoutingSolver:
                  "k": torch.zeros(b, device=self.device)}
         s, it, gap = self._run(state, step, check)
         f = s["f"]
-        return (f, _amax(risk_of(f)), _amax(self._util(f, d3, ic)),
+        return (f, _amax(risk_of(f)), _amax(self._util_f32(f, d3, ic)),
                 s["y"], s["z"], it, gap)
 
     # ---- stage 3: min stretch s.t. U(f) ≤ u*, risk ≤ r* ---------------------
@@ -481,8 +546,8 @@ class TorchRoutingSolver:
         def check(s, last):
             f, y = s["f"], s["y"]
             obj = _sum(cost * f)
-            u_chk = _amax(self._util(f, d3, ic))
-            coeff = cost + self._util_adj(y, d3, ic)
+            u_chk = _amax(self._util_f32(f, d3, ic))
+            coeff = cost + self._util_adj_f32(y, d3, ic)
             lb = self._dual_min(coeff, valid) - u_star * _sum(y)
             scale = torch.clamp(torch.abs(obj), min=1e-9)
             gap_ok = obj - lb <= self.tol * scale

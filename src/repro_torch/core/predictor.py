@@ -12,8 +12,8 @@ the cushion of the best, breaking ties by p99.9 MLU then ALU — this is the
 objective under which hedging pays off on volatile fabrics (§5).
 
 The counterpart of ``repro/core/predictor.py``: the strategy sweeps run the
-port's controller on ``device``.  The failure-aware ``contingency_weight``
-raises ``NotImplementedError`` until the ``failures`` package is ported.
+port's controller on ``device``.  A ``contingency_weight`` selects through
+the failure-aware :func:`repro_torch.failures.policy.pick_best_contingency`.
 """
 
 from __future__ import annotations
@@ -48,9 +48,10 @@ def _select(per_strategy: dict, cushion: float, objective: str,
             contingency_weight: float | None) -> str:
     """The pure selection rule (no recording) — see :func:`pick_best`."""
     if contingency_weight is not None:
-        raise NotImplementedError(
-            "pick_best(contingency_weight=...) lands in a later slice of the "
-            "port (the failures package)")
+        from repro_torch.failures.policy import pick_best_contingency
+
+        return pick_best_contingency(per_strategy, cushion, objective,
+                                     contingency_weight)
     if objective == "loss":
         if any("p999_loss" not in v for v in per_strategy.values()):
             raise ValueError(
@@ -125,9 +126,11 @@ def pick_best(per_strategy: dict, cushion: float = 0.05,
     breaking remaining ties by p99.9 ALU.  Requires summaries produced with
     loss tracking on (``p999_loss`` present).
 
-    ``contingency_weight`` (the failure-aware extension) raises
-    ``NotImplementedError`` in this slice of the port; ``None`` (default) is
-    the expected-case selection.
+    ``contingency_weight`` (failure-aware extension): rank by the blended
+    ``(1-w)·p999 + w·cont_worst_p999`` score instead
+    (:func:`repro_torch.failures.policy.pick_best_contingency`); needs
+    summaries from a controller run with ``ControllerConfig.failures`` set.
+    ``None`` (default) is the expected-case selection.
 
     ``fabric`` labels the decision-audit record and ``predictor.choices``
     counter (:mod:`repro_torch.obs`); it never affects the selection.  The audit
@@ -159,8 +162,6 @@ def predict(
     The sweeps run the port's controller on ``device`` (``None`` = CUDA)."""
     from repro_torch import obs
 
-    if contingency_weight is not None:
-        _select({}, cushion, objective, contingency_weight)  # raises
     dev = resolve_device(device)
     per: dict = {}
     by_name: dict = {}

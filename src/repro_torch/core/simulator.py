@@ -215,6 +215,7 @@ def route_metrics_fleet(
     loss_blocks_fleet: list | None = None,
     loss_slots_fleet: list | None = None,
     device=None,
+    rows: np.ndarray | None = None,
 ) -> list:
     """Single fused scoring pass over an entire fleet bucket.
 
@@ -241,33 +242,47 @@ def route_metrics_fleet(
         (:func:`repro_torch.core.fleet.commodity_slots`), so the burst
         expansion draws what the per-fabric controller draws.
       device: the torch backend's device (``None`` = CUDA).
+      rows: ``(F,)`` entries of the lists above, one per scored row: row
+        ``r`` scores entry ``rows[r]``'s blocks, weights, seeds and loss
+        layout under ``caps_fleet[r]`` (the contingency evaluator's
+        scenarios of one plan share its routing).  Each entry goes to the
+        device once, its rows are gathered there, and both kernels read the
+        one gathered weights operand.  ``None`` (default): one row per
+        entry, ``caps_fleet`` aligned with ``blocks_fleet``.
 
-    Returns a list of per-fabric :class:`IntervalMetrics`, each in the layout
+    Returns a list of per-row :class:`IntervalMetrics`, each in the layout
     of the per-fabric controller's concatenated metrics.
     """
+    from repro_torch.device import fleet_rows
     from repro_torch.kernels.linkload import ops as llops
 
-    f = len(blocks_fleet)
+    f = len(caps_fleet)
     if f == 0:
         return []
+    src = np.arange(f) if rows is None else np.asarray(rows, np.int64)
     lens = [[np.asarray(b).shape[0] for b in blocks] for blocks in blocks_fleet]
     b_max = max(len(blocks) for blocks in blocks_fleet)
     t_pad = max((n for row in lens for n in row), default=1)
     c = np.asarray(weights_fleet[0]).shape[1]
     e = np.asarray(weights_fleet[0]).shape[2]
-    demand_b = np.zeros((f, b_max, max(t_pad, 1), c), np.float64)
-    weights_b = np.zeros((f, b_max, c, e), np.float64)
+    j = len(blocks_fleet)
+    demand_b = np.zeros((j, b_max, max(t_pad, 1), c), np.float64)
+    weights_b = np.zeros((j, b_max, c, e), np.float64)
     caps_b = np.zeros((f, b_max, e), np.float64)
     for fi, blocks in enumerate(blocks_fleet):
         for bi, bl in enumerate(blocks):
             demand_b[fi, bi, : lens[fi][bi]] = np.asarray(bl, np.float64)
-        nb = len(blocks)
-        weights_b[fi, :nb] = np.asarray(weights_fleet[fi], np.float64)
-        caps_b[fi, :nb] = np.asarray(caps_fleet[fi], np.float64)
+        weights_b[fi, :len(blocks)] = np.asarray(weights_fleet[fi], np.float64)
+    for r in range(f):
+        caps_b[r, :len(blocks_fleet[src[r]])] = np.asarray(caps_fleet[r],
+                                                           np.float64)
+    weights_op = fleet_rows(weights_b, rows, backend, device)
     mlu_b, alu_b, olr_b, tot_b = llops.link_metrics_fleet(
-        demand_b, weights_b, caps_b, overload_threshold, backend=backend,
-        device=device)
-    dem_tot = demand_b.sum(axis=3)  # (F, B, T_pad)
+        fleet_rows(demand_b, rows, backend, device), weights_op, caps_b,
+        overload_threshold, backend=backend, device=device)
+    dem_tot = demand_b.sum(axis=3)  # (J, B, T_pad)
+    if rows is not None:
+        dem_tot = dem_tot[src]
     stretch_b = np.where(dem_tot > 1e-12,
                          tot_b / np.maximum(dem_tot, 1e-12), 1.0)
     loss_fleet = None
@@ -280,19 +295,21 @@ def route_metrics_fleet(
             loss_blocks_fleet if loss_blocks_fleet is not None else blocks_fleet,
             weights_fleet, caps_fleet, interval_seconds, loss_cfg,
             loss_seeds_fleet, backend=backend, slots_fleet=loss_slots_fleet,
-            device=device)
+            device=device, rows=rows, weights_op=weights_op)
     out = []
-    for fi, blocks in enumerate(blocks_fleet):
+    for r in range(f):
+        blocks, n_b = blocks_fleet[src[r]], lens[src[r]]
+
         def trim(arr):
             if not blocks:
                 return np.zeros((0,))
             return np.concatenate(
-                [np.asarray(arr[fi][bi][: lens[fi][bi]], np.float64)
+                [np.asarray(arr[r][bi][: n_b[bi]], np.float64)
                  for bi in range(len(blocks))])
 
         out.append(IntervalMetrics(
             mlu=trim(mlu_b), alu=trim(alu_b), olr=trim(olr_b),
             stretch=trim(stretch_b),
-            loss=(np.concatenate(loss_fleet[fi])
+            loss=(np.concatenate(loss_fleet[r])
                   if loss_fleet is not None else None)))
     return out

@@ -21,6 +21,7 @@ from repro_torch.core.pdhg import RoutingWarmState
 from repro_torch.core.solver import SolverConfig, Strategy
 from repro_torch.core.traffic import Trace
 from repro_torch.device import resolve_device
+from repro_torch.failures import FailureConfig
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import DecoderLM
@@ -63,14 +64,16 @@ def loss_config_from_dict(d: dict | None) -> LossConfig | None:
 
 def controller_config_from_dict(d: dict) -> ControllerConfig:
     """``ControllerConfig`` from the reference's fields.  ``backend`` maps
-    "pallas"/"jax" to "torch" and keeps "numpy"; ``transition`` (the
-    reference's ``TransitionConfig`` fields) becomes the port's; a set
-    ``failures`` is passed on, and the port's config refuses it."""
+    "pallas"/"jax" to "torch" and keeps "numpy"; ``transition`` and
+    ``failures`` (the reference's ``TransitionConfig`` and ``FailureConfig``
+    fields) become the port's."""
     d = dict(d)
     d["backend"] = _BACKENDS[d["backend"]]
     d["loss"] = loss_config_from_dict(d.get("loss"))
     if d.get("transition") is not None:
         d["transition"] = TransitionConfig(**d["transition"])
+    if d.get("failures") is not None:
+        d["failures"] = FailureConfig(**d["failures"])
     return ControllerConfig(**d)
 
 

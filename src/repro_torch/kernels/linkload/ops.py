@@ -187,6 +187,8 @@ def _live_inv_cap(capacities):
 
 
 def _put(x, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # an operand already on the device
+        return x.to(dev, torch.float32)
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
 
@@ -272,6 +274,7 @@ def link_metrics_fleet(demand, weights, capacities, threshold: float = 0.8,
       demand: (F, B, T, C) per-(fabric, block) demand (zero rows and all-zero
         padded blocks are scored and trimmed by the caller).
       weights: (F, B, C, E) per-(fabric, block) routing-weight matrices.
+        On ``"torch"`` either may already be a tensor on the device.
       capacities: (F, B, E) per-(fabric, block) directed capacities (zero on
         padded links and padded blocks).
       threshold: overload threshold of the OLR count.
@@ -282,8 +285,6 @@ def link_metrics_fleet(demand, weights, capacities, threshold: float = 0.8,
     Returns (mlu, alu, olr, total_load), each (F, B, T); ALU/OLR are averaged
     over each (fabric, block)'s own live links.
     """
-    demand = np.asarray(demand)
-    weights = np.asarray(weights)
     n_live, inv_cap = _live_inv_cap(capacities)
     n_live = n_live[..., None]  # (F, B, 1)
     if backend == "torch":
@@ -293,7 +294,8 @@ def link_metrics_fleet(demand, weights, capacities, threshold: float = 0.8,
                 _put(demand, dev), _put(weights, dev), _put(inv_cap, dev),
                 threshold))
     elif backend == "numpy":
-        load = demand.astype(np.float64) @ weights.astype(np.float64)  # (F,B,T,E)
+        load = (np.asarray(demand, np.float64)
+                @ np.asarray(weights, np.float64))  # (F, B, T, E)
         util = load * inv_cap[:, :, None, :]
         mlu = util.max(axis=3)
         alu_sum = util.sum(axis=3)

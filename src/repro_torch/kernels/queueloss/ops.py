@@ -205,6 +205,8 @@ def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
 
 
 def _put(x, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # an operand already on the device
+        return x.to(dev, torch.float32)
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
 
@@ -273,7 +275,8 @@ def queue_loss_fleet(demand, weights, capacities, buffers, dt: float,
       demand: (F, B, TS, C) sub-interval demand blocks (zero-padded trailing
         sub-steps and all-zero padded blocks only drain queues, never drop).
       weights: (F, B, C, E); capacities/buffers: (F, B, E); dt: sub-step
-        seconds.
+        seconds.  On ``"torch"`` demand and weights may already be tensors
+        on the device.
       backend: ``"torch"`` (one launch of the fleet kernel on a CUDA device)
         or ``"numpy"`` (:func:`repro_torch.burst.queue.queue_loss_numpy` per
         (fabric, block)).

@@ -1,6 +1,8 @@
-"""repro_torch.obs — tracing, solver telemetry, fleet metrics and the decision
-audit (copies of the reference's ``repro.obs`` modules; the health and report
-CLIs come with a later slice of the port).
+"""repro_torch.obs — tracing, solver telemetry, fleet metrics, the decision
+audit and their CLIs (copies of the reference's ``repro.obs`` modules):
+``python -m repro_torch.obs.report <trace.jsonl>`` summarizes a trace and
+``python -m repro_torch.obs.health <snapshot.json>`` renders the fleet health
+table.
 
 All layers are off by default and free when off:
 

@@ -363,7 +363,7 @@ class StreamingController:
             if self._staged is not None:
                 from repro_torch.core.controller import _score_stages
 
-                stage_m, rem_lo, rem_seed = _score_stages(
+                stage_m, _, _, rem_lo, rem_seed = _score_stages(
                     block, self._staged, cc, self.stream, start,
                     device=self.device)
                 self._metrics = self._metrics.concat(stage_m)

@@ -17,8 +17,10 @@ the model shapes of recurrentgemma-9b (the RG-LRU scan also at B = 1) and
 mamba2-130m and at ragged ones; the redesigned RG-LRU, SSD, batched,
 single-block and fleet linkload and queue-loss kernels give the same bits on
 two calls, and the linkload entries and the model kernels take tensors that
-are not 16-byte aligned; and a small transition sweep, whose drain-stage
-blocks move no other block's bits.
+are not 16-byte aligned; a small transition sweep, whose drain-stage
+blocks move no other block's bits; the contingency evaluator's fused launch
+of the fleet kernels, with dead links still carrying live W; and a bf16 PDHG
+batch.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -575,3 +577,108 @@ def test_transition_sweep_moves_no_unstaged_block(gen):
         np.testing.assert_array_equal(getattr(on.metrics, field)[~rows],
                                       getattr(off.metrics, field)[~rows])
     assert not np.array_equal(on.metrics.mlu[rows], off.metrics.mlu[rows])
+
+
+@pytest.mark.gpu
+def test_fused_contingency_launch_matches_plain_with_dead_links(gen):
+    """The contingency evaluator's fused launch of the fleet kernels: K = 16
+    scenario rows of one F21 plan (C = E = 132), the masks killing whole
+    links while the plan's W still points at them (``inv_cap = 0``,
+    ``buf = 0``).  The card against the plain versions on the CPU at the
+    kernels' rtol/atol, against the float64 oracle at 1e-5 (the contingency
+    contract), one launch of each fleet kernel, the same bits on a second
+    call."""
+    import numpy as np
+
+    from repro_torch.burst import LossConfig
+    from repro_torch.core.fleet import (FLEET_SPECS, make_fabric, make_trace,
+                                        sub_burst_params)
+    from repro_torch.core.graph import uniform_topology
+    from repro_torch.core.paths import build_paths, routing_weight_matrices
+    from repro_torch.core.rounding import realize
+    from repro_torch.failures import (FailureConfig, contingency_metrics,
+                                      sample_masks)
+
+    spec = FLEET_SPECS[20]
+    fab = make_fabric(spec)
+    trace = make_trace(spec, fab, days=1.0, interval_minutes=5.0)
+    paths = build_paths(fab.n_pods)
+    rng = np.random.default_rng(0)
+    b = 12
+    f = rng.random((b, paths.n_paths))
+    for ps in paths.commodity_paths:
+        f[:, ps] /= f[:, ps].sum(axis=1, keepdims=True)
+    w = routing_weight_matrices(paths, f)
+    caps = np.stack([fab.capacities(realize(fab, uniform_topology(fab))[0])] * b)
+    blocks = [trace.demand[3 * i: 3 * i + 3] for i in range(b)]
+    _, masks = sample_masks(fab, FailureConfig(n_scenarios=16, p_link=0.05,
+                                               p_trunk=0.1, p_panel=0.3,
+                                               p_pod=0.1))
+    assert (masks == 0).any()
+    kw = dict(loss_cfg=LossConfig(burst=sub_burst_params(spec)),
+              loss_seeds=list(range(b)), interval_seconds=300.0)
+    before = (llops.fleet_launches, qlops.fleet_launches)
+    card = contingency_metrics(blocks, w, caps, masks, backend="torch",
+                               device="cuda", **kw)
+    assert (llops.fleet_launches, qlops.fleet_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    plain = contingency_metrics(blocks, w, caps, masks, backend="torch",
+                                device="cpu", **kw)
+    oracle = contingency_metrics(blocks, w, caps, masks, backend="numpy", **kw)
+    again = contingency_metrics(blocks, w, caps, masks, backend="torch",
+                                device="cuda", **kw)
+    for a, p, o, s in zip(card, plain, oracle, again):
+        for field in ("mlu", "alu", "olr", "stretch", "loss"):
+            x = getattr(a, field)
+            np.testing.assert_allclose(x, getattr(p, field), rtol=RTOL,
+                                       atol=ATOL, err_msg=field)
+            np.testing.assert_allclose(x, getattr(o, field), atol=1e-5,
+                                       err_msg=field)
+            np.testing.assert_array_equal(x, getattr(s, field))
+
+
+@pytest.mark.gpu
+def test_bf16_pdhg_batch_on_the_card(gen):
+    """bf16 PDHG on the card: its bf16 GEMMs with a float32 output give the
+    CPU's upcast arithmetic up to the order of sums, the batch's u* is
+    within 1 % of the f32 batch's on the card, and the reported u is the
+    float32 evaluation of the returned flows."""
+    import numpy as np
+
+    from repro_torch.core.clustering import critical_tms
+    from repro_torch.core.engine import _pad_tms
+    from repro_torch.core.fleet import FLEET_SPECS, make_fabric, make_trace
+    from repro_torch.core.graph import uniform_topology
+    from repro_torch.core.pdhg import TorchRoutingSolver, _bmm_bf16
+
+    a = torch.rand((64, 12, 12), generator=gen, device="cuda").to(torch.bfloat16)
+    bm = torch.rand((64, 12, 12), generator=gen, device="cuda").to(torch.bfloat16)
+    out = _bmm_bf16(a, bm)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out.cpu(), _bmm_bf16(a.cpu(), bm.cpu()),
+                               rtol=1e-6, atol=1e-6)
+    spec = FLEET_SPECS[20]
+    fab = make_fabric(spec)
+    trace = make_trace(spec, fab, days=2.0, interval_minutes=30.0)
+    cap = fab.capacities(uniform_topology(fab))
+    tms = np.stack([_pad_tms(critical_tms(trace.demand[8 * i: 8 * i + 48],
+                                          k=12, seed=i, device="cuda"), 12)
+                    for i in range(8)])
+    caps = np.stack([cap] * 8)
+    runs = {}
+    for precision in ("f32", "bf16"):
+        solver = TorchRoutingSolver(fab, 12, precision=precision,
+                                    device="cuda")
+        runs[precision] = (solver, solver.solve_routing_batch(
+            tms, caps, hedging=False, skip_stage3=True))
+    np.testing.assert_allclose(runs["bf16"][1]["u_star"],
+                               runs["f32"][1]["u_star"], rtol=0.01)
+    solver, out16 = runs["bf16"]
+    d3, ic = solver._dense_tms(tms), solver._dense_inv_cap(caps)
+    f3 = torch.zeros((8, solver.V ** 3), device="cuda")
+    f3[:, torch.as_tensor(solver._path_slot, device="cuda")] = torch.from_numpy(
+        out16["f"].astype(np.float32)).cuda()
+    u = solver._util_f32(f3.reshape((8,) + (solver.V,) * 3), d3, ic)
+    np.testing.assert_array_equal(
+        u.reshape(8, -1).amax(1).cpu().numpy().astype(np.float64),
+        out16["u_star"])

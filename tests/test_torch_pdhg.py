@@ -103,9 +103,13 @@ def test_project_simplex_rows_matches_reference():
 
 
 def test_solver_refuses_tf32_and_bf16(problem, monkeypatch):
+    """TF32 is refused; bf16 runs (``tests/test_torch_solver_precision.py``)
+    and an unknown precision is refused."""
     fab = problem[5].fabric
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TorchRoutingSolver(fab, M, precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        TorchRoutingSolver(fab, M, precision="f16", device="cpu")
+    assert TorchRoutingSolver(fab, M, precision="bf16",
+                              device="cpu").precision == "bf16"
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="TF32"):
         TorchRoutingSolver(fab, M, device="cpu")

@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.api, repro_torch.launch.steps, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.rglru_scan.ops, repro_torch.kernels.ssd_chunk.ops, "
-            "repro_torch.transition, repro_torch.core.patch_panels\n"
+            "repro_torch.transition, repro_torch.core.patch_panels, "
+            "repro_torch.failures, repro_torch.obs.health, "
+            "repro_torch.obs.report\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -80,6 +82,10 @@ def test_no_port_file_nor_chip_smoke_imports_jax_or_reference():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     assert len(files) > 40
+    port = root / "src" / "repro_torch"
+    assert {port / "failures" / f"{m}.py" for m in
+            ("config", "scenarios", "mask", "policy", "evaluate")} | {
+        port / "obs" / "health.py", port / "obs" / "report.py"} <= set(files)
     bad = {str(f.relative_to(root)): sorted(r & {"jax", "jaxlib", "repro"})
            for f in files for r in [_imported_roots(f)] if r & {"jax", "jaxlib", "repro"}}
     assert bad == {}
@@ -117,6 +123,14 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
         serve("mamba2-130m", requests=1, batch=1, prompt_len=2, gen_len=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.model_from_numpy(cfg, {})
+    from repro_torch.failures import FailureConfig, contingency_metrics
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        contingency_metrics([trace.demand[:3]], np.zeros((1, 110, 110)),
+                            np.ones((1, 110)), np.ones((2, 110)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_controller(fab, trace, Strategy(False, False),
+                       ControllerConfig(failures=FailureConfig()))
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -142,13 +156,6 @@ def test_model_training_is_a_later_slice():
         model.loss(None, {})
 
 
-@pytest.mark.parametrize("over", [{"failures": object()},
-                                  {"solver_precision": "bf16"}])
-def test_later_slices_raise(over):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ControllerConfig(**over)
-
-
 @pytest.mark.parametrize("engine", ["sequential", "batched"])
 def test_transition_requires_realized_topologies(engine):
     """Panel decomposition (Thm. 4) needs integer, even-degree topologies:
@@ -171,19 +178,6 @@ def _port_fleet_job(small_fabric, small_trace, cc):
         Strategy(False, True), cc)
 
 
-@pytest.mark.parametrize("field", ["failures"])
-def test_fleet_job_of_a_later_slice_raises(small_fabric, small_trace, field):
-    """``run_fleet`` refuses a job with failure contingencies (the config
-    refuses them at construction; the engine checks again)."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ControllerConfig(**{field: object()})
-    cc = ControllerConfig()
-    object.__setattr__(cc, field, object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_fleet([_port_fleet_job(small_fabric, small_trace, cc)],
-                  device="cpu")
-
-
 def test_fleet_sharding_raises(small_fabric, small_trace, monkeypatch):
     """Sharding over several cards is a later slice: an explicit mesh, and
     ``mesh="auto"`` with several CUDA devices visible, raise; ``"auto"`` on
@@ -196,9 +190,6 @@ def test_fleet_sharding_raises(small_fabric, small_trace, monkeypatch):
         fleet_engine._check_mesh("auto", torch.device("cuda"))
     fleet_engine._check_mesh("auto", torch.device("cpu"))
     fleet_engine._check_mesh(None, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        predict_fleet([(job.fabric, job.trace)], contingency_weight=0.5,
-                      device="cpu")
 
 
 def test_sequential_engine_runs(small_fabric, small_trace):
@@ -230,6 +221,15 @@ def test_controller_config_carries_reference_fields():
         dict(ref, transition=dataclasses.asdict(tc))).transition
     assert isinstance(carried, TransitionConfig)
     assert dataclasses.asdict(carried) == dataclasses.asdict(tc)
+    from repro.core import FailureConfig as RefFailureConfig
+    from repro_torch.core import FailureConfig
+
+    fc = RefFailureConfig(n_scenarios=5, p_trunk=0.1, resolve=True,
+                          contingency_weight=0.25, seed=3)
+    carried = interop.controller_config_from_dict(
+        dict(ref, failures=dataclasses.asdict(fc))).failures
+    assert isinstance(carried, FailureConfig)
+    assert dataclasses.asdict(carried) == dataclasses.asdict(fc)
     assert set(ref) <= set(dataclasses.asdict(port))
     assert port.backend == "torch" and port.solver_backend == "pdhg"
     assert interop.controller_config_from_dict(

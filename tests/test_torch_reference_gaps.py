@@ -1,4 +1,4 @@
-"""Three comparisons of the port with the reference, measured by running
+"""Four comparisons of the port with the reference, measured by running
 both packages on the CPU with the same inputs.
 
 Run one comparison at full size (minutes to tens of minutes each) with
@@ -6,6 +6,7 @@ Run one comparison at full size (minutes to tens of minutes each) with
     PYTHONPATH=src python tests/test_torch_reference_gaps.py decode
     PYTHONPATH=src python tests/test_torch_reference_gaps.py caps
     PYTHONPATH=src python tests/test_torch_reference_gaps.py serve
+    PYTHONPATH=src python tests/test_torch_reference_gaps.py bf16
 
 Each prints one JSON object a line as its results come in:
 
@@ -22,6 +23,15 @@ Each prints one JSON object a line as its results come in:
   hedging, ``solver_backend="pdhg"``, burst loss): the reference's
   ``StreamingController`` (warm-started PDHG) against its own
   ``run_controller_batched``: the relative p999-MLU gap between the two.
+* ``bf16``: fabric F21 (8-day trace, 5-minute TMs, uniform topology +
+  hedging, ``solver_backend="pdhg"``, burst loss) through the port's batched
+  engine with ``solver_precision="f32"`` and ``"bf16"``: per-epoch u* and
+  p999-MLU gaps, and one epoch's stage-1 certified gap after 1,000 to
+  20,000 bf16 iterations; and the reference's own stage 1 in f32 and bf16
+  on six epochs' critical TMs (one solve each: its batched bf16 dot is
+  unimplemented on JAX's CPU backend at this size).  The port's bf16
+  operators give the reference's bits on the CPU
+  (``tests/test_torch_solver_precision.py``).
 
 The tests below run the same comparisons at a reduced size.
 """
@@ -167,6 +177,67 @@ def serve_gap() -> dict:
             "p999_rel": rel, "tol": cc.pdhg_tol}
 
 
+def bf16_gap() -> dict:
+    """The port's bf16 PDHG against its f32 PDHG on F21 (uniform topology +
+    hedging): per-epoch u* and p999-MLU gaps over the whole sweep, and how
+    far one epoch's bf16 stage-1 certificate gets with more iterations."""
+    from repro.core.jaxlp import JaxRoutingSolver
+    from repro_torch.core import run_controller
+    from repro_torch.core.clustering import critical_tms
+    from repro_torch.core.engine import _pad_tms
+    from repro_torch.core.pdhg import TorchRoutingSolver
+
+    fab, trace, cc = _ref_config(20)
+    pfab = interop.fabric_from_numpy(fab.name, fab.radix, fab.speed)
+    ptrace = interop.trace_from_numpy(trace.name, trace.demand,
+                                      trace.interval_minutes, trace.n_pods)
+    pcc = dataclasses.replace(
+        interop.controller_config_from_dict(dataclasses.asdict(cc)), backend="torch")
+    runs, secs = {}, {}
+    for precision in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        runs[precision] = run_controller(
+            pfab, ptrace, interop.strategy_from_dict(
+                {"nonuniform": False, "hedging": True}),
+            dataclasses.replace(pcc, solver_precision=precision), device="cpu")
+        secs[precision] = time.perf_counter() - t0
+    a, b = runs["f32"], runs["bf16"]
+    rel = (b.u_star - a.u_star) / a.u_star
+    tms = _pad_tms(critical_tms(trace.demand[:2016], k=12, device="cpu"), 12)[None]
+    caps = fab.capacities(np.asarray(a.final_topology))[None]
+    gaps = {}
+    for iters in (1000, 3000, 20000):
+        solver = TorchRoutingSolver(pfab, 12, max_iters=iters, tol=1e-4,
+                                    precision="bf16", device="cpu")
+        out = solver.solve_routing_batch(tms, caps, hedging=False, skip_stage3=True)
+        gaps[iters] = float(out["stats"]["stage1"]["gap"][0])
+    # the reference's stage 1 on six epochs' TMs, one solve each (its batched
+    # bf16 dot is unimplemented on JAX's CPU backend at this size)
+    six = np.stack([_pad_tms(critical_tms(trace.demand[3 * i: 2016 + 3 * i], k=12,
+                                          seed=i, device="cpu"), 12)
+                    for i in range(6)])
+    reference = {}
+    for precision in ("f32", "bf16"):
+        solver = JaxRoutingSolver(fab, 12, max_iters=cc.pdhg_max_iters,
+                                  tol=cc.pdhg_tol, precision=precision,
+                                  dual_topk=128, fleet_batch_quantum=16)
+        reference[precision] = [float(solver.solve_mlu_batch(t[None], caps)[1][0])
+                                for t in six]
+    return {"fabric": fab.name, "epochs": int(a.n_routing_updates),
+            "seconds": secs,
+            "u_star_rel": {"median": float(np.median(rel)), "max": float(rel.max()),
+                           "min": float(rel.min()),
+                           "share_within_1pct": float(np.mean(np.abs(rel) <= 0.01))},
+            "p999_mlu": [a.summary["p999_mlu"], b.summary["p999_mlu"]],
+            "stage1_median_iters": [
+                float(np.median(r.solver_stats.stages["stage1"].iters))
+                for r in (a, b)],
+            "bf16_stage1_gap_by_iters": gaps, "tol": cc.pdhg_tol,
+            "reference_stage1_u": reference,
+            "reference_bf16_rel": [u16 / u32 - 1.0 for u16, u32 in
+                                   zip(reference["bf16"], reference["f32"])]}
+
+
 # ---- reduced-size rehearsals -------------------------------------------------
 
 
@@ -179,7 +250,8 @@ def test_decode_gap_is_float32_rounding_in_both_packages():
 
 
 if __name__ == "__main__":
-    jobs = {"decode": decode_gap, "caps": stage1_caps, "serve": serve_gap}
+    jobs = {"decode": decode_gap, "caps": stage1_caps, "serve": serve_gap,
+            "bf16": bf16_gap}
     for name in sys.argv[1:]:
         t0 = time.perf_counter()
         result = jobs[name]()

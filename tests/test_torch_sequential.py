@@ -147,9 +147,11 @@ def test_pick_best_matches_reference_and_replays(objective, cushion):
     assert obs.audit.verify(recs) == []
     assert obs.audit.replay({"kind": "should_reconfigure", "benefit": 1.0,
                              "disruption": 0.0, "hysteresis": 0.0}) is True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pick_best(PER_STRATEGY, cushion, objective=objective,
-                  contingency_weight=0.5)
+    # the failure-aware blend needs the cont_* keys, as the reference's does
+    for pick in (pick_best, ref_pick_best):
+        with pytest.raises(ValueError, match="contingency-aware"):
+            pick(PER_STRATEGY, cushion, objective=objective,
+                 contingency_weight=0.5)
 
 
 def test_predict_from_window_matches_reference(small_fabric, small_trace):
