@@ -42,8 +42,11 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    model kernels at the shapes of phase 8's prefill and at ragged ones:
    flash attention at recurrentgemma-9b's (B=2, S=4096, H=16, KV=1, hd=256,
    window 2048, bf16; yardstick ``scaled_dot_product_attention`` with the
-   same mask) and at a ragged shape (hd=100, non-causal window 48) in f32
-   and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
+   same mask), at phase 12's prefills (mixtral-8x7b: B=1, S=8192, H=32,
+   KV=8, hd=128, window 4096; dbrx-132b: B=1, S=4096, H=48, KV=8, hd=128;
+   internvl2-1b: B=4, S=4096, H=14, KV=2, hd=64; causal, bf16, each timed
+   beside the yardstick) and at a ragged shape (hd=100, non-causal window
+   48) in f32 and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1 and at ragged S and
    D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
    chunk 64, also against itself at chunk 128).  The eight redesigned
    kernels (RG-LRU, SSD, and the batched, single-block and fleet linkload and
@@ -55,10 +58,11 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    topology solve, batched PDHG and one launch of each batched kernel;
    re-scored through the float64 numpy oracle.
 5. The streaming controller: ``repro_torch.serve.StreamingController`` on
-   the same trace and configuration, warm-started PDHG: 96 decisions, each
+   the first 7 1/4 days of the same trace and configuration, warm-started
+   PDHG: 24 decisions (the first crosses the joint topology solve), each
    finished epoch scored with one launch of each single-block kernel.  Held
-   against phase 4's result and re-scored through the numpy oracle; prints
-   time-to-new-weights.
+   against the same 24 epochs of phase 4's result and re-scored through the
+   numpy oracle; prints time-to-new-weights.
 6. The sequential walk (``engine="sequential"``) on F21 over 7 1/12 days
    (uniform topology + hedging, 8 epochs) against the batched engine, and
    the (uniform, VLB) baseline over a 14-day trace: one whole-trace launch
@@ -88,7 +92,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    the batch axis of one launch each of the batched kernels) and with the
    staging dropped.  Bit-equal splits and bit-equal metrics outside the
    staged epochs; the staged epochs against the float64 numpy oracle from
-   the gate's stage weights and capacities.
+   the gate's stage weights and capacities.  Then a second, short plan walk
+   with the gate deciding (``decide=True``) on the 9-pod F5 over a 2.5-day
+   hourly trace (three joint solves): it applies the first update and skips
+   the second, as the CPU run held to the reference does.
 10. Failure contingencies and bf16 PDHG on phase 9's plan (no new joint
    solve): ``execute_plan`` with 64 fixed-routing scenarios of link, trunk,
    panel and pod failures (``repro_torch.failures``; one launch each of the
@@ -101,6 +108,24 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    fleet engine with 16 scenarios on F21, F1 and F17 against the per-fabric
    engine; and the execute with ``solver_precision="bf16"`` against f32
    (per-epoch u* within 3 %, the p99.9 MLU within 1 %).
+11. The autotune table (``repro_torch.kernels.autotune``) in a temporary
+   cache: ``tune_solver`` at F21's shape (V=12, m=12, one rep, its solves
+   capped at 1,000 iterations), a fresh
+   ``TorchRoutingSolver(dual_topk=None)`` resolving the recorded knob and
+   ``REPRO_AUTOTUNE=0`` pinning 128, and one batch of four F21 epochs under
+   each knob held to HiGHS's stage-1 u* at 2·tol.
+12. The moe and vlm families at full width (bf16, random weights from a
+   seed): the prefill step of mixtral-8x7b at 8 of its 32 layers (B=1,
+   S=8192, the 4096 window masking: 8 flash-attention launches), then 32
+   greedy tokens through ``make_serve_step(ring=True)`` on a
+   ``window_cache`` ring, and its sorted dispatch against the one-hot one
+   on a full-width layer (rel 2e-2); dbrx-132b at 2 of its 40 layers (B=1,
+   S=4096: 2 launches); internvl2-1b at full size (B=4, S=4096 = 256
+   patches + 3840 tokens: 24 launches), then ``serve`` with ``--full`` and
+   the launcher's defaults; the exact launch counts, finite logits,
+   tokens/s and peak memory; and mixtral's reduced config in float32 (TF32
+   off) at window 16, decoded through its ring past the window against the
+   kernels' forward (1e-3·(1+|logit|)).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -126,6 +151,18 @@ PREFILL = (("recurrentgemma-9b", 2, 4096,
             {"flash_attention": 12, "rglru_scan": 26, "ssd_chunk": 0}),
            ("mamba2-130m", 4, 4096,
             {"flash_attention": 0, "rglru_scan": 0, "ssd_chunk": 24}))
+# phase 12's prefills: (arch, layers kept (None = all), batch, sequence
+# incl. patches, flash-attention launches); mixtral (93 GB) and dbrx (264 GB)
+# do not fit one card in bf16, so their depth is cut
+FAMILY_RUNS = (("mixtral-8x7b", 8, 1, 8192, 8), ("dbrx-132b", 2, 1, 4096, 2),
+               ("internvl2-1b", None, 4, 4096, 24))
+# flash attention at those prefills: ((B, S, H, KV, hd), window)
+FAMILY_FLASH = {"mixtral-8x7b": ((1, 8192, 32, 8, 128), 4096),
+                "dbrx-132b": ((1, 4096, 48, 8, 128), 0),
+                "internvl2-1b": ((4, 4096, 14, 2, 64), 0)}
+MOE_SORTED_REL_TOL = 2e-2  # sorted vs one-hot dispatch (tests/test_arch_smoke.py:155)
+FAMILY_DECODE = 32  # greedy tokens of mixtral through its ring cache
+TUNE_MAX_ITERS = 1000  # phase 11's cap on the solver tuner's stage-1 solves
 # the model kernels' contracts (tests/test_kernels_sweep.py): flash attention
 # 2e-3 in f32, RG-LRU 1e-4, SSD relative 1e-3; flash attention in bf16 is held
 # to its float32 plain version within the bound on bf16 rounding
@@ -138,6 +175,9 @@ FLASH_F32_TOL, RGLRU_TOL, SSD_REL_TOL = 2e-3, 1e-4, 1e-3
 # (tests/test_arch_smoke.py)
 DECODE_TOL, DECODE_LEN = 1e-3, 64
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
+# phase 5 streams phase 4's first 7 1/4 days: the 7-day window, then 24
+# routing decisions (the first with the joint topology solve)
+SERVE_DAYS = 7.25
 # phase 7's buckets: (fabrics, blocks per fabric, commodities) of the 12-pod
 # and the 8-pod bucket of the 22-fabric fleet
 FLEET_BUCKETS = {"V12": (15, 96, 132), "V8": (7, 96, 56)}
@@ -841,14 +881,17 @@ def phase_model_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = "cuda"
-    rows = {}
+    rows, family_rows = {}, {}
 
-    # 7. flash attention: recurrentgemma-9b's local attention, and a ragged
-    # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16
+    # 7. flash attention: recurrentgemma-9b's local attention, a ragged
+    # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, and the
+    # prefills of phase 12 (FAMILY_FLASH)
     for label, (b, s, h, kv, hd, causal, window, dtype) in (
             ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
             ("ragged", (1, 1000, 8, 2, 100, False, 48, torch.float32)),
-            ("ragged_bf16", (1, 1000, 8, 2, 100, False, 48, torch.bfloat16))):
+            ("ragged_bf16", (1, 1000, 8, 2, 100, False, 48, torch.bfloat16)),
+            *((arch, (*shape, True, window, torch.bfloat16))
+              for arch, (shape, window) in FAMILY_FLASH.items())):
         q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
                    for n in (h, kv, kv))
         args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
@@ -870,14 +913,15 @@ def phase_model_kernels():
             f"(tol: {contract})")
         if not worst <= 1.0 or not bool(torch.isfinite(out.float()).all()):
             fail(f"flash_attention {label} disagrees with its plain version")
-        if label != "main":
+        if label.startswith("ragged"):
             continue
         pairs = _band_pairs(s, s, causal, window) * b * h
         n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         n_flops = 4 * hd * pairs
         q4, k4, v4 = q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd)
         i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        mask = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window)
+                                             if window else True)
 
         def sdpa():
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
@@ -888,11 +932,19 @@ def phase_model_kernels():
         plain = time_cuda(lambda: attention_ref(q, k, v, **args))
         lib = time_cuda(sdpa)
         bnd, by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
-        log(f"  flash_attention times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"scaled_dot_product_attention {lib:.4f} ms (max abs diff to the "
+        log(f"  flash_attention {label} times: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, scaled_dot_product_attention {lib:.4f} ms (max abs diff to the "
             f"kernel {sdpa_err:.3e}), bound {bnd:.4f} ms ({by}: "
             f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP on {pairs} "
             f"(q, k) pairs at the bf16 rate)")
+        if label != "main":
+            family_rows[label] = {
+                "shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib}
+            del q, k, v, out, ref, q4, k4, v4
+            torch.cuda.empty_cache()
+            continue
         rows["flash_attention"] = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -945,6 +997,7 @@ def phase_model_kernels():
             "status": "redesigned"}
         del a, x, out, ref
     rows["rglru_scan"]["b1_ms"] = b1_ms
+    rows["flash_attention"]["family_shapes"] = family_rows
 
     # 9. SSD chunk scan: mamba2-130m's prefill, and a ragged shape whose
     # chunk halves to 32
@@ -1179,9 +1232,36 @@ def _pdhg_iters(st):
             {k: int(np.max(v.iters)) for k, v in st.stages.items()})
 
 
-def phase_serve(fab, trace, strategy, cc, sc, batched, device):
+def _batched_prefix(res, trace, cc, nonuniform, n_epochs):
+    """The batched engine's result ``res`` cut to its first ``n_epochs``
+    routing epochs (counts, u*, metrics and their summary), for a run over
+    the trace's prefix; it must hold no later topology solve."""
+    import dataclasses
+    import types
+
+    from repro_torch.core.engine import plan_controller
+    from repro_torch.core.simulator import summarize
+
+    epochs = plan_controller(trace, cc, nonuniform).epochs
+    n_topo = sum(ep.topo_solve for ep in epochs[:n_epochs])
+    if sum(ep.topo_solve for ep in epochs) != n_topo:
+        fail("serve: phase 4 solves its topology again after the streamed prefix")
+    rows = epochs[n_epochs - 1].stop - epochs[0].start
+    metrics = dataclasses.replace(res.metrics, **{
+        f: getattr(res.metrics, f)[:rows] for f in METRICS})
+    return types.SimpleNamespace(
+        n_routing_updates=n_epochs, n_topology_updates=n_topo,
+        final_topology=res.final_topology, u_star=res.u_star[:n_epochs],
+        metrics=metrics, summary=summarize(metrics))
+
+
+def phase_serve(fab, trace, strategy, cc, sc, batched, device,
+                days: float = SERVE_DAYS):
     """The streaming controller with the single-block kernels, on the
-    batched engine's configuration, held against its result ``batched``."""
+    batched engine's configuration over the trace's first ``days``, held
+    against the same epochs of the batched engine's result ``batched``."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1190,8 +1270,12 @@ def phase_serve(fab, trace, strategy, cc, sc, batched, device):
     from repro_torch.kernels.queueloss import ops as qlops
     from repro_torch.serve import ServeConfig, StreamingController, TMStream
 
-    log(f"phase 5: serve {fab.name}, trace {trace.demand.shape} at "
-        f"{trace.interval_minutes} min, the configuration of phase 4")
+    full = trace
+    n = int(round(days * 24 * 60 / trace.interval_minutes))
+    trace = dataclasses.replace(trace, demand=trace.demand[:n])
+    log(f"phase 5: serve {fab.name}, the first {days} days of phase 4's trace "
+        f"{trace.demand.shape} at {trace.interval_minutes} min, the configuration "
+        f"of phase 4")
     ctrl = StreamingController(fab, TMStream.from_trace(trace), strategy, cc, sc,
                                serve=ServeConfig(warm_start=True,
                                                  auto_strategy=False),
@@ -1235,7 +1319,8 @@ def phase_serve(fab, trace, strategy, cc, sc, batched, device):
     log(f"  numpy-oracle re-score: worst |err|/(atol+rtol|ref|) {worst}")
     if max(worst.values()) > 1.0:
         fail("serve: scores disagree with the numpy oracle")
-    _agree("serve", res, batched, cc.pdhg_tol)
+    _agree("serve", res, _batched_prefix(batched, full, cc, strategy.nonuniform,
+                                         n_blocks), cc.pdhg_tol)
     return counts, {"wall_s": wall, **q, "intervals_per_s": out.intervals_per_s,
                     "decisions": n_blocks, "pdhg_median_iters": med,
                     "pdhg_max_iters": mx, "peak_bytes": peak}
@@ -1612,6 +1697,73 @@ def phase_transition(fab, trace, strategy, cc, sc, device):
                               "art": art, "staged_result": on}
 
 
+# phase 9's second walk: the gate deciding (decide=True) on the 9-pod F5,
+# a 2.5-day hourly trace, 1-day aggregation, 3-hour routing and a topology
+# solve every 12 hours; tests/test_torch_transition.py holds the same walk
+# to the reference on the CPU, which applies the first update and skips the
+# second
+GATE_DECIDE = dict(spec_index=4, days=2.5, interval_minutes=60.0,
+                   routing_interval_hours=3.0, topology_interval_days=0.5,
+                   aggregation_days=1.0, k_critical=4)
+GATE_DECISIONS = [True, False]
+
+
+def phase_gate_decide(device):
+    """The §4.6 gate deciding on the card: one plan walk of ``GATE_DECIDE``
+    with ``TransitionConfig(n_panels=4, stage_intervals=1)`` (``decide``
+    on), whose gate re-solves each evaluated update's old/new/stage
+    routings in one PDHG batch.  Fails unless it applies and skips the
+    updates the CPU run does (``GATE_DECISIONS``)."""
+    import numpy as np
+
+    from repro_torch.core import ControllerConfig, SolverConfig, Strategy
+    from repro_torch.core.engine import plan_artifacts
+    from repro_torch.core.fleet import FLEET_SPECS, make_fabric, make_trace
+    from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.device import synchronize
+    from repro_torch.transition import TransitionConfig
+
+    cfg = dict(GATE_DECIDE)
+    spec = FLEET_SPECS[cfg.pop("spec_index")]
+    fab = make_fabric(spec)
+    trace = make_trace(spec, fab, days=cfg.pop("days"),
+                       interval_minutes=cfg.pop("interval_minutes"))
+    cc = ControllerConfig(solver_backend="pdhg", backend="torch",
+                          transition=TransitionConfig(n_panels=4, stage_intervals=1),
+                          **cfg)
+    batches = []
+    solve_batch = TorchRoutingSolver.solve_routing_batch
+
+    def counted(self, tms, caps, *args, **kwargs):
+        batches.append(int(np.shape(caps)[0]))
+        return solve_batch(self, tms, caps, *args, **kwargs)
+
+    TorchRoutingSolver.solve_routing_batch = counted
+    t0 = time.perf_counter()
+    try:
+        art = plan_artifacts(fab, trace, Strategy(True, True), cc, SolverConfig(),
+                             device=device)
+    finally:
+        TorchRoutingSolver.solve_routing_batch = solve_batch
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    decisions = [e["applied"] for e in art.transition_log]
+    log(f"phase 9: the gate deciding (decide=True) on {fab.name} ({fab.n_pods} "
+        f"pods), trace {trace.demand.shape} at {trace.interval_minutes} min: plan "
+        f"walk {wall:.3f} s, {art.plan.n_topology} joint solves, gate "
+        f"{art.transition_seconds:.3f} s in PDHG batches of {batches}; applied "
+        f"{art.n_topology - 1} and skipped {art.n_skipped} updates")
+    for e in art.transition_log:
+        log(f"  decision at interval {e['start']}: applied {e['applied']}, "
+            f"benefit {e['benefit']:.6f}, disruption {e['disruption']:.6f}, "
+            f"u_old {e['u_old']:.6f}, u_new {e['u_new']:.6f}")
+    if decisions != GATE_DECISIONS or len(batches) != len(decisions):
+        fail(f"gate: decisions {decisions} in PDHG batches {batches}, expected "
+             f"{GATE_DECISIONS} in one batch each (the CPU run's)")
+    return {"wall_s": wall, "gate_s": art.transition_seconds,
+            "decisions": decisions, "gate_batches": batches}
+
+
 # phase 10's failure model: a mix of link, trunk, panel and pod
 # failures; 64 scenarios for fixed routing, 8 for the re-solve, 16 a fleet job
 FAILURES = dict(p_link=0.02, p_trunk=0.01, p_panel=0.1, p_pod=0.02)
@@ -1978,6 +2130,90 @@ def phase_failures(fab, trace, strategy, cc, sc, art, staged, device):
     return counts, kernel_rows, out
 
 
+def phase_autotune(device, spec_index: int = 20, m: int = 12, n_check: int = 4,
+                   days: float = 8.0, interval_minutes: float = 5.0):
+    """The autotune table on the card (phase 11), in a temporary cache:
+    ``tune_solver`` at F21's shape (V = 12, m = 12) with ``reps=1``; a fresh
+    ``TorchRoutingSolver(dual_topk=None)`` resolves the recorded knob and
+    ``REPRO_AUTOTUNE=0`` pins 128; one batch of ``n_check`` F21 epochs
+    solved under each knob, both held to HiGHS's stage-1 u* at 2·tol.  The
+    search's solves stop at ``TUNE_MAX_ITERS``: its random inputs take every
+    candidate to the solver's 3,000-iteration cap (PERF.md), 7-11 s a solve
+    on the card, which the CLI pays and this phase's budget does not."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.clustering import critical_tms
+    from repro_torch.core.engine import _pad_tms
+    from repro_torch.core.fleet import FLEET_SPECS, make_fabric, make_trace
+    from repro_torch.core.graph import uniform_topology
+    from repro_torch.core.lp import LpBuilder
+    from repro_torch.core.paths import build_paths
+    from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.kernels import autotune
+
+    spec = FLEET_SPECS[spec_index]
+    fab = make_fabric(spec)
+    saved = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE_CACHE", "REPRO_AUTOTUNE")}
+    out = {}
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+        os.environ.pop("REPRO_AUTOTUNE", None)
+        autotune.reset_table()
+        try:
+            t0 = time.perf_counter()
+            entry = autotune.tune_solver(fab, m, reps=1, max_iters=TUNE_MAX_ITERS,
+                                         device=device)
+            out["tune_s"] = time.perf_counter() - t0
+            knob = entry["dual_topk"]
+            log(f"phase 11: tune_solver on {fab.name} (V={fab.n_pods}, m={m}) in "
+                f"{out['tune_s']:.3f} s, key {autotune.solver_key(fab.n_pods, m, device)}: "
+                f"{json.dumps(entry)}")
+            fresh = TorchRoutingSolver(fab, m, device=device).dual_topk
+            os.environ["REPRO_AUTOTUNE"] = "0"
+            pinned = TorchRoutingSolver(fab, m, device=device).dual_topk
+            os.environ.pop("REPRO_AUTOTUNE")
+            log(f"  a fresh TorchRoutingSolver(dual_topk=None) resolves {fresh}; "
+                f"with REPRO_AUTOTUNE=0 {pinned}")
+            if fresh != knob or pinned != autotune.DEFAULT_SOLVER_KNOBS["dual_topk"]:
+                fail(f"autotune: resolved {fresh} (recorded {knob}), pinned {pinned}")
+            # one batch of the fabric's epochs under each knob against HiGHS
+            tr = make_trace(spec, fab, days=days, interval_minutes=interval_minutes)
+            cap = fab.capacities(uniform_topology(fab))
+            step = tr.n_intervals // (n_check + 1)
+            tms = [critical_tms(tr.demand[i * step: i * step + step], k=m, seed=i,
+                                device=device) for i in range(n_check)]
+            paths = build_paths(fab.n_pods)
+            u_ref = np.array([LpBuilder(fab, paths, t).solve_stage1_fixed_topology(
+                cap).scalar for t in tms])
+            tol = 1e-2
+            for k in sorted({knob, pinned}):
+                solver = TorchRoutingSolver(fab, m, tol=tol, dual_topk=k, device=device)
+                t0 = time.perf_counter()
+                res = solver.solve_routing_batch(
+                    np.stack([_pad_tms(t, m) for t in tms]), np.stack([cap] * n_check),
+                    hedging=False, skip_stage3=True)
+                wall = time.perf_counter() - t0
+                worst = float(np.max(np.abs(res["u_star"] - u_ref) / u_ref))
+                log(f"  dual_topk {k}: {n_check} {fab.name} epochs in {wall:.3f} s, stage-1 "
+                    f"iterations {res['stats']['stage1']['iters'].tolist()}, worst rel u* "
+                    f"err vs HiGHS {worst:.3e} (contract ≤ 2·tol = {2 * tol})")
+                if not worst <= 2 * tol:
+                    fail(f"autotune: dual_topk {k} disagrees with HiGHS")
+                out[f"solve_{k}_s"] = wall
+            out["entry"] = entry
+        finally:
+            for key, val in saved.items():
+                if val is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = val
+            autotune.reset_table()
+    return out
+
+
 def _device_profile(fn, device, top: int = 8):
     """One call of ``fn`` under ``torch.profiler``: the host wall time (ending
     in a synchronize), the summed device time of its kernels, their share of
@@ -2134,6 +2370,168 @@ def phase_models(device):
     return counts, out
 
 
+def phase_families(device):
+    """The moe and vlm families (phase 12), bf16, random weights from a
+    seed: the prefill step of each ``FAMILY_RUNS`` model with the
+    flash-attention counter zeroed around it (exact launches, finite
+    logits, tokens/s, peak memory); mixtral's greedy decode through its
+    ring cache and its sorted dispatch against the one-hot one on a
+    full-width layer; mixtral's reduced config in float32 (TF32 off) at
+    window 16, decoded past the window through the ring against the kernels'
+    forward; and the serving launcher on internvl2-1b at full size."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+
+    def release():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    launches, out = 0, {}
+    for arch, n_layers, batch, s, expect in FAMILY_RUNS:
+        full = get_arch(arch)
+        cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+        release()
+        model = build_model(cfg, device)
+        t0 = time.perf_counter()
+        params = model.init(0)
+        synchronize(device)
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        n_patch = cfg.frontend_tokens if cfg.family == "vlm" else 0
+        b = {"tokens": torch.randint(0, cfg.vocab, (batch, s - n_patch), generator=gen,
+                                     device=device)}
+        if n_patch:
+            b["patches"] = torch.randn((batch, n_patch, cfg.d_model), generator=gen,
+                                       device=device).to(torch.bfloat16)
+        step = make_prefill_step(model)
+        synchronize(device)
+        faops.launches = 0
+        t0 = time.perf_counter()
+        nxt = step(params, b)
+        synchronize(device)
+        t_step = time.perf_counter() - t0
+        got = faops.launches
+        t0 = time.perf_counter()
+        logits = model.forward(params, b)
+        synchronize(device)
+        t_fwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        same = bool(torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt))
+        log(f"phase 12: {cfg.name} prefill ({cfg.dtype}, {cfg.n_layers} of "
+            f"{full.n_layers} layers, {n_params} parameters, {n_bytes} B; B={batch}, "
+            f"S={s}{f' = {n_patch} patches + {s - n_patch} tokens' if n_patch else ''}): "
+            f"init {t_init:.3f} s; prefill step {t_step:.3f} s "
+            f"({batch * s / t_step:.1f} tokens/s), warm forward {t_fwd:.3f} s "
+            f"({batch * s / t_fwd:.1f} tokens/s); flash-attention launches {got} "
+            f"(expected {expect}); logits {tuple(logits.shape)} {logits.dtype}, finite "
+            f"{finite}, last-position argmax equals the step's token {same}; peak "
+            f"device memory {peak} B")
+        if got != expect:
+            fail(f"{cfg.name} prefill: expected {expect} flash-attention launches, got {got}")
+        if (logits.shape != (batch, s - n_patch, cfg.vocab) or not finite
+                or not same):
+            fail(f"{cfg.name} prefill: logits mis-shaped, not finite, or not the "
+                 f"step's token")
+        launches += got
+        out[arch] = {"layers": cfg.n_layers, "params": n_params, "init_s": t_init,
+                     "prefill_step_s": t_step, "forward_s": t_fwd,
+                     "prefill_tokens_per_s": batch * s / t_step, "peak_bytes": peak}
+        del logits
+        if arch == "mixtral-8x7b":
+            release()
+            serve_step = make_serve_step(model, ring=True)
+            cache = model.init_cache(batch, s + FAMILY_DECODE, window_cache=True)
+            ring = cache["blocks"][0]["k"].shape[1]
+            tok, toks = nxt, []
+            synchronize(device)
+            t0 = time.perf_counter()
+            for pos in range(FAMILY_DECODE):
+                tok, cache = serve_step(params, cache, tok, pos)
+                toks.append(tok)
+            synchronize(device)
+            t_dec = time.perf_counter() - t0
+            ok = all(bool(((t >= 0) & (t < cfg.vocab)).all()) for t in toks)
+            log(f"  {FAMILY_DECODE} greedy tokens through make_serve_step(ring=True) "
+                f"on a {ring}-slot ring: {t_dec:.3f} s ({batch * FAMILY_DECODE / t_dec:.1f} "
+                f"tokens/s); peak device memory {torch.cuda.max_memory_allocated()} B")
+            if ring != cfg.window or not ok:
+                fail(f"{cfg.name} ring decode: ring {ring}, tokens in range {ok}")
+            out[arch]["decode_tokens_per_s"] = batch * FAMILY_DECODE / t_dec
+            del cache
+            # sorted dispatch against one-hot on one full-width layer
+            x = torch.randn((1, 2048, cfg.d_model), generator=gen,
+                            device=device).to(torch.bfloat16)
+            y1, a1 = moe.moe_ffn_onehot(params.blocks[0].moe, x, cfg)
+            y2, a2 = moe.moe_ffn_sorted(params.blocks[0].moe, x, cfg)
+            rel = float((y1.float() - y2.float()).abs().max() / y1.float().abs().max())
+            log(f"  moe_ffn_sorted vs moe_ffn_onehot on layer 0 (T=2048, d="
+                f"{cfg.d_model}, E={cfg.n_experts}, top-{cfg.top_k}): max rel diff "
+                f"{rel:.3e} (bound {MOE_SORTED_REL_TOL}), aux {float(a1):.6f} / "
+                f"{float(a2):.6f}")
+            if not rel < MOE_SORTED_REL_TOL or abs(float(a1) - float(a2)) > 1e-5:
+                fail(f"{cfg.name}: sorted dispatch disagrees with one-hot")
+            out[arch]["sorted_vs_onehot_rel"] = rel
+            del x, y1, y2
+        del params, model, b, nxt
+
+    # mixtral's reduced config in float32 past its window: ring decode
+    # against the kernels' forward
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        release()
+        cfg = dataclasses.replace(get_arch("mixtral-8x7b").reduced(), dtype="float32",
+                                  window=16)
+        model = build_model(cfg, device)
+        params = model.init(0)
+        tokens = torch.randint(0, cfg.vocab, (2, DECODE_LEN), generator=gen,
+                               device=device)
+        faops.launches = 0
+        full = model.forward(params, {"tokens": tokens})
+        launches += faops.launches
+        cache = model.init_cache(2, DECODE_LEN, window_cache=True)
+        worst = err = 0.0
+        for pos in range(DECODE_LEN):
+            logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos,
+                                         ring=True)
+            d = (logits[:, 0] - full[:, pos]).abs()
+            err = max(err, float(d.max()))
+            worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+        log(f"phase 12: {cfg.name} float32 (TF32 off), window {cfg.window}, ring "
+            f"decode of {DECODE_LEN} tokens on a {cache['blocks'][0]['k'].shape[1]}-slot "
+            f"ring vs the kernels' forward ({faops.launches} flash launches): max abs "
+            f"err {err:.3e}, worst |err|/(tol+tol|ref|) {worst:.4f} (tol {DECODE_TOL})")
+        if not worst <= 1.0:
+            fail(f"{cfg.name}: float32 ring decode disagrees with the forward")
+        out["mixtral-reduced-ring"] = {"max_abs_err": err, "worst": worst}
+        del params, full, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    release()
+    res = serve("internvl2-1b", requests=16, batch=4, prompt_len=32, gen_len=32,
+                full=True, device=device)
+    log(f"phase 12: serve {json.dumps(res)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    if res["requests"] != 16 or res["tokens_generated"] != 16 * 32:
+        fail(f"serve internvl2-1b: {res}")
+    out["internvl2-1b"]["serve"] = res
+    release()
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -2175,9 +2573,16 @@ def main() -> int:
     config9 = transition_config()
     transition_counts, phase9 = phase_transition(*config9, device=dev)
     mark("transition")
+    phase_gate_decide(dev)
+    mark("gate_decide")
     failure_counts, fused_rows, _ = phase_failures(
         *config9, phase9["art"], phase9["staged_result"], device=dev)
+    del phase9
     mark("failures")
+    phase_autotune(dev)
+    mark("autotune")
+    family_launches, _ = phase_families(dev)
+    mark("families")
     for key in rows:
         rows[key]["launches"] = counts[key]
         rows[key]["launches_transition_phase"] = transition_counts[key]
@@ -2189,6 +2594,7 @@ def main() -> int:
         fleet[key]["failures_shape"] = fused_rows[key]
     for key in model_rows:
         model_rows[key]["launches"] = model_counts[key]
+    model_rows["flash_attention"]["launches_families_phase"] = family_launches
     log(f"phase end times (s since start) {marks}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows["linkload"], rows["queueloss"],

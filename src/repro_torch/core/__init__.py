@@ -20,6 +20,7 @@ from repro_torch.core.engine import (ControllerPlan, PlanArtifacts,
                                      plan_artifacts, plan_controller,
                                      run_controller_batched)
 from repro_torch.core.fleet_engine import FleetJob, predict_fleet, run_fleet
+from repro_torch.core.predictor import Prediction, pick_best, predict
 from repro_torch.burst import BurstParams, LossConfig
 from repro_torch.failures.config import FailureConfig
 from repro_torch.failures.evaluate import ContingencyReport
@@ -32,7 +33,8 @@ __all__ = [
     "route_metrics", "route_metrics_batched", "summarize", "ControllerConfig",
     "ControllerResult", "run_controller", "ControllerPlan", "PlanArtifacts",
     "plan_artifacts", "plan_controller", "run_controller_batched",
-    "FleetJob", "run_fleet", "predict_fleet",
+    "FleetJob", "run_fleet", "predict_fleet", "Prediction", "pick_best",
+    "predict",
     "BurstParams", "LossConfig", "ContingencyReport", "FailureConfig",
     "TransitionConfig", "should_reconfigure",
 ]

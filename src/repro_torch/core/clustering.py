@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["critical_tms", "kmeans"]
+__all__ = ["critical_tms", "kmeans", "hull_contains"]
 
 
 def _kmeans_body(x: torch.Tensor, init: torch.Tensor, k: int, iters: int):
@@ -78,3 +78,10 @@ def critical_tms(demand: np.ndarray, k: int = 12, iters: int = 25,
             crit.append(demand[m].max(axis=0))
     crit = np.unique(np.asarray(crit), axis=0)
     return crit
+
+
+def hull_contains(critical: np.ndarray, tm: np.ndarray) -> bool:
+    """True if ``tm`` is element-wise dominated by the element-wise max of the
+    critical TMs — the (sufficient) containment property the model guarantees
+    for every TM of its own window."""
+    return bool((tm <= critical.max(axis=0) + 1e-9).all())

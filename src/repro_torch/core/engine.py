@@ -112,15 +112,20 @@ _SOLVER_CACHE: dict = {}
 def routing_solver_for(fabric: Fabric, m: int, max_iters: int, tol: float,
                        precision: str = "f32", device=None):
     """The shared PDHG solver for ``fabric``'s shape on ``device``; a
-    same-shape fabric reuses it (``.fabric`` is set to the caller's)."""
+    same-shape fabric reuses it (``.fabric`` is set to the caller's).  Its
+    ``dual_topk`` is the autotune table's for the shape, looked up on every
+    call, so a re-tuned table or ``REPRO_AUTOTUNE=0`` reaches the next
+    solve."""
     from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.kernels.autotune import solver_knobs
 
     dev = resolve_device(device)
-    key = (fabric.n_pods, m, max_iters, tol, precision, dev)
+    dual_topk = solver_knobs(fabric.n_pods, m, dev)["dual_topk"]
+    key = (fabric.n_pods, m, max_iters, tol, precision, dev, dual_topk)
     if key not in _SOLVER_CACHE:
         _SOLVER_CACHE[key] = TorchRoutingSolver(
-            fabric, m, max_iters=max_iters, tol=tol, precision=precision,
-            device=dev)
+            fabric, m, max_iters=max_iters, tol=tol, dual_topk=dual_topk,
+            precision=precision, device=dev)
     sol = _SOLVER_CACHE[key]
     sol.fabric = fabric  # same-shape fabrics share the solver
     return sol

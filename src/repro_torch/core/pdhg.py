@@ -190,11 +190,19 @@ class TorchRoutingSolver:
     batch of routing epochs, each with its own (m, C) critical TMs and (E,)
     capacities.  ``check_every``/``tol`` drive the convergence-based early
     exit; ``max_iters`` bounds it.
+
+    ``dual_topk`` is the support cap of the dual simplex projection; ``None``
+    consults the autotune table for this (pods, m) shape on ``device``
+    (:func:`repro_torch.kernels.autotune.solver_knobs`, 128 without an entry
+    or with ``REPRO_AUTOTUNE=0``), as the reference's solver does; a value
+    is a pin.  The table's other knob, ``fleet_batch_quantum``, has no use
+    here: the reference pads its fleet batch to it for jit-shape stability,
+    and this solver does not pad its fleet batch.
     """
 
     def __init__(self, fabric: Fabric, m: int, max_iters: int = 3000,
                  check_every: int = 100, tol: float = 5e-3,
-                 restart_every: int = 150, dual_topk: int = 128,
+                 restart_every: int = 150, dual_topk: int | None = None,
                  precision: str = "f32", device=None):
         if precision not in ("f32", "bf16"):
             raise ValueError(f"unknown PDHG precision {precision!r}")
@@ -207,8 +215,12 @@ class TorchRoutingSolver:
         self.check_every = check_every
         self.tol = tol
         self.restart_every = restart_every
-        self.dual_topk = dual_topk
         self.device = resolve_device(device)
+        if dual_topk is None:
+            from repro_torch.kernels.autotune import solver_knobs
+
+            dual_topk = solver_knobs(fabric.n_pods, m, self.device)["dual_topk"]
+        self.dual_topk = dual_topk
         v = fabric.n_pods
         paths: PathSet = build_paths(v)
         self.paths = paths

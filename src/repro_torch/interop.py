@@ -96,7 +96,7 @@ def warm_state_from_numpy(d: dict, device=None) -> RoutingWarmState:
 
 
 # parameters the reference keeps in float32 whatever the model's dtype
-_F32_LEAVES = frozenset({"lambda_raw", "a_log", "d_skip", "dt_bias"})
+_F32_LEAVES = frozenset({"lambda_raw", "a_log", "d_skip", "dt_bias", "router"})
 # groups whose leaves the reference stacks along a leading layer axis
 _STACKED = frozenset({"blocks", "super", "tail"})
 
@@ -107,7 +107,8 @@ def model_from_numpy(cfg: ArchConfig, params: dict, device=None,
     dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``).
 
     Stacked layer groups (``blocks``, ``super``, ``tail``: leading axis L)
-    become one entry per layer.  Each array is read as float32, which is
+    become one entry per layer; an moe block's expert weights stay stacked
+    along their expert axis, (E, d, ff) per layer.  Each array is read as float32, which is
     exact for bfloat16 (numpy's ``ml_dtypes.bfloat16`` arrays, which
     ``torch.from_numpy`` does not take, included), and stored in ``dtype``
     (default ``cfg.dtype``) on ``device`` (``None`` = CUDA), except the

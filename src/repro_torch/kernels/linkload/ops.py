@@ -13,13 +13,18 @@ simulator's MLU / ALU / OLR / total-load metrics.  ``backend`` is ``"torch"``
 the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one to
 :data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a CPU
 tensor runs the plain version in :mod:`.ref`.
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  On the card each takes the body
+(staged or batched) that the autotune table names for its shape bucket
+(:func:`repro_torch.kernels.autotune.table.resolve_tiles`; ``body=`` pins
+one), by default the one its C entry picks by its own cut; the tuner records
+a body only if its outputs are bit-identical to the default's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
+from repro_torch.kernels.autotune import table as _table
 from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
                                               linkload_metrics_fleet_ref,
                                               linkload_metrics_ref)
@@ -46,6 +52,9 @@ fleet_launches = 0  # linkload_fleet
 _ENTRIES = {"linkload_single": 3, "linkload_batched": 4, "linkload_fleet": 5,
             "linkload_tiles": 4}
 _LIB = None  # (library, max commodities), set on first use
+# the autotune family of each counted entry
+_FAMILY = {"linkload_single": "linkload", "linkload_batched": "linkload_batched",
+           "linkload_fleet": "linkload_fleet"}
 
 
 def _library():
@@ -78,12 +87,22 @@ def _single_fits(t: int, c: int, e: int) -> bool:
     return bool(_library()[0].linkload_single_fits(t, c, e))
 
 
-def _launch(name: str, dev, demand, w, inv_cap, threshold, out, dims):
+def _launch(name: str, dev, demand, w, inv_cap, threshold, out, dims,
+            body: str | None = None):
+    """Launch the C entry ``name`` over ``dims`` = (*lead, T, C, E), or the
+    batched body over its pairs (``linkload_tiles``, the same contiguous
+    layout) where ``body`` (``None``: the autotune table's) says "batched";
+    "auto" and "staged" keep the entry's own cut."""
     lib, c_max = _library()
     c = dims[-2]
     if c > c_max:
         raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
                          f"tile ({c_max})")
+    if name in _FAMILY:
+        if body is None:
+            body = _table.body_for(_FAMILY[name], *dims[-3:], dev)
+        if body == "batched":
+            name, dims = "linkload_tiles", (math.prod(dims[:-3]), *dims[-3:])
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(
             demand.data_ptr(), w.data_ptr(), inv_cap.data_ptr(),
@@ -93,7 +112,7 @@ def _launch(name: str, dev, demand, w, inv_cap, threshold, out, dims):
 
 
 def linkload(demand: torch.Tensor, w: torch.Tensor, inv_cap: torch.Tensor,
-             threshold: float):
+             threshold: float, *, body: str | None = None):
     """Per-row (mlu, alu_sum, olr_count, load_sum), each (T,) float32.
 
     demand (T, C), w (C, E), inv_cap (E,) (0 = dead link): contiguous
@@ -109,14 +128,15 @@ def linkload(demand: torch.Tensor, w: torch.Tensor, inv_cap: torch.Tensor,
         return linkload_metrics_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, t), dtype=torch.float32, device=dev)
     _launch("linkload_single", dev, demand, w, inv_cap, threshold, out,
-            (t, c, w.shape[1]))
+            (t, c, w.shape[1]), body)
     global single_launches
     single_launches += 1
     return out[0], out[1], out[2], out[3]
 
 
 def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
-                     inv_cap: torch.Tensor, threshold: float):
+                     inv_cap: torch.Tensor, threshold: float, *,
+                     body: str | None = None):
     """Per-row (mlu, alu_sum, olr_count, load_sum), each (B, T) float32.
 
     demand (B, T, C), w (B, C, E), inv_cap (B, E) (0 = dead link): contiguous
@@ -132,7 +152,7 @@ def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
         return linkload_metrics_batched_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, b, t), dtype=torch.float32, device=dev)
     _launch("linkload_batched", dev, demand, w, inv_cap, threshold, out,
-            (b, t, c, w.shape[2]))
+            (b, t, c, w.shape[2]), body)
     global launches
     launches += 1
     return out[0], out[1], out[2], out[3]
@@ -152,7 +172,8 @@ def _linkload_tiles(demand, w, inv_cap, threshold: float):
 
 
 def linkload_fleet(demand: torch.Tensor, w: torch.Tensor,
-                   inv_cap: torch.Tensor, threshold: float):
+                   inv_cap: torch.Tensor, threshold: float, *,
+                   body: str | None = None):
     """Per-row (mlu, alu_sum, olr_count, load_sum), each (F, B, T) float32.
 
     demand (F, B, T, C), w (F, B, C, E), inv_cap (F, B, E) (0 = dead link;
@@ -171,7 +192,7 @@ def linkload_fleet(demand: torch.Tensor, w: torch.Tensor,
         return linkload_metrics_fleet_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, f, b, t), dtype=torch.float32, device=dev)
     _launch("linkload_fleet", dev, demand, w, inv_cap, threshold, out,
-            (f, b, t, c, w.shape[3]))
+            (f, b, t, c, w.shape[3]), body)
     global fleet_launches
     fleet_launches += 1
     return out[0], out[1], out[2], out[3]

@@ -14,12 +14,18 @@ carry zero load, so they never drop.
 are the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one
 to :data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a
 CPU tensor runs the plain version in :mod:`.ref`.  Nothing falls back from one to the other.
+On the card each takes the body (the single block's 8-CTA cluster, the fleet
+body or the E-tiled body) that the autotune table names for its shape bucket
+(:func:`repro_torch.kernels.autotune.table.resolve_tiles`; ``body=`` pins
+one), by default the one its C entry picks by its own cut; the tuner records
+a body only if its outputs are bit-identical to the default's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import placement
+from repro_torch.kernels.autotune import table as _table
 from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
                                                queueloss_fleet_ref,
                                                queueloss_ref)
@@ -46,6 +53,9 @@ fleet_launches = 0  # queueloss_fleet
 _ENTRIES = {"queueloss_single": 3, "queueloss_batched": 4, "queueloss_fleet": 5,
             "queueloss_tiles": 4}
 _LIB = None  # (library, max commodities, links per block), set on first use
+# the autotune family of each counted entry
+_FAMILY = {"queueloss_single": "queueloss", "queueloss_batched": "queueloss_batched",
+           "queueloss_fleet": "queueloss_fleet"}
 
 
 def _library():
@@ -89,16 +99,27 @@ def _fleet_fits(ts: int, c: int, e: int) -> bool:
     return bool(_library()[0].queueloss_fleet_fits(ts, c, e))
 
 
-def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
+def _launch(name: str, dev, demand, w, cap, buf, dt, dims,
+            body: str | None = None):
     """Launch the C entry ``name`` (four input pointers, dt, two outputs and
     two partial buffers, ``dims`` ints, the stream); returns (drop, load).
     The single-block, batched and fleet entries take no partials where their
-    own bodies take the shape."""
+    own bodies take the shape.  ``body`` (``None``: the autotune table's)
+    "etiled" launches the E-tiled body over the pairs (``queueloss_tiles``,
+    the same contiguous layout), "fleet" the fleet body through the batched
+    entry; "auto" and the entry's own body keep its cut."""
     lib, max_c, links = _library()
     *lead, ts, c, e = dims
     if c > max_c:
         raise ValueError(f"{name}: C={c} exceeds the kernel's shared-memory "
                          f"chunk ({max_c})")
+    if name in _FAMILY:
+        if body is None:
+            body = _table.body_for(_FAMILY[name], ts, c, e, dev)
+        if body == "etiled":
+            name, dims = "queueloss_tiles", (math.prod(lead), ts, c, e)
+        elif body == "fleet" and name == "queueloss_single":
+            name, dims = "queueloss_batched", (1, ts, c, e)
     out = torch.empty((2, *lead, ts), dtype=torch.float32, device=dev)
     if ((name == "queueloss_single" and _single_fits(ts, c, e))
             or (name in ("queueloss_batched", "queueloss_fleet")
@@ -118,7 +139,8 @@ def _launch(name: str, dev, demand, w, cap, buf, dt, dims):
 
 
 def queueloss(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
-              buf: torch.Tensor, dt: float):
+              buf: torch.Tensor, dt: float, *,
+              body: str | None = None):
     """Per-sub-step (drop_sum, load_sum), each (TS,) float32.
 
     demand (TS, C), w (C, E), cap/buf (E,): contiguous float32, all on the
@@ -135,14 +157,15 @@ def queueloss(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
     if dev.type == "cpu":
         return queueloss_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_single", dev, demand, w, cap, buf, dt,
-                  (ts, c, w.shape[1]))
+                  (ts, c, w.shape[1]), body)
     global single_launches
     single_launches += 1
     return out
 
 
 def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
-                      buf: torch.Tensor, dt: float):
+                      buf: torch.Tensor, dt: float, *,
+                      body: str | None = None):
     """Per-sub-step (drop_sum, load_sum), each (B, TS) float32.
 
     demand (B, TS, C), w (B, C, E), cap/buf (B, E): contiguous float32, all on
@@ -159,7 +182,7 @@ def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
     if dev.type == "cpu":
         return queueloss_batched_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_batched", dev, demand, w, cap, buf, dt,
-                  (b, ts, c, e))
+                  (b, ts, c, e), body)
     global launches
     launches += 1
     return out
@@ -177,7 +200,8 @@ def _queueloss_tiles(demand, w, cap, buf, dt: float):
 
 
 def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
-                    buf: torch.Tensor, dt: float):
+                    buf: torch.Tensor, dt: float, *,
+                    body: str | None = None):
     """Per-sub-step (drop_sum, load_sum), each (F, B, TS) float32.
 
     demand (F, B, TS, C), w (F, B, C, E), cap/buf (F, B, E): contiguous
@@ -198,7 +222,7 @@ def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
     if dev.type == "cpu":
         return queueloss_fleet_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_fleet", dev, demand, w, cap, buf, dt,
-                  (f, b, ts, c, e))
+                  (f, b, ts, c, e), body)
     global fleet_launches
     fleet_launches += 1
     return out

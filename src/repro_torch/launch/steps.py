@@ -9,11 +9,12 @@ from repro_torch.models.api import Model
 __all__ = ["make_serve_step", "make_prefill_step"]
 
 
-def make_serve_step(model: Model):
-    """(params, cache, token, pos) -> (next_token (B, 1), cache)."""
+def make_serve_step(model: Model, ring: bool = False):
+    """(params, cache, token, pos) -> (next_token (B, 1), cache).  ``ring``:
+    the cache is a sliding-window ring (``init_cache(..., window_cache=True)``)."""
 
     def serve_step(params, cache, token, pos):
-        logits, cache = model.decode(params, cache, token, pos)
+        logits, cache = model.decode(params, cache, token, pos, ring=ring)
         return logits[:, -1].argmax(dim=-1, keepdim=True).int(), cache
 
     return serve_step

@@ -8,6 +8,8 @@ counterpart of ``repro/models/api.py`` for serving.
   init_cache(batch, max_seq)        -> per-layer decode state
   decode(params, cache, tok, pos)   -> (logits, cache)        [decode]
 
+``batch`` holds ``tokens`` and, for the vlm family, ``patches``.
+
 ``loss`` (training) is a later slice and raises.
 """
 
@@ -57,18 +59,22 @@ class Model:
                                   "the port (ROADMAP 2.9)")
 
     def forward(self, params, batch: dict) -> torch.Tensor:
-        return transformer.forward(params, batch["tokens"], self.cfg)
+        return transformer.forward(params, batch["tokens"], self.cfg,
+                                   patches=batch.get("patches"))
 
-    def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
+    def init_cache(self, batch: int, max_seq: int, dtype=None,
+                   window_cache: bool = False) -> dict:
         return transformer.init_cache(self.cfg, batch, max_seq, self.device,
-                                      dtype=dtype)
+                                      dtype=dtype, window_cache=window_cache)
 
-    def decode(self, params, cache: dict, token: torch.Tensor, pos: int):
-        return transformer.decode_step(params, cache, token, pos, self.cfg)
+    def decode(self, params, cache: dict, token: torch.Tensor, pos: int,
+               ring: bool = False):
+        return transformer.decode_step(params, cache, token, pos, self.cfg,
+                                       ring=ring)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     """The model of ``cfg`` on ``device`` (``None`` = CUDA; raises without a
-    card).  ``moe``, ``vlm`` and ``audio`` raise ``NotImplementedError``."""
+    card).  ``audio`` raises ``NotImplementedError``."""
     transformer.check_family(cfg)
     return Model(cfg, resolve_device(device))

@@ -67,11 +67,15 @@ def _out_proj(p, out, cfg):
     return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
 
 
-def self_attention(p, x, cfg, window: int = 0):
+def self_attention(p, x, cfg, window: int = 0, positions=None):
     """Full-sequence causal self-attention (train / prefill), through the
-    flash-attention kernel.  x (B, S, d); ``window`` 0 = global."""
+    flash-attention kernel.  x (B, S, d); ``window`` 0 = global;
+    ``positions`` (B, S) the RoPE positions (default 0..S-1).  The mask is
+    causal over the sequence's order whatever the positions, as in the
+    reference."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     return _out_proj(p, out, cfg)

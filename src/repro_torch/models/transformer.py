@@ -1,5 +1,6 @@
-"""Unified decoder-only model for the ``dense``, ``hybrid`` and ``ssm``
-families — the counterpart of ``repro/models/transformer.py`` for serving.
+"""Unified decoder-only model for the ``dense``, ``moe``, ``vlm``,
+``hybrid`` and ``ssm`` families — the counterpart of
+``repro/models/transformer.py`` for serving.
 
 The reference stacks its layers (leading axis L) and runs them with
 ``jax.lax.scan`` over ``jax.checkpoint``-wrapped blocks; here every layer is
@@ -9,10 +10,13 @@ Serving does not rematerialize, and one card needs no sharding constraints.
 Families:
   dense  — pre-norm GQA attention + SwiGLU (qwen3/llama3/deepseek/gemma3);
            gemma3's 5:1 local:global pattern gives each layer its window.
+  moe    — attention + GShard MoE FFN (dbrx/mixtral; mixtral adds SWA).
+  vlm    — dense backbone taking precomputed patch embeddings (the vision
+           frontend is a stub, as in the reference) in front of the tokens.
   hybrid — Griffin super-blocks (rec, rec, local attention), plus trailing
            recurrent blocks when L % 3 != 0 (recurrentgemma).
   ssm    — Mamba2 SSD blocks (attention-free).
-``moe``, ``vlm`` and ``audio`` are later slices and raise.
+``audio`` is a later slice and raises.
 
 Decode carries a per-layer cache (lists of dicts, one entry per layer) and
 updates it in place.
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import ArchConfig
@@ -33,7 +38,7 @@ from repro_torch.models.params import Params
 __all__ = ["FAMILIES", "DecoderLM", "check_family", "init_params",
            "layer_window", "forward", "init_cache", "decode_step"]
 
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -59,10 +64,16 @@ def _norm(cfg, device):
 
 
 def _attn_block(gen, cfg, device) -> dict:
-    return {"norm1": _norm(cfg, device),
-            "attn": attn.init_attn_params(gen, cfg, device),
-            "norm2": _norm(cfg, device),
-            "mlp": _mlp(gen, cfg, device)}
+    """Attention then the FFN: the MoE FFN (``"moe"``) for the moe family,
+    SwiGLU (``"mlp"``) otherwise."""
+    block = {"norm1": _norm(cfg, device),
+             "attn": attn.init_attn_params(gen, cfg, device),
+             "norm2": _norm(cfg, device)}
+    if cfg.family == "moe":
+        block["moe"] = moe_mod.init_moe_params(gen, cfg, device)
+    else:
+        block["mlp"] = _mlp(gen, cfg, device)
+    return block
 
 
 def _rec_block(gen, cfg, device) -> dict:
@@ -118,9 +129,17 @@ def _mlp_fwd(m, x):
     return swiglu(x, m.w_gate, m.w_up, m.w_down)
 
 
+def _ffn_fwd(blk, x, cfg):
+    """The block's FFN on its normed input: MoE (its aux loss dropped:
+    serving takes no loss) or SwiGLU."""
+    if "moe" in blk:
+        return moe_mod.moe_ffn(blk.moe, x, cfg)[0]
+    return _mlp_fwd(blk.mlp, x)
+
+
 def _attn_block_fwd(blk, x, cfg, window):
     x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, window=window)
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+    return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg)
 
 
 def _rec_block_fwd(blk, x):
@@ -154,29 +173,45 @@ def _project_logits(params, x, cfg: ArchConfig):
 
 
 @torch.inference_mode()
-def forward(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Logits (B, S, V) for a full sequence of tokens (B, S)."""
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
+            patches: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits (B, S, V) for a full sequence of tokens (B, S).  ``patches``
+    (B, Np, d), the vlm family's precomputed patch embeddings, go in front of
+    the token embeddings; their logits are dropped."""
     check_family(cfg)
-    x = backbone(params, embed(tokens, params.embed), cfg)
-    return _project_logits(params, rms_norm(x, params.final_norm), cfg)
+    x = embed(tokens, params.embed)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    x = backbone(params, x, cfg)
+    logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    return logits
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None) -> dict:
-    """Per-layer decode state, with KV caches of ``max_seq`` positions."""
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None,
+               window_cache: bool = False) -> dict:
+    """Per-layer decode state, with KV caches of ``max_seq`` positions.
+    ``window_cache``: for a pure sliding-window architecture (mixtral) a
+    ring of ``min(max_seq, window)`` positions instead, decoded with
+    ``ring=True``."""
     check_family(cfg)
     dt = dtype or dtype_of(cfg)
     hd = cfg.resolved_head_dim
+    kv_seq = max_seq
+    if window_cache and cfg.window and not cfg.local_global_ratio:
+        kv_seq = min(max_seq, cfg.window)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def kv():
-        return {"k": zeros(batch, max_seq, cfg.n_kv_heads, hd),
-                "v": zeros(batch, max_seq, cfg.n_kv_heads, hd)}
+        return {"k": zeros(batch, kv_seq, cfg.n_kv_heads, hd),
+                "v": zeros(batch, kv_seq, cfg.n_kv_heads, hd)}
 
     if cfg.family == "ssm":
         d_inner, h, n = ssd_mod.dims(cfg)
@@ -203,19 +238,20 @@ def _rec_step(blk, x, st):
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2)), st
 
 
-def _attn_step(blk, x, kv, pos, cfg, window):
+def _attn_step(blk, x, kv, pos, cfg, window, ring=False):
     out, kv = attn.decode_attention(blk.attn, rms_norm(x, blk.norm1), kv, pos, cfg,
-                                    window=window)
+                                    window=window, ring=ring)
     x = x + out
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2)), kv
+    return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg), kv
 
 
 @torch.inference_mode()
 def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, ring: bool = False):
     """One new token for every sequence. token (B, 1) int; ``pos`` the
     position of the new token.  Returns (logits (B, 1, V), cache), the cache
-    updated in place."""
+    updated in place.  ``ring``: the KV caches are sliding-window rings
+    (``init_cache(..., window_cache=True)``)."""
     check_family(cfg)
     x = embed(token, params.embed)
     if cfg.family == "ssm":
@@ -234,7 +270,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
     else:
         for i, blk in enumerate(params.blocks):
             x, cache["blocks"][i] = _attn_step(blk, x, cache["blocks"][i], pos, cfg,
-                                               layer_window(cfg, i))
+                                               layer_window(cfg, i), ring)
     logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
     return logits, cache
 
@@ -249,5 +285,6 @@ class DecoderLM(Params):
         super().__init__(tree)
         self.cfg = cfg
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, tokens, self.cfg)
+    def forward(self, tokens: torch.Tensor,
+                patches: torch.Tensor | None = None) -> torch.Tensor:
+        return forward(self, tokens, self.cfg, patches)

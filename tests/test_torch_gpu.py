@@ -19,8 +19,11 @@ single-block and fleet linkload and queue-loss kernels give the same bits on
 two calls, and the linkload entries and the model kernels take tensors that
 are not 16-byte aligned; a small transition sweep, whose drain-stage
 blocks move no other block's bits; the contingency evaluator's fused launch
-of the fleet kernels, with dead links still carrying live W; and a bf16 PDHG
-batch.
+of the fleet kernels, with dead links still carrying live W; a bf16 PDHG
+batch; the moe prefill (mixtral with its window masking, dbrx) with the
+sorted dispatch against the one-hot one, ring decode past the window against
+the forward, the vlm prefill with patches, and the autotune table's round
+trip (bodies launched through the wrappers, the PDHG knob resolved).
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -682,3 +685,138 @@ def test_bf16_pdhg_batch_on_the_card(gen):
     np.testing.assert_array_equal(
         u.reshape(8, -1).amax(1).cpu().numpy().astype(np.float64),
         out16["u_star"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_layers,b,s,expect", [
+    ("mixtral-8x7b", 2, 1, 8192, 2),  # the 4096 window masks
+    ("dbrx-132b", 1, 1, 2048, 1)])
+def test_moe_prefill_on_the_card(gen, arch, n_layers, b, s, expect):
+    """An moe model at full width, depth cut: one flash-attention launch a
+    layer, finite logits, the sorted dispatch within the reference's bf16
+    bound of the one-hot one on a full-width layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    before = faops.launches
+    nxt = make_prefill_step(model)(params, {"tokens": tokens})
+    assert faops.launches == before + expect
+    logits = model.forward(params, {"tokens": tokens})
+    assert logits.shape == (b, s, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt)
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    y1, a1 = moe.moe_ffn_onehot(params.blocks[0].moe, x, cfg)
+    y2, a2 = moe.moe_ffn_sorted(params.blocks[0].moe, x, cfg)
+    assert float((y1.float() - y2.float()).abs().max() / y1.float().abs().max()) < 2e-2
+    assert abs(float(a1) - float(a2)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [16, 0])
+def test_ring_decode_matches_forward_on_the_card(gen, window):
+    """mixtral's reduced config in float32 (TF32 off): decode through a
+    ``window``-slot ring (``window_cache=True``, ``ring=True``) past the
+    window's end against the kernels' windowed forward at 1e-3·(1+|logit|);
+    without a window the cache keeps every position."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_arch("mixtral-8x7b").reduced(),
+                                  dtype="float32", window=window)
+        model = build_model(cfg)
+        params = model.init(1)
+        s = 64
+        tokens = torch.randint(0, cfg.vocab, (2, s), generator=gen, device="cuda")
+        full = model.forward(params, {"tokens": tokens})
+        cache = model.init_cache(2, s, window_cache=True)
+        assert cache["blocks"][0]["k"].shape[1] == (window or s)
+        for pos in range(s):
+            logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos,
+                                         ring=True)
+            d = (logits[:, 0] - full[:, pos]).abs()
+            assert float((d / (1e-3 * (1 + full[:, pos].abs()))).max()) <= 1.0, pos
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_vlm_prefill_on_the_card(gen):
+    """internvl2-1b at full size: patches in front of the tokens, one
+    flash-attention launch a layer, finite logits over the tokens only,
+    tied embeddings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.api import build_model
+
+    cfg = get_arch("internvl2-1b")
+    assert cfg.tie_embeddings
+    model = build_model(cfg)
+    params = model.init(0)
+    assert "unembed" not in params
+    b, s, n_patch = 2, 1024, cfg.frontend_tokens
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s - n_patch), generator=gen,
+                                     device="cuda"),
+             "patches": torch.randn((b, n_patch, cfg.d_model), generator=gen,
+                                    device="cuda").bfloat16()}
+    before = faops.launches
+    nxt = make_prefill_step(model)(params, batch)
+    assert faops.launches == before + cfg.n_layers
+    logits = model.forward(params, batch)
+    assert logits.shape == (b, s - n_patch, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt)
+    # the patches reach the tokens' logits
+    other = dict(batch, patches=torch.zeros_like(batch["patches"]))
+    assert not torch.equal(model.forward(params, other), logits)
+
+
+@pytest.mark.gpu
+def test_autotune_round_trip_on_the_card(gen, tmp_path, monkeypatch):
+    """The table on the card: ``tune_tiles`` records a body certified
+    bit-identical to the entry's own and the wrappers launch it (one launch
+    counted); ``tune_solver`` records a knob that a fresh solver resolves,
+    and ``REPRO_AUTOTUNE=0`` pins 128 and the entries' own bodies."""
+    from repro_torch.core.fleet import FLEET_SPECS, make_fabric
+    from repro_torch.core.pdhg import TorchRoutingSolver
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.reset_table()
+    try:
+        for family in autotune.FAMILIES:
+            t = 36 if family.startswith("queueloss") else 3
+            entry = autotune.tune_tiles(family, t, 132, 132, reps=1)
+            assert entry["body"] in ("auto", *autotune.BODIES[family])
+            assert autotune.resolve_tiles(family, t, 132, 132) == entry["body"]
+        d, w, inv_cap = _batched_linkload_inputs(gen, 8, 3, 132, 132)
+        outs = {}
+        for body in ("auto", "staged", "batched"):
+            before = llops.launches
+            outs[body] = llops.linkload_batched(d, w, inv_cap, 0.8, body=body)
+            assert llops.launches == before + 1
+        for a, b in zip(outs["auto"], outs["staged"]):
+            assert torch.equal(a, b)
+        for a, b in zip(outs["auto"], outs["batched"]):  # dyadic data: exact
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        fab = make_fabric(FLEET_SPECS[16])
+        entry = autotune.tune_solver(fab, 4, reps=1, batch=4)
+        assert TorchRoutingSolver(fab, 4).dual_topk == entry["dual_topk"]
+        assert (tmp_path / "torch_table_v1.json").is_file()
+        monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+        assert TorchRoutingSolver(fab, 4).dual_topk == 128
+        assert autotune.body_for("linkload", 3, 132, 132, torch.device("cuda")) == "auto"
+    finally:
+        autotune.reset_table()

@@ -37,6 +37,18 @@ CASES = [(a, dt, {}) for a in ("recurrentgemma-9b", "mamba2-130m", "llama3-8b",
 CASES += [("recurrentgemma-9b", dt, {"n_layers": 8, "window": 12})
           for dt in ("float32", "bfloat16")]
 CASES += [("gemma3-12b", "float32", {"window": 8})]
+# the moe and vlm families: mixtral (8 experts top-2 cut to 4, sliding
+# window), dbrx (global attention), internvl2 (patches in front of the
+# tokens, tied embeddings).  The moe models run in float32 only: top-k
+# routing is discontinuous, and in bfloat16 the two packages' rounding
+# differs by enough to flip a token whose 2nd and 3rd routing
+# probabilities are close (mixtral's reduced config at this seed: a margin
+# of 0.0037 in layer 1 at token 27 moves its logits by 0.45), so their
+# bf16 outputs agree token by token only where no routing flips.  The moe
+# layer itself is held to the reference in bf16 on the same inputs at the
+# reference's own 2e-2 (tests/test_torch_moe.py).
+CASES += [(a, "float32", {}) for a in ("mixtral-8x7b", "dbrx-132b")]
+CASES += [("internvl2-1b", dt, {}) for dt in ("float32", "bfloat16")]
 
 
 def _configs(arch, dtype, over):
@@ -53,19 +65,27 @@ def test_forward_and_decode_match_reference(arch, dtype, over):
     ref_cfg, cfg = _configs(arch, dtype, over)
     ref_model = ref_build_model(ref_cfg)
     params = ref_model.init(jax.random.key(2))
-    tokens = np.random.default_rng(3).integers(0, cfg.vocab, (B, S))
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab, (B, S))
     jtok = jnp.asarray(tokens, jnp.int32)
-    ref_full = np.asarray(ref_model.forward(params, {"tokens": jtok}), np.float32)
+    ref_batch, batch = {"tokens": jtok}, {"tokens": torch.as_tensor(tokens)}
+    if cfg.family == "vlm":  # precomputed patch embeddings before the text
+        patches = rng.normal(0, 1, (B, cfg.frontend_tokens, cfg.d_model))
+        ref_batch["patches"] = jnp.asarray(patches, ref_cfg.dtype)
+        batch["patches"] = torch.from_numpy(patches).to(getattr(torch, dtype))
+    ref_full = np.asarray(ref_model.forward(params, ref_batch), np.float32)
 
     model = build_model(cfg, device="cpu")
     net = model_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, params),
                            device="cpu")
-    ttok = torch.as_tensor(tokens)
-    full = model.forward(net, {"tokens": ttok})
+    ttok = batch["tokens"]
+    full = model.forward(net, batch)
     assert full.shape == (B, S, cfg.vocab) and full.dtype == getattr(torch, dtype)
-    assert torch.equal(net(ttok), full)  # the nn.Module's own forward
+    assert torch.equal(net(ttok, batch.get("patches")), full)  # the nn.Module's own
     tol = TOL[dtype]
     np.testing.assert_allclose(full.float().numpy(), ref_full, rtol=tol, atol=tol)
+    if "patches" in batch:  # decode below runs the tokens alone
+        full = model.forward(net, {"tokens": ttok})
 
     step = jax.jit(lambda p, c, t, pos: ref_model.decode(p, c, t, pos))
     ref_cache, cache = ref_model.init_cache(B, S), model.init_cache(B, S)
@@ -135,7 +155,8 @@ def test_supports_cell_matches_reference(arch):
             ref_get_arch(arch), ref_shape)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m", "gemma3-12b",
+                                  "mixtral-8x7b", "dbrx-132b", "internvl2-1b"])
 def test_port_init_matches_reference_tree(arch):
     """The port's own random init has the reference's keys, shapes and
     dtypes, and is the same from the same seed."""
@@ -177,3 +198,36 @@ def test_decode_attention_masks_match_reference(ring, window, rng):
                                    atol=1e-4, err_msg=f"pos {pos}")
         np.testing.assert_allclose(cache["k"].numpy(), np.asarray(ref_cache["k"]),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,window", [("mixtral-8x7b", 16), ("llama3-8b", 0)])
+def test_ring_decode_past_the_window_matches_reference(arch, window):
+    """``init_cache(..., window_cache=True)`` and ``decode(..., ring=True)``
+    past the window's end (S = 64 over a 16-slot ring) against the
+    reference's ring decode, and against the port's windowed forward, in
+    float32; an architecture with no window keeps its full cache."""
+    ref_cfg, cfg = _configs(arch, "float32", {"window": window})
+    s = 64
+    ref_model = ref_build_model(ref_cfg)
+    params = ref_model.init(jax.random.key(4))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (B, s))
+    jtok, ttok = jnp.asarray(tokens, jnp.int32), torch.as_tensor(tokens)
+    model = build_model(cfg, device="cpu")
+    net = model_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, params),
+                           device="cpu")
+    full = model.forward(net, {"tokens": ttok})
+    ref_cache = ref_model.init_cache(B, s, window_cache=True)
+    cache = model.init_cache(B, s, window_cache=True)
+    assert cache["blocks"][0]["k"].shape[1] == (window or s)
+    assert ref_cache["blocks"]["k"].shape[2] == (window or s)
+    step = jax.jit(lambda p, c, t, pos: ref_model.decode(p, c, t, pos, ring=True))
+    tol = TOL["float32"]
+    for pos in range(s):
+        ref_logits, ref_cache = step(params, ref_cache, jtok[:, pos:pos + 1],
+                                     jnp.int32(pos))
+        logits, cache = model.decode(net, cache, ttok[:, pos:pos + 1], pos,
+                                     ring=True)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                                   rtol=tol, atol=tol, err_msg=f"pos {pos}")
+        np.testing.assert_allclose(logits[:, 0].numpy(), full[:, pos].numpy(),
+                                   rtol=tol, atol=tol, err_msg=f"pos {pos}")

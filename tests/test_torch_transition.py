@@ -443,6 +443,42 @@ def test_batched_engine_with_transitions_matches_reference_pdhg():
         assert np.isfinite(m).all()
 
 
+# the gate deciding (``decide=True``) on PDHG, one update applied and one
+# skipped: the 9-pod F5, a 2.5-day hourly trace, 1-day aggregation, 3-hour
+# routing and a topology solve every 12 hours (three joint solves, the gate
+# at the second and third); chip_smoke.py phase 9 runs the same walk on the
+# card and expects these decisions
+GATE_DECIDE = dict(spec_index=4, days=2.5, interval_minutes=60.0,
+                   cc=dict(routing_interval_hours=3.0, topology_interval_days=0.5,
+                           aggregation_days=1.0, k_critical=4))
+GATE_DECISIONS = [True, False]
+
+
+def test_gate_decides_like_the_reference_pdhg():
+    """The §4.6 gate with ``decide=True`` on PDHG: the port applies and
+    skips the same updates as the reference, benefit and disruption within
+    2·tol, one update applied and one skipped."""
+    spec = FLEET_SPECS[GATE_DECIDE["spec_index"]]
+    fabric = make_fabric(spec)
+    trace = make_trace(spec, fabric, days=GATE_DECIDE["days"],
+                       interval_minutes=GATE_DECIDE["interval_minutes"])
+    cc = ControllerConfig(solver_backend="pdhg", backend="numpy",
+                          transition=TransitionConfig(n_panels=4, stage_intervals=1),
+                          **GATE_DECIDE["cc"])
+    assert cc.transition.decide
+    sc = SolverConfig()
+    ref = run_controller(fabric, trace, GEMINI, cc, sc)
+    port = port_run_controller(
+        _port_fab(fabric), _port_trace(trace), GEMINI, _port_cc(cc),
+        interop.solver_config_from_dict(dataclasses.asdict(sc)), device="cpu")
+    assert [e["applied"] for e in ref.transition_log] == GATE_DECISIONS
+    assert [e["applied"] for e in port.transition_log] == GATE_DECISIONS
+    assert port.n_topology_updates == ref.n_topology_updates
+    assert port.n_skipped_topology == ref.n_skipped_topology == 1
+    _assert_logs_match(port, ref, rel=2 * cc.pdhg_tol)
+    np.testing.assert_array_equal(port.final_topology, ref.final_topology)
+
+
 def test_high_hysteresis_skips_like_the_reference(small_fabric, small_trace):
     tc = dataclasses.replace(TC, hysteresis=50.0)
     cc = dataclasses.replace(CC, solver_backend="scipy", transition=tc)
