@@ -50,7 +50,19 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    D, the SSD chunk scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128,
    chunk 64, also against itself at chunk 128).  The eight redesigned
    kernels (RG-LRU, SSD, and the batched, single-block and fleet linkload and
-   queue loss) are also held bit for bit against a second call.
+   queue loss) are also held bit for bit against a second call.  Flash
+   attention's backward (the gradient training takes through
+   ``FlashAttention``: the forward with its log-sum-exp, then the backward
+   kernel) at llama3-8b's training shape (B=2, S=2048, H=32, KV=8, hd=128,
+   causal), recurrentgemma-9b's local attention, seamless-m4t-large-v2's
+   cross-attention (B=4, Sq=256, Sk=1024, H=KV=16, hd=64, non-causal; the
+   forward at Sq != Sk too) in bf16 and a ragged f32 shape (hd=100, a
+   non-causal window, Sq=300 != Sk=500), against the plain backward and
+   autograd through the plain forward (f32 1e-4·(1+|ref|); bf16 within the
+   bf16 gradient rounding bound), bit for bit against a second call, timed
+   beside its plain version and ``scaled_dot_product_attention``'s backward;
+   the RG-LRU backward (two launches: the forward and the reversed scan) at
+   (2, 4096, 4096) against autograd through its plain version at 1e-4.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -58,13 +70,13 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    topology solve, batched PDHG and one launch of each batched kernel;
    re-scored through the float64 numpy oracle.
 5. The streaming controller: ``repro_torch.serve.StreamingController`` on
-   the first 7 1/4 days of the same trace and configuration, warm-started
-   PDHG: 24 decisions (the first crosses the joint topology solve), each
+   the first 7 1/8 days of the same trace and configuration, warm-started
+   PDHG: 12 decisions (the first crosses the joint topology solve), each
    finished epoch scored with one launch of each single-block kernel.  Held
    against the same 24 epochs of phase 4's result and re-scored through the
    numpy oracle; prints time-to-new-weights.
-6. The sequential walk (``engine="sequential"``) on F21 over 7 1/12 days
-   (uniform topology + hedging, 8 epochs) against the batched engine, and
+6. The sequential walk (``engine="sequential"``) on F21 over 7 1/24 days
+   (uniform topology + hedging, 4 epochs) against the batched engine, and
    the (uniform, VLB) baseline over a 14-day trace: one whole-trace launch
    of the single-block linkload kernel, against the numpy oracle.
 7. The fleet engine: ``repro_torch.core.run_fleet`` over all 22 fabrics of
@@ -83,7 +95,8 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    plain token-by-token decode in float32 (TF32 off) at B=2, S=64; and
    ``repro_torch.launch.serve.serve`` with ``--full`` and the launcher's
    defaults (16 requests, batch 4, prompt 32, gen 32) for both.
-9. The transition sweep: phase 4's configuration with a topology update
+9. The transition sweep: phase 4's configuration with 4 critical TMs (the
+   paper's 12 cut to keep the script's time) and a topology update
    every 12 hours (two joint solves) executed as drain stages over 4 patch
    panels (``TransitionConfig(n_panels=4, stage_intervals=1,
    decide=False)``).  One plan walk (the joint solves and the §4.6 gate,
@@ -126,6 +139,22 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    tokens/s and peak memory; and mixtral's reduced config in float32 (TF32
    off) at window 16, decoded through its ring past the window against the
    kernels' forward (1e-3·(1+|logit|)).
+13. The audio family and training (bf16, random weights from a seed):
+   seamless-m4t-large-v2's prefill at full size (B=4, 1024 frames + 256
+   tokens: exactly 72 flash-attention launches, 24 non-causal in the
+   encoder, 24 causal and 24 cross in the decoder), ``serve`` of 4 requests
+   x 16 tokens, and its reduced config in float32 decoded against its
+   forward (1e-3·(1+|logit|)); llama3-8b at full width (2 of its 32 layers)
+   trained through ``repro_torch.runtime.trainer.Trainer`` (B=2, S=2048,
+   remat, AdamW lr 3e-4) for 4 steps with a checkpoint every 2, then
+   restarted from the step-2 checkpoint to step 4: the restarted losses
+   bit-equal to the uninterrupted run's, exactly 16 forward and 8 backward
+   flash-attention launches, finite losses and gradient norms, step time,
+   tokens/s, model-FLOPs utilisation and peak memory; recurrentgemma-9b at
+   full width (one super-block: rec, rec, local attention) and seamless at 4
+   + 4 layers, two steps each through ``make_train_step`` (the RG-LRU scan
+   forward and backward and the windowed flash backward, counted); and the
+   ssm family's ``Model.loss`` raising ``NotImplementedError`` on the card.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -160,6 +189,15 @@ FAMILY_RUNS = (("mixtral-8x7b", 8, 1, 8192, 8), ("dbrx-132b", 2, 1, 4096, 2),
 FAMILY_FLASH = {"mixtral-8x7b": ((1, 8192, 32, 8, 128), 4096),
                 "dbrx-132b": ((1, 4096, 48, 8, 128), 0),
                 "internvl2-1b": ((4, 4096, 14, 2, 64), 0)}
+# flash attention's backward (phase 3): (label, (B, Sq, Sk, H, KV, hd, causal,
+# window, dtype)) — llama3-8b's training shape (phase 13's), recurrentgemma-9b's
+# local attention, seamless-m4t-large-v2's cross-attention, and a ragged
+# float32 shape (hd 100, a non-causal window, Sq != Sk)
+FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
+             ("recurrentgemma", (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16")),
+             ("seamless_cross", (4, 256, 1024, 16, 16, 64, False, 0, "bfloat16")),
+             ("ragged_f32", (1, 300, 500, 8, 2, 100, False, 48, "float32")))
+FLASH_BWD_F32_TOL = 1e-4  # f32 gradients: 1e-4·(1 + |ref|)
 MOE_SORTED_REL_TOL = 2e-2  # sorted vs one-hot dispatch (tests/test_arch_smoke.py:155)
 FAMILY_DECODE = 32  # greedy tokens of mixtral through its ring cache
 TUNE_MAX_ITERS = 1000  # phase 11's cap on the solver tuner's stage-1 solves
@@ -175,9 +213,9 @@ FLASH_F32_TOL, RGLRU_TOL, SSD_REL_TOL = 2e-3, 1e-4, 1e-3
 # (tests/test_arch_smoke.py)
 DECODE_TOL, DECODE_LEN = 1e-3, 64
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
-# phase 5 streams phase 4's first 7 1/4 days: the 7-day window, then 24
+# phase 5 streams phase 4's first 7 1/8 days: the 7-day window, then 12
 # routing decisions (the first with the joint topology solve)
-SERVE_DAYS = 7.25
+SERVE_DAYS = 7.125
 # phase 7's buckets: (fabrics, blocks per fabric, commodities) of the 12-pod
 # and the 8-pod bucket of the 22-fabric fleet
 FLEET_BUCKETS = {"V12": (15, 96, 132), "V8": (7, 96, 56)}
@@ -864,6 +902,129 @@ def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return total
 
 
+def _flash_backward(gen, dev):
+    """Flash attention's backward (#7's new kernel) at the ``FLASH_BWD``
+    shapes: the gradients through ``FlashAttention`` (the training path:
+    the forward with its log-sum-exp, then the backward kernel) against the
+    plain backward and against autograd through the plain forward, in float32
+    at ``FLASH_BWD_F32_TOL`` or, for bf16 inputs, within the bf16 rounding
+    bound (``bf16_grad_rounding_bound``); bit for bit against a second call;
+    the forward at Sq != Sk (cross) against its plain version; times of the
+    kernel (the backward entry alone), its plain version in the input dtype
+    and ``scaled_dot_product_attention``'s backward.  Returns the kernels-line
+    row (the llama3 shape) with every shape's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         attention_ref,
+                                                         bf16_grad_rounding_bound,
+                                                         bf16_rounding_bound)
+
+    shapes = {}
+    for label, (b, sq, sk, h, kv, hd, causal, window, dt) in FLASH_BWD:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn((b * n, s_, hd), generator=gen, device=dev).to(dtype)
+                       for n, s_ in ((h, sq), (kv, sk), (kv, sk), (h, sq)))
+        m = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+        o, lse = faops.flash_attention_rows(q, k, v, with_lse=True, **m)
+        if sq != sk:  # the forward at Sq != Sk (cross-attention)
+            if dtype == torch.bfloat16:
+                ref, tol = bf16_rounding_bound(q, k, v, **m)
+            else:
+                ref, tol = attention_ref(q, k, v, **m), FLASH_F32_TOL
+            fwd_worst = float(((o.float() - ref).abs() / tol).max())
+            log(f"phase 3: flash_attention forward {label} (Sq={sq} != Sk={sk}): worst "
+                f"|err|/tol {fwd_worst:.4f}")
+            if not fwd_worst <= 1.0:
+                fail(f"flash_attention forward at Sq != Sk ({label}) disagrees")
+            del ref, tol
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                             window), (qg, kg, vg), do)
+        again = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                               window), (qg, kg, vg), do)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        # the f32 gradient by autograd through the plain forward, a batch row
+        # at a time (its (H, Sq, Sk) float32 intermediates)
+        auto = [[], [], []]
+        for i in range(b):
+            rows_q, rows_k = slice(i * h, (i + 1) * h), slice(i * kv, (i + 1) * kv)
+            qf, kf, vf = (t[r].float().requires_grad_() for t, r in
+                          ((q, rows_q), (k, rows_k), (v, rows_k)))
+            out_f = attention_ref(qf, kf, vf, **m)
+            for j, g in enumerate(torch.autograd.grad(out_f, (qf, kf, vf),
+                                                      do[rows_q].float())):
+                auto[j].append(g)
+            del qf, kf, vf, out_f
+        auto = [torch.cat(x) for x in auto]
+        if dtype == torch.bfloat16:
+            plain, bound = bf16_grad_rounding_bound(q, k, v, do, **m)
+            contract = "the bf16 gradient rounding bound"
+        else:
+            plain = attention_bwd_ref(q, k, v, o, do, attention_lse_ref(q, k, **m), **m)
+            bound = tuple(FLASH_BWD_F32_TOL * (1 + r.abs()) for r in plain)
+            contract = f"{FLASH_BWD_F32_TOL}·(1+|ref|)"
+        worst_plain = max(float(((g.float() - r).abs() / t).max())
+                          for g, r, t in zip(got, plain, bound))
+        worst_auto = max(float(((g.float() - r).abs() / t).max())
+                         for g, r, t in zip(got, auto, bound))
+        err = max(float((g.float() - r).abs().max()) for g, r in zip(got, plain))
+        log(f"phase 3: flash_attention backward {label} (B={b}, Sq={sq}, Sk={sk}, H={h}, "
+            f"KV={kv}, hd={hd}, causal={causal}, window={window}, {dt}): max abs err "
+            f"{err:.3e}; worst |err|/tol against the plain backward {worst_plain:.4f}, "
+            f"against autograd through the plain forward {worst_auto:.4f} (tol: "
+            f"{contract}); second call bit-equal {same}")
+        if not worst_plain <= 1.0 or not worst_auto <= 1.0:
+            fail(f"flash_attention backward {label} disagrees with its plain version")
+        if not same:
+            fail(f"flash_attention backward {label} is not deterministic")
+        del got, auto, plain, bound
+        torch.cuda.empty_cache()
+
+        pairs = _band_pairs(sq, sk, causal, window) * b * h
+        n_flops = 2.5 * 4 * hd * pairs
+        n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+        ms = time_cuda(lambda: faops.flash_attention_bwd_rows(q, k, v, o, do, lse, **m))
+        plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, do, lse, **m))
+        q4, k4, v4 = (t.view(b, n, s_, hd).detach().requires_grad_()
+                      for t, n, s_ in ((q, h, sq), (k, kv, sk), (v, kv, sk)))
+        kw = dict(enable_gqa=True)
+        if window:
+            i = torch.arange(sq, device=dev)[:, None]
+            j = torch.arange(sk, device=dev)[None, :]
+            kw["attn_mask"] = (j > i - window) & ((j <= i) if causal else True)
+        else:
+            kw["is_causal"] = causal
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, **kw)
+        do4 = do.view(b, h, sq, hd)
+        lib_ms = time_cuda(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                       retain_graph=True))
+        bnd, by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+        log(f"  flash_attention backward {label} times: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP "
+            f"= 2.5 x the forward's on {pairs} (q, k) pairs at the bf16 rate)")
+        shapes[label] = {"shape": [b, sq, sk, h, kv, hd, int(causal), window, dt],
+                         "max_abs_err": err, "worst_plain": worst_plain,
+                         "worst_autograd": worst_auto, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+        del q, k, v, do, o, lse, q4, k4, v4, out4, do4
+        torch.cuda.empty_cache()
+    main = shapes["llama3"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"], "status": "new (the gradient of #7)",
+            "shapes": shapes}
+
+
 def phase_model_kernels():
     """Kernels #7-#9 at phase 8's prefill shapes and at ragged ones, against
     their plain versions on the card; times at the prefill shapes, with
@@ -954,6 +1115,8 @@ def phase_model_kernels():
             "status": "redesigned"}
         del q, k, v, out, ref, q4, k4, v4
 
+    rows["flash_attention_bwd"] = _flash_backward(gen, dev)
+
     # 8. RG-LRU scan: recurrentgemma-9b's (B, S, d_model), the same at B = 1,
     # and ragged shapes (S past a segment of the kernel, D not a multiple of 32)
     b1_ms = None
@@ -998,6 +1161,25 @@ def phase_model_kernels():
         del a, x, out, ref
     rows["rglru_scan"]["b1_ms"] = b1_ms
     rows["flash_attention"]["family_shapes"] = family_rows
+
+    # 8, backward: the reversed scan, one more launch of the kernel
+    a = (0.8 + 0.199 * torch.rand((2, 4096, 4096), generator=gen, device=dev)
+         ).requires_grad_()
+    x = (0.5 * torch.randn((2, 4096, 4096), generator=gen, device=dev)).requires_grad_()
+    dh = torch.randn((2, 4096, 4096), generator=gen, device=dev)
+    rlops.launches = 0
+    got = torch.autograd.grad(rlops.rglru_scan(a, x), (a, x), dh)
+    n_launch = rlops.launches
+    want = torch.autograd.grad(rglru_scan_ref(a, x), (a, x), dh)
+    worst = max(float(((g - w).abs() / (RGLRU_TOL + RGLRU_TOL * w.abs())).max())
+                for g, w in zip(got, want))
+    log(f"phase 3: rglru_scan backward (2, 4096, 4096): {n_launch} launches (forward "
+        f"and the reversed scan); worst |err|/(atol+rtol|ref|) {worst:.4f} against "
+        f"autograd through the plain version (contract {RGLRU_TOL})")
+    if n_launch != 2 or not worst <= 1.0:
+        fail("rglru_scan backward disagrees with autograd through its plain version")
+    rows["rglru_scan"]["backward_worst"] = worst
+    del a, x, dh, got, want
 
     # 9. SSD chunk scan: mamba2-130m's prefill, and a ragged shape whose
     # chunk halves to 32
@@ -1326,7 +1508,7 @@ def phase_serve(fab, trace, strategy, cc, sc, batched, device,
                     "pdhg_max_iters": mx, "peak_bytes": peak}
 
 
-def phase_sequential(device, days: float = 7.0 + 1.0 / 12.0,
+def phase_sequential(device, days: float = 7.0 + 1.0 / 24.0,
                      baseline_days: float = 14.0, **config):
     """The sequential walk on F21 (uniform topology + hedging) against the
     batched engine, and the whole-trace (uniform, VLB) baseline.  ``config``
@@ -1533,19 +1715,27 @@ def phase_fleet(jobs, device, check=("F21", "F1", "F17")):
     return counts, {"wall_s": wall, "peak_bytes": peak}
 
 
+# phase 9's critical TMs per joint topology solve: 4 of the paper's 12, which
+# cuts the two host joint solves (191.5 s of the 202 s plan walk at 12 on a
+# slow host) to keep the whole script inside 70 % of its time limit
+TRANSITION_K = 4
+
+
 def transition_config(days: float = 8.0, interval_minutes: float = 5.0,
                       spec_index=20, topology_interval_days: float = 0.5,
-                      **cc_over):
-    """Phase 9's configuration: phase 4's (F21, Gemini, burst loss) with a
-    topology update every ``topology_interval_days`` (two joint solves over
-    the 8-day trace's scored day: the gate runs at the second) executed as
-    drain stages over 4 patch panels, one interval a stage, every update
-    applied (``decide=False`` forces the staging)."""
+                      k_critical: int = TRANSITION_K, **cc_over):
+    """Phase 9's configuration: phase 4's (F21, Gemini, burst loss) with
+    ``k_critical`` critical TMs and a topology update every
+    ``topology_interval_days`` (two joint solves over the 8-day trace's scored
+    day: the gate runs at the second) executed as drain stages over 4 patch
+    panels, one interval a stage, every update applied (``decide=False``
+    forces the staging)."""
     from repro_torch.transition import TransitionConfig
 
     return sweep_config(days=days, interval_minutes=interval_minutes,
                         spec_index=spec_index,
                         topology_interval_days=topology_interval_days,
+                        k_critical=k_critical,
                         transition=TransitionConfig(n_panels=4, stage_intervals=1,
                                                     decide=False), **cc_over)
 
@@ -2532,6 +2722,326 @@ def phase_families(device):
     return launches, out
 
 
+# phase 13: seamless-m4t-large-v2's prefill (B, frames, tokens) and its flash
+# launches (24 encoder non-causal + 24 decoder causal + 24 cross); training
+# runs: (arch, layers kept, B, S); llama3-8b through the Trainer for
+# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY; the other two
+# for SHORT_STEPS steps on one batch (AdamW's first update runs at lr 0, so
+# the third step's loss is the first that an update moves)
+AUDIO_PREFILL = (4, 1024, 256, 72)
+TRAIN_LLAMA = ("llama3-8b", 2, 2, 2048)
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
+SHORT_STEPS = 3
+TRAIN_HYBRID = ("recurrentgemma-9b", 3, 1, 4096)
+TRAIN_AUDIO = ("seamless-m4t-large-v2", 4, 2, 1024, 256)
+
+
+def _train_flops(cfg, n_params_matmul: int, b: int, s: int) -> float:
+    """Model FLOPs of one training step (forward + backward, no remat):
+    6 · (parameters in matrix products) · tokens + 3 · the attention's
+    forward products (4 · hd a visible (q, k) pair, causal)."""
+    attn = 4 * cfg.resolved_head_dim * _band_pairs(s, s, True, cfg.window) * b * cfg.n_heads
+    n_attn_layers = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+    return 6.0 * n_params_matmul * b * s + 3.0 * attn * n_attn_layers
+
+
+def phase_audio_train(device, smi: str = ""):
+    """The audio family and training (phase 13), bf16, random weights from a
+    seed: seamless-m4t-large-v2's prefill at full size (exact flash launches,
+    finite logits, tokens/s, peak memory), ``serve`` of 4 requests and its
+    reduced float32 config's decode against its forward; llama3-8b at full
+    width (2 of 32 layers) trained through ``Trainer`` for 4 steps, keeping
+    the step-2 checkpoint (its parameters moved from the initial ones, its
+    moments nonzero), then restarted from step 2 to 4 (the restarted losses
+    bit-equal to the uninterrupted run's; exact flash launches: 2·L·steps
+    forward with remat, L·steps backward); recurrentgemma-9b at full width
+    (one super-block) and seamless at 4 + 4 layers, three steps each through
+    ``make_train_step`` on one batch, the third loss moved by the update (#8
+    forward and backward, the windowed #7 backward, counted); and the ssm
+    family's ``Model.loss`` raising on the card.
+    ``smi`` (the card's name and power limit) goes beside the training times.
+    Returns ({"rglru": the hybrid run's RG-LRU launches, "flash_bwd": the
+    llama3 run's backward launches}, numbers)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.rglru_scan import ops as rlops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import StepConfig, make_prefill_step, make_train_step
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def release():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        faops.launches = faops.bwd_launches = rlops.launches = 0
+
+    def counts():
+        return {"flash_fwd": faops.launches, "flash_bwd": faops.bwd_launches,
+                "rglru": rlops.launches}
+
+    def save_only(trainer, keep):  # write the one checkpoint the restart reads
+        save = trainer._save
+        trainer._save = lambda step, *a: save(step, *a) if step == keep else None
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+
+    # seamless-m4t-large-v2 serving at full size
+    cfg = get_arch("seamless-m4t-large-v2")
+    b, s_enc, s_dec, expect = AUDIO_PREFILL
+    release()
+    model = build_model(cfg, device)
+    params = model.init(0)
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = {"frames": torch.randn((b, s_enc, cfg.d_model), generator=gen,
+                                   device=device).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
+                                     device=device)}
+    step = make_prefill_step(model)
+    step(params, batch)  # warm
+    synchronize(device)
+    zero()
+    t0 = time.perf_counter()
+    nxt = step(params, batch)
+    synchronize(device)
+    t_step = time.perf_counter() - t0
+    got = counts()
+    logits = model.forward(params, batch)
+    finite = bool(torch.isfinite(logits).all())
+    same = bool(torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 13: {cfg.name} prefill (bf16, {n_params} parameters, B={b}, "
+        f"{s_enc} frames + {s_dec} tokens): prefill step {t_step:.3f} s "
+        f"({b * (s_enc + s_dec) / t_step:.1f} tokens/s, frames and tokens); launches "
+        f"{got} (expected {expect} forward: {cfg.encoder_layers} encoder, "
+        f"{cfg.n_layers} causal, {cfg.n_layers} cross); logits {tuple(logits.shape)}, "
+        f"finite {finite}, argmax equals the step's token {same}; peak device memory "
+        f"{peak} B")
+    if got["flash_fwd"] != expect or got["flash_bwd"] or not finite or not same:
+        fail(f"{cfg.name} prefill: launches {got}, finite {finite}, same {same}")
+    out["seamless_prefill"] = {"step_s": t_step, "tokens_per_s": b * (s_enc + s_dec) / t_step,
+                               "peak_bytes": peak, "launches": got["flash_fwd"]}
+    del model, params, batch, logits, nxt
+    release()
+    res = serve(cfg.name, requests=4, batch=4, prompt_len=32, gen_len=16, full=True,
+                device=device)
+    log(f"phase 13: serve {json.dumps(res)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    if res["requests"] != 4 or res["tokens_generated"] != 4 * 16:
+        fail(f"serve {cfg.name}: {res}")
+    out["seamless_serve"] = res
+
+    # the reduced config in float32: decode against the kernels' forward
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        release()
+        rcfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+        model = build_model(rcfg, device)
+        params = model.init(0)
+        frames = torch.randn((2, DECODE_LEN, rcfg.d_model), generator=gen, device=device)
+        tokens = torch.randint(0, rcfg.vocab, (2, DECODE_LEN), generator=gen, device=device)
+        full = model.forward(params, {"frames": frames, "tokens": tokens})
+        cache = model.init_cache(2, DECODE_LEN, enc_len=DECODE_LEN)
+        with torch.inference_mode():
+            cache["enc_out"][:] = encdec.encode(params, frames, rcfg)
+        worst = err = 0.0
+        for pos in range(DECODE_LEN):
+            lg, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos)
+            d = (lg[:, 0] - full[:, pos]).abs()
+            err = max(err, float(d.max()))
+            worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+        log(f"phase 13: {rcfg.name} float32 (TF32 off) decode vs forward, B=2, "
+            f"S={DECODE_LEN}: max abs err {err:.3e}, worst |err|/(tol+tol|ref|) "
+            f"{worst:.4f} (tol {DECODE_TOL})")
+        if not worst <= 1.0:
+            fail(f"{rcfg.name}: float32 decode disagrees with the forward")
+        out["seamless_reduced_decode_err"] = err
+        del model, params, full, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # llama3-8b at full width through the Trainer, then a restart
+    arch, n_layers, b, s = TRAIN_LLAMA
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    release()
+    model = build_model(cfg, device)
+    opt = AdamW(lr=3e-4, warmup_steps=1)
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    (ROOT / "build").mkdir(exist_ok=True)  # 18 GB a checkpoint, in the checkout
+    ckdir = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    try:
+        tc = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY)
+        trainer = Trainer(model, opt, None, data, StepConfig(remat=True), tc, ckdir)
+        norms, inner = [], trainer._step_fn
+
+        def recording(*args):  # the step's grad norm, which the Trainer drops
+            p_, st_, m_ = inner(*args)
+            norms.append(m_["grad_norm"])
+            return p_, st_, m_
+
+        trainer._step_fn = recording
+        save_only(trainer, TRAIN_CKPT_EVERY)
+        zero()
+        t0 = time.perf_counter()
+        run = trainer.run(resume=False)
+        t_run = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in run["params"].parameters())
+        n_matmul = n_params - cfg.vocab * cfg.d_model  # the embedding is a gather
+        norms = [float(n) for n in norms]
+        losses, times = run["losses"], run["stats"]["step_times"]
+        del run, trainer, inner, recording
+        step_s = float(np.median(times[1:]))
+        mfu = _train_flops(cfg, n_matmul, b, s) / step_s / BF16_FLOP_PER_S
+        expect = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
+                  "flash_bwd": n_layers * TRAIN_STEPS, "rglru": 0}
+        log(f"phase 13: {cfg.name} training ({n_layers} of 32 layers, {n_params} "
+            f"parameters, bf16, B={b}, S={s}, remat, AdamW lr 3e-4) through Trainer: "
+            f"{TRAIN_STEPS} steps in {t_run:.3f} s with the checkpoint at step "
+            f"{TRAIN_CKPT_EVERY}; "
+            f"losses {losses}; grad norms {norms}; step times "
+            f"{[round(t, 4) for t in times]} s, median after the first "
+            f"{step_s * 1e3:.1f} ms = {b * s / step_s:.1f} tokens/s, model-FLOPs "
+            f"utilisation {mfu:.4f} of {BF16_FLOP_PER_S:.3g} FLOP/s bf16 ({smi}); "
+            f"launches {got} (expected {expect}); peak device memory {peak} B")
+        if got != expect:
+            fail(f"{cfg.name} training: launches {got}, expected {expect}")
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f"{cfg.name} training: losses or gradient norms not finite")
+        # the checkpoint holds moved parameters and nonzero moments, so the
+        # restart below reads an update's state, not the initial weights
+        release()
+        init = tree_util.as_tree(model.init(0))
+        w0 = np.stack([blk["attn"]["wq"].float().cpu().numpy() for blk in init["blocks"]])
+        del init
+        with np.load(ckdir / f"step_{TRAIN_CKPT_EVERY:08d}" / "arrays.npz") as ck:
+            moved = float(np.mean(ck["params/blocks/attn/wq"] != w0))
+            mu_nonzero = float(np.mean(ck["opt/mu/blocks/attn/wq"] != 0))
+            ck_step = int(ck["opt/step"])
+        log(f"phase 13: the step-{TRAIN_CKPT_EVERY} checkpoint: optimizer step "
+            f"{ck_step}; share of the attention wq entries moved from the initial "
+            f"weights {moved:.4f}, of its mu entries nonzero {mu_nonzero:.4f}")
+        if ck_step != TRAIN_CKPT_EVERY or not moved > 0 or not mu_nonzero > 0:
+            fail(f"{cfg.name}: the step-{TRAIN_CKPT_EVERY} checkpoint holds no update "
+                 f"(step {ck_step}, moved {moved}, mu nonzero {mu_nonzero})")
+        del w0
+        t0 = time.perf_counter()
+        restart = Trainer(model, opt, None, data, StepConfig(remat=True), tc, ckdir)
+        save_only(restart, None)
+        again = restart.run(resume=True)
+        t_restart = time.perf_counter() - t0
+        equal = again["losses"] == losses[TRAIN_CKPT_EVERY:]
+        log(f"phase 13: {cfg.name} restarted from step {TRAIN_CKPT_EVERY}: "
+            f"{t_restart:.3f} s; losses {again['losses']}, bit-equal to the "
+            f"uninterrupted run's {equal}; restarts {again['stats']['restarts']}")
+        if not equal or again["stats"]["restarts"] != 1:
+            fail(f"{cfg.name}: the restarted losses differ from the uninterrupted run's")
+        out["llama3_train"] = {"losses": losses, "grad_norms": norms, "step_times_s": times,
+                               "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
+                               "mfu": mfu, "peak_bytes": peak, "run_s": t_run,
+                               "restart_s": t_restart, "launches": got,
+                               "wq_moved": moved}
+        del again, restart
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del model
+    release()
+
+    train_counts = {"flash_bwd": out["llama3_train"]["launches"]["flash_bwd"]}
+
+    # recurrentgemma-9b (one super-block) and seamless (4 + 4 layers):
+    # SHORT_STEPS steps each through make_train_step
+    for arch, n_layers, b, s, *rest in (TRAIN_HYBRID, TRAIN_AUDIO):
+        full_cfg = get_arch(arch)
+        over = {"n_layers": n_layers}
+        if full_cfg.family == "audio":
+            over["encoder_layers"] = n_layers
+        cfg = dataclasses.replace(full_cfg, **over)
+        release()
+        model = build_model(cfg, device)
+        params = model.init(0)
+        opt = AdamW(lr=3e-4, warmup_steps=1)
+        state = opt.init(params)
+        train = make_train_step(model, opt, StepConfig(remat=True))
+        s_dec = rest[0] if rest else s
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
+                                         device=device),
+                 "labels": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
+                                         device=device)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                          device=device).to(torch.bfloat16)
+        zero()
+        losses, norms, times = [], [], []
+        for _ in range(SHORT_STEPS):
+            synchronize(device)
+            t0 = time.perf_counter()
+            params, state, m = train(params, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        if cfg.family == "hybrid":
+            n_attn, n_rec = n_layers // 3, n_layers - n_layers // 3
+            expect = {"flash_fwd": SHORT_STEPS * 2 * n_attn, "flash_bwd": SHORT_STEPS * n_attn,
+                      "rglru": SHORT_STEPS * (2 * n_rec + n_rec)}
+            train_counts["rglru"] = got["rglru"]
+        else:
+            n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+            expect = {"flash_fwd": SHORT_STEPS * 2 * n_attn,
+                      "flash_bwd": SHORT_STEPS * n_attn, "rglru": 0}
+        n_tok = b * (s + s_dec) if cfg.family == "audio" else b * s
+        log(f"phase 13: {cfg.name} training ({n_layers} layers"
+            f"{' + ' + str(n_layers) + ' encoder layers' if cfg.family == 'audio' else ''}"
+            f", bf16, B={b}, S={s}{f', {s_dec} tokens' if rest else ''}, remat): "
+            f"{SHORT_STEPS} steps on one batch, "
+            f"losses {losses}, grad norms {norms}, step times "
+            f"{[round(t, 4) for t in times]} s ({n_tok / times[-1]:.1f} tokens/s); "
+            f"launches {got} (expected {expect}); peak device memory {peak} B")
+        if got != expect:
+            fail(f"{cfg.name} training: launches {got}, expected {expect}")
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f"{cfg.name} training: losses or gradient norms not finite")
+        if losses[-1] == losses[-2]:
+            fail(f"{cfg.name} training: the update did not move the loss ({losses})")
+        out[f"{cfg.family}_train"] = {"losses": losses, "grad_norms": norms,
+                                      "step_times_s": times, "peak_bytes": peak,
+                                      "launches": got}
+        del model, params, state, batch
+    release()
+
+    # the ssm family: training waits for the SSD chunk kernel's backward
+    model = build_model(get_arch("mamba2-130m").reduced(), device)
+    params = model.init(0)
+    try:
+        model.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int64,
+                                                  device=device)})
+    except NotImplementedError as e:
+        log(f"phase 13: mamba2-130m Model.loss raises on the card: {e}")
+    else:
+        fail("the ssm family's Model.loss did not raise")
+    del model, params
+    release()
+    return train_counts, out
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +3093,8 @@ def main() -> int:
     mark("autotune")
     family_launches, _ = phase_families(dev)
     mark("families")
+    train_counts, _ = phase_audio_train(dev, smi)
+    mark("audio_train")
     for key in rows:
         rows[key]["launches"] = counts[key]
         rows[key]["launches_transition_phase"] = transition_counts[key]
@@ -2592,9 +3104,11 @@ def main() -> int:
         fleet[key]["launches"] = fleet_counts[key]
         fleet[key]["launches_failures_phase"] = failure_counts[key]
         fleet[key]["failures_shape"] = fused_rows[key]
-    for key in model_rows:
+    for key in model_counts:
         model_rows[key]["launches"] = model_counts[key]
     model_rows["flash_attention"]["launches_families_phase"] = family_launches
+    model_rows["rglru_scan"]["launches_train_phase"] = train_counts["rglru"]
+    model_rows["flash_attention_bwd"]["launches"] = train_counts["flash_bwd"]
     log(f"phase end times (s since start) {marks}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows["linkload"], rows["queueloss"],
@@ -2602,7 +3116,8 @@ def main() -> int:
                                   fleet["linkload"], fleet["queueloss"],
                                   model_rows["flash_attention"],
                                   model_rows["rglru_scan"],
-                                  model_rows["ssd_chunk"]]}))
+                                  model_rows["ssd_chunk"],
+                                  model_rows["flash_attention_bwd"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

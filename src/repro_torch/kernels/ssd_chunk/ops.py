@@ -43,9 +43,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x (B, H, S, P); dt (B, H, S, 1); a (H, 1, 1, 1) (negative decay rates);
     b/c (B, 1, S, N) (one group): contiguous float32, all on the CPU (plain
     version) or all on one CUDA device (the kernel).  Returns y (B, H, S, P)
-    float32.
+    float32.  The kernel has no backward yet: on a CUDA device with grad
+    mode on and an input requiring grad it raises ``NotImplementedError``
+    rather than hand back an output without a gradient.
     """
     dev = placement("ssd_scan", x=x, dt=dt, a=a, b=b, c=c)
+    if (dev.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, dt, a, b, c))):
+        raise NotImplementedError(
+            "ssd_scan: the SSD chunk kernel's backward is a later slice of the "
+            "port (ROADMAP 2.9.3: the SSD chunk backward)")
     bsz, h, s, p = x.shape
     n = b.shape[-1]
     if (dt.shape != (bsz, h, s, 1) or a.shape != (h, 1, 1, 1)

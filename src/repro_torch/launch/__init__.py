@@ -1,3 +1,3 @@
-"""Launchers of the model stack: the serving steps and the batched serving
-loop — the counterpart of ``repro.launch`` (training and the dry run are
-later slices)."""
+"""Launchers of the model stack: the train and serving steps, the batched
+serving loop and the training command line — the counterpart of
+``repro.launch`` (the dry run and the device mesh are later slices)."""

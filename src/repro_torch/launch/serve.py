@@ -6,7 +6,10 @@ the counterpart of ``repro/launch/serve.py``.
 
 Requests run in lockstep batches: each batch warms its cache by running the
 prompt token by token through the decode step, then decodes ``gen_len``
-tokens greedily.  Runs on the CUDA device (:func:`serve` takes ``device``;
+tokens greedily.  The audio family (an encoder-decoder) instead encodes
+``prompt_len`` random frames into its cache and decodes from each prompt's
+first token, as the reference does.  Everything runs under
+``torch.inference_mode``.  Runs on the CUDA device (:func:`serve` takes ``device``;
 the command line always uses the card).
 """
 
@@ -21,11 +24,14 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import encdec
 from repro_torch.models.api import build_model
+from repro_torch.models.layers import dtype_of
 
 __all__ = ["serve", "main"]
 
 
+@torch.inference_mode()
 def serve(arch: str = "mamba2-130m", requests: int = 16, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 32, full: bool = False, *,
           device=None) -> dict:
@@ -44,7 +50,8 @@ def serve(arch: str = "mamba2-130m", requests: int = 16, batch: int = 4,
     model = build_model(cfg, dev)
     params = model.init(0)
     max_seq = prompt_len + gen_len
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (requests, prompt_len))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (requests, prompt_len))
 
     synchronize(dev)
     served, tokens_out, latencies = 0, 0, []
@@ -53,12 +60,18 @@ def serve(arch: str = "mamba2-130m", requests: int = 16, batch: int = 4,
         ids = list(range(served, min(served + batch, requests)))
         bsz = len(ids)
         t_req = time.perf_counter()
-        cache = model.init_cache(bsz, max_seq)
+        cache = model.init_cache(bsz, max_seq, enc_len=max_seq)
         toks = torch.as_tensor(prompts[ids], dtype=torch.int64, device=dev)
-        # prefill token by token through the decode path (cache warm-up)
-        for pos in range(prompt_len - 1):
-            _, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
-        cur, start = toks[:, -1:], prompt_len - 1
+        if cfg.family == "audio":
+            frames = torch.as_tensor(rng.normal(0, 1, (bsz, prompt_len, cfg.d_model)),
+                                     dtype=torch.float32, device=dev).to(dtype_of(cfg))
+            cache["enc_out"][:, :prompt_len] = encdec.encode(params, frames, cfg)
+            cur, start = toks[:, :1], 0
+        else:
+            # prefill token by token through the decode path (cache warm-up)
+            for pos in range(prompt_len - 1):
+                _, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
+            cur, start = toks[:, -1:], prompt_len - 1
         for g in range(gen_len):
             logits, cache = model.decode(params, cache, cur, start + g)
             cur = logits[:, -1].argmax(dim=-1, keepdim=True)

@@ -1,6 +1,9 @@
-"""The model stack on PyTorch — the counterpart of ``repro.models`` for
-serving: the ``dense``, ``hybrid`` (RG-LRU + local attention) and ``ssm``
-(Mamba2 SSD) families, full-sequence forward (prefill) and one-token decode.
-The full-sequence forward runs the hand-written kernels (flash attention,
-the RG-LRU scan, the SSD chunk scan); decode is plain PyTorch, as in the
-reference.  ``moe``, ``vlm``, ``audio`` and training are later slices."""
+"""The model stack on PyTorch — the counterpart of ``repro.models``: the
+``dense``, ``moe``, ``vlm``, ``hybrid`` (RG-LRU + local attention) and ``ssm``
+(Mamba2 SSD) families (:mod:`.transformer`) and the ``audio``
+encoder-decoder (:mod:`.encdec`); full-sequence forward (prefill and
+training's loss) and one-token decode.  The full-sequence forward runs the
+hand-written kernels (flash attention, the RG-LRU scan, the SSD chunk scan),
+and training differentiates through the first two (their backward kernels);
+decode is plain PyTorch, as in the reference.  Training the ``ssm`` family
+waits for the SSD chunk kernel's backward."""

@@ -1,16 +1,19 @@
-"""Uniform model facade used by the launcher and the tests — the
-counterpart of ``repro/models/api.py`` for serving.
+"""Uniform model facade used by the launchers and the tests — the
+counterpart of ``repro/models/api.py``.
 
-``Model`` wraps one architecture on one device behind four operations:
+``Model`` wraps one architecture on one device behind five operations:
 
-  init(seed)                        -> DecoderLM (the parameters)
+  init(seed)                        -> DecoderLM / EncDecLM (the parameters)
+  loss(params, batch, remat)        -> (scalar, metrics)      [train]
   forward(params, batch)            -> logits                 [prefill]
   init_cache(batch, max_seq)        -> per-layer decode state
   decode(params, cache, tok, pos)   -> (logits, cache)        [decode]
 
-``batch`` holds ``tokens`` and, for the vlm family, ``patches``.
-
-``loss`` (training) is a later slice and raises.
+``batch`` holds ``tokens`` (and ``labels`` to train), for the vlm family
+``patches`` and for the audio family ``frames``; ``audio`` runs the
+encoder-decoder (:mod:`.encdec`), every other family the decoder-only model
+(:mod:`.transformer`).  Training the ``ssm`` family waits for the SSD chunk
+kernel's backward and raises.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig, ShapeConfig
 
 __all__ = ["LONG_CONTEXT_OK", "Model", "build_model", "supports_cell"]
@@ -47,34 +50,53 @@ class Model:
     cfg: ArchConfig
     device: torch.device
 
-    def init(self, seed: int = 0) -> transformer.DecoderLM:
+    def init(self, seed: int = 0):
         """Random parameters drawn from a ``torch.Generator`` on the model's
         device seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.cfg.family == "audio":
+            return encdec.EncDecLM(self.cfg, encdec.init_params(gen, self.cfg,
+                                                                self.device))
         return transformer.DecoderLM(
             self.cfg, transformer.init_params(gen, self.cfg, self.device))
 
-    def loss(self, params, batch):
-        raise NotImplementedError("training (Model.loss) is a later slice of "
-                                  "the port (ROADMAP 2.9)")
+    def loss(self, params, batch: dict, remat=True):
+        """(loss, metrics) of ``batch``, differentiable; each block
+        checkpointed as ``remat`` says (False, True or ``"dots"``)."""
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the ssm family is a later slice of "
+                f"the port (ROADMAP 2.9.3: the SSD chunk backward)")
+        if self.cfg.family == "audio":
+            return encdec.loss_fn(params, batch, self.cfg, remat)
+        return transformer.loss_fn(params, batch, self.cfg, remat)
 
     def forward(self, params, batch: dict) -> torch.Tensor:
+        if self.cfg.family == "audio":
+            return encdec.forward(params, batch["frames"], batch["tokens"], self.cfg)
         return transformer.forward(params, batch["tokens"], self.cfg,
                                    patches=batch.get("patches"))
 
-    def init_cache(self, batch: int, max_seq: int, dtype=None,
+    def init_cache(self, batch: int, max_seq: int, enc_len: int = 0, dtype=None,
                    window_cache: bool = False) -> dict:
+        """Decode state; for the audio family also the encoder's output of
+        ``enc_len`` frames (default ``max_seq``)."""
+        if self.cfg.family == "audio":
+            return encdec.init_cache(self.cfg, batch, max_seq, enc_len or max_seq,
+                                     self.device, dtype=dtype)
         return transformer.init_cache(self.cfg, batch, max_seq, self.device,
                                       dtype=dtype, window_cache=window_cache)
 
     def decode(self, params, cache: dict, token: torch.Tensor, pos: int,
                ring: bool = False):
+        if self.cfg.family == "audio":
+            return encdec.decode_step(params, cache, token, pos, self.cfg)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
                                        ring=ring)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     """The model of ``cfg`` on ``device`` (``None`` = CUDA; raises without a
-    card).  ``audio`` raises ``NotImplementedError``."""
+    card)."""
     transformer.check_family(cfg)
     return Model(cfg, resolve_device(device))

@@ -1,11 +1,13 @@
 """Grouped-query attention with RoPE, optional qk-norm and sliding windows —
 the counterpart of ``repro/models/attention.py``.
 
-The full-sequence path (:func:`self_attention`, train / prefill) goes through
-the flash-attention wrapper: the CUDA kernel on the card, its plain version on
-the CPU.  One-token decode (:func:`decode_attention`) stays plain PyTorch, as
-in the reference, and writes the new key and value into the cache in place.
-Cross-attention waits for the audio family.
+The full-sequence paths (:func:`self_attention`, and :func:`cross_attention`
+over an encoder's output; train / prefill) go through the flash-attention
+wrapper: the CUDA kernel on the card (with its backward when training), its
+plain version on the CPU.  One-token decode (:func:`decode_attention`, and
+cross-attention of one token) stays plain PyTorch, as in the reference;
+:func:`decode_attention` writes the new key and value into the cache in
+place.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models.layers import dtype_of, init_dense, rms_norm, rope
 
-__all__ = ["NEG_INF", "init_attn_params", "self_attention", "decode_attention"]
+__all__ = ["NEG_INF", "init_attn_params", "self_attention", "decode_attention",
+           "causal_mask", "init_cross_attn_params", "cross_attention"]
 
 NEG_INF = -2.0e38
 
@@ -62,6 +65,15 @@ def _sdpa(q, k, v, mask, cfg):
     return out.reshape(b, s, h, hd)
 
 
+def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
+    """Causal (+ optional sliding window; 0 = global) mask (S, S), True where
+    key j is visible from query i."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    mask = j <= i
+    return mask & (j > i - window) if window > 0 else mask
+
+
 def _out_proj(p, out, cfg):
     b, s = out.shape[:2]
     return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
@@ -105,3 +117,35 @@ def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
     mask = mask.expand(b, 1, s)
     out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, cfg)
     return _out_proj(p, out, cfg), cache
+
+
+def init_cross_attn_params(gen, cfg, device, d_enc=None) -> dict:
+    """Cross-attention projections: queries from the decoder's width, keys
+    and values from the encoder's (``d_enc``, default d_model)."""
+    d, hd, dt = cfg.d_model, cfg.resolved_head_dim, dtype_of(cfg)
+    de = d_enc or d
+    return {
+        "wq": init_dense(gen, (d, cfg.n_heads * hd), dtype=dt, device=device),
+        "wk": init_dense(gen, (de, cfg.n_kv_heads * hd), dtype=dt, device=device),
+        "wv": init_dense(gen, (de, cfg.n_kv_heads * hd), dtype=dt, device=device),
+        "wo": init_dense(gen, (cfg.n_heads * hd, d), dtype=dt, device=device),
+    }
+
+
+def cross_attention(p, x, enc, cfg):
+    """x (B, S, d) attends over the encoder output enc (B, T, d_enc), every
+    key visible, no RoPE.  A full sequence goes through the flash-attention
+    wrapper (Sq = S, Sk = T, non-causal); one token (decode) through the
+    plain ``_sdpa``."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (enc @ p.wk).reshape(b, t, cfg.n_kv_heads, hd)
+    v = (enc @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
+    if s == 1:
+        mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+    else:
+        out = fa.flash_attention(q, k, v, causal=False)
+    return _out_proj(p, out, cfg)

@@ -1,0 +1,170 @@
+"""Encoder–decoder transformer (seamless-m4t backbone; the audio frontend is
+a stub) — the counterpart of ``repro/models/encdec.py``.
+
+As in the reference, the encoder consumes *precomputed frame embeddings*
+(B, S_enc, d); it is a bidirectional transformer (flash attention with
+``causal=False``), and the decoder adds cross-attention to the encoder's
+output (flash attention with Sq = S_dec, Sk = S_enc; one-token decode stays
+plain).  Decode caches the decoder's self-attention K/V and the encoder's
+output, and re-projects the cross K/V from it at every step, as the
+reference does.
+
+Layers are ``ModuleList`` entries run by a Python loop (the reference stacks
+them and scans); serving runs under ``torch.inference_mode``, training
+checkpoints each block as ``remat`` says.  The reference's sharding
+constraints (``constrain``) have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (dtype_of, embed, init_dense, rms_norm,
+                                       softmax_cross_entropy)
+from repro_torch.models.params import Params
+from repro_torch.models.transformer import _ck, _mlp, _mlp_fwd, _norm
+
+__all__ = ["EncDecLM", "init_params", "encode", "forward", "loss_fn",
+           "init_cache", "decode_step"]
+
+
+def _check_audio(cfg: ArchConfig) -> None:
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: encdec takes the audio family, not "
+                         f"{cfg.family!r}")
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The parameter tree (the reference's keys; lists for the encoder's and
+    the decoder's layers) on ``device``, drawn from ``gen``."""
+    _check_audio(cfg)
+    dt = dtype_of(cfg)
+
+    def enc_block():
+        return {"norm1": _norm(cfg, device),
+                "attn": attn.init_attn_params(gen, cfg, device),
+                "norm2": _norm(cfg, device),
+                "mlp": _mlp(gen, cfg, device)}
+
+    def dec_block():
+        return {"norm1": _norm(cfg, device),
+                "attn": attn.init_attn_params(gen, cfg, device),
+                "norm_x": _norm(cfg, device),
+                "xattn": attn.init_cross_attn_params(gen, cfg, device),
+                "norm2": _norm(cfg, device),
+                "mlp": _mlp(gen, cfg, device)}
+
+    return {
+        "embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02, dtype=dt,
+                            device=device),
+        "enc_blocks": [enc_block() for _ in range(cfg.encoder_layers)],
+        "enc_norm": _norm(cfg, device),
+        "dec_blocks": [dec_block() for _ in range(cfg.n_layers)],
+        "final_norm": _norm(cfg, device),
+        "unembed": init_dense(gen, (cfg.d_model, cfg.vocab), dtype=dt, device=device),
+    }
+
+
+def _enc_block(blk, x, cfg):
+    h = rms_norm(x, blk.norm1)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = attn._project_qkv(blk.attn, h, cfg, positions)
+    x = x + attn._out_proj(blk.attn, fa.flash_attention(q, k, v, causal=False), cfg)
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+
+
+def encode(params, frames: torch.Tensor, cfg: ArchConfig, remat=False) -> torch.Tensor:
+    """frames (B, S_enc, d) -> the encoder's output (B, S_enc, d)."""
+    ck = _ck(remat)
+    x = frames
+    for blk in params.enc_blocks:
+        x = ck(_enc_block, blk, x, cfg)
+    return rms_norm(x, params.enc_norm)
+
+
+def _dec_block(blk, x, enc_out, cfg, window: int = 0):
+    x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, window=window)
+    x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg)
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+
+
+def _logits(params, frames, tokens, cfg, remat):
+    _check_audio(cfg)
+    enc_out = encode(params, frames, cfg, remat)
+    ck = _ck(remat)
+    x = embed(tokens, params.embed)
+    for blk in params.dec_blocks:
+        x = ck(_dec_block, blk, x, enc_out, cfg)
+    return rms_norm(x, params.final_norm) @ params.unembed
+
+
+@torch.inference_mode()
+def forward(params, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """The full encoder-decoder pass: frames (B, S_enc, d), tokens (B, S_dec)
+    -> logits (B, S_dec, V)."""
+    return _logits(params, frames, tokens, cfg, False)
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
+    """Cross-entropy of ``batch`` (``frames``, ``tokens``, ``labels``,
+    optional ``mask``) and {"ce"}; differentiable, each block checkpointed
+    as ``remat`` says (``transformer._ck``)."""
+    logits = _logits(params, batch["frames"], batch["tokens"], cfg, remat)
+    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, enc_len: int, device,
+               dtype=None) -> dict:
+    """Decode state: the decoder's per-layer self-attention K/V of
+    ``max_seq`` positions and the encoder's output (B, enc_len, d), zeros
+    until the caller writes it (:func:`encode`)."""
+    _check_audio(cfg)
+    dt = dtype or dtype_of(cfg)
+    hd = cfg.resolved_head_dim
+
+    def kv():
+        return {"k": torch.zeros((batch, max_seq, cfg.n_kv_heads, hd), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((batch, max_seq, cfg.n_kv_heads, hd), dtype=dt,
+                                 device=device)}
+
+    return {"self": [kv() for _ in range(cfg.n_layers)],
+            "enc_out": torch.zeros((batch, enc_len, cfg.d_model), dtype=dt,
+                                   device=device)}
+
+
+@torch.inference_mode()
+def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchConfig):
+    """One decoder token (B, 1) against the cached self K/V and encoder
+    output.  Returns (logits (B, 1, V), cache), the cache updated in place."""
+    _check_audio(cfg)
+    x = embed(token, params.embed)
+    enc_out = cache["enc_out"]
+    for i, blk in enumerate(params.dec_blocks):
+        out, cache["self"][i] = attn.decode_attention(
+            blk.attn, rms_norm(x, blk.norm1), cache["self"][i], pos, cfg)
+        x = x + out
+        x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg)
+        x = x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+    logits = rms_norm(x, params.final_norm) @ params.unembed
+    return logits, cache
+
+
+class EncDecLM(Params):
+    """The encoder-decoder: the parameter tree of :func:`init_params` as an
+    ``nn.Module`` (``state_dict`` keys follow the reference's parameter
+    paths) with the architecture it serves."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        _check_audio(cfg)
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, frames, tokens, self.cfg)

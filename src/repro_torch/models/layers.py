@@ -1,6 +1,6 @@
-"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embeddings, initializers —
-the counterpart of ``repro/models/layers.py``.  Weights keep the reference's
-(in, out) layout, so a product is ``x @ w``."""
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embeddings, initializers
+and the training loss — the counterpart of ``repro/models/layers.py``.
+Weights keep the reference's (in, out) layout, so a product is ``x @ w``."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dtype_of", "rms_norm", "rope", "swiglu", "embed", "unembed",
-           "init_dense"]
+           "init_dense", "softmax_cross_entropy"]
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -43,7 +43,9 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` at ``tokens`` (``F.embedding``, whose gradient
+    on the card sums each row's tokens in a fixed order)."""
+    return F.embedding(tokens, table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -58,3 +60,17 @@ def init_dense(gen: torch.Generator, shape, scale: float | None = None,
     scale = scale if scale is not None else 1.0 / fan_in ** 0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * scale).to(dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over the (optionally masked) tokens, in float32;
+    logits (..., V), labels int (...)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

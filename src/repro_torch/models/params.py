@@ -12,11 +12,13 @@ __all__ = ["Params"]
 
 
 class Params(nn.Module):
-    """Tensors become parameters (without gradients: training is a later
-    slice), dicts sub-nodes and lists of dicts ``ModuleList``s of sub-nodes."""
+    """Tensors become parameters, dicts sub-nodes and lists of dicts
+    ``ModuleList``s of sub-nodes.  Parameters start without gradients, as
+    serving wants them; training turns them on (``requires_grad_()``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
+        self._keys = tuple(tree)
         for key, value in tree.items():
             if isinstance(value, torch.Tensor):
                 self.register_parameter(key, nn.Parameter(value, requires_grad=False))
@@ -27,3 +29,16 @@ class Params(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+    def tree(self) -> dict:
+        """The parameter tree with the keys and order it was built from:
+        nested dicts of this node's parameters, lists for its layer lists."""
+        out = {}
+        for key in self._keys:
+            if key in self._parameters:
+                out[key] = self._parameters[key]
+            elif isinstance(self._modules[key], nn.ModuleList):
+                out[key] = [m.tree() for m in self._modules[key]]
+            else:
+                out[key] = self._modules[key].tree()
+        return out

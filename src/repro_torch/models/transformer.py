@@ -5,7 +5,10 @@
 The reference stacks its layers (leading axis L) and runs them with
 ``jax.lax.scan`` over ``jax.checkpoint``-wrapped blocks; here every layer is
 an entry of a ``ModuleList`` and the forward is a Python loop over them.
-Serving does not rematerialize, and one card needs no sharding constraints.
+Serving (:func:`forward`, :func:`decode_step`) runs under
+``torch.inference_mode`` and does not rematerialize; training
+(:func:`loss_fn`) checkpoints each block as ``remat`` says (:func:`_ck`).
+One card needs no sharding constraints.
 
 Families:
   dense  — pre-norm GQA attention + SwiGLU (qwen3/llama3/deepseek/gemma3);
@@ -16,7 +19,7 @@ Families:
   hybrid — Griffin super-blocks (rec, rec, local attention), plus trailing
            recurrent blocks when L % 3 != 0 (recurrentgemma).
   ssm    — Mamba2 SSD blocks (attention-free).
-``audio`` is a later slice and raises.
+``audio`` (the encoder-decoder) is :mod:`repro_torch.models.encdec`.
 
 Decode carries a per-layer cache (lists of dicts, one entry per layer) and
 updates it in place.
@@ -24,7 +27,11 @@ updates it in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -32,20 +39,30 @@ from repro_torch.models import rglru as rg
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (dtype_of, embed, init_dense, rms_norm,
-                                       swiglu, unembed)
+                                       softmax_cross_entropy, swiglu, unembed)
 from repro_torch.models.params import Params
 
 __all__ = ["FAMILIES", "DecoderLM", "check_family", "init_params",
-           "layer_window", "forward", "init_cache", "decode_step"]
+           "layer_window", "backbone", "forward", "loss_fn", "init_cache",
+           "decode_step"]
 
-FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is a later slice of the "
-            f"port (ROADMAP 2.9); this one serves {FAMILIES}")
+            f"{cfg.name}: the {cfg.family!r} family is not one the port "
+            f"serves {FAMILIES}")
+
+
+def _check_decoder(cfg: ArchConfig) -> None:
+    """A decoder-only family (``audio`` is the encoder-decoder of
+    :mod:`repro_torch.models.encdec`)."""
+    check_family(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: the audio family is an encoder-decoder "
+                         f"(repro_torch.models.encdec)")
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +103,7 @@ def _rec_block(gen, cfg, device) -> dict:
 def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     """The parameter tree (nested dicts of tensors on ``device``, lists for
     layers) with the reference's keys, drawn from ``gen``."""
-    check_family(cfg)
+    _check_decoder(cfg)
     dt = dtype_of(cfg)
     params = {"embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02,
                                   dtype=dt, device=device),
@@ -122,7 +139,7 @@ def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _mlp_fwd(m, x):
@@ -130,16 +147,17 @@ def _mlp_fwd(m, x):
 
 
 def _ffn_fwd(blk, x, cfg):
-    """The block's FFN on its normed input: MoE (its aux loss dropped:
-    serving takes no loss) or SwiGLU."""
+    """The block's FFN on its normed input: (out, the MoE's load-balancing
+    loss, or None for SwiGLU)."""
     if "moe" in blk:
-        return moe_mod.moe_ffn(blk.moe, x, cfg)[0]
-    return _mlp_fwd(blk.mlp, x)
+        return moe_mod.moe_ffn(blk.moe, x, cfg)
+    return _mlp_fwd(blk.mlp, x), None
 
 
 def _attn_block_fwd(blk, x, cfg, window):
     x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, window=window)
-    return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg)
+    out, aux = _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg)
+    return x + out, aux
 
 
 def _rec_block_fwd(blk, x):
@@ -147,23 +165,61 @@ def _rec_block_fwd(blk, x):
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
 
 
-def backbone(params, x, cfg: ArchConfig):
-    """Apply all blocks to the embedded input x (B, S, d)."""
+def _hybrid_super_fwd(sup, x, cfg):
+    x = _rec_block_fwd(sup.rec1, x)
+    x = _rec_block_fwd(sup.rec2, x)
+    return _attn_block_fwd(sup.attn_blk, x, cfg, cfg.window)[0]
+
+
+def _ssm_block_fwd(blk, x, cfg):
+    return x + ssd_mod.ssd_block(blk.ssd, rms_norm(x, blk.norm1), cfg,
+                                 chunk=cfg.ssd_chunk)
+
+
+# matrix products without batch dimensions (x @ w): what ``remat="dots"``
+# keeps, as the reference's ``dots_with_no_batch_dims_saveable``
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _ck(remat):
+    """How a block runs: ``remat`` False as it is, True under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward),
+    ``"dots"`` the same but keeping the outputs of its matrix products.
+    Returns ``call(fn, *args)``."""
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            context_fn=ctx)
+    if remat:
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda fn, *args: fn(*args)
+
+
+def backbone(params, x, cfg: ArchConfig, remat=False):
+    """Apply all blocks to the embedded input x (B, S, d), each as ``remat``
+    says (:func:`_ck`).  Returns (x, the summed MoE load-balancing loss,
+    float32; 0 for the other families)."""
+    ck = _ck(remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for sup in params.super:
-            x = _rec_block_fwd(sup.rec1, x)
-            x = _rec_block_fwd(sup.rec2, x)
-            x = _attn_block_fwd(sup.attn_blk, x, cfg, cfg.window)
+            x = ck(_hybrid_super_fwd, sup, x, cfg)
         for blk in params.tail if "tail" in params else ():
-            x = _rec_block_fwd(blk, x)
+            x = ck(_rec_block_fwd, blk, x)
     elif cfg.family == "ssm":
         for blk in params.blocks:
-            x = x + ssd_mod.ssd_block(blk.ssd, rms_norm(x, blk.norm1), cfg,
-                                      chunk=cfg.ssd_chunk)
+            x = ck(_ssm_block_fwd, blk, x, cfg)
     else:
         for i, blk in enumerate(params.blocks):
-            x = _attn_block_fwd(blk, x, cfg, layer_window(cfg, i))
-    return x
+            x, a = ck(_attn_block_fwd, blk, x, cfg, layer_window(cfg, i))
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _project_logits(params, x, cfg: ArchConfig):
@@ -172,21 +228,36 @@ def _project_logits(params, x, cfg: ArchConfig):
     return x @ params.unembed
 
 
+def _logits(params, tokens, cfg, patches, remat):
+    """(logits, aux) of the full sequence; see :func:`forward`."""
+    _check_decoder(cfg)
+    x = embed(tokens, params.embed)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    x, aux = backbone(params, x, cfg, remat)
+    logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    return logits, aux
+
+
 @torch.inference_mode()
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             patches: torch.Tensor | None = None) -> torch.Tensor:
     """Logits (B, S, V) for a full sequence of tokens (B, S).  ``patches``
     (B, Np, d), the vlm family's precomputed patch embeddings, go in front of
     the token embeddings; their logits are dropped."""
-    check_family(cfg)
-    x = embed(tokens, params.embed)
-    if patches is not None:
-        x = torch.cat([patches.to(x.dtype), x], dim=1)
-    x = backbone(params, x, cfg)
-    logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
-    if patches is not None:
-        logits = logits[:, patches.shape[1]:]
-    return logits
+    return _logits(params, tokens, cfg, patches, False)[0]
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
+    """The training loss of ``batch`` (``tokens``, ``labels``, optional
+    ``mask`` and, for vlm, ``patches``): cross-entropy + 0.01 · the MoE
+    load-balancing loss, and {"ce", "aux"}.  Differentiable; ``remat`` as
+    :func:`backbone`."""
+    logits, aux = _logits(params, batch["tokens"], cfg, batch.get("patches"), remat)
+    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +270,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None,
     ``window_cache``: for a pure sliding-window architecture (mixtral) a
     ring of ``min(max_seq, window)`` positions instead, decoded with
     ``ring=True``."""
-    check_family(cfg)
+    _check_decoder(cfg)
     dt = dtype or dtype_of(cfg)
     hd = cfg.resolved_head_dim
     kv_seq = max_seq
@@ -242,7 +313,7 @@ def _attn_step(blk, x, kv, pos, cfg, window, ring=False):
     out, kv = attn.decode_attention(blk.attn, rms_norm(x, blk.norm1), kv, pos, cfg,
                                     window=window, ring=ring)
     x = x + out
-    return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg), kv
+    return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg)[0], kv
 
 
 @torch.inference_mode()
@@ -252,7 +323,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
     position of the new token.  Returns (logits (B, 1, V), cache), the cache
     updated in place.  ``ring``: the KV caches are sliding-window rings
     (``init_cache(..., window_cache=True)``)."""
-    check_family(cfg)
+    _check_decoder(cfg)
     x = embed(token, params.embed)
     if cfg.family == "ssm":
         for i, blk in enumerate(params.blocks):
@@ -281,7 +352,7 @@ class DecoderLM(Params):
     paths) with the architecture it serves."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        check_family(cfg)
+        _check_decoder(cfg)
         super().__init__(tree)
         self.cfg = cfg
 

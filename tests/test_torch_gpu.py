@@ -23,7 +23,11 @@ of the fleet kernels, with dead links still carrying live W; a bf16 PDHG
 batch; the moe prefill (mixtral with its window masking, dbrx) with the
 sorted dispatch against the one-hot one, ring decode past the window against
 the forward, the vlm prefill with patches, and the autotune table's round
-trip (bodies launched through the wrappers, the PDHG knob resolved).
+trip (bodies launched through the wrappers, the PDHG knob resolved); flash
+attention's backward at chip_smoke's four phase-3 shapes (bit for bit on a
+second call), the RG-LRU backward (two launches), two train steps of the
+reduced llama3 and recurrentgemma models against the same steps on the CPU,
+and seamless' reduced prefill (against the CPU's) and decode.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -820,3 +824,144 @@ def test_autotune_round_trip_on_the_card(gen, tmp_path, monkeypatch):
         assert autotune.body_for("linkload", 3, 132, 132, torch.device("cuda")) == "auto"
     finally:
         autotune.reset_table()
+
+
+# ---- training: #7's backward, the RG-LRU backward, train steps, audio ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window,dtype", [
+    (2, 2048, 2048, 32, 8, 128, True, 0, torch.bfloat16),    # llama3-8b
+    (2, 4096, 4096, 16, 1, 256, True, 2048, torch.bfloat16),  # recurrentgemma-9b
+    (4, 256, 1024, 16, 16, 64, False, 0, torch.bfloat16),    # seamless cross
+    (1, 300, 500, 8, 2, 100, False, 48, torch.float32)])    # ragged
+def test_flash_attention_backward_matches_plain(gen, b, sq, sk, h, kv, hd, causal,
+                                                window, dtype):
+    """The backward kernel through ``FlashAttention`` at chip_smoke's phase-3
+    shapes: float32 at 1e-4·(1 + |ref|) of the plain backward, bfloat16
+    within the bf16 gradient rounding bound; one backward launch; the same
+    bits on a second call."""
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         bf16_grad_rounding_bound)
+
+    q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device="cuda").to(dtype)
+                   for n, s in ((h, sq), (kv, sk), (kv, sk), (h, sq)))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    before = faops.bwd_launches
+    got = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                         window), (qg, kg, vg), do)
+    assert faops.bwd_launches == before + 1
+    again = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                           window), (qg, kg, vg), do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+    if dtype == torch.bfloat16:
+        ref, bound = bf16_grad_rounding_bound(q, k, v, do, **args)
+    else:
+        ref = attention_bwd_ref(q, k, v, attention_ref(q, k, v, **args), do,
+                                attention_lse_ref(q, k, **args), **args)
+        bound = tuple(1e-4 * (1 + r.abs()) for r in ref)
+    for g, r, t in zip(got, ref, bound):
+        assert g.dtype == dtype
+        assert float(((g.float() - r).abs() / t).max()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_rglru_scan_backward_is_two_launches(gen):
+    a = (0.8 + 0.199 * torch.rand((2, 4096, 4096), generator=gen, device="cuda")
+         ).requires_grad_()
+    x = (0.5 * torch.randn((2, 4096, 4096), generator=gen, device="cuda")).requires_grad_()
+    dh = torch.randn((2, 4096, 4096), generator=gen, device="cuda")
+    before = rlops.launches
+    got = torch.autograd.grad(rlops.rglru_scan(a, x), (a, x), dh)
+    assert rlops.launches == before + 2
+    want = torch.autograd.grad(rglru_scan_ref(a, x), (a, x), dh)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b"])
+def test_train_steps_match_the_cpu(gen, arch):
+    """Two train steps of a reduced float32 model (TF32 off) on the card —
+    the kernels forward and backward — against the same steps on the CPU
+    (the plain versions): losses at 1e-5 relative, parameters at 1e-4 (Adam's
+    eps 1e-3, as in tests/test_torch_train.py)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+        cpu_net = cpu_model.init(0)
+        gpu_net = copy.deepcopy(cpu_net).cuda()
+        tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device="cuda")
+        labels = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device="cuda")
+        results = []
+        for model, net, dev in ((cpu_model, cpu_net, "cpu"), (gpu_model, gpu_net, "cuda")):
+            opt = AdamW(lr=1e-3, warmup_steps=1, eps=1e-3)
+            state = opt.init(net)
+            step = make_train_step(model, opt, StepConfig(remat=True))
+            batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+            fa_before, rl_before = faops.bwd_launches, rlops.launches
+            losses = []
+            for _ in range(2):
+                net, state, m = step(net, state, batch)
+                losses.append(float(m["loss"]))
+            if dev == "cuda":
+                assert faops.bwd_launches > fa_before
+                assert (rlops.launches > rl_before) == (cfg.family == "hybrid")
+            results.append((losses, [p.detach().cpu() for p in tree_util.leaves(net)]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_losses, cpu_params), (gpu_losses, gpu_params) = results
+    for a, b in zip(gpu_losses, cpu_losses):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(gpu_params, cpu_params):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_seamless_prefill_and_decode_on_the_card(gen):
+    """The audio family's reduced config in float32 (TF32 off): the card's
+    forward (flash attention non-causal in the encoder, causal and cross in
+    the decoder: 3 launches a layer pair) against the CPU's, and decode
+    against the forward."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_arch("seamless-m4t-large-v2").reduced(), dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model, model = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+        cpu_net = cpu_model.init(0)
+        net = copy.deepcopy(cpu_net).cuda()
+        frames = torch.randn((2, 48, cfg.d_model), generator=gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen, device="cuda")
+        before = faops.launches
+        full = model.forward(net, {"frames": frames, "tokens": tokens})
+        assert faops.launches == before + cfg.encoder_layers + 2 * cfg.n_layers
+        want = cpu_model.forward(cpu_net, {"frames": frames.cpu(), "tokens": tokens.cpu()})
+        torch.testing.assert_close(full.cpu(), want, rtol=2e-3, atol=2e-3)
+        cache = model.init_cache(2, 32, enc_len=48)
+        with torch.inference_mode():
+            cache["enc_out"][:] = encdec.encode(net, frames, cfg)
+        for pos in range(32):
+            logits, cache = model.decode(net, cache, tokens[:, pos:pos + 1], pos)
+            d = (logits[:, 0] - full[:, pos]).abs()
+            assert float((d / (1e-3 * (1 + full[:, pos].abs()))).max()) <= 1.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

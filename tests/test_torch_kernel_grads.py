@@ -1,0 +1,150 @@
+"""Gradients of the port's kernel wrappers on the CPU against JAX's autodiff
+of the reference's plain versions, on the same numpy-seeded inputs.
+
+Flash attention: the plain backward ``attention_bwd_ref`` (from the forward's
+output and log-sum-exp) and ``FlashAttention`` (what training calls) against
+``jax.grad`` of the reference's ``_sdpa`` (``repro/models/attention.py``) in
+float32 at 1e-5 — causal, causal with a window, non-causal with Sq != Sk
+(cross-attention), GQA, hd 32 and a ragged 100 — and the bfloat16 plain
+backward within ``bf16_grad_rounding_bound`` (what ``chip_smoke.py`` holds the
+kernel to).  The RG-LRU scan: ``RGLRUScan`` (the reversed-scan backward)
+against PyTorch's autograd through ``rglru_scan_ref`` and against
+``jax.grad`` of the reference's ``rglru_scan_ref`` (an associative scan) at
+the reference's 1e-4.  The kernels themselves are held to these on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 3).
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_rglru_scan_ref
+from repro.models.attention import _sdpa as ref_sdpa
+from repro_torch.kernels.flash_attention import ops as faops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     bf16_grad_rounding_bound)
+from repro_torch.kernels.rglru_scan import ops as rlops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+torch.set_num_threads(1)
+GRAD_TOL, RGLRU_TOL = 1e-5, 1e-4
+
+# (B, Sq, Sk, H, KV, hd, causal, window)
+ATTN_CASES = [(2, 24, 24, 4, 2, 32, True, 0),
+              (2, 40, 40, 4, 1, 32, True, 9),
+              (2, 12, 36, 4, 4, 100, False, 0),
+              (1, 30, 30, 6, 2, 100, True, 0)]
+
+
+def _attn_inputs(b, sq, sk, h, kv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, sq, h, hd)).astype(np.float32),
+            rng.normal(0, 1, (b, sk, kv, hd)).astype(np.float32),
+            rng.normal(0, 1, (b, sk, kv, hd)).astype(np.float32),
+            rng.normal(0, 1, (b, sq, h, hd)).astype(np.float32))
+
+
+def _ref_grads(q, k, v, do, h, kv, causal, window):
+    """jax.grad of the reference's ``_sdpa`` with its mask semantics."""
+    sq, sk = q.shape[1], k.shape[1]
+    i, j = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    mask = jnp.broadcast_to(jnp.asarray(mask), (q.shape[0], sq, sk))
+    cfg = types.SimpleNamespace(n_heads=h, n_kv_heads=kv)
+    _, vjp = jax.vjp(lambda a, b, c: ref_sdpa(a, b, c, mask, cfg), *map(jnp.asarray,
+                                                                         (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _rows(x):
+    """(B, S, N, hd) -> (B·N, S, hd)"""
+    b, s, n, hd = x.shape
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).reshape(
+        b * n, s, hd)
+
+
+def _unrows(t, b):
+    bn, s, hd = t.shape
+    return t.reshape(b, bn // b, s, hd).transpose(1, 2).detach().numpy()
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_backward_matches_jax_grad(case):
+    b, sq, sk, h, kv, hd, causal, window = case
+    q, k, v, do = _attn_inputs(b, sq, sk, h, kv, hd)
+    want = _ref_grads(q, k, v, do, h, kv, causal, window)
+    mask = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+    qr, kr, vr, dor = map(_rows, (q, k, v, do))
+    o = attention_ref(qr, kr, vr, **mask)
+    lse = attention_lse_ref(qr, kr, **mask)
+    plain = attention_bwd_ref(qr, kr, vr, o, dor, lse, **mask)
+    # FlashAttention through the model's layout, as training calls it
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = faops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    out.backward(torch.from_numpy(do))
+    for name, got_plain, got_fn, ref in zip("qkv", plain, (qt.grad, kt.grad, vt.grad),
+                                           want):
+        scale = 1 + np.abs(ref)
+        np.testing.assert_allclose(_unrows(got_plain, b) / scale, ref / scale,
+                                   rtol=0, atol=GRAD_TOL, err_msg=f"plain d{name}")
+        np.testing.assert_allclose(got_fn.numpy() / scale, ref / scale, rtol=0,
+                                   atol=GRAD_TOL, err_msg=f"FlashAttention d{name}")
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[:3], ids=lambda c: "-".join(map(str, c)))
+def test_bf16_plain_backward_within_rounding_bound(case):
+    """The bfloat16 plain backward (P and dS rounded to bfloat16, as the
+    kernel rounds them) differs from the float32 gradient by less than the
+    bound ``chip_smoke.py`` holds the kernel to."""
+    b, sq, sk, h, kv, hd, causal, window = case
+    mask = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+    q, k, v, do = (_rows(x).bfloat16() for x in _attn_inputs(b, sq, sk, h, kv, hd, 1))
+    o = attention_ref(q, k, v, **mask)
+    got = attention_bwd_ref(q, k, v, o, do, attention_lse_ref(q, k, **mask), **mask)
+    ref, bound = bf16_grad_rounding_bound(q, k, v, do, **mask)
+    for g, r, t in zip(got, ref, bound):
+        assert g.dtype == torch.bfloat16
+        assert float(((g.float() - r).abs() / t).max()) <= 1.0
+
+
+def test_flash_attention_without_grad_keeps_the_forward():
+    """Serving (no grad) takes the forward alone, the same bits as before."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _attn_inputs(1, 8, 8, 2, 1, 16))
+    with torch.no_grad():
+        out = faops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    want = attention_ref(_rows(q.numpy()), _rows(k.numpy()), _rows(v.numpy()),
+                         n_heads=2, n_kv=1, causal=True, window=0)
+    assert torch.equal(_rows(out.numpy()), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 5), (1, 128, 33), (3, 1, 4)])
+def test_rglru_backward_matches_autograd_and_jax(shape):
+    rng = np.random.default_rng(7)
+    a = (0.8 + 0.199 * rng.random(shape)).astype(np.float32)
+    x = rng.normal(0, 0.5, shape).astype(np.float32)
+    dh = rng.normal(0, 1, shape).astype(np.float32)
+    at, xt = (torch.from_numpy(t).requires_grad_() for t in (a, x))
+    h = rlops.rglru_scan(at, xt)
+    assert isinstance(h.grad_fn, torch.autograd.function.BackwardCFunction)
+    got = torch.autograd.grad(h, (at, xt), torch.from_numpy(dh))
+    a2, x2 = (torch.from_numpy(t).requires_grad_() for t in (a, x))
+    # at S = 1, h = x does not touch a: its gradient is zero
+    auto = torch.autograd.grad(rglru_scan_ref(a2, x2), (a2, x2), torch.from_numpy(dh),
+                               materialize_grads=True)
+    _, vjp = jax.vjp(jax_rglru_scan_ref, jnp.asarray(a), jnp.asarray(x))
+    want = vjp(jnp.asarray(dh))
+    for g, au, w in zip(got, auto, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), au.numpy(), rtol=RGLRU_TOL, atol=RGLRU_TOL)
+        np.testing.assert_allclose(g.numpy(), w, rtol=RGLRU_TOL, atol=RGLRU_TOL)

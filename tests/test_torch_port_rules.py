@@ -53,7 +53,11 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.transition, repro_torch.core.patch_panels, "
             "repro_torch.failures, repro_torch.obs.health, "
             "repro_torch.obs.report, repro_torch.kernels.autotune, "
-            "repro_torch.kernels.autotune.__main__, repro_torch.models.moe\n"
+            "repro_torch.kernels.autotune.__main__, repro_torch.models.moe, "
+            "repro_torch.models.encdec, repro_torch.optim.adamw, "
+            "repro_torch.optim.compression, repro_torch.runtime.trainer, "
+            "repro_torch.checkpoint.manager, repro_torch.data.pipeline, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -103,14 +107,17 @@ COUNTERPARTS = {
     "kernels/rglru_scan/rglru_scan.py": "csrc/rglru_scan.cu",
     "kernels/ssd_chunk/ssd_chunk.py": "csrc/ssd_chunk.cu",
 }
-# reference modules of later slices: the audio family, training, the
-# dry-run and HLO tools, and multi-card sharding
+# reference modules of later slices: the dry-run and HLO tools, and
+# multi-card sharding
 LATER_SLICES = frozenset({
-    "models/encdec.py", "optim/adamw.py", "optim/compression.py",
-    "runtime/trainer.py", "checkpoint/manager.py", "data/pipeline.py",
-    "launch/train.py", "launch/dryrun.py", "launch/mesh.py",
-    "runtime/hlo_cost.py", "runtime/hlo_traffic.py", "parallel/sharding.py",
+    "launch/dryrun.py", "launch/mesh.py", "runtime/hlo_cost.py",
+    "runtime/hlo_traffic.py", "parallel/sharding.py",
 })
+# reference modules without an ``__all__`` that the port added with the audio
+# family and training: the port's ``__all__`` holds their public names
+NO_ALL_MODULES = ("models/encdec.py", "optim/adamw.py", "optim/compression.py",
+                  "runtime/trainer.py", "checkpoint/manager.py",
+                  "data/pipeline.py", "launch/train.py")
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
@@ -145,6 +152,28 @@ def test_port_all_contains_reference_all(rel):
     port = importlib.import_module(_dotted("repro_torch", rel))
     assert set(ref.__all__) - set(getattr(port, "__all__", ())) == set()
     assert all(hasattr(port, name) for name in ref.__all__)
+
+
+def _public_names(path):
+    """Top-level public functions and classes of the module at ``path``."""
+    import ast
+
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", NO_ALL_MODULES)
+def test_port_all_contains_reference_public_names(rel):
+    """The reference's modules of the audio family and training define no
+    ``__all__``: the port's ``__all__`` holds every public function and class
+    the reference's module defines."""
+    import importlib
+
+    names = _public_names(_SRC / "repro" / rel)
+    port = importlib.import_module(_dotted("repro_torch", rel))
+    assert names and names - set(port.__all__) == set()
+    assert all(hasattr(port, name) for name in names)
 
 
 def test_default_device_raises_without_a_card(small_fabric, small_trace,
@@ -190,25 +219,26 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_model_families_of_later_slices_raise(arch):
-    """``audio`` is a later slice: building the model, its parameters or
-    its cache raises."""
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model_transformer.init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model_transformer.init_cache(cfg, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve(arch, requests=1, batch=1, prompt_len=2, gen_len=1, device="cpu")
+def test_ssm_training_is_a_later_slice():
+    """Training the ssm family waits for the SSD chunk kernel's backward:
+    ``Model.loss`` raises, on the CPU as on the card; the decoder-only model
+    refuses the audio family, which is the encoder-decoder's."""
+    model = build_model(get_arch("mamba2-130m").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice.*2.9.3"):
+        model.loss(model.init(0), {})
+    audio = get_arch("seamless-m4t-large-v2").reduced()
+    with pytest.raises(ValueError, match="encdec"):
+        model_transformer.init_params(torch.Generator(), audio, "cpu")
+    with pytest.raises(ValueError, match="encdec"):
+        model_transformer.init_cache(audio, 1, 4, "cpu")
 
 
-def test_model_training_is_a_later_slice():
-    model = build_model(get_arch("llama3-8b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.loss(None, {})
+def test_audio_serves_on_the_cpu():
+    """The audio family serves (the encoder's output cached, decode from
+    each prompt's first token) with the reference's report keys."""
+    res = serve("seamless-m4t-large-v2", requests=2, batch=2, prompt_len=4,
+                gen_len=3, device="cpu")
+    assert res["requests"] == 2 and res["tokens_generated"] == 6
 
 
 @pytest.mark.parametrize("engine", ["sequential", "batched"])
