@@ -7,10 +7,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
 
 1. The card: ``nvidia-smi`` name and power limit, the torch device name and
    count.  No CUDA device means exit 1.
-2. Build the five CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
+2. Build the six CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
    each, in parallel: linkload and queueloss, each with a batched, a
-   single-block and a fleet entry; flash attention, the RG-LRU scan and the
-   SSD chunk scan) and print ptxas' registers/spills.
+   single-block and a fleet entry; flash attention, its backward, the RG-LRU
+   scan and the SSD chunk scan) and print ptxas' registers/spills.
 3. Hold each of the nine kernel entries against its plain PyTorch version
    on the card: the batched ones at the batched engine's shapes (B=96 epochs
    of phase 4 and B=672 of a 14-day sweep, T=3 / TS=36, C=E=132), the batched
@@ -53,14 +53,18 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    queue loss) are also held bit for bit against a second call.  Flash
    attention's backward (the gradient training takes through
    ``FlashAttention``: the forward with its log-sum-exp, then the backward
-   kernel) at llama3-8b's training shape (B=2, S=2048, H=32, KV=8, hd=128,
+   kernels) at llama3-8b's training shape (B=2, S=2048, H=32, KV=8, hd=128,
    causal), recurrentgemma-9b's local attention, seamless-m4t-large-v2's
    cross-attention (B=4, Sq=256, Sk=1024, H=KV=16, hd=64, non-causal; the
    forward at Sq != Sk too) in bf16 and a ragged f32 shape (hd=100, a
    non-causal window, Sq=300 != Sk=500), against the plain backward and
    autograd through the plain forward (f32 1e-4·(1+|ref|); bf16 within the
    bf16 gradient rounding bound), bit for bit against a second call, timed
-   beside its plain version and ``scaled_dot_product_attention``'s backward;
+   (its dQ and dK/dV launches also alone, each time with its rate) beside its
+   plain version and ``scaled_dot_product_attention``'s backward, its bound
+   at the rate of the shape's dtype; and checked at five edge shapes
+   (``FLASH_BWD_EDGES``: tile-ragged Sq and Sk, windows across tile edges,
+   GQA groups of 1, 2, 12 and 16, hd 64 to 256 and 100 in bf16);
    the RG-LRU backward (two launches: the forward and the reversed scan) at
    (2, 4096, 4096) against autograd through its plain version at 1e-4.
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
@@ -153,8 +157,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    tokens/s, model-FLOPs utilisation and peak memory; recurrentgemma-9b at
    full width (one super-block: rec, rec, local attention) and seamless at 4
    + 4 layers, two steps each through ``make_train_step`` (the RG-LRU scan
-   forward and backward and the windowed flash backward, counted); and the
-   ssm family's ``Model.loss`` raising ``NotImplementedError`` on the card.
+   forward and backward and the windowed flash backward, counted); in each
+   run the flash backward's device time a step (CUDA events around its
+   entry) against the step's time; and the ssm family's ``Model.loss``
+   raising ``NotImplementedError`` on the card.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -173,7 +179,8 @@ SCORE_TOL = 1e-5  # scoring vs the float64 numpy oracle
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
-LIBRARIES = ("linkload", "queueloss", "flash_attention", "rglru_scan", "ssd_chunk")
+LIBRARIES = ("linkload", "queueloss", "flash_attention", "flash_attention_bwd",
+             "rglru_scan", "ssd_chunk")
 # phase 8's prefill shapes: (arch, batch, seq) and the kernel launches of one
 # forward at full depth
 PREFILL = (("recurrentgemma-9b", 2, 4096,
@@ -198,6 +205,15 @@ FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
              ("seamless_cross", (4, 256, 1024, 16, 16, 64, False, 0, "bfloat16")),
              ("ragged_f32", (1, 300, 500, 8, 2, 100, False, 48, "float32")))
 FLASH_BWD_F32_TOL = 1e-4  # f32 gradients: 1e-4·(1 + |ref|)
+# the backward's edge shapes at small sizes (checked, not timed): Sq and Sk
+# off every tile, windows that straddle tile edges, GQA groups of 2, 1, 16
+# and 12 (which the 8-CTA cluster does not divide), non-causal Sq != Sk,
+# hd 64 / 128 / 256 and 100 in bf16
+FLASH_BWD_EDGES = (("hd64_ragged_g2", (1, 1000, 1000, 4, 2, 64, True, 0, "bfloat16")),
+                   ("hd128_cross_g1", (1, 300, 700, 4, 4, 128, False, 0, "bfloat16")),
+                   ("hd256_window_g16", (1, 1000, 1000, 16, 1, 256, True, 100, "bfloat16")),
+                   ("hd128_window_g12", (1, 500, 500, 12, 1, 128, True, 70, "bfloat16")),
+                   ("hd100_bf16", (1, 300, 500, 8, 2, 100, False, 48, "bfloat16")))
 MOE_SORTED_REL_TOL = 2e-2  # sorted vs one-hot dispatch (tests/test_arch_smoke.py:155)
 FAMILY_DECODE = 32  # greedy tokens of mixtral through its ring cache
 TUNE_MAX_ITERS = 1000  # phase 11's cap on the solver tuner's stage-1 solves
@@ -902,19 +918,15 @@ def _band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return total
 
 
-def _flash_backward(gen, dev):
-    """Flash attention's backward (#7's new kernel) at the ``FLASH_BWD``
-    shapes: the gradients through ``FlashAttention`` (the training path:
-    the forward with its log-sum-exp, then the backward kernel) against the
-    plain backward and against autograd through the plain forward, in float32
-    at ``FLASH_BWD_F32_TOL`` or, for bf16 inputs, within the bf16 rounding
-    bound (``bf16_grad_rounding_bound``); bit for bit against a second call;
-    the forward at Sq != Sk (cross) against its plain version; times of the
-    kernel (the backward entry alone), its plain version in the input dtype
-    and ``scaled_dot_product_attention``'s backward.  Returns the kernels-line
-    row (the llama3 shape) with every shape's numbers."""
+def _flash_backward_check(label, shape, gen, dev):
+    """#7's backward at one shape: the gradients through ``FlashAttention``
+    (the training path: the forward with its log-sum-exp, then the backward
+    kernels) against the plain backward and against autograd through the
+    plain forward, in float32 at ``FLASH_BWD_F32_TOL`` or, for bf16 inputs,
+    within the bf16 rounding bound (``bf16_grad_rounding_bound``); bit for
+    bit against a second call; at Sq != Sk also the forward against its plain
+    version.  Returns (inputs, forward output, lse, the numbers)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -923,72 +935,104 @@ def _flash_backward(gen, dev):
                                                          bf16_grad_rounding_bound,
                                                          bf16_rounding_bound)
 
-    shapes = {}
-    for label, (b, sq, sk, h, kv, hd, causal, window, dt) in FLASH_BWD:
-        dtype = getattr(torch, dt)
-        q, k, v, do = (torch.randn((b * n, s_, hd), generator=gen, device=dev).to(dtype)
-                       for n, s_ in ((h, sq), (kv, sk), (kv, sk), (h, sq)))
-        m = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
-        o, lse = faops.flash_attention_rows(q, k, v, with_lse=True, **m)
-        if sq != sk:  # the forward at Sq != Sk (cross-attention)
-            if dtype == torch.bfloat16:
-                ref, tol = bf16_rounding_bound(q, k, v, **m)
-            else:
-                ref, tol = attention_ref(q, k, v, **m), FLASH_F32_TOL
-            fwd_worst = float(((o.float() - ref).abs() / tol).max())
-            log(f"phase 3: flash_attention forward {label} (Sq={sq} != Sk={sk}): worst "
-                f"|err|/tol {fwd_worst:.4f}")
-            if not fwd_worst <= 1.0:
-                fail(f"flash_attention forward at Sq != Sk ({label}) disagrees")
-            del ref, tol
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        got = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
-                                                             window), (qg, kg, vg), do)
-        again = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
-                                                               window), (qg, kg, vg), do)
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        del again
-        # the f32 gradient by autograd through the plain forward, a batch row
-        # at a time (its (H, Sq, Sk) float32 intermediates)
-        auto = [[], [], []]
-        for i in range(b):
-            rows_q, rows_k = slice(i * h, (i + 1) * h), slice(i * kv, (i + 1) * kv)
-            qf, kf, vf = (t[r].float().requires_grad_() for t, r in
-                          ((q, rows_q), (k, rows_k), (v, rows_k)))
-            out_f = attention_ref(qf, kf, vf, **m)
-            for j, g in enumerate(torch.autograd.grad(out_f, (qf, kf, vf),
-                                                      do[rows_q].float())):
-                auto[j].append(g)
-            del qf, kf, vf, out_f
-        auto = [torch.cat(x) for x in auto]
+    b, sq, sk, h, kv, hd, causal, window, dt = shape
+    dtype = getattr(torch, dt)
+    q, k, v, do = (torch.randn((b * n, s_, hd), generator=gen, device=dev).to(dtype)
+                   for n, s_ in ((h, sq), (kv, sk), (kv, sk), (h, sq)))
+    m = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
+    o, lse = faops.flash_attention_rows(q, k, v, with_lse=True, **m)
+    if sq != sk:  # the forward at Sq != Sk (cross-attention)
         if dtype == torch.bfloat16:
-            plain, bound = bf16_grad_rounding_bound(q, k, v, do, **m)
-            contract = "the bf16 gradient rounding bound"
+            ref, tol = bf16_rounding_bound(q, k, v, **m)
         else:
-            plain = attention_bwd_ref(q, k, v, o, do, attention_lse_ref(q, k, **m), **m)
-            bound = tuple(FLASH_BWD_F32_TOL * (1 + r.abs()) for r in plain)
-            contract = f"{FLASH_BWD_F32_TOL}·(1+|ref|)"
-        worst_plain = max(float(((g.float() - r).abs() / t).max())
-                          for g, r, t in zip(got, plain, bound))
-        worst_auto = max(float(((g.float() - r).abs() / t).max())
-                         for g, r, t in zip(got, auto, bound))
-        err = max(float((g.float() - r).abs().max()) for g, r in zip(got, plain))
-        log(f"phase 3: flash_attention backward {label} (B={b}, Sq={sq}, Sk={sk}, H={h}, "
-            f"KV={kv}, hd={hd}, causal={causal}, window={window}, {dt}): max abs err "
-            f"{err:.3e}; worst |err|/tol against the plain backward {worst_plain:.4f}, "
-            f"against autograd through the plain forward {worst_auto:.4f} (tol: "
-            f"{contract}); second call bit-equal {same}")
-        if not worst_plain <= 1.0 or not worst_auto <= 1.0:
-            fail(f"flash_attention backward {label} disagrees with its plain version")
-        if not same:
-            fail(f"flash_attention backward {label} is not deterministic")
-        del got, auto, plain, bound
-        torch.cuda.empty_cache()
+            ref, tol = attention_ref(q, k, v, **m), FLASH_F32_TOL
+        fwd_worst = float(((o.float() - ref).abs() / tol).max())
+        log(f"phase 3: flash_attention forward {label} (Sq={sq} != Sk={sk}): worst "
+            f"|err|/tol {fwd_worst:.4f}")
+        if not fwd_worst <= 1.0:
+            fail(f"flash_attention forward at Sq != Sk ({label}) disagrees")
+        del ref, tol
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                         window), (qg, kg, vg), do)
+    again = torch.autograd.grad(faops.FlashAttention.apply(qg, kg, vg, h, kv, causal,
+                                                           window), (qg, kg, vg), do)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    # the f32 gradient by autograd through the plain forward, a batch row
+    # at a time (its (H, Sq, Sk) float32 intermediates)
+    auto = [[], [], []]
+    for i in range(b):
+        rows_q, rows_k = slice(i * h, (i + 1) * h), slice(i * kv, (i + 1) * kv)
+        qf, kf, vf = (t[r].float().requires_grad_() for t, r in
+                      ((q, rows_q), (k, rows_k), (v, rows_k)))
+        out_f = attention_ref(qf, kf, vf, **m)
+        for j, g in enumerate(torch.autograd.grad(out_f, (qf, kf, vf),
+                                                  do[rows_q].float())):
+            auto[j].append(g)
+        del qf, kf, vf, out_f
+    auto = [torch.cat(x) for x in auto]
+    if dtype == torch.bfloat16:
+        plain, bound = bf16_grad_rounding_bound(q, k, v, do, **m)
+        contract = "the bf16 gradient rounding bound"
+    else:
+        plain = attention_bwd_ref(q, k, v, o, do, attention_lse_ref(q, k, **m), **m)
+        bound = tuple(FLASH_BWD_F32_TOL * (1 + r.abs()) for r in plain)
+        contract = f"{FLASH_BWD_F32_TOL}·(1+|ref|)"
+    worst_plain = max(float(((g.float() - r).abs() / t).max())
+                      for g, r, t in zip(got, plain, bound))
+    worst_auto = max(float(((g.float() - r).abs() / t).max())
+                     for g, r, t in zip(got, auto, bound))
+    err = max(float((g.float() - r).abs().max()) for g, r in zip(got, plain))
+    log(f"phase 3: flash_attention backward {label} (B={b}, Sq={sq}, Sk={sk}, H={h}, "
+        f"KV={kv}, hd={hd}, causal={causal}, window={window}, {dt}): max abs err "
+        f"{err:.3e}; worst |err|/tol against the plain backward {worst_plain:.4f}, "
+        f"against autograd through the plain forward {worst_auto:.4f} (tol: "
+        f"{contract}); second call bit-equal {same}")
+    if not worst_plain <= 1.0 or not worst_auto <= 1.0:
+        fail(f"flash_attention backward {label} disagrees with its plain version")
+    if not same:
+        fail(f"flash_attention backward {label} is not deterministic")
+    del got, auto, plain, bound
+    torch.cuda.empty_cache()
+    return (q, k, v, do), o, lse, {"shape": list(shape[:6]) + [int(causal), window, dt],
+                                   "max_abs_err": err, "worst_plain": worst_plain,
+                                   "worst_autograd": worst_auto}
 
+
+def _flash_backward(gen, dev):
+    """Flash attention's backward (#7b) at the ``FLASH_BWD`` shapes and the
+    ``FLASH_BWD_EDGES`` ones, each checked by ``_flash_backward_check``; at
+    the ``FLASH_BWD`` shapes the times of the backward entry, of each of its
+    two launches alone (dQ with D, dK/dV), of its plain version in the input dtype
+    and of ``scaled_dot_product_attention``'s backward, each with its rate
+    on the bound's operations.  The bound takes the work at the rate of the
+    shape's dtype: bf16 on the tensor cores, float32 on the CUDA cores (the
+    kernel uses no TF32).  Returns the kernels-line row (the llama3 shape)
+    with every shape's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    shapes, edges = {}, {}
+    for label, shape in FLASH_BWD_EDGES:
+        tensors, o, lse, row = _flash_backward_check(label, shape, gen, dev)
+        edges[label] = row
+        del tensors, o, lse
+        torch.cuda.empty_cache()
+    for label, shape in FLASH_BWD:
+        (q, k, v, do), o, lse, row = _flash_backward_check(label, shape, gen, dev)
+        b, sq, sk, h, kv, hd, causal, window, dt = shape
+        m = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
         pairs = _band_pairs(sq, sk, causal, window) * b * h
         n_flops = 2.5 * 4 * hd * pairs
         n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
         ms = time_cuda(lambda: faops.flash_attention_bwd_rows(q, k, v, o, do, lse, **m))
+        part_ms = {name: time_cuda(lambda: faops._launch_backward(
+            q, k, v, o, do, lse, dev, parts=bit, **m))
+                   for name, bit in (("dQ and D", 1), ("dK/dV", 2))}
         plain_ms = time_cuda(lambda: attention_bwd_ref(q, k, v, o, do, lse, **m))
         q4, k4, v4 = (t.view(b, n, s_, hd).detach().requires_grad_()
                       for t, n, s_ in ((q, h, sq), (k, kv, sk), (v, kv, sk)))
@@ -1003,26 +1047,33 @@ def _flash_backward(gen, dev):
         do4 = do.view(b, h, sq, hd)
         lib_ms = time_cuda(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                        retain_graph=True))
-        bnd, by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
-        log(f"  flash_attention backward {label} times: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP "
-            f"= 2.5 x the forward's on {pairs} (q, k) pairs at the bf16 rate)")
-        shapes[label] = {"shape": [b, sq, sk, h, kv, hd, int(causal), window, dt],
-                         "max_abs_err": err, "worst_plain": worst_plain,
-                         "worst_autograd": worst_auto, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+        rate, rate_name = ((F32_FLOP_PER_S, "the f32 CUDA-core rate") if dt == "float32"
+                           else (BF16_FLOP_PER_S, "the bf16 tensor-core rate"))
+        bnd, by = bound_ms(n_bytes, n_flops, rate)
+
+        def tflops(t):
+            return f"{t:.4f} ms ({n_flops / t / 1e9:.1f} TFLOP/s)"
+
+        log(f"  flash_attention backward {label} times: kernel {tflops(ms)} (alone: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in part_ms.items())
+            + f" ms), plain {tflops(plain_ms)}, scaled_dot_product_attention backward "
+            f"{tflops(lib_ms)}, bound {bnd:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+            f"{n_flops / 1e9:.3f} GFLOP = 2.5 x the forward's on {pairs} (q, k) pairs at "
+            f"{rate_name}, {rate / 1e12:.0f} TFLOP/s)")
+        shapes[label] = dict(row, ms=ms, part_ms=part_ms, plain_ms=plain_ms, bound_ms=bnd,
+                             bound_by=by, library_ms=lib_ms, tflops=n_flops / ms / 1e9)
         del q, k, v, do, o, lse, q4, k4, v4, out4, do4
         torch.cuda.empty_cache()
     main = shapes["llama3"]
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "status": "new (the gradient of #7)",
-            "shapes": shapes}
+            "shape": main["shape"],
+            "status": "redesigned (wgmma; dK/dV on clusters that split the GQA group)",
+            "shapes": shapes, "edge_shapes": edges}
 
 
 def phase_model_kernels():
@@ -2745,6 +2796,53 @@ def _train_flops(cfg, n_params_matmul: int, b: int, s: int) -> float:
     return 6.0 * n_params_matmul * b * s + 3.0 * attn * n_attn_layers
 
 
+class _BackwardTimer:
+    """While active, CUDA events around every ``flash_attention_bwd_rows``
+    call: the device time of #7b's launches (D, dK/dV, dQ) inside training
+    steps, which ride the step's stream between the two events."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as faops
+
+        self._ops, self.events = faops, []
+
+    def __enter__(self):
+        import torch
+
+        inner = self._inner = self._ops.flash_attention_bwd_rows
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = inner(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self._ops.flash_attention_bwd_rows = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention_bwd_rows = self._inner
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _backward_share(name, timer, n_steps, step_ms, smi):
+    """Log and return #7b's device time a step (the mean over the timed
+    steps) against a step's time (the caller's median)."""
+    bwd = timer.ms() / n_steps
+    log(f"phase 13: {name}: the flash-attention backward entry (CUDA events around "
+        f"flash_attention_bwd_rows, {len(timer.events) // n_steps} calls a step) "
+        f"{bwd:.3f} ms a step of the step's {step_ms:.1f} ms: share "
+        f"{bwd / step_ms:.4f} ({smi})")
+    return {"bwd_ms_per_step": bwd, "step_ms": step_ms, "share": bwd / step_ms}
+
+
 def phase_audio_train(device, smi: str = ""):
     """The audio family and training (phase 13), bf16, random weights from a
     seed: seamless-m4t-large-v2's prefill at full size (exact flash launches,
@@ -2898,7 +2996,8 @@ def phase_audio_train(device, smi: str = ""):
         save_only(trainer, TRAIN_CKPT_EVERY)
         zero()
         t0 = time.perf_counter()
-        run = trainer.run(resume=False)
+        with _BackwardTimer() as bwd_timer:
+            run = trainer.run(resume=False)
         t_run = time.perf_counter() - t0
         got = counts()
         peak = torch.cuda.max_memory_allocated()
@@ -2924,6 +3023,7 @@ def phase_audio_train(device, smi: str = ""):
             fail(f"{cfg.name} training: launches {got}, expected {expect}")
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
             fail(f"{cfg.name} training: losses or gradient norms not finite")
+        bwd_share = _backward_share(cfg.name, bwd_timer, TRAIN_STEPS, step_s * 1e3, smi)
         # the checkpoint holds moved parameters and nonzero moments, so the
         # restart below reads an update's state, not the initial weights
         release()
@@ -2956,7 +3056,7 @@ def phase_audio_train(device, smi: str = ""):
                                "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
                                "mfu": mfu, "peak_bytes": peak, "run_s": t_run,
                                "restart_s": t_restart, "launches": got,
-                               "wq_moved": moved}
+                               "wq_moved": moved, "backward_share": bwd_share}
         del again, restart
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -2989,13 +3089,14 @@ def phase_audio_train(device, smi: str = ""):
                                           device=device).to(torch.bfloat16)
         zero()
         losses, norms, times = [], [], []
-        for _ in range(SHORT_STEPS):
-            synchronize(device)
-            t0 = time.perf_counter()
-            params, state, m = train(params, state, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            times.append(time.perf_counter() - t0)
+        with _BackwardTimer() as bwd_timer:
+            for _ in range(SHORT_STEPS):
+                synchronize(device)
+                t0 = time.perf_counter()
+                params, state, m = train(params, state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                times.append(time.perf_counter() - t0)
         got = counts()
         peak = torch.cuda.max_memory_allocated()
         if cfg.family == "hybrid":
@@ -3021,9 +3122,10 @@ def phase_audio_train(device, smi: str = ""):
             fail(f"{cfg.name} training: losses or gradient norms not finite")
         if losses[-1] == losses[-2]:
             fail(f"{cfg.name} training: the update did not move the loss ({losses})")
-        out[f"{cfg.family}_train"] = {"losses": losses, "grad_norms": norms,
-                                      "step_times_s": times, "peak_bytes": peak,
-                                      "launches": got}
+        out[f"{cfg.family}_train"] = {
+            "losses": losses, "grad_norms": norms, "step_times_s": times, "peak_bytes": peak,
+            "launches": got, "backward_share": _backward_share(
+                cfg.name, bwd_timer, SHORT_STEPS, float(np.median(times)) * 1e3, smi)}
         del model, params, state, batch
     release()
 

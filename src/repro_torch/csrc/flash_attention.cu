@@ -3,11 +3,9 @@
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py :: flash_attention_pallas
-//   (kernel body _kernel), entries flash_attention_bf16 / flash_attention_f32,
-// and adds its gradient, entries flash_attention_bwd_bf16 / _f32 (the
-// reference takes it by XLA's autodiff of its plain attention; see the
-// backward section below).  The forward entries write each row's log-sum-exp
-// to `lse` when it is not null (training); serving passes null.
+//   (kernel body _kernel), entries flash_attention_bf16 / flash_attention_f32.
+// The entries write each row's log-sum-exp to `lse` when it is not null
+// (training; the gradient is flash_attention_bwd.cu); serving passes null.
 // Layout as there: q (B*H, Sq, hd), k/v (B*KV, Sk, hd), out (B*H, Sq, hd) in
 // q's dtype.  Row r = b*H + h of q attends over K/V row b*KV + h / (H/KV).
 // Masks (flash_attention.py:45-52): kj < Sk; causal kj <= qi; with window > 0
@@ -515,583 +513,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- backward ------------------------------------------------------------------
-//
-// dO -> dQ, dK, dV for the forward above, from q, k, v, the forward's output
-// o and its per-row statistics lse = m + log(l) (natural log, float32).  The
-// weights are recomputed, P = exp(S * scale - lse), masked entries exactly 0;
-// then dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D), and
-//   dV = P^T dO,  dQ = scale * dS K,  dK = scale * dS^T Q,
-// with dK and dV summed over the H/KV query heads of their group.  Three
-// kernels: D (a warp a row), dK/dV (a CTA a (K/V row, 64-key tile), looping
-// over its group's heads and the q tiles of the causal/window band that see
-// the tile) and dQ (a CTA a (q row, 64-row q tile), looping over the key tiles
-// of its band, the forward's bounds).  Every sum stays inside one CTA: no
-// atomics, the same bits on every call.
-//
-// bf16: the five products are mma.sync m16n8k16 bf16 x bf16 -> f32.  The
-// dK/dV kernel works on transposed scores: S^T = K Q^T and dP^T = V dO^T (a
-// warp owns 16 keys), so P^T and dS^T, rounded to bf16, go from the
-// accumulators straight into the A fragments of dV += P^T dO and
-// dK += dS^T Q, as the forward's P does into P V (the reference's autodiff
-// rounds dS to bf16 before these products, too).  The dQ kernel forms S and
-// dP as the forward does and dS feeds dQ += dS K.  The 16 x hd accumulators
-// of dK and dV (or of dQ) would take 2 x hd/2 registers a thread; instead the
-// eight warps pair up on 16 rows and each keeps half of the columns, both
-// forming the same 16-row scores (the two score products are done twice, in
-// exchange for fitting hd = 256).  At hd = 256 the dK/dV kernel takes 32-row
-// q tiles.  Tiles are staged once each step (no double buffering).
-//
-// f32: CUDA-core FMAs with no TF32, 32 x 32 tiles: a thread owns four
-// scores, and one row of the accumulators at every eighth column.
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
-                       float* __restrict__ delta, long long n_rows, int hd) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const T* a = o + row * hd;
-  const T* b = d_o + row * hd;
-  float acc = 0.0f;
-  for (int c = lane; c < hd; c += 32) acc = fmaf(to_f32(a[c]), to_f32(b[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
-
-constexpr int kBwdBK = 64;  // keys per tile (both bf16 kernels)
-constexpr int kBwdBQ = 64;  // q rows per tile of the dQ kernel
-
-template <int HD>
-__host__ __device__ constexpr int bwd_dkdv_bq() { return HD >= 256 ? 32 : 64; }
-
-template <int HD>
-constexpr size_t bwd_dkdv_smem() {
-  return (size_t)(2 * kBwdBK + 2 * bwd_dkdv_bq<HD>()) * HD * 2 + 2 * 64 * sizeof(float);
-}
-
-template <int HD>
-constexpr size_t bwd_dq_smem() {
-  return (size_t)(2 * kBwdBK + 2 * kBwdBQ) * HD * 2;
-}
-
-// A fragment (16 x 16) from rows m0.. of a swizzled row-major tile, k-chunk 2kk
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], uint32_t base, int m0, int kk,
-                                       int row_bytes, int lane) {
-  ldsm_x4(a, base + swz(m0 + (lane & 15), 2 * kk + (lane >> 4), row_bytes));
-}
-// B fragments of two n-tiles (rows n0..n0+15 of a row-major (n, k) tile)
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], uint32_t base, int n0, int kk,
-                                       int row_bytes, int lane) {
-  ldsm_x4(b, base + swz(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1),
-                        row_bytes));
-}
-// B fragments of two n-tiles (16-byte chunks ch, ch+1) of a row-major (k, n)
-// tile, rows k0..k0+15
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], uint32_t base, int k0, int ch,
-                                        int row_bytes, int lane) {
-  ldsm_x4_trans(b, base + swz(k0 + (lane & 7) + (((lane >> 3) & 1) << 3), ch + (lane >> 4),
-                              row_bytes));
-}
-
-__device__ __forceinline__ bool pair_visible(int qi, int kj, int Sq, int Sk, int causal,
-                                             int window) {
-  bool ok = kj < Sk && qi < Sq;
-  if (causal) ok = ok && kj <= qi;
-  if (window > 0) ok = ok && kj > qi - window;
-  return ok;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ d_o,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int Sq, int Sk, int hd, int n_heads, int n_kv, int causal,
-                           int window, float scale, int n_ktiles, int vec) {
-  constexpr int BQ = bwd_dkdv_bq<HD>(), BK = kBwdBK;
-  constexpr int kRowBytes = HD * 2, kHalf = HD / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* sK = smem_raw;
-  unsigned char* sV = sK + BK * kRowBytes;
-  unsigned char* sQ = sV + BK * kRowBytes;
-  unsigned char* sdO = sQ + BQ * kRowBytes;
-  float* sL = reinterpret_cast<float*>(sdO + BQ * kRowBytes);  // lse * log2(e)
-  float* sD = sL + 64;
-
-  const long long kvr = blockIdx.x / n_ktiles;
-  const int k0 = (int)(blockIdx.x % n_ktiles) * BK;
-  const long long bidx = kvr / n_kv;
-  const int kvh = (int)(kvr % n_kv), group = n_heads / n_kv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kr = 16 * (warp & 3);          // the warp's 16 keys in the tile
-  const int ch0 = (warp >> 2) * (kHalf / 8);  // its first 16-byte column chunk
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<HD>(sK, k + (size_t)kvr * Sk * hd, k0, BK, Sk, hd, vec);
-  load_tile<HD>(sV, v + (size_t)kvr * Sk * hd, k0, BK, Sk, hd, vec);
-  cp_async_commit();
-  const uint32_t sKu = smem_u32(sK), sVu = smem_u32(sV), sQu = smem_u32(sQ),
-                 sdOu = smem_u32(sdO);
-
-  float dk_acc[kHalf / 8][4], dv_acc[kHalf / 8][4];
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
-
-  // q rows that see some key of [k0, k0 + BK): [q_lo, q_hi)
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq, k0 + BK - 1 + window) : Sq;
-  const int key_lo = k0 + kr, key_hi = key_lo + 15;  // the warp's keys
-
-  for (int hh = 0; hh < group; ++hh) {
-    const long long r = bidx * n_heads + (long long)kvh * group + hh;
-    const __nv_bfloat16* q_r = q + (size_t)r * Sq * hd;
-    const __nv_bfloat16* do_r = d_o + (size_t)r * Sq * hd;
-    for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
-      __syncthreads();  // every warp is done with the previous q tile
-      load_tile<HD>(sQ, q_r, q0, BQ, Sq, hd, vec);
-      load_tile<HD>(sdO, do_r, q0, BQ, Sq, hd, vec);
-      cp_async_commit();
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        sL[i] = in ? lse[(size_t)r * Sq + q0 + i] * kLog2e : 0.0f;
-        sD[i] = in ? delta[(size_t)r * Sq + q0 + i] : 0.0f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries a warp
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, sKu, kr, kk, kRowBytes, lane);
-        frag_a(av, sVu, kr, kk, kRowBytes, lane);
-#pragma unroll
-        for (int np = 0; np < BQ / 16; ++np) {
-          uint32_t b[4];
-          frag_b(b, sQu, 16 * np, kk, kRowBytes, lane);
-          mma_bf16(st[2 * np], ak, b[0], b[1]);
-          mma_bf16(st[2 * np + 1], ak, b[2], b[3]);
-          frag_b(b, sdOu, 16 * np, kk, kRowBytes, lane);
-          mma_bf16(dpt[2 * np], av, b[0], b[1]);
-          mma_bf16(dpt[2 * np + 1], av, b[2], b[3]);
-        }
-      }
-
-      // P^T and dS^T in place; masks only where the warp's block straddles
-      // a band edge, Sq or Sk
-      const bool inside = key_hi < Sk && q0 + BQ <= Sq && (!causal || key_hi <= q0) &&
-                          (window <= 0 || key_lo > q0 + BQ - 1 - window);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = 8 * j + 2 * t4 + (e & 1);
-          const int kj = key_lo + g + (e >= 2 ? 8 : 0);
-          const bool ok = inside || pair_visible(q0 + qc, kj, Sq, Sk, causal, window);
-          const float p = ok ? exp2f(st[j][e] * scale_log2 - sL[qc]) : 0.0f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - sD[qc]);
-        }
-
-      // dV += P^T dO and dK += dS^T Q over the warp's half of the columns
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                                pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                                pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                                pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const uint32_t as[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                                pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                                pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                                pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < kHalf / 16; ++dp) {
-          uint32_t b[4];
-          frag_bt(b, sdOu, 16 * kk, ch0 + 2 * dp, kRowBytes, lane);
-          mma_bf16(dv_acc[2 * dp], ap, b[0], b[1]);
-          mma_bf16(dv_acc[2 * dp + 1], ap, b[2], b[3]);
-          frag_bt(b, sQu, 16 * kk, ch0 + 2 * dp, kRowBytes, lane);
-          mma_bf16(dk_acc[2 * dp], as, b[0], b[1]);
-          mma_bf16(dk_acc[2 * dp + 1], as, b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();  // with no q tile, the K/V copies are still landing
-  __syncthreads();
-
-  __nv_bfloat16* dk_r = dk + (size_t)kvr * Sk * hd;
-  __nv_bfloat16* dv_r = dv + (size_t)kvr * Sk * hd;
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = key_lo + g + (e >= 2 ? 8 : 0);
-      const int col = ch0 * 8 + 8 * j + 2 * t4 + (e & 1);
-      if (row < Sk && col < hd) {
-        dk_r[(size_t)row * hd + col] = __float2bfloat16_rn(dk_acc[j][e] * scale);
-        dv_r[(size_t)row * hd + col] = __float2bfloat16_rn(dv_acc[j][e]);
-      }
-    }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ d_o,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int hd, int n_heads,
-                         int n_kv, int causal, int window, float scale, int n_qtiles,
-                         int vec) {
-  constexpr int BQ = kBwdBQ, BK = kBwdBK;
-  constexpr int kRowBytes = HD * 2, kHalf = HD / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* sQ = smem_raw;
-  unsigned char* sdO = sQ + BQ * kRowBytes;
-  unsigned char* sK = sdO + BQ * kRowBytes;
-  unsigned char* sV = sK + BK * kRowBytes;
-
-  const long long r = blockIdx.x / n_qtiles;
-  const int q0 = (int)(blockIdx.x % n_qtiles) * BQ;
-  const long long kv_row = (r / n_heads) * n_kv + (r % n_heads) / (n_heads / n_kv);
-  const __nv_bfloat16* k_r = k + (size_t)kv_row * Sk * hd;
-  const __nv_bfloat16* v_r = v + (size_t)kv_row * Sk * hd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int qr = 16 * (warp & 3);             // the warp's 16 q rows in the tile
-  const int ch0 = (warp >> 2) * (kHalf / 8);  // its first 16-byte column chunk
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<HD>(sQ, q + (size_t)r * Sq * hd, q0, BQ, Sq, hd, vec);
-  load_tile<HD>(sdO, d_o + (size_t)r * Sq * hd, q0, BQ, Sq, hd, vec);
-  cp_async_commit();
-  const int qa = q0 + qr + g, qb = qa + 8;
-  const float la = qa < Sq ? lse[(size_t)r * Sq + qa] * kLog2e : 0.0f;
-  const float lb = qb < Sq ? lse[(size_t)r * Sq + qb] * kLog2e : 0.0f;
-  const float da = qa < Sq ? delta[(size_t)r * Sq + qa] : 0.0f;
-  const float db = qb < Sq ? delta[(size_t)r * Sq + qb] : 0.0f;
-  const uint32_t sKu = smem_u32(sK), sVu = smem_u32(sV), sQu = smem_u32(sQ),
-                 sdOu = smem_u32(sdO);
-
-  float dq_acc[kHalf / 8][4];
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.0f;
-
-  // keys that some row of this q tile may see: [k_lo, k_hi) (the forward's)
-  const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int w_lo = q0 + qr, w_hi = w_lo + 15;  // the warp's rows
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous key tile
-    load_tile<HD>(sK, k_r, k0, BK, Sk, hd, vec);
-    load_tile<HD>(sV, v_r, k0, BK, Sk, hd, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a(aq, sQu, qr, kk, kRowBytes, lane);
-      frag_a(ao, sdOu, qr, kk, kRowBytes, lane);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
-        frag_b(b, sKu, 16 * np, kk, kRowBytes, lane);
-        mma_bf16(s[2 * np], aq, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
-        frag_b(b, sVu, 16 * np, kk, kRowBytes, lane);
-        mma_bf16(dp[2 * np], ao, b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
-      }
-    }
-
-    const bool inside = k0 + BK <= Sk && w_hi < Sq && (!causal || k0 + BK - 1 <= w_lo) &&
-                        (window <= 0 || k0 > w_hi - window);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = e < 2 ? qa : qb, kj = k0 + 8 * j + 2 * t4 + (e & 1);
-        const bool ok = inside || pair_visible(qi, kj, Sq, Sk, causal, window);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - (e < 2 ? la : lb)) : 0.0f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? da : db));  // dS
-      }
-
-    // dQ += dS K over the warp's half of the columns
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dj = 0; dj < kHalf / 16; ++dj) {
-        uint32_t b[4];
-        frag_bt(b, sKu, 16 * kk, ch0 + 2 * dj, kRowBytes, lane);
-        mma_bf16(dq_acc[2 * dj], a, b[0], b[1]);
-        mma_bf16(dq_acc[2 * dj + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();  // with no key tile, the q-tile copies are still landing
-  __syncthreads();
-
-  __nv_bfloat16* dq_r = dq + (size_t)r * Sq * hd;
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? qa : qb;
-      const int col = ch0 * 8 + 8 * j + 2 * t4 + (e & 1);
-      if (row < Sq && col < hd)
-        dq_r[(size_t)row * hd + col] = __float2bfloat16_rn(dq_acc[j][e] * scale);
-    }
-}
-
-template <int HD>
-int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* d_o,
-                    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                    long long n_kv_ctas, long long n_q_ctas, int Sq, int Sk, int hd,
-                    int n_heads, int n_kv, int causal, int window, float scale, int n_ktiles,
-                    int n_qtiles, int vec, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  constexpr size_t smem_kv = bwd_dkdv_smem<HD>(), smem_q = bwd_dq_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
-  if (err != cudaSuccess) return (int)err;
-  if (n_kv_ctas > 0)
-    flash_bwd_dkdv_bf16_kernel<HD><<<dim3((unsigned)n_kv_ctas), kThreads, smem_kv, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(d_o), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk,
-        hd, n_heads, n_kv, causal, window, scale, n_ktiles, vec);
-  if (n_q_ctas > 0)
-    flash_bwd_dq_bf16_kernel<HD><<<dim3((unsigned)n_q_ctas), kThreads, smem_q, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(d_o), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf*>(dq), Sq, Sk, hd, n_heads, n_kv,
-        causal, window, scale, n_qtiles, vec);
-  return (int)cudaGetLastError();
-}
-
-// ---- float32 backward on the CUDA cores -----------------------------------------
-
-constexpr int kFB = 32;          // rows of every f32 tile
-constexpr int kFCols = kMaxHd / 8;  // accumulator columns per thread
-constexpr int kLdS = kFB + 1;
-
-__host__ __device__ constexpr size_t bwd_f32_smem(int hd) {
-  return sizeof(float) * (4 * (size_t)kFB * odd_stride(hd) + 2 * (size_t)kFB * kLdS + 2 * kFB);
-}
-
-// rows [row0, row0 + kFB) of a (rows, hd) f32 matrix into a (kFB, ld) tile
-__device__ __forceinline__ void load_f32_tile(float* tile, const float* g, int row0,
-                                              int n_valid, int hd, int ld) {
-  for (int i = threadIdx.x; i < kFB * hd; i += kThreads) {
-    const int row = i / hd, c = i - row * hd;
-    tile[row * ld + c] = row0 + row < n_valid ? g[(size_t)(row0 + row) * hd + c] : 0.0f;
-  }
-}
-
-// this thread's four (a, b) dot products over hd: rows a = tid / 8 of A and
-// b = tid % 8 + 8 m of B
-__device__ __forceinline__ void dots4(float (&out)[4], const float* A, const float* B, int hd,
-                                      int ld) {
-  const int a = threadIdx.x >> 3, b = threadIdx.x & 7;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) out[m] = 0.0f;
-  for (int d = 0; d < hd; ++d) {
-    const float x = A[a * ld + d];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) out[m] = fmaf(x, B[(b + 8 * m) * ld + d], out[m]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ d_o,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
-                          int hd, int n_heads, int n_kv, int causal, int window, float scale,
-                          int n_ktiles) {
-  extern __shared__ float fsm[];
-  const int ld = odd_stride(hd);
-  float* sK = fsm;
-  float* sV = sK + kFB * ld;
-  float* sQ = sV + kFB * ld;
-  float* sdO = sQ + kFB * ld;
-  float* sP = sdO + kFB * ld;  // (key, q) weights
-  float* sS = sP + kFB * kLdS;  // (key, q) dS
-  float* sL = sS + kFB * kLdS;
-  float* sD = sL + kFB;
-
-  const long long kvr = blockIdx.x / n_ktiles;
-  const int k0 = (int)(blockIdx.x % n_ktiles) * kFB;
-  const long long bidx = kvr / n_kv;
-  const int kvh = (int)(kvr % n_kv), group = n_heads / n_kv;
-  const int tid = threadIdx.x, ka = tid >> 3, cb = tid & 7;
-
-  load_f32_tile(sK, k + (size_t)kvr * Sk * hd, k0, Sk, hd, ld);
-  load_f32_tile(sV, v + (size_t)kvr * Sk * hd, k0, Sk, hd, ld);
-  float dk_acc[kFCols], dv_acc[kFCols];
-#pragma unroll
-  for (int c = 0; c < kFCols; ++c) dk_acc[c] = dv_acc[c] = 0.0f;
-
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq, k0 + kFB - 1 + window) : Sq;
-  for (int hh = 0; hh < group; ++hh) {
-    const long long r = bidx * n_heads + (long long)kvh * group + hh;
-    for (int q0 = (q_lo / kFB) * kFB; q0 < q_hi; q0 += kFB) {
-      __syncthreads();
-      load_f32_tile(sQ, q + (size_t)r * Sq * hd, q0, Sq, hd, ld);
-      load_f32_tile(sdO, d_o + (size_t)r * Sq * hd, q0, Sq, hd, ld);
-      if (tid < kFB) {
-        const bool in = q0 + tid < Sq;
-        sL[tid] = in ? lse[(size_t)r * Sq + q0 + tid] : 0.0f;
-        sD[tid] = in ? delta[(size_t)r * Sq + q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-      float s[4], dpv[4];
-      dots4(s, sK, sQ, hd, ld);     // key ka against queries cb + 8m
-      dots4(dpv, sV, sdO, hd, ld);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int qc = cb + 8 * m;
-        const bool ok = pair_visible(q0 + qc, k0 + ka, Sq, Sk, causal, window);
-        const float p = ok ? expf(s[m] * scale - sL[qc]) : 0.0f;
-        sP[ka * kLdS + qc] = p;
-        sS[ka * kLdS + qc] = p * (dpv[m] - sD[qc]);
-      }
-      __syncthreads();
-      for (int i = 0; i < kFB; ++i) {
-        const float p = sP[ka * kLdS + i], ds = sS[ka * kLdS + i];
-#pragma unroll
-        for (int c = 0; c < kFCols; ++c) {
-          const int col = cb + 8 * c;
-          if (col < hd) {
-            dv_acc[c] = fmaf(p, sdO[i * ld + col], dv_acc[c]);
-            dk_acc[c] = fmaf(ds, sQ[i * ld + col], dk_acc[c]);
-          }
-        }
-      }
-    }
-  }
-  if (k0 + ka < Sk) {
-    float* dk_r = dk + ((size_t)kvr * Sk + k0 + ka) * hd;
-    float* dv_r = dv + ((size_t)kvr * Sk + k0 + ka) * hd;
-#pragma unroll
-    for (int c = 0; c < kFCols; ++c) {
-      const int col = cb + 8 * c;
-      if (col < hd) {
-        dk_r[col] = dk_acc[c] * scale;
-        dv_r[col] = dv_acc[c];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ d_o,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int Sq, int Sk, int hd, int n_heads, int n_kv,
-                        int causal, int window, float scale, int n_qtiles) {
-  extern __shared__ float fsm[];
-  const int ld = odd_stride(hd);
-  float* sQ = fsm;
-  float* sdO = sQ + kFB * ld;
-  float* sK = sdO + kFB * ld;
-  float* sV = sK + kFB * ld;
-  float* sS = sV + kFB * ld;  // (q, key) dS
-
-  const long long r = blockIdx.x / n_qtiles;
-  const int q0 = (int)(blockIdx.x % n_qtiles) * kFB;
-  const long long kv_row = (r / n_heads) * n_kv + (r % n_heads) / (n_heads / n_kv);
-  const int tid = threadIdx.x, qa = tid >> 3, cb = tid & 7;
-  load_f32_tile(sQ, q + (size_t)r * Sq * hd, q0, Sq, hd, ld);
-  load_f32_tile(sdO, d_o + (size_t)r * Sq * hd, q0, Sq, hd, ld);
-  const bool row_in = q0 + qa < Sq;
-  const float l = row_in ? lse[(size_t)r * Sq + q0 + qa] : 0.0f;
-  const float dl = row_in ? delta[(size_t)r * Sq + q0 + qa] : 0.0f;
-  float dq_acc[kFCols];
-#pragma unroll
-  for (int c = 0; c < kFCols; ++c) dq_acc[c] = 0.0f;
-
-  const int k_hi = causal ? min(Sk, q0 + kFB) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = (k_lo / kFB) * kFB; k0 < k_hi; k0 += kFB) {
-    __syncthreads();
-    load_f32_tile(sK, k + (size_t)kv_row * Sk * hd, k0, Sk, hd, ld);
-    load_f32_tile(sV, v + (size_t)kv_row * Sk * hd, k0, Sk, hd, ld);
-    __syncthreads();
-    float s[4], dpv[4];
-    dots4(s, sQ, sK, hd, ld);  // query qa against keys cb + 8m
-    dots4(dpv, sdO, sV, hd, ld);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int kc = cb + 8 * m;
-      const bool ok = pair_visible(q0 + qa, k0 + kc, Sq, Sk, causal, window);
-      const float p = ok ? expf(s[m] * scale - l) : 0.0f;
-      sS[qa * kLdS + kc] = p * (dpv[m] - dl);
-    }
-    __syncthreads();
-    for (int j = 0; j < kFB; ++j) {
-      const float ds = sS[qa * kLdS + j];
-#pragma unroll
-      for (int c = 0; c < kFCols; ++c) {
-        const int col = cb + 8 * c;
-        if (col < hd) dq_acc[c] = fmaf(ds, sK[j * ld + col], dq_acc[c]);
-      }
-    }
-  }
-  if (row_in) {
-    float* dq_r = dq + ((size_t)r * Sq + q0 + qa) * hd;
-#pragma unroll
-    for (int c = 0; c < kFCols; ++c) {
-      const int col = cb + 8 * c;
-      if (col < hd) dq_r[col] = dq_acc[c] * scale;
-    }
-  }
-}
-
 int check_args(int BH, int Sq, int Sk, int hd, int n_heads, int n_kv) {
   if (BH < 0 || Sq < 0 || Sk < 0 || hd < 1 || hd > kMaxHd || n_heads < 1 || n_kv < 1 ||
       n_heads % n_kv != 0 || BH % n_heads != 0)
@@ -1152,81 +573,6 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                             window, scale, n_qtiles, vec, st);
   return launch_bf16<256>(q, k, v, out, lse, (int)n_ctas, Sq, Sk, hd, n_heads, n_kv, causal,
                           window, scale, n_qtiles, vec, st);
-}
-
-int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
-                            const void* d_o, const void* lse, void* delta, void* dq, void* dk,
-                            void* dv, int BH, int Sq, int Sk, int hd, int n_heads, int n_kv,
-                            int causal, int window, float scale, void* stream) {
-  if (int rc = check_args(BH, Sq, Sk, hd, n_heads, n_kv)) return rc;
-  if (BH == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_rows = (long long)BH * Sq;
-  const int n_ktiles = (Sk + kFB - 1) / kFB, n_qtiles = (Sq + kFB - 1) / kFB;
-  const long long n_kv_ctas = (long long)BH / n_heads * n_kv * n_ktiles;
-  const long long n_q_ctas = (long long)BH * n_qtiles;
-  const long long n_d_ctas = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (n_kv_ctas > kMaxGridX || n_q_ctas > kMaxGridX || n_d_ctas > kMaxGridX)
-    return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = bwd_f32_smem(hd);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* dof = static_cast<const float*>(d_o);
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
-  if (n_d_ctas > 0)
-    flash_bwd_delta_kernel<float><<<dim3((unsigned)n_d_ctas), kThreads, 0, st>>>(
-        static_cast<const float*>(o), dof, df, n_rows, hd);
-  if (n_kv_ctas > 0)
-    flash_bwd_dkdv_f32_kernel<<<dim3((unsigned)n_kv_ctas), kThreads, smem, st>>>(
-        qf, kf, vf, dof, lf, df, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, hd,
-        n_heads, n_kv, causal, window, scale, n_ktiles);
-  if (n_q_ctas > 0)
-    flash_bwd_dq_f32_kernel<<<dim3((unsigned)n_q_ctas), kThreads, smem, st>>>(
-        qf, kf, vf, dof, lf, df, static_cast<float*>(dq), Sq, Sk, hd, n_heads, n_kv, causal,
-        window, scale, n_qtiles);
-  return (int)cudaGetLastError();
-}
-
-int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                             const void* d_o, const void* lse, void* delta, void* dq, void* dk,
-                             void* dv, int BH, int Sq, int Sk, int hd, int n_heads, int n_kv,
-                             int causal, int window, float scale, void* stream) {
-  if (int rc = check_args(BH, Sq, Sk, hd, n_heads, n_kv)) return rc;
-  if (BH == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_rows = (long long)BH * Sq;
-  const long long n_d_ctas = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
-  const int n_ktiles = (Sk + kBwdBK - 1) / kBwdBK, n_qtiles = (Sq + kBwdBQ - 1) / kBwdBQ;
-  const long long n_kv_ctas = (long long)BH / n_heads * n_kv * n_ktiles;
-  const long long n_q_ctas = (long long)BH * n_qtiles;
-  if (n_kv_ctas > kMaxGridX || n_q_ctas > kMaxGridX || n_d_ctas > kMaxGridX)
-    return (int)cudaErrorInvalidConfiguration;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d_o);
-  const int vec = hd % 8 == 0 && ptrs % 16 == 0;
-  if (n_d_ctas > 0)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<dim3((unsigned)n_d_ctas), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(d_o),
-        static_cast<float*>(delta), n_rows, hd);
-  if (hd <= 64)
-    return launch_bwd_bf16<64>(q, k, v, d_o, lse, delta, dq, dk, dv, n_kv_ctas, n_q_ctas, Sq,
-                               Sk, hd, n_heads, n_kv, causal, window, scale, n_ktiles,
-                               n_qtiles, vec, st);
-  if (hd <= 128)
-    return launch_bwd_bf16<128>(q, k, v, d_o, lse, delta, dq, dk, dv, n_kv_ctas, n_q_ctas, Sq,
-                                Sk, hd, n_heads, n_kv, causal, window, scale, n_ktiles,
-                                n_qtiles, vec, st);
-  return launch_bwd_bf16<256>(q, k, v, d_o, lse, delta, dq, dk, dv, n_kv_ctas, n_q_ctas, Sq,
-                              Sk, hd, n_heads, n_kv, causal, window, scale, n_ktiles, n_qtiles,
-                              vec, st);
 }
 
 }  // extern "C"

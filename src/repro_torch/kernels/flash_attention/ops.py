@@ -22,10 +22,12 @@ check rely on.
 Training differentiates through :class:`FlashAttention`, which
 :func:`flash_attention` takes whenever grad mode is on and an input requires
 grad: its forward also saves the rows' log-sum-exp, and its backward
-launches the kernel's backward (``flash_attention_bwd_{bf16,f32}``: D, then
-dK/dV and dQ; counted in :data:`bwd_launches`), or runs
-:func:`.ref.attention_bwd_ref` for CPU tensors.  Serving takes the forward
-alone, as before, with the same launches and the same bits.
+launches the backward kernels (``csrc/flash_attention_bwd.cu``,
+``flash_attention_bwd_{bf16,f32}``: dQ with D = rowsum(dO∘O), then dK/dV
+on clusters that split each GQA group's heads; bf16 on ``wgmma``; counted in
+:data:`bwd_launches`), or runs :func:`.ref.attention_bwd_ref` for CPU
+tensors.  Serving takes the forward alone, as before, with the same launches
+and the same bits.
 """
 
 from __future__ import annotations
@@ -73,13 +75,14 @@ def _check(q, k, v, n_heads: int, n_kv: int) -> torch.device:
     return dev
 
 
-def _entry(table: dict, dtype, n_ptrs: int):
-    """The library and its entry for ``dtype``, ``argtypes`` set."""
-    lib = _build.library("flash_attention")
+def _entry(library: str, table: dict, dtype, n_ptrs: int, tail=()):
+    """The library and its entry for ``dtype``, ``argtypes`` set: pointers,
+    eight ints, the scale, ``tail`` and the stream."""
+    lib = _build.library(library)
     name = table[dtype]
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, *tail, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, name, fn
 
@@ -90,7 +93,7 @@ def _launch_forward(q, k, v, dev, n_heads, n_kv, causal, window, with_lse):
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=dev)
            if with_lse else None)
-    lib, name, fn = _entry(_ENTRIES, q.dtype, 5)
+    lib, name, fn = _entry("flash_attention", _ENTRIES, q.dtype, 5)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 0 if lse is None else lse.data_ptr(), bh, sq, k.shape[1], hd,
@@ -140,20 +143,30 @@ def flash_attention_bwd_rows(q, k, v, o, d_out, lse, *, n_heads: int, n_kv: int,
     placement("flash_attention backward", (q.dtype,), o=o, d_out=d_out)
     if dev.type == "cpu":
         return attention_bwd_ref(q, k, v, o, d_out, lse, **mask)
+    return _launch_backward(q, k, v, o, d_out, lse, dev, **mask)[:3]
+
+
+def _launch_backward(q, k, v, o, d_out, lse, dev, *, n_heads, n_kv, causal, window,
+                     parts: int = 3):
+    """One launch of the backward entry: (dq, dk, dv, delta).  ``parts``
+    picks its kernels (1 = dQ, which also writes D = rowsum(dO∘O); 2 =
+    dK/dV, which reads D); anything but 3 leaves the other outputs unwritten
+    and serves only to time a part."""
     bh, sq, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, sq), dtype=torch.float32, device=dev)
-    lib, name, fn = _entry(_BWD_ENTRIES, q.dtype, 10)
+    lib, name, fn = _entry("flash_attention_bwd", _BWD_ENTRIES, q.dtype, 10,
+                           (ctypes.c_int,))
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], hd, n_heads, n_kv,
-                int(causal), int(window), 1.0 / hd ** 0.5,
+                int(causal), int(window), 1.0 / hd ** 0.5, parts,
                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "flash_attention", name, rc)
+    _build.check(lib, "flash_attention_bwd", name, rc)
     global bwd_launches
     bwd_launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, delta
 
 
 class FlashAttention(torch.autograd.Function):

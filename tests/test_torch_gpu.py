@@ -24,9 +24,10 @@ batch; the moe prefill (mixtral with its window masking, dbrx) with the
 sorted dispatch against the one-hot one, ring decode past the window against
 the forward, the vlm prefill with patches, and the autotune table's round
 trip (bodies launched through the wrappers, the PDHG knob resolved); flash
-attention's backward at chip_smoke's four phase-3 shapes (bit for bit on a
-second call), the RG-LRU backward (two launches), two train steps of the
-reduced llama3 and recurrentgemma models against the same steps on the CPU,
+attention's backward at chip_smoke's four phase-3 shapes and five edge
+shapes (bit for bit on a second call), the RG-LRU backward (two launches),
+two train steps of the reduced llama3 and recurrentgemma models against the
+same steps on the CPU,
 and seamless' reduced prefill (against the CPU's) and decode.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
@@ -833,13 +834,21 @@ def test_autotune_round_trip_on_the_card(gen, tmp_path, monkeypatch):
     (2, 2048, 2048, 32, 8, 128, True, 0, torch.bfloat16),    # llama3-8b
     (2, 4096, 4096, 16, 1, 256, True, 2048, torch.bfloat16),  # recurrentgemma-9b
     (4, 256, 1024, 16, 16, 64, False, 0, torch.bfloat16),    # seamless cross
-    (1, 300, 500, 8, 2, 100, False, 48, torch.float32)])    # ragged
+    (1, 300, 500, 8, 2, 100, False, 48, torch.float32),     # ragged
+    # edge shapes of the tiling (chip_smoke's FLASH_BWD_EDGES): Sq and Sk off
+    # every tile, windows across tile edges, groups of 2, 1, 16 and 12 (which
+    # the 8-CTA cluster does not divide), non-causal Sq != Sk, hd 100 in bf16
+    (1, 1000, 1000, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 300, 700, 4, 4, 128, False, 0, torch.bfloat16),
+    (1, 1000, 1000, 16, 1, 256, True, 100, torch.bfloat16),
+    (1, 500, 500, 12, 1, 128, True, 70, torch.bfloat16),
+    (1, 300, 500, 8, 2, 100, False, 48, torch.bfloat16)])
 def test_flash_attention_backward_matches_plain(gen, b, sq, sk, h, kv, hd, causal,
                                                 window, dtype):
-    """The backward kernel through ``FlashAttention`` at chip_smoke's phase-3
-    shapes: float32 at 1e-4·(1 + |ref|) of the plain backward, bfloat16
-    within the bf16 gradient rounding bound; one backward launch; the same
-    bits on a second call."""
+    """The backward kernels through ``FlashAttention`` at chip_smoke's phase-3
+    shapes and edge shapes: float32 at 1e-4·(1 + |ref|) of the plain
+    backward, bfloat16 within the bf16 gradient rounding bound; one backward
+    launch; the same bits on a second call."""
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_lse_ref,
                                                          bf16_grad_rounding_bound)

@@ -5,7 +5,8 @@ Flash attention: the plain backward ``attention_bwd_ref`` (from the forward's
 output and log-sum-exp) and ``FlashAttention`` (what training calls) against
 ``jax.grad`` of the reference's ``_sdpa`` (``repro/models/attention.py``) in
 float32 at 1e-5 — causal, causal with a window, non-causal with Sq != Sk
-(cross-attention), GQA, hd 32 and a ragged 100 — and the bfloat16 plain
+(cross-attention), GQA up to a group of 16, hd 16 to 256 and a ragged 100,
+a window across the kernels' 64-row tiles — and the bfloat16 plain
 backward within ``bf16_grad_rounding_bound`` (what ``chip_smoke.py`` holds the
 kernel to).  The RG-LRU scan: ``RGLRUScan`` (the reversed-scan backward)
 against PyTorch's autograd through ``rglru_scan_ref`` and against
@@ -39,7 +40,10 @@ GRAD_TOL, RGLRU_TOL = 1e-5, 1e-4
 ATTN_CASES = [(2, 24, 24, 4, 2, 32, True, 0),
               (2, 40, 40, 4, 1, 32, True, 9),
               (2, 12, 36, 4, 4, 100, False, 0),
-              (1, 30, 30, 6, 2, 100, True, 0)]
+              (1, 30, 30, 6, 2, 100, True, 0),
+              (1, 20, 20, 2, 1, 256, True, 0),     # the widest head
+              (1, 20, 28, 16, 1, 32, False, 0),    # a group of 16
+              (1, 70, 70, 2, 2, 16, True, 33)]     # a window across the 64-row tiles
 
 
 def _attn_inputs(b, sq, sk, h, kv, hd, seed=0):
