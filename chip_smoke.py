@@ -66,7 +66,15 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    (``FLASH_BWD_EDGES``: tile-ragged Sq and Sk, windows across tile edges,
    GQA groups of 1, 2, 12 and 16, hd 64 to 256 and 100 in bf16);
    the RG-LRU backward (two launches: the forward and the reversed scan) at
-   (2, 4096, 4096) against autograd through its plain version at 1e-4.
+   (2, 4096, 4096) against autograd through its plain version at 1e-4; and
+   the SSD chunk backward (#9b, the entry ``ssd_chunk_bwd`` through
+   ``ssd_scan_bwd``) against ``ssd_chunk_ref_bwd`` (autograd through the
+   plain version) at mamba2-130m's training shape (B=4, H=24, S=4096, P=64,
+   N=128, chunk 64) and at the forward's edge shapes (``SSD_BWD``: a chunk
+   halved to 32, chunks of 128, one chunk, Q, N, P not multiples of 4),
+   each of its five gradients within 1e-3 of its own max |ref|, bit for bit
+   against a second call, timed at the training shape beside the plain
+   backward with its bound (no single PyTorch call computes it).
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -148,19 +156,21 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    tokens: exactly 72 flash-attention launches, 24 non-causal in the
    encoder, 24 causal and 24 cross in the decoder), ``serve`` of 4 requests
    x 16 tokens, and its reduced config in float32 decoded against its
-   forward (1e-3·(1+|logit|)); llama3-8b at full width (2 of its 32 layers)
-   trained through ``repro_torch.runtime.trainer.Trainer`` (B=2, S=2048,
-   remat, AdamW lr 3e-4) for 4 steps with a checkpoint every 2, then
-   restarted from the step-2 checkpoint to step 4: the restarted losses
-   bit-equal to the uninterrupted run's, exactly 16 forward and 8 backward
-   flash-attention launches, finite losses and gradient norms, step time,
-   tokens/s, model-FLOPs utilisation and peak memory; recurrentgemma-9b at
-   full width (one super-block: rec, rec, local attention) and seamless at 4
-   + 4 layers, two steps each through ``make_train_step`` (the RG-LRU scan
-   forward and backward and the windowed flash backward, counted); in each
-   run the flash backward's device time a step (CUDA events around its
-   entry) against the step's time; and the ssm family's ``Model.loss``
-   raising ``NotImplementedError`` on the card.
+   forward (1e-3·(1+|logit|)); mamba2-130m at full size (24 layers, bf16
+   weights with the SSD in f32, B=4, S=4096, remat, AdamW lr 3e-4) trained
+   through ``repro_torch.runtime.trainer.Trainer`` for 4 steps with a
+   checkpoint every 2, then restarted from the step-2 checkpoint to step 4:
+   the restarted losses bit-equal to the uninterrupted run's, exactly 192
+   SSD forward and 96 backward (#9b) launches (48 and 24 a step), finite
+   losses and gradient norms, the third loss moved, step time, tokens/s,
+   model-FLOPs utilisation, peak memory and #9b's device time a step (CUDA
+   events around its entry) against the step's time; llama3-8b at full
+   width (2 of its 32 layers; B=2, S=2048), recurrentgemma-9b at full width
+   (one super-block: rec, rec, local attention) and seamless at 4 + 4
+   layers, three steps each through ``make_train_step`` (flash attention
+   forward and backward, the RG-LRU scan forward and backward, counted), in
+   each run the flash backward's device time a step against the step's
+   time.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -214,6 +224,17 @@ FLASH_BWD_EDGES = (("hd64_ragged_g2", (1, 1000, 1000, 4, 2, 64, True, 0, "bfloat
                    ("hd256_window_g16", (1, 1000, 1000, 16, 1, 256, True, 100, "bfloat16")),
                    ("hd128_window_g12", (1, 500, 500, 12, 1, 128, True, 70, "bfloat16")),
                    ("hd100_bf16", (1, 300, 500, 8, 2, 100, False, 48, "bfloat16")))
+# the SSD chunk backward (#9b, phase 3): mamba2-130m's training shape (phase
+# 13's) and the edge shapes of the forward's gpu tests (a chunk halved to 32,
+# chunks of 128 (the backward walks 64), one chunk, 32 chunks of 128, and Q,
+# N, P not multiples of 4): (label, (B, H, S, P, N, chunk))
+SSD_BWD = (("mamba2", (4, 24, 4096, 64, 128, 64)),
+           ("ragged", (1, 3, 96, 32, 16, 64)),
+           ("chunk128", (2, 2, 256, 64, 128, 128)),
+           ("one_chunk", (1, 2, 64, 64, 128, 64)),
+           ("long128", (2, 2, 4096, 64, 128, 128)),
+           ("odd", (1, 2, 37, 30, 18, 37)))
+SSD_BWD_REL_TOL = 1e-3  # each gradient within 1e-3 of its own max |ref|
 MOE_SORTED_REL_TOL = 2e-2  # sorted vs one-hot dispatch (tests/test_arch_smoke.py:155)
 FAMILY_DECODE = 32  # greedy tokens of mixtral through its ring cache
 TUNE_MAX_ITERS = 1000  # phase 11's cap on the solver tuner's stage-1 solves
@@ -1076,9 +1097,100 @@ def _flash_backward(gen, dev):
             "shapes": shapes, "edge_shapes": edges}
 
 
+def _ssd_flops(b: int, h: int, s: int, p: int, n: int, q: int) -> float:
+    """Operations the SSD forward needs at chunk q, two a multiply-add: the
+    causal lower triangle of C·Bᵀ (T = Q(Q+1)/2 entries of N, a chunk,
+    shared by the heads), then per head and chunk the masked product with x
+    (TP) and the state's read and update (2QNP)."""
+    nc, tri = s // q, q * (q + 1) // 2
+    return 2.0 * (b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p))
+
+
+def _ssd_bwd_flops(b: int, h: int, s: int, p: int, n: int, q: int) -> float:
+    """Operations the SSD gradient needs at chunk q, two a multiply-add,
+    counting only causal lower triangles (T = Q(Q+1)/2) of the masked
+    Q x Q products: C·Bᵀ (TN a chunk, shared by the heads); per head and
+    chunk the forward and the reverse state walks, Gᵀ B, G x and S_in dy
+    (QNP each), dy·xᵀ and Aᵀ dy (TP each), Wᵀ C and W B (TN each), the dots
+    of C with S_in dy and of B with G x (QN each) and ⟨S_in, G⟩ (NP).  The
+    entry does more: full Q x Q tiles, and C·S_in as a product of its own."""
+    nc, tri = s // q, q * (q + 1) // 2
+    per_head = 5 * q * n * p + 2 * tri * p + 2 * tri * n + 2 * q * n + n * p
+    return 2.0 * (b * nc * tri * n + b * h * nc * per_head)
+
+
+def _ssd_backward(gen, dev):
+    """#9b against ``ssd_chunk_ref_bwd`` (autograd through the plain version)
+    at ``SSD_BWD``'s shapes: each gradient within ``SSD_BWD_REL_TOL`` of its
+    own max |ref|, the same bits from a second call; at mamba2-130m's
+    training shape also timed beside the plain backward, with its bound."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref_bwd
+
+    row = None
+    names = ("dx", "ddt", "da", "db", "dc")
+    for label, (b, h, s, p, n, chunk) in SSD_BWD:
+        x = torch.randn((b, h, s, p), generator=gen, device=dev)
+        dt = 0.001 + 0.099 * torch.rand((b, h, s, 1), generator=gen, device=dev)
+        a = -(1.0 + 7.0 * torch.rand((h, 1, 1, 1), generator=gen, device=dev))
+        bm = torch.randn((b, 1, s, n), generator=gen, device=dev)
+        cm = torch.randn((b, 1, s, n), generator=gen, device=dev)
+        dy = torch.randn((b, h, s, p), generator=gen, device=dev)
+        args = (x, dt, a, bm, cm, dy)
+        q_len = min(chunk, s)
+        while s % q_len:
+            q_len //= 2
+        before = sdops.bwd_launches
+        got = sdops.ssd_scan_bwd(*args, chunk)
+        want = ssd_chunk_ref_bwd(*args, q_len)
+        torch.cuda.synchronize()
+        errs = {k: float((g - w).abs().max()) for k, g, w in zip(names, got, want)}
+        rels = {k: errs[k] / float(w.abs().max()) for k, w in zip(names, want)}
+        same = all(torch.equal(g, r) for g, r in zip(sdops.ssd_scan_bwd(*args, chunk), got))
+        n_launch = sdops.bwd_launches - before
+        log(f"phase 3: ssd_chunk_bwd {label} (B={b}, H={h}, S={s}, P={p}, N={n}, chunk "
+            f"{q_len}): max abs err {errs}, relative to each max |ref| "
+            f"{ {k: round(v, 8) for k, v in rels.items()} } (contract {SSD_BWD_REL_TOL}); "
+            f"second call bit-equal {same}; {n_launch} launches")
+        if not all(v < SSD_BWD_REL_TOL for v in rels.values()):
+            fail(f"ssd_chunk_bwd {label} disagrees with autograd through the plain version")
+        if not same:
+            fail(f"ssd_chunk_bwd {label} is not deterministic")
+        if n_launch != 2:
+            fail(f"ssd_chunk_bwd {label}: {n_launch} launches, expected 2")
+        if label != "mamba2":
+            continue
+        q_bwd = min(q_len, sdops.MAX_BWD_CHUNK)
+        n_flops = _ssd_bwd_flops(b, h, s, p, n, q_bwd)
+        # inputs x, dt, a, b, c, dy read once; dx, ddt, da, db, dc written once
+        n_bytes = 4 * (2 * (x.numel() + dt.numel() + a.numel() + bm.numel() + cm.numel())
+                       + dy.numel())
+        ms = time_cuda(lambda: sdops.ssd_scan_bwd(*args, chunk))
+        plain = time_cuda(lambda: ssd_chunk_ref_bwd(*args, q_len))
+        bnd, by = bound_ms(n_bytes, n_flops)
+        log(f"  ssd_chunk_bwd times: kernel {ms:.4f} ms, plain (autograd through the "
+            f"plain version, for the record) {plain:.4f} ms, bound {bnd:.4f} ms ({by}: "
+            f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP at chunk {q_bwd}); no "
+            f"single PyTorch call computes this gradient")
+        row = {"name": "ssd_chunk_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/ssd_chunk.cu",
+               "replaces": "the gradient of src/repro/kernels/ssd_chunk/ssd_chunk.py:72 "
+                           "(no pallas_call: XLA's autodiff of ssd_chunked, "
+                           "src/repro/models/ssd.py:128)",
+               "max_abs_err": max(errs.values()), "max_rel_err": max(rels.values()),
+               "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+               "library_ms": None, "shape": [b, h, s, p, n, chunk], "status": "new"}
+        del x, dt, a, bm, cm, dy, args, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_model_kernels():
     """Kernels #7-#9 at phase 8's prefill shapes and at ragged ones, against
-    their plain versions on the card; times at the prefill shapes, with
+    their plain versions on the card, and the backward entries #7b, #8's and
+    #9b; times at the prefill and training shapes, with
     ``scaled_dot_product_attention`` (same mask, ``enable_gqa``) as flash
     attention's yardstick."""
     import torch
@@ -1268,12 +1380,8 @@ def phase_model_kernels():
         log(f"  ssd_chunk second call bit-equal to the first: {same}")
         if not same:
             fail("ssd_chunk is not deterministic")
-        # B and C have one group, so C·Bᵀ (Q²N per chunk) is shared by all H
-        # heads; each head adds the masked product with x (Q²P) and the state
-        # read and update (2QNP) per chunk
         n_chunks = b * h * (s // chunk)
-        n_flops = 2 * (b * (s // chunk) * chunk * chunk * n
-                       + n_chunks * (chunk * chunk * p + 2 * chunk * n * p))
+        n_flops = _ssd_flops(b, h, s, p, n, chunk)
         n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + 2 * bm.numel())
         ms = time_cuda(lambda: sdops.ssd_scan(*args, chunk))
         plain = time_cuda(lambda: ssd_chunk_ref(*args, chunk))
@@ -1288,7 +1396,10 @@ def phase_model_kernels():
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "shape": [b, h, s, p, n, chunk],
             "status": "redesigned"}
+        del x, dt, a, bm, cm, args, out, ref
     torch.cuda.empty_cache()
+    # 9b. its backward
+    rows["ssd_chunk_bwd"] = _ssd_backward(gen, dev)
     return rows
 
 
@@ -2780,9 +2891,13 @@ def phase_families(device):
 # for SHORT_STEPS steps on one batch (AdamW's first update runs at lr 0, so
 # the third step's loss is the first that an update moves)
 AUDIO_PREFILL = (4, 1024, 256, 72)
-TRAIN_LLAMA = ("llama3-8b", 2, 2, 2048)
+# phase 13's training runs: (arch, layers kept (None = all), batch, sequence
+# [, decoder tokens]); mamba2-130m at full size through the Trainer, the
+# others at full width, depth cut to fit one card
+TRAIN_SSM = ("mamba2-130m", None, 4, 4096)
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
 SHORT_STEPS = 3
+TRAIN_LLAMA = ("llama3-8b", 2, 2, 2048)
 TRAIN_HYBRID = ("recurrentgemma-9b", 3, 1, 4096)
 TRAIN_AUDIO = ("seamless-m4t-large-v2", 4, 2, 1024, 256)
 
@@ -2790,26 +2905,33 @@ TRAIN_AUDIO = ("seamless-m4t-large-v2", 4, 2, 1024, 256)
 def _train_flops(cfg, n_params_matmul: int, b: int, s: int) -> float:
     """Model FLOPs of one training step (forward + backward, no remat):
     6 · (parameters in matrix products) · tokens + 3 · the attention's
-    forward products (4 · hd a visible (q, k) pair, causal)."""
+    forward products (4 · hd a visible (q, k) pair, causal) or, for the ssm
+    family, 3 · the SSD scan's forward products (``_ssd_flops``)."""
+    if cfg.family == "ssm":
+        from repro_torch.models import ssd
+
+        _, h, n = ssd.dims(cfg)
+        mix = _ssd_flops(b, h, s, ssd.HEAD_P, n, cfg.ssd_chunk)
+        return 6.0 * n_params_matmul * b * s + 3.0 * mix * cfg.n_layers
     attn = 4 * cfg.resolved_head_dim * _band_pairs(s, s, True, cfg.window) * b * cfg.n_heads
     n_attn_layers = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
     return 6.0 * n_params_matmul * b * s + 3.0 * attn * n_attn_layers
 
 
 class _BackwardTimer:
-    """While active, CUDA events around every ``flash_attention_bwd_rows``
-    call: the device time of #7b's launches (D, dK/dV, dQ) inside training
-    steps, which ride the step's stream between the two events."""
+    """While active, CUDA events around every call of a backward entry's
+    wrapper (``name`` in the ops module ``ops``: #7b's
+    ``flash_attention_bwd_rows``, #9b's ``ssd_scan_bwd``): the device time of
+    its launches inside training steps, which ride the step's stream between
+    the two events."""
 
-    def __init__(self):
-        from repro_torch.kernels.flash_attention import ops as faops
-
-        self._ops, self.events = faops, []
+    def __init__(self, ops, name: str):
+        self._ops, self._name, self.events = ops, name, []
 
     def __enter__(self):
         import torch
 
-        inner = self._inner = self._ops.flash_attention_bwd_rows
+        inner = self._inner = getattr(self._ops, self._name)
 
         def timed(*args, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2819,11 +2941,11 @@ class _BackwardTimer:
             self.events.append((start, end))
             return out
 
-        self._ops.flash_attention_bwd_rows = timed
+        setattr(self._ops, self._name, timed)
         return self
 
     def __exit__(self, *exc):
-        self._ops.flash_attention_bwd_rows = self._inner
+        setattr(self._ops, self._name, self._inner)
 
     def ms(self) -> float:
         import torch
@@ -2833,11 +2955,11 @@ class _BackwardTimer:
 
 
 def _backward_share(name, timer, n_steps, step_ms, smi):
-    """Log and return #7b's device time a step (the mean over the timed
-    steps) against a step's time (the caller's median)."""
+    """Log and return a backward entry's device time a step (the mean over
+    the timed steps) against a step's time (the caller's median)."""
     bwd = timer.ms() / n_steps
-    log(f"phase 13: {name}: the flash-attention backward entry (CUDA events around "
-        f"flash_attention_bwd_rows, {len(timer.events) // n_steps} calls a step) "
+    log(f"phase 13: {name}: the backward entry (CUDA events around "
+        f"{timer._name}, {len(timer.events) // n_steps} calls a step) "
         f"{bwd:.3f} ms a step of the step's {step_ms:.1f} ms: share "
         f"{bwd / step_ms:.4f} ({smi})")
     return {"bwd_ms_per_step": bwd, "step_ms": step_ms, "share": bwd / step_ms}
@@ -2847,19 +2969,21 @@ def phase_audio_train(device, smi: str = ""):
     """The audio family and training (phase 13), bf16, random weights from a
     seed: seamless-m4t-large-v2's prefill at full size (exact flash launches,
     finite logits, tokens/s, peak memory), ``serve`` of 4 requests and its
-    reduced float32 config's decode against its forward; llama3-8b at full
-    width (2 of 32 layers) trained through ``Trainer`` for 4 steps, keeping
-    the step-2 checkpoint (its parameters moved from the initial ones, its
-    moments nonzero), then restarted from step 2 to 4 (the restarted losses
-    bit-equal to the uninterrupted run's; exact flash launches: 2·L·steps
-    forward with remat, L·steps backward); recurrentgemma-9b at full width
-    (one super-block) and seamless at 4 + 4 layers, three steps each through
-    ``make_train_step`` on one batch, the third loss moved by the update (#8
-    forward and backward, the windowed #7 backward, counted); and the ssm
-    family's ``Model.loss`` raising on the card.
+    reduced float32 config's decode against its forward; mamba2-130m at full
+    size (24 layers, B=4, S=4096) trained through ``Trainer`` for 4 steps,
+    keeping the step-2 checkpoint (its parameters moved from the initial
+    ones, its moments nonzero), then restarted from step 2 to 4 (the
+    restarted losses bit-equal to the uninterrupted run's; exact SSD
+    launches: 2·L·steps of #9 with remat, L·steps of #9b; #9b's device time
+    a step); llama3-8b at full width (2 of 32 layers), recurrentgemma-9b at
+    full width (one super-block) and seamless at 4 + 4 layers, three steps
+    each through ``make_train_step`` on one batch, the third loss moved by
+    the update (#7 forward and backward, #8 forward and backward, counted;
+    #7b's device time a step).
     ``smi`` (the card's name and power limit) goes beside the training times.
-    Returns ({"rglru": the hybrid run's RG-LRU launches, "flash_bwd": the
-    llama3 run's backward launches}, numbers)."""
+    Returns ({"ssd", "ssd_bwd": the mamba2 run's #9 and #9b launches,
+    "flash_bwd": the llama3 run's #7b launches, "rglru": the hybrid run's
+    RG-LRU launches}, numbers)."""
     import dataclasses
     import shutil
     import tempfile
@@ -2872,6 +2996,7 @@ def phase_audio_train(device, smi: str = ""):
     from repro_torch.device import synchronize
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.rglru_scan import ops as rlops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import StepConfig, make_prefill_step, make_train_step
     from repro_torch.models import encdec
@@ -2886,10 +3011,16 @@ def phase_audio_train(device, smi: str = ""):
 
     def zero():
         faops.launches = faops.bwd_launches = rlops.launches = 0
+        sdops.launches = sdops.bwd_launches = 0
 
     def counts():
         return {"flash_fwd": faops.launches, "flash_bwd": faops.bwd_launches,
-                "rglru": rlops.launches}
+                "rglru": rlops.launches, "ssd": sdops.launches,
+                "ssd_bwd": sdops.bwd_launches}
+
+    def expected(**launches):
+        return {"flash_fwd": 0, "flash_bwd": 0, "rglru": 0, "ssd": 0, "ssd_bwd": 0,
+                **launches}
 
     def save_only(trainer, keep):  # write the one checkpoint the restart reads
         save = trainer._save
@@ -2973,14 +3104,14 @@ def phase_audio_train(device, smi: str = ""):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
-    # llama3-8b at full width through the Trainer, then a restart
-    arch, n_layers, b, s = TRAIN_LLAMA
-    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    # mamba2-130m at full size through the Trainer, then a restart
+    arch, _, b, s = TRAIN_SSM
+    cfg = get_arch(arch)
     release()
     model = build_model(cfg, device)
     opt = AdamW(lr=3e-4, warmup_steps=1)
     data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
-    (ROOT / "build").mkdir(exist_ok=True)  # 18 GB a checkpoint, in the checkout
+    (ROOT / "build").mkdir(exist_ok=True)  # the checkpoint, in the checkout
     ckdir = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
     try:
         tc = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY)
@@ -2996,24 +3127,29 @@ def phase_audio_train(device, smi: str = ""):
         save_only(trainer, TRAIN_CKPT_EVERY)
         zero()
         t0 = time.perf_counter()
-        with _BackwardTimer() as bwd_timer:
+        with _BackwardTimer(sdops, "ssd_scan_bwd") as bwd_timer:
             run = trainer.run(resume=False)
         t_run = time.perf_counter() - t0
         got = counts()
         peak = torch.cuda.max_memory_allocated()
         n_params = sum(p.numel() for p in run["params"].parameters())
-        n_matmul = n_params - cfg.vocab * cfg.d_model  # the embedding is a gather
+        # the tied embedding is the unembedding's matrix product (its gather
+        # is not one); norms, the conv and the SSD's per-head scalars are
+        # left in (0.03 % of the parameters)
+        n_matmul = n_params if cfg.tie_embeddings else n_params - cfg.vocab * cfg.d_model
         norms = [float(n) for n in norms]
         losses, times = run["losses"], run["stats"]["step_times"]
         del run, trainer, inner, recording
         step_s = float(np.median(times[1:]))
         mfu = _train_flops(cfg, n_matmul, b, s) / step_s / BF16_FLOP_PER_S
-        expect = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
-                  "flash_bwd": n_layers * TRAIN_STEPS, "rglru": 0}
-        log(f"phase 13: {cfg.name} training ({n_layers} of 32 layers, {n_params} "
-            f"parameters, bf16, B={b}, S={s}, remat, AdamW lr 3e-4) through Trainer: "
-            f"{TRAIN_STEPS} steps in {t_run:.3f} s with the checkpoint at step "
-            f"{TRAIN_CKPT_EVERY}; "
+        # with remat each block's forward runs twice (the step and the
+        # recompute in the backward), its backward once
+        expect = expected(ssd=2 * cfg.n_layers * TRAIN_STEPS,
+                          ssd_bwd=cfg.n_layers * TRAIN_STEPS)
+        log(f"phase 13: {cfg.name} training (all {cfg.n_layers} layers, {n_params} "
+            f"parameters, bf16 with the SSD in f32, B={b}, S={s}, remat, AdamW lr 3e-4) "
+            f"through Trainer: {TRAIN_STEPS} steps in {t_run:.3f} s with the checkpoint "
+            f"at step {TRAIN_CKPT_EVERY}; "
             f"losses {losses}; grad norms {norms}; step times "
             f"{[round(t, 4) for t in times]} s, median after the first "
             f"{step_s * 1e3:.1f} ms = {b * s / step_s:.1f} tokens/s, model-FLOPs "
@@ -3023,20 +3159,23 @@ def phase_audio_train(device, smi: str = ""):
             fail(f"{cfg.name} training: launches {got}, expected {expect}")
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
             fail(f"{cfg.name} training: losses or gradient norms not finite")
+        if losses[-1] == losses[-2]:
+            fail(f"{cfg.name} training: the update did not move the loss ({losses})")
         bwd_share = _backward_share(cfg.name, bwd_timer, TRAIN_STEPS, step_s * 1e3, smi)
         # the checkpoint holds moved parameters and nonzero moments, so the
         # restart below reads an update's state, not the initial weights
         release()
         init = tree_util.as_tree(model.init(0))
-        w0 = np.stack([blk["attn"]["wq"].float().cpu().numpy() for blk in init["blocks"]])
+        w0 = np.stack([blk["ssd"]["w_in"].float().cpu().numpy() for blk in init["blocks"]])
         del init
         with np.load(ckdir / f"step_{TRAIN_CKPT_EVERY:08d}" / "arrays.npz") as ck:
-            moved = float(np.mean(ck["params/blocks/attn/wq"] != w0))
-            mu_nonzero = float(np.mean(ck["opt/mu/blocks/attn/wq"] != 0))
+            moved = float(np.mean(ck["params/blocks/ssd/w_in"] != w0))
+            mu_nonzero = float(np.mean(ck["opt/mu/blocks/ssd/w_in"] != 0))
             ck_step = int(ck["opt/step"])
-        log(f"phase 13: the step-{TRAIN_CKPT_EVERY} checkpoint: optimizer step "
-            f"{ck_step}; share of the attention wq entries moved from the initial "
-            f"weights {moved:.4f}, of its mu entries nonzero {mu_nonzero:.4f}")
+        ck_bytes = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+        log(f"phase 13: the step-{TRAIN_CKPT_EVERY} checkpoint ({ck_bytes} B on disk): "
+            f"optimizer step {ck_step}; share of the ssd w_in entries moved from the "
+            f"initial weights {moved:.4f}, of its mu entries nonzero {mu_nonzero:.4f}")
         if ck_step != TRAIN_CKPT_EVERY or not moved > 0 or not mu_nonzero > 0:
             fail(f"{cfg.name}: the step-{TRAIN_CKPT_EVERY} checkpoint holds no update "
                  f"(step {ck_step}, moved {moved}, mu nonzero {mu_nonzero})")
@@ -3044,30 +3183,40 @@ def phase_audio_train(device, smi: str = ""):
         t0 = time.perf_counter()
         restart = Trainer(model, opt, None, data, StepConfig(remat=True), tc, ckdir)
         save_only(restart, None)
+        zero()
         again = restart.run(resume=True)
         t_restart = time.perf_counter() - t0
+        got_restart = counts()
+        n_again = TRAIN_STEPS - TRAIN_CKPT_EVERY
+        expect_restart = expected(ssd=2 * cfg.n_layers * n_again,
+                                  ssd_bwd=cfg.n_layers * n_again)
         equal = again["losses"] == losses[TRAIN_CKPT_EVERY:]
         log(f"phase 13: {cfg.name} restarted from step {TRAIN_CKPT_EVERY}: "
             f"{t_restart:.3f} s; losses {again['losses']}, bit-equal to the "
-            f"uninterrupted run's {equal}; restarts {again['stats']['restarts']}")
+            f"uninterrupted run's {equal}; restarts {again['stats']['restarts']}; "
+            f"launches {got_restart} (expected {expect_restart})")
         if not equal or again["stats"]["restarts"] != 1:
             fail(f"{cfg.name}: the restarted losses differ from the uninterrupted run's")
-        out["llama3_train"] = {"losses": losses, "grad_norms": norms, "step_times_s": times,
-                               "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
-                               "mfu": mfu, "peak_bytes": peak, "run_s": t_run,
-                               "restart_s": t_restart, "launches": got,
-                               "wq_moved": moved, "backward_share": bwd_share}
+        if got_restart != expect_restart:
+            fail(f"{cfg.name} restart: launches {got_restart}, expected {expect_restart}")
+        out["ssm_train"] = {"losses": losses, "grad_norms": norms, "step_times_s": times,
+                            "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
+                            "mfu": mfu, "peak_bytes": peak, "run_s": t_run,
+                            "restart_s": t_restart, "checkpoint_bytes": ck_bytes,
+                            "launches": got, "ssd_w_in_moved": moved,
+                            "backward_share": bwd_share}
         del again, restart
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     del model
     release()
 
-    train_counts = {"flash_bwd": out["llama3_train"]["launches"]["flash_bwd"]}
+    train_counts = {"ssd": out["ssm_train"]["launches"]["ssd"],
+                    "ssd_bwd": out["ssm_train"]["launches"]["ssd_bwd"]}
 
-    # recurrentgemma-9b (one super-block) and seamless (4 + 4 layers):
-    # SHORT_STEPS steps each through make_train_step
-    for arch, n_layers, b, s, *rest in (TRAIN_HYBRID, TRAIN_AUDIO):
+    # llama3-8b (2 layers), recurrentgemma-9b (one super-block) and seamless
+    # (4 + 4 layers): SHORT_STEPS steps each through make_train_step
+    for arch, n_layers, b, s, *rest in (TRAIN_LLAMA, TRAIN_HYBRID, TRAIN_AUDIO):
         full_cfg = get_arch(arch)
         over = {"n_layers": n_layers}
         if full_cfg.family == "audio":
@@ -3089,7 +3238,7 @@ def phase_audio_train(device, smi: str = ""):
                                           device=device).to(torch.bfloat16)
         zero()
         losses, norms, times = [], [], []
-        with _BackwardTimer() as bwd_timer:
+        with _BackwardTimer(faops, "flash_attention_bwd_rows") as bwd_timer:
             for _ in range(SHORT_STEPS):
                 synchronize(device)
                 t0 = time.perf_counter()
@@ -3099,15 +3248,20 @@ def phase_audio_train(device, smi: str = ""):
                 times.append(time.perf_counter() - t0)
         got = counts()
         peak = torch.cuda.max_memory_allocated()
+        # with remat each attention runs forward twice and backward once a step
         if cfg.family == "hybrid":
             n_attn, n_rec = n_layers // 3, n_layers - n_layers // 3
-            expect = {"flash_fwd": SHORT_STEPS * 2 * n_attn, "flash_bwd": SHORT_STEPS * n_attn,
-                      "rglru": SHORT_STEPS * (2 * n_rec + n_rec)}
+            expect = expected(flash_fwd=SHORT_STEPS * 2 * n_attn,
+                              flash_bwd=SHORT_STEPS * n_attn,
+                              rglru=SHORT_STEPS * (2 * n_rec + n_rec))
             train_counts["rglru"] = got["rglru"]
         else:
-            n_attn = cfg.encoder_layers + 2 * cfg.n_layers
-            expect = {"flash_fwd": SHORT_STEPS * 2 * n_attn,
-                      "flash_bwd": SHORT_STEPS * n_attn, "rglru": 0}
+            n_attn = (cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
+                      else cfg.n_layers)
+            expect = expected(flash_fwd=SHORT_STEPS * 2 * n_attn,
+                              flash_bwd=SHORT_STEPS * n_attn)
+        if cfg.family == "dense":
+            train_counts["flash_bwd"] = got["flash_bwd"]
         n_tok = b * (s + s_dec) if cfg.family == "audio" else b * s
         log(f"phase 13: {cfg.name} training ({n_layers} layers"
             f"{' + ' + str(n_layers) + ' encoder layers' if cfg.family == 'audio' else ''}"
@@ -3127,19 +3281,6 @@ def phase_audio_train(device, smi: str = ""):
             "launches": got, "backward_share": _backward_share(
                 cfg.name, bwd_timer, SHORT_STEPS, float(np.median(times)) * 1e3, smi)}
         del model, params, state, batch
-    release()
-
-    # the ssm family: training waits for the SSD chunk kernel's backward
-    model = build_model(get_arch("mamba2-130m").reduced(), device)
-    params = model.init(0)
-    try:
-        model.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int64,
-                                                  device=device)})
-    except NotImplementedError as e:
-        log(f"phase 13: mamba2-130m Model.loss raises on the card: {e}")
-    else:
-        fail("the ssm family's Model.loss did not raise")
-    del model, params
     release()
     return train_counts, out
 
@@ -3210,7 +3351,9 @@ def main() -> int:
         model_rows[key]["launches"] = model_counts[key]
     model_rows["flash_attention"]["launches_families_phase"] = family_launches
     model_rows["rglru_scan"]["launches_train_phase"] = train_counts["rglru"]
+    model_rows["ssd_chunk"]["launches_train_phase"] = train_counts["ssd"]
     model_rows["flash_attention_bwd"]["launches"] = train_counts["flash_bwd"]
+    model_rows["ssd_chunk_bwd"]["launches"] = train_counts["ssd_bwd"]
     log(f"phase end times (s since start) {marks}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows["linkload"], rows["queueloss"],
@@ -3219,7 +3362,8 @@ def main() -> int:
                                   model_rows["flash_attention"],
                                   model_rows["rglru_scan"],
                                   model_rows["ssd_chunk"],
-                                  model_rows["flash_attention_bwd"]]}))
+                                  model_rows["flash_attention_bwd"],
+                                  model_rows["ssd_chunk_bwd"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -4,6 +4,5 @@
 encoder-decoder (:mod:`.encdec`); full-sequence forward (prefill and
 training's loss) and one-token decode.  The full-sequence forward runs the
 hand-written kernels (flash attention, the RG-LRU scan, the SSD chunk scan),
-and training differentiates through the first two (their backward kernels);
-decode is plain PyTorch, as in the reference.  Training the ``ssm`` family
-waits for the SSD chunk kernel's backward."""
+and training differentiates through all three (their backward kernels);
+decode is plain PyTorch, as in the reference."""

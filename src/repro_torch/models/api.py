@@ -12,8 +12,7 @@ counterpart of ``repro/models/api.py``.
 ``batch`` holds ``tokens`` (and ``labels`` to train), for the vlm family
 ``patches`` and for the audio family ``frames``; ``audio`` runs the
 encoder-decoder (:mod:`.encdec`), every other family the decoder-only model
-(:mod:`.transformer`).  Training the ``ssm`` family waits for the SSD chunk
-kernel's backward and raises.
+(:mod:`.transformer`).
 """
 
 from __future__ import annotations
@@ -63,10 +62,6 @@ class Model:
     def loss(self, params, batch: dict, remat=True):
         """(loss, metrics) of ``batch``, differentiable; each block
         checkpointed as ``remat`` says (False, True or ``"dots"``)."""
-        if self.cfg.family == "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the ssm family is a later slice of "
-                f"the port (ROADMAP 2.9.3: the SSD chunk backward)")
         if self.cfg.family == "audio":
             return encdec.loss_fn(params, batch, self.cfg, remat)
         return transformer.loss_fn(params, batch, self.cfg, remat)

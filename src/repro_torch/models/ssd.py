@@ -3,7 +3,8 @@ counterpart of ``repro/models/ssd.py``.
 
 Selective SSM with scalar-per-head decay.  The full-sequence block
 (:func:`ssd_block`) goes through the SSD chunk wrapper in its (B, H, S, P)
-layout (the CUDA kernel on the card, the plain version on the CPU);
+layout (the CUDA kernel on the card, the plain version on the CPU; training
+differentiates through its ``SSDScan``, the backward kernel on the card);
 :func:`ssd_chunked` is that plain version in the model's (B, S, H, P) layout:
 within a chunk the token mixing is a masked quadratic form, across chunks a
 compact state ``S (B, H, N, P)`` is carried.  :func:`ssd_block_step` is the

@@ -26,8 +26,10 @@ the forward, the vlm prefill with patches, and the autotune table's round
 trip (bodies launched through the wrappers, the PDHG knob resolved); flash
 attention's backward at chip_smoke's four phase-3 shapes and five edge
 shapes (bit for bit on a second call), the RG-LRU backward (two launches),
-two train steps of the reduced llama3 and recurrentgemma models against the
-same steps on the CPU,
+the SSD chunk backward (#9b) at mamba2-130m's training shape and the
+forward's edge shapes (bit for bit on a second call, chunk-invariant, one
+launch through ``SSDScan``), two train steps of the reduced llama3,
+recurrentgemma and mamba2 models against the same steps on the CPU,
 and seamless' reduced prefill (against the CPU's) and decode.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
@@ -38,7 +40,8 @@ card's machine does not have).
 Tolerances are the plain-version contracts: rtol 3e-4, atol 1e-4 for the
 controller's kernels; for the model's those of the reference's kernel tests
 (``tests/test_kernels_sweep.py``): flash attention 2e-3 in float32, the
-RG-LRU scan 1e-4, the SSD scan relative 1e-3.  Flash attention in bfloat16 is
+RG-LRU scan 1e-4, the SSD scan relative 1e-3 (its backward: each gradient
+within 1e-3 of its own max |ref|).  Flash attention in bfloat16 is
 held to its float32 plain version within the bound on bf16 rounding
 (``bf16_rounding_bound``), not to the reference's flat 3e-2, which is as large
 as a typical output at a 256-key window.
@@ -60,7 +63,7 @@ from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
 from repro_torch.kernels.rglru_scan import ops as rlops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd_chunk import ops as sdops
-from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_chunk_ref_bwd
 
 RTOL, ATOL = 3e-4, 1e-4
 
@@ -540,6 +543,65 @@ def test_ssd_chunk_kernel_takes_unaligned_views(gen):
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-3
 
 
+def _ssd_bwd_check(got, want):
+    """Each of the five gradients within 1e-3 of its own max |ref| (the SSD
+    forward's contract)."""
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        assert g.shape == w.shape, name
+        assert float((g - w).abs().max()) < 1e-3 * float(w.abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (4, 24, 4096, 64, 128, 64),  # mamba2-130m's training shape
+    (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
+    (2, 2, 256, 64, 128, 128),   # chunks of 128: the backward walks 64
+    (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
+    (2, 2, 4096, 64, 128, 128),  # 32 chunks of 128
+    (1, 2, 37, 30, 18, 37)])     # Q, N, P not multiples of 4: scalar copies
+def test_ssd_chunk_backward_matches_plain(gen, b, h, s, p, n, chunk):
+    args = _ssd_inputs(gen, b, h, s, p, n)
+    dy = torch.randn((b, h, s, p), generator=gen, device="cuda")
+    before = sdops.bwd_launches
+    got = sdops.ssd_scan_bwd(*args, dy, chunk)
+    assert sdops.bwd_launches == before + 1
+    _ssd_bwd_check(got, ssd_chunk_ref_bwd(*args, dy, min(chunk, 32) if s % chunk else chunk))
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_backward_is_deterministic(gen):
+    """No atomics: two calls at mamba2-130m's shape give the same bits."""
+    args = _ssd_inputs(gen, 4, 24, 4096, 64, 128)
+    dy = torch.randn((4, 24, 4096, 64), generator=gen, device="cuda")
+    first = sdops.ssd_scan_bwd(*args, dy, 64)
+    second = sdops.ssd_scan_bwd(*args, dy, 64)
+    assert all(torch.equal(f, g) for f, g in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("short,long", [(32, 64), (64, 128)])
+def test_ssd_chunk_backward_is_chunk_invariant(gen, short, long):
+    """The gradients at two chunk lengths agree within 1e-4 of each one's
+    max |g| (the forward's chunk invariance); chunk 128 is walked as 64."""
+    args = _ssd_inputs(gen, 1, 2, 256, 64, 64)
+    dy = torch.randn((1, 2, 256, 64), generator=gen, device="cuda")
+    for g, w in zip(sdops.ssd_scan_bwd(*args, dy, short),
+                    sdops.ssd_scan_bwd(*args, dy, long)):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_ssd_scan_with_grad_launches_the_backward_kernel(gen):
+    """``ssd_scan`` with grad on CUDA tensors goes through ``SSDScan``: one
+    forward launch, one backward launch, the plain version on neither."""
+    args = [t.requires_grad_() for t in _ssd_inputs(gen, 2, 4, 256, 64, 128)]
+    dy = torch.randn((2, 4, 256, 64), generator=gen, device="cuda")
+    fwd, bwd = sdops.launches, sdops.bwd_launches
+    got = torch.autograd.grad(sdops.ssd_scan(*args, 64), args, dy)
+    assert (sdops.launches, sdops.bwd_launches) == (fwd + 1, bwd + 1)
+    _ssd_bwd_check(got, ssd_chunk_ref_bwd(*args, dy, 64))
+
+
 @pytest.mark.gpu
 def test_transition_sweep_moves_no_unstaged_block(gen):
     """A small transition sweep on the card (F18, 6 pods, forced staging):
@@ -890,7 +952,7 @@ def test_rglru_scan_backward_is_two_launches(gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b", "mamba2-130m"])
 def test_train_steps_match_the_cpu(gen, arch):
     """Two train steps of a reduced float32 model (TF32 off) on the card —
     the kernels forward and backward — against the same steps on the CPU
@@ -921,13 +983,17 @@ def test_train_steps_match_the_cpu(gen, arch):
             step = make_train_step(model, opt, StepConfig(remat=True))
             batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
             fa_before, rl_before = faops.bwd_launches, rlops.launches
+            sd_before = sdops.bwd_launches
             losses = []
             for _ in range(2):
                 net, state, m = step(net, state, batch)
                 losses.append(float(m["loss"]))
             if dev == "cuda":
-                assert faops.bwd_launches > fa_before
+                assert (faops.bwd_launches > fa_before) == (cfg.family != "ssm")
                 assert (rlops.launches > rl_before) == (cfg.family == "hybrid")
+                # one SSD backward launch a layer and step
+                assert sdops.bwd_launches - sd_before == (
+                    2 * cfg.n_layers if cfg.family == "ssm" else 0)
             results.append((losses, [p.detach().cpu() for p in tree_util.leaves(net)]))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -11,8 +11,14 @@ backward within ``bf16_grad_rounding_bound`` (what ``chip_smoke.py`` holds the
 kernel to).  The RG-LRU scan: ``RGLRUScan`` (the reversed-scan backward)
 against PyTorch's autograd through ``rglru_scan_ref`` and against
 ``jax.grad`` of the reference's ``rglru_scan_ref`` (an associative scan) at
-the reference's 1e-4.  The kernels themselves are held to these on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 3).
+the reference's 1e-4.  The SSD chunk scan: ``ssd_chunk_ref_bwd`` (the plain
+backward) and ``SSDScan`` (what training calls through ``ssd_scan``)
+against ``jax.vjp`` of the reference's ``ssd_chunk_ref``
+(``repro/kernels/ssd_chunk/ref.py``) in float32, each gradient within 1e-4
+of its own largest magnitude: several chunks, one chunk, a chunk halved to
+divide S, and Q, N, P not multiples of 4.  The kernels themselves are held
+to these on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase
+3).
 """
 
 import types
@@ -24,6 +30,7 @@ import pytest
 import torch
 
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_rglru_scan_ref
+from repro.kernels.ssd_chunk.ref import ssd_chunk_ref as jax_ssd_chunk_ref
 from repro.models.attention import _sdpa as ref_sdpa
 from repro_torch.kernels.flash_attention import ops as faops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -32,9 +39,17 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      bf16_grad_rounding_bound)
 from repro_torch.kernels.rglru_scan import ops as rlops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.ssd_chunk import ops as sdops
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref_bwd
 
 torch.set_num_threads(1)
-GRAD_TOL, RGLRU_TOL = 1e-5, 1e-4
+GRAD_TOL, RGLRU_TOL, SSD_GRAD_REL = 1e-5, 1e-4, 1e-4
+
+# (B, H, S, P, N, chunk asked for, chunk the wrapper runs)
+SSD_CASES = [(2, 3, 48, 16, 8, 16, 16),   # three chunks
+             (1, 2, 16, 8, 12, 64, 16),   # one chunk: nothing carries
+             (2, 2, 40, 8, 4, 16, 8),     # 16 does not divide 40: halved to 8
+             (1, 2, 21, 6, 5, 32, 21)]    # Q, N, P not multiples of 4
 
 # (B, Sq, Sk, H, KV, hd, causal, window)
 ATTN_CASES = [(2, 24, 24, 4, 2, 32, True, 0),
@@ -152,3 +167,76 @@ def test_rglru_backward_matches_autograd_and_jax(shape):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), au.numpy(), rtol=RGLRU_TOL, atol=RGLRU_TOL)
         np.testing.assert_allclose(g.numpy(), w, rtol=RGLRU_TOL, atol=RGLRU_TOL)
+
+
+def _ssd_inputs(b, h, s, p, n, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, h, s, p)).astype(np.float32),
+            (0.001 + 0.099 * rng.random((b, h, s, 1))).astype(np.float32),
+            -(1.0 + 7.0 * rng.random((h, 1, 1, 1))).astype(np.float32),
+            rng.normal(0, 1, (b, 1, s, n)).astype(np.float32),
+            rng.normal(0, 1, (b, 1, s, n)).astype(np.float32),
+            rng.normal(0, 1, (b, h, s, p)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_backward_matches_jax_grad(case):
+    b, h, s, p, n, chunk, q_len = case
+    *ins, dy = _ssd_inputs(b, h, s, p, n)
+    _, vjp = jax.vjp(lambda *t: jax_ssd_chunk_ref(*t, q_len), *map(jnp.asarray, ins))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dy))]
+    plain = ssd_chunk_ref_bwd(*map(torch.from_numpy, ins), torch.from_numpy(dy), q_len)
+    # SSDScan through the wrapper, as training calls it (the chunk halved there)
+    ts = [torch.from_numpy(t).requires_grad_() for t in ins]
+    out = sdops.ssd_scan(*ts, chunk)
+    assert isinstance(out.grad_fn, torch.autograd.function.BackwardCFunction)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(dy))
+    for name, g_plain, g_fn, w in zip(("dx", "ddt", "da", "db", "dc"), plain, got, want):
+        assert g_fn.shape == g_plain.shape == w.shape, name
+        scale = float(np.abs(w).max())
+        for label, g in (("plain", g_plain), ("SSDScan", g_fn)):
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= SSD_GRAD_REL * scale, (label, name, err, scale)
+
+
+def test_ssd_scan_without_grad_keeps_the_forward():
+    """Serving (no grad) takes the forward alone, the plain version's bits."""
+    *ins, _ = (torch.from_numpy(t) for t in _ssd_inputs(1, 2, 16, 8, 4))
+    out = sdops.ssd_scan(*ins, 8)
+    assert out.grad_fn is None
+    assert torch.equal(out, sdops.ref.ssd_chunk_ref(*ins, 8))
+
+
+@pytest.mark.parametrize("remat,runs", [(False, 1), (True, 2), ("dots", 2)])
+def test_ssd_scan_under_each_remat_mode(monkeypatch, remat, runs):
+    """Through the ssm model's loss, ``SSDScan``'s forward runs once a layer
+    without remat and twice under both remat modes (``"dots"`` keeps only
+    the matrix products: the custom Function is recomputed, not saved), and
+    its backward once a layer; the Function saves nothing but its inputs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+
+    calls = {"fwd": 0, "bwd": 0, "saved": []}
+    fwd, bwd = sdops._forward, sdops.ssd_scan_bwd
+
+    def counted_fwd(*args):
+        calls["fwd"] += 1
+        return fwd(*args)
+
+    def counted_bwd(*args):
+        calls["bwd"] += 1
+        calls["saved"].append(args[:5])
+        return bwd(*args)
+
+    monkeypatch.setattr(sdops, "_forward", counted_fwd)
+    monkeypatch.setattr(sdops, "ssd_scan_bwd", counted_bwd)
+    model = build_model(get_arch("mamba2-130m").reduced(), device="cpu")
+    net = model.init(0)
+    net.requires_grad_(True)
+    tokens = torch.arange(32).reshape(2, 16)
+    loss, _ = model.loss(net, {"tokens": tokens, "labels": tokens}, remat=remat)
+    torch.autograd.grad(loss, list(net.parameters()))
+    n = model.cfg.n_layers
+    assert (calls["fwd"], calls["bwd"]) == (runs * n, n)
+    x, dt, a, b, c = calls["saved"][0]
+    assert x.dim() == 4 and dt.shape[-1] == 1 and a.dim() == 4 and b.shape == c.shape

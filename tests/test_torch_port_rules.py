@@ -219,13 +219,20 @@ def test_default_device_raises_without_a_card(small_fabric, small_trace,
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_ssm_training_is_a_later_slice():
-    """Training the ssm family waits for the SSD chunk kernel's backward:
-    ``Model.loss`` raises, on the CPU as on the card; the decoder-only model
-    refuses the audio family, which is the encoder-decoder's."""
+def test_ssm_trains_and_the_decoder_refuses_audio():
+    """The ssm family trains: ``Model.loss`` runs on the CPU and its
+    gradient reaches every parameter (through the SSD chunk scan's
+    ``SSDScan``); the decoder-only model refuses the audio family, which is
+    the encoder-decoder's."""
     model = build_model(get_arch("mamba2-130m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice.*2.9.3"):
-        model.loss(model.init(0), {})
+    params = model.init(0)
+    params.requires_grad_(True)
+    tokens = torch.arange(16).reshape(2, 8) % model.cfg.vocab
+    loss, metrics = model.loss(params, {"tokens": tokens, "labels": tokens})
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert sum(bool(g.abs().sum() > 0) for g in grads) == len(grads)
     audio = get_arch("seamless-m4t-large-v2").reduced()
     with pytest.raises(ValueError, match="encdec"):
         model_transformer.init_params(torch.Generator(), audio, "cpu")

@@ -1,8 +1,9 @@
 """The port's training runtime: the data pipeline's copy bit-equal to the
 reference's, checkpoints (keep-k, atomic renames, the reference's on-disk
-layout read and written by both packages), the trainer's restart and
-learning on the CPU, and the multi-card and HLO features of later slices
-raising."""
+layout read and written by both packages), the trainer's restart (llama3-8b
+and, as the reference's own tests, mamba2-130m) and learning on the CPU,
+mamba2-130m's compressed training learning as the reference's does, and the
+multi-card and HLO features of later slices raising."""
 
 import dataclasses
 import json
@@ -160,6 +161,40 @@ def test_trainer_checkpoint_restart(tmp_path):
         assert torch.equal(p, q)
 
 
+def test_trainer_checkpoint_restart_ssm(tmp_path):
+    """The reference's restart test on its model (``tests/test_runtime.py``:
+    mamba2-130m reduced, 6 steps with a checkpoint every 3, then a restart
+    to 9), with the port's check that the restarted steps are those of an
+    uninterrupted 9-step run, bit for bit."""
+    cfg = get_arch("mamba2-130m").reduced()
+    model = build_model(cfg, device="cpu")
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=20)
+    tc = TrainerConfig(total_steps=6, checkpoint_every=3, n_pods=1, devices_per_pod=1)
+    out1 = Trainer(model, opt, None, _data_cfg(cfg), StepConfig(), tc,
+                   tmp_path / "a").run(resume=False)
+    assert out1["last_step"] == 6 and np.isfinite(out1["losses"]).all()
+    tc2 = TrainerConfig(total_steps=9, checkpoint_every=3, n_pods=1, devices_per_pod=1)
+    out2 = Trainer(model, opt, None, _data_cfg(cfg), StepConfig(), tc2,
+                   tmp_path / "a").run(resume=True)
+    assert out2["stats"]["restarts"] == 1 and out2["last_step"] == 9
+    assert len(out2["losses"]) == 3, "only the post-restore steps run"
+    whole = Trainer(model, opt, None, _data_cfg(cfg), StepConfig(), tc2,
+                    tmp_path / "b").run(resume=False)
+    assert whole["losses"] == out1["losses"] + out2["losses"]
+
+
+def test_compressed_training_still_learns(tmp_path):
+    """The reference's test on mamba2-130m reduced: 25 steps with int8
+    gradient compression, the last five losses below the first five."""
+    cfg = get_arch("mamba2-130m").reduced()
+    model = build_model(cfg, device="cpu")
+    opt = AdamW(lr=3e-3, warmup_steps=5, total_steps=40)
+    tc = TrainerConfig(total_steps=25, checkpoint_every=100)
+    out = Trainer(model, opt, None, _data_cfg(cfg, batch=8, seq=64),
+                  StepConfig(compression="int8"), tc, tmp_path).run(resume=False)
+    assert np.mean(out["losses"][-5:]) < np.mean(out["losses"][:5])
+
+
 def test_trainer_loss_decreases(tmp_path):
     cfg = dataclasses.replace(get_arch("internvl2-1b").reduced(), family="dense",
                               frontend="", frontend_tokens=0, name="tiny-dense")
@@ -173,10 +208,9 @@ def test_trainer_loss_decreases(tmp_path):
 
 
 def test_train_cli_defaults(tmp_path, monkeypatch, capsys):
-    """The launcher's defaults train (an architecture the port trains, not
-    the ssm family) and checkpoint inside the checkout, one directory per
-    configuration, so runs of two checkouts or two configurations never
-    resume from each other's checkpoints."""
+    """The launcher's defaults train (llama3-8b) and checkpoint inside the
+    checkout, one directory per configuration, so runs of two checkouts or
+    two configurations never resume from each other's checkpoints."""
     root = pathlib.Path(__file__).resolve().parents[1]
     assert train_cli._CKPT_ROOT == root / "build" / "ckpt"
     monkeypatch.setattr(train_cli, "_CKPT_ROOT", tmp_path)
@@ -191,6 +225,15 @@ def test_train_cli_defaults(tmp_path, monkeypatch, capsys):
     assert json.loads(capsys.readouterr().out)["steps"] == 3
     assert sorted(p.name for p in (tmp_path / "llama3-8b-reduced").iterdir()) == [
         "step_00000002", "step_00000003"]
+
+
+def test_train_cli_trains_the_ssm_family(tmp_path, capsys):
+    """``--arch mamba2-130m`` trains (the SSD chunk scan's backward)."""
+    train_cli.main(["--arch", "mamba2-130m", "--steps", "2", "--batch", "2", "--seq",
+                    "16", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    report = json.loads(capsys.readouterr().out)
+    assert report["arch"] == "mamba2-130m-reduced" and report["steps"] == 2
+    assert np.isfinite(report["loss_last"])
 
 
 def test_later_slices_raise(tmp_path):

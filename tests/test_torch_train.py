@@ -1,16 +1,16 @@
 """The port's training against the reference's on the same parameters and
 batches, one reduced config per family: dense (llama3-8b), moe
-(mixtral-8x7b), vlm (internvl2-1b), hybrid (recurrentgemma-9b) and audio
-(seamless-m4t-large-v2), in float32 (``dataclasses.replace(cfg.reduced(),
+(mixtral-8x7b), vlm (internvl2-1b), hybrid (recurrentgemma-9b), ssm
+(mamba2-130m) and audio (seamless-m4t-large-v2), in float32 (``dataclasses.replace(cfg.reduced(),
 dtype="float32")``; the moe family is float32-only for the reason in
 ``tests/test_torch_models.py``: top-k routing flips at near-ties in bf16).
 
 The reference initializes each model; its parameters reach the port through
 ``interop.model_from_numpy`` and come back through ``interop.model_to_numpy``
 (layer groups stacked as the reference stacks them); its AdamW state through
-``interop.adamw_state_from_numpy``.  On the CPU the port's flash attention
-and RG-LRU scan run their plain versions and their plain backward
-(``attention_bwd_ref``, the reversed scan).  Tolerances: the loss at 1e-5
+``interop.adamw_state_from_numpy``.  On the CPU the port's flash attention,
+RG-LRU scan and SSD chunk scan run their plain versions and their plain
+backward (``attention_bwd_ref``, the reversed scan, ``ssd_chunk_ref_bwd``).  Tolerances: the loss at 1e-5
 relative, each gradient leaf at 1e-4 of the leaf's largest magnitude, the
 parameters and moments after two AdamW steps (the first step's learning rate
 is 0 in the reference's schedule) at 1e-5.  The microbatched and compressed
@@ -41,7 +41,8 @@ torch.set_num_threads(1)
 
 B, S = 2, 16
 FAMILIES = {"dense": "llama3-8b", "moe": "mixtral-8x7b", "vlm": "internvl2-1b",
-            "hybrid": "recurrentgemma-9b", "audio": "seamless-m4t-large-v2"}
+            "hybrid": "recurrentgemma-9b", "ssm": "mamba2-130m",
+            "audio": "seamless-m4t-large-v2"}
 LOSS_REL, GRAD_REL, STEP_TOL = 1e-5, 1e-4, 1e-5
 # eps 1e-3, not the default 1e-8: Adam's step m/(sqrt(v) + eps) of an entry
 # whose gradient is at the level of float32 summation noise (~1e-8 here) is
