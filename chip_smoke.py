@@ -73,8 +73,13 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    N=128, chunk 64) and at the forward's edge shapes (``SSD_BWD``: a chunk
    halved to 32, chunks of 128, one chunk, Q, N, P not multiples of 4),
    each of its five gradients within 1e-3 of its own max |ref|, bit for bit
-   against a second call, timed at the training shape beside the plain
-   backward with its bound (no single PyTorch call computes it).
+   against a second call, at the training shape also within 1e-4 of each
+   max |g| between chunks of 32 and 64 (which TF32 alone would break), and
+   timed there beside the plain backward with three bounds (3xTF32 tensor
+   cores, the route's and the share's; f32 CUDA cores; bytes; no single
+   PyTorch call computes it), and its launches timed apart by
+   ``torch.profiler`` (the scan, both state walks, the gradient kernel and
+   da's sum: device ms a call).
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
    (routing every 15 min, topology daily, 7-day aggregation, 12 critical
@@ -189,6 +194,7 @@ SCORE_TOL = 1e-5  # scoring vs the float64 numpy oracle
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM data sheet, TF32 dense on the tensor cores
 LIBRARIES = ("linkload", "queueloss", "flash_attention", "flash_attention_bwd",
              "rglru_scan", "ssd_chunk")
 # phase 8's prefill shapes: (arch, batch, seq) and the kernel launches of one
@@ -227,14 +233,19 @@ FLASH_BWD_EDGES = (("hd64_ragged_g2", (1, 1000, 1000, 4, 2, 64, True, 0, "bfloat
 # the SSD chunk backward (#9b, phase 3): mamba2-130m's training shape (phase
 # 13's) and the edge shapes of the forward's gpu tests (a chunk halved to 32,
 # chunks of 128 (the backward walks 64), one chunk, 32 chunks of 128, and Q,
-# N, P not multiples of 4): (label, (B, H, S, P, N, chunk))
+# N, P not multiples of 4), an odd head count and chunks of 16 (one MMA row
+# tile): (label, (B, H, S, P, N, chunk))
 SSD_BWD = (("mamba2", (4, 24, 4096, 64, 128, 64)),
            ("ragged", (1, 3, 96, 32, 16, 64)),
            ("chunk128", (2, 2, 256, 64, 128, 128)),
            ("one_chunk", (1, 2, 64, 64, 128, 64)),
            ("long128", (2, 2, 4096, 64, 128, 128)),
-           ("odd", (1, 2, 37, 30, 18, 37)))
+           ("odd", (1, 2, 37, 30, 18, 37)),
+           ("heads5", (1, 5, 256, 64, 128, 64)),
+           ("chunk16", (1, 2, 256, 64, 128, 16)))
 SSD_BWD_REL_TOL = 1e-3  # each gradient within 1e-3 of its own max |ref|
+SSD_BWD_INVARIANCE_TOL = 1e-4  # chunks of 32 vs 64, relative to each max |g|
+SPLIT_CALLS = 5  # warm calls profiled for a backward entry's launches apart
 MOE_SORTED_REL_TOL = 2e-2  # sorted vs one-hot dispatch (tests/test_arch_smoke.py:155)
 FAMILY_DECODE = 32  # greedy tokens of mixtral through its ring cache
 TUNE_MAX_ITERS = 1000  # phase 11's cap on the solver tuner's stage-1 solves
@@ -1119,6 +1130,21 @@ def _ssd_bwd_flops(b: int, h: int, s: int, p: int, n: int, q: int) -> float:
     return 2.0 * (b * nc * tri * n + b * h * nc * per_head)
 
 
+def _launch_split(fn) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by name, from
+    ``torch.profiler`` over ``SPLIT_CALLS`` warm calls (no L2 flush between
+    them)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    _, _, top = _device_profile(lambda: [fn() for _ in range(SPLIT_CALLS)],
+                                torch.device("cuda"), top=16)
+    # "void (anonymous namespace)::ssd_walks_kernel(float const*, ..." -> ssd_walks_kernel
+    return {name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]:
+            round(ms / SPLIT_CALLS, 4) for name, ms, _ in top}
+
+
 def _ssd_backward(gen, dev):
     """#9b against ``ssd_chunk_ref_bwd`` (autograd through the plain version)
     at ``SSD_BWD``'s shapes: each gradient within ``SSD_BWD_REL_TOL`` of its
@@ -1162,6 +1188,17 @@ def _ssd_backward(gen, dev):
             fail(f"ssd_chunk_bwd {label}: {n_launch} launches, expected 2")
         if label != "mamba2":
             continue
+        # chunk invariance (tests/test_torch_gpu.py's 1e-4): the gradients at
+        # chunks of 32 and 64 differ only in the order of sums.  It separates
+        # float32 accuracy from TF32's (a lo term or the split lost), which
+        # the 1e-3 contract above does not.
+        inv = {k: float((u - v).abs().max()) / float(v.abs().max())
+               for k, u, v in zip(names, sdops.ssd_scan_bwd(*args, 32), got)}
+        log(f"  ssd_chunk_bwd chunk 32 vs 64: max |diff| relative to each max |g| "
+            f"{ {k: round(v, 8) for k, v in inv.items()} } (contract "
+            f"{SSD_BWD_INVARIANCE_TOL})")
+        if not all(v <= SSD_BWD_INVARIANCE_TOL for v in inv.values()):
+            fail("ssd_chunk_bwd is not chunk-invariant")
         q_bwd = min(q_len, sdops.MAX_BWD_CHUNK)
         n_flops = _ssd_bwd_flops(b, h, s, p, n, q_bwd)
         # inputs x, dt, a, b, c, dy read once; dx, ddt, da, db, dc written once
@@ -1169,11 +1206,21 @@ def _ssd_backward(gen, dev):
                        + dy.numel())
         ms = time_cuda(lambda: sdops.ssd_scan_bwd(*args, chunk))
         plain = time_cuda(lambda: ssd_chunk_ref_bwd(*args, q_len))
-        bnd, by = bound_ms(n_bytes, n_flops)
+        # three bounds: the route's, on the tensor cores at float32 accuracy
+        # (3xTF32: three TF32 products for each; the share is taken against
+        # it), the f32 CUDA cores', and the bytes alone
+        bnd, by = bound_ms(n_bytes, 3 * n_flops, TF32_FLOP_PER_S)
+        bnd_cores = bound_ms(n_bytes, n_flops)[0]
+        bnd_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         log(f"  ssd_chunk_bwd times: kernel {ms:.4f} ms, plain (autograd through the "
-            f"plain version, for the record) {plain:.4f} ms, bound {bnd:.4f} ms ({by}: "
-            f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP at chunk {q_bwd}); no "
-            f"single PyTorch call computes this gradient")
+            f"plain version, for the record) {plain:.4f} ms; bounds ({n_bytes / 1e6:.1f} "
+            f"MB, {n_flops / 1e9:.2f} GFLOP at chunk {q_bwd}): 3xTF32 tensor cores "
+            f"{bnd:.4f} ms ({by}; the share's: {bnd / ms:.4f}), f32 CUDA cores "
+            f"{bnd_cores:.4f} ms (share {bnd_cores / ms:.4f}), bytes {bnd_bytes:.4f} ms; "
+            f"no single PyTorch call computes this gradient")
+        split = _launch_split(lambda: sdops.ssd_scan_bwd(*args, chunk))
+        log(f"  ssd_chunk_bwd launches apart (torch.profiler, device ms a call, mean "
+            f"of {SPLIT_CALLS} warm calls, L2 warm): {split}")
         row = {"name": "ssd_chunk_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/ssd_chunk.cu",
                "replaces": "the gradient of src/repro/kernels/ssd_chunk/ssd_chunk.py:72 "
@@ -1181,7 +1228,12 @@ def _ssd_backward(gen, dev):
                            "src/repro/models/ssd.py:128)",
                "max_abs_err": max(errs.values()), "max_rel_err": max(rels.values()),
                "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-               "library_ms": None, "shape": [b, h, s, p, n, chunk], "status": "new"}
+               "bound_f32_cores_ms": bnd_cores, "bound_bytes_ms": bnd_bytes,
+               "share_against": "bound_ms (3xTF32 tensor cores, the route taken)",
+               "chunk_invariance": inv, "launch_ms": split,
+               "library_ms": None, "shape": [b, h, s, p, n, chunk],
+               "status": "redesigned (3xTF32 mma.sync, cp.async ring, one launch of "
+                         "both walks)"}
         del x, dt, a, bm, cm, dy, args, got, want
     torch.cuda.empty_cache()
     return row

@@ -54,23 +54,52 @@
 //
 // The backward, entry ssd_chunk_bwd (#9b; no TPU kernel: the reference takes
 // this gradient by XLA's autodiff of ssd_chunked).  With G_c the gradient of
-// the state leaving chunk c, it is written from the math, not from the
-// forward's blocks (the formulas at ssd_grad_kernel): the scan and the state
-// walk of the forward recompute L and S_in; the same walk in reverse
-// (ssd_state_kernel<true>: C for B, dy for x, exp(L) for w) gives G; then one
-// CTA per (b, chunk) forms C B^T once and, head by head, the masked Q x Q
-// tiles A and W, the products for dx, db, dc and the decay gradient dL, whose
-// suffix sums give ddt and a (b, h, chunk) share of da; a last kernel sums
-// those shares per head.  db and dc sum over the heads in each CTA's
-// registers in head order, da in a fixed order: no atomics, the same bits
-// every run.  Operations bound it: at mamba2-130m's training shape
-// (B=4, H=24, S=4096, Q=64, N=128, P=64) the gradient needs 42.5 GFLOP,
-// ~2.9x the forward's (causal triangles only); the entry does more, whole
-// Q x Q tiles and C S_in as a product of its own.  It works at
-// chunks of at most 64 (kGQ): its shared memory is laid out for Q = 64,
-// N = 128, P = 64 (222,272 B, one CTA an SM); the wrapper halves a longer
-// chunk, which changes only the order of sums.  The products stay float32
-// FMAs, as the forward's.
+// the state leaving chunk c, it is written from the math (the formulas at
+// ssd_grad_kernel).  Four launches in order: the forward's scan (also
+// exp(L)); both state walks in one launch (ssd_walks_kernel: S_in forward,
+// G in reverse; all 384 CTAs resident at mamba2-130m's training shape); the
+// gradient kernel, one CTA of 8 warps per (b, chunk) over every head; and
+// da's sum per head.  db and dc sum over the heads inside each CTA, da in a
+// fixed order: no atomics, the same bits every run.
+//
+// Every product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8; the
+// split at Frag): TF32 alone rounds each input to 2^-11 and would break the
+// gradient's 1e-4 chunk invariance, while three TF32 products keep each one
+// within ~1e-6 of float32.  What bounds it: at mamba2-130m's training shape
+// (B=4, H=24, S=4096, Q=64, N=128, P=64) the gradient needs 42.5 GFLOP of
+// float32 work (causal triangles): 0.26 ms as 3 x TF32 at 495 TFLOP/s, the
+// route's bound (0.63 ms at the 67 TFLOP/s CUDA-core rate), against 336 MB of
+// inputs and outputs (0.10 ms) and an 805 MB round trip of S_in and G through
+// scratch.  On the card the kernels are bound by the instructions around
+// the MMAs (loads, the split, addresses; two warps a scheduler in the
+// gradient kernel) and the walks by that round trip (PERF.md).  What the
+// design does about the first port's limits:
+//   - products on the CUDA cores with scalar shared-memory operands: MMA
+//     fragments, read without bank conflicts (padded or XOR-swizzled tiles)
+//     and split in registers;
+//   - copies that blocked the math (each head's 96 KB through registers,
+//     then a barrier): a ring of four slots filled by cp.async while earlier
+//     heads compute, each refilled as soon as its last reader is done;
+//   - wasted work: only the 20 16 x 8 tiles of each Q x Q triangle that hold
+//     some s >= t; the dL term exp(L_s) C_s . (S_in dy_s) a dot with the
+//     dy S_in^T that dc needs anyway; and, B and C being one group, the head
+//     sums of db's W^T C and dc's W B taken once a chunk on sum_h W_h: 1,856
+//     MMA tiles (1,024 multiply-adds each) a head and chunk outside the
+//     walks, where the gradient's count (chip_smoke.py) takes 2,340;
+//   - one CTA of 8 warps an SM: still so (231,984 B of shared memory, 251
+//     registers), the 256 CTAs two waves over 132 SMs; the serial tail of a
+//     head (dL's suffix sums) now runs on one warp while the others start
+//     the next head.  Two CTAs an SM would have 113 KB each, and B, C and
+//     A^T alone take 80 KB: no room for one 34 KB ring slot.  The grid's
+//     other splits were slower on the card (tools/ssd_bwd_design.py grid;
+//     PERF.md): 16 warps, at most 128 registers a thread (84 B spilled),
+//     0.816 ms for the gradient kernel against 0.779; two CTAs per (b,
+//     chunk) of 12 heads each, the CTAs of a cluster over head groups but
+//     without even the sum of their db and dc, 0.903 ms: each CTA still
+//     holds the whole layout, so an SM still runs one, and each repeats
+//     C B^T, the B and C copies and the head-sum products.
+// The gradient kernel works at chunks of at most 64 (kGQ); the wrapper
+// halves a longer chunk, which changes only the order of sums.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,11 +199,11 @@ __host__ __device__ constexpr int state_stage_floats(int Q, int P) {
   return round_up(Q, 4) * (kNT + round_up(P, 4) + 1);  // B, x, w
 }
 
-// 1. The state entering every chunk, in order over the chunks.  With kRev
-// (the backward) the same walk in reverse: x -> dy, B -> C, w -> exp(L), and
-// s_in -> G, the gradient of the state leaving each chunk
-// (G_{c-1} = exp(L_Q) G_c + sum_s exp(L_s) C_s dy_s^T, G_{nc-1} = 0).
-template <bool kRev>
+// 1. The state entering every chunk, in order over the chunks.  The
+// backward's ssd_walks_kernel computes the same states on 3xTF32 MMAs, but
+// for #9 its forward blocks alone (192 CTAs of 64 state rows at mamba2-130m's
+// prefill) were slower than these 384 of 32: 0.295 ms against 0.268
+// (tools/ssd_bwd_design.py forward), so the forward keeps its own walk.
 __global__ void __launch_bounds__(kStateThreads)
 ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
                  const float* __restrict__ w, const float* __restrict__ decay,
@@ -241,12 +270,12 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
 #pragma unroll
     for (int j = 0; j < 4; ++j) st[i][j] = 0.0f;
   __syncthreads();  // the zero padding is written before the copies land
-  load(kRev ? nc - 1 : 0, 0);
+  load(0, 0);
   cp_async_commit();
   const bool active = n0 + ty * 4 < N && tx * 4 < P;
   for (int k = 0; k < nc; ++k) {
-    const int c = kRev ? nc - 1 - k : k;
-    if (k + 1 < nc) load(kRev ? c - 1 : c + 1, (k + 1) & 1);
+    const int c = k;
+    if (k + 1 < nc) load(c + 1, (k + 1) & 1);
     cp_async_commit();
     const float dq = decay[bh * nc + c];
     cp_async_wait1();
@@ -537,89 +566,352 @@ ssd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 // ---- the backward ---------------------------------------------------------
 
-constexpr int kGQ = 64;          // most rows of a chunk in the gradient kernel
-constexpr int kLdQ = kGQ + 4;    // row stride of its Q x Q tiles
+constexpr int kGQ = 64;               // most rows of a chunk in the gradient kernel
+constexpr int kLd = kMaxP + 4;        // row stride of x, dy, S_in and G in a ring slot
+constexpr int kSlot = kMaxN * kLd;    // one ring slot: S_in or G, or x then dy
+constexpr int kRing = 4;              // slots: a head's x/dy, G and S_in, the next x/dy
+constexpr int kTiles = 20;            // 16 x 8 tiles of a Q x Q triangle (s >= t)
+constexpr int kWalkRows = 64;         // state rows per CTA of the backward's walks
+constexpr int kWalkLd = kWalkRows + 8;  // row stride of their B and x tiles
+constexpr int kWalkStage = 2 * kGQ * kWalkLd + kGQ;  // floats: B, x, w
 
 // the gradient kernel's shared memory, in floats: one fixed layout at the
 // largest shapes (Q = 64, N = 128, P = 64), rows and columns past Q, N or P
-// zero
+// zero.  B, C and A^T are XOR-swizzled (swz), the ring's tiles padded to kLd.
 struct GradLayout {
-  static constexpr int c = 0;                        // C (kGQ, kMaxN) swizzled
-  static constexpr int b = c + kGQ * kMaxN;          // B (kGQ, kMaxN) swizzled
-  static constexpr int cb = b + kGQ * kMaxN;         // C B^T (kGQ, kLdQ)
-  static constexpr int att = cb + kGQ * kLdQ;        // A (kGQ, kLdQ)
-  static constexpr int wm = att + kGQ * kLdQ;        // W (kGQ, kLdQ)
-  static constexpr int x = wm + kGQ * kLdQ;          // x (kGQ, kMaxP) swizzled
-  static constexpr int dy = x + kGQ * kMaxP;         // dy (kGQ, kMaxP) swizzled
-  static constexpr int s = dy + kGQ * kMaxP;         // S_in (kMaxN, kMaxP) swizzled
-  static constexpr int g = s + kMaxN * kMaxP;        // G (kMaxN, kMaxP) swizzled
-  static constexpr int vecs = g + kMaxN * kMaxP;     // 8 vectors of kGQ
-  static constexpr int colpart = vecs + 8 * kGQ;     // (16, kGQ) column partials
-  static constexpr int red = colpart + 16 * kGQ;     // 8 warps' partial sums
-  static constexpr int total = red + kThreads / 32;
+  static constexpr int ring = 0;                     // kRing slots of kSlot
+  static constexpr int b = ring + kRing * kSlot;     // B (kGQ, kMaxN)
+  static constexpr int c = b + kGQ * kMaxN;          // C (kGQ, kMaxN)
+  static constexpr int at = c + kGQ * kMaxN;         // A^T (kGQ, kGQ): rows t, columns s
+  static constexpr int vec = at + kGQ * kGQ;         // 3 heads' 6 vectors (vecs below)
+  static constexpr int rowp = vec + 3 * 6 * kGQ;     // (8, kGQ) M^T row sums by s block
+  static constexpr int colp = rowp + 8 * kGQ;        // (4, kGQ) M^T column sums by t strip
+  static constexpr int xgp = colp + 4 * kGQ;         // (4, kGQ) x . g by column quarter
+  static constexpr int rp = xgp + 4 * kGQ;           // (4, kGQ) x . (B G) by column quarter
+  static constexpr int ip = rp + 4 * kGQ;            // (4, kGQ) C . (dy S_in^T) by quarter
+  static constexpr int red = ip + 4 * kGQ;           // 8 warps' <S_in, G>
+  static constexpr int last = red + kThreads / 32;   // dL's last-step terms: 3
+  static constexpr int total = last + 4;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float dot4(float4 u, float4 v, float acc) {
-  return fmaf(u.w, v.w, fmaf(u.z, v.z, fmaf(u.y, v.y, fmaf(u.x, v.x, acc))));
-}
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-// sum over the 16 lanes of a half-warp (tx), the same order in every run
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// rows_alloc rows of a row-major (rows, cols) tile into a swizzled tile of
-// row stride ld (a multiple of 32), zero past rows and cols
-__device__ __forceinline__ void load_tile(float* dst, int ld, int rows_alloc,
-                                          const float* __restrict__ src, int rows, int cols,
-                                          int vec) {
-  const int chunks = ld / 4;
-  for (int i = threadIdx.x; i < rows_alloc * chunks; i += kThreads) {
-    const int r = i / chunks, col = (i % chunks) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && col < cols) {
-      const float* p = src + (size_t)r * cols + col;
-      if (vec) {
-        v = ld4(p);
-      } else {
-        v.x = p[0];
-        if (col + 1 < cols) v.y = p[1];
-        if (col + 2 < cols) v.z = p[2];
-        if (col + 3 < cols) v.w = p[3];
-      }
-    }
-    *reinterpret_cast<float4*>(dst + sw4(r, col, ld)) = v;
+// (row, col) of a row-major tile of ld floats (ld a multiple of 32) whose
+// 8-float groups are XOR-swizzled by row & 3: a warp's float2 reads of an
+// MMA fragment, rows g and columns 2 tg (below), hit 32 distinct banks
+__device__ __forceinline__ int swz(int row, int col, int ld) {
+  return row * ld + (col ^ ((row & 3) << 3));
+}
+
+// cp.async of 16 or 4 bytes that fills the rest of the destination with zeros
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// 3xTF32.  hi = tf32(v) rounds v to 10 mantissa bits, to nearest with ties
+// away from zero (cvt.rna.tf32.f32's rounding; an add and a mask), lo = v - hi
+// (exact in float32), which the tensor core reads at tf32 precision, its low
+// 13 bits dropped, as CUTLASS's 3xTF32 passes its small part.  A product sums
+// lo hi' + hi lo' + hi hi'; lo lo' (~2^-22 of it) is dropped: float32
+// accuracy on the tensor cores, three instructions a split operand.
+struct Frag {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Frag split(float v) {
+  const uint32_t h = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  return {h, __float_as_uint(v - __uint_as_float(h))};
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// One m16n8k8 step of a float32 product.  A fragment: lane (g, tg) = (lane / 4,
+// lane % 4) holds rows g, g + 8 at k = kA, kA + 4 (a[0..3]: (g, kA), (g+8, kA),
+// (g, kA+4), (g+8, kA+4)); B: k = kA, kA + 4 at column g.  The accumulator
+// d[0..3] is (g, 2 tg), (g, 2 tg + 1), (g + 8, 2 tg), (g + 8, 2 tg + 1).  The
+// k order inside a step is free as long as A and B agree: "std" operands take
+// kA = tg, "perm" operands kA = 2 tg (kA + 4 -> 2 tg + 1), so a float2 holds
+// both of a row's values.
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag (&a)[4], const Frag (&b)[2]) {
+  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+// the same with the lo terms in an accumulator of their own (d + dl is the
+// product): chains of two and one MMA a step instead of three
+__device__ __forceinline__ void mma3x(float (&d)[4], float (&dl)[4], const Frag (&a)[4],
+                                      const Frag (&b)[2]) {
+  mma_tf32(dl, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  mma_tf32(dl, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// std A from a padded row-major tile (rows r0.., columns k0..), rows scaled
+__device__ __forceinline__ void frag_a_std(Frag (&a)[4], const float* t, int ld, int r0,
+                                           int k0, float s_lo = 1.0f, float s_hi = 1.0f) {
+  const int lane = threadIdx.x & 31;
+  const float* p = t + (r0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  a[0] = split(p[0] * s_lo);
+  a[1] = split(p[8 * ld] * s_hi);
+  a[2] = split(p[4] * s_lo);
+  a[3] = split(p[8 * ld + 4] * s_hi);
+}
+// std B from a padded tile stored (n, k): b = T[n0 + g][k0 + tg, + 4]
+__device__ __forceinline__ void frag_b_std_nk(Frag (&b)[2], const float* t, int ld, int n0,
+                                              int k0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = t + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  b[0] = split(p[0]);
+  b[1] = split(p[4]);
+}
+// std B from a swizzled tile stored (k, n): b = T[k0 + tg, + 4][n0 + g]
+__device__ __forceinline__ void frag_b_std_kn_swz(Frag (&b)[2], const float* t, int ld, int k0,
+                                                  int n0) {
+  const int lane = threadIdx.x & 31, k = k0 + (lane & 3), n = n0 + (lane >> 2);
+  b[0] = split(t[swz(k, n, ld)]);
+  b[1] = split(t[swz(k + 4, n, ld)]);
+}
+// perm A from a swizzled row-major tile: float2s at (r0 + g, k0 + 2 tg)
+__device__ __forceinline__ void frag_a_perm(Frag (&a)[4], const float* t, int ld, int r0,
+                                            int k0) {
+  const int lane = threadIdx.x & 31, r = r0 + (lane >> 2), k = k0 + 2 * (lane & 3);
+  const float2 u = *reinterpret_cast<const float2*>(t + swz(r, k, ld));
+  const float2 v = *reinterpret_cast<const float2*>(t + swz(r + 8, k, ld));
+  a[0] = split(u.x);
+  a[2] = split(u.y);
+  a[1] = split(v.x);
+  a[3] = split(v.y);
+}
+// perm B from a padded tile stored (k, n): b = T[k0 + 2 tg, + 1][n0 + g]
+__device__ __forceinline__ void frag_b_perm_kn(Frag (&b)[2], const float* t, int ld, int k0,
+                                               int n0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = t + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  b[0] = split(p[0]);
+  b[1] = split(p[ld]);
+}
+// perm B from a swizzled tile stored (n, k): a float2 at (n0 + g, k0 + 2 tg)
+__device__ __forceinline__ void frag_b_perm_nk_swz(Frag (&b)[2], const float* t, int ld,
+                                                   int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const float2 u = *reinterpret_cast<const float2*>(
+      t + swz(n0 + (lane >> 2), k0 + 2 * (lane & 3), ld));
+  b[0] = split(u.x);
+  b[1] = split(u.y);
+}
+
+// (strip i, block j) of tile k of the triangle: rows t in [16 i, 16 i + 16),
+// columns s in [8 j, 8 j + 8), j >= 2 i (the tiles that hold some s >= t)
+__device__ __forceinline__ void tile_ij(int k, int& i, int& j) {
+  if (k < 8) {
+    i = 0, j = k;
+  } else if (k < 14) {
+    i = 1, j = k - 6;
+  } else if (k < 18) {
+    i = 2, j = k - 10;
+  } else {
+    i = 3, j = k - 12;
   }
 }
 
-// 3. The gradients of one (b, chunk) over every head, Q <= 64: dx, ddt's
-// direct part and dL, then ddt and the chunk's share of da; db and dc summed
-// over the heads in registers, in head order.  With L the chunk's cumsum of
-// dt * a, D_st = dy_s . x_t, dec_st = exp(L_s - L_t) (t <= s, else the
-// mask -1e30 before the exp, as the plain version), A = (C B^T) dec,
+// rows x 64 floats (row-major, rows of `cols`) into a tile of kLd-float rows,
+// rows_alloc rows, zero past rows and cols: 16-byte copies where vec, else 4
+__device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ src, int rows,
+                                          int cols, int rows_alloc, int vec) {
+  const int per_row = vec ? kMaxP / 4 : kMaxP;
+  for (int i = threadIdx.x; i < rows_alloc * per_row; i += kThreads) {
+    const int r = i / per_row, cc = (i % per_row) * (vec ? 4 : 1);
+    const bool ok = r < rows && cc < cols;
+    const float* from = ok ? src + (size_t)r * cols + cc : src;
+    if (vec)
+      cp_async16z(dst + r * kLd + cc, from, ok ? 16 : 0);
+    else
+      cp_async4z(dst + r * kLd + cc, from, ok ? 4 : 0);
+  }
+}
+// Q x N of B or C into a swizzled (kGQ, kMaxN) tile, zero past Q and N
+__device__ __forceinline__ void copy_bc(float* dst, const float* __restrict__ src, int Q, int N,
+                                        int vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < kGQ * (kMaxN / 4); i += kThreads) {
+      const int r = i / (kMaxN / 4), c4 = (i % (kMaxN / 4)) * 4;
+      const bool ok = r < Q && c4 < N;
+      cp_async16z(dst + swz(r, c4, kMaxN), ok ? src + (size_t)r * N + c4 : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kGQ * kMaxN; i += kThreads) {
+      const int r = i / kMaxN, cc = i % kMaxN;
+      const bool ok = r < Q && cc < N;
+      cp_async4z(dst + swz(r, cc, kMaxN), ok ? src + (size_t)r * N + cc : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// 2'. The backward's two state walks in one launch: blocks [0, n_state) walk
+// forward (x, B and the weights w give S_in), the rest in reverse (dy, C and
+// exp(L) give G, the gradient of the state leaving each chunk:
+// G_{c-1} = exp(L_Q) G_c + sum_s exp(L_s) C_s dy_s^T, G_{nc-1} = 0).  One CTA
+// per (b, h, kWalkRows rows of N), 8 warps, each a 16 x 32 block of the
+// state in registers.  A chunk's update (B w)^T x is a 64 x 64 x Q product on
+// 3xTF32 MMAs; the next chunk's B, x and w are copied in (cp.async) while it
+// runs, so only the carry S <- exp(L_Q) S + update is in order.  74 KB of
+// shared memory and at most 80 registers a thread: at mamba2-130m's training
+// shape all 384 CTAs of both walks are resident at once, three an SM.
+__global__ void __launch_bounds__(kThreads, 3)
+ssd_walks_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+                 const float* __restrict__ w, const float* __restrict__ dy,
+                 const float* __restrict__ cm, const float* __restrict__ ez,
+                 const float* __restrict__ decay, float* __restrict__ s_in,
+                 float* __restrict__ g_st, int H, int S, int P, int N, int Q, int nc,
+                 int n_tiles, int n_state, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const bool rev = (int)blockIdx.x >= n_state;
+  const int block = rev ? (int)blockIdx.x - n_state : (int)blockIdx.x;
+  const float* __restrict__ xs = rev ? dy : x;
+  const float* __restrict__ bs = rev ? cm : bm;
+  const float* __restrict__ ws = rev ? ez : w;
+  float* __restrict__ out = rev ? g_st : s_in;
+  const int nt = block % n_tiles;
+  const long long bh = block / n_tiles;
+  const int bi = (int)(bh / H), n0 = nt * kWalkRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = 16 * (warp & 3), p0 = 32 * (warp >> 2);  // this warp's block
+  const float* x_bh = xs + (size_t)bh * S * P;
+  const float* w_bh = ws + (size_t)bh * S;
+  const float* b_b = bs + (size_t)bi * S * N;
+
+  // stage: B[t][n0 .. n0 + 64) and x[t][0 .. 64) in rows of kWalkLd floats,
+  // then w; rows past Q, columns past N or P zero
+  auto load = [&](int c, int buf) {
+    float* sB = smem + buf * kWalkStage;
+    float* sX = sB + kGQ * kWalkLd;
+    float* sW = sX + kGQ * kWalkLd;
+    const size_t t0 = (size_t)c * Q;
+    if (vec) {
+      for (int i = tid; i < kGQ * (kWalkRows / 4); i += kThreads) {
+        const int t = i / (kWalkRows / 4), c4 = (i % (kWalkRows / 4)) * 4;
+        const bool okb = t < Q && n0 + c4 < N, okx = t < Q && c4 < P;
+        cp_async16z(sB + t * kWalkLd + c4, okb ? b_b + (t0 + t) * N + n0 + c4 : b_b,
+                    okb ? 16 : 0);
+        cp_async16z(sX + t * kWalkLd + c4, okx ? x_bh + (t0 + t) * P + c4 : x_bh, okx ? 16 : 0);
+      }
+      if (tid < kGQ / 4) {
+        const bool ok = tid * 4 < Q;
+        cp_async16z(sW + tid * 4, ok ? w_bh + t0 + tid * 4 : w_bh, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kGQ * kWalkRows; i += kThreads) {
+        const int t = i / kWalkRows, cc = i % kWalkRows;
+        const bool okb = t < Q && n0 + cc < N, okx = t < Q && cc < P;
+        cp_async4z(sB + t * kWalkLd + cc, okb ? b_b + (t0 + t) * N + n0 + cc : b_b, okb ? 4 : 0);
+        cp_async4z(sX + t * kWalkLd + cc, okx ? x_bh + (t0 + t) * P + cc : x_bh, okx ? 4 : 0);
+      }
+      if (tid < kGQ) cp_async4z(sW + tid, tid < Q ? w_bh + t0 + tid : w_bh, tid < Q ? 4 : 0);
+    }
+  };
+
+  float st[4][4];  // rows n0 + r0 + g (+ 8), columns p0 + 8 j + 2 tg (+ 1)
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = 0.0f;
+  load(rev ? nc - 1 : 0, 0);
+  cp_async_commit();
+  for (int k = 0; k < nc; ++k) {
+    const int c = rev ? nc - 1 - k : k;
+    if (k + 1 < nc) load(rev ? c - 1 : c + 1, (k + 1) & 1);
+    cp_async_commit();
+    const float dq = decay[bh * nc + c];
+    cp_async_wait<1>();
+    __syncthreads();
+    float* o = out + ((size_t)bh * nc + c) * N * P;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + r0 + g + 8 * r, p = p0 + 8 * j + 2 * tg;
+        if (n >= N || p >= P) continue;
+        float* d = o + (size_t)n * P + p;
+        if (vec) {  // P % 4 == 0: p + 1 < P too
+          *reinterpret_cast<float2*>(d) = make_float2(st[j][2 * r], st[j][2 * r + 1]);
+        } else {
+          d[0] = st[j][2 * r];
+          if (p + 1 < P) d[1] = st[j][2 * r + 1];
+        }
+      }
+    }
+    const float* sB = smem + (k & 1) * kWalkStage;
+    const float* sX = sB + kGQ * kWalkLd;
+    const float* sW = sX + kGQ * kWalkLd;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // the carry, then the chunk's update on top
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] *= dq;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kGQ; k0 += 8) {
+      // A = (B w)^T: rows n, k = t; B = x: k = t, columns p
+      const float w0 = sW[k0 + tg], w1 = sW[k0 + tg + 4];
+      const float* b0 = sB + (k0 + tg) * kWalkLd + r0 + g;
+      Frag af[4];
+      af[0] = split(b0[0] * w0);
+      af[1] = split(b0[8] * w0);
+      af[2] = split(b0[4 * kWalkLd] * w1);
+      af[3] = split(b0[4 * kWalkLd + 8] * w1);
+      const float* x0 = sX + (k0 + tg) * kWalkLd + p0 + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Frag bf[2];
+        bf[0] = split(x0[8 * j]);
+        bf[1] = split(x0[4 * kWalkLd + 8 * j]);
+        mma3(st[j], af, bf);
+      }
+    }
+    __syncthreads();  // stage k & 1 is refilled by the next iteration's load
+  }
+}
+
+// 3. The gradients of one (b, chunk) over every head, Q <= 64.  With L the
+// chunk's cumsum of dt * a, D_st = dy_s . x_t, dec_st = exp(L_s - L_t) (t <= s,
+// else the mask -1e30 before the exp, as the plain version), A = (C B^T) dec,
 // W_st = dec_st dt_t D_st and M = (C B^T) W:
 //   g_t  = sum_s A_st dy_s + exp(L_Q - L_t) G^T B_t,   dx_t = dt_t g_t
 //   db_t = sum_s W_st C_s + exp(L_Q - L_t) dt_t G x_t
 //   dc_s = sum_t W_st B_t + exp(L_s) S_in dy_s
-//   dL_s = sum_t M_st - sum_s' M_s's + exp(L_s) (C_s^T S_in) . dy_s - R_s,
+//   dL_s = sum_t M_st - sum_s' M_s's + exp(L_s) C_s . (S_in dy_s) - R_s,
 //          R_t = exp(L_Q - L_t) dt_t (G^T B_t) . x_t,
 //   dL at the chunk's last step also + sum_t R_t + exp(L_Q) <S_in, G>
 //   ddt_t = x_t . g_t + a sum_{u >= t} dL_u,  da += sum_t dt_t sum_{u >= t} dL_u.
-// 256 threads (16 x 16): Q x Q tiles as rows ty + 16i, columns tx + 16j;
-// Q x P as rows ty + 16i, columns tx * 4 + j; Q x N as rows ty + 16i,
-// columns tx + 16j (j < 8).
+// B and C are one group, so the head sums of db's and dc's first terms are
+// (sum_h W_h)^T C and (sum_h W_h) B: products taken once after the heads.
+// Per head, on 3xTF32 MMAs (8 warps): D^T = x dy^T on the 20 tiles of its
+// triangle (warp w: tiles w, w + 8, w + 16), whence A^T (to shared memory),
+// W (summed over the heads in registers) and M's row and column sums; g's
+// two products A^T dy and B G (warp w: t strips {0, 3} or {1, 2}, 16 columns
+// of P); V = dy S_in^T (for dc and dL) and db += diag(exp(L_Q - L) dt) x G^T
+// (warp w: 32 rows, 32 columns of N).  x/dy, G and S_in of the next heads are
+// copied (cp.async, zero-filled) into a ring of four slots while the current
+// head computes: a slot is refilled as soon as its last reader is done.
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_grad_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const float* __restrict__ bm,
@@ -630,306 +922,372 @@ ssd_grad_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 float* __restrict__ da_part, int H, int S, int P, int N, int Q, int nc,
                 int vec) {
   extern __shared__ __align__(16) float smem[];
-  float* sC = smem + GradLayout::c;
+  float* ring = smem + GradLayout::ring;
   float* sB = smem + GradLayout::b;
-  float* sCB = smem + GradLayout::cb;
-  float* sA = smem + GradLayout::att;
-  float* sW = smem + GradLayout::wm;
-  float* sX = smem + GradLayout::x;
-  float* sDY = smem + GradLayout::dy;
-  float* sS = smem + GradLayout::s;
-  float* sG = smem + GradLayout::g;
-  float* sL = smem + GradLayout::vecs;  // L
-  float* sDt = sL + kGQ;                // dt
-  float* sE = sDt + kGQ;                // exp(L)
-  float* sEt = sE + kGQ;                // exp(L_Q - L)
-  float* sRow = sEt + kGQ;              // sum_t M_st
-  float* sInter = sRow + kGQ;           // exp(L_s) (C_s^T S_in) . dy_s
-  float* sR = sInter + kGQ;             // R_t
-  float* sDdt = sR + kGQ;               // x_t . g_t
-  float* sCol = smem + GradLayout::colpart;
-  float* sRed = smem + GradLayout::red;
+  float* sC = smem + GradLayout::c;
+  float* sAt = smem + GradLayout::at;
+  float* rowp = smem + GradLayout::rowp;
+  float* colp = smem + GradLayout::colp;
+  float* xgp = smem + GradLayout::xgp;
+  float* rp = smem + GradLayout::rp;
+  float* ip = smem + GradLayout::ip;
+  float* red = smem + GradLayout::red;
+  float* last = smem + GradLayout::last;
 
   const int c = blockIdx.x % nc, bi = blockIdx.x / nc;
   const size_t t0 = (size_t)c * Q;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int np4 = round_up(N, 4), pp4 = round_up(P, 4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
 
-  load_tile(sC, kMaxN, kGQ, cm + ((size_t)bi * S + t0) * N, Q, N, vec);
-  load_tile(sB, kMaxN, kGQ, bm + ((size_t)bi * S + t0) * N, Q, N, vec);
-  __syncthreads();
-  {  // C B^T, shared by the heads
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int n = 0; n < np4; n += 4) {
-      float4 cv[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) cv[i] = ld4(sC + sw4(ty + 16 * i, n, kMaxN));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = ld4(sB + sw4(tx + 16 * j, n, kMaxN));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = dot4(cv[i], bv[j], acc[i][j]);
+  // a head's vectors (index h mod 3): L, dt, exp(L), exp(L_Q - L), dL without
+  // the last step's extra terms, and x . g
+  auto vecs = [&](int h) { return smem + GradLayout::vec + (h % 3) * 6 * kGQ; };
+  // a head's copies: x and dy into a slot with L and dt into its vectors, or
+  // S_in / G into a slot
+  auto load_xdy = [&](int h, int slot) {
+    const size_t row0 = ((size_t)bi * H + h) * S + t0;
+    float* dst = ring + slot * kSlot;
+    copy_rows(dst, x + row0 * P, Q, P, kGQ, vec);
+    copy_rows(dst + kGQ * kLd, dy + row0 * P, Q, P, kGQ, vec);
+    float* v = vecs(h);
+    if (tid < kGQ)
+      cp_async4z(v + tid, lcum + row0 + (tid < Q ? tid : 0), tid < Q ? 4 : 0);
+    else if (tid < 2 * kGQ)
+      cp_async4z(v + tid, dt + row0 + (tid - kGQ < Q ? tid - kGQ : 0), tid - kGQ < Q ? 4 : 0);
+  };
+  auto load_state = [&](const float* src, int h, int slot) {
+    copy_rows(ring + slot * kSlot, src + (((size_t)bi * H + h) * nc + c) * N * P, N, P,
+              kMaxN, vec);
+  };
+  auto exps = [&](int h) {  // exp(L) and exp(L_Q - L), by the first 64 threads
+    float* v = vecs(h);
+    if (tid < kGQ) {
+      v[2 * kGQ + tid] = tid < Q ? expf(v[tid]) : 0.0f;
+      v[3 * kGQ + tid] = tid < Q ? expf(v[Q - 1] - v[tid]) : 0.0f;
     }
+  };
+  // Slots of the current head's x/dy, G and S_in and of the next head's x/dy;
+  // a slot is refilled as soon as its last reader is done.  cp.async groups
+  // are committed in the order the heads wait for them: at the top of head h,
+  // G_h, S_h and x/dy_{h+1} are in flight.
+  int sx = 0, sg = 1, ss = 2, sn = 3;
+  copy_bc(sB, bm + ((size_t)bi * S + t0) * N, Q, N, vec);
+  copy_bc(sC, cm + ((size_t)bi * S + t0) * N, Q, N, vec);
+  load_xdy(0, sx);
+  cp_async_commit();
+  load_state(g_st, 0, sg);
+  cp_async_commit();
+  load_state(s_in, 0, ss);
+  cp_async_commit();
+  if (H > 1) load_xdy(1, sn);
+  cp_async_commit();
+  cp_async_wait<3>();  // B, C, x/dy_0
+  __syncthreads();
+  exps(0);
+
+  // this warp's triangle tiles: w, w + 8, w + 16 (< kTiles)
+  int ti[3], tj[3];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < 3; ++m) tile_ij(min(warp + 8 * m, kTiles - 1), ti[m], tj[m]);
+  // C B^T on them, kept in registers as (t, s): B_t . C_s
+  float cbt[3][4], wsum[3][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sCB[(ty + 16 * i) * kLdQ + tx + 16 * j] = acc[i][j];
+  for (int m = 0; m < 3; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cbt[m][e] = wsum[m][e] = 0.0f;
+    if (warp + 8 * m >= kTiles) continue;
+#pragma unroll 4
+    for (int k0 = 0; k0 < kMaxN; k0 += 8) {
+      Frag af[4], bf[2];
+      frag_a_perm(af, sB, kMaxN, 16 * ti[m], k0);
+      frag_b_perm_nk_swz(bf, sC, kMaxN, 8 * tj[m], k0);
+      mma3(cbt[m], af, bf);
+    }
   }
 
-  float db_acc[4][8], dc_acc[4][8];
+  float db_acc[2][4][4], dc_acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) db_acc[i][j] = dc_acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) db_acc[i][j][e] = dc_acc[i][j][e] = 0.0f;
+  const int rbase = (warp & 1) * 32, nbase = (warp >> 1) * 32;  // V, db, dc tiles
+  const int quarter = warp >> 1;                                // g's 16 columns
+  const int strip_a = warp & 1, strip_b = 3 - strip_a;          // g's t strips
 
   for (int h = 0; h < H; ++h) {
-    __syncthreads();  // C B^T is written; the previous head's reads are done
     const long long bh = (long long)bi * H + h;
     const size_t row0 = (size_t)bh * S + t0;
-    const size_t st0 = ((size_t)bh * nc + c) * N * P;
-    load_tile(sX, kMaxP, kGQ, x + row0 * P, Q, P, vec);
-    load_tile(sDY, kMaxP, kGQ, dy + row0 * P, Q, P, vec);
-    load_tile(sS, kMaxP, kMaxN, s_in + st0, N, P, vec);
-    load_tile(sG, kMaxP, kMaxN, g_st + st0, N, P, vec);
-    if (tid < kGQ) {
-      sL[tid] = tid < Q ? lcum[row0 + tid] : 0.0f;
-      sDt[tid] = tid < Q ? dt[row0 + tid] : 0.0f;
-    }
-    __syncthreads();
-    if (tid < kGQ) {
-      sE[tid] = tid < Q ? expf(sL[tid]) : 0.0f;
-      sEt[tid] = tid < Q ? expf(sL[Q - 1] - sL[tid]) : 0.0f;
-    }
+    float* sX = ring + sx * kSlot;
+    float* sDY = sX + kGQ * kLd;
+    float* sG = ring + sg * kSlot;
+    float* sS = ring + ss * kSlot;
+    float* sL = vecs(h);
+    float* sDt = sL + kGQ;
+    float* sE = sDt + kGQ;
+    float* sEt = sE + kGQ;
+    float* sDL = sEt + kGQ;
+    float* sXG = sDL + kGQ;
 
-    {  // 1. D = dy x^T, then A, W and M's row and column sums
-      float acc[4][4];
+    {  // 1. D^T = x dy^T on the triangle: A^T, W into the head sum, M's sums.
+       // The warp's tiles in one loop and the hi.hi and the lo terms in two
+       // accumulators: six independent MMA chains.
+      float acc[3][4], accx[3][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < 3; ++m)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-      for (int p = 0; p < pp4; p += 4) {
-        float4 dv[4], xv[4];
+        for (int e = 0; e < 4; ++e) acc[m][e] = accx[m][e] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = ld4(sDY + sw4(ty + 16 * i, p, kMaxP));
+      for (int k0 = 0; k0 < kMaxP; k0 += 8) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) xv[j] = ld4(sX + sw4(tx + 16 * j, p, kMaxP));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = dot4(dv[i], xv[j], acc[i][j]);
+        for (int m = 0; m < 3; ++m) {
+          if (warp + 8 * m >= kTiles) continue;
+          Frag af[4], bf[2];
+          frag_a_std(af, sX, kLd, 16 * ti[m], k0);
+          frag_b_std_nk(bf, sDY, kLd, 8 * tj[m], k0);
+          mma3x(acc[m], accx[m], af, bf);
+        }
       }
-      float row[4] = {0.f, 0.f, 0.f, 0.f}, col[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = ty + 16 * i;
-        const float ls = sL[s];
+      for (int m = 0; m < 3; ++m) {
+        if (warp + 8 * m >= kTiles) continue;
+        float at[4], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = tx + 16 * j;
+        for (int e = 0; e < 4; ++e) {
+          const int t = 16 * ti[m] + g + 8 * (e >> 1), s = 8 * tj[m] + 2 * tg + (e & 1);
           const bool ok = s < Q && t <= s;
-          const float dec = expf(ok ? ls - sL[t] : -1e30f);  // a select, not a branch
-          const float wv = dec * sDt[t] * acc[i][j];
-          const float cb = sCB[s * kLdQ + t];
-          sA[s * kLdQ + t] = cb * dec;
-          sW[s * kLdQ + t] = wv;
-          const float m = cb * wv;
-          row[i] += m;
-          col[j] += m;
+          const float dec = expf(ok ? sL[s] - sL[t] : -1e30f);  // a select, not a branch
+          const float w = dec * sDt[t] * (acc[m][e] + accx[m][e]);
+          const float mv = cbt[m][e] * w;
+          wsum[m][e] += w;
+          at[e] = cbt[m][e] * dec;
+          rsum[e >> 1] += mv;
+          csum[e & 1] += mv;
+        }
+        const int t = 16 * ti[m] + g, s = 8 * tj[m] + 2 * tg;
+        *reinterpret_cast<float2*>(sAt + swz(t, s, kGQ)) = make_float2(at[0], at[1]);
+        *reinterpret_cast<float2*>(sAt + swz(t + 8, s, kGQ)) = make_float2(at[2], at[3]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // rows t over this tile's 8 columns
+          float v = rsum[r];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (tg == 0) rowp[tj[m] * kGQ + t + 8 * r] = v;
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // columns s over this tile's 16 rows
+          float v = csum[q];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) colp[ti[m] * kGQ + s + q] = v;
         }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = half_warp_sum(row[i]);
-        if (tx == 0) sRow[ty + 16 * i] = v;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sCol[ty * kGQ + tx + 16 * j] = col[j];
     }
+    cp_async_wait<2>();  // G_h
     __syncthreads();
 
-    {  // 2. g = A^T dy + exp(L_Q - L) G^T B; dx, x . g and R
-      float gi[4][4], gs[4][4];
+    {  // 2. g = A^T dy + exp(L_Q - L) B G; dx, x . g and x . (B G).  A^T dy's
+       // eight steps (s >= t: strip i takes blocks kb >= 2 i) ride in B G's
+       // sixteen, whose lo terms have their own accumulators.
+      float gi[2][2][4], bg[2][2][4], bgx[2][2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int u = 0; u < 2; ++u)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) gi[i][j] = gs[i][j] = 0.0f;
-      for (int s = 0; s < Q; ++s) {
-        const float4 d4 = ld4(sDY + sw4(s, tx * 4, kMaxP));
+        for (int v = 0; v < 2; ++v)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = sA[s * kLdQ + ty + 16 * i];
-          gi[i][0] = fmaf(av, d4.x, gi[i][0]);
-          gi[i][1] = fmaf(av, d4.y, gi[i][1]);
-          gi[i][2] = fmaf(av, d4.z, gi[i][2]);
-          gi[i][3] = fmaf(av, d4.w, gi[i][3]);
+          for (int e = 0; e < 4; ++e) gi[u][v][e] = bg[u][v][e] = bgx[u][v][e] = 0.0f;
+#pragma unroll
+      for (int kb = 0; kb < kMaxN / 8; ++kb) {
+        {
+          Frag bf[2][2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v)
+            frag_b_perm_kn(bf[v], sG, kLd, 8 * kb, 16 * quarter + 8 * v);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            Frag af[4];
+            frag_a_perm(af, sB, kMaxN, 16 * (u ? strip_b : strip_a), 8 * kb);
+#pragma unroll
+            for (int v = 0; v < 2; ++v) mma3x(bg[u][v], bgx[u][v], af, bf[v]);
+          }
         }
-      }
-      for (int n = 0; n < np4; n += 4) {
-        float4 bv[4], gv[4];
+        if (kb < kGQ / 8) {
+          Frag bf[2][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) bv[i] = ld4(sB + sw4(ty + 16 * i, n, kMaxN));
+          for (int v = 0; v < 2; ++v)
+            frag_b_perm_kn(bf[v], sDY, kLd, 8 * kb, 16 * quarter + 8 * v);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) gv[u] = ld4(sG + sw4(n + u, tx * 4, kMaxP));
+          for (int u = 0; u < 2; ++u) {
+            const int strip = u ? strip_b : strip_a;
+            if (kb < 2 * strip) continue;
+            Frag af[4];
+            frag_a_perm(af, sAt, kGQ, 16 * strip, 8 * kb);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float br[4] = {bv[i].x, bv[i].y, bv[i].z, bv[i].w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            gs[i][0] = fmaf(br[u], gv[u].x, gs[i][0]);
-            gs[i][1] = fmaf(br[u], gv[u].y, gs[i][1]);
-            gs[i][2] = fmaf(br[u], gv[u].z, gs[i][2]);
-            gs[i][3] = fmaf(br[u], gv[u].w, gs[i][3]);
+            for (int v = 0; v < 2; ++v) mma3(gi[u][v], af, bf[v]);
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        const float4 x4 = ld4(sX + sw4(t, tx * 4, kMaxP));
-        const float et = sEt[t], dtt = sDt[t];
-        float g[4];
+      for (int u = 0; u < 2; ++u) {
+        const int strip = u ? strip_b : strip_a;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) g[j] = fmaf(et, gs[i][j], gi[i][j]);
-        if (t < Q && tx * 4 < P) {
-          float* out = dx + (row0 + t) * P + tx * 4;
-          if (vec) {
-            *reinterpret_cast<float4*>(out) =
-                make_float4(dtt * g[0], dtt * g[1], dtt * g[2], dtt * g[3]);
-          } else {
+        for (int r = 0; r < 2; ++r) {
+          const int t = 16 * strip + g + 8 * r;
+          const float et = sEt[t], dtt = sDt[t];
+          float xg = 0.0f, xr = 0.0f;
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (tx * 4 + j < P) out[j] = dtt * g[j];
+          for (int v = 0; v < 2; ++v) {
+            const int p = 16 * quarter + 8 * v + 2 * tg;
+            const float2 xv = *reinterpret_cast<const float2*>(sX + t * kLd + p);
+            const float b0 = bg[u][v][2 * r] + bgx[u][v][2 * r];
+            const float b1 = bg[u][v][2 * r + 1] + bgx[u][v][2 * r + 1];
+            const float g0 = fmaf(et, b0, gi[u][v][2 * r]);
+            const float g1 = fmaf(et, b1, gi[u][v][2 * r + 1]);
+            xg = fmaf(xv.x, g0, fmaf(xv.y, g1, xg));
+            xr = fmaf(xv.x, b0, fmaf(xv.y, b1, xr));
+            if (t < Q && p < P) {
+              float* out = dx + (row0 + t) * P + p;
+              if (vec) {  // P % 4 == 0: p + 1 < P too
+                *reinterpret_cast<float2*>(out) = make_float2(dtt * g0, dtt * g1);
+              } else {
+                out[0] = dtt * g0;
+                if (p + 1 < P) out[1] = dtt * g1;
+              }
+            }
           }
-        }
-        const float4 gv = make_float4(g[0], g[1], g[2], g[3]);
-        const float4 sv = make_float4(gs[i][0], gs[i][1], gs[i][2], gs[i][3]);
-        const float xg = half_warp_sum(dot4(x4, gv, 0.0f));
-        const float xr = half_warp_sum(dot4(x4, sv, 0.0f));
-        if (tx == 0) {
-          sDdt[t] = xg;
-          sR[t] = et * dtt * xr;
-        }
-      }
-    }
-    {  // C S_in . dy, for dL
-      float cs[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cs[i][j] = 0.0f;
-      for (int n = 0; n < np4; n += 4) {
-        float4 cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = ld4(sC + sw4(ty + 16 * i, n, kMaxN));
-#pragma unroll
-        for (int u = 0; u < 4; ++u) sv[u] = ld4(sS + sw4(n + u, tx * 4, kMaxP));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float cr[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            cs[i][0] = fmaf(cr[u], sv[u].x, cs[i][0]);
-            cs[i][1] = fmaf(cr[u], sv[u].y, cs[i][1]);
-            cs[i][2] = fmaf(cr[u], sv[u].z, cs[i][2]);
-            cs[i][3] = fmaf(cr[u], sv[u].w, cs[i][3]);
+          xg += __shfl_xor_sync(0xffffffffu, xg, 1);
+          xg += __shfl_xor_sync(0xffffffffu, xg, 2);
+          xr += __shfl_xor_sync(0xffffffffu, xr, 1);
+          xr += __shfl_xor_sync(0xffffffffu, xr, 2);
+          if (tg == 0) {
+            xgp[quarter * kGQ + t] = xg;
+            rp[quarter * kGQ + t] = xr;
           }
         }
       }
+    }
+    cp_async_wait<1>();  // S_h
+    __syncthreads();
+
+    {  // 3. V = dy S_in^T: dc += diag(exp(L)) V, C . V for dL; <S_in, G>
+      float vacc[2][4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = ty + 16 * i;
-        const float4 d4 = ld4(sDY + sw4(s, tx * 4, kMaxP));
-        const float v =
-            half_warp_sum(dot4(d4, make_float4(cs[i][0], cs[i][1], cs[i][2], cs[i][3]), 0.0f));
-        if (tx == 0) sInter[s] = sE[s] * v;
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vacc[i][j][e] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < kMaxP; k0 += 8) {
+        Frag af[2][4], bf[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) frag_a_std(af[i], sDY, kLd, rbase + 16 * i, k0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) frag_b_std_nk(bf[j], sS, kLd, nbase + 8 * j, k0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma3(vacc[i][j], af[i], bf[j]);
       }
-    }
-    // 3. db += W^T C + diag(exp(L_Q - L) dt) x G^T: rows t, columns n = tx + 16j
-    for (int s = 0; s < Q; ++s) {
-      float wv[4], cv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = sW[s * kLdQ + ty + 16 * i];
+      for (int i = 0; i < 2; ++i) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) cv[j] = sC[sw4(s, tx + 16 * j, kMaxN)];
+        for (int r = 0; r < 2; ++r) {
+          const int s = rbase + 16 * i + g + 8 * r;
+          const float es = sE[s];
+          float iv = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) db_acc[i][j] = fmaf(wv[i], cv[j], db_acc[i][j]);
-    }
-    {
-      float wt[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wt[i] = sEt[ty + 16 * i] * sDt[ty + 16 * i];
-      for (int p = 0; p < pp4; p += 4) {
-        float4 xv[4], gv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = scale4(ld4(sX + sw4(ty + 16 * i, p, kMaxP)), wt[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) gv[j] = ld4(sG + sw4(tx + 16 * j, p, kMaxP));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) db_acc[i][j] = dot4(xv[i], gv[j], db_acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            const float2 cv =
+                *reinterpret_cast<const float2*>(sC + swz(s, nbase + 8 * j + 2 * tg, kMaxN));
+            const float v0 = vacc[i][j][2 * r], v1 = vacc[i][j][2 * r + 1];
+            iv = fmaf(cv.x, v0, fmaf(cv.y, v1, iv));
+            dc_acc[i][j][2 * r] = fmaf(es, v0, dc_acc[i][j][2 * r]);
+            dc_acc[i][j][2 * r + 1] = fmaf(es, v1, dc_acc[i][j][2 * r + 1]);
+          }
+          iv += __shfl_xor_sync(0xffffffffu, iv, 1);
+          iv += __shfl_xor_sync(0xffffffffu, iv, 2);
+          if (tg == 0) ip[quarter * kGQ + s] = iv;
+        }
       }
-    }
-    // dc += W B + diag(exp(L)) dy S_in^T: rows s, columns n = tx + 16j
-    for (int t = 0; t < Q; ++t) {
-      float wv[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = sW[(ty + 16 * i) * kLdQ + t];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sB[sw4(t, tx + 16 * j, kMaxN)];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dc_acc[i][j] = fmaf(wv[i], bv[j], dc_acc[i][j]);
-    }
-    {
-      float e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) e[i] = sE[ty + 16 * i];
-      for (int p = 0; p < pp4; p += 4) {
-        float4 dv[4], sv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = scale4(ld4(sDY + sw4(ty + 16 * i, p, kMaxP)), e[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sv[j] = ld4(sS + sw4(tx + 16 * j, p, kMaxP));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) dc_acc[i][j] = dot4(dv[i], sv[j], dc_acc[i][j]);
+      float v = 0.0f;  // both tiles zero past N and P
+      for (int i = tid; i < kMaxN * (kMaxP / 4); i += kThreads) {
+        const int n = i / (kMaxP / 4), p = (i % (kMaxP / 4)) * 4;
+        const float4 sv = *reinterpret_cast<const float4*>(sS + n * kLd + p);
+        const float4 gv = *reinterpret_cast<const float4*>(sG + n * kLd + p);
+        v = fmaf(sv.w, gv.w, fmaf(sv.z, gv.z, fmaf(sv.y, gv.y, fmaf(sv.x, gv.x, v))));
       }
-    }
-    {  // <S_in, G>: both tiles share one layout, zero past N and P
-      float v = 0.0f;
-      for (int i = tid * 4; i < kMaxN * kMaxP; i += kThreads * 4)
-        v = dot4(ld4(sS + i), ld4(sG + i), v);
       v = warp_sum(v);
-      if (lane == 0) sRed[warp] = v;
+      if (lane == 0) red[warp] = v;
     }
-    __syncthreads();
+    __syncthreads();  // S_in is read: its slot takes the next head's G
+    if (h + 1 < H) load_state(g_st, h + 1, ss);
+    cp_async_commit();
 
-    if (warp == 0) {  // 4. dL, its suffix sums over the chunk, ddt and da's share
-      float ssg = 0.0f;
+    if (tid < kGQ) {  // dL_u without the last step's extra terms, and x . g
+      const int u = tid, strip = u >> 4;
+      float colsum = 0.0f, rowsum = 0.0f, inter = 0.0f, rsum = 0.0f, xgs = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kThreads / 32; ++k) ssg += sRed[k];
-      const float r_sum = warp_sum(sR[lane] + sR[lane + 32]);
+      for (int i = 0; i < 4; ++i)
+        if (i <= strip) colsum += colp[i * kGQ + u];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j >= 2 * strip) rowsum += rowp[j * kGQ + u];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        inter += ip[q * kGQ + u];
+        rsum += rp[q * kGQ + u];
+        xgs += xgp[q * kGQ + u];
+      }
+      const float r = sEt[u] * sDt[u] * rsum;  // R_u
+      sDL[u] = colsum - rowsum + sE[u] * inter - r;
+      sXG[u] = xgs;
+      const float r_sum = warp_sum(r);  // the last step's extra: sum_t R_t
+      if (lane == 0) last[warp] = r_sum;
+      if (tid == 0) {  // and exp(L_Q) <S_in, G>
+        float ssg = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kThreads / 32; ++k) ssg += red[k];
+        last[2] = sE[Q - 1] * ssg;
+      }
+    }
+
+    // 4. db += diag(exp(L_Q - L) dt) x G^T
+#pragma unroll
+    for (int k0 = 0; k0 < kMaxP; k0 += 8) {
+      Frag af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = rbase + 16 * i + g;
+        frag_a_std(af[i], sX, kLd, rbase + 16 * i, k0, sEt[t] * sDt[t],
+                   sEt[t + 8] * sDt[t + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) frag_b_std_nk(bf[j], sG, kLd, nbase + 8 * j, k0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma3(db_acc[i][j], af[i], bf[j]);
+    }
+    cp_async_wait<1>();  // x/dy, L and dt of the next head
+    __syncthreads();  // x, dy and G are read: their slots take the next copies
+    if (h + 1 < H) load_state(s_in, h + 1, sx);
+    cp_async_commit();
+    if (h + 2 < H) load_xdy(h + 2, sg);
+    cp_async_commit();
+    if (h + 1 < H) exps(h + 1);
+
+    // 5. dL's suffix sums over the chunk, ddt and da's share, by the last
+    // warp (two triangle tiles), while the others start the next head
+    if (warp == kThreads / 32 - 1) {
+      const float extra = last[0] + last[1] + last[2];
       float dl[2];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        const int t = lane * 2 + k;
-        float colsum = 0.0f;
-#pragma unroll
-        for (int y = 0; y < 16; ++y) colsum += sCol[y * kGQ + t];
-        float v = sRow[t] - colsum + sInter[t] - sR[t];
-        if (t == Q - 1) v += r_sum + sE[Q - 1] * ssg;
-        dl[k] = t < Q ? v : 0.0f;
+        const int u = lane * 2 + k;
+        dl[k] = u < Q ? sDL[u] + (u == Q - 1 ? extra : 0.0f) : 0.0f;
       }
       const float own = dl[0] + dl[1];
       float incl = own;  // sum over lanes >= lane
@@ -943,29 +1301,86 @@ ssd_grad_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const float ah = a[h];
       float share = 0.0f;
       if (lane * 2 < Q) {
-        ddt[row0 + lane * 2] = fmaf(ah, rc0, sDdt[lane * 2]);
+        ddt[row0 + lane * 2] = fmaf(ah, rc0, sXG[lane * 2]);
         share = sDt[lane * 2] * rc0;
       }
       if (lane * 2 + 1 < Q) {
-        ddt[row0 + lane * 2 + 1] = fmaf(ah, rc1, sDdt[lane * 2 + 1]);
+        ddt[row0 + lane * 2 + 1] = fmaf(ah, rc1, sXG[lane * 2 + 1]);
         share = fmaf(sDt[lane * 2 + 1], rc1, share);
       }
       share = warp_sum(share);
       if (lane == 0) da_part[bh * nc + c] = share;
     }
+    const int nx = sn, ng = ss, ns = sx, nn = sg;
+    sx = nx, sg = ng, ss = ns, sn = nn;
   }
 
+  // 6. The head sums: db += W^T C and dc += W B, W = sum_h W_h, from two
+  // tiles of the free ring (W^T rows t, W rows s; entries past the triangle's
+  // tiles are never read)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sWt = ring;
+  float* sW = ring + kSlot;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = ty + 16 * i;
-    if (t >= Q) continue;
-    const size_t r = ((size_t)bi * S + t0 + t) * N;
+  for (int m = 0; m < 3; ++m) {
+    const int k = warp + 8 * m;
+    if (k >= kTiles) break;
+    int ti, tj;
+    tile_ij(k, ti, tj);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      if (n < N) {
-        db[r + n] = db_acc[i][j];
-        dc[r + n] = dc_acc[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int t = 16 * ti + g + 8 * (e >> 1), s = 8 * tj + 2 * tg + (e & 1);
+      sWt[t * kLd + s] = wsum[m][e];
+      sW[s * kLd + t] = wsum[m][e];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int kb = 0; kb < 8; ++kb) {
+    Frag bc[4][2], bb[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      frag_b_std_kn_swz(bc[j], sC, kMaxN, 8 * kb, nbase + 8 * j);
+      frag_b_std_kn_swz(bb[j], sB, kMaxN, 8 * kb, nbase + 8 * j);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int strip = (rbase >> 4) + i;
+      if (kb >= 2 * strip) {  // db_t: s >= t
+        Frag af[4];
+        frag_a_std(af, sWt, kLd, 16 * strip, 8 * kb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma3(db_acc[i][j], af, bc[j]);
+      }
+      if (kb <= 2 * strip + 1) {  // dc_s: t <= s
+        Frag af[4];
+        frag_a_std(af, sW, kLd, 16 * strip, 8 * kb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma3(dc_acc[i][j], af, bb[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = rbase + 16 * i + g + 8 * r;
+      if (t >= Q) continue;
+      const size_t row = ((size_t)bi * S + t0 + t) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = nbase + 8 * j + 2 * tg;
+        const float b0 = db_acc[i][j][2 * r], b1 = db_acc[i][j][2 * r + 1];
+        const float c0 = dc_acc[i][j][2 * r], c1 = dc_acc[i][j][2 * r + 1];
+        if (n >= N) continue;
+        if (vec) {  // N % 4 == 0: n + 1 < N too
+          *reinterpret_cast<float2*>(db + row + n) = make_float2(b0, b1);
+          *reinterpret_cast<float2*>(dc + row + n) = make_float2(c0, c1);
+        } else {
+          db[row + n] = b0, dc[row + n] = c0;
+          if (n + 1 < N) db[row + n + 1] = b1, dc[row + n + 1] = c1;
+        }
       }
     }
   }
@@ -1017,7 +1432,7 @@ int ssd_chunk(const void* x, const void* dt, const void* a, const void* b, const
   const size_t smem_out = sizeof(float) * OutLayout(Q, N, P).total;
   if (smem_state > (size_t)kSmemMax || smem_out > (size_t)kSmemMax)
     return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = opt_in((const void*)ssd_state_kernel<false>, smem_state);
+  cudaError_t err = opt_in((const void*)ssd_state_kernel, smem_state);
   if (err == cudaSuccess) err = opt_in((const void*)ssd_out_kernel, smem_out);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1037,7 +1452,7 @@ int ssd_chunk(const void* x, const void* dt, const void* a, const void* b, const
   ssd_scan_kernel<<<dim3((unsigned)n_scan), kThreads, 0, st>>>(
       dtf, static_cast<const float*>(a), lcum, w, decay, nullptr, H, S, Q, nc, n_warps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_state_kernel<false><<<dim3((unsigned)n_state), kStateThreads, smem_state, st>>>(
+  ssd_state_kernel<<<dim3((unsigned)n_state), kStateThreads, smem_state, st>>>(
       xf, bf, w, decay, sf, H, S, P, N, Q, nc, n_tiles, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_out_kernel<<<dim3((unsigned)n_out), kThreads, smem_out, st>>>(
@@ -1051,9 +1466,9 @@ int ssd_chunk(const void* x, const void* dt, const void* a, const void* b, const
 // The entry recomputes the forward's scan and states: scan is scratch of
 // B * H * (3 S + S / Q) floats (L, w, exp(L), the decays), s_in and g_st of
 // B * H * (S / Q) * N * P each (the states entering each chunk, and G, the
-// gradient of the state leaving it), da_part of B * H * (S / Q).  Five
-// launches in order on the stream: the scan, the forward state walk, the
-// reverse one, the gradient kernel and da's reduction.
+// gradient of the state leaving it), da_part of B * H * (S / Q).  Four
+// launches in order on the stream: the scan, both state walks (one launch),
+// the gradient kernel and da's reduction.
 int ssd_chunk_bwd(const void* x, const void* dt, const void* a, const void* b, const void* c,
                   const void* dy, void* dx, void* ddt, void* da, void* db, void* dc,
                   void* s_in, void* g_st, void* scan, void* da_part, int B, int H, int S,
@@ -1066,19 +1481,18 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* a, const void* b, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if ((long long)B * S > 0) {
-    const int n_tiles = (N + kNT - 1) / kNT;
+    const int n_tiles = (N + kWalkRows - 1) / kWalkRows;
     const long long n_warps = (long long)B * H * nc;
     const long long n_scan = (n_warps + kThreads / 32 - 1) / (kThreads / 32);
     const long long n_state = (long long)B * H * n_tiles;
     const long long n_grad = (long long)B * nc;
-    if (n_scan > 2147483647LL || n_state > 2147483647LL || n_grad > 2147483647LL)
+    if (n_scan > 2147483647LL || 2 * n_state > 2147483647LL || n_grad > 2147483647LL)
       return (int)cudaErrorInvalidConfiguration;
-    const size_t smem_state = sizeof(float) * 2 * state_stage_floats(Q, P);
+    const size_t smem_walk = sizeof(float) * 2 * kWalkStage;
     const size_t smem_grad = sizeof(float) * GradLayout::total;
-    if (smem_state > (size_t)kSmemMax || smem_grad > (size_t)kSmemMax)
+    if (smem_walk > (size_t)kSmemMax || smem_grad > (size_t)kSmemMax)
       return (int)cudaErrorInvalidConfiguration;
-    err = opt_in((const void*)ssd_state_kernel<false>, smem_state);
-    if (err == cudaSuccess) err = opt_in((const void*)ssd_state_kernel<true>, smem_state);
+    err = opt_in((const void*)ssd_walks_kernel, smem_walk);
     if (err == cudaSuccess) err = opt_in((const void*)ssd_grad_kernel, smem_grad);
     if (err != cudaSuccess) return (int)err;
     const float* xf = static_cast<const float*>(x);
@@ -1096,7 +1510,8 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* a, const void* b, c
     const uintptr_t ptrs =
         reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(b) |
         reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(dy) |
-        reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(s_in) |
+        reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(db) |
+        reinterpret_cast<uintptr_t>(dc) | reinterpret_cast<uintptr_t>(s_in) |
         reinterpret_cast<uintptr_t>(g_st) | reinterpret_cast<uintptr_t>(w) |
         reinterpret_cast<uintptr_t>(ez);
     const int vec = N % 4 == 0 && P % 4 == 0 && Q % 4 == 0 && ptrs % 16 == 0;
@@ -1104,11 +1519,8 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* a, const void* b, c
     ssd_scan_kernel<<<dim3((unsigned)n_scan), kThreads, 0, st>>>(dtf, af, lcum, w, decay, ez,
                                                                  H, S, Q, nc, n_warps);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    ssd_state_kernel<false><<<dim3((unsigned)n_state), kStateThreads, smem_state, st>>>(
-        xf, bf, w, decay, sf, H, S, P, N, Q, nc, n_tiles, vec);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    ssd_state_kernel<true><<<dim3((unsigned)n_state), kStateThreads, smem_state, st>>>(
-        dyf, cf, ez, decay, gf, H, S, P, N, Q, nc, n_tiles, vec);
+    ssd_walks_kernel<<<dim3((unsigned)(2 * n_state)), kThreads, smem_walk, st>>>(
+        xf, bf, w, dyf, cf, ez, decay, sf, gf, H, S, P, N, Q, nc, n_tiles, (int)n_state, vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     ssd_grad_kernel<<<dim3((unsigned)n_grad), kThreads, smem_grad, st>>>(
         xf, dtf, af, bf, cf, dyf, lcum, sf, gf, static_cast<float*>(dx),

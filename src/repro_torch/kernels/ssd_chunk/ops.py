@@ -28,6 +28,22 @@ gradient, as autograd straight through ``ssd_chunk_ref`` would; it goes
 through the Function so that the CPU tests exercise what training runs on
 the card (its routing, what it saves, how often each remat mode runs it).
 
+The backward entry (four launches: the scan, both state walks in one
+launch, the gradient kernel, da's sum) runs every product on the tensor
+cores in 3xTF32: each float32 operand splits into a TF32 part rounded to
+nearest and the rest, and three TF32 products stand for one, within ~1e-6
+of float32 (TF32 alone would break the gradient's 1e-4 chunk invariance).
+At mamba2-130m's training shape the gradient's 42.5 GFLOP bound it at 0.26
+ms as 3xTF32 on the tensor cores, its route (0.63 ms on the CUDA cores); on
+the card the gradient kernel is bound by the instructions around its MMAs
+and the walks by the round trip of the states through scratch.  The gradient kernel is one CTA per (b,
+chunk) over every head: each head's x, dy, S_in and G arrive by cp.async
+into a ring of four shared-memory slots while earlier heads compute; it
+takes only the causal tiles of each chunk's Q x Q products, forms the dL
+term C·(S_in dy) from the dy·S_inᵀ that dc needs, and takes the head sums
+of db's Wᵀ·C and dc's W·B once a chunk (B and C are one group).  No
+atomics: two calls give the same bits.
+
 The forward saves only its inputs: the backward entry recomputes the decays
 and the states entering each chunk rather than keep the forward's.  Those
 states are B·H·(S/Q)·N·P floats, 201 MB a layer at mamba2-130m's training

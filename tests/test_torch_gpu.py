@@ -558,7 +558,9 @@ def _ssd_bwd_check(got, want):
     (2, 2, 256, 64, 128, 128),   # chunks of 128: the backward walks 64
     (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
     (2, 2, 4096, 64, 128, 128),  # 32 chunks of 128
-    (1, 2, 37, 30, 18, 37)])     # Q, N, P not multiples of 4: scalar copies
+    (1, 2, 37, 30, 18, 37),      # Q, N, P not multiples of 4: scalar copies
+    (1, 5, 256, 64, 128, 64),    # an odd head count: the copy ring's slots rotate unevenly
+    (1, 2, 256, 64, 128, 16)])   # chunks of 16: a single MMA row tile
 def test_ssd_chunk_backward_matches_plain(gen, b, h, s, p, n, chunk):
     args = _ssd_inputs(gen, b, h, s, p, n)
     dy = torch.randn((b, h, s, p), generator=gen, device="cuda")
