@@ -176,6 +176,27 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    forward and backward, the RG-LRU scan forward and backward, counted), in
    each run the flash backward's device time a step against the step's
    time.
+14. Sharding on one card: the fleet over F21, F1 and F17 (7 routing epochs
+   each) unsharded and dealt over ``fleet_mesh([dev] * D)`` for D = 2 and 4
+   (``repro_torch.parallel.sharding.shard_leading``: the round-robin deal,
+   one host thread and stream a shard, the inverse permutation), each job's
+   splits, u*, PDHG iterations, gaps and metrics held to the unsharded run
+   bit for bit, one launch of each fleet kernel a bucket; mamba2-130m at full
+   size through ``Trainer`` on ``make_host_mesh()`` over a one-rank NCCL
+   process group (the FSDP step) for 3 steps, its losses bit-equal to
+   ``mesh=None``'s.
+
+The multi-card entry, ``phase_multicard()``, is not part of ``main()``; it
+runs on every visible card (four on a host with four H100s):
+
+    python3 -c "import sys; sys.path.insert(0, 'src'); import chip_smoke as cs; \
+        cs.phase_card(); cs.phase_build(); cs.phase_multicard()"
+
+the 22-fabric ``run_fleet`` on one card and dealt over all of them; and
+mamba2-130m at full size and llama3-8b at full width (2 layers) trained with
+FSDP, one process a card, against one card on the same global batches, with
+a checkpoint written on four ranks restored on one, a restart and a remesh to
+two ranks.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -1812,7 +1833,7 @@ def fleet_config(days: float = 8.0, interval_minutes: float = 5.0,
     return jobs
 
 
-def _agree_fleet(job, fl, off):
+def _agree_fleet(job, fl, off, label: str = "fleet vs per-fabric engine"):
     """A fleet job's result against the per-fabric batched engine's on the
     same trace and config: equal counts, final topology and metric shapes;
     p999 summaries rel ``FLEET_TOL`` (abs 1e-6) and transit fraction abs
@@ -1828,7 +1849,7 @@ def _agree_fleet(job, fl, off):
     same_iters = {k: int(np.sum(np.asarray(v.iters)
                                 == np.asarray(off.solver_stats.stages[k].iters)))
                   for k, v in fl.solver_stats.stages.items()}
-    log(f"  {name} ({job.fabric.n_pods} pods) fleet vs per-fabric engine: "
+    log(f"  {name} ({job.fabric.n_pods} pods) {label}: "
         f"n_routing {fl.n_routing_updates} / {off.n_routing_updates}, "
         f"per-epoch u* worst rel diff {u_rel:.3e}, transit fraction diff "
         f"{tf:.3e}, p999 rel diffs {rel}; epochs with equal PDHG iterations "
@@ -3337,6 +3358,538 @@ def phase_audio_train(device, smi: str = ""):
     return train_counts, out
 
 
+# ---- phase 14: sharding on one card; the multi-card entry --------------------
+
+# phase 14's fleet: F21, F1 and F17 over 3 routing epochs each (a 7 3/96-day
+# trace at 5-minute TMs), so the 12-pod bucket (6 elements) takes the
+# round-robin deal at D = 4, the 8-pod one (3) at D = 2 and 4.  Its PDHG
+# stages stop at their first check (100 iterations): the check is the
+# deal's, and D shards on one card issue D times the launches of one (the
+# phase took 116.8 s over 7 epochs uncapped on one H100, PERF.md)
+DEAL_DAYS = 7.0 + 3.0 / 96.0
+DEAL_SPECS = (20, 0, 16)
+DEAL_SHARDS = (2, 4)
+DEAL_MAX_ITERS = 100
+MESH_STEPS = 3  # training steps of phase 14's one-rank mesh and the multi-card runs
+# the multi-card training runs: (arch, layers kept (None = all), global batch
+# (one sequence a card on four), sequence)
+MULTI_TRAIN = (("mamba2-130m", None, 4, 4096), ("llama3-8b", 2, 4, 2048))
+# four ranks against one card on the same global batch.  float32 (TF32 off,
+# AdamW eps 1e-3, lr 1e-3): the card-vs-CPU train-step contract of
+# tests/test_torch_gpu.py, losses at 1e-5 relative.  bf16 (the models' own
+# dtype, phase 13's AdamW): the ranks' GEMMs run at a quarter of the rows and
+# the gradients are averaged in float32 after the backward instead of
+# summed inside it, so the bits of every bf16 rounding can move; Adam (eps
+# 1e-8) can turn an entry whose gradient is within that rounding of zero to
+# the other sign.  The bound is one bf16 rounding step of the loss, 2^-8
+# relative (the reduced configs on the CPU moved by at most 3.9e-4 in three
+# steps)
+MULTI_F32_REL, MULTI_BF16_REL = 1e-5, 2.0 ** -8
+
+
+def _fleet_run(jobs, device, mesh):
+    """``run_fleet`` once with the fleet kernels' counters zeroed around it:
+    (results, wall seconds, launches, buckets)."""
+    import torch  # noqa: F401
+
+    from repro_torch.core import run_fleet
+    from repro_torch.core.fleet import fleet_bucket_key
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.queueloss import ops as qlops
+
+    n_buckets = len({fleet_bucket_key(j.fabric, j.cc, j.sc, j.trace) for j in jobs})
+    synchronize(device)
+    llops.fleet_launches = qlops.fleet_launches = 0
+    t0 = time.perf_counter()
+    res = run_fleet(jobs, mesh=mesh, device=device)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = {"linkload": llops.fleet_launches, "queueloss": qlops.fleet_launches}
+    if counts != {"linkload": n_buckets, "queueloss": n_buckets}:
+        fail(f"fleet (mesh {mesh}): expected one launch of each fleet kernel per "
+             f"bucket ({n_buckets}), got {counts}")
+    return res, wall, counts, n_buckets
+
+
+def _stage_sums(results) -> dict:
+    return {k: round(sum(r.stage_times[k] for r in results), 3)
+            for k in ("plan", "solve", "anchor", "score")}
+
+
+def _check_sharded_fleet(label, jobs, base, got) -> bool:
+    """Each job's sharded result against the unsharded one: splits, u*, the
+    per-stage PDHG iterations and gaps and every interval metric bit for
+    bit; where a bit moved, the fleet contract (``FLEET_TOL``,
+    ``_agree_fleet``) and the differences logged.  Returns bit-equality."""
+    import numpy as np
+
+    diffs = {}
+    for j, a, b in zip(jobs, base, got):
+        d = {"splits": float(np.max(np.abs(a.splits - b.splits))),
+             "u_star": float(np.max(np.abs(a.u_star - b.u_star)))}
+        d["iters"] = sum(int(np.sum(np.asarray(st.iters)
+                                    != np.asarray(b.solver_stats.stages[k].iters)))
+                         for k, st in a.solver_stats.stages.items())
+        d["gaps"] = all(np.array_equal(np.asarray(st.gaps),
+                                       np.asarray(b.solver_stats.stages[k].gaps),
+                                       equal_nan=True)
+                        for k, st in a.solver_stats.stages.items())
+        d["metrics"] = all(np.array_equal(getattr(a.metrics, m), getattr(b.metrics, m))
+                           for m in METRICS)
+        if d["splits"] or d["u_star"] or d["iters"] or not d["gaps"] or not d["metrics"]:
+            diffs[j.fabric.name] = d
+    exact = not diffs
+    log(f"  {label}: {len(jobs)} jobs, splits, u*, PDHG iterations and gaps and "
+        f"interval metrics bit-equal to the unsharded run: {exact}"
+        + ("" if exact else f"; differences {diffs}"))
+    if not exact:  # a library op's bits at another batch size: the fleet contract
+        for j, a, b in zip(jobs, base, got):
+            _agree_fleet(j, b, a, label=f"{label} vs unsharded")
+    return exact
+
+
+def phase_sharding(device, smi: str = ""):
+    """Phase 14 on one card: (a) the fleet over F21, F1 and F17 unsharded,
+    then dealt over ``fleet_mesh([dev] * D)`` for D = 2 and 4 (D shards on
+    the one card, each on its own host thread and stream): the deal, the
+    per-shard solves and the inverse permutation held to the unsharded run,
+    bit for bit (or, where a library op's bits move with the batch size, the
+    fleet contract), and exactly one launch of each fleet kernel a bucket;
+    (b) mamba2-130m at full size through ``Trainer`` for ``MESH_STEPS`` steps
+    with ``mesh=None`` and on ``make_host_mesh()`` over a one-rank NCCL
+    process group (the FSDP step: gathers, reduce-scatters and the sharded
+    update, each the identity on one rank): the losses bit-equal, the SSD
+    launches exact.  Returns the numbers."""
+    import shutil
+    import tempfile
+
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.launch.train import _free_port
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.sharding import fleet_mesh
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    out = {}
+    jobs = fleet_config(days=DEAL_DAYS, spec_indices=DEAL_SPECS,
+                        pdhg_max_iters=DEAL_MAX_ITERS)
+    base, wall, counts, n_buckets = _fleet_run(jobs, device, None)
+    sizes = sorted({j.fabric.n_pods for j in jobs})
+    log(f"phase 14: fleet of {[j.fabric.name for j in jobs]} ({sizes} pods), "
+        f"{[r.n_routing_updates for r in base]} routing epochs, {n_buckets} buckets: "
+        f"unsharded {wall:.3f} s, stages {_stage_sums(base)}; launches {counts}")
+    out["fleet"] = {"unsharded_s": wall}
+    for d in DEAL_SHARDS:
+        got, wall, counts, _ = _fleet_run(jobs, device, fleet_mesh([device] * d))
+        log(f"phase 14: the same fleet dealt over fleet_mesh([{device}] * {d}): "
+            f"{wall:.3f} s, stages {_stage_sums(got)}; launches {counts}")
+        out["fleet"][f"D{d}"] = {"s": wall, "bit_equal": _check_sharded_fleet(
+            f"D = {d} on one card", jobs, base, got)}
+
+    arch, _, b, s = TRAIN_SSM
+    cfg = get_arch(arch)
+    model = build_model(cfg, device)
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def train(mesh):
+        ckdir = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+        try:
+            tr = Trainer(model, AdamW(lr=3e-4, warmup_steps=1), mesh, data,
+                         StepConfig(remat=True),
+                         TrainerConfig(total_steps=MESH_STEPS, checkpoint_every=10 ** 9),
+                         ckdir)
+            tr._save = lambda *a: None  # phase 13 and the multi-card entry save
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sdops.launches = sdops.bwd_launches = 0
+            run = tr.run(resume=False)
+            return (run["losses"], run["stats"]["step_times"],
+                    {"ssd": sdops.launches, "ssd_bwd": sdops.bwd_launches},
+                    torch.cuda.max_memory_allocated())
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+
+    want, t_none, _, _ = train(None)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        losses, times, counts, peak = train(mesh)
+    finally:
+        dist.destroy_process_group()
+    expect = {"ssd": 2 * cfg.n_layers * MESH_STEPS, "ssd_bwd": cfg.n_layers * MESH_STEPS}
+    equal = losses == want
+    log(f"phase 14: {cfg.name} (B={b}, S={s}) through Trainer on {mesh} (one NCCL "
+        f"rank): losses {losses}, bit-equal to mesh=None's {want}: {equal}; step times "
+        f"{[round(t, 4) for t in times]} s against {[round(t, 4) for t in t_none]} s; "
+        f"launches {counts} (expected {expect}); peak device memory {peak} B ({smi})")
+    if not equal:
+        fail(f"{cfg.name}: the one-rank mesh's losses differ from mesh=None's")
+    if counts != expect:
+        fail(f"{cfg.name} on the one-rank mesh: launches {counts}, expected {expect}")
+    out["mesh_train"] = {"losses": losses, "step_times_s": times, "launches": counts,
+                         "peak_bytes": peak}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_cfg(arch, n_layers, dtype):
+    """``arch``'s config (a ``-reduced`` suffix: its reduced one, for CPU
+    rehearsals) with ``n_layers`` layers and ``dtype`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    base = arch.removesuffix("-reduced")
+    cfg = get_arch(base) if base == arch else get_arch(base).reduced()
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    if dtype is not None:
+        over["dtype"] = dtype
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def _state_digest(params, opt_state) -> str:
+    """SHA-256 of every leaf's bytes (parameters, step, moments), in order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.optim import tree as tree_util
+
+    h = hashlib.sha256()
+    leaves = (tree_util.leaves(params) + [opt_state.step] + tree_util.leaves(opt_state.mu)
+              + tree_util.leaves(opt_state.nu))
+    for x in leaves:
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _global_batch(cfg, b, s, step, world, device):
+    """The global batch of ``step`` whose rank ``r`` slice the pipeline hands
+    rank ``r`` of ``world``: the ranks' slices one after another."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, n_hosts=world)
+    parts = [SyntheticLM(dataclasses.replace(dc, host_id=h)).batch_at(step)
+             for h in range(world)]
+    return {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(
+        device=device, dtype=torch.int64) for k in parts[0]}
+
+
+def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, extras,
+                    device_type="cuda"):
+    """One rank of a multi-card training run (``run_ranks``): ``MESH_STEPS``
+    steps through ``Trainer`` on ``make_host_mesh()``.  With ``extras``: the
+    step-2 and step-3 checkpoints in ``ckdir`` (gathered, the first rank
+    writes), the logical state's digest, a restart from step 2, and a remesh
+    to ranks 0 and 1 with one step there."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = _train_cfg(arch, n_layers, dtype)
+    model = build_model(cfg, dev)
+    mesh = make_host_mesh()
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+
+    def trainer():
+        tr = Trainer(model, AdamW(**opt_kw), mesh, data, StepConfig(remat=True),
+                     TrainerConfig(total_steps=MESH_STEPS, checkpoint_every=2), ckdir)
+        if not extras:
+            tr._save = lambda *a: None
+        return tr
+
+    def counts():
+        return {"flash_fwd": faops.launches, "flash_bwd": faops.bwd_launches,
+                "ssd": sdops.launches, "ssd_bwd": sdops.bwd_launches}
+
+    faops.launches = faops.bwd_launches = sdops.launches = sdops.bwd_launches = 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = trainer()
+    run = tr.run(resume=False)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    shard_bytes = sum(x.numel() * x.element_size() for x in
+                      tree_util.leaves(run["params"]) + tree_util.leaves(run["opt_state"].mu)
+                      + tree_util.leaves(run["opt_state"].nu))
+    out = {"losses": run["losses"], "step_times": run["stats"]["step_times"],
+           "peak_bytes": peak, "shard_bytes": shard_bytes, "launches": counts()}
+    if not extras:
+        return out
+    import pathlib
+
+    ckdir = pathlib.Path(ckdir)
+    p, o = tr.logical(run["params"], run["opt_state"])
+    out["digest"] = _state_digest(p, o)
+    out["logical_bytes"] = sum(x.numel() * x.element_size() for x in
+                               tree_util.leaves(p) + tree_util.leaves(o.mu)
+                               + tree_util.leaves(o.nu))
+    del p, o
+    # restart from step 2: the uninterrupted run's step-3 checkpoint moves
+    # aside (kept for the one-card restore), the restart writes its own
+    if rank == 0:
+        (ckdir / "kept").mkdir()
+        shutil.move(str(ckdir / f"step_{MESH_STEPS:08d}"), str(ckdir / "kept"))
+    dist.barrier()
+    again = trainer().run(resume=True)
+    out["restart_losses"] = again["losses"]
+    del again
+    # elastic downsizing: ranks 0 and 1 take over the live state
+    sub = make_host_mesh(ranks=[0, 1])
+    p2, o2 = tr.remesh(sub, run["params"], run["opt_state"])
+    out["remesh_events"] = tr.stats["remesh_events"]
+    if p2 is not None:
+        lp, lo = tr.logical(p2, o2)
+        out["remesh_digest"] = _state_digest(lp, lo)
+        del lp, lo
+        batch = tr._device_batch(SyntheticLM(tr.data_config()).batch_at(MESH_STEPS))
+        _, _, m = tr._step_fn(p2, o2, batch)
+        out["remesh_step_loss"] = float(m["loss"])
+    return out
+
+
+def _one_card_run(arch, n_layers, b, s, dtype, opt_kw, world, device):
+    """The multi-card run's steps on one card, unsharded, on the same global
+    batches: (losses, step times, peak bytes, launches)."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = _train_cfg(arch, n_layers, dtype)
+        model = build_model(cfg, device)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(0)
+        opt = AdamW(**opt_kw)
+        state = opt.init(params)
+        step = make_train_step(model, opt, StepConfig(remat=True))
+        faops.launches = faops.bwd_launches = sdops.launches = sdops.bwd_launches = 0
+        losses, times = [], []
+        for i in range(MESH_STEPS):
+            batch = _global_batch(cfg, b, s, i, world, device)
+            synchronize(device)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = {"flash_fwd": faops.launches, "flash_bwd": faops.bwd_launches,
+                    "ssd": sdops.launches, "ssd_bwd": sdops.bwd_launches}
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        del params, state, model
+        if cuda:
+            torch.cuda.empty_cache()
+        return losses, times, peak, launches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _restore_digest(arch, n_layers, dtype, opt_kw, ckdir, device) -> str:
+    """The digest of the checkpoint in ``ckdir`` restored on one card."""
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, AdamWState
+
+    model = build_model(_train_cfg(arch, n_layers, dtype), device)
+    params = model.init(0)
+    state, _ = CheckpointManager(ckdir).restore(
+        {"params": params, "opt": AdamW(**opt_kw).init(params)._asdict()})
+    tree = state["params"]
+    digest = _state_digest({"p": tree}, AdamWState(**state["opt"]))
+    del params, state, tree
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return digest
+
+
+def multicard_fleet(dev, n: int, smi: str = "") -> dict:
+    """The multi-card entry's fleet: ``run_fleet`` over all 22 fabrics
+    unsharded on one card, then dealt over ``n`` (``mesh="auto"`` on CUDA:
+    every visible card), both timed with their stages, each job held as in
+    phase 14."""
+    from repro_torch.parallel.sharding import fleet_mesh
+
+    jobs = fleet_config()
+    one, wall1, counts1, n_buckets = _fleet_run(jobs, dev, None)
+    many, walln, countsn, _ = _fleet_run(
+        jobs, dev, "auto" if dev.type == "cuda" else fleet_mesh([dev] * n))
+    log(f"multicard: run_fleet over {len(jobs)} fabrics ({n_buckets} buckets, "
+        f"{sum(r.n_routing_updates for r in one)} PDHG elements): one card "
+        f"{wall1:.3f} s, stages {_stage_sums(one)}; {n} cards (mesh='auto') "
+        f"{walln:.3f} s, stages {_stage_sums(many)}; cut {1 - walln / wall1:.4f}; "
+        f"launches {counts1} / {countsn} ({smi})")
+    return {"one_card_s": wall1, "cards_s": walln,
+            "one_card_stages": _stage_sums(one), "cards_stages": _stage_sums(many),
+            "bit_equal": _check_sharded_fleet(f"{n} cards", jobs, one, many)}
+
+
+def phase_multicard(smi: str | None = None, device_type: str = "cuda",
+                    backend: str = "nccl", world: int | None = None):
+    """The multi-card entry (every visible card, four on a host with four
+    H100s; not part of ``main()``): (1) ``run_fleet`` over all 22
+    fabrics unsharded on one card, then with ``mesh="auto"`` (the warm PDHG
+    stages dealt over every card), both sweeps timed with their stages, each
+    job held as in phase 14; (2) mamba2-130m at full size and llama3-8b at
+    full width (phase 13's depth cut), one sequence a card, ``MESH_STEPS``
+    steps through ``Trainer`` on ``make_host_mesh()`` (FSDP over NCCL, one
+    process a card), each in float32 (TF32 off; losses within
+    ``MULTI_F32_REL`` of one card's on the same global batches) and in the
+    models' bf16 (within ``MULTI_BF16_REL``; step time, tokens/s, each card's
+    peak memory and the bytes of its shards); mamba2's bf16 run also writes
+    gathered checkpoints, restores the 4-rank one on one card (its digest
+    bit-equal to the logical state's), restarts from step 2 (losses
+    bit-equal) and remeshes to two ranks (the logical state bit-equal, one
+    step there).  A CPU rehearsal passes ``device_type="cpu"``,
+    ``backend="gloo"`` and ``world`` (with the configurations shrunk)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import run_ranks
+
+    n = torch.cuda.device_count() if device_type == "cuda" else world
+    if n is None or n < 2:
+        fail(f"the multi-card entry needs several cards, sees {n}")
+    if smi is None:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device(device_type)
+    out = {}
+    t_start = time.perf_counter()
+
+    out["fleet"] = multicard_fleet(dev, n, smi)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs = [(arch, layers, b, s, "float32", dict(lr=1e-3, warmup_steps=1, eps=1e-3),
+             MULTI_F32_REL) for arch, layers, b, s in MULTI_TRAIN]
+    runs += [(arch, layers, b, s, None, dict(lr=3e-4, warmup_steps=1), MULTI_BF16_REL)
+             for arch, layers, b, s in MULTI_TRAIN]
+    for arch, layers, b, s, dtype, opt_kw, rel in runs:
+        label = f"{arch}{'' if layers is None else f' ({layers} layers)'} " \
+                f"{dtype or 'bf16'}"
+        extras = arch.startswith("mamba2-130m") and dtype is None
+        ckdir = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            t0 = time.perf_counter()
+            ranks = run_ranks(_multicard_rank, n, arch, layers, b, s, dtype, opt_kw,
+                              ckdir, extras, device_type, backend=backend, timeout=900)
+            t_ranks = time.perf_counter() - t0
+            want, t_one, peak_one, launch_one = _one_card_run(
+                arch, layers, b, s, dtype, opt_kw, n, dev)
+            losses = ranks[0]["losses"]
+            worst = max(abs(a - w) / abs(w) for a, w in zip(losses, want))
+            step_n = float(np.median(ranks[0]["step_times"][1:]))
+            step_1 = float(np.median(t_one[1:]))
+            log(f"multicard: {label}, B={b} (one sequence a card on {n}), S={s}, "
+                f"{MESH_STEPS} steps ({t_ranks:.1f} s with the ranks' start): losses "
+                f"{losses} on {n} ranks (all ranks equal "
+                f"{all(r['losses'] == losses for r in ranks)}) vs {want} on one card: "
+                f"worst rel diff {worst:.3e} (bound {rel:.3e}); step {step_n * 1e3:.1f} ms "
+                f"({b * s / step_n:.1f} tokens/s) vs {step_1 * 1e3:.1f} ms "
+                f"({b * s / step_1:.1f} tokens/s); peak memory per card "
+                f"{[r['peak_bytes'] for r in ranks]} B vs {peak_one} B; shard bytes "
+                f"(parameters + moments) per card {[r['shard_bytes'] for r in ranks]}; "
+                f"launches per card {[r['launches'] for r in ranks]} vs one card "
+                f"{launch_one} ({smi})")
+            if not all(r["losses"] == losses for r in ranks):
+                fail(f"{label}: the ranks report different losses")
+            if not (np.isfinite(losses).all() and worst <= rel):
+                fail(f"{label}: {n} ranks' losses {losses} vs one card's {want}")
+            if any(r["launches"] != launch_one for r in ranks):
+                fail(f"{label}: launches per card {[r['launches'] for r in ranks]} "
+                     f"differ from one card's {launch_one}")
+            out[label] = {"losses": losses, "one_card_losses": want, "worst_rel": worst,
+                          "step_ms": step_n * 1e3, "one_card_step_ms": step_1 * 1e3,
+                          "tokens_per_s": b * s / step_n,
+                          "one_card_tokens_per_s": b * s / step_1,
+                          "peak_bytes": [r["peak_bytes"] for r in ranks],
+                          "one_card_peak_bytes": peak_one,
+                          "shard_bytes": [r["shard_bytes"] for r in ranks],
+                          "launches": ranks[0]["launches"]}
+            if extras:
+                r0 = ranks[0]
+                restored = _restore_digest(arch, layers, dtype, opt_kw,
+                                           pathlib.Path(ckdir) / "kept", dev)
+                again = r0["restart_losses"]
+                log(f"multicard: {label}: logical state (parameters + moments) "
+                    f"{r0['logical_bytes']} B, per card {r0['shard_bytes']} B "
+                    f"(share {r0['shard_bytes'] / r0['logical_bytes']:.4f}); the "
+                    f"{n}-rank step-{MESH_STEPS} checkpoint restored on one card "
+                    f"bit-equal {restored == r0['digest']}; restart from step 2 losses "
+                    f"{again} vs {losses[2:]}: bit-equal {again == losses[2:]}; "
+                    f"remesh {n} -> 2 ranks: logical state bit-equal "
+                    f"{[r.get('remesh_digest') == r0['digest'] for r in ranks[:2]]}, "
+                    f"events {[r['remesh_events'] for r in ranks]}, one step there: "
+                    f"loss {[r.get('remesh_step_loss') for r in ranks[:2]]}")
+                if restored != r0["digest"]:
+                    fail(f"{label}: the {n}-rank checkpoint restored on one card differs")
+                if again != losses[2:]:
+                    fail(f"{label}: the restart's losses differ")
+                if any(r.get("remesh_digest") != r0["digest"] for r in ranks[:2]) or \
+                        not all(np.isfinite(r["remesh_step_loss"]) for r in ranks[:2]) or \
+                        ranks[0]["remesh_step_loss"] != ranks[1]["remesh_step_loss"]:
+                    fail(f"{label}: remesh to two ranks lost state or its step failed")
+                out[label].update(restore_bit_equal=True, restart_bit_equal=True,
+                                  remesh_loss=ranks[0]["remesh_step_loss"])
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"multicard: total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"multicard": out}, default=float))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3390,6 +3943,8 @@ def main() -> int:
     mark("families")
     train_counts, _ = phase_audio_train(dev, smi)
     mark("audio_train")
+    phase_sharding(dev, smi)
+    mark("sharding")
     for key in rows:
         rows[key]["launches"] = counts[key]
         rows[key]["launches_transition_phase"] = transition_counts[key]

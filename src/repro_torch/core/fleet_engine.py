@@ -30,9 +30,10 @@ job's controller sweep in three fleet-wide phases:
    :func:`repro_torch.failures.evaluate_plan`.
 
 Jobs whose ``solver_backend`` is not ``"pdhg"`` go through the per-fabric
-:func:`repro_torch.core.engine.execute_plan`.  The port runs on one device:
-sharding the batch over several cards (the reference's ``mesh``) comes with
-a later slice, and asking for it raises ``NotImplementedError``.
+:func:`repro_torch.core.engine.execute_plan`.  When more than one card is
+visible (or a mesh is passed) the bucket's warm PDHG stages are dealt
+round-robin over :func:`repro_torch.parallel.sharding.fleet_mesh`, one host
+thread per card; the anchors and the scoring stay on the first card.
 """
 
 from __future__ import annotations
@@ -74,22 +75,20 @@ class FleetJob:
     sc: SolverConfig | None = None
 
 
-def _check_mesh(mesh, dev: torch.device) -> None:
-    """The port runs unsharded on one device: ``mesh=None``, or ``"auto"``
-    with at most one card visible.  Anything else raises."""
-    if mesh is None:
-        return
+def _resolve_mesh(mesh, dev: torch.device):
+    """``None`` never shards; ``"auto"`` shards over :func:`fleet_mesh` when
+    ``dev`` is CUDA and more than one card is visible; a mesh is used as
+    given."""
+    if mesh is not None and mesh != "auto" and getattr(mesh, "devices", None) is None:
+        raise TypeError(f"run_fleet(mesh={mesh!r}): pass None, 'auto' or a mesh "
+                        "of devices (repro_torch.parallel.sharding.fleet_mesh)")
     if mesh != "auto":
-        raise NotImplementedError(
-            "run_fleet(mesh=...): sharding the fleet batch over several "
-            "cards lands in a later slice of the port (ROADMAP 2.3: "
-            "multi-card fleet sharding, parallel/sharding.py)")
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"run_fleet(mesh='auto') sees {torch.cuda.device_count()} CUDA "
-            "devices; sharding over several cards lands in a later slice of "
-            "the port (ROADMAP 2.3: multi-card fleet sharding, "
-            "parallel/sharding.py) — pass mesh=None to run on one")
+        return mesh  # None (unsharded) or an explicit Mesh
+    if dev.type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    from repro_torch.parallel.sharding import fleet_mesh
+
+    return fleet_mesh()
 
 
 def _bucket_fabric(vp: int) -> Fabric:
@@ -120,9 +119,11 @@ def run_fleet(jobs, *, pod_quantum: int = 4, mesh="auto", device=None) -> list:
         ``(fabric, trace, strategy, cc, sc)`` tuples).
       pod_quantum: bucket quantum for :func:`repro_torch.core.fleet.pad_pods`
         — larger values mean fewer buckets but more V³ padding waste.
-      mesh: ``"auto"`` or ``None`` run unsharded on ``device``; sharding over
-        several cards (an explicit mesh, or ``"auto"`` with several CUDA
-        devices visible) raises ``NotImplementedError``.
+      mesh: ``"auto"`` (shard over :func:`fleet_mesh` when ``device`` is
+        CUDA and more than one card is visible), ``None`` (never shard), or
+        an explicit 1-D mesh (``fleet_mesh(devices)``; ``[dev] * D`` deals
+        D shards on one card).  Each element's PDHG result is the unsharded
+        call's.
       device: where the plan's k-means, the PDHG solves and the scoring run.
 
     Returns a list of :class:`~repro_torch.core.controller.ControllerResult`,
@@ -133,7 +134,7 @@ def run_fleet(jobs, *, pod_quantum: int = 4, mesh="auto", device=None) -> list:
     from repro_torch.core.controller import ControllerConfig
 
     dev = resolve_device(device)
-    _check_mesh(mesh, dev)
+    mesh = _resolve_mesh(mesh, dev)
     resolved = []
     for j in jobs:
         if not isinstance(j, FleetJob):
@@ -156,11 +157,11 @@ def run_fleet(jobs, *, pod_quantum: int = 4, mesh="auto", device=None) -> list:
             results[i] = execute_plan(j.fabric, j.trace, j.strategy, cc, sc,
                                       arts[i], device=dev)
     for key, idxs in buckets.items():
-        _run_bucket(key, idxs, resolved, arts, results, dev)
+        _run_bucket(key, idxs, resolved, arts, results, dev, mesh)
     return results
 
 
-def _run_bucket(key, idxs, resolved, arts, results, dev):
+def _run_bucket(key, idxs, resolved, arts, results, dev, mesh=None):
     """Phases 2–3 for one bucket: fleet-wide PDHG batch + fused scoring."""
     from repro_torch.core.controller import ControllerResult
 
@@ -202,7 +203,7 @@ def _run_bucket(key, idxs, resolved, arts, results, dev):
         out = solver.solve_routing_fleet(
             tms_all, caps_all, np.concatenate(valid_n),
             np.asarray(anchor_elems), np.asarray(anchor_of), hedging=hedging,
-            deltas=deltas_all, skip_stage3=skip_stage3)
+            deltas=deltas_all, skip_stage3=skip_stage3, mesh=mesh)
     solve_s = t_solve.seconds
     # non-finite guard: any element whose PDHG output came back NaN/Inf is
     # re-solved via scipy directly in the padded layout (padded commodities

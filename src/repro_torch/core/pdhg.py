@@ -34,6 +34,12 @@ free capacity.  The reference pads the fleet batch to a quantum for jit-shape
 stability; nothing here is compiled per shape, so the port does not pad, and
 each element's result does not depend on the batch it is solved in.
 
+With a ``mesh`` (:func:`repro_torch.parallel.sharding.fleet_mesh`) the
+fleet path deals each warm stage's batch round-robin over the mesh's cards
+(:func:`repro_torch.parallel.sharding.shard_leading` with ``repack=True``,
+one host thread per card), on one replica of the solver's constant tensors
+per card; the anchors solve unsharded on the solver's device.
+
 Matmuls run in full float32: the solver refuses to start with TF32 matmuls
 enabled (about 1e-3 relative error, above the certificate's tolerance).
 ``precision="bf16"`` is the reference's mixed-precision inner loop: the load
@@ -46,6 +52,7 @@ and returned utilization use the exact float32 pair (``_util_f32``,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -56,6 +63,7 @@ from repro_torch import obs
 from repro_torch.core.graph import Fabric, directed_edge_index
 from repro_torch.core.paths import PathSet, build_paths
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.parallel.sharding import host_sync_point
 
 __all__ = ["RoutingWarmState", "TorchRoutingSolver", "project_simplex_rows"]
 
@@ -250,6 +258,44 @@ class TorchRoutingSolver:
                                        device=dev)  # [j != k] on (..., j, k)
         self._len3 = torch.as_tensor(np.where(kk == jj, 1.0, 2.0),
                                      dtype=torch.float32, device=dev)
+        self._replicas = {dev: self}  # device -> solver with constants there
+        self._fleet_fns_cache: dict = {}  # mesh fingerprint -> sharded stages
+
+    # ---- replicas and sharded stages (the fleet path over a mesh) -----------
+
+    def _replica(self, device: torch.device) -> "TorchRoutingSolver":
+        """This solver with its constant tensors on ``device`` (made once)."""
+        _refuse_tf32()
+        if device not in self._replicas:
+            rep = copy.copy(self)
+            rep.device = device
+            rep.valid = self.valid.to(device)
+            rep.mask_kj = self.mask_kj.to(device)
+            rep._len3 = self._len3.to(device)
+            self._replicas[device] = rep
+        return self._replicas[device]
+
+    def _fleet_fns(self, mesh):
+        """The three warm stages, each dealt over ``mesh`` by
+        ``shard_leading(..., repack=True)`` and run on the replica of the
+        shard's device; cached per mesh fingerprint."""
+        key = None if mesh is None else (mesh.axis_names, tuple(mesh.devices))
+        if key not in self._fleet_fns_cache:
+            names = ("_mlu_core", "_risk_core", "_stretch_core")
+
+            def on_shard(name):
+                return lambda *args: getattr(self._replica(args[0].device), name)(*args)
+
+            if mesh is None:
+                fns = {n: getattr(self, n) for n in names}
+            else:
+                from repro_torch.parallel.sharding import shard_leading
+
+                for dev in mesh.devices:  # replicas before the threads start
+                    self._replica(dev)
+                fns = {n: shard_leading(on_shard(n), mesh, repack=True) for n in names}
+            self._fleet_fns_cache[key] = fns
+        return self._fleet_fns_cache[key]
 
     # ---- dense conversions ---------------------------------------------------
 
@@ -410,6 +456,7 @@ class TorchRoutingSolver:
                 last = torch.where(active, obj, last)
                 gap = torch.where(active, rel, gap)
                 active = active & ~ok
+                host_sync_point()  # a dealt shard hands the host on here
                 n_active = int(active.sum())  # the one host sync per check
                 if n_active == 0:
                     break
@@ -619,7 +666,7 @@ class TorchRoutingSolver:
                             valids: np.ndarray, anchor_elems: np.ndarray,
                             anchor_of: np.ndarray, hedging: bool,
                             deltas: np.ndarray | None = None,
-                            skip_stage3: bool = False):
+                            skip_stage3: bool = False, mesh=None):
         """Stages 1 → [2] → 3 for the routing epochs of *many fabrics* at once.
 
         The flattened batch concatenates every fabric's epochs; element ``i``
@@ -636,21 +683,35 @@ class TorchRoutingSolver:
           anchor_elems: (F,) element index of each fabric's anchor epoch.
           anchor_of: (N,) index into ``anchor_elems`` per element.
           hedging / deltas / skip_stage3: as :meth:`solve_routing_batch`.
+          mesh: optional 1-D mesh
+            (:func:`repro_torch.parallel.sharding.fleet_mesh`) — deals every
+            warm stage's batch over its cards; each element's result is the
+            unsharded call's.
 
         Returns what :meth:`solve_routing_batch` returns, for the N elements;
         ``stats["anchor_seconds"]`` is the time of the F anchor solves.
         """
-        valids = torch.as_tensor(np.asarray(valids, bool), device=self.device)
+        # C order: numpy lays a concatenation of broadcast masks out batch
+        # innermost, and a sum's order follows the layout of its operands,
+        # so the batch-major copy keeps each element's bits independent of
+        # the batch it is solved in (and of the shard it is dealt to)
+        valids = torch.as_tensor(np.ascontiguousarray(valids, bool), device=self.device)
         return self._solve_anchored(tms, capacities, valids, anchor_elems,
-                                    anchor_of, hedging, deltas, skip_stage3)
+                                    anchor_of, hedging, deltas, skip_stage3, mesh)
 
     def _solve_anchored(self, tms, capacities, valids, anchor_elems, anchor_of,
-                        hedging, deltas, skip_stage3):
+                        hedging, deltas, skip_stage3, mesh=None):
         """The anchored pipeline shared by the batch and fleet paths: the
         anchors (``anchor_elems``) solve cold, each element starts every
-        stage from the iterates of its anchor (``anchor_of``)."""
+        stage from the iterates of its anchor (``anchor_of``); the warm
+        stages are dealt over ``mesh`` when one is given."""
         _refuse_tf32()
         dev = self.device
+        fns = self._fleet_fns(mesh)
+
+        def warm(name, *args):  # back on this device, whichever card ran it
+            return tuple(o.to(dev) for o in fns[name](*args))
+
         d3 = self._dense_tms(tms)
         ic = self._dense_inv_cap(capacities)
         n = d3.shape[0]
@@ -665,8 +726,8 @@ class TorchRoutingSolver:
             synchronize(dev)
         anchor_s += t.seconds
         with obs.span("pdhg.stage1", n=n):
-            f3, u, it1, _, gap1 = self._mlu_core(d3, ic, valids, f_a[ga],
-                                                 y_a[ga])
+            f3, u, it1, _, gap1 = warm("_mlu_core", d3, ic, valids, f_a[ga],
+                                       y_a[ga])
         u_budget = u * 1.005 + 1e-9
         stats = {"stage1": self._stage_stats(it1, gap1)}
         r_star = None
@@ -681,8 +742,9 @@ class TorchRoutingSolver:
                 synchronize(dev)
             anchor_s += t.seconds
             with obs.span("pdhg.stage2", n=n):
-                f3r, r, _, _, _, it2, gap2 = self._risk_core(
-                    d3, ic, valids, u_budget, dl, f2_a[ga], y2_a[ga], z2_a[ga])
+                f3r, r, _, _, _, it2, gap2 = warm(
+                    "_risk_core", d3, ic, valids, u_budget, dl, f2_a[ga],
+                    y2_a[ga], z2_a[ga])
             use = dl > 0
             f3 = torch.where(_bc(use, f3), f3r, f3)
             r_star = torch.where(use, r, math.inf)
@@ -704,8 +766,8 @@ class TorchRoutingSolver:
                 synchronize(dev)
             anchor_s += t.seconds
             with obs.span("pdhg.stage3", n=n):
-                f3, _, it3, gap3 = self._stretch_core(
-                    d3, ic, valids, u_budget, r_in, dl_in, f3, y3_a[ga])
+                f3, _, it3, gap3 = warm("_stretch_core", d3, ic, valids,
+                                        u_budget, r_in, dl_in, f3, y3_a[ga])
             stats["stage3"] = self._stage_stats(it3, gap3)
         f = self._flat_f(f3)
         out_r = None

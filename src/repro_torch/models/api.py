@@ -9,6 +9,10 @@ counterpart of ``repro/models/api.py``.
   init_cache(batch, max_seq)        -> per-layer decode state
   decode(params, cache, tok, pos)   -> (logits, cache)        [decode]
 
+and, for the sharding plan, ``param_shapes()`` (the parameters on the
+``meta`` device) and ``input_specs(shape)`` (a step's inputs as ``meta``
+tensors in the reference's layout).
+
 ``batch`` holds ``tokens`` (and ``labels`` to train), for the vlm family
 ``patches`` and for the audio family ``frames``; ``audio`` runs the
 encoder-decoder (:mod:`.encdec`), every other family the decoder-only model
@@ -24,6 +28,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.optim.tree import stacked
 
 __all__ = ["LONG_CONTEXT_OK", "Model", "build_model", "supports_cell"]
 
@@ -88,6 +94,50 @@ class Model:
             return encdec.decode_step(params, cache, token, pos, self.cfg)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
                                        ring=ring)
+
+    # ---- sharding-plan specs ------------------------------------------------
+    def param_shapes(self):
+        """The parameters (the ``init`` module) on the ``meta`` device: shapes
+        and dtypes, nothing allocated."""
+        meta = torch.device("meta")
+        if self.cfg.family == "audio":
+            return encdec.EncDecLM(self.cfg, encdec.init_params(None, self.cfg, meta))
+        return transformer.DecoderLM(self.cfg,
+                                     transformer.init_params(None, self.cfg, meta))
+
+    def input_specs(self, shape: ShapeConfig, cache_dtype=None,
+                    window_cache: bool = False) -> dict:
+        """Stand-ins (``meta`` tensors: shape and dtype) for the inputs of the
+        step the shape cell runs, with the reference's keys; a decode cell's
+        ``cache`` in the reference's layout (each layer group stacked along
+        a leading axis, :func:`repro_torch.optim.tree.stacked`)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        dt = dtype_of(cfg)
+
+        def meta(*sh, dtype=torch.int32):
+            return torch.empty(sh, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            label = shape.kind == "train"
+            if cfg.family == "audio":
+                out = {"frames": meta(b, s, cfg.d_model, dtype=dt), "tokens": meta(b, s)}
+            elif cfg.family == "vlm":
+                npatch = cfg.frontend_tokens
+                out = {"tokens": meta(b, s - npatch),
+                       "patches": meta(b, npatch, cfg.d_model, dtype=dt)}
+            else:
+                out = {"tokens": meta(b, s)}
+            if label:
+                out["labels"] = meta(*out["tokens"].shape)
+                if cfg.family == "vlm":  # the reference's key order
+                    out = {k: out[k] for k in ("tokens", "labels", "patches")}
+            return out
+        # decode: one token against a seq_len cache
+        spec_model = Model(cfg, torch.device("meta"))
+        cache = spec_model.init_cache(b, s, enc_len=s, dtype=cache_dtype,
+                                      window_cache=window_cache)
+        return {"token": meta(b, 1), "cache": stacked(cache)}
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:

@@ -63,10 +63,12 @@ class AdamW:
         return self.lr * warm * (self.min_lr_ratio + (1 - self.min_lr_ratio) * cos)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, sum_squares=None):
         """One step: (params, new state, {"grad_norm", "lr"}).  ``grads``
         mirrors ``params`` (a tree or a ``Params`` module); the parameters,
-        ``mu`` and ``nu`` are written in place."""
+        ``mu`` and ``nu`` are written in place.  ``sum_squares`` maps the
+        leaves' sums of squares to those of the whole gradient (FSDP: a
+        shard's partial sums added over the ranks); ``None`` keeps them."""
         ps = tree_util.leaves(params)
         gs = tree_util.leaves(grads)
         ms, vs = tree_util.leaves(state.mu), tree_util.leaves(state.nu)
@@ -74,7 +76,10 @@ class AdamW:
         if not len(ps) == len(gs) == len(ms) == len(vs):
             raise ValueError("AdamW.update: grads, params and state disagree")
         # global-norm clip
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        sq = [g.float().square().sum() for g in gs]
+        if sum_squares is not None:
+            sq = sum_squares(sq)
+        gnorm = torch.sqrt(sum(sq))
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
 
         step = state.step + 1

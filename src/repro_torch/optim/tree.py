@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["as_tree", "leaves", "unflatten", "stacked_ndims", "stacked", "unstacked"]
+__all__ = ["as_tree", "leaves", "leaves_of", "unflatten", "stacked_ndims", "stacked",
+           "unstacked"]
 
 
 def as_tree(t):
@@ -28,6 +29,16 @@ def leaves(tree) -> list:
         return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def leaves_of(tree) -> list:
+    """The leaves of a tree of dicts and lists whose leaves are any objects
+    (a tree of shardings), in :func:`leaves` order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves_of(v)]
     return [tree]
 
 

@@ -1,5 +1,5 @@
 """Fault-tolerant training runtime — the counterpart of
-``repro/runtime/trainer.py`` on one card.
+``repro/runtime/trainer.py``, on one card or on a mesh of them.
 
 Kept from the reference:
   * **checkpoint/restart** — periodic atomic checkpoints in the reference's
@@ -11,10 +11,18 @@ Kept from the reference:
     variance; a step slower than ``mean + straggler_sigma·std`` adds to a
     counter.
 
-``mesh`` keeps its place in the signature and takes only ``None``: sharding
-over several cards (and so ``remesh``) is the multi-card slice (ROADMAP
-2.3).  ``extract_traffic`` projects a compiled step's collectives through
-the HLO tools, a later slice too (ROADMAP 2.9.4).
+  * **elastic re-scaling** — ``remesh()`` rebuilds the step on a new mesh
+    (a sub-group of the ranks, say) and reshards the live state onto it
+    through its logical arrays.
+
+``mesh`` is ``None`` (one card, unsharded) or a mesh of ranks
+(:func:`repro_torch.launch.mesh.make_host_mesh`, one process per card):
+FSDP, each rank holding its shard of the parameters and of AdamW's moments
+(:func:`repro_torch.launch.steps.make_train_step`) and reading its slice of
+the global batch (the pipeline's host sharding, ``n_hosts``/``host_id`` =
+the mesh's size and this rank's place in it).  Checkpoints hold the logical
+state, so any mesh restores them.  ``extract_traffic`` projects a compiled
+step's collectives through the HLO tools, a later slice (ROADMAP 2.9.4).
 """
 
 from __future__ import annotations
@@ -28,10 +36,12 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import synchronize
-from repro_torch.launch.steps import StepConfig, make_train_step
+from repro_torch.launch.steps import StepConfig, make_train_step, module_like
 from repro_torch.models.api import Model
 from repro_torch.optim import tree as tree_util
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.parallel.sharding import (check_executable, gather_tensor,
+                                           param_shardings, shard_tensor, use_mesh)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -47,17 +57,9 @@ class TrainerConfig:
     n_pods: int = 1
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "Trainer: a device mesh (training over several cards) is a later "
-            "slice of the port (ROADMAP 2.3); pass mesh=None")
-
-
 class Trainer:
     def __init__(self, model: Model, opt: AdamW, mesh, data_cfg: DataConfig,
                  step_cfg: StepConfig, tcfg: TrainerConfig, ckpt_dir):
-        _check_mesh(mesh)
         self.model = model
         self.opt = opt
         self.mesh = mesh
@@ -70,12 +72,77 @@ class Trainer:
                       "step_times": []}
         self.pod_tm = None
         self.collectives = None
-        self._step_fn = make_train_step(model, opt, step_cfg)
+        self._build()
+
+    # ---- construction / elastic re-mesh -----------------------------------
+    def _build(self):
+        self._shardings = None
+        if self.mesh is not None:
+            check_executable(self.mesh)
+            with use_mesh(self.mesh):
+                self._shardings = param_shardings(self.mesh, self.model.param_shapes())
+        self._step_fn = make_train_step(self.model, self.opt, self.step_cfg, self.mesh)
+
+    def state_shardings(self):
+        """The shardings of ``{"params", "opt"}`` (the checkpoint's state) on
+        the trainer's mesh, ``None`` without one."""
+        if self._shardings is None:
+            return None
+        return {"params": self._shardings,
+                "opt": {"step": None, "mu": self._shardings, "nu": self._shardings}}
+
+    def shard(self, params, opt_state=None):
+        """This rank's shards of the logical ``params`` and ``opt_state``
+        (``None``: fresh moments of the shards' shapes)."""
+        sh = tree_util.leaves_of(self._shardings)
+
+        def cut(tree):
+            return [shard_tensor(x, s) for x, s in zip(tree_util.leaves(tree), sh)]
+
+        shards = module_like(params, cut(params))
+        if opt_state is None:
+            return shards, self.opt.init(shards)
+        return shards, AdamWState(
+            step=opt_state.step,
+            mu=tree_util.unflatten(opt_state.mu, cut(opt_state.mu)),
+            nu=tree_util.unflatten(opt_state.nu, cut(opt_state.nu)))
+
+    def logical(self, params, opt_state):
+        """The logical (whole) ``params`` and ``opt_state`` on every rank of
+        the trainer's mesh (an all-gather: every rank calls it)."""
+        if self._shardings is None:
+            return params, opt_state
+        sh = tree_util.leaves_of(self._shardings)
+
+        def whole(tree):
+            return [gather_tensor(x, s) for x, s in zip(tree_util.leaves(tree), sh)]
+
+        return module_like(params, whole(params)), AdamWState(
+            step=opt_state.step,
+            mu=tree_util.unflatten(opt_state.mu, whole(opt_state.mu)),
+            nu=tree_util.unflatten(opt_state.nu, whole(opt_state.nu)))
 
     def remesh(self, new_mesh, params, opt_state):
-        raise NotImplementedError(
-            "Trainer.remesh: elastic re-scaling over a device mesh is a later "
-            "slice of the port (ROADMAP 2.3)")
+        """Elastic re-scale: rebuild the step on ``new_mesh`` and reshard the
+        live state onto it through its logical arrays.  Every rank of the old
+        mesh calls this; a rank outside the new one gets ``(None, None)``
+        and takes no further step."""
+        params, opt_state = self.logical(params, opt_state)
+        self.mesh = new_mesh
+        self.stats["remesh_events"] += 1
+        self._build()
+        if new_mesh is None:
+            return params, opt_state
+        if new_mesh.rank_index is None:
+            return None, None
+        return self.shard(params, opt_state)
+
+    def data_config(self) -> DataConfig:
+        """The pipeline's configuration: this rank's slice of the batch."""
+        if self.mesh is None:
+            return self.data_cfg
+        return dataclasses.replace(self.data_cfg, n_hosts=self.mesh.size,
+                                   host_id=self.mesh.rank_index)
 
     # ---- preemption --------------------------------------------------------
     def install_signal_handlers(self):
@@ -98,15 +165,21 @@ class Trainer:
                 for k, v in batch.items()}
 
     def run(self, resume: bool = True):
+        if self.mesh is not None and self.mesh.rank_index is None:
+            raise ValueError("Trainer.run: this rank is not one of the mesh's "
+                             f"({self.mesh})")
         params = self.model.init(0)
-        params.requires_grad_(True)
-        opt_state = self.opt.init(params)
+        if self.mesh is not None:  # every rank draws the same weights
+            params, opt_state = self.shard(params)
+        else:
+            params.requires_grad_(True)
+            opt_state = self.opt.init(params)
         start = 0
         if resume and self.ckpt.latest_step() is not None:
             opt_state, meta = self._restore(params, opt_state)
             start = meta["step"]
             self.stats["restarts"] += 1
-        pipe = Pipeline(self.data_cfg, start_step=start)
+        pipe = Pipeline(self.data_config(), start_step=start)
 
         ema_t, ema_v = None, 0.0
         losses = []
@@ -146,14 +219,17 @@ class Trainer:
 
     # ---- checkpoint plumbing ---------------------------------------------------
     def _save(self, step, params, opt_state, pipe):
+        mesh = None if self.mesh is None else dict(self.mesh.shape)
         self.ckpt.save(step, {"params": params, "opt": opt_state._asdict()},
-                       meta={"pipeline": pipe.state(), "mesh": None})
+                       meta={"pipeline": pipe.state(), "mesh": mesh},
+                       shardings=self.state_shardings())
 
     @torch.no_grad()
     def _restore(self, params, opt_state):
-        """Read the latest checkpoint into ``params`` (in place) and return
-        (the optimizer state, meta)."""
-        state, meta = self.ckpt.restore({"params": params, "opt": opt_state._asdict()})
+        """Read the latest checkpoint into ``params`` (in place; this rank's
+        shards on a mesh) and return (the optimizer state, meta)."""
+        state, meta = self.ckpt.restore({"params": params, "opt": opt_state._asdict()},
+                                        shardings=self.state_shardings())
         for p, x in zip(tree_util.leaves(params), tree_util.leaves(state["params"])):
             p.copy_(x)
         return AdamWState(**state["opt"]), meta

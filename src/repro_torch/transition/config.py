@@ -76,8 +76,9 @@ def should_reconfigure(benefit: float, disruption: float,
         disruption (0 = break even).
       contingency_weight / benefit_worst / disruption_worst: failure-aware
         extension (the reference's ``repro.failures.policy``; the port's
-        ``failures`` package is a later slice, the blend itself is plain
-        arithmetic and runs here).  With a weight ``w`` and
+        :mod:`repro_torch.failures.policy` computes the worst-contingency
+        pair, the blend itself is plain arithmetic and runs here).  With a
+        weight ``w`` and
         the worst-contingency pair (min-over-scenarios benefit,
         max-over-scenarios disruption), the rule is applied to the blends
         ``(1-w)·expected + w·worst``.  ``contingency_weight=None`` (default)

@@ -55,10 +55,11 @@ class TransitionEval:
     proxy_worst_naive: float  # worst-stage proxy MLU of the naive order
     stage_intervals: int
     horizon_intervals: int
-    # fixed-routing inputs of the failure-aware gate (the reference's
-    # repro.failures.policy.transition_worst_case; a later slice of the
-    # port): the old/new steady weight matrices and the capacities they were
-    # solved against, stacked [old, new].  None only on hand-built evals.
+    # fixed-routing inputs of the failure-aware gate
+    # (repro_torch.failures.policy.transition_worst_case, the reference's
+    # repro.failures.policy's): the old/new steady weight matrices and the
+    # capacities they were solved against, stacked [old, new].  None only on
+    # hand-built evals.
     steady_w: np.ndarray | None = None  # (2, C, E_d)
     steady_caps: np.ndarray | None = None  # (2, E_d)
 

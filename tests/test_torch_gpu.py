@@ -30,7 +30,9 @@ the SSD chunk backward (#9b) at mamba2-130m's training shape and the
 forward's edge shapes (bit for bit on a second call, chunk-invariant, one
 launch through ``SSDScan``), two train steps of the reduced llama3,
 recurrentgemma and mamba2 models against the same steps on the CPU,
-and seamless' reduced prefill (against the CPU's) and decode.
+and seamless' reduced prefill (against the CPU's) and decode; the fleet
+PDHG's deal over two shards of one card, and the FSDP step on a one-rank
+NCCL mesh, each against the unsharded run.
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py``
@@ -1042,3 +1044,102 @@ def test_seamless_prefill_and_decode_on_the_card(gen):
             assert float((d / (1e-3 * (1 + full[:, pos].abs()))).max()) <= 1.0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _deal_bucket(dev):
+    """An 8-pod PDHG bucket of three fabrics (6, 7 and 8 pods) with 2, 2
+    and 3 epochs, 7 elements; stages capped at 300 iterations."""
+    import numpy as np
+
+    from repro_torch.core.fleet import (FLEET_SPECS, commodity_slots, make_fabric,
+                                        scatter_pad)
+    from repro_torch.core.graph import Fabric, uniform_topology
+    from repro_torch.core.pdhg import TorchRoutingSolver
+
+    vp, m = 8, 4
+    cp = vp * (vp - 1)
+    solver = TorchRoutingSolver(Fabric("bucket-V8", np.full(vp, 2), np.ones(vp)), m,
+                                max_iters=300, tol=1e-2, device=dev)
+    rng = np.random.default_rng(5)
+    tms, caps, valids, deltas, anchor_elems, anchor_of = ([] for _ in range(6))
+    n = 0
+    for fi, (idx, b) in enumerate(((16, 2), (1, 2), (8, 3))):
+        fab = make_fabric(FLEET_SPECS[idx])
+        slots = commodity_slots(fab.n_pods, vp)
+        cap = scatter_pad(fab.capacities(uniform_topology(fab)), slots, cp)
+        nc = fab.n_pods * (fab.n_pods - 1)
+        for e in range(b):
+            tms.append(scatter_pad(rng.gamma(2.0, 1.0, (m, nc)), slots, cp, axis=1))
+            caps.append(cap)
+            valids.append(solver.valid_for_pods(fab.n_pods))
+            deltas.append(0.0 if (fi, e) == (1, 0) else 0.5)
+        anchor_of += [fi] * b
+        anchor_elems.append(n + b // 2)
+        n += b
+    args = (np.stack(tms), np.stack(caps), np.stack(valids),
+            np.asarray(anchor_elems), np.asarray(anchor_of))
+    return solver, args, dict(hedging=True, deltas=np.asarray(deltas))
+
+
+@pytest.mark.gpu
+def test_fleet_deal_on_one_card(gen):
+    """Two shards of one card (``fleet_mesh([cuda] * 2)``: two host threads,
+    two streams) deal a 7-element bucket 4 + 4 (one replayed): every
+    element's f, u*, r*, iterations and gaps bit-equal to the unsharded
+    call's."""
+    import numpy as np
+
+    from repro_torch.parallel.sharding import fleet_mesh
+
+    dev = torch.device("cuda")
+    solver, args, kw = _deal_bucket(dev)
+    want = solver.solve_routing_fleet(*args, **kw)
+    got = solver.solve_routing_fleet(*args, **kw, mesh=fleet_mesh([dev] * 2))
+    for key in ("f", "u_star", "r_star"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for stage in ("stage1", "stage2", "stage3"):
+        for field in ("iters", "gap"):
+            np.testing.assert_array_equal(got["stats"][stage][field],
+                                          want["stats"][stage][field])
+
+
+@pytest.mark.gpu
+def test_one_rank_mesh_step_on_the_card(gen, tmp_path):
+    """``Trainer(mesh=make_host_mesh())`` over a one-rank NCCL process group
+    (the FSDP step: gathers, reduce-scatters and the sharded update, each
+    the identity on one rank) gives ``mesh=None``'s losses bit for bit."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("mamba2-130m").reduced()
+    model = build_model(cfg, "cuda")
+
+    def losses(mesh, name):
+        tr = Trainer(model, AdamW(lr=3e-3, warmup_steps=1), mesh,
+                     DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2),
+                     StepConfig(), TrainerConfig(total_steps=3, checkpoint_every=2),
+                     tmp_path / name)
+        return tr.run(resume=False)["losses"]
+
+    want = losses(None, "none")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        got = losses(make_host_mesh(), "mesh")
+    finally:
+        dist.destroy_process_group()
+    assert got == want

@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.encdec, repro_torch.optim.adamw, "
             "repro_torch.optim.compression, repro_torch.runtime.trainer, "
             "repro_torch.checkpoint.manager, repro_torch.data.pipeline, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.parallel.sharding, "
+            "repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
             "print(','.join(bad))")
@@ -107,17 +108,17 @@ COUNTERPARTS = {
     "kernels/rglru_scan/rglru_scan.py": "csrc/rglru_scan.cu",
     "kernels/ssd_chunk/ssd_chunk.py": "csrc/ssd_chunk.cu",
 }
-# reference modules of later slices: the dry-run and HLO tools, and
-# multi-card sharding
+# reference modules of later slices: the dry-run and HLO tools
 LATER_SLICES = frozenset({
-    "launch/dryrun.py", "launch/mesh.py", "runtime/hlo_cost.py",
-    "runtime/hlo_traffic.py", "parallel/sharding.py",
+    "launch/dryrun.py", "runtime/hlo_cost.py", "runtime/hlo_traffic.py",
 })
 # reference modules without an ``__all__`` that the port added with the audio
-# family and training: the port's ``__all__`` holds their public names
+# family and training, and with multi-card sharding: the port's ``__all__``
+# holds their public names
 NO_ALL_MODULES = ("models/encdec.py", "optim/adamw.py", "optim/compression.py",
                   "runtime/trainer.py", "checkpoint/manager.py",
-                  "data/pipeline.py", "launch/train.py")
+                  "data/pipeline.py", "launch/train.py", "parallel/sharding.py",
+                  "launch/mesh.py")
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
@@ -270,18 +271,30 @@ def _port_fleet_job(small_fabric, small_trace, cc):
         Strategy(False, True), cc)
 
 
-def test_fleet_sharding_raises(small_fabric, small_trace, monkeypatch):
-    """Sharding over several cards is a later slice: an explicit mesh, and
-    ``mesh="auto"`` with several CUDA devices visible, raise; ``"auto"`` on
-    one device and ``None`` run unsharded."""
-    job = _port_fleet_job(small_fabric, small_trace, ControllerConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
-        run_fleet([job], mesh=object(), device="cpu")
+def test_fleet_mesh_resolves_like_the_reference(small_fabric, small_trace,
+                                                monkeypatch):
+    """The reference's ``_resolve_mesh``: ``None`` never shards; ``"auto"``
+    shards over every card when more than one is visible (and the run is on
+    CUDA); a mesh is used as given.  A mesh that is not a 1-D device mesh
+    (a bare object) fails instead of running unsharded."""
+    from repro_torch.parallel.sharding import fleet_mesh
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert fleet_engine._resolve_mesh(None, cuda) is None
+    assert fleet_engine._resolve_mesh("auto", cpu) is None
+    given = fleet_mesh([cpu] * 2)
+    assert fleet_engine._resolve_mesh(given, cpu) is given
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert fleet_engine._resolve_mesh("auto", cuda) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
-        fleet_engine._check_mesh("auto", torch.device("cuda"))
-    fleet_engine._check_mesh("auto", torch.device("cpu"))
-    fleet_engine._check_mesh(None, torch.device("cuda"))
+    auto = fleet_engine._resolve_mesh("auto", cuda)
+    assert auto.axis_names == ("fleet",) and auto.devices == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert fleet_engine._resolve_mesh("auto", cpu) is None
+    job = _port_fleet_job(small_fabric, small_trace, ControllerConfig())
+    with pytest.raises(TypeError, match="fleet_mesh"):
+        run_fleet([job], mesh=object(), device="cpu")
 
 
 def test_sequential_engine_runs(small_fabric, small_trace):

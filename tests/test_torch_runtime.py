@@ -237,13 +237,45 @@ def test_train_cli_trains_the_ssm_family(tmp_path, capsys):
 
 
 def test_later_slices_raise(tmp_path):
+    """The HLO tools are a later slice (ROADMAP 2.9.4), and so is a mesh
+    with a model axis (tensor parallelism, ROADMAP 2.11)."""
+    from repro_torch.parallel.sharding import Mesh
+
     cfg = get_arch("llama3-8b").reduced()
     model = build_model(cfg, device="cpu")
     args = (AdamW(), None, _data_cfg(cfg), StepConfig(), TrainerConfig(), tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
-        Trainer(model, AdamW(), object(), *args[2:])
+    with pytest.raises(NotImplementedError, match="ROADMAP 2.11"):
+        Trainer(model, AdamW(), Mesh((1, 2), ("data", "model"), ranks=[0, 1]),
+                *args[2:])
     tr = Trainer(model, *args)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.3"):
-        tr.remesh(object(), None, None)
     with pytest.raises(NotImplementedError, match="HLO tools"):
         tr.extract_traffic(None, None, None)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])
+def test_one_rank_mesh_trains_like_no_mesh(tmp_path, arch):
+    """``Trainer(mesh=make_host_mesh())`` in one process (no process group:
+    a mesh of one rank, every collective of the FSDP step the identity):
+    losses bit-equal to ``mesh=None``'s, the checkpoint's meta records the
+    mesh's names and sizes, and ``remesh`` onto another one-rank mesh keeps
+    the logical state bit for bit (the reference's
+    ``tests/test_runtime.py:125-142``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, device="cpu")
+    runs = {}
+    for name, mesh in (("none", None), ("mesh", make_host_mesh())):
+        tr = Trainer(model, AdamW(lr=3e-3, warmup_steps=1), mesh, _data_cfg(cfg),
+                     StepConfig(), TrainerConfig(total_steps=3, checkpoint_every=10),
+                     tmp_path / name)
+        runs[name] = (tr, tr.run(resume=False))
+    assert runs["mesh"][1]["losses"] == runs["none"][1]["losses"]
+    meta = json.loads((tmp_path / "mesh" / "step_00000003" / "meta.json").read_text())
+    assert meta["mesh"] == {"data": 1, "model": 1}
+    tr, out = runs["mesh"]
+    before = [x.clone() for x in tree_util.leaves(out["params"])]
+    params, opt_state = tr.remesh(make_host_mesh(), out["params"], out["opt_state"])
+    assert tr.stats["remesh_events"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_util.leaves(params)))
+    assert int(opt_state.step) == 3
