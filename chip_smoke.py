@@ -3385,6 +3385,15 @@ MULTI_TRAIN = (("mamba2-130m", None, 4, 4096), ("llama3-8b", 2, 4, 2048))
 # relative (the reduced configs on the CPU moved by at most 3.9e-4 in three
 # steps)
 MULTI_F32_REL, MULTI_BF16_REL = 1e-5, 2.0 ** -8
+# the multi-card entry's tensor-parallel runs: (arch, layers kept, global
+# batch, sequence, model axis) on make_host_mesh(model_axis=...): llama3-8b at
+# full width (Megatron attention — its 32 heads and 8 KV heads split over the
+# model axis —, MLP and vocabulary) on 2×2 and 1×4, qwen3-14b on 2×2 (its
+# qk-norm scales whole on every rank, their gradients summed over the model
+# axis), mamba2-130m on 2×2 (its SSD leaves gathered whole, its vocabulary
+# Megatron)
+MULTI_TP = (("llama3-8b", 2, 4, 2048, 2), ("llama3-8b", 2, 4, 2048, 4),
+            ("qwen3-14b", 2, 4, 2048, 2), ("mamba2-130m", None, 4, 4096, 2))
 
 
 def _fleet_run(jobs, device, mesh):
@@ -3598,12 +3607,15 @@ def _global_batch(cfg, b, s, step, world, device):
 
 
 def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, extras,
-                    device_type="cuda"):
+                    device_type="cuda", model_axis=1):
     """One rank of a multi-card training run (``run_ranks``): ``MESH_STEPS``
-    steps through ``Trainer`` on ``make_host_mesh()``.  With ``extras``: the
-    step-2 and step-3 checkpoints in ``ckdir`` (gathered, the first rank
-    writes), the logical state's digest, a restart from step 2, and a remesh
-    to ranks 0 and 1 with one step there."""
+    steps through ``Trainer`` on ``make_host_mesh(model_axis)``.  With
+    ``extras``: the step-2 and step-3 checkpoints in ``ckdir`` (gathered,
+    the first rank writes) and the logical state's digest; on a mesh of
+    one model index also a restart from step 2 and a remesh to ranks 0 and 1
+    with one step there.  With a model axis, one more step is recorded
+    (``record_collectives``) and compared, op for op, with the same step on
+    a virtual copy of the mesh on ``meta`` (``Trainer.extract_traffic``)."""
     import shutil
 
     import numpy as np
@@ -3618,13 +3630,14 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
     from repro_torch.models.api import build_model
     from repro_torch.optim import tree as tree_util
     from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.hlo_traffic import record_collectives
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cfg = _train_cfg(arch, n_layers, dtype)
     model = build_model(cfg, dev)
-    mesh = make_host_mesh()
+    mesh = make_host_mesh(model_axis=model_axis)
     data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
 
     def trainer():
@@ -3650,7 +3663,9 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
                       + tree_util.leaves(run["opt_state"].nu))
     out = {"losses": run["losses"], "step_times": run["stats"]["step_times"],
            "peak_bytes": peak, "shard_bytes": shard_bytes, "launches": counts()}
-    if not extras:
+    if model_axis > 1:
+        out["modes"] = sorted({pl.mode for pl in tr._step_fn.plans})
+    if not extras and model_axis == 1:
         return out
     import pathlib
 
@@ -3661,6 +3676,17 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
                                tree_util.leaves(p) + tree_util.leaves(o.mu)
                                + tree_util.leaves(o.nu))
     del p, o
+    if model_axis > 1:
+        batch = tr._device_batch(SyntheticLM(tr.data_config()).batch_at(MESH_STEPS))
+        tr.extract_traffic(run["params"], run["opt_state"], batch)
+        with record_collectives() as real:
+            tr._step_fn(run["params"], run["opt_state"], batch)
+        key = [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype) for op in real]
+        out["ops_equal"] = key == [(op.kind, op.result_bytes, op.group_size, op.groups,
+                                    op.dtype) for op in tr.collective_ops]
+        out["n_ops"] = len(real)
+        out["wire_bytes_per_chip"] = tr.collectives["total_wire_bytes_per_chip"]
+        return out
     # restart from step 2: the uninterrupted run's step-3 checkpoint moves
     # aside (kept for the one-card restore), the restart writes its own
     if rank == 0:
@@ -3771,7 +3797,8 @@ def multicard_fleet(dev, n: int, smi: str = "") -> dict:
 
 
 def phase_multicard(smi: str | None = None, device_type: str = "cuda",
-                    backend: str = "nccl", world: int | None = None):
+                    backend: str = "nccl", world: int | None = None,
+                    parts=("fleet", "fsdp", "tp")):
     """The multi-card entry (every visible card, four on a host with four
     H100s; not part of ``main()``): (1) ``run_fleet`` over all 22
     fabrics unsharded on one card, then with ``mesh="auto"`` (the warm PDHG
@@ -3786,8 +3813,16 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     gathered checkpoints, restores the 4-rank one on one card (its digest
     bit-equal to the logical state's), restarts from step 2 (losses
     bit-equal) and remeshes to two ranks (the logical state bit-equal, one
-    step there).  A CPU rehearsal passes ``device_type="cpu"``,
-    ``backend="gloo"`` and ``world`` (with the configurations shrunk)."""
+    step there); (3) FSDP × TP (``MULTI_TP``): llama3-8b at full width
+    (2 layers) on 2×2 and 1×4, qwen3-14b (2 layers, qk-norm) on 2×2 and
+    mamba2-130m on 2×2, each in float32 and
+    in bf16 against one card on the same global batches (those of the dp
+    ranks' pipelines) within the same bounds, with the same numbers, the
+    collectives recorded in the NCCL run equal op for op to the virtual
+    mesh's record of the same step, and mamba2's bf16 2×2 checkpoint
+    restored on one card bit for bit.  ``parts`` picks among the three.  A
+    CPU rehearsal passes ``device_type="cpu"``, ``backend="gloo"`` and
+    ``world`` (with the configurations shrunk)."""
     import shutil
     import tempfile
 
@@ -3807,16 +3842,23 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     out = {}
     t_start = time.perf_counter()
 
-    out["fleet"] = multicard_fleet(dev, n, smi)
+    if "fleet" in parts:
+        out["fleet"] = multicard_fleet(dev, n, smi)
 
     (ROOT / "build").mkdir(exist_ok=True)
-    runs = [(arch, layers, b, s, "float32", dict(lr=1e-3, warmup_steps=1, eps=1e-3),
-             MULTI_F32_REL) for arch, layers, b, s in MULTI_TRAIN]
-    runs += [(arch, layers, b, s, None, dict(lr=3e-4, warmup_steps=1), MULTI_BF16_REL)
-             for arch, layers, b, s in MULTI_TRAIN]
-    for arch, layers, b, s, dtype, opt_kw, rel in runs:
+    f32 = ("float32", dict(lr=1e-3, warmup_steps=1, eps=1e-3), MULTI_F32_REL)
+    bf16 = (None, dict(lr=3e-4, warmup_steps=1), MULTI_BF16_REL)
+    runs = []
+    if "fsdp" in parts:
+        runs += [(arch, layers, b, s, 1, *kind) for kind in (f32, bf16)
+                 for arch, layers, b, s in MULTI_TRAIN]
+    if "tp" in parts:
+        runs += [(arch, layers, b, s, m, *kind) for kind in (f32, bf16)
+                 for arch, layers, b, s, m in MULTI_TP]
+    for arch, layers, b, s, model_axis, dtype, opt_kw, rel in runs:
+        dp = n // model_axis
         label = f"{arch}{'' if layers is None else f' ({layers} layers)'} " \
-                f"{dtype or 'bf16'}"
+                f"{dtype or 'bf16'}{'' if model_axis == 1 else f' on {dp}x{model_axis}'}"
         extras = arch.startswith("mamba2-130m") and dtype is None
         ckdir = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
         if device_type == "cuda":
@@ -3824,15 +3866,16 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
         try:
             t0 = time.perf_counter()
             ranks = run_ranks(_multicard_rank, n, arch, layers, b, s, dtype, opt_kw,
-                              ckdir, extras, device_type, backend=backend, timeout=900)
+                              ckdir, extras, device_type, model_axis, backend=backend,
+                              timeout=900)
             t_ranks = time.perf_counter() - t0
             want, t_one, peak_one, launch_one = _one_card_run(
-                arch, layers, b, s, dtype, opt_kw, n, dev)
+                arch, layers, b, s, dtype, opt_kw, dp, dev)
             losses = ranks[0]["losses"]
             worst = max(abs(a - w) / abs(w) for a, w in zip(losses, want))
             step_n = float(np.median(ranks[0]["step_times"][1:]))
             step_1 = float(np.median(t_one[1:]))
-            log(f"multicard: {label}, B={b} (one sequence a card on {n}), S={s}, "
+            log(f"multicard: {label}, B={b} ({b // dp} a dp rank, {dp} dp ranks), S={s}, "
                 f"{MESH_STEPS} steps ({t_ranks:.1f} s with the ranks' start): losses "
                 f"{losses} on {n} ranks (all ranks equal "
                 f"{all(r['losses'] == losses for r in ranks)}) vs {want} on one card: "
@@ -3858,7 +3901,27 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
                           "one_card_peak_bytes": peak_one,
                           "shard_bytes": [r["shard_bytes"] for r in ranks],
                           "launches": ranks[0]["launches"]}
-            if extras:
+            if model_axis > 1:
+                r0 = ranks[0]
+                log(f"multicard: {label}: modes {r0['modes']}; the step's collectives "
+                    f"recorded over NCCL equal the virtual mesh's op for op: "
+                    f"{[r['ops_equal'] for r in ranks]} ({r0['n_ops']} ops, "
+                    f"{r0['wire_bytes_per_chip']:.6e} wire bytes per chip)")
+                if not all(r["ops_equal"] for r in ranks):
+                    fail(f"{label}: the recorded collectives differ from the virtual "
+                         f"mesh's")
+                out[label].update(modes=r0["modes"], n_ops=r0["n_ops"],
+                                  wire_bytes_per_chip=r0["wire_bytes_per_chip"])
+                if extras:
+                    restored = _restore_digest(arch, layers, dtype, opt_kw, ckdir, dev)
+                    log(f"multicard: {label}: the {dp}x{model_axis} step-{MESH_STEPS} "
+                        f"checkpoint restored on one card bit-equal "
+                        f"{restored == r0['digest']}")
+                    if restored != r0["digest"]:
+                        fail(f"{label}: the {dp}x{model_axis} checkpoint restored on one "
+                             f"card differs")
+                    out[label]["restore_bit_equal"] = True
+            elif extras:
                 r0 = ranks[0]
                 restored = _restore_digest(arch, layers, dtype, opt_kw,
                                            pathlib.Path(ckdir) / "kept", dev)
@@ -3890,6 +3953,217 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     return out
 
 
+# ---- phase 15: the dry run and the training-traffic bridge -------------------
+
+# the dry-run cells of phase 15 on 2×16×16: (arch, shape).  One microbatch:
+# the flops and the pod matrix do not depend on the count
+# (tests/test_torch_hlo_tools.py), and a step on meta costs host time per
+# operator, so the reference's 8 would take ~4× as long
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
+                ("mamba2-130m", "train_4k"))
+# the bridge: llama3-8b's train_4k steps per second (benchmarks/bench_ml_fabric.py's
+# JOBS), two jobs of two pods on a 4-pod fabric re-placed every two days
+BRIDGE_STEPS_PER_S = 0.5
+BRIDGE_PODS, BRIDGE_DAYS, BRIDGE_CHURN = 4, 6.0, 48
+
+
+def _model_launches() -> tuple:
+    """The model kernels' launch counts in this process: flash attention's
+    forward and backward, the RG-LRU scan, the SSD chunk's forward and
+    backward."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.rglru_scan import ops as rgops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+
+    return (faops.launches, faops.bwd_launches, rgops.launches, sdops.launches,
+            sdops.bwd_launches)
+
+
+def _dryrun_cell(arch, shape):
+    """One phase-15 cell in a worker process (``run_cell`` on meta): its
+    record, and the worker's model kernel launch counts before and after."""
+    from repro_torch.launch import dryrun
+
+    before = _model_launches()
+    rec = dryrun.run_cell(arch, shape, True, force=True, microbatches=1, tag="mb1")
+    return rec, before, _model_launches()
+
+
+def _bridge_trace(interpod_bytes: float, seed: int = 0):
+    """A 4-pod trace of churning llama3-8b jobs: each job on two pods sends
+    ``interpod_bytes`` a step each way between them at ``BRIDGE_STEPS_PER_S``
+    (in Gb/s, the fabric's unit), times a lognormal load factor per hour; the
+    jobs re-place every ``BRIDGE_CHURN`` hours, as
+    ``benchmarks/bench_ml_fabric.py`` builds its fleet."""
+    import numpy as np
+
+    from repro_torch.core.traffic import Trace
+
+    v, t = BRIDGE_PODS, int(BRIDGE_DAYS * 24)
+    gbps = interpod_bytes * BRIDGE_STEPS_PER_S * 8 / 1e9
+    rng = np.random.default_rng(seed)
+    demand = np.zeros((t, v * (v - 1)))
+    pairs = []
+    for step in range(t):
+        if step % BRIDGE_CHURN == 0:
+            pods = rng.permutation(v)
+            pairs = [(int(pods[0]), int(pods[1])), (int(pods[2]), int(pods[3]))]
+        for a, b in pairs:
+            burst = rng.lognormal(0, 0.3)
+            for i, j in ((a, b), (b, a)):
+                demand[step, i * (v - 1) + (j if j < i else j - 1)] += gbps * burst
+    return Trace("llama3-bridge", demand, 60.0, v), gbps
+
+
+def _one_rank_traffic(device):
+    """``Trainer.extract_traffic`` of mamba2-130m on the card's one-rank
+    mesh: the reference's (1, 1) zero matrix."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("mamba2-130m")
+    model = build_model(cfg, device)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=1)
+    tr = Trainer(model, AdamW(), make_host_mesh(), data, StepConfig(),
+                 TrainerConfig(total_steps=1, devices_per_pod=1), ROOT / "build" / "ck15")
+    params, state = tr.shard(model.init(0))
+    tm = tr.extract_traffic(params, state, SyntheticLM(tr.data_config()).batch_at(0))
+    log(f"dryrun: Trainer.extract_traffic on the one-rank mesh {dict(tr.mesh.shape)}: "
+        f"{tm.tolist()}, collectives {tr.collectives['total_wire_bytes_per_chip']} B")
+    if tm.shape != (1, 1) or tm.sum() != 0:
+        fail(f"extract_traffic on one rank: {tm.tolist()} is not the (1, 1) zero matrix")
+    del params, state, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return tm.tolist()
+
+
+def start_dryrun_cells():
+    """Start phase 15's dry-run cells, each in a worker process of its own
+    (they run on ``meta`` and need no card): (pool, futures).  ``main()``
+    starts them before the first phase, so the host's work overlaps the
+    card's phases; the caller shuts the pool down."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(DRYRUN_CELLS), mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(_dryrun_cell, arch, shape) for arch, shape in DRYRUN_CELLS]
+
+
+def phase_dryrun(device, smi: str = "", cells=None):
+    """Phase 15 on one card: (a) the dry run (``repro_torch.launch.dryrun``)
+    of llama3-8b train_4k and prefill_32k and of mamba2-130m train_4k
+    (its SSD leaves gathered) on the 2×16×16 virtual mesh, each on ``meta``
+    in a worker process of its own: flops per device, wire bytes per chip by
+    kind, the 2×2 pod matrix, each matrix held to be symmetric, zero on the
+    diagonal and equal to the count from ``param_shardings`` alone
+    (``dryrun.planned_collectives``); (b) the bridge on the card: llama3-8b's
+    inter-pod bytes a step, at ``BRIDGE_STEPS_PER_S``, placed as churning
+    jobs on a 4-pod fabric, through ``repro_torch.core.run_controller`` on
+    the H100 (p99.9 MLU finite, the batched linkload kernel launched: the
+    bridge's controller configures no burst loss, so no queue loss); (c) ``Trainer.extract_traffic`` on the card's one-rank mesh,
+    the reference's (1, 1) zero matrix, while the cells' workers run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ControllerConfig, Strategy, run_controller
+    from repro_torch.core.graph import Fabric
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.linkload import ops as llops
+    from repro_torch.kernels.queueloss import ops as qlops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.runtime.hlo_traffic import pod_traffic_matrix
+
+    t0 = time.perf_counter()
+    model_launches = _model_launches()
+    pool, futures = start_dryrun_cells() if cells is None else (None, cells)
+    try:
+        out = {"extract_traffic": _one_rank_traffic(device)}  # while the cells run
+        if _model_launches() != model_launches:
+            fail("dry run: Trainer.extract_traffic launched a kernel on meta tensors")
+        done = [f.result() for f in futures]
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    t_cells = time.perf_counter() - t0
+    mesh = make_production_mesh(multi_pod=True)
+    out["cells"] = {}
+    for (arch, shape), (rec, before, after) in zip(DRYRUN_CELLS, done):
+        label = f"{arch} {shape}"
+        if before != after:
+            fail(f"dry run {label}: a kernel launched on meta tensors in its worker "
+                 f"(launch counts {before} -> {after})")
+        if rec["status"] != "ok":
+            fail(f"dry run {label}: {rec['status']}: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        tm = np.asarray(rec["pod_tm_bytes"])
+        kind = "train" if shape.startswith("train") else "prefill"
+        planned = pod_traffic_matrix(dryrun.planned_collectives(
+            Model(get_arch(arch), torch.device("meta")), mesh, kind), 256, 2)
+        wire = {k: v["wire_bytes_per_chip"] for k, v in rec["collectives"].items()
+                if isinstance(v, dict)}
+        log(f"dryrun: {label} 2x16x16 (one microbatch): {rec['seconds']:.1f} s on meta, "
+            f"flops per device {rec['flops']:.6e}, hbm bytes (unfused bound) "
+            f"{rec['hbm_bytes']:.6e}, wire bytes per chip {wire}, pod TM "
+            f"{tm.tolist()} (planned {planned.tolist()}), "
+            f"{rec['n_collective_ops']} collectives, argument bytes "
+            f"{rec['memory_analysis']['argument_bytes']}, gradient bytes "
+            f"{rec['memory_analysis']['gradient_bytes']}, tensor parallel "
+            f"{rec['tensor_parallel']}")
+        if not (tm.shape == (2, 2) and tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == tm[1, 1] == 0):
+            fail(f"dry run {label}: pod TM {tm.tolist()} is not symmetric with a zero "
+                 f"diagonal")
+        if not np.array_equal(tm, planned):
+            fail(f"dry run {label}: pod TM {tm.tolist()} != the count from "
+                 f"param_shardings {planned.tolist()}")
+        out["cells"][label] = {"seconds": rec["seconds"], "flops": rec["flops"],
+                               "wire": wire, "pod_tm": tm.tolist()}
+    log(f"dryrun: the cells' records {t_cells:.1f} s after the phase's start (a worker "
+        f"each; {'started by main() before phase 1' if cells is not None else 'started here'})")
+
+    # (b) the bridge: llama3-8b's measured inter-pod bytes a step on the card
+    interpod = float(np.asarray(out["cells"]["llama3-8b train_4k"]["pod_tm"])[0, 1])
+    trace, gbps = _bridge_trace(interpod)
+    fabric = Fabric.homogeneous("bridge", BRIDGE_PODS, radix=64, speed=100.0)
+    cc = ControllerConfig(routing_interval_hours=12.0, topology_interval_days=2.0,
+                          aggregation_days=1.0, k_critical=2)
+    synchronize(device)
+    llops.launches = qlops.launches = 0
+    t1 = time.perf_counter()
+    res = run_controller(fabric, trace, Strategy(False, True), cc, device=device)
+    synchronize(device)
+    t_bridge = time.perf_counter() - t1
+    launches = {"linkload": llops.launches, "queueloss": qlops.launches}
+    log(f"dryrun: bridge: {interpod:.6e} B a step each way between a job's pods at "
+        f"{BRIDGE_STEPS_PER_S} steps/s = {gbps:.3f} Gb/s per direction; 2 jobs on a "
+        f"{BRIDGE_PODS}-pod fabric (radix 64 × 100 Gb/s), {BRIDGE_DAYS} days hourly, "
+        f"re-placed every {BRIDGE_CHURN} h: run_controller on {device} "
+        f"{t_bridge:.3f} s, p99.9 MLU {res.summary['p999_mlu']:.6f}, stage_times "
+        f"{ {k: round(v, 3) for k, v in res.stage_times.items()} }, launches {launches} "
+        f"({smi})")
+    if not np.isfinite(res.summary["p999_mlu"]):
+        fail(f"bridge: p99.9 MLU {res.summary['p999_mlu']}")
+    if launches["linkload"] < 1:  # scoring (no burst loss configured: no queue loss)
+        fail(f"bridge: the linkload kernel did not launch: {launches}")
+    out["bridge"] = {"gbps": gbps, "p999_mlu": res.summary["p999_mlu"],
+                     "seconds": t_bridge, "launches": launches}
+
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dryrun: phase 15 {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3904,7 +4178,14 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     marks = {}
+    dry_pool, dry_cells = start_dryrun_cells()  # phase 15's host work, from the start
+    try:
+        return _main(t_start, dev, marks, dry_cells)
+    finally:
+        dry_pool.shutdown(wait=True, cancel_futures=True)
 
+
+def _main(t_start, dev, marks, dry_cells) -> int:
     def mark(phase):
         marks[phase] = round(time.perf_counter() - t_start, 3)
 
@@ -3945,9 +4226,12 @@ def main() -> int:
     mark("audio_train")
     phase_sharding(dev, smi)
     mark("sharding")
+    bridge_counts, _ = phase_dryrun(dev, smi, dry_cells)
+    mark("dryrun")
     for key in rows:
         rows[key]["launches"] = counts[key]
         rows[key]["launches_transition_phase"] = transition_counts[key]
+        rows[key]["launches_bridge_phase"] = bridge_counts[key]
     for key in single:
         single[key]["launches"] = serve_counts[key]
         single[key]["launches_sequential_phase"] = seq_counts[key]

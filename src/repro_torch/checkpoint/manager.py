@@ -13,8 +13,9 @@ A checkpoint always holds the *logical* (whole) arrays.  With ``shardings``
 (a tree of :class:`~repro_torch.parallel.sharding.NamedSharding`, or
 ``None`` for a replicated leaf, mirroring the state) ``save`` gathers each
 rank's shards and only the mesh's first rank writes, and ``restore`` gives
-each rank its shard of the logical arrays: a checkpoint written on four
-ranks restores on one, or the reverse, to the same logical state.
+each rank its tile of the logical arrays (cut along the dims split over the
+dp axes and over the model axis): a checkpoint written on a 2×2 mesh
+restores on one rank, or the reverse, to the same logical state.
 
 A state is a tree: nested dicts of tensors (or numpy arrays, or numbers),
 lists for layer groups, ``Params`` modules (their parameter tree).
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.tree import as_tree
-from repro_torch.parallel.sharding import gather_tensor, shard_dim
+from repro_torch.parallel.sharding import gather_tensor, shard_tensor
 
 __all__ = ["CheckpointManager"]
 
@@ -97,10 +98,8 @@ def _unflatten_into(template, flat: dict, prefix: str = "", index=(),
                                 None if shardings is None else shardings[i])
                 for i, v in enumerate(template)]
     arr = flat[prefix[:-1]][index] if index else flat[prefix[:-1]]
-    dim = None if shardings is None else shard_dim(shardings)
-    if dim is not None:
-        mesh = shardings.mesh
-        arr = np.split(arr, mesh.size, axis=dim)[mesh.rank_index]
+    if shardings is not None:  # this rank's tile: cut over the dp and model axes
+        arr = shard_tensor(arr, shardings)
     if isinstance(template, torch.Tensor):  # cast on the template's device
         # (ascontiguousarray makes a 0-d array 1-d: keep the saved shape)
         t = torch.from_numpy(np.ascontiguousarray(arr).reshape(np.shape(arr)))

@@ -5,7 +5,8 @@ TPU kernel ``flash_attention_pallas``
 (``repro/kernels/flash_attention/flash_attention.py``).
 :func:`flash_attention_rows` is the tensor-level wrapper in the kernel's
 (B·H, Sq, hd) layout: a CUDA tensor launches the kernel (and adds one to
-:data:`launches`), a CPU tensor runs the plain version in :mod:`.ref`;
+:data:`launches`), a CPU tensor runs the plain version in :mod:`.ref`,
+and so does a ``meta`` tensor (shapes alone: the dry run);
 nothing falls back from one to the other.  :func:`flash_attention` takes the
 model's (B, S, H, hd) layout.  Unlike the TPU wrapper it pads nothing: the
 kernel masks the ragged sequence edge itself and takes any hd up to 256, and
@@ -37,7 +38,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import placement
+from repro_torch.kernels._checks import PLAIN_DEVICES, placement
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref)
@@ -121,7 +122,7 @@ def flash_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     dev = _check(q, k, v, n_heads, n_kv)
     mask = dict(n_heads=n_heads, n_kv=n_kv, causal=causal, window=window)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         out = attention_ref(q, k, v, **mask)
         return (out, attention_lse_ref(q, k, **mask)) if with_lse else out
     out, lse = _launch_forward(q, k, v, dev, with_lse=with_lse, **mask)
@@ -133,7 +134,8 @@ def flash_attention_bwd_rows(q, k, v, o, d_out, lse, *, n_heads: int, n_kv: int,
     """(dq, dk, dv) of :func:`flash_attention_rows` for the output gradient
     ``d_out``, from its output ``o`` and the rows' log-sum-exp ``lse``
     (B·H, Sq) float32.  CUDA tensors launch the backward kernel (and add one
-    to :data:`bwd_launches`), CPU tensors run :func:`.ref.attention_bwd_ref`.
+    to :data:`bwd_launches`), CPU and ``meta`` tensors run
+    :func:`.ref.attention_bwd_ref`.
     No row may have every key masked (the causal and the cross-attention
     masks of the models never do)."""
     dev = _check(q, k, v, n_heads, n_kv)
@@ -141,7 +143,7 @@ def flash_attention_bwd_rows(q, k, v, o, d_out, lse, *, n_heads: int, n_kv: int,
     mask = dict(n_heads=n_heads, n_kv=n_kv, causal=causal, window=window)
     d_out = d_out.contiguous()
     placement("flash_attention backward", (q.dtype,), o=o, d_out=d_out)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return attention_bwd_ref(q, k, v, o, d_out, lse, **mask)
     return _launch_backward(q, k, v, o, d_out, lse, dev, **mask)[:3]
 

@@ -12,7 +12,8 @@ simulator's MLU / ALU / OLR / total-load metrics.  ``backend`` is ``"torch"``
 :func:`linkload`, :func:`linkload_batched` and :func:`linkload_fleet` are
 the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one to
 :data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a CPU
-tensor runs the plain version in :mod:`.ref`.
+tensor runs the plain version in :mod:`.ref`, and so does a ``meta`` tensor
+(shapes alone).
 Nothing falls back from one to the other.  On the card each takes the body
 (staged or batched) that the autotune table names for its shape bucket
 (:func:`repro_torch.kernels.autotune.table.resolve_tiles`; ``body=`` pins
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import placement
+from repro_torch.kernels._checks import PLAIN_DEVICES, placement
 from repro_torch.kernels.autotune import table as _table
 from repro_torch.kernels.linkload.ref import (linkload_metrics_batched_ref,
                                               linkload_metrics_fleet_ref,
@@ -124,7 +125,7 @@ def linkload(demand: torch.Tensor, w: torch.Tensor, inv_cap: torch.Tensor,
     if w.dim() != 2 or w.shape[0] != c or inv_cap.shape != (w.shape[1],):
         raise ValueError(f"linkload: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return linkload_metrics_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, t), dtype=torch.float32, device=dev)
     _launch("linkload_single", dev, demand, w, inv_cap, threshold, out,
@@ -148,7 +149,7 @@ def linkload_batched(demand: torch.Tensor, w: torch.Tensor,
     if w.shape[:2] != (b, c) or inv_cap.shape != (b, w.shape[2]):
         raise ValueError(f"linkload_batched: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return linkload_metrics_batched_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, b, t), dtype=torch.float32, device=dev)
     _launch("linkload_batched", dev, demand, w, inv_cap, threshold, out,
@@ -188,7 +189,7 @@ def linkload_fleet(demand: torch.Tensor, w: torch.Tensor,
     if w.shape[:3] != (f, b, c) or inv_cap.shape != (f, b, w.shape[3]):
         raise ValueError(f"linkload_fleet: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(inv_cap.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return linkload_metrics_fleet_ref(demand, w, inv_cap, threshold)
     out = torch.empty((4, f, b, t), dtype=torch.float32, device=dev)
     _launch("linkload_fleet", dev, demand, w, inv_cap, threshold, out,

@@ -13,7 +13,8 @@ carry zero load, so they never drop.
 :func:`queueloss`, :func:`queueloss_batched` and :func:`queueloss_fleet`
 are the tensor-level wrappers: a CUDA tensor launches the kernel (and adds one
 to :data:`single_launches`, :data:`launches` or :data:`fleet_launches`), a
-CPU tensor runs the plain version in :mod:`.ref`.  Nothing falls back from one to the other.
+CPU tensor runs the plain version in :mod:`.ref`, and so does a ``meta``
+tensor (shapes alone).  Nothing falls back from one to the other.
 On the card each takes the body (the single block's 8-CTA cluster, the fleet
 body or the E-tiled body) that the autotune table names for its shape bucket
 (:func:`repro_torch.kernels.autotune.table.resolve_tiles`; ``body=`` pins
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import placement
+from repro_torch.kernels._checks import PLAIN_DEVICES, placement
 from repro_torch.kernels.autotune import table as _table
 from repro_torch.kernels.queueloss.ref import (queueloss_batched_ref,
                                                queueloss_fleet_ref,
@@ -154,7 +155,7 @@ def queueloss(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
         raise ValueError(f"queueloss: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(cap.shape)}, "
                          f"{tuple(buf.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return queueloss_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_single", dev, demand, w, cap, buf, dt,
                   (ts, c, w.shape[1]), body)
@@ -179,7 +180,7 @@ def queueloss_batched(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
         raise ValueError(f"queueloss_batched: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(cap.shape)}, "
                          f"{tuple(buf.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return queueloss_batched_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_batched", dev, demand, w, cap, buf, dt,
                   (b, ts, c, e), body)
@@ -219,7 +220,7 @@ def queueloss_fleet(demand: torch.Tensor, w: torch.Tensor, cap: torch.Tensor,
         raise ValueError(f"queueloss_fleet: shapes {tuple(demand.shape)}, "
                          f"{tuple(w.shape)}, {tuple(cap.shape)}, "
                          f"{tuple(buf.shape)} disagree")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return queueloss_fleet_ref(demand, w, cap, buf, dt)
     out = _launch("queueloss_fleet", dev, demand, w, cap, buf, dt,
                   (f, b, ts, c, e), body)

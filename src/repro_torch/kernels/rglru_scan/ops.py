@@ -2,8 +2,8 @@
 
 The counterpart of ``repro/kernels/rglru_scan/ops.py``'s :func:`rglru_scan`:
 a CUDA tensor launches the kernel (and adds one to :data:`launches`), a CPU
-tensor runs the plain version in :mod:`.ref`; nothing falls back from one to
-the other.  Unlike the TPU wrapper it pads nothing (no a=1 / b=0 tails): the
+tensor runs the plain version in :mod:`.ref`, and so does a ``meta`` tensor
+(shapes alone: the dry run); nothing falls back from one to the other.  Unlike the TPU wrapper it pads nothing (no a=1 / b=0 tails): the
 kernel walks any S and masks the ragged channel edge itself.  The kernel
 splits S into chunks scanned in parallel and combined in a fixed order, so
 its rounding differs from a sequential walk within the reference's 1e-4.
@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import placement
+from repro_torch.kernels._checks import PLAIN_DEVICES, placement
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 __all__ = ["launches", "RGLRUScan", "rglru_scan", "rglru_scan_bwd"]
@@ -87,7 +87,7 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan: shapes {tuple(a.shape)}, {tuple(b.shape)} "
                          f"must be one (B, S, D)")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return rglru_scan_ref(a, b)
     bsz, s, d = a.shape
     h = torch.empty_like(a)

@@ -4,7 +4,8 @@ The counterpart of ``repro/kernels/ssd_chunk/ops.py``'s :func:`ssd_scan`,
 replacing the TPU kernel ``ssd_chunk_pallas``
 (``repro/kernels/ssd_chunk/ssd_chunk.py``).  A CUDA tensor calls the entry
 (and adds one to :data:`launches`), a CPU tensor runs the plain version in
-:mod:`.ref`; nothing falls back from one to the other.  As in the reference,
+:mod:`.ref`, and so does a ``meta`` tensor (shapes alone: the dry run);
+nothing falls back from one to the other.  As in the reference,
 the chunk length is halved until it divides S.
 
 On the H100 the work is float32 FMAs (operations bound it: 14.7 GFLOP at
@@ -65,7 +66,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import placement
+from repro_torch.kernels._checks import PLAIN_DEVICES, placement
 # the module, not its functions: ref imports models.ssd, which imports this
 # module, so either may be imported first
 from repro_torch.kernels.ssd_chunk import ref
@@ -104,7 +105,7 @@ def _check(x, dt, a, b, c, chunk: int, **more) -> tuple[torch.device, int]:
 
 def _forward(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     dev, chunk = _check(x, dt, a, b, c, chunk)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return ref.ssd_chunk_ref(x, dt, a, b, c, chunk)
     bsz, h, s, p = x.shape
     n = b.shape[-1]
@@ -132,10 +133,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  chunk: int = 128):
     """(dx, ddt, da, db, dc) of :func:`ssd_scan` for the output gradient
     ``dy`` (B, H, S, P), each in its input's layout.  CUDA tensors launch
-    the backward entry (and add one to :data:`bwd_launches`), CPU tensors run
-    :func:`.ref.ssd_chunk_ref_bwd`."""
+    the backward entry (and add one to :data:`bwd_launches`), CPU and
+    ``meta`` tensors run :func:`.ref.ssd_chunk_ref_bwd`."""
     dev, chunk = _check(x, dt, a, b, c, chunk, dy=dy)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return ref.ssd_chunk_ref_bwd(x, dt, a, b, c, dy, chunk)
     bsz, h, s, p = x.shape
     n = b.shape[-1]

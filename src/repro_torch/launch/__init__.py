@@ -1,3 +1,3 @@
 """Launchers of the model stack: the train and serving steps, the batched
 serving loop and the training command line — the counterpart of
-``repro.launch`` (the dry run and the device mesh are later slices)."""
+``repro.launch``, with the device meshes and the dry run."""

@@ -1,0 +1,308 @@
+"""Multi-pod dry run: every (architecture × shape × production mesh) cell's
+step, run on ``meta`` tensors as rank 0 of a virtual mesh — the counterpart
+of ``repro/launch/dryrun.py``.
+
+For each cell this:
+  1. builds the production mesh (16×16 single-pod / 2×16×16 multi-pod) as a
+     virtual mesh (names and sizes, no card: it executes ``meta`` tensors);
+  2. builds the parameters on ``meta`` (``Model.param_shapes``), rank 0's
+     tiles of them (and of AdamW's moments) by ``param_shardings``, and rank
+     0's slice of the inputs (``input_specs``, ``input_shardings``);
+  3. runs the REAL step of the shape's kind — ``make_train_step`` (AdamW,
+     microbatched accumulation, remat, FSDP × TP) or ``make_prefill_step``
+     — once under :func:`repro_torch.runtime.hlo_cost.measure_step`: the
+     flops per device, an unfused bound on the bytes, and every collective
+     the step issues, with its replica groups;
+  4. projects the collectives onto the pod-level traffic matrix handed to
+     Gemini's controller.
+
+The port compiles no HLO, so its collectives are the ones its step issues by
+hand (:mod:`repro_torch.parallel.sharding`), not XLA's: each leaf is
+gathered once a step, before the first microbatch, and each gradient
+reduce-scattered once, after the last.  Decode cells are recorded as
+``not_ported`` (:data:`DECODE_REASON`); cells the reference skips are
+``skipped`` with ``supports_cell``'s reason.  Records go to
+``build/dryrun/<arch>__<shape>__pod{1,2}[__tag].json`` in the checkout.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k [--multi-pod]
+  python -m repro_torch.launch.dryrun --all [--both-meshes] [--force]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import time
+import traceback
+
+__all__ = ["RESULTS", "MICROBATCHES", "DECODE_REASON", "cell_path", "run_cell",
+           "planned_collectives", "main"]
+
+RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+# per-arch microbatch counts for train_4k (the reference's: memory fit at 256 chips)
+MICROBATCHES = {"dbrx-132b": 8, "qwen3-14b": 8, "gemma3-12b": 8, "llama3-8b": 8,
+                "deepseek-7b": 8, "mixtral-8x7b": 8, "recurrentgemma-9b": 8,
+                "seamless-m4t-large-v2": 4, "internvl2-1b": 4, "mamba2-130m": 4}
+
+DECODE_REASON = "ROADMAP 2.9.5: decode under tensor parallelism"
+
+
+def cell_path(arch: str, shape: str, multi_pod: bool, tag: str = "") -> pathlib.Path:
+    mesh = "pod2" if multi_pod else "pod1"
+    suffix = f"__{tag}" if tag else ""
+    return RESULTS / f"{arch}__{shape}__{mesh}{suffix}.json"
+
+
+def _bytes(tree) -> int:
+    from repro_torch.runtime.hlo_cost import _tensor_bytes
+
+    return _tensor_bytes(tree)
+
+
+def planned_collectives(model, mesh, kind: str = "train") -> list:
+    """The collectives over the dp axes that a step of ``kind`` issues on
+    ``mesh``, counted from ``param_shardings`` and the step's plan alone
+    (no step runs): each leaf's tile gathered over the dp axes it is split
+    over, and — training — its float32 gradient reduce-scattered over them
+    (all-reduced over the dp axes it is not split over), the loss's mean
+    and the clip's sums of squares.  These are the step's only collectives
+    whose groups can span pods; the model axis's stay inside one."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.steps import _split_axes, leaf_plans
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_traffic import DTYPE_NAMES, CollectiveOp, _DTYPE_BYTES
+
+    batch = sh.batch_axes(mesh)
+    ops = []
+
+    def op(kind_, numel, dtype, axes):
+        groups = mesh.groups(axes).tolist()
+        name = DTYPE_NAMES[str(dtype).removeprefix("torch.")]
+        ops.append(CollectiveOp(kind_, int(numel) * _DTYPE_BYTES[name], len(groups[0]),
+                                groups, name))
+
+    plans = leaf_plans(model, mesh)
+    leaves = tree_util.leaves(model.param_shapes())
+    for leaf, plan in zip(leaves, plans):
+        shape = list(sh.shard_tensor(leaf, plan.sharding).shape)
+        for dim, names in sh._sharded_dims(plan.sharding, batch):
+            shape[dim] *= math.prod(mesh.shape[a] for a in names)
+            op("all-gather", math.prod(shape), leaf.dtype, names)
+    if kind != "train":
+        return ops
+    for leaf, plan in zip(leaves, plans):
+        tile = sh.shard_tensor(leaf, plan.sharding).shape
+        split = sh._sharded_dims(plan.sharding, batch)
+        shape = list(tile)  # the gradient: whole along the dp dims
+        for dim, names in split:
+            shape[dim] *= math.prod(mesh.shape[a] for a in names)
+        for dim, names in split:
+            shape[dim] = tile[dim]
+            op("reduce-scatter", math.prod(shape), torch.float32, names)
+        done = {a for _, names in split for a in names}
+        rest = tuple(a for a in batch if a not in done and mesh.shape[a] > 1)
+        if rest:
+            op("all-reduce", math.prod(tile), torch.float32, rest)
+    if batch and math.prod(mesh.shape[a] for a in batch) > 1:
+        op("all-reduce", 1, torch.float32, batch)  # the loss
+    split = [_split_axes(p) for p in plans]
+    for axes in dict.fromkeys(a for a in split if a):
+        if set(axes) & set(batch):  # the clip's sums of squares
+            op("all-reduce", sum(a == axes for a in split), torch.float32, axes)
+    return ops
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
+             profile: str = "fsdp", microbatches: int | None = None,
+             remat: str = "full", window_cache: bool = False,
+             cache_dtype: str = "", moe_impl: str = "", moe_groups: int = 0,
+             ssd_chunk: int = 0, tag: str = "") -> dict:
+    """One dry-run cell.  The keyword knobs are the reference's: sharding
+    profile, microbatch count, remat policy, moe dispatch and groups, SSD
+    chunk; ``tag`` names the variant's record file.  ``window_cache`` and
+    ``cache_dtype`` shape decode's KV cache, which no cell of this port runs
+    (:data:`DECODE_REASON`): setting either raises.  A record on disk is
+    returned unless ``force``."""
+    if window_cache or cache_dtype:
+        raise ValueError(f"window_cache and cache_dtype apply to decode cells "
+                         f"({DECODE_REASON})")
+    out_path = cell_path(arch, shape_name, multi_pod, tag)
+    if out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import (StepConfig, input_shardings, leaf_plans,
+                                          make_prefill_step, make_train_step,
+                                          module_like, tp_report)
+    from repro_torch.models.api import Model, supports_cell
+    from repro_torch.models.config import ALL_SHAPES
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_cost import measure_step
+    from repro_torch.runtime.hlo_traffic import collective_summary, pod_traffic_matrix
+
+    shape = {s.name: s for s in ALL_SHAPES}[shape_name]
+    cfg = get_arch(arch)
+    ok, why = supports_cell(cfg, shape)
+    record = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "n_devices": 512 if multi_pod else 256,
+        "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+    }
+
+    def write(rec):
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(rec, indent=2))
+        return rec
+
+    if not ok:
+        record.update(status="skipped", reason=why)
+        return write(record)
+    if shape.kind == "decode":
+        record.update(status="not_ported", reason=DECODE_REASON)
+        return write(record)
+
+    if moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
+        if moe_groups:
+            cfg = dataclasses.replace(cfg, moe_groups=moe_groups)
+    if ssd_chunk:
+        cfg = dataclasses.replace(cfg, ssd_chunk=ssd_chunk)
+    model = Model(cfg, torch.device("meta"))
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    record.update(profile=profile, remat=remat)
+    prev = sh.get_profile()
+    sh.set_profile(profile)
+    t0 = time.time()
+    try:
+        plans = leaf_plans(model, mesh)
+        shapes = model.param_shapes()
+        shards = module_like(shapes, [sh.shard_tensor(x, p.sharding)
+                                      for x, p in zip(tree_util.leaves(shapes), plans)])
+        specs = model.input_specs(shape)
+        in_sh = input_shardings(mesh, cfg, shape, specs)
+        batch = {k: sh.shard_tensor(v, in_sh[k], sh.batch_axes(mesh))
+                 for k, v in specs.items()}
+        with sh.use_mesh(mesh):  # what the step holds: the leaves as its layers take them
+            used = [sh.gather_for_use(x, p) for x, p in zip(tree_util.leaves(shards), plans)]
+        if shape.kind == "train":
+            opt = AdamW()
+            mb = microbatches or MICROBATCHES.get(arch, 8)
+            step = make_train_step(model, opt, StepConfig(
+                microbatches=mb, remat="dots" if remat == "dots" else True), mesh)
+            ostate = opt.init(shards)
+            record.update(microbatches=mb)
+            args = (shards, ostate, batch)
+            out_bytes = _bytes(tree_util.leaves(shards)) + _bytes(ostate)
+        else:
+            step = make_prefill_step(model, mesh)
+            args = (shards, batch)
+            out_bytes = _bytes(torch.empty((next(iter(batch.values())).shape[0], 1),
+                                           dtype=torch.int32, device="meta"))
+        cost = measure_step(step, *args)
+        seconds = time.time() - t0
+        ops = cost.collective_ops
+        summary = collective_summary(ops)
+        n_pods = 2 if multi_pod else 1
+        tm = pod_traffic_matrix(ops, devices_per_pod=256, n_pods=n_pods)
+        record.update(
+            status="ok",
+            seconds=seconds,
+            flops=float(cost.flops),  # per device
+            hbm_bytes=float(cost.hbm_bytes),
+            unknown_trip_loops=cost.unknown_trip_loops,
+            memory_analysis={
+                "argument_bytes": _bytes(tree_util.leaves(args[0])) + _bytes(list(args[1:])),
+                "output_bytes": out_bytes,
+                "temp_bytes": None,
+                "temp_bytes_why": "the step runs on meta tensors, which have no "
+                                  "allocator to measure a peak",
+                "gathered_param_bytes": _bytes(used),
+                "gradient_bytes": 4 * sum(x.numel() for x in used)
+                if shape.kind == "train" else 0,
+            },
+            collectives=summary,
+            pod_tm_bytes=tm.tolist(),
+            n_collective_ops=len(ops),
+            model_params=cfg.param_count(),
+            model_params_active=cfg.active_param_count(),
+            tensor_parallel=tp_report(model, plans),
+            schedule="each leaf gathered once a step, before the first microbatch; "
+                     "each gradient reduce-scattered once, after the last",
+        )
+        print(f"[dryrun] OK  {arch} × {shape_name} × {record['mesh']} "
+              f"({seconds:.1f}s, flops {record['flops']:.3g}, "
+              f"wire/chip {summary['total_wire_bytes_per_chip']:.3g} B)")
+    except Exception as exc:  # recorded and counted: each is a bug to fix
+        record.update(status="failed", error=f"{type(exc).__name__}: {exc}",
+                      traceback=traceback.format_exc()[-4000:])
+        print(f"[dryrun] FAIL {arch} × {shape_name} × {record['mesh']}: {exc}")
+    finally:
+        sh.set_profile(prev)
+    return write(record)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--profile", default="fsdp", choices=["fsdp", "fsdp_pod", "tp"])
+    ap.add_argument("--microbatches", type=int, default=0)
+    ap.add_argument("--remat", default="full", choices=["full", "dots"])
+    ap.add_argument("--window-cache", action="store_true")
+    ap.add_argument("--cache-dtype", default="", choices=["", "bf16", "f8", "f32"])
+    ap.add_argument("--moe-impl", default="", choices=["", "onehot", "sorted"])
+    ap.add_argument("--ssd-chunk", type=int, default=0)
+    ap.add_argument("--moe-groups", type=int, default=0)
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.config import ALL_SHAPES
+
+    archs = sorted(ARCHS) if (args.all or not args.arch) else [args.arch]
+    shapes = [s.name for s in ALL_SHAPES] if (args.all or not args.shape) else [args.shape]
+    meshes = [False, True] if (args.both_meshes or args.all) else [args.multi_pod]
+
+    counts = {"ok": 0, "skipped": 0, "not_ported": 0, "failed": 0}
+    slowest = (0.0, "")
+    for multi_pod in meshes:
+        for arch in archs:
+            for shape in shapes:
+                rec = run_cell(arch, shape, multi_pod, force=args.force,
+                               profile=args.profile,
+                               microbatches=args.microbatches or None,
+                               remat=args.remat, window_cache=args.window_cache,
+                               cache_dtype=args.cache_dtype,
+                               moe_impl=args.moe_impl,
+                               moe_groups=args.moe_groups,
+                               ssd_chunk=args.ssd_chunk, tag=args.tag)
+                counts[rec["status"]] += 1
+                if rec.get("seconds", 0.0) > slowest[0]:
+                    slowest = (rec["seconds"], f"{arch} × {shape} × {rec['mesh']}")
+    print(f"[dryrun] done; {counts['ok']} ok, {counts['skipped']} skipped, "
+          f"{counts['not_ported']} not ported ({DECODE_REASON}), "
+          f"{counts['failed']} failures; slowest {slowest[1]} {slowest[0]:.1f}s")
+    raise SystemExit(1 if counts["failed"] else 0)
+
+
+if __name__ == "__main__":
+    main()

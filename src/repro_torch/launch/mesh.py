@@ -5,8 +5,10 @@ Multi-pod:  2×16×16 = 512 chips, axes ("pod", "data", "model") — the "pod"
 axis is the Gemini-managed DCNI dimension.
 
 The production meshes carry only names and sizes (the spec functions of
-:mod:`repro_torch.parallel.sharding` need nothing else); the host mesh spans
-the ranks of the ``torch.distributed`` process group, one rank per card.
+:mod:`repro_torch.parallel.sharding` need nothing else): they are virtual,
+and execute a step on ``meta`` tensors alone (the dry run).  The host mesh
+spans the ranks of the ``torch.distributed`` process group, one rank per
+card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_host_mesh(model_axis: int = 1, ranks=None) -> Mesh:
     """``(n // model_axis, model_axis)`` mesh with axes ("data", "model") over
     the ``n`` ranks of the process group (one rank per visible card), or
-    ``(1, 1)`` over this process when no process group is initialised.
+    ``(1, 1)`` over this process when no process group is initialised.  With
+    ``model_axis`` > 1 it also creates the process groups of each axis and
+    of the model axis's blocks (:meth:`Mesh.build_process_groups`).
 
     ``ranks`` (a list of ranks of the group) builds the mesh over those
     alone — elastic downsizing.  Every rank of the group must make that
@@ -48,5 +52,8 @@ def make_host_mesh(model_axis: int = 1, ranks=None) -> Mesh:
     n = len(sub) // model_axis * model_axis
     sub = sub[:n]
     group = None if sub == world else dist.new_group(sub)
-    return Mesh((n // model_axis, model_axis), ("data", "model"),
+    mesh = Mesh((n // model_axis, model_axis), ("data", "model"),
                 ranks=np.asarray(sub), group=group)
+    if model_axis > 1:  # the sub-groups of tensor parallelism
+        mesh.build_process_groups()
+    return mesh

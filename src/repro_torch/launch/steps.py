@@ -8,11 +8,17 @@ AdamW update, in place.  ``make_serve_step`` / ``make_prefill_step`` build the
 one-token decode step and the prefill step, under ``torch.inference_mode``.
 
 With a mesh (:func:`repro_torch.launch.mesh.make_host_mesh`: one rank per
-card) the training step is FSDP, i.e. ZeRO-3: each rank holds its shard of
-every parameter and of AdamW's moments along the dim that
-:func:`repro_torch.parallel.sharding.param_shardings` names, gathers the
-whole parameters before the forward, and reduce-scatters the gradients into
-their mean over the ranks after the backward; the update runs on the shards.
+card) the training step is FSDP × TP: each rank holds its tile of every
+parameter and of AdamW's moments (the dims that
+:func:`repro_torch.parallel.sharding.param_shardings` names, cut by its
+indices over the dp axes and the model axis), gathers each leaf over the dp
+axes before the forward, runs the layers that :func:`leaf_plans` names
+Megatron-parallel over the model axis on their tiles (the others on leaves
+gathered whole), and reduce-scatters the gradients over the dp axes into
+their mean after the backward; the update runs on the tiles.  On a virtual
+mesh (:func:`repro_torch.launch.mesh.make_production_mesh`) the same step
+runs on ``meta`` tensors as rank 0, and its collectives are recorded
+(:mod:`repro_torch.launch.dryrun`).
 
 ``input_shardings`` / ``cache_shardings`` / ``train_state_shardings``
 assign a :class:`~repro_torch.parallel.sharding.NamedSharding` to every
@@ -28,6 +34,7 @@ reference's rules:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -36,14 +43,16 @@ from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.optim import tree as tree_util
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.compression import compress_decompress
-from repro_torch.parallel.sharding import (Mesh, NamedSharding, PartitionSpec as P,
-                                           check_executable, dp_axes, fit_spec,
-                                           gather_tensor, param_shardings,
-                                           reduce_gradient, shard_dim, use_mesh)
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import (LeafPlan, Mesh, NamedSharding,
+                                           PartitionSpec as P, all_gather, all_reduce,
+                                           batch_axes, check_executable, dp_axes,
+                                           fit_spec, gather_for_use, param_shardings,
+                                           reduce_gradient, use_mesh)
 
 __all__ = ["StepConfig", "make_train_step", "make_serve_step", "make_prefill_step",
            "input_shardings", "cache_shardings", "train_state_shardings",
-           "module_like"]
+           "module_like", "leaf_plans", "tp_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,14 +68,101 @@ def module_like(params, values: list):
     return type(params)(params.cfg, tree_util.unflatten(params, values))
 
 
-def _all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``x`` summed over the mesh's ranks (a world of one: ``x``)."""
-    import torch.distributed as dist
+def _all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """``x`` summed over this rank's group over ``axes`` (default: the whole
+    mesh; a group of one: ``x``)."""
+    return all_reduce(x, mesh, mesh.axis_names if axes is None else axes)
 
-    if dist.is_initialized() and dist.get_world_size(mesh.group) > 1:
-        x = x.clone()
-        dist.all_reduce(x, group=mesh.group)
-    return x
+
+def _tp_role(path: str) -> str | None:
+    """The Megatron group of a leaf at reference path ``path``: a decoder
+    attention block's projections, a SwiGLU MLP's matrices, the vocabulary."""
+    parts = path.split("/")
+    if len(parts) >= 2 and parts[-2] == "attn" and parts[-1] in ("wq", "wk", "wv", "wo"):
+        return "attn"
+    if len(parts) >= 2 and parts[-2] == "mlp" and parts[-1] in ("w_gate", "w_up", "w_down"):
+        return "mlp"
+    if path in ("embed", "unembed"):
+        return "vocab"
+    return None
+
+
+# the dim each Megatron leaf splits over the model axis: columns of the
+# column-parallel matrices, rows of the row-parallel ones and of the embedding
+_TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0,
+           "embed": 0, "unembed": 1}
+
+
+def leaf_plans(model: Model, mesh: Mesh) -> list:
+    """A :class:`~repro_torch.parallel.sharding.LeafPlan` for every parameter
+    leaf (in ``tree_util.leaves`` order) on ``mesh``.
+
+    A leaf the rules split over the model axis runs Megatron when its whole
+    group does: a decoder attention block when the model axis divides the
+    head count and either divides the KV head count or is a multiple of it
+    (each KV head then replicated over ``model / n_kv_heads`` ranks, its
+    columns gathered over them; its qk-norm scales, whole on every rank,
+    get gradients summed over the model axis), a SwiGLU MLP, and the vocabulary (the
+    embedding's rows and the unembedding's columns, tied or not; the
+    unembedding's tile splits d, so it is gathered whole and cut by its
+    columns: ``LeafPlan.relayout``).  Every
+    other split leaf — the moe experts, RG-LRU, SSD, the convolutions, the
+    encoder-decoder, attention whose heads the axis does not divide — is
+    gathered whole, and its layer runs whole on every model rank."""
+    cfg = model.cfg
+    shapes = model.param_shapes()
+    with use_mesh(mesh):
+        shardings = tree_util.leaves_of(param_shardings(mesh, shapes))
+    paths = sh.param_paths(shapes)
+    m = mesh.shape.get("model", 1)
+    roles = [None if cfg.family == "audio" else _tp_role(p) for p in paths]
+
+    def tp_dim(s):
+        return LeafPlan(s).tp_dim
+
+    def relayout(p, s):  # the unembedding whose d the rules split (``embed$``)
+        return 1 if p == "unembed" and tp_dim(s) == 0 else None
+
+    ok = {}
+    for role in ("attn", "mlp", "vocab"):
+        mine = [(p, s) for p, s, r in zip(paths, shardings, roles) if r == role]
+        ok[role] = m > 1 and bool(mine) and all(
+            tp_dim(s) == _TP_DIM[p.split("/")[-1]] or relayout(p, s) is not None
+            for p, s in mine)
+    if ok["vocab"]:  # the vocabulary itself splits over the model axis
+        ok["vocab"] = cfg.vocab % m == 0
+    heads, kv = cfg.n_heads, cfg.n_kv_heads
+    ok["attn"] = ok["attn"] and heads % m == 0 and (kv % m == 0 or m % kv == 0)
+    kv_block = m // kv if ok["attn"] and kv < m else 0
+    plans = []
+    for p, s, r in zip(paths, shardings, roles):
+        if tp_dim(s) is None:  # qk-norm's scales see a Megatron rank's heads only
+            head_norm = p.split("/")[-2:] in (["attn", "q_norm"], ["attn", "k_norm"])
+            plans.append(LeafPlan(s, "data", model_sum=ok["attn"] and head_norm))
+        elif r is not None and ok[r]:
+            kb = kv_block if p.split("/")[-1] in ("wk", "wv") else 0
+            plans.append(LeafPlan(s, "megatron", kb, relayout(p, s)))
+        else:
+            plans.append(LeafPlan(s, "gathered"))
+    return plans
+
+
+def tp_report(model: Model, plans: list) -> dict:
+    """Which leaves (reference paths) run Megatron and which are gathered
+    whole over the model axis."""
+    paths = sh.param_paths(model.param_shapes())
+    out = {"megatron": [], "gathered": []}
+    for p, plan in zip(paths, plans):
+        if plan.mode in out and p not in out[plan.mode]:
+            out[plan.mode].append(p)
+    return out
+
+
+def _split_axes(plan: LeafPlan) -> tuple:
+    """The mesh axes over which the leaf's tile is split, in mesh order."""
+    mesh = plan.sharding.mesh
+    names = {a for _, axes in sh._sharded_dims(plan.sharding) for a in axes}
+    return tuple(a for a in mesh.axis_names if a in names)
 
 
 def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
@@ -81,19 +177,23 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     ``metrics`` holds ``loss`` (the microbatches' mean), ``grad_norm`` and
     ``lr``, as tensors on the device.
 
-    With a ``mesh`` (its ``model`` axis of size 1) the step is FSDP:
-    ``params`` and the moments of ``opt_state`` hold this rank's shards
-    (:func:`repro_torch.runtime.trainer.Trainer` makes them), ``batch`` its
-    slice of the global batch.  The step gathers every parameter whole (all
-    at once: the configurations trained here fit a card whole, and their
-    moments are what FSDP divides), runs the forward and backward on the
-    whole local tensors — the hand-written kernels among them —, compresses
-    the local gradients if ``compression`` says so, reduce-scatters them
-    into their float32 mean over the ranks (all-reduces a replicated leaf),
-    and updates the shards; the global-norm clip sums each leaf's squares
-    over the ranks.  ``loss`` is the mean of the ranks' losses.  On a
-    world of one every collective is the identity, so the step gives the
-    unsharded step's bits.
+    With a ``mesh`` the step is FSDP × TP: ``params`` and the moments of
+    ``opt_state`` hold this rank's tiles
+    (:func:`repro_torch.runtime.trainer.Trainer` makes them), ``batch`` the
+    slice of the global batch of its index over the dp axes (ranks that
+    differ only in their model index hold the same slice).  The step gathers
+    every leaf over the dp axes — and over the model axis as
+    :func:`leaf_plans` says — all at once (the tiles are what FSDP divides;
+    a leaf's whole gradient is held on each rank before it is
+    reduce-scattered), runs the forward and backward on them — the
+    hand-written kernels among them, at the rank's head counts —,
+    compresses the local gradients if ``compression`` says so,
+    reduce-scatters them into their float32 mean over the dp ranks
+    (:func:`~repro_torch.parallel.sharding.reduce_gradient`), and updates
+    the tiles; the global-norm clip sums each leaf's squares over the axes
+    its tile is split over, so a replicated leaf counts once.  ``loss`` is
+    the mean of the dp ranks' losses.  On a world of one every collective
+    is the identity, so the step gives the unsharded step's bits.
     """
     k = step_cfg.microbatches
 
@@ -133,35 +233,38 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
 
     if mesh is None:
         return train_step
-    check_executable(mesh)
-    with use_mesh(mesh):
-        shardings = tree_util.leaves_of(param_shardings(mesh, model.param_shapes()))
-    sharded = [shard_dim(s) is not None for s in shardings]
-    n_ranks = mesh.size
+    check_executable(mesh, "train")
+    plans = leaf_plans(model, mesh)
+    split = [_split_axes(p) for p in plans]
+    batch_ax = batch_axes(mesh)
+    n_batch = math.prod(mesh.shape[a] for a in batch_ax)
 
     def sum_squares(sq: list) -> list:
-        """Each leaf's sum of squares over the whole gradient: the shards'
-        partial sums added over the ranks (a replicated leaf's is whole)."""
-        idx = [i for i, sh in enumerate(sharded) if sh]
-        if idx:
-            tot = _all_reduce_sum(torch.stack([sq[i] for i in idx]), mesh)
-            sq = list(sq)
+        """Each leaf's sum of squares over the whole gradient: the tiles'
+        partial sums added over the axes each leaf is split over (one
+        all-reduce for each set of axes; a replicated leaf's is whole)."""
+        sq = list(sq)
+        for axes in dict.fromkeys(a for a in split if a):
+            idx = [i for i, a in enumerate(split) if a == axes]
+            tot = _all_reduce_sum(torch.stack([sq[i] for i in idx]), mesh, axes)
             for j, i in enumerate(idx):
                 sq[i] = tot[j]
         return sq
 
     def fsdp_step(shards, opt_state, batch):
-        full = module_like(shards, [gather_tensor(x, s) for x, s in
-                                    zip(tree_util.leaves(shards), shardings)])
-        loss, grads = local_grads(full, batch)
-        del full
-        grads = [reduce_gradient(g, s)
-                 for g, s in zip(tree_util.leaves(grads), shardings)]
-        loss = _all_reduce_sum(loss, mesh) / n_ranks
-        shards, opt_state, om = opt.update(tree_util.unflatten(shards, grads),
-                                           opt_state, shards, sum_squares=sum_squares)
+        with use_mesh(mesh):
+            full = module_like(shards, [gather_for_use(x, p) for x, p in
+                                        zip(tree_util.leaves(shards), plans)])
+            loss, grads = local_grads(full, batch)
+            del full
+            grads = [reduce_gradient(g, p)
+                     for g, p in zip(tree_util.leaves(grads), plans)]
+            loss = _all_reduce_sum(loss, mesh, batch_ax) / n_batch
+            shards, opt_state, om = opt.update(tree_util.unflatten(shards, grads),
+                                               opt_state, shards, sum_squares=sum_squares)
         return shards, opt_state, {"loss": loss, **om}
 
+    fsdp_step.plans = plans
     return fsdp_step
 
 
@@ -177,15 +280,46 @@ def make_serve_step(model: Model, ring: bool = False):
     return serve_step
 
 
-def make_prefill_step(model: Model):
-    """(params, batch) -> the greedy next token (B, 1) after the prompt."""
+def _vocab_argmax(last: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The greedy token (B, 1) from logits (B, V / model) of this rank's
+    share of the vocabulary: each rank's best (value, id), gathered over the
+    model axis; the lowest id wins a tie, as ``argmax`` does."""
+    val, idx = last.float().max(dim=-1)
+    idx = idx + sh.tp_rank() * last.shape[-1]
+    pairs = all_gather(torch.stack([val, idx.float()], dim=-1)[None], 0, mesh, ("model",))
+    best = pairs[..., 0].argmax(dim=0)  # the first (lowest-rank) maximum
+    return pairs[..., 1].gather(0, best[None])[0, :, None].int()
+
+
+def make_prefill_step(model: Model, mesh: Mesh | None = None):
+    """(params, batch) -> the greedy next token (B, 1) after the prompt.
+    With a ``mesh``, ``params`` are this rank's tiles and ``batch`` its dp
+    slice: each leaf is gathered as :func:`leaf_plans` says, the Megatron
+    layers run on their tiles, and the greedy token is chosen over the
+    vocabulary's shares (:func:`_vocab_argmax`)."""
+
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill_step(params, batch):
+            logits = model.forward(params, batch)
+            return logits[:, -1].argmax(dim=-1, keepdim=True).int()
+
+        return prefill_step
+    check_executable(mesh, "prefill")
+    plans = leaf_plans(model, mesh)
 
     @torch.inference_mode()
-    def prefill_step(params, batch):
-        logits = model.forward(params, batch)
-        return logits[:, -1].argmax(dim=-1, keepdim=True).int()
+    def sharded_prefill(shards, batch):
+        with use_mesh(mesh):
+            full = module_like(shards, [gather_for_use(x, p) for x, p in
+                                        zip(tree_util.leaves(shards), plans)])
+            last = model.forward(full, batch)[:, -1]
+            if last.shape[-1] != model.cfg.vocab:
+                return _vocab_argmax(last, mesh)
+            return last.argmax(dim=-1, keepdim=True).int()
 
-    return prefill_step
+    sharded_prefill.plans = plans
+    return sharded_prefill
 
 
 # ---------------------------------------------------------------------------

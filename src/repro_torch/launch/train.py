@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --steps 50 \
         [--batch 8] [--seq 128] [--microbatches 1] \
         [--compression none|topk|int8] [--ckpt-dir DIR] [--full] [--device cuda] \
-        [--world-size N] [--backend nccl|gloo]
+        [--world-size N] [--backend nccl|gloo] [--model-axis M]
 
 Trains the architecture's ``reduced()`` variant unless ``--full``, on the
 mesh of :func:`repro_torch.launch.mesh.make_host_mesh` through
@@ -14,9 +14,10 @@ by NCCL; ``--device cpu`` runs the kernels' plain versions in one process,
 or in ``--world-size`` processes joined by ``gloo``.  One process trains on
 the host mesh of one rank, in this process.  The run resumes from the
 latest checkpoint in ``--ckpt-dir``, by default ``build/ckpt/<config name>``
-in the checkout (one directory a configuration).  The reference's report
-also carries the step's pod traffic matrix from its HLO; that extraction is
-a later slice of the port (ROADMAP 2.9.4).
+in the checkout (one directory a configuration).  ``--model-axis M`` lays
+the ranks out as a (world / M) × M (data, model) mesh: tensor parallelism
+over the model axis (FSDP × TP); the report then says which leaves ran
+Megatron and which were gathered whole (``tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -127,7 +128,7 @@ def _train(args, device, ckpt_dir) -> dict:
     if not args.full:
         cfg = cfg.reduced()
     model = build_model(cfg, device)
-    mesh = make_host_mesh()
+    mesh = make_host_mesh(model_axis=args.model_axis)
     opt = AdamW(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                 total_steps=args.steps)
     tcfg = TrainerConfig(total_steps=args.steps,
@@ -142,7 +143,7 @@ def _train(args, device, ckpt_dir) -> dict:
     trainer.install_signal_handlers()
     out = trainer.run()
     losses = out["losses"]
-    return {
+    report = {
         "arch": cfg.name, "steps": out["last_step"],
         "loss_first": float(np.mean(losses[:5])) if losses else None,
         "loss_last": float(np.mean(losses[-5:])) if losses else None,
@@ -152,6 +153,11 @@ def _train(args, device, ckpt_dir) -> dict:
         "device": str(model.device),
         "mesh": dict(mesh.shape),
     }
+    if mesh.shape["model"] > 1:
+        from repro_torch.launch.steps import tp_report
+
+        report["tensor_parallel"] = tp_report(model, trainer._step_fn.plans)
+    return report
 
 
 def _train_rank(rank, world, args, device_type, ckpt_dir):
@@ -180,6 +186,8 @@ def main(argv=None):
                     help="ranks (default: every visible card on CUDA, 1 on the CPU)")
     ap.add_argument("--backend", default=None,
                     help="process-group backend (default: nccl on CUDA, gloo on the CPU)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks on the mesh's model axis (tensor parallelism)")
     args = ap.parse_args(argv)
 
     from repro_torch.device import resolve_device

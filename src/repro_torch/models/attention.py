@@ -8,6 +8,14 @@ plain version on the CPU.  One-token decode (:func:`decode_attention`, and
 cross-attention of one token) stays plain PyTorch, as in the reference;
 :func:`decode_attention` writes the new key and value into the cache in
 place.
+
+Tensor parallelism (Megatron): when the block is handed this rank's columns
+of ``wq``/``wk``/``wv`` (its heads, and the KV heads they read) and its rows
+of ``wo`` — fewer heads than ``cfg.n_heads`` —, :func:`self_attention` runs
+those heads alone: its input passes :func:`~repro_torch.parallel.sharding.tp_copy`
+and its row-parallel output is summed over the model axis by
+:func:`~repro_torch.parallel.sharding.tp_reduce`.  The head counts come from
+the weights' shapes, so whole weights run as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models.layers import dtype_of, init_dense, rms_norm, rope
+from repro_torch.parallel import sharding as sh
 
 __all__ = ["NEG_INF", "init_attn_params", "self_attention", "decode_attention",
            "causal_mask", "init_cross_attn_params", "cross_attention"]
@@ -37,12 +46,19 @@ def init_attn_params(gen, cfg, device) -> dict:
     return p
 
 
+def _is_split(p, cfg) -> bool:
+    """Whether ``p`` holds a tensor-parallel share of the heads."""
+    return p.wq.shape[-1] != cfg.n_heads * cfg.resolved_head_dim
+
+
 def _project_qkv(p, x, cfg, positions):
+    """q, k, v of the heads whose columns ``p`` holds (all of them unless
+    tensor parallel)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = (x @ p.wq).reshape(b, s, p.wq.shape[-1] // hd, hd)
+    k = (x @ p.wk).reshape(b, s, p.wk.shape[-1] // hd, hd)
+    v = (x @ p.wv).reshape(b, s, p.wv.shape[-1] // hd, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -55,9 +71,9 @@ def _sdpa(q, k, v, mask, cfg):
     """q (B,S,H,hd), k/v (B,T,KV,hd), mask (B,S,T) bool; GQA via head
     grouping, scores and softmax in float32."""
     hd = q.shape[-1]
-    groups = cfg.n_heads // cfg.n_kv_heads
     b, s, h, _ = q.shape
-    qg = q.reshape(b, s, cfg.n_kv_heads, groups, hd)
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / hd ** 0.5
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -76,7 +92,7 @@ def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
 
 def _out_proj(p, out, cfg):
     b, s = out.shape[:2]
-    return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
+    return out.reshape(b, s, p.wo.shape[0]) @ p.wo
 
 
 def self_attention(p, x, cfg, window: int = 0, positions=None):
@@ -84,13 +100,18 @@ def self_attention(p, x, cfg, window: int = 0, positions=None):
     flash-attention kernel.  x (B, S, d); ``window`` 0 = global;
     ``positions`` (B, S) the RoPE positions (default 0..S-1).  The mask is
     causal over the sequence's order whatever the positions, as in the
-    reference."""
+    reference.  On a tensor-parallel share of the heads the output is summed
+    over the model axis."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    split = _is_split(p, cfg)
+    if split:
+        x = sh.tp_copy(x)
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
-    return _out_proj(p, out, cfg)
+    out = _out_proj(p, out, cfg)
+    return sh.tp_reduce(out) if split else out
 
 
 def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
@@ -103,6 +124,9 @@ def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
     ``ring=True``: a sliding-window ring buffer whose keys are cached after
     RoPE, so masking only excludes slots not yet written).
     """
+    if _is_split(p, cfg):
+        raise NotImplementedError(f"decode_attention on a tensor-parallel share of "
+                                  f"the heads ({sh.TP_ROADMAP})")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)

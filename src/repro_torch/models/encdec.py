@@ -74,7 +74,7 @@ def _enc_block(blk, x, cfg):
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = attn._project_qkv(blk.attn, h, cfg, positions)
     x = x + attn._out_proj(blk.attn, fa.flash_attention(q, k, v, causal=False), cfg)
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
 def encode(params, frames: torch.Tensor, cfg: ArchConfig, remat=False) -> torch.Tensor:
@@ -89,7 +89,7 @@ def encode(params, frames: torch.Tensor, cfg: ArchConfig, remat=False) -> torch.
 def _dec_block(blk, x, enc_out, cfg, window: int = 0):
     x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, window=window)
     x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg)
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
 def _logits(params, frames, tokens, cfg, remat):
@@ -151,7 +151,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchCon
             blk.attn, rms_norm(x, blk.norm1), cache["self"][i], pos, cfg)
         x = x + out
         x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg)
-        x = x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+        x = x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
     logits = rms_norm(x, params.final_norm) @ params.unembed
     return logits, cache
 

@@ -23,6 +23,14 @@ Families:
 
 Decode carries a per-layer cache (lists of dicts, one entry per layer) and
 updates it in place.
+
+Tensor parallelism (train and prefill on a mesh with a model axis): a layer
+handed this rank's share of its weights runs Megatron — the attention over
+its heads (:func:`repro_torch.models.attention.self_attention`), the SwiGLU
+MLP over its hidden units, the vocabulary over its rows of the embedding and
+columns of the logits, with the vocab-parallel loss.  Which layers get a
+share is the step's plan (:func:`repro_torch.launch.steps.leaf_plans`); a
+layer handed whole weights runs whole, as on one card.
 """
 
 from __future__ import annotations
@@ -39,8 +47,11 @@ from repro_torch.models import rglru as rg
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (dtype_of, embed, init_dense, rms_norm,
-                                       softmax_cross_entropy, swiglu, unembed)
+                                       softmax_cross_entropy, swiglu, swiglu_tp,
+                                       unembed, vocab_parallel_cross_entropy,
+                                       vocab_parallel_embed)
 from repro_torch.models.params import Params
+from repro_torch.parallel import sharding as sh
 
 __all__ = ["FAMILIES", "DecoderLM", "check_family", "init_params",
            "layer_window", "backbone", "forward", "loss_fn", "init_cache",
@@ -142,7 +153,10 @@ def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
 # full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _mlp_fwd(m, x):
+def _mlp_fwd(m, x, cfg):
+    """SwiGLU, tensor parallel when ``m`` holds a share of the hidden units."""
+    if m.w_gate.shape[-1] != cfg.d_ff:
+        return swiglu_tp(x, m.w_gate, m.w_up, m.w_down)
     return swiglu(x, m.w_gate, m.w_up, m.w_down)
 
 
@@ -151,7 +165,7 @@ def _ffn_fwd(blk, x, cfg):
     loss, or None for SwiGLU)."""
     if "moe" in blk:
         return moe_mod.moe_ffn(blk.moe, x, cfg)
-    return _mlp_fwd(blk.mlp, x), None
+    return _mlp_fwd(blk.mlp, x, cfg), None
 
 
 def _attn_block_fwd(blk, x, cfg, window):
@@ -160,14 +174,14 @@ def _attn_block_fwd(blk, x, cfg, window):
     return x + out, aux
 
 
-def _rec_block_fwd(blk, x):
+def _rec_block_fwd(blk, x, cfg):
     x = x + rg.recurrent_block(blk.rec, rms_norm(x, blk.norm1))
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2))
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
 def _hybrid_super_fwd(sup, x, cfg):
-    x = _rec_block_fwd(sup.rec1, x)
-    x = _rec_block_fwd(sup.rec2, x)
+    x = _rec_block_fwd(sup.rec1, x, cfg)
+    x = _rec_block_fwd(sup.rec2, x, cfg)
     return _attn_block_fwd(sup.attn_blk, x, cfg, cfg.window)[0]
 
 
@@ -210,7 +224,7 @@ def backbone(params, x, cfg: ArchConfig, remat=False):
         for sup in params.super:
             x = ck(_hybrid_super_fwd, sup, x, cfg)
         for blk in params.tail if "tail" in params else ():
-            x = ck(_rec_block_fwd, blk, x)
+            x = ck(_rec_block_fwd, blk, x, cfg)
     elif cfg.family == "ssm":
         for blk in params.blocks:
             x = ck(_ssm_block_fwd, blk, x, cfg)
@@ -222,7 +236,15 @@ def backbone(params, x, cfg: ArchConfig, remat=False):
     return x, aux
 
 
+def _vocab_split(params, cfg: ArchConfig) -> bool:
+    """Whether ``params`` holds this rank's share of the vocabulary."""
+    return params.embed.shape[0] != cfg.vocab
+
+
 def _project_logits(params, x, cfg: ArchConfig):
+    """The logits (of this rank's share of the vocabulary, tensor parallel)."""
+    if _vocab_split(params, cfg):
+        x = sh.tp_copy(x)
     if cfg.tie_embeddings:
         return unembed(x, params.embed)  # (V, d) table
     return x @ params.unembed
@@ -231,7 +253,10 @@ def _project_logits(params, x, cfg: ArchConfig):
 def _logits(params, tokens, cfg, patches, remat):
     """(logits, aux) of the full sequence; see :func:`forward`."""
     _check_decoder(cfg)
-    x = embed(tokens, params.embed)
+    if _vocab_split(params, cfg):
+        x = vocab_parallel_embed(tokens, params.embed)
+    else:
+        x = embed(tokens, params.embed)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     x, aux = backbone(params, x, cfg, remat)
@@ -256,7 +281,9 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
     load-balancing loss, and {"ce", "aux"}.  Differentiable; ``remat`` as
     :func:`backbone`."""
     logits, aux = _logits(params, batch["tokens"], cfg, batch.get("patches"), remat)
-    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    ce = (vocab_parallel_cross_entropy if _vocab_split(params, cfg)
+          else softmax_cross_entropy)
+    loss = ce(logits, batch["labels"], batch.get("mask"))
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -303,10 +330,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None,
     return {"blocks": [kv() for _ in range(cfg.n_layers)]}
 
 
-def _rec_step(blk, x, st):
+def _rec_step(blk, x, st, cfg):
     out, st = rg.recurrent_block_step(blk.rec, rms_norm(x, blk.norm1), st)
     x = x + out
-    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2)), st
+    return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg), st
 
 
 def _attn_step(blk, x, kv, pos, cfg, window, ring=False):
@@ -332,12 +359,12 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
             x = x + out
     elif cfg.family == "hybrid":
         for sup, st in zip(params.super, cache["super"]):
-            x, st["rec1"] = _rec_step(sup.rec1, x, st["rec1"])
-            x, st["rec2"] = _rec_step(sup.rec2, x, st["rec2"])
+            x, st["rec1"] = _rec_step(sup.rec1, x, st["rec1"], cfg)
+            x, st["rec2"] = _rec_step(sup.rec2, x, st["rec2"], cfg)
             x, st["attn"] = _attn_step(sup.attn_blk, x, st["attn"], pos, cfg,
                                        cfg.window)
         for i, blk in enumerate(params.tail if "tail" in params else ()):
-            x, cache["tail"][i] = _rec_step(blk, x, cache["tail"][i])
+            x, cache["tail"][i] = _rec_step(blk, x, cache["tail"][i], cfg)
     else:
         for i, blk in enumerate(params.blocks):
             x, cache["blocks"][i] = _attn_step(blk, x, cache["blocks"][i], pos, cfg,

@@ -14,12 +14,27 @@ Logical → physical convention (as the reference's):
 
 Parameter rules are path-regex → :class:`PartitionSpec`, FSDP-style: every
 large matrix shards one dim over "tp" and the other over the dp axes, so
-parameter and optimizer memory scale with the device count (ZeRO-3).  The
-port executes meshes whose ``model`` axis has size 1: the dp dim of each
-leaf is split over the ranks, and a ``model`` axis larger than 1 (tensor
-parallelism in execution) raises ``NotImplementedError`` (ROADMAP 2.11).
-The spec functions read only a mesh's axis names and sizes, so they answer
-for any mesh shape, the 16×16 and 2×16×16 production meshes included.
+parameter and optimizer memory scale with the device count (ZeRO-3).  Each
+rank holds the tile of every leaf that its coordinates name: its dp dim cut
+by the rank's index over the dp axes, its tp dim by its ``model`` index.
+A leaf is gathered over the dp axes only — the ranks that share its model
+index — and its gradient reduce-scattered over the same group
+(:func:`gather_for_use`, :func:`reduce_gradient`).  Over the ``model`` axis
+a tp-sharded leaf either stays in its tile, where the model's layers run
+Megatron tensor parallelism on it (:func:`tp_copy`, :func:`tp_reduce`), or
+is gathered whole (:class:`LeafPlan`); which one is the step's plan
+(:func:`repro_torch.launch.steps.leaf_plans`).  Decode under tensor
+parallelism is a later slice (:data:`TP_ROADMAP`).
+
+Every collective goes through one path (:func:`all_gather`,
+:func:`reduce_scatter`, :func:`all_reduce`), which appends it to the open
+records of :func:`repro_torch.runtime.hlo_traffic.record_collectives` with
+its replica groups in global device ids (a device's row-major index in the
+mesh).  A mesh built from names and sizes alone (the production meshes) is
+*virtual*: it executes only on ``meta`` tensors, each collective recorded
+as rank 0 sees it and answered with a ``meta`` tensor of the result's
+shape; any other tensor raises ``ValueError``.  The spec functions read
+only a mesh's axis names and sizes, so they answer for any mesh shape.
 
 The port's parameters keep each layer group as a list of per-layer modules
 (``blocks.3.attn.wq``) where the reference stacks the group along a leading
@@ -44,16 +59,19 @@ import torch
 
 from repro_torch import obs
 from repro_torch.optim.tree import as_tree, unflatten
+from repro_torch.runtime import hlo_traffic
 
 __all__ = [
     "PartitionSpec", "P", "Mesh", "NamedSharding", "set_profile", "get_profile",
     "set_active_mesh", "active_mesh", "use_mesh", "fleet_mesh", "shard_leading",
     "dp_axes", "spec", "constrain", "PARAM_RULES", "param_spec_for", "fit_spec",
-    "param_shardings", "check_executable", "shard_dim", "shard_tensor",
+    "param_shardings", "check_executable", "shard_tensor",
     "gather_tensor", "reduce_gradient", "host_sync_point", "TP_ROADMAP",
+    "LeafPlan", "param_paths", "gather_for_use", "all_gather", "reduce_scatter", "all_reduce",
+    "tp_copy", "tp_reduce", "tp_max", "tp_rank", "axis_index", "batch_axes",
 ]
 
-TP_ROADMAP = "ROADMAP 2.11: tensor parallelism in execution"
+TP_ROADMAP = "ROADMAP 2.9.5: decode under tensor parallelism"
 
 _ACTIVE_MESH = None
 
@@ -112,10 +130,86 @@ class Mesh:
             raise ValueError(f"{len(self.devices)} devices for a mesh of {self.size}")
         self.ranks = None if ranks is None else np.asarray(ranks, np.int64).reshape(shape)
         self.group = group
+        self._groups = {}  # (axes, block) -> this rank's process group
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @property
+    def virtual(self) -> bool:
+        """Names and sizes only: no cards, no ranks.  Executes on ``meta``
+        tensors alone, as rank 0 (:func:`all_gather`)."""
+        return self.devices is None and self.ranks is None
+
+    def virtual_copy(self) -> "Mesh":
+        """A virtual mesh of this mesh's names and sizes."""
+        return Mesh(tuple(self.shape.values()), self.axis_names)
+
+    def coords(self) -> dict:
+        """This rank's index along each axis (rank 0's on a virtual mesh)."""
+        pos = self.rank_index
+        if pos is None:
+            raise ValueError(f"this rank is not one of the mesh's ({self})")
+        return dict(zip(self.axis_names,
+                        (int(i) for i in np.unravel_index(pos, tuple(self.shape.values())))))
+
+    def groups(self, axes, block: int | None = None) -> np.ndarray:
+        """The replica groups of a collective over ``axes`` (names in mesh
+        order): one row for each combination of the other axes, holding the
+        device ids (row-major positions) that vary along ``axes``, in
+        row-major order over them — the groups of the reference's iota
+        replica groups.  ``block`` splits each row into consecutive groups
+        of that many ids (a part of the model axis)."""
+        axes = tuple(axes)
+        names = self.axis_names
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx) or len(set(idx)) != len(idx):
+            raise ValueError(f"axes {axes} are not in the order of the mesh's {names}")
+        other = [i for i in range(len(names)) if i not in idx]
+        ids = np.arange(self.size).reshape(tuple(self.shape.values()))
+        g = ids.transpose(other + idx).reshape(-1, math.prod(self.shape[a] for a in axes))
+        if block:
+            if g.shape[1] % block:
+                raise ValueError(f"a block of {block} does not divide groups of {g.shape[1]}")
+            g = g.reshape(-1, block)
+        return g
+
+    def group_size(self, axes, block: int | None = None) -> int:
+        return block or math.prod(self.shape[a] for a in axes)
+
+    def process_group(self, axes, block: int | None = None):
+        """This rank's ``torch.distributed`` group for a collective over
+        ``axes`` (``mesh.group`` when it spans the whole mesh)."""
+        if self.group_size(axes, block) == self.size:
+            return self.group
+        if block == math.prod(self.shape[a] for a in axes):
+            block = None  # a block of the whole axis is the axis's group
+        key = (tuple(axes), block)
+        if key not in self._groups:
+            raise ValueError(f"{self} has no process groups over {axes} "
+                             f"(block {block}): make_host_mesh builds them")
+        return self._groups[key]
+
+    def build_process_groups(self) -> None:
+        """Create the process groups of every proper sub-group a step can
+        ask for: each axis alone, and consecutive blocks of the ``model``
+        axis (a replicated KV head's ranks).  Every rank of the process
+        group's world calls this, in the same order."""
+        import torch.distributed as dist
+
+        keys = [((a,), None) for a in self.axis_names]
+        keys += [(("model",), b) for b in range(2, self.shape.get("model", 1))
+                 if self.shape["model"] % b == 0]
+        pos = self.rank_index
+        for axes, block in keys:
+            n = self.group_size(axes, block)
+            if n in (1, self.size):
+                continue
+            for row in self.groups(axes, block):
+                pg = dist.new_group([int(r) for r in self.ranks.reshape(-1)[row]])
+                if pos is not None and pos in row:
+                    self._groups[(axes, block)] = pg
 
     @property
     def rank_index(self) -> int | None:
@@ -173,14 +267,15 @@ def use_mesh(mesh: Mesh):
         set_active_mesh(prev)
 
 
-def check_executable(mesh: Mesh) -> None:
-    """Raise unless the port can execute on ``mesh``: a ``model`` axis
-    larger than 1 is tensor parallelism, a later slice."""
-    if mesh.shape.get("model", 1) > 1:
+def check_executable(mesh: Mesh, kind: str = "train") -> None:
+    """Raise unless the port can execute a step of ``kind`` ("train",
+    "prefill" or "decode") on ``mesh``: decode on a ``model`` axis larger
+    than 1 (its KV cache sharded over the model axis) is a later slice."""
+    if kind == "decode" and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"a mesh with a model axis of {mesh.shape['model']} shards tensors "
-            f"over the model axis; executing it is a later slice of the port "
-            f"({TP_ROADMAP}); the specs of such a mesh are answered")
+            f"decode on a mesh with a model axis of {mesh.shape['model']} is a "
+            f"later slice of the port ({TP_ROADMAP}); train and prefill steps "
+            f"execute on it, and its cache specs are answered")
 
 
 def fleet_mesh(devices=None) -> Mesh:
@@ -397,13 +492,11 @@ def spec(*axes) -> PartitionSpec:
 
 
 def constrain(x, *axes):
-    """The activation constraint of the reference's model code.  With no
-    active mesh, or one whose ``model`` axis has size 1, it leaves ``x`` as
-    it is: each rank's tensors are already its local slice of the data
-    axes.  A ``model`` axis larger than 1 raises (ROADMAP 2.11)."""
-    if _ACTIVE_MESH is None:
-        return x
-    check_executable(_ACTIVE_MESH)
+    """The activation constraint of the reference's model code.  It leaves
+    ``x`` as it is: each rank's activations are already its slice of the
+    batch over the dp axes, whole over the model axis (the port shards no
+    sequence), and tensor parallelism places its own collectives
+    (:func:`tp_copy`, :func:`tp_reduce`)."""
     return x
 
 
@@ -496,6 +589,12 @@ def _param_leaves(tree, path=(), layers=()):
         yield path, layers, tree
 
 
+def param_paths(params_shape_tree) -> list:
+    """The reference path (:func:`_path_str`) of every parameter leaf, in
+    ``repro_torch.optim.tree.leaves`` order."""
+    return [_path_str(path) for path, _, _ in _param_leaves(params_shape_tree)]
+
+
 def param_shardings(mesh: Mesh, params_shape_tree):
     """A :class:`NamedSharding` per parameter (divisibility-safe), in the
     structure of ``params_shape_tree`` (a parameter tree or ``Params``
@@ -515,23 +614,62 @@ def param_shardings(mesh: Mesh, params_shape_tree):
     return unflatten(params_shape_tree, out)
 
 
-# ---- executing a data-axis sharding (FSDP) ----------------------------------
+# ---- executing a sharding: tiles, collectives, tensor parallelism ------------
 
-def shard_dim(sharding: NamedSharding) -> int | None:
-    """The dim that ``sharding`` splits over the mesh's ranks: the first
-    entry naming a data axis ("data" or "pod") whose size exceeds 1, or
-    ``None`` (replicated).  Raises on a mesh the port cannot execute."""
+def _entry_axes(axes) -> tuple:
+    return () if axes is None else (axes if isinstance(axes, tuple) else (axes,))
+
+
+def _sharded_dims(sharding: NamedSharding, axes=None):
+    """(dim, entry axes) of every dim that ``sharding`` splits over more
+    than one rank; with ``axes``, only the dims whose entry lies in them."""
     mesh = sharding.mesh
-    check_executable(mesh)
-    for dim, axes in enumerate(sharding.spec):
-        names = axes if isinstance(axes, tuple) else (axes,)
-        if any(a in ("data", "pod") for a in names if a is not None) and \
-                math.prod(mesh.shape[a] for a in names if a is not None) > 1:
-            return dim
-    return None
+    out = []
+    for dim, entry in enumerate(sharding.spec):
+        names = _entry_axes(entry)
+        if not names or math.prod(mesh.shape[a] for a in names) == 1:
+            continue
+        if axes is not None and not set(names) <= set(axes):
+            if set(names) & set(axes):
+                raise ValueError(f"{sharding.spec}: dim {dim} mixes axes {names} "
+                                 f"inside and outside {tuple(axes)}")
+            continue
+        out.append((dim, names))
+    return out
 
 
-def _collective(name: str, old: str):
+def batch_axes(mesh: Mesh) -> tuple:
+    """The mesh's dp axes: the ranks along them hold different slices of
+    the batch; ranks that differ only in their model index hold the same."""
+    return tuple(a for a in dp_axes(mesh) if a in mesh.shape)
+
+
+def axis_index(mesh: Mesh, axes) -> int:
+    """This rank's row-major index over ``axes``."""
+    c = mesh.coords()
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + c[a]
+    return i
+
+
+def _cut(x, n: int, dim: int, i: int):
+    if isinstance(x, torch.Tensor):
+        return x.chunk(n, dim)[i].contiguous()
+    return np.split(np.asarray(x), n, axis=dim)[i]
+
+
+def shard_tensor(x, sharding: NamedSharding, axes=None):
+    """This rank's tile of the logical ``x`` (a tensor or numpy array): each
+    dim that ``sharding`` splits (over ``axes`` only, if given) cut to this
+    rank's chunk, a contiguous copy; ``x`` itself when nothing is split."""
+    for dim, names in _sharded_dims(sharding, axes):
+        n = math.prod(sharding.mesh.shape[a] for a in names)
+        x = _cut(x, n, dim, axis_index(sharding.mesh, names))
+    return x
+
+
+def _dist_fn(name: str, old: str):
     """A ``torch.distributed`` collective by its current name, or by its
     older one on a release that lacks it."""
     import torch.distributed as dist
@@ -539,56 +677,212 @@ def _collective(name: str, old: str):
     return getattr(dist, name, None) or getattr(dist, old)
 
 
-def _group_size(mesh: Mesh) -> int:
-    import torch.distributed as dist
+def _issue(kind: str, mesh: Mesh, axes, block, x: torch.Tensor, out_shape) -> bool:
+    """Record one collective over ``axes`` of ``mesh`` whose result has
+    ``out_shape`` and ``x``'s dtype.  Returns whether the caller must run it
+    (False for a group of one, and on a virtual mesh, which takes ``meta``
+    tensors only)."""
+    if mesh.group_size(axes, block) == 1:
+        return False
+    if mesh.virtual and x.device.type != "meta":
+        raise ValueError(f"{kind} on a virtual mesh {mesh} takes meta tensors only, "
+                         f"got one on {x.device}")
+    hlo_traffic.record(kind, math.prod(out_shape), str(x.dtype).removeprefix("torch."),
+                       mesh.groups(axes, block))
+    return not mesh.virtual
 
-    return dist.get_world_size(mesh.group) if dist.is_initialized() else 1
 
-
-def shard_tensor(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """This rank's shard of the logical tensor ``x`` (a contiguous copy of
-    its chunk along :func:`shard_dim`; ``x`` itself when replicated)."""
-    dim = shard_dim(sharding)
-    if dim is None:
-        return x
-    n = sharding.mesh.size
-    return x.chunk(n, dim)[sharding.mesh.rank_index].contiguous()
-
-
-def gather_tensor(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """The logical tensor from every rank's shard ``x`` (an all-gather over
-    the mesh's group along :func:`shard_dim`; ``x`` when replicated)."""
-    import torch.distributed as dist
-
-    dim = shard_dim(sharding)
-    if dim is None:
-        return x
-    n = sharding.mesh.size
+def all_gather(x: torch.Tensor, dim: int, mesh: Mesh, axes, block=None) -> torch.Tensor:
+    """The chunks of ``x`` of every rank of this rank's group over ``axes``
+    (``block``: its part of the axis), concatenated along ``dim`` in the
+    group's order."""
+    n = mesh.group_size(axes, block)
+    out_shape = list(x.shape)
+    out_shape[dim] *= n
+    if not _issue("all-gather", mesh, axes, block, x, out_shape):
+        return x if n == 1 else x.new_empty(out_shape)
     buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)  # the shards one after another
-    _collective("all_gather_single", "all_gather_into_tensor")(
-        buf, x.contiguous(), group=sharding.mesh.group)
+                      device=x.device)  # the chunks one after another
+    _dist_fn("all_gather_single", "all_gather_into_tensor")(
+        buf, x.contiguous(), group=mesh.process_group(axes, block))
     return torch.cat(buf.view((n,) + tuple(x.shape)).unbind(0), dim=dim)
 
 
-def reduce_gradient(g: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """This rank's shard of the mean over the ranks of the full gradients
-    ``g``, in float32: a reduce-scatter along :func:`shard_dim`, or an
-    all-reduce for a replicated leaf, then a division by the rank count
-    (exact for a power of two; a world of one changes no bit)."""
+def reduce_scatter(x: torch.Tensor, dim: int, mesh: Mesh, axes, block=None) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``x`` over its group."""
+    n = mesh.group_size(axes, block)
+    out_shape = list(x.shape)
+    out_shape[dim] //= n
+    if not _issue("reduce-scatter", mesh, axes, block, x, out_shape):
+        return x if n == 1 else x.new_empty(out_shape)
+    chunks = torch.stack(x.chunk(n, dim))  # (n, ...): member r's chunk at r
+    out = torch.empty(chunks.shape[1:], dtype=x.dtype, device=x.device)
+    _dist_fn("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, chunks.flatten(0, 1), group=mesh.process_group(axes, block))
+    return out
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced (``op`` "sum" or "max") over this rank's group over
+    ``axes``; a new tensor unless the group is one rank."""
     import torch.distributed as dist
 
+    if not _issue("all-reduce", mesh, axes, None, x, x.shape):
+        return x if mesh.group_size(axes) == 1 else x.new_empty(x.shape)
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=mesh.process_group(axes))
+    return x
+
+
+def gather_tensor(x: torch.Tensor, sharding: NamedSharding, axes=None) -> torch.Tensor:
+    """The logical tensor from every rank's tile ``x``: an all-gather along
+    each dim that ``sharding`` splits (over ``axes`` only, if given), over
+    the ranks that differ only along that dim's axes; ``x`` when nothing is
+    split."""
+    for dim, names in _sharded_dims(sharding, axes):
+        x = all_gather(x, dim, sharding.mesh, names)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How a step uses one parameter leaf over the mesh's model axis.
+
+    ``mode`` "data": the leaf is not split over the model axis; "megatron":
+    the model's layer runs tensor parallel on the rank's model tile (with
+    ``kv_block`` > 1 the tile is first gathered over that many consecutive
+    model ranks: a KV head replicated over them); "gathered": the leaf is
+    gathered whole over the model axis too, and its layer runs whole on
+    every model rank.  ``relayout`` names the dim a Megatron layer splits
+    over the model axis when the rules split another one (the reference's
+    ``embed$`` rule gives the unembedding (d, V) its d over the model axis,
+    where the vocab-parallel product wants V): the leaf is gathered whole
+    and cut along ``relayout`` by the model index.  ``model_sum``: a leaf
+    whole on every model rank that a Megatron layer applies to the rank's
+    share alone (qk-norm's scales on the rank's heads): each rank's gradient
+    is a partial sum, summed over the model axis."""
+
+    sharding: NamedSharding
+    mode: str = "data"
+    kv_block: int = 0
+    relayout: int | None = None
+    model_sum: bool = False
+
+    @property
+    def tp_dim(self) -> int | None:
+        dims = _sharded_dims(self.sharding, ("model",))
+        return dims[0][0] if dims else None
+
+
+def gather_for_use(x: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
+    """The tensor a step's layer takes from the rank's tile ``x``: gathered
+    over the dp axes (the ranks that share its model index), then over the
+    model axis as ``plan`` says."""
+    mesh = plan.sharding.mesh
+    x = gather_tensor(x, plan.sharding, batch_axes(mesh))
+    if plan.mode == "gathered" or plan.relayout is not None:
+        x = gather_tensor(x, plan.sharding, ("model",))
+        if plan.relayout is not None:
+            x = _cut(x, mesh.shape["model"], plan.relayout, mesh.coords()["model"])
+    elif plan.kv_block > 1:
+        x = all_gather(x, plan.tp_dim, mesh, ("model",), plan.kv_block)
+    return x
+
+
+def reduce_gradient(g: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
+    """This rank's tile of the mean over the dp ranks of the gradients
+    ``g`` of :func:`gather_for_use`'s tensor, in float32.
+
+    Over the model axis first: a replicated KV head's gradient is summed
+    over its ranks and scattered back (a reduce-scatter over the block); a
+    re-laid leaf's shares are gathered over the model axis; a gathered
+    leaf's gradient is then the same on every model rank, which keeps its
+    own chunk; a ``model_sum`` leaf's partial sums are all-reduced over the
+    model axis.  Then over the dp axes: a reduce-scatter along the dp dim
+    (an all-reduce over the dp axes the leaf is not split over, or over all
+    of them for a leaf replicated over dp), then a division by the dp rank
+    count (exact for a power of two; a world of one changes no bit)."""
+    mesh = plan.sharding.mesh
     g = g.float()
-    n = _group_size(sharding.mesh)
-    if n == 1:
-        return g
-    dim = shard_dim(sharding)
-    if dim is None:
-        g = g.clone()
-        dist.all_reduce(g, group=sharding.mesh.group)
-        return g / n
-    chunks = torch.stack(g.chunk(n, dim))  # (n, ...): rank r's chunk at r
-    out = torch.empty(chunks.shape[1:], dtype=torch.float32, device=g.device)
-    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-        out, chunks.flatten(0, 1), group=sharding.mesh.group)
-    return out / n
+    if plan.relayout is not None:
+        g = all_gather(g, plan.relayout, mesh, ("model",))
+    if plan.mode == "gathered" or plan.relayout is not None:
+        for dim, names in _sharded_dims(plan.sharding, ("model",)):
+            g = _cut(g, math.prod(mesh.shape[a] for a in names), dim,
+                     axis_index(mesh, names))
+    elif plan.kv_block > 1:
+        g = reduce_scatter(g, plan.tp_dim, mesh, ("model",), plan.kv_block)
+    elif plan.model_sum:
+        g = all_reduce(g, mesh, ("model",))
+    batch = batch_axes(mesh)
+    split = _sharded_dims(plan.sharding, batch)
+    done = set()
+    for dim, names in split:
+        g = reduce_scatter(g, dim, mesh, names)
+        done |= set(names)
+    rest = tuple(a for a in batch if a not in done and mesh.shape[a] > 1)
+    if rest:
+        g = all_reduce(g, mesh, rest)
+    n = math.prod(mesh.shape[a] for a in batch)
+    return g / n if n > 1 else g
+
+
+# ---- tensor parallelism over the model axis (Megatron) -----------------------
+
+def _tp_mesh() -> Mesh:
+    if _ACTIVE_MESH is None or _ACTIVE_MESH.shape.get("model", 1) == 1:
+        raise ValueError("a layer runs tensor parallel on split weights, but no "
+                         "mesh with a model axis is active (use_mesh)")
+    return _ACTIVE_MESH
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient over the model axis:
+    a tensor-parallel block's input."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ("model",)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the model axis forward, identity backward: a
+    tensor-parallel block's output (the partial sums of its row-parallel
+    product)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """The input of a tensor-parallel block on the active mesh."""
+    return _CopyToModel.apply(x, _tp_mesh())
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a tensor-parallel block's partial outputs over the active
+    mesh's model axis (its gradient passes through unchanged: every model
+    rank holds the same output gradient)."""
+    return _ReduceFromModel.apply(x, _tp_mesh())
+
+
+def tp_max(x: torch.Tensor) -> torch.Tensor:
+    """The maximum of ``x`` over the active mesh's model axis, without a
+    gradient."""
+    return all_reduce(x.detach(), _tp_mesh(), ("model",), op="max")
+
+
+def tp_rank() -> int:
+    """This rank's model index on the active mesh."""
+    return _tp_mesh().coords()["model"]

@@ -1,2 +1,2 @@
-"""The training runtime — the counterpart of ``repro.runtime`` (the HLO
-tools are a later slice)."""
+"""The training runtime and the collective and cost tools — the
+counterpart of ``repro.runtime``."""

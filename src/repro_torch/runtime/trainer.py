@@ -13,16 +13,21 @@ Kept from the reference:
 
   * **elastic re-scaling** — ``remesh()`` rebuilds the step on a new mesh
     (a sub-group of the ranks, say) and reshards the live state onto it
-    through its logical arrays.
+    through its logical arrays;
+  * **Gemini integration** — ``extract_traffic`` runs one step on ``meta``
+    stand-ins of the state on a virtual copy of the mesh, records the
+    collectives the step issues (:mod:`repro_torch.runtime.hlo_traffic`)
+    and projects them onto the pod-level traffic matrix handed to the
+    Gemini controller.
 
 ``mesh`` is ``None`` (one card, unsharded) or a mesh of ranks
 (:func:`repro_torch.launch.mesh.make_host_mesh`, one process per card):
-FSDP, each rank holding its shard of the parameters and of AdamW's moments
-(:func:`repro_torch.launch.steps.make_train_step`) and reading its slice of
-the global batch (the pipeline's host sharding, ``n_hosts``/``host_id`` =
-the mesh's size and this rank's place in it).  Checkpoints hold the logical
-state, so any mesh restores them.  ``extract_traffic`` projects a compiled
-step's collectives through the HLO tools, a later slice (ROADMAP 2.9.4).
+FSDP × TP, each rank holding its tile of the parameters and of AdamW's
+moments (:func:`repro_torch.launch.steps.make_train_step`) and reading the
+slice of the global batch of its index over the dp axes (the pipeline's
+host sharding, ``n_hosts``/``host_id`` = the dp size and index: ranks that
+differ only in their model index read the same slice).  Checkpoints hold
+the logical state, so any mesh restores them.
 """
 
 from __future__ import annotations
@@ -40,8 +45,11 @@ from repro_torch.launch.steps import StepConfig, make_train_step, module_like
 from repro_torch.models.api import Model
 from repro_torch.optim import tree as tree_util
 from repro_torch.optim.adamw import AdamW, AdamWState
-from repro_torch.parallel.sharding import (check_executable, gather_tensor,
+from repro_torch.parallel.sharding import (Mesh, axis_index, batch_axes,
+                                           check_executable, gather_tensor,
                                            param_shardings, shard_tensor, use_mesh)
+from repro_torch.runtime.hlo_traffic import (collective_summary, pod_traffic_matrix,
+                                             record_collectives)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -72,13 +80,14 @@ class Trainer:
                       "step_times": []}
         self.pod_tm = None
         self.collectives = None
+        self.collective_ops = None
         self._build()
 
     # ---- construction / elastic re-mesh -----------------------------------
     def _build(self):
         self._shardings = None
         if self.mesh is not None:
-            check_executable(self.mesh)
+            check_executable(self.mesh, "train")
             with use_mesh(self.mesh):
                 self._shardings = param_shardings(self.mesh, self.model.param_shapes())
         self._step_fn = make_train_step(self.model, self.opt, self.step_cfg, self.mesh)
@@ -138,11 +147,16 @@ class Trainer:
         return self.shard(params, opt_state)
 
     def data_config(self) -> DataConfig:
-        """The pipeline's configuration: this rank's slice of the batch."""
+        """The pipeline's configuration: the slice of the batch of this
+        rank's index over the dp axes."""
         if self.mesh is None:
             return self.data_cfg
-        return dataclasses.replace(self.data_cfg, n_hosts=self.mesh.size,
-                                   host_id=self.mesh.rank_index)
+        axes = batch_axes(self.mesh)
+        n = 1
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return dataclasses.replace(self.data_cfg, n_hosts=n,
+                                   host_id=axis_index(self.mesh, axes))
 
     # ---- preemption --------------------------------------------------------
     def install_signal_handlers(self):
@@ -152,11 +166,41 @@ class Trainer:
         signal.signal(signal.SIGTERM, handler)
         signal.signal(signal.SIGINT, handler)
 
+    # ---- Gemini traffic extraction ------------------------------------------
     def extract_traffic(self, params, opt_state, batch):
-        raise NotImplementedError(
-            "Trainer.extract_traffic: projecting the step's collectives onto a "
-            "pod traffic matrix needs the HLO tools, a later slice of the port "
-            "(ROADMAP 2.9.4: the dry-run and HLO tools)")
+        """The pod-level traffic matrix of one step: bytes crossing each pod
+        pair, from the collectives the step issues.  The step runs on
+        ``meta`` stand-ins of ``params``, ``opt_state`` (this rank's tiles on
+        a mesh) and ``batch`` (this rank's slice; numpy or tensors), on a
+        virtual copy of the trainer's mesh (a one-rank mesh without one),
+        under :func:`~repro_torch.runtime.hlo_traffic.record_collectives`;
+        the real state is not touched.  Sets ``self.collective_ops`` to the
+        ops, ``self.collectives`` to their summary, and returns ``pod_traffic_matrix(ops,
+        devices_per_pod, max(n_pods, 1))``, as the reference does."""
+        mesh = (Mesh((1, 1), ("data", "model")) if self.mesh is None
+                else self.mesh.virtual_copy())
+        model = Model(self.model.cfg, torch.device("meta"))
+
+        def meta(x):
+            x = torch.as_tensor(x)
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+        shards = module_like(params, [meta(x) for x in tree_util.leaves(params)])
+        state = AdamWState(
+            step=meta(opt_state.step),
+            mu=tree_util.unflatten(opt_state.mu, [meta(x) for x in
+                                                  tree_util.leaves(opt_state.mu)]),
+            nu=tree_util.unflatten(opt_state.nu, [meta(x) for x in
+                                                  tree_util.leaves(opt_state.nu)]))
+        step = make_train_step(model, self.opt, self.step_cfg, mesh)
+        with record_collectives() as ops:
+            step(shards, state, {k: meta(torch.as_tensor(v).long())  # token ids
+                                 for k, v in batch.items()})
+        self.collective_ops = ops
+        self.collectives = collective_summary(ops)
+        self.pod_tm = pod_traffic_matrix(
+            ops, self.tcfg.devices_per_pod, max(self.tcfg.n_pods, 1))
+        return self.pod_tm
 
     # ---- main loop -----------------------------------------------------------
     def _device_batch(self, batch: dict) -> dict:

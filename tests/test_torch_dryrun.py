@@ -1,0 +1,268 @@
+"""The dry run and the training-traffic bridge to the controller —
+``repro_torch.launch.dryrun``, the recorder of
+``repro_torch.runtime.hlo_traffic`` on a virtual mesh, and
+``Trainer.extract_traffic``.
+
+(a) A reduced llama3's train step on ``meta`` over a virtual (2, 2, 2)
+    (pod, data, model) mesh: its pod traffic matrix equals, to the byte, the
+    one counted from ``param_shardings`` and the step's plan alone
+    (``dryrun.planned_collectives``); no collective over the model axis
+    crosses a pod, so tensor parallelism (Megatron or gathered) moves no
+    byte of the matrix Gemini sees.
+(b) The reference's train step of the same reduced config, lowered on a
+    (2, 2, 2) JAX mesh in a subprocess with 8 host devices as its
+    ``run_cell`` lowers it, and its collectives read by the reference's
+    ``analyze``: both pod matrices are symmetric, zero on the
+    diagonal and nonzero off it.  Their ratio is printed (``PERF.md``
+    records it): XLA's schedule is not the port's (the port gathers each
+    leaf once a step), so the test asserts only what must agree.  The
+    subprocess has a 300 s limit.
+(c) The full-size mamba2-130m ``train_4k`` cell on 2×16×16 completes on
+    ``meta`` with the reference's record keys (one microbatch: flops and pod
+    matrix do not depend on the count, ``tests/test_torch_hlo_tools.py``);
+    decode cells are ``not_ported`` (ROADMAP 2.9.5), decode's cache knobs
+    raise, and the reference's skips are ``skipped``.
+(d) The counterpart of ``tests/test_system_e2e.py``'s
+    ``test_framework_bridge_traffic_to_controller``: ``extract_traffic`` on
+    one host gives the reference's (1, 1) matrix (and the reference's
+    collective summary) and then drives ``repro_torch.core.run_controller``
+    on the CPU to a finite p99.9 MLU; on a virtual 2-pod mesh it gives a
+    nonzero, symmetric (2, 2) matrix equal to the planned count.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import (StepConfig, leaf_plans, make_train_step,
+                                      module_like, tp_report)
+from repro_torch.models.api import Model, build_model
+from repro_torch.optim import tree as tree_util
+from repro_torch.optim.adamw import AdamW
+from repro_torch.parallel import sharding as sh
+from repro_torch.runtime.hlo_traffic import (collective_summary, pod_traffic_matrix,
+                                             record_collectives)
+
+torch.set_num_threads(1)
+
+B, S, MB = 8, 32, 2  # global batch, sequence, microbatches of the (2, 2, 2) cell
+NAMES = ("pod", "data", "model")
+
+
+def _virtual_step(arch, shape=(2, 2, 2)):
+    """(ops, model, mesh) of one train step of the reduced ``arch`` on a
+    virtual mesh, as rank 0."""
+    model = Model(get_arch(arch).reduced(), torch.device("meta"))
+    mesh = sh.Mesh(shape, NAMES)
+    plans = leaf_plans(model, mesh)
+    shapes = model.param_shapes()
+    shards = module_like(shapes, [sh.shard_tensor(x, p.sharding)
+                                  for x, p in zip(tree_util.leaves(shapes), plans)])
+    opt = AdamW()
+    step = make_train_step(model, opt, StepConfig(microbatches=MB), mesh)
+    local = B // (shape[0] * shape[1])
+    batch = {k: torch.empty((local, S), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    with record_collectives() as ops:
+        step(shards, opt.init(shards), batch)
+    return ops, model, mesh
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])
+def test_pod_matrix_equals_the_planned_count(arch):
+    ops, model, mesh = _virtual_step(arch)
+    tm = pod_traffic_matrix(ops, 4, 2)
+    want = pod_traffic_matrix(dryrun.planned_collectives(model, mesh), 4, 2)
+    assert np.array_equal(tm, want)
+    assert tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == tm[1, 1] == 0
+    model_groups = mesh.groups(("model",)).tolist()
+    tp_ops = [o for o in ops if o.groups == model_groups]
+    assert tp_ops and all(len({d // 4 for d in g}) == 1 for o in tp_ops for g in o.groups)
+    report = tp_report(model, leaf_plans(model, mesh))
+    if arch == "llama3-8b":
+        assert {"blocks/attn/wq", "blocks/mlp/w_down", "embed", "unembed"} <= set(
+            report["megatron"]) and report["gathered"] == []
+    else:
+        assert "blocks/ssd/w_out" in report["gathered"]
+
+
+_REF_LOWER = r"""
+import json, sys
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs import get_arch
+from repro.launch.steps import (StepConfig, input_shardings, make_train_step,
+                                train_state_shardings)
+from repro.models.api import build_model
+from repro.models.config import ShapeConfig
+from repro.optim.adamw import AdamW
+from repro.parallel.sharding import param_shardings, use_mesh
+from repro.runtime import hlo_traffic as ref
+from repro.runtime.hlo_cost import analyze
+
+B, S, MB = (int(a) for a in sys.argv[1:4])
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2, 2), ("pod", "data", "model"))
+cfg = get_arch("llama3-8b").reduced()
+model = build_model(cfg)
+shape = ShapeConfig(name="t", seq_len=S, global_batch=B, kind="train")
+with use_mesh(mesh):
+    pshapes = model.param_shapes()
+    pshard = param_shardings(mesh, pshapes)
+    specs = model.input_specs(shape)
+    opt = AdamW()
+    step = make_train_step(model, opt, StepConfig(microbatches=MB, remat=True))
+    oshapes = jax.eval_shape(lambda p: opt.init(p), pshapes)
+    _, oshard = train_state_shardings(mesh, model, opt)
+    in_sh = input_shardings(mesh, cfg, shape, specs)
+    metr = {k: NamedSharding(mesh, P()) for k in ("loss", "grad_norm", "lr")}
+    hlo = jax.jit(step, in_shardings=(pshard, oshard, in_sh),
+                  out_shardings=(pshard, oshard, metr)).lower(
+        pshapes, oshapes, specs).compile().as_text()
+ops = analyze(hlo).collective_ops
+print(json.dumps({"tm": ref.pod_traffic_matrix(ops, 4, 2).tolist(),
+                  "summary": ref.collective_summary(ops)}))
+"""
+
+
+def test_reference_pod_matrix_on_a_virtual_2x2x2_mesh():
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REF_LOWER, str(B), str(S), str(MB)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    ops, _, _ = _virtual_step("llama3-8b")
+    tms = {"reference": np.asarray(ref["tm"]), "port": pod_traffic_matrix(ops, 4, 2)}
+    for tm in tms.values():
+        assert tm.shape == (2, 2) and tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == tm[1, 1] == 0
+    port_summary = collective_summary(ops)
+    print(f"inter-pod bytes a step, reference / port: "
+          f"{tms['reference'][0, 1] / tms['port'][0, 1]:.4f} "
+          f"({tms['reference'][0, 1]:.0f} / {tms['port'][0, 1]:.0f})")
+    for kind in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute"):
+        r, p = ref["summary"][kind], port_summary[kind]
+        print(f"  {kind}: reference {r['count']} ops {r['wire_bytes_per_chip']:.0f} B/chip, "
+              f"port {p['count']} ops {p['wire_bytes_per_chip']:.0f} B/chip")
+
+
+REF_KEYS = {"status", "flops", "hbm_bytes", "unknown_trip_loops", "collectives",
+            "pod_tm_bytes", "n_collective_ops", "model_params", "model_params_active",
+            "memory_analysis", "arch", "shape", "mesh", "n_devices"}
+
+
+def test_full_size_mamba2_cell_on_the_production_mesh(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    rec = dryrun.run_cell("mamba2-130m", "train_4k", True, microbatches=1, tag="mb1")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert REF_KEYS <= set(rec) and rec["unknown_trip_loops"] == 0
+    assert {"argument_bytes", "output_bytes", "temp_bytes"} <= set(rec["memory_analysis"])
+    assert rec["memory_analysis"]["temp_bytes"] is None
+    assert not {"xla_flops_once", "bytes_accessed", "lower_seconds",
+                "compile_seconds"} & set(rec)
+    tm = np.asarray(rec["pod_tm_bytes"])
+    assert tm.shape == (2, 2) and tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == 0
+    assert rec["flops"] > 0 and rec["n_devices"] == 512 and rec["seconds"] > 0
+    assert rec["tensor_parallel"]["megatron"] == []
+    assert json.loads(dryrun.cell_path("mamba2-130m", "train_4k", True,
+                                       "mb1").read_text()) == rec
+
+
+def test_decode_cells_are_not_ported_and_skips_are_the_reference(tmp_path, monkeypatch,
+                                                                  capsys):
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    rec = dryrun.run_cell("llama3-8b", "decode_32k", False)
+    assert rec["status"] == "not_ported" and "ROADMAP 2.9.5" in rec["reason"]
+    rec = dryrun.run_cell("llama3-8b", "long_500k", True)
+    assert rec["status"] == "skipped" and "sub-quadratic" in rec["reason"]
+    assert dryrun.run_cell("mixtral-8x7b", "long_500k", True)["status"] == "not_ported"
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k", "--both-meshes"])
+    assert done.value.code == 0
+    assert "2 not ported" in capsys.readouterr().out
+    for knob in ({"window_cache": True}, {"cache_dtype": "f8"}):  # decode's cache knobs
+        with pytest.raises(ValueError, match="ROADMAP 2.9.5"):
+            dryrun.run_cell("mixtral-8x7b", "decode_32k", False, force=True, **knob)
+
+
+def test_bridge_traffic_to_controller(tmp_path):
+    """Train step → recorded collectives → pod TM → the controller, as the
+    reference's ``test_framework_bridge_traffic_to_controller``."""
+    import jax
+
+    from repro.configs import get_arch as ref_get_arch
+    from repro.data.pipeline import DataConfig as RefDataConfig
+    from repro.data.pipeline import SyntheticLM as RefSyntheticLM
+    from repro.launch.mesh import make_host_mesh as ref_host_mesh
+    from repro.launch.steps import StepConfig as RefStepConfig
+    from repro.models.api import build_model as ref_build_model
+    from repro.optim.adamw import AdamW as RefAdamW
+    from repro.parallel.sharding import use_mesh as ref_use_mesh
+    from repro.runtime.trainer import Trainer as RefTrainer
+    from repro.runtime.trainer import TrainerConfig as RefTrainerConfig
+    from repro_torch.core import ControllerConfig, Strategy, run_controller
+    from repro_torch.core.graph import Fabric
+    from repro_torch.core.traffic import Trace
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    arch, dc = "mamba2-130m", dict(seq_len=32, global_batch=4)
+    rcfg = ref_get_arch(arch).reduced()
+    rmodel, rmesh, ropt = ref_build_model(rcfg), ref_host_mesh(), RefAdamW()
+    rtr = RefTrainer(rmodel, ropt, rmesh, RefDataConfig(vocab=rcfg.vocab, **dc),
+                     RefStepConfig(), RefTrainerConfig(total_steps=1, devices_per_pod=1),
+                     tmp_path / "ref")
+    with ref_use_mesh(rmesh):
+        rparams = rmodel.init(jax.random.key(0))
+        rstate = ropt.init(rparams)
+    batch = RefSyntheticLM(RefDataConfig(vocab=rcfg.vocab, **dc)).batch_at(0)
+    want = rtr.extract_traffic(rparams, rstate, batch)
+
+    cfg = get_arch(arch).reduced()
+    model, opt = build_model(cfg, "cpu"), AdamW()
+    tr = Trainer(model, opt, make_host_mesh(), DataConfig(vocab=cfg.vocab, **dc),
+                 StepConfig(), TrainerConfig(total_steps=1, devices_per_pod=1), tmp_path)
+    params, state = tr.shard(model.init(0))
+    tm = tr.extract_traffic(params, state,
+                            SyntheticLM(DataConfig(vocab=cfg.vocab, **dc)).batch_at(0))
+    assert tm.shape == want.shape == (1, 1) and np.array_equal(tm, want)
+    assert tr.collectives == rtr.collectives
+    assert not any(p.device.type == "meta" for p in params.parameters())
+
+    v = 4  # a 4-pod fleet trace from the measured intensity, as the reference's
+    base = max(float(tm.sum()), 1.0)
+    rng = np.random.default_rng(0)
+    demand = rng.uniform(0.5, 1.0, (6 * 24, v * (v - 1))) * base
+    demand *= 0.5 * 800.0 / demand.max()
+    res = run_controller(Fabric.homogeneous("bridge", v, radix=8, speed=100.0),
+                         Trace("bridge", demand, 60.0, v), Strategy(False, False),
+                         ControllerConfig(routing_interval_hours=12.0,
+                                          topology_interval_days=2.0,
+                                          aggregation_days=1.0, k_critical=2),
+                         device="cpu")
+    assert np.isfinite(res.summary["p999_mlu"])
+
+    # a virtual 2-pod mesh: rank 0's tiles, a nonzero pod matrix
+    vmesh = sh.Mesh((2, 2, 2), NAMES)
+    vtr = Trainer(Model(get_arch("llama3-8b").reduced(), torch.device("cpu")), opt, vmesh,
+                  DataConfig(vocab=512, seq_len=S, global_batch=B),
+                  StepConfig(microbatches=MB),
+                  TrainerConfig(total_steps=1, devices_per_pod=4, n_pods=2), tmp_path / "v")
+    vp, vs = vtr.shard(vtr.model.init(0))
+    batch = SyntheticLM(vtr.data_config()).batch_at(0)
+    tm2 = vtr.extract_traffic(vp, vs, batch)
+    assert tm2.shape == (2, 2) and tm2[0, 1] == tm2[1, 0] > 0 and tm2[0, 0] == 0
+    assert np.array_equal(tm2, pod_traffic_matrix(
+        dryrun.planned_collectives(Model(vtr.model.cfg, torch.device("meta")), vmesh), 4, 2))
+    with pytest.raises(ValueError, match="meta"):
+        vtr._step_fn(vp, vs, vtr._device_batch(batch))
+    assert dataclasses.asdict(vtr.data_config())["n_hosts"] == 4

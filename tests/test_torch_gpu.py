@@ -1143,3 +1143,42 @@ def test_one_rank_mesh_step_on_the_card(gen, tmp_path):
     finally:
         dist.destroy_process_group()
     assert got == want
+
+
+@pytest.mark.gpu
+def test_tp_step_on_one_rank_mesh_on_the_card(gen, tmp_path):
+    """The FSDP × TP step of ``make_train_step`` (its leaf plans, gathers,
+    reductions and clip over the mesh's axes) on the card's one-rank mesh
+    gives ``mesh=None``'s losses bit for bit for llama3 (every collective
+    the identity on one rank), and ``Trainer.extract_traffic`` there the
+    reference's (1, 1) zero matrix, with no kernel launched on ``meta``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("llama3-8b").reduced()
+    model = build_model(cfg, "cuda")
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)
+    batches = [{k: torch.from_numpy(v).long().cuda() for k, v in
+                SyntheticLM(data).batch_at(i).items()} for i in range(3)]
+
+    def losses(mesh):
+        params, opt = model.init(0), AdamW(lr=3e-3, warmup_steps=1)
+        params.requires_grad_(True)
+        state = opt.init(params)
+        step = make_train_step(model, opt, StepConfig(), mesh)
+        return [float(step(params, state, b)[2]["loss"]) for b in batches]
+
+    assert losses(make_host_mesh()) == losses(None)
+    tr = Trainer(model, AdamW(), make_host_mesh(), data, StepConfig(),
+                 TrainerConfig(total_steps=1, devices_per_pod=1), tmp_path)
+    params, state = tr.shard(model.init(0))
+    before = (faops.launches, faops.bwd_launches)
+    tm = tr.extract_traffic(params, state, SyntheticLM(data).batch_at(0))
+    assert tm.shape == (1, 1) and tm.sum() == 0
+    assert (faops.launches, faops.bwd_launches) == before

@@ -237,19 +237,50 @@ def test_train_cli_trains_the_ssm_family(tmp_path, capsys):
 
 
 def test_later_slices_raise(tmp_path):
-    """The HLO tools are a later slice (ROADMAP 2.9.4), and so is a mesh
-    with a model axis (tensor parallelism, ROADMAP 2.11)."""
-    from repro_torch.parallel.sharding import Mesh
+    """What the dry-run slice lifted now runs, as the reference's does: a
+    Trainer on a mesh with a model axis builds its FSDP × TP step, and
+    ``extract_traffic`` on one host gives the reference's (1, 1) matrix
+    and collective summary (no collective on one device).  Decode under
+    tensor parallelism is still a later slice (ROADMAP 2.9.5)."""
+    import jax
+
+    from repro.configs import get_arch as ref_get_arch
+    from repro.data.pipeline import DataConfig as RefDataConfig
+    from repro.data.pipeline import SyntheticLM as RefSyntheticLM
+    from repro.launch.mesh import make_host_mesh as ref_host_mesh
+    from repro.launch.steps import StepConfig as RefStepConfig
+    from repro.models.api import build_model as ref_build_model
+    from repro.optim.adamw import AdamW as RefAdamW
+    from repro.parallel.sharding import use_mesh as ref_use_mesh
+    from repro.runtime.trainer import Trainer as RefTrainer
+    from repro.runtime.trainer import TrainerConfig as RefTrainerConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.parallel.sharding import Mesh, check_executable
 
     cfg = get_arch("llama3-8b").reduced()
     model = build_model(cfg, device="cpu")
-    args = (AdamW(), None, _data_cfg(cfg), StepConfig(), TrainerConfig(), tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.11"):
-        Trainer(model, AdamW(), Mesh((1, 2), ("data", "model"), ranks=[0, 1]),
-                *args[2:])
-    tr = Trainer(model, *args)
-    with pytest.raises(NotImplementedError, match="HLO tools"):
-        tr.extract_traffic(None, None, None)
+    tp = Trainer(model, AdamW(), Mesh((1, 2), ("data", "model")), _data_cfg(cfg),
+                 StepConfig(), TrainerConfig(), tmp_path / "tp")
+    assert {p.mode for p in tp._step_fn.plans} == {"data", "megatron"}
+    with pytest.raises(NotImplementedError, match="ROADMAP 2.9.5"):
+        check_executable(tp.mesh, "decode")
+
+    rcfg = ref_get_arch("llama3-8b").reduced()
+    rmodel, rmesh, ropt = ref_build_model(rcfg), ref_host_mesh(), RefAdamW()
+    dc = dict(vocab=cfg.vocab, seq_len=16, global_batch=2)
+    rtr = RefTrainer(rmodel, ropt, rmesh, RefDataConfig(**dc), RefStepConfig(),
+                     RefTrainerConfig(total_steps=1), tmp_path / "ref")
+    with ref_use_mesh(rmesh):
+        rparams = rmodel.init(jax.random.key(0))
+        want = rtr.extract_traffic(rparams, ropt.init(rparams),
+                                   RefSyntheticLM(RefDataConfig(**dc)).batch_at(0))
+    tr = Trainer(model, AdamW(), None, _data_cfg(cfg), StepConfig(), TrainerConfig(),
+                 tmp_path / "none")
+    params = model.init(0)
+    tm = tr.extract_traffic(params, AdamW().init(params),
+                            SyntheticLM(_data_cfg(cfg)).batch_at(0))
+    assert tm.shape == (1, 1) and np.array_equal(tm, want)
+    assert tr.collectives == rtr.collectives and tr.pod_tm is tm
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])

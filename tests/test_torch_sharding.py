@@ -175,8 +175,13 @@ def test_meshes():
     with sh.use_mesh(pm):
         assert tuple(sh.spec("dp", "tp", None, "sp")) == ("data", "model", None, "model")
         assert tuple(sh.spec("dp")) == tuple(ref_sh.P(("data",)))
-        with pytest.raises(NotImplementedError, match="ROADMAP 2.11"):
-            sh.constrain(torch.ones(2), "dp")
+        x = torch.ones(2)
+        assert sh.constrain(x, "dp") is x  # tensor parallelism places its own collectives
+    for kind in ("train", "prefill"):
+        sh.check_executable(pm, kind)  # a model axis of 16 executes (on meta: virtual)
+    with pytest.raises(NotImplementedError, match="ROADMAP 2.9.5"):
+        sh.check_executable(pm, "decode")  # decode under tensor parallelism
+    sh.check_executable(host, "decode")
     x = torch.ones(2)
     with sh.use_mesh(host):
         assert sh.constrain(x, "dp", None) is x  # a model axis of 1: as it is
