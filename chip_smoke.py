@@ -184,7 +184,16 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    bit for bit, one launch of each fleet kernel a bucket; mamba2-130m at full
    size through ``Trainer`` on ``make_host_mesh()`` over a one-rank NCCL
    process group (the FSDP step) for 3 steps, its losses bit-equal to
-   ``mesh=None``'s.
+   ``mesh=None``'s; then llama3-8b's decode (2 layers, bf16, B=4, a 4096
+   cache) through ``make_serve_step`` on that mesh, its cache cut by
+   ``shard_cache``, logits and tokens bit-equal to ``mesh=None``'s.
+15. The dry run and the training-traffic bridge: llama3-8b train_4k,
+   prefill_32k and decode_32k and mamba2-130m train_4k and long_500k on the
+   2×16×16 virtual mesh on ``meta`` (each in a worker process started before
+   phase 1), each pod matrix equal to the count from the shardings
+   (``dryrun.planned_collectives``), llama3-8b decode_32k's cache 2^30 B a
+   device; llama3-8b's inter-pod bytes through ``run_controller`` on the
+   card; ``Trainer.extract_traffic`` on one rank.
 
 The multi-card entry, ``phase_multicard()``, is not part of ``main()``; it
 runs on every visible card (four on a host with four H100s):
@@ -192,11 +201,14 @@ runs on every visible card (four on a host with four H100s):
     python3 -c "import sys; sys.path.insert(0, 'src'); import chip_smoke as cs; \
         cs.phase_card(); cs.phase_build(); cs.phase_multicard()"
 
-the 22-fabric ``run_fleet`` on one card and dealt over all of them; and
+the 22-fabric ``run_fleet`` on one card and dealt over all of them;
 mamba2-130m at full size and llama3-8b at full width (2 layers) trained with
 FSDP, one process a card, against one card on the same global batches, with
 a checkpoint written on four ranks restored on one, a restart and a remesh to
-two ranks.
+two ranks; FSDP × TP training (``MULTI_TP``); and decode on the sharded mesh
+(``MULTI_DECODE``: llama3-8b on 2×2 and 1×4, and at B=1, mamba2-130m,
+recurrentgemma-9b and seamless on 2×2), 32 steps from a 32,768-position
+cache in float32 and bf16 against one card.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -3394,6 +3406,29 @@ MULTI_F32_REL, MULTI_BF16_REL = 1e-5, 2.0 ** -8
 # Megatron)
 MULTI_TP = (("llama3-8b", 2, 4, 2048, 2), ("llama3-8b", 2, 4, 2048, 4),
             ("qwen3-14b", 2, 4, 2048, 2), ("mamba2-130m", None, 4, 4096, 2))
+# the multi-card entry's decode runs on make_host_mesh(model_axis=...):
+# (arch, layers kept (None = all), batch, model axis): llama3-8b at full
+# width (2 layers) on 2×2 and 1×4 at B = 4 and on 2×2 at B = 1 (the batch
+# cannot take the dp axis: the cache's sequence spans all four cards),
+# mamba2-130m at full size (its 24 heads split over the model axis),
+# recurrentgemma-9b's first super-block (3 layers: its KV head on both model
+# ranks, h and conv split) and seamless with 2 decoder layers (its encoder
+# output split over T), each on 2×2
+MULTI_DECODE = (("llama3-8b", 2, 4, 2), ("llama3-8b", 2, 4, 4), ("llama3-8b", 2, 1, 2),
+                ("mamba2-130m", None, 4, 2), ("recurrentgemma-9b", 3, 4, 2),
+                ("seamless-m4t-large-v2", 2, 4, 2))
+# decode_32k's cache length (and encoder length); the KV slots below
+# MULTI_DECODE_START and every recurrent state filled from the seed, then
+# MULTI_DECODE_STEPS greedy steps on tokens drawn from the seed
+MULTI_DECODE_LEN, MULTI_DECODE_START, MULTI_DECODE_STEPS = 32768, 32704, 32
+# bf16 decode on the mesh: its logits' largest error against one card's
+# float32 logits at most this many times one card's bf16 error (Megatron's
+# partial sums round once a rank: reduced configs on 4 gloo ranks gave
+# 0.93-1.20 times, the full-width runs on four H100s 0.99-1.09;
+# multicard_decode)
+DECODE_BF16_FACTOR = 2.0
+# phase 14's one-rank-mesh decode: (arch, layers kept, batch, cache length, steps)
+MESH_DECODE = ("llama3-8b", 2, 4, 4096, 8)
 
 
 def _fleet_run(jobs, device, mesh):
@@ -3469,7 +3504,9 @@ def phase_sharding(device, smi: str = ""):
     with ``mesh=None`` and on ``make_host_mesh()`` over a one-rank NCCL
     process group (the FSDP step: gathers, reduce-scatters and the sharded
     update, each the identity on one rank): the losses bit-equal, the SSD
-    launches exact.  Returns the numbers."""
+    launches exact; then llama3-8b's decode on that mesh against
+    ``mesh=None``, bit for bit (:func:`_mesh_decode`).  Returns the
+    numbers."""
     import shutil
     import tempfile
 
@@ -3536,6 +3573,7 @@ def phase_sharding(device, smi: str = ""):
     try:
         mesh = make_host_mesh()
         losses, times, counts, peak = train(mesh)
+        out["mesh_decode"] = _mesh_decode(device, mesh, smi)
     finally:
         dist.destroy_process_group()
     expect = {"ssd": 2 * cfg.n_layers * MESH_STEPS, "ssd_bwd": cfg.n_layers * MESH_STEPS}
@@ -3553,6 +3591,51 @@ def phase_sharding(device, smi: str = ""):
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def _mesh_decode(device, mesh, smi: str = "") -> dict:
+    """Phase 14's decode on the one-rank mesh: ``MESH_DECODE``'s model
+    (bf16) through ``make_serve_step`` on ``mesh`` (this rank's tiles of the
+    parameters and of a cache filled from the seed, ``shard_cache``)
+    against ``mesh=None`` on the same cache: every cache axis has one rank,
+    so the step takes the unsharded arithmetic, logits and tokens bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import (cache_tile_shardings, leaf_plans,
+                                          make_serve_step, module_like, shard_cache)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    arch, layers, b, length, steps = MESH_DECODE
+    cfg = _decode_cfg(arch, layers, None)
+    model = build_model(cfg, device)
+    params = model.init(0)
+    shape = ShapeConfig("decode", length, b, "decode")
+    start = length - steps
+    whole = _filled_cache(model, b, length, start, 1, device)
+    tokens = _decode_tokens(cfg, b, steps, device)
+    step = make_serve_step(model, mesh=mesh, logits=True,
+                           cache_sh=cache_tile_shardings(mesh, cfg, shape, whole))
+    shards = module_like(params, [sh.shard_tensor(x, p.sharding) for x, p in
+                                  zip(tree_util.leaves(params), leaf_plans(model, mesh))])
+    got, got_tok, t_mesh = _run_decode(step, shards, shard_cache(whole, mesh, cfg, shape),
+                                       tokens, start, device)
+    want, want_tok, t_none = _run_decode(make_serve_step(model, logits=True), params, whole,
+                                         tokens, start, device)
+    equal = bool(np.array_equal(got, want) and np.array_equal(got_tok, want_tok))
+    ms = (float(np.median(t_mesh[1:])) * 1e3, float(np.median(t_none[1:])) * 1e3)
+    log(f"phase 14: {cfg.name} ({layers} layers, bf16) decode, B={b}, cache {length} from "
+        f"{start}, {steps} steps on {mesh} (one NCCL rank) against mesh=None: logits and "
+        f"tokens bit-equal {equal}; {ms[0]:.3f} vs {ms[1]:.3f} ms a token ({smi})")
+    if not equal:
+        fail(f"{cfg.name}: the one-rank mesh's decode differs from mesh=None's")
+    del params, shards, whole, model
+    torch.cuda.empty_cache()
+    return {"bit_equal": equal, "ms_a_token": ms[0], "unsharded_ms_a_token": ms[1]}
 
 
 def _train_cfg(arch, n_layers, dtype):
@@ -3796,9 +3879,332 @@ def multicard_fleet(dev, n: int, smi: str = "") -> dict:
             "bit_equal": _check_sharded_fleet(f"{n} cards", jobs, one, many)}
 
 
+def _decode_cfg(arch, n_layers, dtype):
+    """``_train_cfg`` for decode: the encoder-decoder keeps as many encoder
+    layers as decoder ones (decode reads none of them)."""
+    import dataclasses
+
+    cfg = _train_cfg(arch, n_layers, dtype)
+    if cfg.family == "audio" and n_layers is not None:
+        cfg = dataclasses.replace(cfg, encoder_layers=n_layers)
+    return cfg
+
+
+def _filled_cache(model, b: int, length: int, start: int, seed: int, device):
+    """A whole decode cache of ``length`` positions (and encoder frames)
+    whose KV slots below ``start``, recurrent states and encoder output are
+    drawn from ``seed`` (a generator on ``device``: the same values on every
+    card)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cache = model.init_cache(b, length, enc_len=length)
+
+    def fill(tree, name=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                fill(v, k)
+        elif isinstance(tree, list):
+            for v in tree:
+                fill(v, name)
+        elif name in ("k", "v"):
+            n = min(start, tree.shape[1])
+            tree[:, :n] = torch.randn((tree.shape[0], n) + tuple(tree.shape[2:]),
+                                      generator=gen, device=device).to(tree.dtype)
+        else:
+            tree.copy_(torch.randn(tuple(tree.shape), generator=gen, device=device))
+
+    fill(cache)
+    return cache
+
+
+def _decode_tokens(cfg, b: int, steps: int, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    return torch.randint(0, cfg.vocab, (steps, b, 1), generator=gen, device=device)
+
+
+def _run_decode(step, params, cache, tokens, start: int, device, record=None):
+    """``step`` over ``tokens`` from position ``start``: (the last logits
+    of every step, float32 on the host, (steps, B, V); the greedy tokens
+    (steps, B); each step's host seconds, ending in a synchronize).  With
+    ``record`` (a list), the first step's collectives are appended to it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.runtime.hlo_traffic import record_collectives
+
+    logits, toks, times = [], [], []
+    for i in range(tokens.shape[0]):
+        synchronize(device)
+        t0 = time.perf_counter()
+        if i == 0 and record is not None:
+            with record_collectives() as ops:
+                tok, cache, out = step(params, cache, tokens[i], start + i)
+            record += ops
+        else:
+            tok, cache, out = step(params, cache, tokens[i], start + i)
+        synchronize(device)
+        times.append(time.perf_counter() - t0)
+        logits.append(out[:, -1].float().cpu())
+        toks.append(tok[:, 0].cpu())
+    return torch.stack(logits).numpy(), torch.stack(toks).numpy().astype(np.int64), times
+
+
+def _decode_rank(rank, world, arch, n_layers, b, model_axis, run, device_type="cuda"):
+    """One rank of a multi-card decode run: for float32 (TF32 off) and the
+    model's bf16, ``MULTI_DECODE_STEPS`` steps of ``make_serve_step`` on
+    ``make_host_mesh(model_axis)`` from this rank's tiles of the parameters
+    and of a cache filled from the seed (``shard_cache``): its logits and
+    tokens (its batch rows and vocabulary columns), step times, peak memory
+    and cache bytes, and whether the first step's collectives equal, op for
+    op, the same step's on a virtual copy of the mesh on ``meta``.  ``run``
+    is (cache length, start position, steps): a spawned rank reads no
+    constant its parent changed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (cache_tile_shardings, input_shardings,
+                                          leaf_plans, make_serve_step, module_like,
+                                          shard_cache)
+    from repro_torch.models.api import Model, build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_traffic import record_collectives
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(model_axis=model_axis)
+    length, start, steps = run
+    shape = ShapeConfig("decode_32k", length, b, "decode")
+    out = {}
+    for dtype in ("float32", None):
+        cfg = _decode_cfg(arch, n_layers, dtype)
+        model = build_model(cfg, dev)
+        params = model.init(0)
+        plans = leaf_plans(model, mesh)
+        shards = module_like(params, [sh.shard_tensor(x, p.sharding)
+                                      for x, p in zip(tree_util.leaves(params), plans)])
+        del params
+        whole = _filled_cache(model, b, length, start, 1, dev)
+        cache_sh = cache_tile_shardings(mesh, cfg, shape, whole)
+        tiles = shard_cache(whole, mesh, cfg, shape)
+        del whole
+        tokens = _decode_tokens(cfg, b, steps, dev)
+        tok_sh = input_shardings(mesh, cfg, shape, {"token": tokens[0]})["token"]
+        step = make_serve_step(model, mesh=mesh, cache_sh=cache_sh, logits=True)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops = []
+        logits, toks, times = _run_decode(
+            step, shards, tiles, torch.stack([sh.shard_tensor(t, tok_sh) for t in tokens]),
+            start, dev, ops)
+        rows = sh.dim_axes(tok_sh, 0)
+        rows = sh.tile_slice(toks.shape[1], mesh, rows) if rows else slice(0, b)
+        cols = (sh.tile_slice(logits.shape[-1], mesh, ("model",))
+                if logits.shape[-1] != cfg.vocab else slice(0, cfg.vocab))
+        vmesh = mesh.virtual_copy()
+        vmodel = Model(cfg, torch.device("meta"))
+        vshapes = vmodel.param_shapes()
+        vshards = module_like(vshapes, [sh.shard_tensor(x, p.sharding) for x, p in
+                                        zip(tree_util.leaves(vshapes),
+                                            leaf_plans(vmodel, vmesh))])
+        vwhole = vmodel.init_cache(b, length, enc_len=length)
+        vstep = make_serve_step(vmodel, mesh=vmesh, logits=True,
+                                cache_sh=cache_tile_shardings(vmesh, cfg, shape, vwhole))
+        vtok = torch.empty((rows.stop - rows.start, 1), dtype=torch.int64, device="meta")
+        with record_collectives() as vops:
+            vstep(vshards, shard_cache(vwhole, vmesh, cfg, shape), vtok, start)
+        key = [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype) for op in ops]
+        out[cfg.dtype] = {
+            "logits": logits, "tokens": toks, "rows": (rows.start, rows.stop),
+            "cols": (cols.start, cols.stop), "times": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "cache_bytes": sum(x.numel() * x.element_size() for x in tree_util.leaves(tiles)),
+            "n_ops": len(ops), "ops_equal": key == [(op.kind, op.result_bytes, op.group_size,
+                                                     op.groups, op.dtype) for op in vops],
+            "wire_bytes_per_chip": float(sum(op.wire_bytes_per_chip() for op in ops))}
+        del shards, tiles, step, model
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _one_card_decode(arch, n_layers, b, dtype, device, rows=None):
+    """The multi-card decode run's steps on one card, unsharded: (logits,
+    tokens, step times, peak bytes, cache bytes).  ``rows`` (a slice of the
+    batch): decode only those sequences of the same cache and tokens."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cuda = device.type == "cuda"
+    rows = rows or slice(0, b)
+    try:
+        cfg = _decode_cfg(arch, n_layers, dtype)
+        model = build_model(cfg, device)
+        params = model.init(0)
+        cache = _filled_cache(model, b, MULTI_DECODE_LEN, MULTI_DECODE_START, 1, device)
+        cache = tree_util.unflatten(cache, [x[rows].clone() for x in tree_util.leaves(cache)])
+        cache_bytes = sum(x.numel() * x.element_size() for x in tree_util.leaves(cache))
+        tokens = _decode_tokens(cfg, b, MULTI_DECODE_STEPS, device)[:, rows]
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        logits, toks, times = _run_decode(make_serve_step(model, logits=True), params, cache,
+                                          tokens, MULTI_DECODE_START, device)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        del params, cache, model
+        if cuda:
+            torch.cuda.empty_cache()
+        return logits, toks, times, peak, cache_bytes
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _rel_err(got, ref, scale):
+    """Each row's largest |got - ref| over its largest |logit| (``scale``)."""
+    import numpy as np
+
+    return np.abs(got - ref).max(axis=-1) / scale
+
+
+def _decode_agree(ranks, dtype, want, want_tok, truth=None, truth_tok=None):
+    """How the ranks' shares of the logits and tokens of ``dtype`` agree
+    with one card's (``want``, ``want_tok``: (steps, B, V), (steps, B)):
+    ``worst``, the largest difference over the row's largest logit;
+    ``tokens``, whether the tokens are equal.  With one card's float32 run
+    (``truth``, ``truth_tok``; for bf16) also each side's largest error
+    against it (``err_cards``, ``err_one``), and the tokens compared with
+    float32's wherever its top-2 margin exceeds twice the ranks' error in
+    that row (where the logits are within it, so must the token be)."""
+    import numpy as np
+
+    out = {"worst": 0.0, "tokens": True, "err_cards": 0.0, "err_one": 0.0, "clear": 1.0}
+    clear = []
+    for r in ranks:
+        got = r[dtype]
+        rows, cols = slice(*got["rows"]), slice(*got["cols"])
+        scale = np.abs(want[:, rows]).max(axis=-1)  # (steps, rows)
+        err = _rel_err(got["logits"], want[:, rows, cols], scale)
+        out["worst"] = max(out["worst"], float(err.max()))
+        if truth is None:
+            out["tokens"] &= bool(np.array_equal(got["tokens"], want_tok[:, rows]))
+            continue
+        scale = np.abs(truth[:, rows]).max(axis=-1)
+        err = _rel_err(got["logits"], truth[:, rows, cols], scale)
+        out["err_cards"] = max(out["err_cards"], float(err.max()))
+        out["err_one"] = max(out["err_one"], float(
+            _rel_err(want[:, rows, cols], truth[:, rows, cols], scale).max()))
+        top2 = np.sort(truth[:, rows], axis=-1)[..., -2:]
+        ok = (top2[..., 1] - top2[..., 0]) > 2 * err * scale
+        clear.append(ok)
+        out["tokens"] &= bool(np.array_equal(got["tokens"][ok], truth_tok[:, rows][ok]))
+    if clear:
+        out["clear"] = float(np.mean(np.concatenate(clear)))
+    return out
+
+
+def multicard_decode(n: int, dev, smi: str, backend: str, device_type: str) -> dict:
+    """The multi-card entry's decode part: each run of ``MULTI_DECODE`` on
+    ``n`` ranks (float32 and bf16 in one start of the ranks), then on one
+    card, both timed a step.  float32: the ranks' logits within
+    ``MULTI_F32_REL`` of the largest logit of one card decoding each dp
+    rank's rows (the card's GEMMs round by their row count: against all
+    rows at once the difference is printed), the tokens equal.  bf16:
+    Megatron's row-parallel products round each rank's partial sum to bf16
+    before the sum over the model axis, where one card rounds once, and a
+    bf16 rounding of the hidden state moves the logits by as much as bf16
+    moves them from float32 (reduced configs on the CPU: up to 2.2e-2 of
+    the largest logit either way, ``MULTI_BF16_REL`` out of reach); so the
+    ranks' bf16 logits are held within ``DECODE_BF16_FACTOR`` times one
+    card's bf16 error against one card's float32 logits, and their tokens
+    equal float32's wherever its top-2 margin clears twice the ranks' error
+    in the row; their difference from one card's bf16 logits is printed.
+    NCCL's collectives equal the virtual record."""
+    import numpy as np
+
+    from repro_torch.launch.train import run_ranks
+
+    out = {}
+    smi = "; ".join(dict.fromkeys(smi.splitlines()))  # one line for identical cards
+    for arch, layers, b, model_axis in MULTI_DECODE:
+        dp = n // model_axis
+        t0 = time.perf_counter()
+        ranks = run_ranks(_decode_rank, n, arch, layers, b, model_axis,
+                          (MULTI_DECODE_LEN, MULTI_DECODE_START, MULTI_DECODE_STEPS),
+                          device_type, backend=backend, timeout=900)
+        t_ranks = time.perf_counter() - t0
+        truth = truth_tok = None
+        for dtype in ("float32", "bfloat16"):
+            want, want_tok, t_one, peak_one, cache_one = _one_card_decode(
+                arch, layers, b, None if dtype == "bfloat16" else dtype, dev)
+            if dtype == "float32":
+                truth, truth_tok = want, want_tok
+                # one card at each dp rank's rows: the card's GEMMs round by
+                # their row count, so the sharded arithmetic shows alone
+                want, want_tok = np.empty_like(truth), np.empty_like(truth_tok)
+                for rows in {tuple(r[dtype]["rows"]) for r in ranks}:
+                    sl = slice(*rows)
+                    want[:, sl], want_tok[:, sl] = _one_card_decode(
+                        arch, layers, b, dtype, dev, sl)[:2]
+                agree = _decode_agree(ranks, dtype, want, want_tok)
+                whole = _decode_agree(ranks, dtype, truth, truth_tok)["worst"]
+                ok = agree["worst"] <= MULTI_F32_REL and agree["tokens"]
+                held = (f"worst logit diff over the largest logit {agree['worst']:.3e} "
+                        f"against one card decoding the rank's rows (bound "
+                        f"{MULTI_F32_REL:.3e}; {whole:.3e} against all {b} rows at once), "
+                        f"tokens equal {agree['tokens']}")
+            else:
+                agree = _decode_agree(ranks, dtype, want, want_tok, truth, truth_tok)
+                bound = DECODE_BF16_FACTOR * agree["err_one"]
+                ok = agree["err_cards"] <= bound and agree["tokens"]
+                held = (f"against one card's float32: {n} cards {agree['err_cards']:.3e}, "
+                        f"one card {agree['err_one']:.3e} (bound {bound:.3e}); against "
+                        f"one card's bf16 {agree['worst']:.3e}; tokens equal float32's "
+                        f"where its margin clears twice the cards' error "
+                        f"({agree['clear']:.3f} of them): {agree['tokens']}")
+            r0 = ranks[0][dtype]
+            step_n = float(np.median(r0["times"][1:]))
+            step_1 = float(np.median(t_one[1:]))
+            label = (f"decode {arch}{'' if layers is None else f' ({layers} layers)'} "
+                     f"{dtype} B={b} on {dp}x{model_axis}")
+            log(f"multicard: {label}, cache {MULTI_DECODE_LEN} positions from "
+                f"{MULTI_DECODE_START}, {MULTI_DECODE_STEPS} steps ({t_ranks:.1f} s for both "
+                f"dtypes with the ranks' start): {held}; {step_n * 1e3:.3f} ms a token on {n} cards vs "
+                f"{step_1 * 1e3:.3f} ms on one ({b / step_n:.1f} vs {b / step_1:.1f} "
+                f"tokens/s); peak memory per card "
+                f"{[r[dtype]['peak_bytes'] for r in ranks]} B vs {peak_one} B; cache bytes "
+                f"per card {[r[dtype]['cache_bytes'] for r in ranks]} vs {cache_one}; NCCL "
+                f"= virtual {[r[dtype]['ops_equal'] for r in ranks]} ({r0['n_ops']} ops, "
+                f"{r0['wire_bytes_per_chip']:.6e} wire bytes per chip a step) ({smi})")
+            if not (np.isfinite(r0["logits"]).all() and ok):
+                fail(f"{label}: {n} cards' logits or tokens disagree with one card's")
+            if not all(r[dtype]["ops_equal"] for r in ranks):
+                fail(f"{label}: the recorded collectives differ from the virtual mesh's")
+            out[label] = {**agree, "ms_a_token": step_n * 1e3,
+                          "one_card_ms_a_token": step_1 * 1e3,
+                          "peak_bytes": [r[dtype]["peak_bytes"] for r in ranks],
+                          "one_card_peak_bytes": peak_one,
+                          "cache_bytes": [r[dtype]["cache_bytes"] for r in ranks],
+                          "one_card_cache_bytes": cache_one, "n_ops": r0["n_ops"],
+                          "wire_bytes_per_chip": r0["wire_bytes_per_chip"]}
+    return out
+
+
 def phase_multicard(smi: str | None = None, device_type: str = "cuda",
                     backend: str = "nccl", world: int | None = None,
-                    parts=("fleet", "fsdp", "tp")):
+                    parts=("fleet", "fsdp", "tp", "decode")):
     """The multi-card entry (every visible card, four on a host with four
     H100s; not part of ``main()``): (1) ``run_fleet`` over all 22
     fabrics unsharded on one card, then with ``mesh="auto"`` (the warm PDHG
@@ -3820,9 +4226,16 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     ranks' pipelines) within the same bounds, with the same numbers, the
     collectives recorded in the NCCL run equal op for op to the virtual
     mesh's record of the same step, and mamba2's bf16 2×2 checkpoint
-    restored on one card bit for bit.  ``parts`` picks among the three.  A
-    CPU rehearsal passes ``device_type="cpu"``, ``backend="gloo"`` and
-    ``world`` (with the configurations shrunk)."""
+    restored on one card bit for bit; (4) decode on the sharded mesh
+    (``MULTI_DECODE``, :func:`multicard_decode`): ``make_serve_step`` with
+    every cache leaf in its tile, ``MULTI_DECODE_STEPS`` steps from position
+    ``MULTI_DECODE_START`` of a ``MULTI_DECODE_LEN`` cache filled from the seed, in
+    float32 and bf16 against one card (logits within the same bounds of the
+    largest logit, tokens equal), ms a token against one card, each card's
+    peak memory and cache bytes, and NCCL's collectives equal to the virtual
+    record.  ``parts`` picks among the four.  A CPU rehearsal passes
+    ``device_type="cpu"``, ``backend="gloo"`` and ``world`` (with the
+    configurations shrunk)."""
     import shutil
     import tempfile
 
@@ -3948,6 +4361,8 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
                                   remesh_loss=ranks[0]["remesh_step_loss"])
         finally:
             shutil.rmtree(ckdir, ignore_errors=True)
+    if "decode" in parts:
+        out["decode"] = multicard_decode(n, dev, smi, backend, device_type)
     log(f"multicard: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"multicard": out}, default=float))
     return out
@@ -3960,7 +4375,11 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
 # (tests/test_torch_hlo_tools.py), and a step on meta costs host time per
 # operator, so the reference's 8 would take ~4× as long
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
-                ("mamba2-130m", "train_4k"))
+                ("mamba2-130m", "train_4k"), ("llama3-8b", "decode_32k"),
+                ("mamba2-130m", "long_500k"))
+# llama3-8b decode_32k's cache a device on 2×16×16: 32 × 2 × 128 × 32768 × 8
+# × 128 × 2 B over 512 devices
+DRYRUN_CACHE_BYTES = {("llama3-8b", "decode_32k"): 2 ** 30}
 # the bridge: llama3-8b's train_4k steps per second (benchmarks/bench_ml_fabric.py's
 # JOBS), two jobs of two pods on a 4-pod fabric re-placed every two days
 BRIDGE_STEPS_PER_S = 0.5
@@ -4060,12 +4479,14 @@ def start_dryrun_cells():
 
 def phase_dryrun(device, smi: str = "", cells=None):
     """Phase 15 on one card: (a) the dry run (``repro_torch.launch.dryrun``)
-    of llama3-8b train_4k and prefill_32k and of mamba2-130m train_4k
-    (its SSD leaves gathered) on the 2×16×16 virtual mesh, each on ``meta``
-    in a worker process of its own: flops per device, wire bytes per chip by
-    kind, the 2×2 pod matrix, each matrix held to be symmetric, zero on the
-    diagonal and equal to the count from ``param_shardings`` alone
-    (``dryrun.planned_collectives``); (b) the bridge on the card: llama3-8b's
+    of llama3-8b train_4k, prefill_32k and decode_32k and of mamba2-130m
+    train_4k and long_500k (its SSD leaves gathered) on the 2×16×16 virtual
+    mesh, each on ``meta`` in a worker process of its own: flops per device,
+    wire bytes per chip by kind, the 2×2 pod matrix, each matrix held to be
+    symmetric, zero on the diagonal and equal to the count from
+    ``param_shardings`` alone (``dryrun.planned_collectives``; decode's with
+    the attention's combine), llama3-8b decode_32k's cache bytes a device
+    (``DRYRUN_CACHE_BYTES``); (b) the bridge on the card: llama3-8b's
     inter-pod bytes a step, at ``BRIDGE_STEPS_PER_S``, placed as churning
     jobs on a 4-pod fabric, through ``repro_torch.core.run_controller`` on
     the H100 (p99.9 MLU finite, the batched linkload kernel launched: the
@@ -4083,6 +4504,7 @@ def phase_dryrun(device, smi: str = "", cells=None):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.api import Model
+    from repro_torch.models.config import ALL_SHAPES
     from repro_torch.runtime.hlo_traffic import pod_traffic_matrix
 
     t0 = time.perf_counter()
@@ -4108,9 +4530,9 @@ def phase_dryrun(device, smi: str = "", cells=None):
             fail(f"dry run {label}: {rec['status']}: {rec.get('error')}\n"
                  f"{rec.get('traceback', '')}")
         tm = np.asarray(rec["pod_tm_bytes"])
-        kind = "train" if shape.startswith("train") else "prefill"
+        cell = {s.name: s for s in ALL_SHAPES}[shape]
         planned = pod_traffic_matrix(dryrun.planned_collectives(
-            Model(get_arch(arch), torch.device("meta")), mesh, kind), 256, 2)
+            Model(get_arch(arch), torch.device("meta")), mesh, cell.kind, cell), 256, 2)
         wire = {k: v["wire_bytes_per_chip"] for k, v in rec["collectives"].items()
                 if isinstance(v, dict)}
         log(f"dryrun: {label} 2x16x16 (one microbatch): {rec['seconds']:.1f} s on meta, "
@@ -4119,8 +4541,13 @@ def phase_dryrun(device, smi: str = "", cells=None):
             f"{tm.tolist()} (planned {planned.tolist()}), "
             f"{rec['n_collective_ops']} collectives, argument bytes "
             f"{rec['memory_analysis']['argument_bytes']}, gradient bytes "
-            f"{rec['memory_analysis']['gradient_bytes']}, tensor parallel "
+            f"{rec['memory_analysis']['gradient_bytes']}, cache bytes "
+            f"{rec['memory_analysis']['cache_bytes']}, tensor parallel "
             f"{rec['tensor_parallel']}")
+        want_cache = DRYRUN_CACHE_BYTES.get((arch, shape))
+        if want_cache is not None and rec["memory_analysis"]["cache_bytes"] != want_cache:
+            fail(f"dry run {label}: {rec['memory_analysis']['cache_bytes']} B of cache a "
+                 f"device, expected {want_cache}")
         if not (tm.shape == (2, 2) and tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == tm[1, 1] == 0):
             fail(f"dry run {label}: pod TM {tm.tolist()} is not symmetric with a zero "
                  f"diagonal")

@@ -9,23 +9,27 @@ For each cell this:
      tiles of them (and of AdamW's moments) by ``param_shardings``, and rank
      0's slice of the inputs (``input_specs``, ``input_shardings``);
   3. runs the REAL step of the shape's kind — ``make_train_step`` (AdamW,
-     microbatched accumulation, remat, FSDP × TP) or ``make_prefill_step``
-     — once under :func:`repro_torch.runtime.hlo_cost.measure_step`: the
-     flops per device, an unfused bound on the bytes, and every collective
-     the step issues, with its replica groups;
+     microbatched accumulation, remat, FSDP × TP), ``make_prefill_step`` or
+     ``make_serve_step`` (one token against rank 0's tile of every cache
+     leaf, ``shard_cache``) — once under
+     :func:`repro_torch.runtime.hlo_cost.measure_step`: the flops per
+     device, an unfused bound on the bytes, and every collective the step
+     issues, with its replica groups;
   4. projects the collectives onto the pod-level traffic matrix handed to
      Gemini's controller.
 
 The port compiles no HLO, so its collectives are the ones its step issues by
 hand (:mod:`repro_torch.parallel.sharding`), not XLA's: each leaf is
 gathered once a step, before the first microbatch, and each gradient
-reduce-scattered once, after the last.  Decode cells are recorded as
-``not_ported`` (:data:`DECODE_REASON`); cells the reference skips are
-``skipped`` with ``supports_cell``'s reason.  Records go to
+reduce-scattered once, after the last; a decode step also combines each
+attention's partial softmaxes over its cache's sequence axes, which span
+the pods where the batch cannot take the dp axes (long_500k).  Cells the
+reference skips are ``skipped`` with ``supports_cell``'s reason.  Records go to
 ``build/dryrun/<arch>__<shape>__pod{1,2}[__tag].json`` in the checkout.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k [--multi-pod]
+  python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape long_500k --window-cache
   python -m repro_torch.launch.dryrun --all [--both-meshes] [--force]
 """
 
@@ -37,7 +41,7 @@ import pathlib
 import time
 import traceback
 
-__all__ = ["RESULTS", "MICROBATCHES", "DECODE_REASON", "cell_path", "run_cell",
+__all__ = ["RESULTS", "MICROBATCHES", "CACHE_DTYPES", "cell_path", "run_cell",
            "planned_collectives", "main"]
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -47,7 +51,9 @@ MICROBATCHES = {"dbrx-132b": 8, "qwen3-14b": 8, "gemma3-12b": 8, "llama3-8b": 8,
                 "deepseek-7b": 8, "mixtral-8x7b": 8, "recurrentgemma-9b": 8,
                 "seamless-m4t-large-v2": 4, "internvl2-1b": 4, "mamba2-130m": 4}
 
-DECODE_REASON = "ROADMAP 2.9.5: decode under tensor parallelism"
+# ``--cache-dtype``: the decode cache's dtype by the reference's names
+# ("" and "bf16": the model's own)
+CACHE_DTYPES = {"": None, "bf16": None, "f8": "float8_e4m3fn", "f32": "float32"}
 
 
 def cell_path(arch: str, shape: str, multi_pod: bool, tag: str = "") -> pathlib.Path:
@@ -62,19 +68,26 @@ def _bytes(tree) -> int:
     return _tensor_bytes(tree)
 
 
-def planned_collectives(model, mesh, kind: str = "train") -> list:
+def planned_collectives(model, mesh, kind: str = "train", shape=None,
+                        window_cache: bool = False) -> list:
     """The collectives over the dp axes that a step of ``kind`` issues on
     ``mesh``, counted from ``param_shardings`` and the step's plan alone
     (no step runs): each leaf's tile gathered over the dp axes it is split
-    over, and — training — its float32 gradient reduce-scattered over them
-    (all-reduced over the dp axes it is not split over), the loss's mean
-    and the clip's sums of squares.  These are the step's only collectives
-    whose groups can span pods; the model axis's stay inside one."""
+    over (at decode, each leaf decode reads); training adds its float32
+    gradient reduce-scattered over them (all-reduced over the dp axes it is
+    not split over), the loss's mean and the clip's sums of squares; decode
+    (``shape`` the cell's ``ShapeConfig``, ``window_cache`` its cache's
+    knob) adds every attention's softmax combined over its cache's sequence
+    axes, in layer order: the row max, the sum of exponentials and the
+    products with v, float32, for each of the rank's rows and heads.  These
+    are the step's only collectives whose groups can span pods; the model
+    axis's stay inside one."""
     import math
 
     import torch
 
-    from repro_torch.launch.steps import _split_axes, leaf_plans
+    from repro_torch.launch.steps import (_split_axes, cache_tile_shardings, decode_reads,
+                                          leaf_plans)
     from repro_torch.optim import tree as tree_util
     from repro_torch.parallel import sharding as sh
     from repro_torch.runtime.hlo_traffic import DTYPE_NAMES, CollectiveOp, _DTYPE_BYTES
@@ -90,22 +103,43 @@ def planned_collectives(model, mesh, kind: str = "train") -> list:
 
     plans = leaf_plans(model, mesh)
     leaves = tree_util.leaves(model.param_shapes())
-    for leaf, plan in zip(leaves, plans):
-        shape = list(sh.shard_tensor(leaf, plan.sharding).shape)
+    reads = decode_reads(model) if kind == "decode" else [True] * len(leaves)
+    for leaf, plan, read in zip(leaves, plans, reads):
+        if not read:
+            continue
+        shape_ = list(sh.shard_tensor(leaf, plan.sharding).shape)
         for dim, names in sh._sharded_dims(plan.sharding, batch):
-            shape[dim] *= math.prod(mesh.shape[a] for a in names)
-            op("all-gather", math.prod(shape), leaf.dtype, names)
+            shape_[dim] *= math.prod(mesh.shape[a] for a in names)
+            op("all-gather", math.prod(shape_), leaf.dtype, names)
+    if kind == "decode":
+        cfg = model.cfg
+        whole = model.init_cache(shape.global_batch, shape.seq_len, enc_len=shape.seq_len,
+                                 window_cache=window_cache)
+        tiles = cache_tile_shardings(mesh, cfg, shape, whole)
+        attn = [t for (path, _, _), t in zip(sh._param_leaves(whole),
+                                             tree_util.leaves_of(tiles)) if path[-1] == "k"]
+        if cfg.family == "audio":  # each decoder layer: self, then cross attention
+            attn = [t for self_kv in attn for t in (self_kv, tiles["enc_out"])]
+        heads = cfg.n_heads
+        for t in attn:
+            axes = sh.dim_axes(t, 1)
+            if axes:
+                rows = shape.global_batch // math.prod(mesh.shape[a] for a in
+                                                       sh.dim_axes(t, 0))
+                op("all-reduce", rows * heads, torch.float32, axes)  # the row max
+                op("all-reduce", rows * heads, torch.float32, axes)  # the sum
+                op("all-reduce", rows * heads * cfg.resolved_head_dim, torch.float32, axes)
     if kind != "train":
         return ops
     for leaf, plan in zip(leaves, plans):
         tile = sh.shard_tensor(leaf, plan.sharding).shape
         split = sh._sharded_dims(plan.sharding, batch)
-        shape = list(tile)  # the gradient: whole along the dp dims
+        shape_ = list(tile)  # the gradient: whole along the dp dims
         for dim, names in split:
-            shape[dim] *= math.prod(mesh.shape[a] for a in names)
+            shape_[dim] *= math.prod(mesh.shape[a] for a in names)
         for dim, names in split:
-            shape[dim] = tile[dim]
-            op("reduce-scatter", math.prod(shape), torch.float32, names)
+            shape_[dim] = tile[dim]
+            op("reduce-scatter", math.prod(shape_), torch.float32, names)
         done = {a for _, names in split for a in names}
         rest = tuple(a for a in batch if a not in done and mesh.shape[a] > 1)
         if rest:
@@ -125,14 +159,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
              cache_dtype: str = "", moe_impl: str = "", moe_groups: int = 0,
              ssd_chunk: int = 0, tag: str = "") -> dict:
     """One dry-run cell.  The keyword knobs are the reference's: sharding
-    profile, microbatch count, remat policy, moe dispatch and groups, SSD
-    chunk; ``tag`` names the variant's record file.  ``window_cache`` and
-    ``cache_dtype`` shape decode's KV cache, which no cell of this port runs
-    (:data:`DECODE_REASON`): setting either raises.  A record on disk is
-    returned unless ``force``."""
-    if window_cache or cache_dtype:
-        raise ValueError(f"window_cache and cache_dtype apply to decode cells "
-                         f"({DECODE_REASON})")
+    profile, microbatch count, remat policy, decode's cache (a ring of the
+    window for a pure sliding-window architecture, its dtype by
+    :data:`CACHE_DTYPES`' names), moe dispatch and groups, SSD chunk;
+    ``tag`` names the variant's record file.  The cache knobs shape a
+    decode cell's cache alone: a train or prefill cell raises on them.  A
+    record on disk is returned unless ``force``."""
+    from repro_torch.models.config import ALL_SHAPES
+
+    shape = {s.name: s for s in ALL_SHAPES}[shape_name]
+    if (window_cache or cache_dtype) and shape.kind != "decode":
+        raise ValueError(f"window_cache and cache_dtype shape a decode cell's cache; "
+                         f"{shape_name} is a {shape.kind} cell")
     out_path = cell_path(arch, shape_name, multi_pod, tag)
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
@@ -143,18 +181,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import (StepConfig, input_shardings, leaf_plans,
-                                          make_prefill_step, make_train_step,
-                                          module_like, tp_report)
+    from repro_torch.launch.steps import (StepConfig, cache_tile_shardings,
+                                          decode_reads, input_shardings, leaf_plans,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step, module_like, shard_cache,
+                                          tp_report)
     from repro_torch.models.api import Model, supports_cell
-    from repro_torch.models.config import ALL_SHAPES
     from repro_torch.optim import tree as tree_util
     from repro_torch.optim.adamw import AdamW
     from repro_torch.parallel import sharding as sh
     from repro_torch.runtime.hlo_cost import measure_step
     from repro_torch.runtime.hlo_traffic import collective_summary, pod_traffic_matrix
 
-    shape = {s.name: s for s in ALL_SHAPES}[shape_name]
     cfg = get_arch(arch)
     ok, why = supports_cell(cfg, shape)
     record = {
@@ -171,9 +209,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
 
     if not ok:
         record.update(status="skipped", reason=why)
-        return write(record)
-    if shape.kind == "decode":
-        record.update(status="not_ported", reason=DECODE_REASON)
         return write(record)
 
     if moe_impl:
@@ -193,12 +228,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
         shapes = model.param_shapes()
         shards = module_like(shapes, [sh.shard_tensor(x, p.sharding)
                                       for x, p in zip(tree_util.leaves(shapes), plans)])
-        specs = model.input_specs(shape)
+        cdt = CACHE_DTYPES[cache_dtype] and getattr(torch, CACHE_DTYPES[cache_dtype])
+        specs = model.input_specs(shape, cache_dtype=cdt, window_cache=window_cache)
+        cache = specs.pop("cache", None)
         in_sh = input_shardings(mesh, cfg, shape, specs)
         batch = {k: sh.shard_tensor(v, in_sh[k], sh.batch_axes(mesh))
                  for k, v in specs.items()}
+        reads = decode_reads(model) if shape.kind == "decode" else [True] * len(plans)
         with sh.use_mesh(mesh):  # what the step holds: the leaves as its layers take them
-            used = [sh.gather_for_use(x, p) for x, p in zip(tree_util.leaves(shards), plans)]
+            used = [sh.gather_for_use(x, p) for x, p, r in
+                    zip(tree_util.leaves(shards), plans, reads) if r]
+        cache_bytes = 0
         if shape.kind == "train":
             opt = AdamW()
             mb = microbatches or MICROBATCHES.get(arch, 8)
@@ -208,11 +248,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
             record.update(microbatches=mb)
             args = (shards, ostate, batch)
             out_bytes = _bytes(tree_util.leaves(shards)) + _bytes(ostate)
-        else:
+        elif shape.kind == "prefill":
             step = make_prefill_step(model, mesh)
             args = (shards, batch)
             out_bytes = _bytes(torch.empty((next(iter(batch.values())).shape[0], 1),
                                            dtype=torch.int32, device="meta"))
+        else:  # decode: one token against rank 0's tile of every cache leaf
+            ring = bool(window_cache and cfg.window and not cfg.local_global_ratio)
+            whole = tree_util.unstacked(cache, model.init_cache(
+                shape.global_batch, shape.seq_len, enc_len=shape.seq_len, dtype=cdt,
+                window_cache=window_cache))
+            tiles = shard_cache(whole, mesh, cfg, shape)
+            step = make_serve_step(model, ring, mesh,
+                                   cache_tile_shardings(mesh, cfg, shape, whole))
+            record.update(window_cache=window_cache, cache_dtype=cache_dtype or "bf16",
+                          ring=ring)
+            args = (shards, tiles, batch["token"], shape.seq_len - 1)
+            cache_bytes = _bytes(tiles)
+            out_bytes = _bytes(batch["token"]) + cache_bytes
         cost = measure_step(step, *args)
         seconds = time.time() - t0
         ops = cost.collective_ops
@@ -234,6 +287,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
                 "gathered_param_bytes": _bytes(used),
                 "gradient_bytes": 4 * sum(x.numel() for x in used)
                 if shape.kind == "train" else 0,
+                "cache_bytes": cache_bytes,
             },
             collectives=summary,
             pod_tm_bytes=tm.tolist(),
@@ -242,7 +296,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
             model_params_active=cfg.active_param_count(),
             tensor_parallel=tp_report(model, plans),
             schedule="each leaf gathered once a step, before the first microbatch; "
-                     "each gradient reduce-scattered once, after the last",
+                     "each gradient reduce-scattered once, after the last"
+            if shape.kind == "train" else "each leaf gathered once a step",
         )
         print(f"[dryrun] OK  {arch} × {shape_name} × {record['mesh']} "
               f"({seconds:.1f}s, flops {record['flops']:.3g}, "
@@ -267,8 +322,11 @@ def main(argv=None):
     ap.add_argument("--profile", default="fsdp", choices=["fsdp", "fsdp_pod", "tp"])
     ap.add_argument("--microbatches", type=int, default=0)
     ap.add_argument("--remat", default="full", choices=["full", "dots"])
-    ap.add_argument("--window-cache", action="store_true")
-    ap.add_argument("--cache-dtype", default="", choices=["", "bf16", "f8", "f32"])
+    ap.add_argument("--window-cache", action="store_true",
+                    help="decode cells: a ring of the window for a pure "
+                         "sliding-window architecture")
+    ap.add_argument("--cache-dtype", default="", choices=list(CACHE_DTYPES),
+                    help="decode cells: the cache's dtype")
     ap.add_argument("--moe-impl", default="", choices=["", "onehot", "sorted"])
     ap.add_argument("--ssd-chunk", type=int, default=0)
     ap.add_argument("--moe-groups", type=int, default=0)
@@ -282,25 +340,27 @@ def main(argv=None):
     shapes = [s.name for s in ALL_SHAPES] if (args.all or not args.shape) else [args.shape]
     meshes = [False, True] if (args.both_meshes or args.all) else [args.multi_pod]
 
-    counts = {"ok": 0, "skipped": 0, "not_ported": 0, "failed": 0}
+    kinds = {s.name: s.kind for s in ALL_SHAPES}
+    counts = {"ok": 0, "skipped": 0, "failed": 0}
     slowest = (0.0, "")
     for multi_pod in meshes:
         for arch in archs:
             for shape in shapes:
+                knobs = (dict(window_cache=args.window_cache, cache_dtype=args.cache_dtype)
+                         if kinds[shape] == "decode" else {})  # decode's cache alone
                 rec = run_cell(arch, shape, multi_pod, force=args.force,
                                profile=args.profile,
                                microbatches=args.microbatches or None,
-                               remat=args.remat, window_cache=args.window_cache,
-                               cache_dtype=args.cache_dtype,
-                               moe_impl=args.moe_impl,
+                               remat=args.remat, moe_impl=args.moe_impl,
                                moe_groups=args.moe_groups,
-                               ssd_chunk=args.ssd_chunk, tag=args.tag)
-                counts[rec["status"]] += 1
+                               ssd_chunk=args.ssd_chunk, tag=args.tag, **knobs)
+                counts[rec["status"]] = counts.get(rec["status"], 0) + 1
                 if rec.get("seconds", 0.0) > slowest[0]:
                     slowest = (rec["seconds"], f"{arch} × {shape} × {rec['mesh']}")
+    others = "".join(f", {n} {k}" for k, n in counts.items()
+                     if k not in ("ok", "skipped", "failed"))
     print(f"[dryrun] done; {counts['ok']} ok, {counts['skipped']} skipped, "
-          f"{counts['not_ported']} not ported ({DECODE_REASON}), "
-          f"{counts['failed']} failures; slowest {slowest[1]} {slowest[0]:.1f}s")
+          f"{counts['failed']} failures{others}; slowest {slowest[1]} {slowest[0]:.1f}s")
     raise SystemExit(1 if counts["failed"] else 0)
 
 

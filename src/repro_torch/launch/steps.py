@@ -15,9 +15,13 @@ indices over the dp axes and the model axis), gathers each leaf over the dp
 axes before the forward, runs the layers that :func:`leaf_plans` names
 Megatron-parallel over the model axis on their tiles (the others on leaves
 gathered whole), and reduce-scatters the gradients over the dp axes into
-their mean after the backward; the update runs on the tiles.  On a virtual
-mesh (:func:`repro_torch.launch.mesh.make_production_mesh`) the same step
-runs on ``meta`` tensors as rank 0, and its collectives are recorded
+their mean after the backward; the update runs on the tiles.  The prefill
+and decode steps gather the leaves the same way and run the same layers
+Megatron-parallel; the decode step also keeps every cache leaf in the tile
+that ``cache_shardings`` names (:func:`cache_tile_shardings`,
+:func:`shard_cache`), from one step to the next.  On a virtual mesh
+(:func:`repro_torch.launch.mesh.make_production_mesh`) each step runs on
+``meta`` tensors as rank 0, and its collectives are recorded
 (:mod:`repro_torch.launch.dryrun`).
 
 ``input_shardings`` / ``cache_shardings`` / ``train_state_shardings``
@@ -27,8 +31,11 @@ reference's rules:
   * batch dims shard over the dp axes when divisible, else stay replicated
     (long_500k has batch 1);
   * decode-cache sequence dims shard over "model" (and over the dp axes too
-    when batch cannot absorb them) — the context-parallel KV layout;
-  * SSM/recurrent state shards heads/channels over "model".
+    when batch cannot absorb them) — the context-parallel KV layout, which
+    the decode step executes: each rank attends over its slots and the
+    partial softmaxes are combined over those axes;
+  * SSM/recurrent state shards heads/channels over "model"; the decode
+    step updates the rank's share.
 """
 
 from __future__ import annotations
@@ -51,8 +58,9 @@ from repro_torch.parallel.sharding import (LeafPlan, Mesh, NamedSharding,
                                            reduce_gradient, use_mesh)
 
 __all__ = ["StepConfig", "make_train_step", "make_serve_step", "make_prefill_step",
-           "input_shardings", "cache_shardings", "train_state_shardings",
-           "module_like", "leaf_plans", "tp_report"]
+           "input_shardings", "cache_shardings", "cache_tile_shardings", "shard_cache",
+           "train_state_shardings", "module_like", "leaf_plans", "decode_reads",
+           "tp_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,16 +276,63 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     return fsdp_step
 
 
-def make_serve_step(model: Model, ring: bool = False):
+def make_serve_step(model: Model, ring: bool = False, mesh: Mesh | None = None,
+                    cache_sh=None, logits: bool = False):
     """(params, cache, token, pos) -> (next_token (B, 1), cache).  ``ring``:
-    the cache is a sliding-window ring (``init_cache(..., window_cache=True)``)."""
+    the cache is a sliding-window ring (``init_cache(..., window_cache=True)``).
+    With ``logits`` the step also returns the logits (B, 1, V) it chose from.
+
+    With a ``mesh``, ``params`` are this rank's tiles (each leaf that decode
+    reads, :func:`decode_reads`, gathered as :func:`leaf_plans` says, as
+    :func:`make_prefill_step` does), ``token``
+    its dp slice, and ``cache`` its tile of every cache leaf, placed by
+    ``cache_sh`` (:func:`cache_tile_shardings`; :func:`shard_cache` cuts a
+    whole cache into them).  Each leaf stays in its tile: attention's
+    partial softmaxes are combined over the cache's sequence axes, the
+    recurrent layers update their share of the state, and no collective
+    moves a cache leaf.  The greedy token is chosen over the vocabulary's
+    shares (:func:`_vocab_argmax`) where the vocabulary is split; the
+    logits are then this rank's share (B, 1, V / model).  The cache's tiles
+    are updated in place (a state leaf replaced in its dict)."""
+    if mesh is None:
+        @torch.inference_mode()
+        def serve_step(params, cache, token, pos):
+            out, cache = model.decode(params, cache, token, pos, ring=ring)
+            tok = out[:, -1].argmax(dim=-1, keepdim=True).int()
+            return (tok, cache, out) if logits else (tok, cache)
+
+        return serve_step
+    check_executable(mesh, "decode")
+    if cache_sh is None:
+        raise ValueError("a serve step on a mesh takes the cache's tile shardings "
+                         "(cache_tile_shardings)")
+    plans = leaf_plans(model, mesh)
+    reads = decode_reads(model)
 
     @torch.inference_mode()
-    def serve_step(params, cache, token, pos):
-        logits, cache = model.decode(params, cache, token, pos, ring=ring)
-        return logits[:, -1].argmax(dim=-1, keepdim=True).int(), cache
+    def sharded_serve(shards, cache, token, pos):
+        with use_mesh(mesh):
+            full = module_like(shards, [gather_for_use(x, p) if r else x for x, p, r in
+                                        zip(tree_util.leaves(shards), plans, reads)])
+            out, cache = model.decode(full, cache, token, pos, ring=ring,
+                                      shardings=cache_sh)
+            last = out[:, -1]
+            if last.shape[-1] != model.cfg.vocab:
+                tok = _vocab_argmax(last, mesh)
+            else:
+                tok = last.argmax(dim=-1, keepdim=True).int()
+        return (tok, cache, out) if logits else (tok, cache)
 
-    return serve_step
+    sharded_serve.plans = plans
+    return sharded_serve
+
+
+def decode_reads(model: Model) -> list:
+    """Whether a decode step reads each parameter leaf (in
+    ``tree_util.leaves`` order): every leaf but the encoder's, whose output
+    the cache holds (``enc_out``).  A sharded serve step gathers only these,
+    as the reference's compiled step keeps only the gathers it uses."""
+    return [not p.startswith("enc_") for p in sh.param_paths(model.param_shapes())]
 
 
 def _vocab_argmax(last: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -371,6 +426,34 @@ def input_shardings(mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig, specs) -> d
     return out
 
 
+def _cache_spec(mesh: Mesh, dp, name: str, shape) -> P:
+    """The reference's spec of the stacked cache leaf ``name`` of ``shape``
+    (``dp``: the dp axes when they divide the batch, else ``None``)."""
+    nd = len(shape)
+    if name in ("k", "v"):  # (L, B, S, KV, hd)
+        if dp is not None:
+            spec = P(None, dp, "model", None, None)
+        else:
+            # batch too small (long_500k): context-parallel over everything
+            spec = P(None, None, tuple(dp_axes(mesh)) + ("model",), None, None)
+    elif name == "s":  # SSM state (L, B, H, N, P)
+        spec = P(None, dp, "model", None, None)
+        if shape[2] % mesh.shape["model"]:
+            spec = P(None, dp, None, "model", None)  # shard N instead of H
+    elif name == "conv":  # (L, B, K-1, convdim)
+        spec = P(None, dp, None, "model")
+    elif name == "h":  # rec state (L, B, dr)
+        spec = P(None, dp, "model")
+    elif name == "enc_out":  # (B, T, d)
+        if dp is not None:
+            spec = P(dp, "model", None)
+        else:
+            spec = P(None, tuple(dp_axes(mesh)) + ("model",), None)
+    else:
+        spec = P(*([None] * nd))
+    return fit_spec(mesh, shape, spec)
+
+
 def cache_shardings(mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig, cache_shapes):
     """Decode-cache shardings in the reference's (stacked) layout: (L, B, S,
     KV, hd) KV caches, SSM/recurrent states, the encoder's output."""
@@ -378,31 +461,33 @@ def cache_shardings(mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig, cache_shape
 
     def assign(path, leaf):
         name = str(path[-1]) if path else ""
-        nd = len(leaf.shape)
-        if name in ("k", "v"):  # (L, B, S, KV, hd)
-            if dp is not None:
-                spec = P(None, dp, "model", None, None)
-            else:
-                # batch too small (long_500k): context-parallel over everything
-                spec = P(None, None, tuple(dp_axes(mesh)) + ("model",), None, None)
-        elif name == "s":  # SSM state (L, B, H, N, P)
-            spec = P(None, dp, "model", None, None)
-            if leaf.shape[2] % mesh.shape["model"]:
-                spec = P(None, dp, None, "model", None)  # shard N instead of H
-        elif name == "conv":  # (L, B, K-1, convdim)
-            spec = P(None, dp, None, "model")
-        elif name == "h":  # rec state (L, B, dr)
-            spec = P(None, dp, "model")
-        elif name == "enc_out":  # (B, T, d)
-            if dp is not None:
-                spec = P(dp, "model", None)
-            else:
-                spec = P(None, tuple(dp_axes(mesh)) + ("model",), None)
-        else:
-            spec = P(*([None] * nd))
-        return NamedSharding(mesh, fit_spec(mesh, leaf.shape, spec))
+        return NamedSharding(mesh, _cache_spec(mesh, dp, name, tuple(leaf.shape)))
 
     return _map_named(cache_shapes, assign)
+
+
+def cache_tile_shardings(mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig, cache):
+    """The :class:`NamedSharding` of every leaf of a whole decode cache in
+    the port's per-layer layout (``Model.init_cache``; tensors on ``meta``
+    serve), in its structure: the reference's spec of the stacked leaf
+    (:func:`cache_shardings`' rule, on the shape with its leading layer
+    counts) without its leading layer entries, as :func:`param_shardings`
+    does for parameters."""
+    dp = _dp_for(mesh, shape.global_batch)
+    out = []
+    for path, layers, leaf in sh._param_leaves(cache):
+        spec = _cache_spec(mesh, dp, str(path[-1]), tuple(layers) + tuple(leaf.shape))
+        out.append(NamedSharding(mesh, P(*spec[len(layers):])))
+    return tree_util.unflatten(cache, out)
+
+
+def shard_cache(cache, mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig):
+    """This rank's tile of every leaf of a whole decode cache (per-layer
+    layout), placed by :func:`cache_tile_shardings`: copies (a whole leaf
+    too), so a step's in-place writes touch the tiles alone."""
+    tiles = tree_util.leaves_of(cache_tile_shardings(mesh, cfg, shape, cache))
+    return tree_util.unflatten(cache, [sh.shard_tensor(x, t).clone()
+                                       for x, t in zip(tree_util.leaves(cache), tiles)])
 
 
 def train_state_shardings(mesh: Mesh, model: Model, opt: AdamW):

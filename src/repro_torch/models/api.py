@@ -89,11 +89,13 @@ class Model:
                                       dtype=dtype, window_cache=window_cache)
 
     def decode(self, params, cache: dict, token: torch.Tensor, pos: int,
-               ring: bool = False):
+               ring: bool = False, shardings=None):
+        """(logits, cache) of one token; ``shardings``: the cache's
+        ``NamedSharding`` tree when ``cache`` holds this rank's tiles."""
         if self.cfg.family == "audio":
-            return encdec.decode_step(params, cache, token, pos, self.cfg)
+            return encdec.decode_step(params, cache, token, pos, self.cfg, shardings)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
-                                       ring=ring)
+                                       ring=ring, shardings=shardings)
 
     # ---- sharding-plan specs ------------------------------------------------
     def param_shapes(self):

@@ -7,7 +7,9 @@ wrapper: the CUDA kernel on the card (with its backward when training), its
 plain version on the CPU.  One-token decode (:func:`decode_attention`, and
 cross-attention of one token) stays plain PyTorch, as in the reference;
 :func:`decode_attention` writes the new key and value into the cache in
-place.
+place.  On a mesh the cache (and the encoder's output) may be this rank's
+tile of the sequence: each rank forms its share of the softmax over its
+slots, combined over the sequence's axes (:func:`_sdpa_split`).
 
 Tensor parallelism (Megatron): when the block is handed this rank's columns
 of ``wq``/``wk``/``wv`` (its heads, and the KV heads they read) and its rows
@@ -15,10 +17,14 @@ of ``wo`` — fewer heads than ``cfg.n_heads`` —, :func:`self_attention` runs
 those heads alone: its input passes :func:`~repro_torch.parallel.sharding.tp_copy`
 and its row-parallel output is summed over the model axis by
 :func:`~repro_torch.parallel.sharding.tp_reduce`.  The head counts come from
-the weights' shapes, so whole weights run as before, bit for bit.
+the weights' shapes, so whole weights run as before, bit for bit.  At
+decode the heads' shares of q and of the new key and value are gathered
+over the model axis, since every rank reads its slots for all heads.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -114,33 +120,94 @@ def self_attention(p, x, cfg, window: int = 0, positions=None):
     return sh.tp_reduce(out) if split else out
 
 
+def _gather_heads(q, k, v, cfg):
+    """Every head's q, k and v from this rank's tensor-parallel shares: one
+    all-gather over the model axis of the three side by side (a KV head
+    replicated over a block of model ranks kept once)."""
+    mesh = sh.active_mesh()
+    m = mesh.shape["model"]
+    hq, hk = q.shape[2], k.shape[2]
+    both = sh.all_gather(torch.cat([q, k, v], dim=2), 2, mesh, ("model",))
+    both = both.unflatten(2, (m, hq + 2 * hk))
+    q, k, v = (both[:, :, :, a:b].flatten(2, 3) for a, b in
+               ((0, hq), (hq, hq + hk), (hq + hk, hq + 2 * hk)))
+    rep = m * hk // cfg.n_kv_heads  # model ranks that hold one KV head
+    return q, k[:, :, ::rep], v[:, :, ::rep]
+
+
+def _sdpa_split(q, k, v, mask, mesh, axes):
+    """:func:`_sdpa` over keys split across the ranks of ``axes``: k/v
+    (B, T_loc, KV, hd) and mask (B, S, T_loc) are this rank's slots.  The
+    softmax in float32 over every rank's slots — the row max (an all-reduce
+    max), then the sum of exponentials (an all-reduce sum) — its weights
+    cast to the inputs' dtype as :func:`_sdpa` casts them, and the products
+    with v summed in float32 over the ranks before one cast, so the
+    rounding is :func:`_sdpa`'s up to the order of the sums.  A rank none of
+    whose slots is visible adds zeros (its logits stay ``NEG_INF`` below a
+    finite max)."""
+    hd = q.shape[-1]
+    b, s, h, _ = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / hd ** 0.5
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    top = sh.all_reduce(logits.amax(dim=-1, keepdim=True), mesh, axes, op="max")
+    w = torch.exp(logits - top)
+    w = (w / sh.all_reduce(w.sum(dim=-1, keepdim=True), mesh, axes)).to(q.dtype)
+    out = sh.all_reduce(torch.einsum("bkgst,btkd->bskgd", w.float(), v.float()), mesh, axes)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
 def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
-                     ring: bool = False):
+                     ring: bool = False, sharding=None):
     """One-token decode. x (B, 1, d); cache {"k","v"}: (B, S, KV, hd).
 
     Returns (out (B, 1, d), cache).  ``pos`` is the position of the new
     token (all sequences decode in lockstep).  The new key and value are
     written into ``cache`` in place, at ``pos`` (``pos % S`` with
     ``ring=True``: a sliding-window ring buffer whose keys are cached after
-    RoPE, so masking only excludes slots not yet written).
+    RoPE, so masking only excludes slots not yet written).  Past the cache's
+    end without ``ring`` the write lands on its last slot, as the
+    reference's ``dynamic_update_slice`` clamps it.
+
+    ``sharding`` ({"k", "v"}: their
+    :class:`~repro_torch.parallel.sharding.NamedSharding`) places ``cache``
+    as this rank's tile: slots ``[t·S/n, (t+1)·S/n)`` of the sequence when
+    its ``n`` ranks' axes split it (``t`` the rank's index over them).  The
+    slot's owner writes it, each rank reads its visible slots, and the
+    softmax is combined over those axes (:func:`_sdpa_split`); no
+    collective moves the cache.  On a tensor-parallel share of the heads
+    the shares of q and of the new key and value are gathered first, and
+    the rank's heads of the output go through its rows of ``wo``, summed
+    over the model axis.
     """
-    if _is_split(p, cfg):
-        raise NotImplementedError(f"decode_attention on a tensor-parallel share of "
-                                  f"the heads ({sh.TP_ROADMAP})")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    s = cache["k"].shape[1]
-    slot = pos % s if ring else pos
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    j = torch.arange(s, device=x.device)
+    split = _is_split(p, cfg)
+    if split:
+        q, k_new, v_new = _gather_heads(q, k_new, v_new, cfg)
+    axes = sh.dim_axes(sharding and sharding["k"], 1)
+    mesh = sharding["k"].mesh if axes else None
+    s_loc = cache["k"].shape[1]
+    t = sh.axis_index(mesh, axes) if axes else 0
+    s = s_loc * (math.prod(mesh.shape[a] for a in axes) if axes else 1)
+    slot = pos % s if ring else min(pos, s - 1)
+    if slot // s_loc == t:  # this rank holds the slot
+        cache["k"][:, slot - t * s_loc] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - t * s_loc] = v_new[:, 0].to(cache["v"].dtype)
+    j = torch.arange(t * s_loc, (t + 1) * s_loc, device=x.device)
     mask = j <= pos
     if not ring and window > 0:
         mask = mask & (j > pos - window)
-    mask = mask.expand(b, 1, s)
-    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, cfg)
-    return _out_proj(p, out, cfg), cache
+    mask = mask.expand(b, 1, s_loc)
+    k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    out = _sdpa_split(q, k, v, mask, mesh, axes) if axes else _sdpa(q, k, v, mask, cfg)
+    if not split:
+        return _out_proj(p, out, cfg), cache
+    h_loc = p.wo.shape[0] // cfg.resolved_head_dim
+    r = sh.tp_rank()
+    return sh.tp_reduce(_out_proj(p, out[:, :, r * h_loc:(r + 1) * h_loc], cfg)), cache
 
 
 def init_cross_attn_params(gen, cfg, device, d_enc=None) -> dict:
@@ -156,11 +223,14 @@ def init_cross_attn_params(gen, cfg, device, d_enc=None) -> dict:
     }
 
 
-def cross_attention(p, x, enc, cfg):
+def cross_attention(p, x, enc, cfg, sharding=None):
     """x (B, S, d) attends over the encoder output enc (B, T, d_enc), every
     key visible, no RoPE.  A full sequence goes through the flash-attention
     wrapper (Sq = S, Sk = T, non-causal); one token (decode) through the
-    plain ``_sdpa``."""
+    plain ``_sdpa``.  At decode ``sharding`` (``enc``'s
+    :class:`~repro_torch.parallel.sharding.NamedSharding`) may name ``enc``
+    as this rank's rows of T: the cross keys and values come from them, and
+    the softmax is combined over T's axes (:func:`_sdpa_split`)."""
     b, s, _ = x.shape
     t = enc.shape[1]
     hd = cfg.resolved_head_dim
@@ -169,7 +239,9 @@ def cross_attention(p, x, enc, cfg):
     v = (enc @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
     if s == 1:
         mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask, cfg)
+        axes = sh.dim_axes(sharding, 1)
+        out = (_sdpa_split(q, k, v, mask, sharding.mesh, axes) if axes
+               else _sdpa(q, k, v, mask, cfg))
     else:
         out = fa.flash_attention(q, k, v, causal=False)
     return _out_proj(p, out, cfg)

@@ -12,7 +12,9 @@ reference does.
 Layers are ``ModuleList`` entries run by a Python loop (the reference stacks
 them and scans); serving runs under ``torch.inference_mode``, training
 checkpoints each block as ``remat`` says.  The reference's sharding
-constraints (``constrain``) have no counterpart on one card.
+constraints (``constrain``) have no counterpart on one card; on a mesh every
+leaf is gathered whole, and decode reads this rank's tiles of the cache
+(:func:`decode_step`).
 """
 
 from __future__ import annotations
@@ -140,17 +142,26 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, enc_len: int, device,
 
 
 @torch.inference_mode()
-def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchConfig):
+def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchConfig,
+                shardings=None):
     """One decoder token (B, 1) against the cached self K/V and encoder
-    output.  Returns (logits (B, 1, V), cache), the cache updated in place."""
+    output.  Returns (logits (B, 1, V), cache), the cache updated in place.
+    ``shardings`` (the cache's
+    :class:`~repro_torch.parallel.sharding.NamedSharding` tree, on a mesh)
+    names ``cache`` as this rank's tiles: the self K/V's slots and the
+    encoder output's rows of T, each attention's partial softmaxes combined
+    over their axes (``attention._sdpa_split``)."""
     _check_audio(cfg)
     x = embed(token, params.embed)
     enc_out = cache["enc_out"]
+    enc_sh = None if shardings is None else shardings["enc_out"]
     for i, blk in enumerate(params.dec_blocks):
         out, cache["self"][i] = attn.decode_attention(
-            blk.attn, rms_norm(x, blk.norm1), cache["self"][i], pos, cfg)
+            blk.attn, rms_norm(x, blk.norm1), cache["self"][i], pos, cfg,
+            sharding=None if shardings is None else shardings["self"][i])
         x = x + out
-        x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg)
+        x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg,
+                                     enc_sh)
         x = x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
     logits = rms_norm(x, params.final_norm) @ params.unembed
     return logits, cache

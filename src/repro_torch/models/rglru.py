@@ -9,18 +9,19 @@ RG-LRU recurrence (per channel):
 
 The gates are computed in float32.  The full-sequence recurrence goes through
 the RG-LRU scan wrapper (the CUDA kernel on the card, its plain version on the
-CPU); decode takes one step at a time.
+CPU); decode takes one step at a time, on the whole state or on this
+rank's channels of it (:func:`recurrent_block_step`).
 The block: x → [linear → gelu] ⊙ [linear → conv1d → RG-LRU] → linear out.
 """
 
 from __future__ import annotations
-
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rl
 from repro_torch.models.layers import dtype_of, init_dense
+from repro_torch.parallel import sharding as sh
 
 __all__ = ["init_rglru_params", "rglru_scan", "rglru_step", "recurrent_block",
            "recurrent_block_step"]
@@ -46,13 +47,17 @@ def init_rglru_params(gen, cfg, device) -> dict:
     }
 
 
-def _gates(p, x):
-    """x (..., dr) -> (a, gated_input), both float32."""
+def _gates(p, x, cols: slice | None = None):
+    """x (..., dr) -> (a, gated_input), both float32; with ``cols``, of
+    those channels alone."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p.w_a.float())
-    i = torch.sigmoid(xf @ p.w_x.float())
-    a = torch.exp(-_C * F.softplus(p.lambda_raw) * r)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    w_a, w_x, lam, xs = p.w_a.float(), p.w_x.float(), p.lambda_raw, xf
+    if cols is not None:
+        w_a, w_x, lam, xs = w_a[:, cols], w_x[:, cols], lam[cols], xf[..., cols]
+    r = torch.sigmoid(xf @ w_a)
+    i = torch.sigmoid(xf @ w_x)
+    a = torch.exp(-_C * F.softplus(lam) * r)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xs)
     return a, gated
 
 
@@ -62,9 +67,10 @@ def rglru_scan(p, x):
     return rl.rglru_scan(a.contiguous(), b.contiguous()).to(x.dtype)
 
 
-def rglru_step(p, x_t, h_prev):
-    """One decode step. x_t (B, dr), h_prev (B, dr) float32 state."""
-    a, b = _gates(p, x_t)
+def rglru_step(p, x_t, h_prev, cols: slice | None = None):
+    """One decode step. x_t (B, dr), h_prev (B, dr) float32 state (with
+    ``cols``, of those channels alone: ``h_prev`` (B, |cols|))."""
+    a, b = _gates(p, x_t, cols)
     h = a * h_prev + b
     return h.to(x_t.dtype), h
 
@@ -97,13 +103,27 @@ def recurrent_block(p, x):
     return (gate * rec) @ p.w_out
 
 
-def recurrent_block_step(p, x_t, state):
+def recurrent_block_step(p, x_t, state, sharding=None):
     """One-token decode. x_t (B, 1, d); state {"h": (B, dr) float32,
-    "conv": (B, K-1, dr)}; returns (out, new state)."""
-    gate = _gelu(x_t @ p.w_in_gate)
-    rec, conv_state = _causal_conv(p.conv_w, x_t @ p.w_in_rec, state["conv"])
-    h_out, h_new = rglru_step(p, rec[:, 0, :], state["h"])
-    out = (gate * h_out[:, None, :]) @ p.w_out
-    return out, {"h": h_new, "conv": conv_state}
+    "conv": (B, K-1, dr)}; returns (out, new state).
 
-
+    ``sharding`` ({"h", "conv"}: their
+    :class:`~repro_torch.parallel.sharding.NamedSharding`) may name the
+    state as this rank's channels; the weights are whole.  The rank computes
+    its channels of the input projections and of the (depthwise)
+    convolution, gathers the convolution's output (the gates are dense
+    over it), forms its channels' gates and state, and gathers
+    ``gate * h`` before ``w_out``."""
+    axes = sh.dim_axes(sharding and sharding["h"], 1)
+    mesh = sharding["h"].mesh if axes else None
+    cols = sh.tile_slice(state["h"].shape[-1], mesh, axes) if axes else slice(None)
+    gate = _gelu(x_t @ p.w_in_gate[:, cols])
+    rec, conv_state = _causal_conv(p.conv_w[:, cols], x_t @ p.w_in_rec[:, cols],
+                                   state["conv"])
+    if axes:
+        rec = sh.all_gather(rec, 2, mesh, axes)
+    h_out, h_new = rglru_step(p, rec[:, 0, :], state["h"], cols if axes else None)
+    y = gate * h_out[:, None, :]
+    if axes:
+        y = sh.all_gather(y, 2, mesh, axes)
+    return y @ p.w_out, {"h": h_new, "conv": conv_state}

@@ -8,7 +8,8 @@ differentiates through its ``SSDScan``, the backward kernel on the card);
 :func:`ssd_chunked` is that plain version in the model's (B, S, H, P) layout:
 within a chunk the token mixing is a masked quadratic form, across chunks a
 compact state ``S (B, H, N, P)`` is carried.  :func:`ssd_block_step` is the
-one-token decode.
+one-token decode, on the whole state or on this rank's tile of it (its
+heads, or its share of N, and its channels of the convolution's state).
 
 Shapes: d_inner = 2·d_model, heads H = d_inner / 64 (head dim P = 64),
 one B/C group (G = 1), state size N = cfg.ssm_state.
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ops as sd
 from repro_torch.models.layers import dtype_of, init_dense
+from repro_torch.parallel import sharding as sh
 
 __all__ = ["HEAD_P", "dims", "init_ssd_params", "ssd_chunked", "ssd_block",
            "ssd_block_step"]
@@ -144,22 +146,50 @@ def ssd_block(p, x, cfg, chunk: int = 64):
     return _gated_norm(y, z, p.norm_z, x.dtype) @ p.w_out
 
 
-def ssd_block_step(p, x_t, state, cfg):
+def ssd_block_step(p, x_t, state, cfg, sharding=None):
     """One-token decode. state: {"s": (B,H,N,P) f32, "conv": (B,K-1,convdim)};
-    returns (out, new state)."""
+    returns (out, new state).
+
+    ``sharding`` ({"s", "conv"}: their
+    :class:`~repro_torch.parallel.sharding.NamedSharding`) may name the
+    state as this rank's tile; the weights are whole.  The rank convolves
+    its share of the channels, and the convolution's output is gathered
+    (every head reads b and c).  With H split it updates its heads' state,
+    and their y is gathered; with N split it updates its share of N, and
+    ``y = c·s`` is summed over N's axes."""
     d_inner, h, n = dims(cfg)
     z, xc, b, c, dt_raw = _split_proj(p, x_t, cfg)
-    conv_out, conv_state = _conv(p.conv_w, torch.cat([xc, b, c], dim=-1),
-                                 state["conv"])
+    u = torch.cat([xc, b, c], dim=-1)
+    conv_axes = sh.dim_axes(sharding and sharding["conv"], 2)
+    if conv_axes:
+        mesh = sharding["conv"].mesh
+        cols = sh.tile_slice(state["conv"].shape[-1], mesh, conv_axes)
+        conv_out, conv_state = _conv(p.conv_w[:, cols], u[..., cols], state["conv"])
+        conv_out = sh.all_gather(conv_out, 2, mesh, conv_axes)
+    else:
+        conv_out, conv_state = _conv(p.conv_w, u, state["conv"])
     xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
     dt = F.softplus(dt_raw.float() + p.dt_bias)[:, 0]  # (B, H)
     a = -torch.exp(p.a_log)
     bsz = x_t.shape[0]
     xh = xc.float().reshape(bsz, h, HEAD_P)
+    bn, cn, d_skip = b[:, 0].float(), c[:, 0].float(), p.d_skip
+    s_sh = sharding and sharding["s"]
+    h_axes, n_axes = sh.dim_axes(s_sh, 1), sh.dim_axes(s_sh, 2)
+    if h_axes:  # this rank's heads
+        heads = sh.tile_slice(state["s"].shape[1], s_sh.mesh, h_axes)
+        dt, a, xh, d_skip = dt[:, heads], a[heads], xh[:, heads], d_skip[heads]
+    elif n_axes:  # this rank's share of the state size
+        part = sh.tile_slice(state["s"].shape[2], s_sh.mesh, n_axes)
+        bn, cn = bn[:, part], cn[:, part]
     decay = torch.exp(dt * a)  # (B, H)
     s_new = (state["s"] * decay[:, :, None, None]
-             + torch.einsum("bh,bn,bhp->bhnp", dt, b[:, 0].float(), xh))
-    y = torch.einsum("bn,bhnp->bhp", c[:, 0].float(), s_new)
-    y = (y + p.d_skip[:, None] * xh).reshape(bsz, 1, d_inner)
-    out = _gated_norm(y, z, p.norm_z, x_t.dtype) @ p.w_out
+             + torch.einsum("bh,bn,bhp->bhnp", dt, bn, xh))
+    y = torch.einsum("bn,bhnp->bhp", cn, s_new)
+    if n_axes:
+        y = sh.all_reduce(y, s_sh.mesh, n_axes)
+    y = y + d_skip[:, None] * xh
+    if h_axes:
+        y = sh.all_gather(y, 1, s_sh.mesh, h_axes)
+    out = _gated_norm(y.reshape(bsz, 1, d_inner), z, p.norm_z, x_t.dtype) @ p.w_out
     return out, {"s": s_new, "conv": conv_state}

@@ -22,7 +22,8 @@ Families:
 ``audio`` (the encoder-decoder) is :mod:`repro_torch.models.encdec`.
 
 Decode carries a per-layer cache (lists of dicts, one entry per layer) and
-updates it in place.
+updates it in place; on a mesh, this rank's tile of each leaf
+(:func:`decode_step`).
 
 Tensor parallelism (train and prefill on a mesh with a model axis): a layer
 handed this rank's share of its weights runs Megatron — the attention over
@@ -330,45 +331,69 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None,
     return {"blocks": [kv() for _ in range(cfg.n_layers)]}
 
 
-def _rec_step(blk, x, st, cfg):
-    out, st = rg.recurrent_block_step(blk.rec, rms_norm(x, blk.norm1), st)
+def _rec_step(blk, x, st, cfg, sharding=None):
+    out, st = rg.recurrent_block_step(blk.rec, rms_norm(x, blk.norm1), st, sharding)
     x = x + out
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg), st
 
 
-def _attn_step(blk, x, kv, pos, cfg, window, ring=False):
+def _attn_step(blk, x, kv, pos, cfg, window, ring=False, sharding=None):
     out, kv = attn.decode_attention(blk.attn, rms_norm(x, blk.norm1), kv, pos, cfg,
-                                    window=window, ring=ring)
+                                    window=window, ring=ring, sharding=sharding)
     x = x + out
     return x + _ffn_fwd(blk, rms_norm(x, blk.norm2), cfg)[0], kv
 
 
+def _at(shardings, *path):
+    """The entry of a cache's sharding tree at ``path`` (``None``: no tree)."""
+    for key in path:
+        if shardings is None:
+            return None
+        shardings = shardings[key]
+    return shardings
+
+
 @torch.inference_mode()
 def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
-                cfg: ArchConfig, ring: bool = False):
+                cfg: ArchConfig, ring: bool = False, shardings=None):
     """One new token for every sequence. token (B, 1) int; ``pos`` the
     position of the new token.  Returns (logits (B, 1, V), cache), the cache
     updated in place.  ``ring``: the KV caches are sliding-window rings
-    (``init_cache(..., window_cache=True)``)."""
+    (``init_cache(..., window_cache=True)``).
+
+    On a mesh (:func:`repro_torch.launch.steps.make_serve_step`) ``cache``
+    is this rank's tile of every leaf and ``shardings`` their
+    :class:`~repro_torch.parallel.sharding.NamedSharding` tree: attention
+    combines its partial softmaxes over the cache's sequence axes, the SSD
+    and RG-LRU blocks update their share of the state; the layers handed a
+    tensor-parallel share of their weights run Megatron, and the logits are
+    this rank's share of the vocabulary when the embedding is split."""
     _check_decoder(cfg)
-    x = embed(token, params.embed)
+    if _vocab_split(params, cfg):
+        x = vocab_parallel_embed(token, params.embed)
+    else:
+        x = embed(token, params.embed)
     if cfg.family == "ssm":
         for i, blk in enumerate(params.blocks):
             out, cache["blocks"][i] = ssd_mod.ssd_block_step(
-                blk.ssd, rms_norm(x, blk.norm1), cache["blocks"][i], cfg)
+                blk.ssd, rms_norm(x, blk.norm1), cache["blocks"][i], cfg,
+                _at(shardings, "blocks", i))
             x = x + out
     elif cfg.family == "hybrid":
-        for sup, st in zip(params.super, cache["super"]):
-            x, st["rec1"] = _rec_step(sup.rec1, x, st["rec1"], cfg)
-            x, st["rec2"] = _rec_step(sup.rec2, x, st["rec2"], cfg)
+        for i, (sup, st) in enumerate(zip(params.super, cache["super"])):
+            tiles = _at(shardings, "super", i) or {}
+            x, st["rec1"] = _rec_step(sup.rec1, x, st["rec1"], cfg, tiles.get("rec1"))
+            x, st["rec2"] = _rec_step(sup.rec2, x, st["rec2"], cfg, tiles.get("rec2"))
             x, st["attn"] = _attn_step(sup.attn_blk, x, st["attn"], pos, cfg,
-                                       cfg.window)
+                                       cfg.window, sharding=tiles.get("attn"))
         for i, blk in enumerate(params.tail if "tail" in params else ()):
-            x, cache["tail"][i] = _rec_step(blk, x, cache["tail"][i], cfg)
+            x, cache["tail"][i] = _rec_step(blk, x, cache["tail"][i], cfg,
+                                            _at(shardings, "tail", i))
     else:
         for i, blk in enumerate(params.blocks):
             x, cache["blocks"][i] = _attn_step(blk, x, cache["blocks"][i], pos, cfg,
-                                               layer_window(cfg, i), ring)
+                                               layer_window(cfg, i), ring,
+                                               _at(shardings, "blocks", i))
     logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
     return logits, cache
 

@@ -23,8 +23,11 @@ index — and its gradient reduce-scattered over the same group
 a tp-sharded leaf either stays in its tile, where the model's layers run
 Megatron tensor parallelism on it (:func:`tp_copy`, :func:`tp_reduce`), or
 is gathered whole (:class:`LeafPlan`); which one is the step's plan
-(:func:`repro_torch.launch.steps.leaf_plans`).  Decode under tensor
-parallelism is a later slice (:data:`TP_ROADMAP`).
+(:func:`repro_torch.launch.steps.leaf_plans`).  A decode step keeps
+each cache leaf in the tile its spec names (:func:`dim_axes` reads which
+axes split a dim): attention combines its partial softmaxes over the
+cache's sequence axes, the recurrent layers update their share of the
+state (:func:`repro_torch.launch.steps.make_serve_step`).
 
 Every collective goes through one path (:func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_reduce`), which appends it to the open
@@ -66,12 +69,10 @@ __all__ = [
     "set_active_mesh", "active_mesh", "use_mesh", "fleet_mesh", "shard_leading",
     "dp_axes", "spec", "constrain", "PARAM_RULES", "param_spec_for", "fit_spec",
     "param_shardings", "check_executable", "shard_tensor",
-    "gather_tensor", "reduce_gradient", "host_sync_point", "TP_ROADMAP",
+    "gather_tensor", "reduce_gradient", "host_sync_point", "dim_axes", "tile_slice",
     "LeafPlan", "param_paths", "gather_for_use", "all_gather", "reduce_scatter", "all_reduce",
     "tp_copy", "tp_reduce", "tp_max", "tp_rank", "axis_index", "batch_axes",
 ]
-
-TP_ROADMAP = "ROADMAP 2.9.5: decode under tensor parallelism"
 
 _ACTIVE_MESH = None
 
@@ -268,14 +269,11 @@ def use_mesh(mesh: Mesh):
 
 
 def check_executable(mesh: Mesh, kind: str = "train") -> None:
-    """Raise unless the port can execute a step of ``kind`` ("train",
-    "prefill" or "decode") on ``mesh``: decode on a ``model`` axis larger
-    than 1 (its KV cache sharded over the model axis) is a later slice."""
-    if kind == "decode" and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"decode on a mesh with a model axis of {mesh.shape['model']} is a "
-            f"later slice of the port ({TP_ROADMAP}); train and prefill steps "
-            f"execute on it, and its cache specs are answered")
+    """Raise unless the port can execute a step of ``kind`` on ``mesh``:
+    a train, prefill or decode step executes on any mesh (a virtual one on
+    ``meta`` tensors alone)."""
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"a step of kind {kind!r} is not train, prefill or decode")
 
 
 def fleet_mesh(devices=None) -> Mesh:
@@ -638,6 +636,15 @@ def _sharded_dims(sharding: NamedSharding, axes=None):
     return out
 
 
+def dim_axes(sharding: NamedSharding | None, dim: int) -> tuple:
+    """The mesh axes that split ``dim`` of a tensor placed by ``sharding``
+    over more than one rank; ``()`` where the dim is whole (or there is no
+    sharding)."""
+    if sharding is None:
+        return ()
+    return next((names for d, names in _sharded_dims(sharding) if d == dim), ())
+
+
 def batch_axes(mesh: Mesh) -> tuple:
     """The mesh's dp axes: the ranks along them hold different slices of
     the batch; ranks that differ only in their model index hold the same."""
@@ -653,10 +660,18 @@ def axis_index(mesh: Mesh, axes) -> int:
     return i
 
 
+def tile_slice(n_loc: int, mesh: Mesh, axes) -> slice:
+    """This rank's ``n_loc`` entries of a dim split over ``axes``."""
+    i = axis_index(mesh, axes)
+    return slice(i * n_loc, (i + 1) * n_loc)
+
+
 def _cut(x, n: int, dim: int, i: int):
+    """The ``i``-th of ``n`` chunks of ``x`` along ``dim``, a copy (a view
+    would keep the whole tensor alive)."""
     if isinstance(x, torch.Tensor):
-        return x.chunk(n, dim)[i].contiguous()
-    return np.split(np.asarray(x), n, axis=dim)[i]
+        return x.chunk(n, dim)[i].clone(memory_format=torch.contiguous_format)
+    return np.split(np.asarray(x), n, axis=dim)[i].copy()
 
 
 def shard_tensor(x, sharding: NamedSharding, axes=None):

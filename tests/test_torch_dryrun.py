@@ -20,8 +20,12 @@
 (c) The full-size mamba2-130m ``train_4k`` cell on 2×16×16 completes on
     ``meta`` with the reference's record keys (one microbatch: flops and pod
     matrix do not depend on the count, ``tests/test_torch_hlo_tools.py``);
-    decode cells are ``not_ported`` (ROADMAP 2.9.5), decode's cache knobs
-    raise, and the reference's skips are ``skipped``.
+    decode cells run the sharded serve step: llama3-8b decode_32k holds
+    2^31 B of cache a device on 16×16 (2^30 on 2×16×16), each decode
+    record's pod matrix equals ``planned_collectives(..., "decode")`` (at
+    long_500k the attention's combine crosses the pods), decode's cache
+    knobs apply to decode cells and raise on train and prefill cells, and
+    the reference's skips are ``skipped``.
 (d) The counterpart of ``tests/test_system_e2e.py``'s
     ``test_framework_bridge_traffic_to_controller``: ``extract_traffic`` on
     one host gives the reference's (1, 1) matrix (and the reference's
@@ -178,19 +182,57 @@ def test_full_size_mamba2_cell_on_the_production_mesh(tmp_path, monkeypatch):
 
 def test_decode_cells_are_not_ported_and_skips_are_the_reference(tmp_path, monkeypatch,
                                                                   capsys):
+    """Decode cells run the sharded serve step: ``ok`` records with the
+    train and prefill records' keys, the cache's bytes a device, and a pod
+    matrix equal to the one counted from the shardings alone; the
+    reference's skips stay ``skipped``; decode's cache knobs apply to
+    decode cells and raise on the others."""
+    from repro_torch.models.config import ALL_SHAPES
+
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
-    rec = dryrun.run_cell("llama3-8b", "decode_32k", False)
-    assert rec["status"] == "not_ported" and "ROADMAP 2.9.5" in rec["reason"]
+    shapes = {s.name: s for s in ALL_SHAPES}
+
+    def planned(arch, shape, multi_pod, window_cache=False):
+        mesh = sh.Mesh((2, 16, 16) if multi_pod else (16, 16),
+                       NAMES if multi_pod else NAMES[1:])
+        return pod_traffic_matrix(dryrun.planned_collectives(
+            Model(get_arch(arch), torch.device("meta")), mesh, "decode", shapes[shape],
+            window_cache), 256, 2 if multi_pod else 1)
+
+    # llama3-8b decode_32k: 32 × 2 × 128 × 32768 × 8 × 128 × 2 B = 2^39 B of cache
+    for multi_pod, per_device in ((False, 2 ** 31), (True, 2 ** 30)):
+        rec = dryrun.run_cell("llama3-8b", "decode_32k", multi_pod)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert REF_KEYS <= set(rec) and rec["unknown_trip_loops"] == 0
+        assert rec["memory_analysis"]["cache_bytes"] == per_device
+        assert (rec["window_cache"], rec["cache_dtype"], rec["ring"]) == (False, "bf16", False)
+        assert np.array_equal(np.asarray(rec["pod_tm_bytes"]),
+                              planned("llama3-8b", "decode_32k", multi_pod))
+        assert rec["flops"] > 0 and "blocks/attn/wq" in rec["tensor_parallel"]["megatron"]
+    # long_500k: batch 1, the sequence over every axis — the combine crosses pods
+    rec = dryrun.run_cell("mixtral-8x7b", "long_500k", True, window_cache=True)
+    assert rec["status"] == "ok" and rec["ring"], rec.get("traceback")
+    tm = np.asarray(rec["pod_tm_bytes"])
+    assert np.array_equal(tm, planned("mixtral-8x7b", "long_500k", True, True))
+    gathers = pod_traffic_matrix(dryrun.planned_collectives(
+        Model(get_arch("mixtral-8x7b"), torch.device("meta")),
+        sh.Mesh((2, 16, 16), NAMES), "prefill"), 256, 2)
+    assert tm[0, 1] == tm[1, 0] > gathers[0, 1] > 0 and tm[0, 0] == 0
+    # a ring of the 4096-slot window: 32 × 2 × 4096 × 8 × 128 × 2 B over 512 devices
+    assert rec["memory_analysis"]["cache_bytes"] == 2 ** 20
+    rec = dryrun.run_cell("mixtral-8x7b", "decode_32k", False, cache_dtype="f8")
+    assert rec["status"] == "ok" and rec["cache_dtype"] == "f8"
+    assert rec["memory_analysis"]["cache_bytes"] == 2 ** 30  # one byte a value
     rec = dryrun.run_cell("llama3-8b", "long_500k", True)
     assert rec["status"] == "skipped" and "sub-quadratic" in rec["reason"]
-    assert dryrun.run_cell("mixtral-8x7b", "long_500k", True)["status"] == "not_ported"
     with pytest.raises(SystemExit) as done:
         dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k", "--both-meshes"])
     assert done.value.code == 0
-    assert "2 not ported" in capsys.readouterr().out
+    assert "2 ok, 0 skipped, 0 failures" in capsys.readouterr().out
     for knob in ({"window_cache": True}, {"cache_dtype": "f8"}):  # decode's cache knobs
-        with pytest.raises(ValueError, match="ROADMAP 2.9.5"):
-            dryrun.run_cell("mixtral-8x7b", "decode_32k", False, force=True, **knob)
+        for shape in ("train_4k", "prefill_32k"):
+            with pytest.raises(ValueError, match="decode cell"):
+                dryrun.run_cell("mixtral-8x7b", shape, False, force=True, **knob)
 
 
 def test_bridge_traffic_to_controller(tmp_path):

@@ -240,8 +240,8 @@ def test_later_slices_raise(tmp_path):
     """What the dry-run slice lifted now runs, as the reference's does: a
     Trainer on a mesh with a model axis builds its FSDP × TP step, and
     ``extract_traffic`` on one host gives the reference's (1, 1) matrix
-    and collective summary (no collective on one device).  Decode under
-    tensor parallelism is still a later slice (ROADMAP 2.9.5)."""
+    and collective summary (no collective on one device).  A decode step
+    passes ``check_executable`` on that mesh too."""
     import jax
 
     from repro.configs import get_arch as ref_get_arch
@@ -262,8 +262,7 @@ def test_later_slices_raise(tmp_path):
     tp = Trainer(model, AdamW(), Mesh((1, 2), ("data", "model")), _data_cfg(cfg),
                  StepConfig(), TrainerConfig(), tmp_path / "tp")
     assert {p.mode for p in tp._step_fn.plans} == {"data", "megatron"}
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.9.5"):
-        check_executable(tp.mesh, "decode")
+    check_executable(tp.mesh, "decode")  # decode under tensor parallelism
 
     rcfg = ref_get_arch("llama3-8b").reduced()
     rmodel, rmesh, ropt = ref_build_model(rcfg), ref_host_mesh(), RefAdamW()

@@ -177,11 +177,11 @@ def test_meshes():
         assert tuple(sh.spec("dp")) == tuple(ref_sh.P(("data",)))
         x = torch.ones(2)
         assert sh.constrain(x, "dp") is x  # tensor parallelism places its own collectives
-    for kind in ("train", "prefill"):
+    for kind in ("train", "prefill", "decode"):
         sh.check_executable(pm, kind)  # a model axis of 16 executes (on meta: virtual)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.9.5"):
-        sh.check_executable(pm, "decode")  # decode under tensor parallelism
-    sh.check_executable(host, "decode")
+        sh.check_executable(host, kind)
+    with pytest.raises(ValueError, match="not train, prefill or decode"):
+        sh.check_executable(pm, "serve")
     x = torch.ones(2)
     with sh.use_mesh(host):
         assert sh.constrain(x, "dp", None) is x  # a model axis of 1: as it is
