@@ -42,7 +42,7 @@ import time
 import traceback
 
 __all__ = ["RESULTS", "MICROBATCHES", "CACHE_DTYPES", "cell_path", "run_cell",
-           "planned_collectives", "main"]
+           "planned_collectives", "held_param_bytes", "main"]
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -69,13 +69,19 @@ def _bytes(tree) -> int:
 
 
 def planned_collectives(model, mesh, kind: str = "train", shape=None,
-                        window_cache: bool = False) -> list:
+                        window_cache: bool = False, microbatches: int = 1,
+                        remat: bool = True) -> list:
     """The collectives over the dp axes that a step of ``kind`` issues on
     ``mesh``, counted from ``param_shardings`` and the step's plan alone
     (no step runs): each leaf's tile gathered over the dp axes it is split
     over (at decode, each leaf decode reads); training adds its float32
     gradient reduce-scattered over them (all-reduced over the dp axes it is
-    not split over), the loss's mean and the clip's sums of squares; decode
+    not split over), the loss's mean, the clip's sums of squares and, for
+    each moe layer and microbatch (twice under ``remat``: the checkpointed
+    block's forward runs again in the backward), the load-balancing loss's
+    means over the dp ranks (``moe._aux_loss``); with ``shape``, a train or
+    prefill step's moe layers also gather each dp rank's expert counts where
+    the batch's tokens a dispatch exceed 256 (``moe._offsets``); decode
     (``shape`` the cell's ``ShapeConfig``, ``window_cache`` its cache's
     knob) adds every attention's softmax combined over its cache's sequence
     axes, in layer order: the row max, the sum of exponentials and the
@@ -111,8 +117,17 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
         for dim, names in sh._sharded_dims(plan.sharding, batch):
             shape_[dim] *= math.prod(mesh.shape[a] for a in names)
             op("all-gather", math.prod(shape_), leaf.dtype, names)
+    cfg = model.cfg
+    dp = tuple(a for a in batch if mesh.shape[a] > 1)
+    if cfg.family == "moe" and dp and shape is not None and kind != "decode":
+        tokens = shape.global_batch * shape.seq_len // (microbatches if kind == "train" else 1)
+        groups = max(1, cfg.moe_groups) if cfg.moe_impl == "sorted" else 1
+        n = math.prod(mesh.shape[a] for a in dp)
+        if groups < n and tokens // groups > 256:  # a dispatch over several dp ranks
+            calls = microbatches * (2 if remat else 1) if kind == "train" else 1
+            for _ in range(cfg.n_layers * calls):
+                op("all-gather", n * cfg.n_experts, torch.float32, dp)
     if kind == "decode":
-        cfg = model.cfg
         whole = model.init_cache(shape.global_batch, shape.seq_len, enc_len=shape.seq_len,
                                  window_cache=window_cache)
         tiles = cache_tile_shardings(mesh, cfg, shape, whole)
@@ -146,11 +161,34 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
             op("all-reduce", math.prod(tile), torch.float32, rest)
     if batch and math.prod(mesh.shape[a] for a in batch) > 1:
         op("all-reduce", 1, torch.float32, batch)  # the loss
+        if cfg.family == "moe":  # the aux loss's global means, (2, E)
+            for _ in range(model.cfg.n_layers * microbatches * (2 if remat else 1)):
+                op("all-reduce", 2 * model.cfg.n_experts, torch.float32, dp)
     split = [_split_axes(p) for p in plans]
     for axes in dict.fromkeys(a for a in split if a):
         if set(axes) & set(batch):  # the clip's sums of squares
             op("all-reduce", sum(a == axes for a in split), torch.float32, axes)
     return ops
+
+
+def held_param_bytes(model, mesh, kind: str = "train") -> tuple:
+    """(gathered parameter bytes, float32 gradient bytes) a device holds in
+    a step of ``kind`` on ``mesh``: every leaf the step reads (at decode,
+    :func:`~repro_torch.launch.steps.decode_reads`) as its layer takes it
+    (``gather_for_use`` of rank 0's tile, on ``meta``: no step runs), and
+    a float32 gradient of each in training (0 otherwise)."""
+    from repro_torch.launch.steps import decode_reads, leaf_plans
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    plans = leaf_plans(model, mesh)
+    leaves = tree_util.leaves(model.param_shapes())
+    reads = decode_reads(model) if kind == "decode" else [True] * len(plans)
+    with sh.use_mesh(mesh):
+        used = [sh.gather_for_use(sh.shard_tensor(x, p.sharding), p)
+                for x, p, r in zip(leaves, plans, reads) if r]
+    grads = 4 * sum(x.numel() for x in used) if kind == "train" else 0
+    return _bytes(used), grads
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
@@ -182,7 +220,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import (StepConfig, cache_tile_shardings,
-                                          decode_reads, input_shardings, leaf_plans,
+                                          input_shardings, leaf_plans,
                                           make_prefill_step, make_serve_step,
                                           make_train_step, module_like, shard_cache,
                                           tp_report)
@@ -234,10 +272,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
         in_sh = input_shardings(mesh, cfg, shape, specs)
         batch = {k: sh.shard_tensor(v, in_sh[k], sh.batch_axes(mesh))
                  for k, v in specs.items()}
-        reads = decode_reads(model) if shape.kind == "decode" else [True] * len(plans)
-        with sh.use_mesh(mesh):  # what the step holds: the leaves as its layers take them
-            used = [sh.gather_for_use(x, p) for x, p, r in
-                    zip(tree_util.leaves(shards), plans, reads) if r]
+        gathered, grad_bytes = held_param_bytes(model, mesh, shape.kind)
         cache_bytes = 0
         if shape.kind == "train":
             opt = AdamW()
@@ -284,9 +319,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
                 "temp_bytes": None,
                 "temp_bytes_why": "the step runs on meta tensors, which have no "
                                   "allocator to measure a peak",
-                "gathered_param_bytes": _bytes(used),
-                "gradient_bytes": 4 * sum(x.numel() for x in used)
-                if shape.kind == "train" else 0,
+                "gathered_param_bytes": gathered,
+                "gradient_bytes": grad_bytes,
                 "cache_bytes": cache_bytes,
             },
             collectives=summary,

@@ -83,22 +83,61 @@ def _all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
 
 
 def _tp_role(path: str) -> str | None:
-    """The Megatron group of a leaf at reference path ``path``: a decoder
-    attention block's projections, a SwiGLU MLP's matrices, the vocabulary."""
+    """The Megatron group of a leaf at reference path ``path``: an
+    attention block's projections (decoder, encoder and cross attention), a
+    SwiGLU MLP's matrices, the moe experts, an SSD or RG-LRU block's
+    leaves, the vocabulary."""
     parts = path.split("/")
-    if len(parts) >= 2 and parts[-2] == "attn" and parts[-1] in ("wq", "wk", "wv", "wo"):
+    block, leaf = (parts[-2], parts[-1]) if len(parts) >= 2 else ("", path)
+    if block in ("attn", "xattn"):
         return "attn"
-    if len(parts) >= 2 and parts[-2] == "mlp" and parts[-1] in ("w_gate", "w_up", "w_down"):
-        return "mlp"
+    if block in ("mlp", "moe") and leaf in ("w_gate", "w_up", "w_down"):
+        return block
+    if block in ("ssd", "rec"):
+        return "ssd" if block == "ssd" else "rglru"
     if path in ("embed", "unembed"):
         return "vocab"
     return None
 
 
-# the dim each Megatron leaf splits over the model axis: columns of the
-# column-parallel matrices, rows of the row-parallel ones and of the embedding
-_TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0,
-           "embed": 0, "unembed": 1}
+# the dim each Megatron leaf splits over the model axis, by (group, leaf):
+# columns of the column-parallel matrices, rows of the row-parallel ones and
+# of the embedding, the expert axis of the moe's stacked experts; the
+# unembedding's rows (d) when the axis does not divide the vocabulary
+_TP_DIM = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1, ("attn", "wo"): 0,
+           ("mlp", "w_gate"): 1, ("mlp", "w_up"): 1, ("mlp", "w_down"): 0,
+           ("moe", "w_gate"): 0, ("moe", "w_up"): 0, ("moe", "w_down"): 0,
+           ("ssd", "w_out"): 0,
+           ("rglru", "w_in_gate"): 1, ("rglru", "w_in_rec"): 1, ("rglru", "conv_w"): 1,
+           ("rglru", "w_a"): 1, ("rglru", "w_x"): 1, ("rglru", "w_out"): 0,
+           ("vocab", "embed"): 0, ("vocab", "unembed"): 1}
+
+# leaves a Megatron group reads in part, whole on every model rank or
+# gathered whole over it (``LeafPlan.model_sum``): SSD's in-projection and
+# convolution (their column blocks do not align with [z | x | B | C | dt]),
+# its per-head and per-channel vectors, RG-LRU's per-channel Λ, qk-norm's
+# scales
+_READ_IN_PART = {("ssd", "w_in"), ("ssd", "conv_w"), ("ssd", "a_log"), ("ssd", "d_skip"),
+                 ("ssd", "dt_bias"), ("ssd", "norm_z"), ("rglru", "lambda_raw"),
+                 ("attn", "q_norm"), ("attn", "k_norm")}
+
+
+def _group_divides(cfg, role: str, m: int) -> bool:
+    """Whether the model axis ``m`` divides what a Megatron ``role`` splits:
+    the heads (a KV head count it divides, or one that divides it: each KV
+    head on ``m / n_kv`` ranks), the experts, the SSD heads (2·d_model/64),
+    the RG-LRU width (the vocabulary always: where the axis does not divide
+    it, the unembedding runs row-parallel over d)."""
+    if role == "attn":
+        kv = cfg.n_kv_heads
+        return cfg.n_heads % m == 0 and (kv % m == 0 or m % kv == 0)
+    if role == "moe":
+        return cfg.n_experts % m == 0
+    if role == "ssd":
+        return (2 * cfg.d_model // 64) % m == 0
+    if role == "rglru":
+        return cfg.d_model % m == 0
+    return True
 
 
 def leaf_plans(model: Model, mesh: Mesh) -> list:
@@ -106,50 +145,65 @@ def leaf_plans(model: Model, mesh: Mesh) -> list:
     leaf (in ``tree_util.leaves`` order) on ``mesh``.
 
     A leaf the rules split over the model axis runs Megatron when its whole
-    group does: a decoder attention block when the model axis divides the
-    head count and either divides the KV head count or is a multiple of it
-    (each KV head then replicated over ``model / n_kv_heads`` ranks, its
-    columns gathered over them; its qk-norm scales, whole on every rank,
-    get gradients summed over the model axis), a SwiGLU MLP, and the vocabulary (the
-    embedding's rows and the unembedding's columns, tied or not; the
-    unembedding's tile splits d, so it is gathered whole and cut by its
-    columns: ``LeafPlan.relayout``).  Every
-    other split leaf — the moe experts, RG-LRU, SSD, the convolutions, the
-    encoder-decoder, attention whose heads the axis does not divide — is
-    gathered whole, and its layer runs whole on every model rank."""
+    group does, which the model axis's size decides from the shapes alone
+    (:func:`_group_divides`): an attention block — decoder, encoder or
+    cross attention — when the axis divides the head count and either
+    divides the KV head count or is a multiple of it (each KV head then
+    replicated over ``model / n_kv_heads`` ranks, its columns gathered over
+    them); a SwiGLU MLP; the moe experts when it divides their count
+    (expert parallelism); an SSD block when it divides the SSD heads; an
+    RG-LRU block when it divides its width; the vocabulary (the embedding's
+    rows and the unembedding's columns, tied or not; the unembedding's tile
+    splits d, so it is gathered whole and cut by its columns:
+    ``LeafPlan.relayout``), or, when the axis does not divide the
+    vocabulary, the unembedding row-parallel over its d.  The leaves such a
+    group reads only in part (``_READ_IN_PART``) get ``model_sum``: their
+    gradients are summed over the model axis.  A split leaf of a group the
+    axis does not divide — attention whose heads it does not divide
+    (qwen3-14b's 40 or internvl2's 14 on 16), mamba2-130m's SSD at 24 heads
+    on 16 — is gathered whole, and its layer runs whole on every model
+    rank.  The plan is decided before a step runs; no layer falls back."""
     cfg = model.cfg
     shapes = model.param_shapes()
     with use_mesh(mesh):
         shardings = tree_util.leaves_of(param_shardings(mesh, shapes))
     paths = sh.param_paths(shapes)
     m = mesh.shape.get("model", 1)
-    roles = [None if cfg.family == "audio" else _tp_role(p) for p in paths]
+    roles = [_tp_role(p) for p in paths]
+    names = [p.split("/")[-1] for p in paths]
 
     def tp_dim(s):
         return LeafPlan(s).tp_dim
 
+    vocab_parallel = cfg.vocab % m == 0
+
     def relayout(p, s):  # the unembedding whose d the rules split (``embed$``)
-        return 1 if p == "unembed" and tp_dim(s) == 0 else None
+        return 1 if p == "unembed" and tp_dim(s) == 0 and vocab_parallel else None
+
+    def want_dim(role, name):
+        if role == "vocab" and not vocab_parallel:  # the embedding whole, the
+            return 0 if name == "unembed" else None  # unembedding row-parallel
+        return _TP_DIM.get((role, name))
 
     ok = {}
-    for role in ("attn", "mlp", "vocab"):
-        mine = [(p, s) for p, s, r in zip(paths, shardings, roles) if r == role]
-        ok[role] = m > 1 and bool(mine) and all(
-            tp_dim(s) == _TP_DIM[p.split("/")[-1]] or relayout(p, s) is not None
-            for p, s in mine)
-    if ok["vocab"]:  # the vocabulary itself splits over the model axis
-        ok["vocab"] = cfg.vocab % m == 0
-    heads, kv = cfg.n_heads, cfg.n_kv_heads
-    ok["attn"] = ok["attn"] and heads % m == 0 and (kv % m == 0 or m % kv == 0)
+    for role in ("attn", "mlp", "moe", "ssd", "rglru", "vocab"):
+        mine = [(p, s, n) for p, s, r, n in zip(paths, shardings, roles, names) if r == role]
+        ok[role] = m > 1 and bool(mine) and _group_divides(cfg, role, m) and all(
+            tp_dim(s) == want_dim(role, n) or relayout(p, s) is not None
+            for p, s, n in mine if (role, n) not in _READ_IN_PART)
+    kv = cfg.n_kv_heads
     kv_block = m // kv if ok["attn"] and kv < m else 0
     plans = []
-    for p, s, r in zip(paths, shardings, roles):
-        if tp_dim(s) is None:  # qk-norm's scales see a Megatron rank's heads only
-            head_norm = p.split("/")[-2:] in (["attn", "q_norm"], ["attn", "k_norm"])
-            plans.append(LeafPlan(s, "data", model_sum=ok["attn"] and head_norm))
+    for p, s, r, n in zip(paths, shardings, roles, names):
+        partial = r is not None and ok[r] and (r, n) in _READ_IN_PART
+        if tp_dim(s) is None:
+            plans.append(LeafPlan(s, "data", model_sum=partial))
+        elif partial:
+            plans.append(LeafPlan(s, "megatron", model_sum=True))
         elif r is not None and ok[r]:
-            kb = kv_block if p.split("/")[-1] in ("wk", "wv") else 0
-            plans.append(LeafPlan(s, "megatron", kb, relayout(p, s)))
+            kb = kv_block if r == "attn" and n in ("wk", "wv") else 0
+            rl = relayout(p, s)
+            plans.append(LeafPlan(s, "megatron", kb, rl, model_sum=rl is not None))
         else:
             plans.append(LeafPlan(s, "gathered"))
     return plans

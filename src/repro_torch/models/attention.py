@@ -13,13 +13,17 @@ slots, combined over the sequence's axes (:func:`_sdpa_split`).
 
 Tensor parallelism (Megatron): when the block is handed this rank's columns
 of ``wq``/``wk``/``wv`` (its heads, and the KV heads they read) and its rows
-of ``wo`` — fewer heads than ``cfg.n_heads`` —, :func:`self_attention` runs
-those heads alone: its input passes :func:`~repro_torch.parallel.sharding.tp_copy`
-and its row-parallel output is summed over the model axis by
+of ``wo`` — fewer heads than ``cfg.n_heads`` —, :func:`self_attention` and
+:func:`cross_attention` run those heads alone: their inputs pass
+:func:`~repro_torch.parallel.sharding.tp_copy` and the row-parallel output
+is summed over the model axis by
 :func:`~repro_torch.parallel.sharding.tp_reduce`.  The head counts come from
 the weights' shapes, so whole weights run as before, bit for bit.  At
 decode the heads' shares of q and of the new key and value are gathered
-over the model axis, since every rank reads its slots for all heads.
+over the model axis, since every rank reads its slots for all heads; a
+cross attention whose encoder output is split over T by the model axis too
+folds its key and value projections into the query and the output
+(:func:`_cross_decode_split`), so that no weight and no cache tile moves.
 """
 
 from __future__ import annotations
@@ -101,13 +105,14 @@ def _out_proj(p, out, cfg):
     return out.reshape(b, s, p.wo.shape[0]) @ p.wo
 
 
-def self_attention(p, x, cfg, window: int = 0, positions=None):
+def self_attention(p, x, cfg, window: int = 0, positions=None, causal: bool = True):
     """Full-sequence causal self-attention (train / prefill), through the
     flash-attention kernel.  x (B, S, d); ``window`` 0 = global;
     ``positions`` (B, S) the RoPE positions (default 0..S-1).  The mask is
     causal over the sequence's order whatever the positions, as in the
-    reference.  On a tensor-parallel share of the heads the output is summed
-    over the model axis."""
+    reference; ``causal=False`` (an encoder) lets every query see every
+    key.  On a tensor-parallel share of the heads the output is summed over
+    the model axis."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -115,7 +120,7 @@ def self_attention(p, x, cfg, window: int = 0, positions=None):
     if split:
         x = sh.tp_copy(x)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
     out = _out_proj(p, out, cfg)
     return sh.tp_reduce(out) if split else out
 
@@ -230,18 +235,58 @@ def cross_attention(p, x, enc, cfg, sharding=None):
     plain ``_sdpa``.  At decode ``sharding`` (``enc``'s
     :class:`~repro_torch.parallel.sharding.NamedSharding`) may name ``enc``
     as this rank's rows of T: the cross keys and values come from them, and
-    the softmax is combined over T's axes (:func:`_sdpa_split`)."""
+    the softmax is combined over T's axes (:func:`_sdpa_split`).  On a
+    tensor-parallel share of the heads the block runs those heads and sums
+    its output over the model axis; at decode with T split too, through
+    :func:`_cross_decode_split`."""
     b, s, _ = x.shape
     t = enc.shape[1]
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (enc @ p.wk).reshape(b, t, cfg.n_kv_heads, hd)
-    v = (enc @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
+    split = _is_split(p, cfg)
+    axes = sh.dim_axes(sharding, 1) if s == 1 else ()
+    if split and axes:
+        return _cross_decode_split(p, x, enc, cfg, sharding.mesh, axes)
+    if split:
+        x, enc = sh.tp_copy(x), sh.tp_copy(enc)
+    q = (x @ p.wq).reshape(b, s, p.wq.shape[-1] // hd, hd)
+    k = (enc @ p.wk).reshape(b, t, p.wk.shape[-1] // hd, hd)
+    v = (enc @ p.wv).reshape(b, t, p.wv.shape[-1] // hd, hd)
     if s == 1:
         mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
-        axes = sh.dim_axes(sharding, 1)
         out = (_sdpa_split(q, k, v, mask, sharding.mesh, axes) if axes
                else _sdpa(q, k, v, mask, cfg))
     else:
         out = fa.flash_attention(q, k, v, causal=False)
-    return _out_proj(p, out, cfg)
+    out = _out_proj(p, out, cfg)
+    return sh.tp_reduce(out) if split else out
+
+
+def _cross_decode_split(p, x, enc, cfg, mesh, axes):
+    """One token's cross attention on this rank's heads (its columns of
+    ``wq``/``wk``/``wv``, rows of ``wo``) over ``enc`` (B, T_loc, d) split
+    over T by ``axes``, which hold the model axis too: no rank has its
+    heads' keys for every row of T.  With no RoPE on the cross keys,
+    q·k = (q Wkᵀ)·enc and Σ w v = (Σ w enc) Wv, so each rank folds ``wk``
+    into its heads' queries, gathers those (B, 1, H, d) over the model axis,
+    forms every head's logits over its rows of T (in ``enc``'s dtype,
+    float32 after, as :func:`_sdpa`), combines the softmax over T's axes as
+    :func:`_sdpa_split` does, sums the weighted rows of ``enc`` over them in
+    float32, and applies its heads' ``wv`` and ``wo`` rows; the output is
+    summed over the model axis."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    h_loc, kv_loc = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
+    q = (x @ p.wq).reshape(b, kv_loc, h_loc // kv_loc, hd)
+    wk = p.wk.reshape(-1, kv_loc, hd)
+    qk = torch.einsum("bkgh,dkh->bkgd", q.float(), wk.float()).reshape(b, h_loc, -1)
+    qk = sh.all_gather(qk.to(enc.dtype), 1, mesh, ("model",))  # (B, H, d)
+    logits = torch.einsum("bhd,btd->bht", qk, enc).float() / hd ** 0.5
+    top = sh.all_reduce(logits.amax(dim=-1, keepdim=True), mesh, axes, op="max")
+    w = torch.exp(logits - top)
+    w = (w / sh.all_reduce(w.sum(dim=-1, keepdim=True), mesh, axes)).to(enc.dtype)
+    ctx = sh.all_reduce(torch.einsum("bht,btd->bhd", w, enc).float(), mesh, axes)
+    r = sh.tp_rank()
+    ctx = ctx[:, r * h_loc:(r + 1) * h_loc].reshape(b, kv_loc, h_loc // kv_loc, -1)
+    wv = p.wv.reshape(-1, kv_loc, hd)
+    out = torch.einsum("bkgd,dkh->bkgh", ctx, wv.float()).to(x.dtype)
+    return sh.tp_reduce(_out_proj(p, out.reshape(b, 1, h_loc, hd), cfg))

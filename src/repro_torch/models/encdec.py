@@ -12,22 +12,26 @@ reference does.
 Layers are ``ModuleList`` entries run by a Python loop (the reference stacks
 them and scans); serving runs under ``torch.inference_mode``, training
 checkpoints each block as ``remat`` says.  The reference's sharding
-constraints (``constrain``) have no counterpart on one card; on a mesh every
-leaf is gathered whole, and decode reads this rank's tiles of the cache
-(:func:`decode_step`).
+constraints (``constrain``) have no counterpart on one card.  On a mesh
+with a model axis the blocks run Megatron on the shares the step's plan
+hands them (:func:`repro_torch.launch.steps.leaf_plans`): the encoder's
+bidirectional attention, the decoder's causal and cross attention on the
+rank's heads, the SwiGLU MLPs on its hidden units, and the vocabulary —
+the embedding's rows and the logits' columns where the axis divides the
+vocabulary, else the unembedding row-parallel over d; decode reads this
+rank's tiles of the cache (:func:`decode_step`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (dtype_of, embed, init_dense, rms_norm,
-                                       softmax_cross_entropy)
+from repro_torch.models.layers import (dtype_of, init_dense, rms_norm,
+                                       softmax_cross_entropy, vocab_parallel_cross_entropy)
 from repro_torch.models.params import Params
-from repro_torch.models.transformer import _ck, _mlp, _mlp_fwd, _norm
+from repro_torch.models.transformer import _ck, _embed, _mlp, _mlp_fwd, _norm, _project_logits
 
 __all__ = ["EncDecLM", "init_params", "encode", "forward", "loss_fn",
            "init_cache", "decode_step"]
@@ -71,11 +75,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
 
 
 def _enc_block(blk, x, cfg):
-    h = rms_norm(x, blk.norm1)
-    b, s, _ = h.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = attn._project_qkv(blk.attn, h, cfg, positions)
-    x = x + attn._out_proj(blk.attn, fa.flash_attention(q, k, v, causal=False), cfg)
+    x = x + attn.self_attention(blk.attn, rms_norm(x, blk.norm1), cfg, causal=False)
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
@@ -98,17 +98,18 @@ def _logits(params, frames, tokens, cfg, remat):
     _check_audio(cfg)
     enc_out = encode(params, frames, cfg, remat)
     ck = _ck(remat)
-    x = embed(tokens, params.embed)
+    x = _embed(params, tokens, cfg)
     for blk in params.dec_blocks:
         x = ck(_dec_block, blk, x, enc_out, cfg)
-    return rms_norm(x, params.final_norm) @ params.unembed
+    return _project_logits(params, rms_norm(x, params.final_norm), cfg)
 
 
 @torch.inference_mode()
 def forward(params, frames: torch.Tensor, tokens: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
     """The full encoder-decoder pass: frames (B, S_enc, d), tokens (B, S_dec)
-    -> logits (B, S_dec, V)."""
+    -> logits (B, S_dec, V) (this rank's share of V where the vocabulary is
+    split)."""
     return _logits(params, frames, tokens, cfg, False)
 
 
@@ -117,7 +118,9 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
     optional ``mask``) and {"ce"}; differentiable, each block checkpointed
     as ``remat`` says (``transformer._ck``)."""
     logits = _logits(params, batch["frames"], batch["tokens"], cfg, remat)
-    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    ce = (vocab_parallel_cross_entropy if logits.shape[-1] != cfg.vocab
+          else softmax_cross_entropy)
+    loss = ce(logits, batch["labels"], batch.get("mask"))
     return loss, {"ce": loss}
 
 
@@ -150,9 +153,11 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchCon
     :class:`~repro_torch.parallel.sharding.NamedSharding` tree, on a mesh)
     names ``cache`` as this rank's tiles: the self K/V's slots and the
     encoder output's rows of T, each attention's partial softmaxes combined
-    over their axes (``attention._sdpa_split``)."""
+    over their axes (``attention._sdpa_split``); the blocks handed a
+    tensor-parallel share of their weights run Megatron, and the logits are
+    this rank's share of the vocabulary when the embedding is split."""
     _check_audio(cfg)
-    x = embed(token, params.embed)
+    x = _embed(params, token, cfg)
     enc_out = cache["enc_out"]
     enc_sh = None if shardings is None else shardings["enc_out"]
     for i, blk in enumerate(params.dec_blocks):
@@ -163,7 +168,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ArchCon
         x = x + attn.cross_attention(blk.xattn, rms_norm(x, blk.norm_x), enc_out, cfg,
                                      enc_sh)
         x = x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
-    logits = rms_norm(x, params.final_norm) @ params.unembed
+    logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
     return logits, cache
 
 

@@ -12,6 +12,17 @@ the RG-LRU scan wrapper (the CUDA kernel on the card, its plain version on the
 CPU); decode takes one step at a time, on the whole state or on this
 rank's channels of it (:func:`recurrent_block_step`).
 The block: x → [linear → gelu] ⊙ [linear → conv1d → RG-LRU] → linear out.
+
+Tensor parallelism over the model axis (the recurrence's channels): handed
+this rank's columns of ``w_in_gate``, ``w_in_rec``, ``conv_w``, ``w_a``,
+``w_x`` and rows of ``w_out`` (dr/m channels), a block runs its channels
+alone: the input projections and the depthwise convolution on them, the
+convolution's output gathered over the model axis (the gates are dense over
+it: :func:`~repro_torch.parallel.sharding.tp_gather`, whose backward
+reduce-scatters), the gates and the scan (#8) on the rank's channels, and
+``w_out`` row-parallel, its partial products summed over the model axis.
+Λ, whole on every rank, is read at the rank's channels (its gradient summed
+over the model axis by the step's plan).
 """
 
 from __future__ import annotations
@@ -49,11 +60,11 @@ def init_rglru_params(gen, cfg, device) -> dict:
 
 def _gates(p, x, cols: slice | None = None):
     """x (..., dr) -> (a, gated_input), both float32; with ``cols``, of
-    those channels alone."""
+    those channels alone (``p.w_a``/``p.w_x`` this rank's columns)."""
     xf = x.float()
     w_a, w_x, lam, xs = p.w_a.float(), p.w_x.float(), p.lambda_raw, xf
     if cols is not None:
-        w_a, w_x, lam, xs = w_a[:, cols], w_x[:, cols], lam[cols], xf[..., cols]
+        lam, xs = lam[cols], xf[..., cols]
     r = torch.sigmoid(xf @ w_a)
     i = torch.sigmoid(xf @ w_x)
     a = torch.exp(-_C * F.softplus(lam) * r)
@@ -61,9 +72,10 @@ def _gates(p, x, cols: slice | None = None):
     return a, gated
 
 
-def rglru_scan(p, x):
-    """Full-sequence RG-LRU through the scan kernel. x: (B, S, dr)."""
-    a, b = _gates(p, x)
+def rglru_scan(p, x, cols: slice | None = None):
+    """Full-sequence RG-LRU through the scan kernel. x: (B, S, dr); with
+    ``cols``, the recurrence of those channels alone."""
+    a, b = _gates(p, x, cols)
     return rl.rglru_scan(a.contiguous(), b.contiguous()).to(x.dtype)
 
 
@@ -95,12 +107,30 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _channel_share(p):
+    """This rank's channels of the recurrence (``None``: all of them, the
+    weights whole)."""
+    dr, dr_loc = p.w_a.shape
+    if dr_loc == dr:
+        return None
+    if dr % dr_loc or dr // dr_loc != sh.tp_size():
+        raise ValueError(f"{dr_loc} of {dr} RG-LRU channels is not a model rank's "
+                         f"share on a model axis of {sh.tp_size()}")
+    return slice(sh.tp_rank() * dr_loc, (sh.tp_rank() + 1) * dr_loc)
+
+
 def recurrent_block(p, x):
-    """Full Griffin recurrent block, full sequence. x: (B, S, d)."""
+    """Full Griffin recurrent block, full sequence. x: (B, S, d); on this
+    rank's channels when ``p`` holds a tensor-parallel share of them."""
+    cols = _channel_share(p)
+    if cols is not None:
+        x = sh.tp_copy(x)
     gate = _gelu(x @ p.w_in_gate)
     rec, _ = _causal_conv(p.conv_w, x @ p.w_in_rec)
-    rec = rglru_scan(p, rec)
-    return (gate * rec) @ p.w_out
+    if cols is not None:  # the gates read every channel
+        rec = sh.tp_gather(rec, -1)
+    out = (gate * rglru_scan(p, rec, cols)) @ p.w_out
+    return out if cols is None else sh.tp_reduce(out)
 
 
 def recurrent_block_step(p, x_t, state, sharding=None):
@@ -109,21 +139,22 @@ def recurrent_block_step(p, x_t, state, sharding=None):
 
     ``sharding`` ({"h", "conv"}: their
     :class:`~repro_torch.parallel.sharding.NamedSharding`) may name the
-    state as this rank's channels; the weights are whole.  The rank computes
-    its channels of the input projections and of the (depthwise)
+    state as this rank's channels, which are then the channels of the
+    weights' tensor-parallel share (:func:`recurrent_block`): the rank
+    computes its channels of the input projections and of the (depthwise)
     convolution, gathers the convolution's output (the gates are dense
-    over it), forms its channels' gates and state, and gathers
-    ``gate * h`` before ``w_out``."""
+    over it), forms its channels' gates and state, and sums its partial
+    product with ``w_out`` over the model axis."""
+    cols = _channel_share(p)
     axes = sh.dim_axes(sharding and sharding["h"], 1)
-    mesh = sharding["h"].mesh if axes else None
-    cols = sh.tile_slice(state["h"].shape[-1], mesh, axes) if axes else slice(None)
-    gate = _gelu(x_t @ p.w_in_gate[:, cols])
-    rec, conv_state = _causal_conv(p.conv_w[:, cols], x_t @ p.w_in_rec[:, cols],
-                                   state["conv"])
-    if axes:
-        rec = sh.all_gather(rec, 2, mesh, axes)
-    h_out, h_new = rglru_step(p, rec[:, 0, :], state["h"], cols if axes else None)
-    y = gate * h_out[:, None, :]
-    if axes:
-        y = sh.all_gather(y, 2, mesh, axes)
-    return y @ p.w_out, {"h": h_new, "conv": conv_state}
+    if (cols is None) != (not axes) or (cols is not None and
+                                         state["h"].shape[-1] != cols.stop - cols.start):
+        raise ValueError(f"the RG-LRU state's channels {tuple(state['h'].shape)} are not "
+                         f"the weights' {tuple(p.w_a.shape)}")
+    gate = _gelu(x_t @ p.w_in_gate)
+    rec, conv_state = _causal_conv(p.conv_w, x_t @ p.w_in_rec, state["conv"])
+    if cols is not None:
+        rec = sh.all_gather(rec, 2, sharding["h"].mesh, axes)
+    h_out, h_new = rglru_step(p, rec[:, 0, :], state["h"], cols)
+    out = (gate * h_out[:, None, :]) @ p.w_out
+    return out if cols is None else sh.tp_reduce(out), {"h": h_new, "conv": conv_state}

@@ -11,6 +11,19 @@ compact state ``S (B, H, N, P)`` is carried.  :func:`ssd_block_step` is the
 one-token decode, on the whole state or on this rank's tile of it (its
 heads, or its share of N, and its channels of the convolution's state).
 
+Tensor parallelism over the model axis (the SSD heads): handed this rank's
+rows of ``w_out`` (fewer than d_inner), a block runs its H/m heads alone.
+``w_in`` and ``conv_w`` come whole (their tiles cut plain column blocks
+that do not align with [z | x | B | C | dt]); the block reads its z, x and
+dt columns and B, C whole, convolves its x channels and B, C, runs the
+scan on its heads, adds ``d_skip``, and applies the gated RMSNorm over all
+of d_inner with the sum of squares summed over the model axis
+(:func:`~repro_torch.parallel.sharding.tp_sum`: each rank's gradient of it
+differs, so the backward sums too); ``w_out`` is row-parallel, its
+partial products summed (:func:`~repro_torch.parallel.sharding.tp_reduce`).
+The step's plan sums the gradients of the leaves read in part over the
+model axis (``LeafPlan.model_sum``).
+
 Shapes: d_inner = 2·d_model, heads H = d_inner / 64 (head dim P = 64),
 one B/C group (G = 1), state size N = cfg.ssm_state.
 """
@@ -117,33 +130,75 @@ def ssd_chunked(x, dt, a, b, c, chunk: int):
     return (y_intra + y_inter).reshape(bsz, s, h, p)
 
 
-def _gated_norm(y, z, norm_z, dtype):
-    """Gated RMSNorm (Mamba2's norm before the out-projection), float32."""
+def _gated_norm(y, z, norm_z, dtype, d_inner=None):
+    """Gated RMSNorm (Mamba2's norm before the out-projection), float32.
+    With ``d_inner`` (tensor parallel) ``y`` and ``z`` are this rank's
+    channels of it and the mean of squares runs over all of them: the
+    ranks' sums of squares summed over the model axis."""
     zf = F.silu(z.float())
     yz = y.float() * zf
-    var = yz.square().mean(dim=-1, keepdim=True)
+    if d_inner is None:
+        var = yz.square().mean(dim=-1, keepdim=True)
+    else:
+        var = sh.tp_sum(yz.square().sum(dim=-1, keepdim=True)) / d_inner
     return (yz * torch.rsqrt(var + 1e-6) * (1.0 + norm_z.float())).to(dtype)
+
+
+def _head_share(p, cfg):
+    """(first head, head count) of this rank's share of the SSD heads: all
+    of them unless ``p`` holds a share of ``w_out``'s rows."""
+    d_inner, h, _ = dims(cfg)
+    rows = p.w_out.shape[0]
+    if rows == d_inner:
+        return 0, h
+    if d_inner % rows or d_inner // rows != sh.tp_size():
+        raise ValueError(f"{rows} of {d_inner} rows of w_out is not a model rank's "
+                         f"share on a model axis of {sh.tp_size()}")
+    h_loc = rows // HEAD_P
+    return sh.tp_rank() * h_loc, h_loc
+
+
+def _columns(cfg, h0: int, h_loc: int):
+    """The in-projection's columns of heads [h0, h0 + h_loc): their z, x,
+    B and C whole, their dt — as one index."""
+    d_inner, _, n = dims(cfg)
+    c0, c1 = h0 * HEAD_P, (h0 + h_loc) * HEAD_P
+    return torch.cat([torch.arange(c0, c1), torch.arange(d_inner + c0, d_inner + c1),
+                      torch.arange(2 * d_inner, 2 * d_inner + 2 * n),
+                      torch.arange(2 * d_inner + 2 * n + h0, 2 * d_inner + 2 * n + h0 + h_loc)])
 
 
 def ssd_block(p, x, cfg, chunk: int = 64):
     """Full-sequence Mamba2 block through the SSD chunk kernel.
-    x (B, S, d) -> (B, S, d)."""
+    x (B, S, d) -> (B, S, d); on this rank's heads alone when ``p`` holds a
+    tensor-parallel share of them."""
     d_inner, h, n = dims(cfg)
+    h0, h_loc = _head_share(p, cfg)
+    split = h_loc != h
     bsz, s, _ = x.shape
-    z, xc, b, c, dt_raw = _split_proj(p, x, cfg)
-    conv_out, _ = _conv(p.conv_w, torch.cat([xc, b, c], dim=-1))
-    xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, H)
-    a = -torch.exp(p.a_log)
-    xh = xc.float().reshape(bsz, s, h, HEAD_P)
+    di = h_loc * HEAD_P
+    w_in, conv_w = p.w_in, p.conv_w
+    if split:  # the rank's z, x, dt columns and B, C whole
+        x = sh.tp_copy(x)
+        cols = _columns(cfg, h0, h_loc).to(x.device)
+        w_in, conv_w = w_in[:, cols], conv_w[:, cols[di:2 * di + 2 * n] - d_inner]
+    z, xc, b, c, dt_raw = torch.split(x @ w_in, [di, di, n, n, h_loc], dim=-1)
+    conv_out, _ = _conv(conv_w, torch.cat([xc, b, c], dim=-1))
+    xc, b, c = torch.split(conv_out, [di, n, n], dim=-1)
+    heads = slice(h0, h0 + h_loc)
+    dt = F.softplus(dt_raw.float() + p.dt_bias[heads])  # (B, S, H)
+    a = -torch.exp(p.a_log[heads])
+    xh = xc.float().reshape(bsz, s, h_loc, HEAD_P)
     y = sd.ssd_scan(xh.transpose(1, 2).contiguous(),
                     dt.transpose(1, 2)[..., None].contiguous(),
-                    a.reshape(h, 1, 1, 1).contiguous(),
+                    a.reshape(h_loc, 1, 1, 1).contiguous(),
                     b.float()[:, None].contiguous(), c.float()[:, None].contiguous(),
                     chunk).transpose(1, 2)  # (B, S, H, P)
-    y = y + p.d_skip[:, None] * xh
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    return _gated_norm(y, z, p.norm_z, x.dtype) @ p.w_out
+    y = y + p.d_skip[heads][:, None] * xh
+    y = y.reshape(bsz, s, di).to(x.dtype)
+    norm = p.norm_z[h0 * HEAD_P:h0 * HEAD_P + di]
+    out = _gated_norm(y, z, norm, x.dtype, d_inner if split else None) @ p.w_out
+    return sh.tp_reduce(out) if split else out
 
 
 def ssd_block_step(p, x_t, state, cfg, sharding=None):
@@ -152,34 +207,44 @@ def ssd_block_step(p, x_t, state, cfg, sharding=None):
 
     ``sharding`` ({"s", "conv"}: their
     :class:`~repro_torch.parallel.sharding.NamedSharding`) may name the
-    state as this rank's tile; the weights are whole.  The rank convolves
-    its share of the channels, and the convolution's output is gathered
-    (every head reads b and c).  With H split it updates its heads' state,
-    and their y is gathered; with N split it updates its share of N, and
-    ``y = c·s`` is summed over N's axes."""
+    state as this rank's tile.  The rank convolves its share of the
+    channels, and the convolution's output is gathered (every head reads b
+    and c).  With the heads split the weights are this rank's
+    tensor-parallel share of them (:func:`ssd_block`): the rank updates its
+    heads' state, applies the gated norm to its heads' y and sums its
+    partial product with ``w_out`` over the model axis.  With N split (a
+    head count the model axis does not divide) the weights are whole: the
+    rank updates its share of N, and ``y = c·s`` is summed over N's axes."""
     d_inner, h, n = dims(cfg)
-    z, xc, b, c, dt_raw = _split_proj(p, x_t, cfg)
-    u = torch.cat([xc, b, c], dim=-1)
-    conv_axes = sh.dim_axes(sharding and sharding["conv"], 2)
-    if conv_axes:
-        mesh = sharding["conv"].mesh
-        cols = sh.tile_slice(state["conv"].shape[-1], mesh, conv_axes)
-        conv_out, conv_state = _conv(p.conv_w[:, cols], u[..., cols], state["conv"])
-        conv_out = sh.all_gather(conv_out, 2, mesh, conv_axes)
-    else:
-        conv_out, conv_state = _conv(p.conv_w, u, state["conv"])
-    xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)[:, 0]  # (B, H)
-    a = -torch.exp(p.a_log)
-    bsz = x_t.shape[0]
-    xh = xc.float().reshape(bsz, h, HEAD_P)
-    bn, cn, d_skip = b[:, 0].float(), c[:, 0].float(), p.d_skip
+    h0, h_loc = _head_share(p, cfg)
     s_sh = sharding and sharding["s"]
     h_axes, n_axes = sh.dim_axes(s_sh, 1), sh.dim_axes(s_sh, 2)
-    if h_axes:  # this rank's heads
-        heads = sh.tile_slice(state["s"].shape[1], s_sh.mesh, h_axes)
-        dt, a, xh, d_skip = dt[:, heads], a[heads], xh[:, heads], d_skip[heads]
-    elif n_axes:  # this rank's share of the state size
+    if (h_loc != h) != bool(h_axes) or (h_axes and state["s"].shape[1] != h_loc):
+        raise ValueError(f"the SSD state's heads {tuple(state['s'].shape)} are not the "
+                         f"weights' {h_loc} of {h} heads")
+    conv_axes = sh.dim_axes(sharding and sharding["conv"], 2)
+    conv_cols = (sh.tile_slice(state["conv"].shape[-1], sharding["conv"].mesh, conv_axes)
+                 if conv_axes else slice(None))
+    if h_loc != h:  # this rank's z and dt columns, the conv tile's columns
+        heads = slice(h0, h0 + h_loc)
+        chans = slice(h0 * HEAD_P, (h0 + h_loc) * HEAD_P)
+        z = x_t @ p.w_in[:, chans]
+        dt_raw = x_t @ p.w_in[:, 2 * d_inner + 2 * n + h0:2 * d_inner + 2 * n + h0 + h_loc]
+        u = x_t @ p.w_in[:, d_inner:2 * d_inner + 2 * n][:, conv_cols]
+    else:
+        heads = chans = slice(None)
+        z, xc, b, c, dt_raw = _split_proj(p, x_t, cfg)
+        u = torch.cat([xc, b, c], dim=-1)[..., conv_cols]
+    conv_out, conv_state = _conv(p.conv_w[:, conv_cols], u, state["conv"])
+    if conv_axes:
+        conv_out = sh.all_gather(conv_out, 2, sharding["conv"].mesh, conv_axes)
+    xc, b, c = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p.dt_bias[heads])[:, 0]  # (B, H)
+    a = -torch.exp(p.a_log[heads])
+    bsz = x_t.shape[0]
+    xh = xc[..., chans].float().reshape(bsz, h_loc, HEAD_P)
+    bn, cn, d_skip = b[:, 0].float(), c[:, 0].float(), p.d_skip[heads]
+    if n_axes:  # this rank's share of the state size
         part = sh.tile_slice(state["s"].shape[2], s_sh.mesh, n_axes)
         bn, cn = bn[:, part], cn[:, part]
     decay = torch.exp(dt * a)  # (B, H)
@@ -189,7 +254,7 @@ def ssd_block_step(p, x_t, state, cfg, sharding=None):
     if n_axes:
         y = sh.all_reduce(y, s_sh.mesh, n_axes)
     y = y + d_skip[:, None] * xh
-    if h_axes:
-        y = sh.all_gather(y, 1, s_sh.mesh, h_axes)
-    out = _gated_norm(y.reshape(bsz, 1, d_inner), z, p.norm_z, x_t.dtype) @ p.w_out
-    return out, {"s": s_new, "conv": conv_state}
+    y = y.reshape(bsz, 1, h_loc * HEAD_P)
+    split = h_loc != h
+    out = _gated_norm(y, z, p.norm_z[chans], x_t.dtype, d_inner if split else None) @ p.w_out
+    return sh.tp_reduce(out) if split else out, {"s": s_new, "conv": conv_state}

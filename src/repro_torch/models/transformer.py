@@ -25,13 +25,18 @@ Decode carries a per-layer cache (lists of dicts, one entry per layer) and
 updates it in place; on a mesh, this rank's tile of each leaf
 (:func:`decode_step`).
 
-Tensor parallelism (train and prefill on a mesh with a model axis): a layer
-handed this rank's share of its weights runs Megatron — the attention over
-its heads (:func:`repro_torch.models.attention.self_attention`), the SwiGLU
-MLP over its hidden units, the vocabulary over its rows of the embedding and
-columns of the logits, with the vocab-parallel loss.  Which layers get a
-share is the step's plan (:func:`repro_torch.launch.steps.leaf_plans`); a
-layer handed whole weights runs whole, as on one card.
+Tensor parallelism (train, prefill and decode on a mesh with a model axis):
+a layer handed this rank's share of its weights runs Megatron — the
+attention over its heads (:func:`repro_torch.models.attention.self_attention`),
+the SwiGLU MLP over its hidden units, the moe over its experts (expert
+parallelism, :mod:`repro_torch.models.moe`), the SSD block over its heads
+(:mod:`repro_torch.models.ssd`), the RG-LRU block over its channels
+(:mod:`repro_torch.models.rglru`), the vocabulary over its rows of the
+embedding and columns of the logits, with the vocab-parallel loss (or,
+where the model axis does not divide the vocabulary, the unembedding
+row-parallel over d).  Which layers get a share is the step's plan
+(:func:`repro_torch.launch.steps.leaf_plans`); a layer handed whole weights
+runs whole, as on one card.
 """
 
 from __future__ import annotations
@@ -242,22 +247,32 @@ def _vocab_split(params, cfg: ArchConfig) -> bool:
     return params.embed.shape[0] != cfg.vocab
 
 
-def _project_logits(params, x, cfg: ArchConfig):
-    """The logits (of this rank's share of the vocabulary, tensor parallel)."""
+def _embed(params, tokens, cfg: ArchConfig):
+    """The token embeddings (from this rank's rows of the table, summed over
+    the model axis, where the vocabulary is split)."""
     if _vocab_split(params, cfg):
-        x = sh.tp_copy(x)
+        return vocab_parallel_embed(tokens, params.embed)
+    return embed(tokens, params.embed)
+
+
+def _project_logits(params, x, cfg: ArchConfig):
+    """The logits (of this rank's share of the vocabulary, tensor parallel;
+    all of them from an unembedding handed as this rank's rows of d, whose
+    partial products are summed over the model axis)."""
     if cfg.tie_embeddings:
-        return unembed(x, params.embed)  # (V, d) table
-    return x @ params.unembed
+        return unembed(sh.tp_copy(x) if _vocab_split(params, cfg) else x,
+                       params.embed)  # (V, d) table
+    w = params.unembed
+    if w.shape[0] != cfg.d_model:  # row-parallel over d
+        rows = slice(sh.tp_rank() * w.shape[0], (sh.tp_rank() + 1) * w.shape[0])
+        return sh.tp_reduce(sh.tp_copy(x)[..., rows] @ w)
+    return (sh.tp_copy(x) if w.shape[1] != cfg.vocab else x) @ w
 
 
 def _logits(params, tokens, cfg, patches, remat):
     """(logits, aux) of the full sequence; see :func:`forward`."""
     _check_decoder(cfg)
-    if _vocab_split(params, cfg):
-        x = vocab_parallel_embed(tokens, params.embed)
-    else:
-        x = embed(tokens, params.embed)
+    x = _embed(params, tokens, cfg)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     x, aux = backbone(params, x, cfg, remat)
@@ -282,7 +297,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
     load-balancing loss, and {"ce", "aux"}.  Differentiable; ``remat`` as
     :func:`backbone`."""
     logits, aux = _logits(params, batch["tokens"], cfg, batch.get("patches"), remat)
-    ce = (vocab_parallel_cross_entropy if _vocab_split(params, cfg)
+    ce = (vocab_parallel_cross_entropy if logits.shape[-1] != cfg.vocab
           else softmax_cross_entropy)
     loss = ce(logits, batch["labels"], batch.get("mask"))
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
@@ -369,10 +384,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int,
     tensor-parallel share of their weights run Megatron, and the logits are
     this rank's share of the vocabulary when the embedding is split."""
     _check_decoder(cfg)
-    if _vocab_split(params, cfg):
-        x = vocab_parallel_embed(token, params.embed)
-    else:
-        x = embed(token, params.embed)
+    x = _embed(params, token, cfg)
     if cfg.family == "ssm":
         for i, blk in enumerate(params.blocks):
             out, cache["blocks"][i] = ssd_mod.ssd_block_step(

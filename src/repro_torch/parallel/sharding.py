@@ -71,7 +71,8 @@ __all__ = [
     "param_shardings", "check_executable", "shard_tensor",
     "gather_tensor", "reduce_gradient", "host_sync_point", "dim_axes", "tile_slice",
     "LeafPlan", "param_paths", "gather_for_use", "all_gather", "reduce_scatter", "all_reduce",
-    "tp_copy", "tp_reduce", "tp_max", "tp_rank", "axis_index", "batch_axes",
+    "tp_copy", "tp_reduce", "tp_sum", "tp_gather", "tp_max", "tp_rank", "tp_size",
+    "batch_mean", "axis_index", "batch_axes",
 ]
 
 _ACTIVE_MESH = None
@@ -769,14 +770,24 @@ class LeafPlan:
     ``kv_block`` > 1 the tile is first gathered over that many consecutive
     model ranks: a KV head replicated over them); "gathered": the leaf is
     gathered whole over the model axis too, and its layer runs whole on
-    every model rank.  ``relayout`` names the dim a Megatron layer splits
-    over the model axis when the rules split another one (the reference's
-    ``embed$`` rule gives the unembedding (d, V) its d over the model axis,
-    where the vocab-parallel product wants V): the leaf is gathered whole
-    and cut along ``relayout`` by the model index.  ``model_sum``: a leaf
-    whole on every model rank that a Megatron layer applies to the rank's
-    share alone (qk-norm's scales on the rank's heads): each rank's gradient
-    is a partial sum, summed over the model axis."""
+    every model rank.
+
+    ``model_sum``: a Megatron layer reads only a part of the leaf — the
+    rank's heads or channels of a leaf whole on every model rank (qk-norm's
+    scales, SSD's ``a_log``), or its columns of a leaf whose tile does not
+    align with what the layer splits (SSD's ``w_in``: [z | x | B | C | dt]
+    cut by plain column blocks; every rank reads B and C).  Such a leaf is
+    used whole (a split one gathered over the model axis first), so each
+    rank's gradient is a partial sum: zero outside what it read, its own
+    contribution where several ranks read the same entries.  The gradient
+    is summed over the model axis into the rank's tile (an all-reduce for a
+    leaf whole over the model axis, a reduce-scatter along the tile's dim
+    for a split one).  ``relayout`` is the case where the part read is a
+    block along another dim: the reference's ``embed$`` rule gives the
+    unembedding (d, V) its d over the model axis, where the vocab-parallel
+    product wants V; the leaf is gathered whole and cut along ``relayout``
+    by the model index, and the cut's gradient is put back in place (zeros
+    elsewhere) before the same sum."""
 
     sharding: NamedSharding
     mode: str = "data"
@@ -796,7 +807,7 @@ def gather_for_use(x: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
     model axis as ``plan`` says."""
     mesh = plan.sharding.mesh
     x = gather_tensor(x, plan.sharding, batch_axes(mesh))
-    if plan.mode == "gathered" or plan.relayout is not None:
+    if plan.mode == "gathered" or (plan.model_sum and plan.tp_dim is not None):
         x = gather_tensor(x, plan.sharding, ("model",))
         if plan.relayout is not None:
             x = _cut(x, mesh.shape["model"], plan.relayout, mesh.coords()["model"])
@@ -805,31 +816,46 @@ def gather_for_use(x: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
     return x
 
 
+def _put_back(g: torch.Tensor, n: int, dim: int, i: int) -> torch.Tensor:
+    """``g`` as the ``i``-th of ``n`` blocks along ``dim`` of a tensor of
+    zeros ``n`` times as long there."""
+    shape = list(g.shape)
+    shape[dim] *= n
+    out = g.new_zeros(shape)
+    out.narrow(dim, i * g.shape[dim], g.shape[dim]).copy_(g)
+    return out
+
+
 def reduce_gradient(g: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
     """This rank's tile of the mean over the dp ranks of the gradients
     ``g`` of :func:`gather_for_use`'s tensor, in float32.
 
-    Over the model axis first: a replicated KV head's gradient is summed
-    over its ranks and scattered back (a reduce-scatter over the block); a
-    re-laid leaf's shares are gathered over the model axis; a gathered
-    leaf's gradient is then the same on every model rank, which keeps its
-    own chunk; a ``model_sum`` leaf's partial sums are all-reduced over the
-    model axis.  Then over the dp axes: a reduce-scatter along the dp dim
-    (an all-reduce over the dp axes the leaf is not split over, or over all
-    of them for a leaf replicated over dp), then a division by the dp rank
-    count (exact for a power of two; a world of one changes no bit)."""
+    Over the model axis first: a ``model_sum`` leaf's partial sums (a
+    re-laid leaf's cut first put back in place) are summed over the model
+    axis into the rank's tile — a reduce-scatter along its model dim, or an
+    all-reduce for a leaf whole over the model axis; a replicated KV head's
+    gradient is summed over its ranks and scattered back (a reduce-scatter
+    over the block); a gathered leaf's gradient is the same on every model
+    rank, which keeps its own chunk.  Then over the dp axes: a
+    reduce-scatter along the dp dim (an all-reduce over the dp axes the
+    leaf is not split over, or over all of them for a leaf replicated over
+    dp), then a division by the dp rank count (exact for a power of two; a
+    world of one changes no bit)."""
     mesh = plan.sharding.mesh
     g = g.float()
-    if plan.relayout is not None:
-        g = all_gather(g, plan.relayout, mesh, ("model",))
-    if plan.mode == "gathered" or plan.relayout is not None:
+    if plan.model_sum:
+        if plan.relayout is not None:
+            g = _put_back(g, mesh.shape["model"], plan.relayout, mesh.coords()["model"])
+        if plan.tp_dim is None:
+            g = all_reduce(g, mesh, ("model",))
+        else:
+            g = reduce_scatter(g, plan.tp_dim, mesh, ("model",))
+    elif plan.mode == "gathered":
         for dim, names in _sharded_dims(plan.sharding, ("model",)):
             g = _cut(g, math.prod(mesh.shape[a] for a in names), dim,
                      axis_index(mesh, names))
     elif plan.kv_block > 1:
         g = reduce_scatter(g, plan.tp_dim, mesh, ("model",), plan.kv_block)
-    elif plan.model_sum:
-        g = all_reduce(g, mesh, ("model",))
     batch = batch_axes(mesh)
     split = _sharded_dims(plan.sharding, batch)
     done = set()
@@ -880,6 +906,62 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce over the model axis forward and backward: a sum that
+    every model rank's output depends on (the gated norm's sum of squares
+    over the ranks' channels), whose downstream gradient differs by rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ("model",)), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along ``dim`` over the model axis forward, reduce-scatter
+    of the gradient backward: every rank reads every rank's share, and each
+    rank's gradient of the whole is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return all_gather(x, dim, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.dim, ctx.mesh, ("model",)), None, None
+
+
+class _MeanOverBatch(torch.autograd.Function):
+    """Mean over the mesh's dp ranks forward, identity backward: a
+    statistic of the global batch that every dp rank's loss repeats (the
+    step averages the ranks' gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes) / math.prod(mesh.shape[a] for a in axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the dp ranks of the active mesh in a
+    differentiable step (its gradient passes through: each dp rank's loss
+    holds the same mean, and the step averages their gradients); ``x``
+    itself without a mesh, with one dp rank, or without grad (serving)."""
+    mesh = _ACTIVE_MESH
+    axes = () if mesh is None else tuple(a for a in batch_axes(mesh) if mesh.shape[a] > 1)
+    if not axes or not torch.is_grad_enabled():
+        return x
+    return _MeanOverBatch.apply(x, mesh, axes)
+
+
 def tp_copy(x: torch.Tensor) -> torch.Tensor:
     """The input of a tensor-parallel block on the active mesh."""
     return _CopyToModel.apply(x, _tp_mesh())
@@ -892,6 +974,18 @@ def tp_reduce(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, _tp_mesh())
 
 
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the active mesh's model axis where each rank's
+    use of the sum differs: its gradient is summed over the axis too."""
+    return _SumOverModel.apply(x, _tp_mesh())
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's share of ``x`` concatenated along ``dim`` (in
+    model order), on the active mesh; its gradient reduce-scattered back."""
+    return _GatherFromModel.apply(x, dim % x.dim(), _tp_mesh())
+
+
 def tp_max(x: torch.Tensor) -> torch.Tensor:
     """The maximum of ``x`` over the active mesh's model axis, without a
     gradient."""
@@ -901,3 +995,8 @@ def tp_max(x: torch.Tensor) -> torch.Tensor:
 def tp_rank() -> int:
     """This rank's model index on the active mesh."""
     return _tp_mesh().coords()["model"]
+
+
+def tp_size() -> int:
+    """The size of the active mesh's model axis."""
+    return _tp_mesh().shape["model"]

@@ -193,9 +193,13 @@ class Trainer:
             nu=tree_util.unflatten(opt_state.nu, [meta(x) for x in
                                                   tree_util.leaves(opt_state.nu)]))
         step = make_train_step(model, self.opt, self.step_cfg, mesh)
+
+        def meta_input(v):  # token ids as int64; frames and patches as they are
+            v = torch.as_tensor(v)
+            return meta(v if v.is_floating_point() else v.long())
+
         with record_collectives() as ops:
-            step(shards, state, {k: meta(torch.as_tensor(v).long())  # token ids
-                                 for k, v in batch.items()})
+            step(shards, state, {k: meta_input(v) for k, v in batch.items()})
         self.collective_ops = ops
         self.collectives = collective_summary(ops)
         self.pod_tm = pod_traffic_matrix(

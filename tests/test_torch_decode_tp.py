@@ -27,11 +27,18 @@ llama3 at B = 1 on (2, 2), where the batch cannot take the dp axes and the
 sequence spans every rank (two of them hold no visible slot at first);
 qwen3 with qk-norm and six heads on a model axis of 4, so attention is
 gathered whole; mixtral's ring cache (``window_cache``) on (1, 4), past the
-ring's wrap; mamba2 on (1, 2) with its heads split, and with three heads
-(d_model 96), so the state's N is split; recurrentgemma (one KV head, h and
-conv split, a trailing recurrent block) on (2, 2) with ``window_cache``, past
-its ring's size (the write clamped to the last slot, on its owner); seamless
-on (2, 2), its encoder output split over T.  The ranks are spawned processes with a 240 s
+ring's wrap, and mixtral on (1, 2) (both with expert parallelism); mamba2 on
+(1, 2) with its heads split (the weights' heads: SSD tensor parallel), and
+with three heads (d_model 96), so the state's N is split and the SSD
+weights are whole; recurrentgemma (one KV head, h and conv split, RG-LRU on
+the weights' channels, a trailing recurrent block) on (2, 2) with
+``window_cache``, past its ring's size (the write clamped to the last slot,
+on its owner); seamless on (2, 2), Megatron throughout, its encoder output
+split over T (cross attention through the folded projections), and on
+(1, 4) with a vocabulary of 510, which the model axis does not divide (the
+unembedding row-parallel over d), each of its two KV heads on two ranks.
+Every case but qwen3's and mamba2's three heads runs with no leaf gathered
+whole.  The ranks are spawned processes with a 240 s
 limit.
 
 The reference's hybrid decode never passes ``ring``: recurrentgemma decoded
@@ -62,11 +69,14 @@ CASES = {
     "llama3-b1-2x2": ("llama3-8b", {}, (2, 2), 1, 32, 3, False, 0),
     "qwen3-gathered-1x4": ("qwen3-14b", {"n_heads": 6}, (1, 4), 2, 32, 20, False, 0),
     "mixtral-ring-1x4": ("mixtral-8x7b", {}, (1, 4), 2, 128, 60, True, 0),
+    "mixtral-ep-1x2": ("mixtral-8x7b", {}, (1, 2), 2, 32, 20, False, 0),
     "mamba2-heads-1x2": ("mamba2-130m", {}, (1, 2), 2, 32, 0, False, 0),
     "mamba2-state-1x2": ("mamba2-130m", {"d_model": 96}, (1, 2), 2, 32, 0, False, 0),
     "recurrentgemma-window-2x2": ("recurrentgemma-9b", {"n_layers": 4}, (2, 2), 4, 128,
                                   60, True, 0),
     "seamless-2x2": ("seamless-m4t-large-v2", {}, (2, 2), 4, 32, 20, False, 16),
+    "seamless-vocab510-1x4": ("seamless-m4t-large-v2", {"vocab": 510}, (1, 4), 2, 32, 20,
+                              False, 16),
 }
 
 
@@ -204,9 +214,8 @@ def test_sharded_decode_matches_one_rank(case):
     # every case keeps some cache leaf split over the model axis
     assert any("model" in spec for spec in ranks[0]["split"]), ranks[0]["split"]
     want_modes = {"qwen3-gathered-1x4": ["data", "gathered", "megatron"],
-                  "seamless-2x2": ["data", "gathered"]}
-    if case in want_modes:
-        assert ranks[0]["modes"] == want_modes[case]
+                  "mamba2-state-1x2": ["data", "gathered", "megatron"]}
+    assert ranks[0]["modes"] == want_modes.get(case, ["data", "megatron"])
 
 
 def test_hybrid_window_cache_clamps_like_the_reference():

@@ -36,6 +36,7 @@
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -94,8 +95,8 @@ def test_pod_matrix_equals_the_planned_count(arch):
     if arch == "llama3-8b":
         assert {"blocks/attn/wq", "blocks/mlp/w_down", "embed", "unembed"} <= set(
             report["megatron"]) and report["gathered"] == []
-    else:
-        assert "blocks/ssd/w_out" in report["gathered"]
+    else:  # the reduced mamba2's 4 SSD heads split over the model axis of 2
+        assert "blocks/ssd/w_out" in report["megatron"] and report["gathered"] == []
 
 
 _REF_LOWER = r"""
@@ -308,3 +309,58 @@ def test_bridge_traffic_to_controller(tmp_path):
     with pytest.raises(ValueError, match="meta"):
         vtr._step_fn(vp, vs, vtr._device_batch(batch))
     assert dataclasses.asdict(vtr.data_config())["n_hosts"] == 4
+
+
+# the leaves gathered whole over the model axis of 16 (both production
+# meshes): attention whose head count the axis does not divide (qwen3-14b's
+# 40 heads, internvl2-1b's 14), and mamba2-130m's SSD at 24 heads, whose
+# split leaves (its convolution and out-projection; its 3352-wide w_in the
+# rules leave whole) stay gathered; every other leaf the rules split runs
+# Megatron
+PRODUCTION_GATHERED = {
+    "qwen3-14b": ["blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv", "blocks/attn/wo"],
+    "internvl2-1b": ["blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
+                     "blocks/attn/wo"],
+    "mamba2-130m": ["blocks/ssd/conv_w", "blocks/ssd/w_out"],
+}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "gemma3-12b", "llama3-8b", "deepseek-7b",
+                                  "dbrx-132b", "mixtral-8x7b", "internvl2-1b",
+                                  "recurrentgemma-9b", "seamless-m4t-large-v2",
+                                  "mamba2-130m"])
+def test_gathered_leaves_on_the_production_meshes(arch, multi_pod):
+    from repro_torch.launch.mesh import make_production_mesh
+
+    model = Model(get_arch(arch), torch.device("meta"))
+    report = tp_report(model, leaf_plans(model, make_production_mesh(multi_pod=multi_pod)))
+    assert report["gathered"] == PRODUCTION_GATHERED.get(arch, [])
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_dbrx_holds_one_expert_a_model_rank(multi_pod):
+    """dbrx-132b's parameter bytes a device, as its layers take them, and
+    its float32 gradient bytes in training, counted from the specs alone:
+    each leaf whole less its split over the model axis (each of the 8 KV
+    heads on 2 of the 16 model ranks) — one of the 16 experts a rank.  Its
+    decode_32k cell reads 16,528,650,240 B a device (254,345,687,040 before
+    expert parallelism, less 15/16 of the experts' 253,671,505,920 B)."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    model = Model(get_arch("dbrx-132b"), torch.device("meta"))
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    shapes = model.param_shapes()
+    with sh.use_mesh(mesh):
+        specs = tree_util.leaves_of(sh.param_shardings(mesh, shapes))
+    numel = nbytes = 0
+    for path, x, s in zip(sh.param_paths(shapes), tree_util.leaves(shapes), specs):
+        split = math.prod(16 for entry in s.spec if entry == "model")
+        share = x.numel() // split * (2 if path.endswith(("/wk", "/wv")) else 1)
+        numel += share
+        nbytes += share * x.element_size()
+    experts = 3 * 16 * 6144 * 10752 * 40 * 2
+    assert experts == 253_671_505_920
+    assert nbytes == 254_345_687_040 - experts * 15 // 16 == 16_528_650_240
+    for kind, grads in (("decode", 0), ("train", 4 * numel)):
+        assert dryrun.held_param_bytes(model, mesh, kind) == (nbytes, grads)

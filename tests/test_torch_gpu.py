@@ -465,7 +465,8 @@ def test_flash_attention_kernel_takes_unaligned_views(gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d", [(2, 4096, 4096), (3, 37, 31), (2, 513, 130),
-                                   (1, 4096, 4096), (2, 4097, 4096)])
+                                   (1, 4096, 4096), (2, 4097, 4096),
+                                   (2, 4096, 2048)])  # a tensor-parallel rank's channels
 def test_rglru_scan_kernel_matches_plain(gen, b, s, d):
     a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device="cuda")
     x = 0.5 * torch.randn((b, s, d), generator=gen, device="cuda")
@@ -501,6 +502,8 @@ def _ssd_inputs(gen, b, h, s, p, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,s,p,n,chunk", [
     (4, 24, 4096, 64, 128, 64),  # mamba2-130m
+    (4, 12, 4096, 64, 128, 64),  # its heads on a model axis of 2
+    (4, 6, 4096, 64, 128, 64),   # and of 4
     (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
     (2, 2, 256, 64, 128, 128),
     (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
@@ -556,6 +559,8 @@ def _ssd_bwd_check(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,s,p,n,chunk", [
     (4, 24, 4096, 64, 128, 64),  # mamba2-130m's training shape
+    (4, 12, 4096, 64, 128, 64),  # its heads on a model axis of 2
+    (4, 6, 4096, 64, 128, 64),   # and of 4
     (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
     (2, 2, 256, 64, 128, 128),   # chunks of 128: the backward walks 64
     (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries

@@ -20,9 +20,14 @@ vocabulary; on (1, 4) each of its two KV heads replicated over two ranks —,
 a reduced qwen3 on (2, 2) (Megatron attention with qk-norm: the norms'
 scales, whole on every rank, see only the rank's heads, so their gradients
 are summed over the model axis), a reduced recurrentgemma on (2, 2) (its one
-KV head replicated over the whole model axis; RG-LRU gathered whole) and a
-reduced mamba2 on (2, 2) (its SSD leaves gathered whole), against one
-rank on the same global batches (those of the dp ranks' pipelines): the
+KV head replicated over the whole model axis; RG-LRU on the rank's
+channels), a reduced mamba2 on (2, 2) (SSD on the rank's heads), a reduced
+mixtral on (2, 2) and (1, 4) (expert parallelism: 2 and 1 of its 4 experts
+a rank) and a reduced seamless on (2, 2) (the encoder's and decoder's
+attention, cross attention, MLPs and vocabulary Megatron; frames from a
+numpy seed, since the token pipeline draws none), against one rank on the
+same global batches (those of the dp ranks' pipelines), no leaf gathered
+whole: the
 same contract, losses within 1e-5 relative and the logical state within
 1e-4; the collectives recorded in the ``gloo`` run equal, op for op (kind,
 result bytes, groups, dtype), those of the same step on a virtual copy of
@@ -65,12 +70,39 @@ def _numpy_state(params, opt_state) -> list:
             + tree_util.leaves(opt_state.nu)]
 
 
+def _frames(cfg, step):
+    """The encoder-decoder's frame embeddings (B, S, d) of ``step``, from a
+    numpy seed (the token pipeline has none)."""
+    rng = np.random.default_rng(1000 + step)
+    return torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+
+
 def _global_batch(cfg, step, world):
     dc = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, n_hosts=world)
     parts = [SyntheticLM(dataclasses.replace(dc, host_id=h)).batch_at(step)
              for h in range(world)]
-    return {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).long()
-            for k in parts[0]}
+    batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).long()
+             for k in parts[0]}
+    if cfg.family == "audio":
+        batch["frames"] = _frames(cfg, step)
+    return batch
+
+
+def _audio_run(tr, cfg, mesh):
+    """``STEPS`` steps of the trainer's step on the dp slice of each global
+    batch, frames included (``Trainer.run`` draws tokens alone): the run's
+    dict as ``Trainer.run`` returns it."""
+    from repro_torch.parallel import sharding as sh
+
+    params, state = tr.shard(tr.model.init(0))
+    rows = sh.tile_slice(B // mesh.shape["data"], mesh, ("data",))
+    losses = []
+    for i in range(STEPS):
+        batch = tr._device_batch(SyntheticLM(tr.data_config()).batch_at(i))
+        batch["frames"] = _frames(cfg, i)[rows]
+        params, state, m = tr._step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+    return {"params": params, "opt_state": state, "losses": losses}
 
 
 def _rank(rank, world, arch, ckdir, one_dir):
@@ -203,12 +235,18 @@ def _tp_rank(rank, world, arch, model_axis, ckdir):
     tr = Trainer(build_model(cfg, "cpu"), AdamW(**OPT), mesh,
                  DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B), StepConfig(),
                  TrainerConfig(total_steps=STEPS, checkpoint_every=100), ckdir)
-    run = tr.run(resume=False)
+    audio = cfg.family == "audio"
+    run = _audio_run(tr, cfg, mesh) if audio else tr.run(resume=False)
     p, o = tr.logical(run["params"], run["opt_state"])
     out = {"losses": run["losses"], "state": _numpy_state(p, o) if rank == 0 else None,
            "modes": sorted({pl.mode for pl in tr._step_fn.plans}),
            "shard_numel": [x.numel() for x in tree_util.leaves(run["params"])]}
     batch = tr._device_batch(SyntheticLM(tr.data_config()).batch_at(STEPS))
+    if audio:
+        from repro_torch.parallel import sharding as sh
+
+        batch["frames"] = _frames(cfg, STEPS)[sh.tile_slice(B // mesh.shape["data"], mesh,
+                                                             ("data",))]
     tr.extract_traffic(run["params"], run["opt_state"], batch)
     with record_collectives() as real:
         tr._step_fn(run["params"], run["opt_state"], batch)
@@ -219,7 +257,9 @@ def _tp_rank(rank, world, arch, model_axis, ckdir):
 
 @pytest.mark.parametrize("arch,model_axis", [("llama3-8b", 2), ("llama3-8b", 4),
                                              ("mamba2-130m", 2), ("qwen3-14b", 2),
-                                             ("recurrentgemma-9b", 2)])
+                                             ("recurrentgemma-9b", 2), ("mixtral-8x7b", 2),
+                                             ("mixtral-8x7b", 4),
+                                             ("seamless-m4t-large-v2", 2)])
 def test_tensor_parallel_matches_one_rank(tmp_path, arch, model_axis):
     world = 4
     dp = world // model_axis
@@ -232,10 +272,7 @@ def test_tensor_parallel_matches_one_rank(tmp_path, arch, model_axis):
         assert abs(a - b) <= LOSS_REL * abs(b), (got, losses)
     for a, b in zip(ranks[0]["state"], want):
         np.testing.assert_allclose(a, b, rtol=STATE_TOL, atol=STATE_TOL)
-    want_modes = {"llama3-8b": ["data", "megatron"], "qwen3-14b": ["data", "megatron"],
-                  "mamba2-130m": ["data", "gathered", "megatron"],
-                  "recurrentgemma-9b": ["data", "gathered", "megatron"]}
-    assert ranks[0]["modes"] == want_modes[arch]
+    assert ranks[0]["modes"] == ["data", "megatron"]  # no leaf gathered whole
     full = [x.numel() for x in tree_util.leaves(net)]
     for i, n in enumerate(full):  # a tile of 1/dp, 1/model_axis or 1/world, or whole
         assert {r["shard_numel"][i] for r in ranks} <= {n, n // dp, n // model_axis,
