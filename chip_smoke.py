@@ -45,12 +45,17 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    same mask), at phase 12's prefills (mixtral-8x7b: B=1, S=8192, H=32,
    KV=8, hd=128, window 4096; dbrx-132b: B=1, S=4096, H=48, KV=8, hd=128;
    internvl2-1b: B=4, S=4096, H=14, KV=2, hd=64; causal, bf16, each timed
-   beside the yardstick) and at a ragged shape (hd=100, non-causal window
+   beside the yardstick), at a tensor-parallel rank's unequal share of the
+   heads (``TP_FLASH``: internvl2-1b's 4 or 3 of 14 on a model axis of 4 at
+   B=4, S=2048, hd=64; qwen3-14b's 3 or 2 of 40 on 16 at B=1, S=4096,
+   hd=128; one KV head, causal, bf16, timed beside the yardstick, bit for
+   bit against a second call; their backward too, GQA groups of 3 on a
+   cluster of 3 CTAs) and at a ragged shape (hd=100, non-causal window
    48) in f32 and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1, at a
    tensor-parallel rank's 2048 channels and at ragged S and D, the SSD chunk
    scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128, chunk 64, also
-   against itself at chunk 128) and at a rank's 12 and 6 heads (its
-   backward too).  The eight redesigned
+   against itself at chunk 128) and at a rank's 12, 6, 2 and 1 heads (its
+   backward too; each bit for bit against a second call).  The eight redesigned
    kernels (RG-LRU, SSD, and the batched, single-block and fleet linkload and
    queue loss) are also held bit for bit against a second call.  Flash
    attention's backward (the gradient training takes through
@@ -89,10 +94,11 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    topology solve, batched PDHG and one launch of each batched kernel;
    re-scored through the float64 numpy oracle.
 5. The streaming controller: ``repro_torch.serve.StreamingController`` on
-   the first 7 1/8 days of the same trace and configuration, warm-started
-   PDHG: 12 decisions (the first crosses the joint topology solve), each
-   finished epoch scored with one launch of each single-block kernel.  Held
-   against the same 24 epochs of phase 4's result and re-scored through the
+   the first 7 1/8 days of the same trace and configuration at 4 critical
+   TMs (``SERVE_K``), warm-started PDHG: 12 decisions (the first crosses
+   the joint topology solve), each finished epoch scored with one launch of
+   each single-block kernel.  Held against the same epochs of the batched
+   engine run over the trace at 4 critical TMs and re-scored through the
    numpy oracle; prints time-to-new-weights.
 6. The sequential walk (``engine="sequential"``) on F21 over 7 1/24 days
    (uniform topology + hedging, 4 epochs) against the batched engine, and
@@ -190,9 +196,11 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    cache) through ``make_serve_step`` on that mesh, its cache cut by
    ``shard_cache``, logits and tokens bit-equal to ``mesh=None``'s.
 15. The dry run and the training-traffic bridge: llama3-8b train_4k,
-   prefill_32k and decode_32k, mamba2-130m train_4k and long_500k and
-   dbrx-132b decode_32k on the 2×16×16 virtual mesh on ``meta`` (each in a
-   worker process started before phase 1), each pod matrix equal to the
+   prefill_32k and decode_32k, mamba2-130m train_4k and long_500k,
+   dbrx-132b decode_32k and qwen3-14b train_4k (unequal shares of its 40
+   heads on 16 model ranks) on the 2×16×16 virtual mesh on ``meta`` (each
+   in a worker process started before phase 1; no leaf gathered whole in a
+   train or prefill cell), each pod matrix equal to the
    count from the shardings (``dryrun.planned_collectives``), llama3-8b
    decode_32k's cache 2^30 B a device, dbrx-132b's parameters 16,528,650,240
    B a device (one expert a model rank); llama3-8b's inter-pod bytes
@@ -211,11 +219,13 @@ FSDP, one process a card, against one card on the same global batches, with
 a checkpoint written on four ranks restored on one, a restart and a remesh to
 two ranks; FSDP × TP training (``MULTI_TP``: llama3-8b, mixtral-8x7b's
 experts on 2×2 and 1×4, qwen3-14b, mamba2-130m's SSD heads,
-recurrentgemma-9b's RG-LRU channels and seamless on 2×2, no leaf gathered
+recurrentgemma-9b's RG-LRU channels and seamless on 2×2, internvl2-1b at
+full size on unequal shares of its 14 heads on 1×4, no leaf gathered
 whole); and decode on the sharded mesh (``MULTI_DECODE``: llama3-8b on 2×2
 and 1×4, and at B=1, mamba2-130m, recurrentgemma-9b, seamless and
-mixtral-8x7b on 2×2), 32 steps from a 32,768-position cache in float32 and
-bf16 against one card.
+mixtral-8x7b on 2×2, internvl2-1b on 1×4), 32 steps from a 32,768-position
+cache in float32 and bf16 against one card.  ``parts`` picks among
+"fleet", "fsdp", "tp" and "decode".
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -256,10 +266,21 @@ FAMILY_FLASH = {"mixtral-8x7b": ((1, 8192, 32, 8, 128), 4096),
 # window, dtype)) — llama3-8b's training shape (phase 13's), recurrentgemma-9b's
 # local attention, seamless-m4t-large-v2's cross-attention, and a ragged
 # float32 shape (hd 100, a non-causal window, Sq != Sk)
+# flash attention at a tensor-parallel rank's uneven share of the heads
+# (bf16, causal, one KV head a rank): internvl2-1b's 14 heads on a model axis
+# of 4 (3 or 4 a rank, at the 4-card entry's B = 4, S = 2048) and qwen3-14b's
+# 40 on 16 (2 or 3 a rank, B = 1 at S = 4096); label: (B, S, H, KV, hd).
+# Groups of 3 split over a cluster of 3 CTAs in the backward
+TP_FLASH = (("internvl2_1x4_h4", (4, 2048, 4, 1, 64)),
+            ("internvl2_1x4_h3", (4, 2048, 3, 1, 64)),
+            ("qwen3_16_h3", (1, 4096, 3, 1, 128)),
+            ("qwen3_16_h2", (1, 4096, 2, 1, 128)))
 FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
              ("recurrentgemma", (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16")),
              ("seamless_cross", (4, 256, 1024, 16, 16, 64, False, 0, "bfloat16")),
-             ("ragged_f32", (1, 300, 500, 8, 2, 100, False, 48, "float32")))
+             ("ragged_f32", (1, 300, 500, 8, 2, 100, False, 48, "float32")),
+             *((label, (b, s, s, h, kv, hd, True, 0, "bfloat16"))
+               for label, (b, s, h, kv, hd) in TP_FLASH))
 FLASH_BWD_F32_TOL = 1e-4  # f32 gradients: 1e-4·(1 + |ref|)
 # the backward's edge shapes at small sizes (checked, not timed): Sq and Sk
 # off every tile, windows that straddle tile edges, GQA groups of 2, 1, 16
@@ -272,13 +293,16 @@ FLASH_BWD_EDGES = (("hd64_ragged_g2", (1, 1000, 1000, 4, 2, 64, True, 0, "bfloat
                    ("hd100_bf16", (1, 300, 500, 8, 2, 100, False, 48, "bfloat16")))
 # the SSD chunk backward (#9b, phase 3): mamba2-130m's training shape (phase
 # 13's), the same at a tensor-parallel rank's 12 and 6 of its 24 heads (a
-# model axis of 2 and 4), and the edge shapes of the forward's gpu tests (a chunk halved to 32,
+# model axis of 2 and 4) and at 2 and 1 (the uneven shares on 16), and the
+# edge shapes of the forward's gpu tests (a chunk halved to 32,
 # chunks of 128 (the backward walks 64), one chunk, 32 chunks of 128, and Q,
 # N, P not multiples of 4), an odd head count and chunks of 16 (one MMA row
 # tile): (label, (B, H, S, P, N, chunk))
 SSD_BWD = (("mamba2", (4, 24, 4096, 64, 128, 64)),
            ("mamba2_h12", (4, 12, 4096, 64, 128, 64)),
            ("mamba2_h6", (4, 6, 4096, 64, 128, 64)),
+           ("mamba2_h2", (4, 2, 4096, 64, 128, 64)),
+           ("mamba2_h1", (4, 1, 4096, 64, 128, 64)),
            ("ragged", (1, 3, 96, 32, 16, 64)),
            ("chunk128", (2, 2, 256, 64, 128, 128)),
            ("one_chunk", (1, 2, 64, 64, 128, 64)),
@@ -305,8 +329,12 @@ FLASH_F32_TOL, RGLRU_TOL, SSD_REL_TOL = 2e-3, 1e-4, 1e-3
 DECODE_TOL, DECODE_LEN = 1e-3, 64
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
 # phase 5 streams phase 4's first 7 1/8 days: the 7-day window, then 12
-# routing decisions (the first with the joint topology solve)
+# routing decisions (the first with the joint topology solve), at 4 critical
+# TMs (phase 9's cut: the joint solve at 12 took ~75 s of the script on one
+# H100's host),
+# held against the batched engine at the same 4
 SERVE_DAYS = 7.125
+SERVE_K = 4
 # phase 7's buckets: (fabrics, blocks per fabric, commodities) of the 12-pod
 # and the 8-pod bucket of the 22-fabric fleet
 FLEET_BUCKETS = {"V12": (15, 96, 132), "V8": (7, 96, 56)}
@@ -1307,14 +1335,17 @@ def phase_model_kernels():
     rows, family_rows = {}, {}
 
     # 7. flash attention: recurrentgemma-9b's local attention, a ragged
-    # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, and the
-    # prefills of phase 12 (FAMILY_FLASH)
+    # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, the
+    # prefills of phase 12 (FAMILY_FLASH) and a tensor-parallel rank's
+    # uneven head shares (TP_FLASH, also bit for bit against a second call)
+    rank_rows = {}
     for label, (b, s, h, kv, hd, causal, window, dtype) in (
             ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
             ("ragged", (1, 1000, 8, 2, 100, False, 48, torch.float32)),
             ("ragged_bf16", (1, 1000, 8, 2, 100, False, 48, torch.bfloat16)),
             *((arch, (*shape, True, window, torch.bfloat16))
-              for arch, (shape, window) in FAMILY_FLASH.items())):
+              for arch, (shape, window) in FAMILY_FLASH.items()),
+            *((label, (*shape, True, 0, torch.bfloat16)) for label, shape in TP_FLASH)):
         q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
                    for n in (h, kv, kv))
         args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
@@ -1361,10 +1392,16 @@ def phase_model_kernels():
             f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP on {pairs} "
             f"(q, k) pairs at the bf16 rate)")
         if label != "main":
-            family_rows[label] = {
-                "shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                "library_ms": lib}
+            row = {"shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            if label in dict(TP_FLASH):
+                same = bool(torch.equal(faops.flash_attention_rows(q, k, v, **args), out))
+                log(f"  flash_attention {label} second call bit-equal {same}")
+                if not same:
+                    fail(f"flash_attention {label} is not deterministic")
+                rank_rows[label] = row
+            else:
+                family_rows[label] = row
             del q, k, v, out, ref, q4, k4, v4
             torch.cuda.empty_cache()
             continue
@@ -1427,6 +1464,7 @@ def phase_model_kernels():
     rows["rglru_scan"]["b1_ms"] = b1_ms
     rows["rglru_scan"]["rank_2048_ms"] = rank_ms
     rows["flash_attention"]["family_shapes"] = family_rows
+    rows["flash_attention"]["rank_shapes"] = rank_rows
 
     # 8, backward: the reversed scan, one more launch of the kernel
     a = (0.8 + 0.199 * torch.rand((2, 4096, 4096), generator=gen, device=dev)
@@ -1448,11 +1486,14 @@ def phase_model_kernels():
     del a, x, dh, got, want
 
     # 9. SSD chunk scan: mamba2-130m's prefill, the same at a tensor-parallel
-    # rank's 12 and 6 heads, and a ragged shape whose chunk halves to 32
+    # rank's 12, 6, 2 and 1 heads (a model axis of 2, 4, and 16's uneven
+    # shares), and a ragged shape whose chunk halves to 32
     rank_ms = {}
     for label, (b, h, s, p, n, chunk) in (("main", (4, 24, 4096, 64, 128, 64)),
                                           ("heads12", (4, 12, 4096, 64, 128, 64)),
                                           ("heads6", (4, 6, 4096, 64, 128, 64)),
+                                          ("heads2", (4, 2, 4096, 64, 128, 64)),
+                                          ("heads1", (4, 1, 4096, 64, 128, 64)),
                                           ("ragged", (1, 3, 96, 32, 16, 64))):
         x = torch.randn((b, h, s, p), generator=gen, device=dev)
         dt = 0.001 + 0.099 * torch.rand((b, h, s, 1), generator=gen, device=dev)
@@ -1471,8 +1512,12 @@ def phase_model_kernels():
         if not rel < SSD_REL_TOL:
             fail(f"ssd_chunk {label} disagrees with its plain version")
         if label.startswith("heads"):
+            same = bool(torch.equal(sdops.ssd_scan(*args, chunk), out))
             rank_ms[h] = time_cuda(lambda: sdops.ssd_scan(*args, chunk))
-            log(f"  ssd_chunk at a rank's {h} heads: kernel {rank_ms[h]:.4f} ms")
+            log(f"  ssd_chunk at a rank's {h} heads: kernel {rank_ms[h]:.4f} ms; second "
+                f"call bit-equal {same}")
+            if not same:
+                fail(f"ssd_chunk {label} is not deterministic")
         if label != "main":
             continue
         # chunk invariance, the reference's 1e-4 (tests/test_kernels_sweep.py:104)
@@ -1709,27 +1754,35 @@ def _batched_prefix(res, trace, cc, nonuniform, n_epochs):
         metrics=metrics, summary=summarize(metrics))
 
 
-def phase_serve(fab, trace, strategy, cc, sc, batched, device,
-                days: float = SERVE_DAYS):
+def phase_serve(fab, trace, strategy, cc, sc, device, days: float = SERVE_DAYS,
+                k_critical: int = SERVE_K):
     """The streaming controller with the single-block kernels, on the
-    batched engine's configuration over the trace's first ``days``, held
-    against the same epochs of the batched engine's result ``batched``."""
+    batched engine's configuration at ``k_critical`` critical TMs over the
+    trace's first ``days``, held against the same epochs of the batched
+    engine's result on the whole trace at the same configuration."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from repro_torch.core import run_controller
     from repro_torch.device import synchronize
     from repro_torch.kernels.linkload import ops as llops
     from repro_torch.kernels.queueloss import ops as qlops
     from repro_torch.serve import ServeConfig, StreamingController, TMStream
 
     full = trace
+    cc = dataclasses.replace(cc, k_critical=k_critical)
+    t0 = time.perf_counter()
+    batched = run_controller(fab, full, strategy, cc, sc, device=device)
+    synchronize(device)
+    log(f"phase 5: the batched engine at {k_critical} critical TMs over phase 4's "
+        f"trace, the reference: {time.perf_counter() - t0:.3f} s")
     n = int(round(days * 24 * 60 / trace.interval_minutes))
     trace = dataclasses.replace(trace, demand=trace.demand[:n])
     log(f"phase 5: serve {fab.name}, the first {days} days of phase 4's trace "
         f"{trace.demand.shape} at {trace.interval_minutes} min, the configuration "
-        f"of phase 4")
+        f"of phase 4 at {k_critical} critical TMs")
     ctrl = StreamingController(fab, TMStream.from_trace(trace), strategy, cc, sc,
                                serve=ServeConfig(warm_start=True,
                                                  auto_strategy=False),
@@ -3430,13 +3483,17 @@ MULTI_F32_REL, MULTI_BF16_REL = 1e-5, 2.0 ** -8
 # axis), mamba2-130m on 2×2 (SSD on 12 of its 24 heads a rank, its
 # vocabulary Megatron), mixtral-8x7b (2 layers) on 2×2 and 1×4 (expert
 # parallelism: 4 and 2 of its 8 experts a rank), recurrentgemma-9b's first
-# super-block on 2×2 (RG-LRU on 2048 of its 4096 channels a rank) and
-# seamless (2 encoder and 2 decoder layers; frames from a seeded generator)
-# on 2×2: no leaf gathered whole
+# super-block on 2×2 (RG-LRU on 2048 of its 4096 channels a rank), seamless
+# (2 encoder and 2 decoder layers; frames from a seeded generator) on 2×2
+# and internvl2-1b at full size on 1×4 (3, 4, 3, 4 of its 14 heads a rank,
+# each rank's heads cut from its pair of ranks' tiles; 1792 tokens after
+# 256 patch embeddings from a seeded generator: 2048 positions): no leaf
+# gathered whole
 MULTI_TP = (("llama3-8b", 2, 4, 2048, 2), ("llama3-8b", 2, 4, 2048, 4),
             ("qwen3-14b", 2, 4, 2048, 2), ("mamba2-130m", None, 4, 4096, 2),
             ("mixtral-8x7b", 2, 4, 2048, 2), ("mixtral-8x7b", 2, 4, 2048, 4),
-            ("recurrentgemma-9b", 3, 4, 2048, 2), ("seamless-m4t-large-v2", 2, 4, 1024, 2))
+            ("recurrentgemma-9b", 3, 4, 2048, 2), ("seamless-m4t-large-v2", 2, 4, 1024, 2),
+            ("internvl2-1b", None, 4, 1792, 4))
 # the multi-card entry's decode runs on make_host_mesh(model_axis=...):
 # (arch, layers kept (None = all), batch, model axis): llama3-8b at full
 # width (2 layers) on 2×2 and 1×4 at B = 4 and on 2×2 at B = 1 (the batch
@@ -3446,10 +3503,12 @@ MULTI_TP = (("llama3-8b", 2, 4, 2048, 2), ("llama3-8b", 2, 4, 2048, 4),
 # ranks, h and conv split with the RG-LRU weights' channels), seamless with 2
 # decoder layers (its encoder output split over T, cross attention on the
 # rank's heads) and mixtral-8x7b (2 layers, 4 of its 8 experts a rank), each
-# on 2×2
+# on 2×2, and internvl2-1b at full size on 1×4 (unequal shares of its 14
+# heads: q padded to 4 heads a rank for the gather)
 MULTI_DECODE = (("llama3-8b", 2, 4, 2), ("llama3-8b", 2, 4, 4), ("llama3-8b", 2, 1, 2),
                 ("mamba2-130m", None, 4, 2), ("recurrentgemma-9b", 3, 4, 2),
-                ("seamless-m4t-large-v2", 2, 4, 2), ("mixtral-8x7b", 2, 4, 2))
+                ("seamless-m4t-large-v2", 2, 4, 2), ("mixtral-8x7b", 2, 4, 2),
+                ("internvl2-1b", None, 4, 4))
 # decode_32k's cache length (and encoder length); the KV slots below
 # MULTI_DECODE_START and every recurrent state filled from the seed, then
 # MULTI_DECODE_STEPS greedy steps on tokens drawn from the seed
@@ -3733,8 +3792,9 @@ def _global_batch(cfg, b, s, step, world, device):
              for h in range(world)]
     batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(
         device=device, dtype=torch.int64) for k in parts[0]}
-    if cfg.family == "audio":
-        batch["frames"] = _frames(cfg, b, s, step, device)
+    embeds = _EMBEDS.get(cfg.family)
+    if embeds is not None:
+        batch[embeds[0]] = embeds[1](cfg, b, s, step, device)
     return batch
 
 
@@ -3747,6 +3807,21 @@ def _frames(cfg, b, s, step, device):
     gen = torch.Generator(device=device).manual_seed(1000 + step)
     return torch.randn((b, s, cfg.d_model), generator=gen, device=device).to(
         getattr(torch, cfg.dtype))
+
+
+def _patches(cfg, b, s, step, device):
+    """The vlm's patch embeddings (B, frontend_tokens, d) of ``step``, drawn
+    as :func:`_frames` draws frames."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(2000 + step)
+    return torch.randn((b, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                       device=device).to(getattr(torch, cfg.dtype))
+
+
+# the inputs a family's batch takes beside the tokens, which the token
+# pipeline does not draw: (key, generator)
+_EMBEDS = {"audio": ("frames", _frames), "vlm": ("patches", _patches)}
 
 
 def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, extras,
@@ -3804,16 +3879,16 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     tr = trainer()
-    audio = cfg.family == "audio"
+    embeds = _EMBEDS.get(cfg.family)
     rows = sh.tile_slice(b // mesh.shape["data"], mesh, ("data",))
 
-    def rank_batch(step):  # this rank's dp slice (frames: the token pipeline has none)
+    def rank_batch(step):  # this rank's dp slice (frames and patches: the
         batch = tr._device_batch(SyntheticLM(tr.data_config()).batch_at(step))
-        if audio:
-            batch["frames"] = _frames(cfg, b, s, step, dev)[rows]
+        if embeds is not None:  # token pipeline draws neither)
+            batch[embeds[0]] = embeds[1](cfg, b, s, step, dev)[rows]
         return batch
 
-    if audio:  # Trainer.run draws tokens alone: its step on the same batches
+    if embeds is not None:  # Trainer.run draws tokens alone: its step on the same batches
         params, state = tr.shard(model.init(0))
         losses, times = [], []
         for i in range(MESH_STEPS):
@@ -4319,7 +4394,8 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     (2 layers) on 2×2 and 1×4, qwen3-14b (2 layers, qk-norm) on 2×2,
     mamba2-130m (SSD heads) on 2×2, mixtral-8x7b (2 layers, expert
     parallelism) on 2×2 and 1×4, recurrentgemma-9b (3 layers, RG-LRU
-    channels) and seamless (2 + 2 layers) on 2×2, no leaf gathered whole,
+    channels) and seamless (2 + 2 layers) on 2×2, internvl2-1b at full size
+    on 1×4 (unequal shares of its 14 heads), no leaf gathered whole,
     each in float32 and in bf16 against one card on the same global batches
     (those of the dp ranks' pipelines) within the same bounds (moe in bf16
     printed, not held), with the same numbers, the
@@ -4483,7 +4559,8 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
 # operator, so the reference's 8 would take ~4× as long
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
                 ("mamba2-130m", "train_4k"), ("llama3-8b", "decode_32k"),
-                ("mamba2-130m", "long_500k"), ("dbrx-132b", "decode_32k"))
+                ("mamba2-130m", "long_500k"), ("dbrx-132b", "decode_32k"),
+                ("qwen3-14b", "train_4k"))
 # llama3-8b decode_32k's cache a device on 2×16×16: 32 × 2 × 128 × 32768 × 8
 # × 128 × 2 B over 512 devices
 DRYRUN_CACHE_BYTES = {("llama3-8b", "decode_32k"): 2 ** 30}
@@ -4593,10 +4670,13 @@ def start_dryrun_cells():
 def phase_dryrun(device, smi: str = "", cells=None):
     """Phase 15 on one card: (a) the dry run (``repro_torch.launch.dryrun``)
     of llama3-8b train_4k, prefill_32k and decode_32k, of mamba2-130m
-    train_4k and long_500k (its SSD leaves gathered: 24 heads on 16) and of
-    dbrx-132b decode_32k (expert parallelism: its parameter bytes a device
-    held to the count from the specs, ``DRYRUN_GATHERED_BYTES``) on the
-    2×16×16 virtual mesh, each on ``meta`` in a worker process of its own:
+    train_4k (its SSD on unequal shares of its 24 heads on 16) and long_500k
+    (its SSD leaves whole: the state split over N), of dbrx-132b decode_32k
+    (expert parallelism: its parameter bytes a device held to the count from
+    the specs, ``DRYRUN_GATHERED_BYTES``) and of qwen3-14b train_4k
+    (attention on unequal shares of its 40 heads) on the 2×16×16 virtual
+    mesh, each on ``meta`` in a worker process of its own, no leaf gathered
+    whole in a train or prefill cell:
     flops per device,
     wire bytes per chip by kind, the 2×2 pod matrix, each matrix held to be
     symmetric, zero on the diagonal and equal to the count from
@@ -4657,9 +4737,13 @@ def phase_dryrun(device, smi: str = "", cells=None):
             f"{tm.tolist()} (planned {planned.tolist()}), "
             f"{rec['n_collective_ops']} collectives, argument bytes "
             f"{rec['memory_analysis']['argument_bytes']}, gradient bytes "
-            f"{rec['memory_analysis']['gradient_bytes']}, cache bytes "
+            f"{rec['memory_analysis']['gradient_bytes']}, parameter bytes as the layers "
+            f"take them {rec['memory_analysis']['gathered_param_bytes']}, cache bytes "
             f"{rec['memory_analysis']['cache_bytes']}, tensor parallel "
             f"{rec['tensor_parallel']}")
+        if cell.kind != "decode" and rec["tensor_parallel"]["gathered"]:
+            fail(f"dry run {label}: leaves gathered whole over the model axis: "
+                 f"{rec['tensor_parallel']['gathered']}")
         want_cache = DRYRUN_CACHE_BYTES.get((arch, shape))
         if want_cache is not None and rec["memory_analysis"]["cache_bytes"] != want_cache:
             fail(f"dry run {label}: {rec['memory_analysis']['cache_bytes']} B of cache a "
@@ -4750,9 +4834,9 @@ def _main(t_start, dev, marks, dry_cells) -> int:
     phase_pdhg_check()
     mark("kernels")
     config = sweep_config()
-    counts, batched = phase_sweep(*config, device=dev)
+    counts, _ = phase_sweep(*config, device=dev)
     mark("batched")
-    serve_counts, _ = phase_serve(*config, batched, device=dev)
+    serve_counts, _ = phase_serve(*config, device=dev)
     mark("serve")
     seq_counts = phase_sequential(dev)
     mark("sequential")

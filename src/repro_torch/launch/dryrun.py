@@ -16,7 +16,9 @@ For each cell this:
      device, an unfused bound on the bytes, and every collective the step
      issues, with its replica groups;
   4. projects the collectives onto the pod-level traffic matrix handed to
-     Gemini's controller.
+     Gemini's controller, which must equal the one counted from the specs
+     and the step's plan alone (:func:`planned_collectives`; a cell whose
+     matrices differ is ``failed``).
 
 The port compiles no HLO, so its collectives are the ones its step issues by
 hand (:mod:`repro_torch.parallel.sharding`), not XLA's: each leaf is
@@ -73,8 +75,12 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
                         remat: bool = True) -> list:
     """The collectives over the dp axes that a step of ``kind`` issues on
     ``mesh``, counted from ``param_shardings`` and the step's plan alone
-    (no step runs): each leaf's tile gathered over the dp axes it is split
-    over (at decode, each leaf decode reads); training adds its float32
+    (no step runs), and the plan's own over the model axis: each leaf's
+    tile gathered over the dp axes it is split over (at decode, each leaf
+    decode reads), then over the model axis as its ``LeafPlan`` says (whole,
+    or over a block of ranks: a replicated KV head, an unequal share of the
+    heads); training adds the plan's float32 sums over the model axis
+    (a leaf read in part, a block's reduce-scatter) and each leaf's float32
     gradient reduce-scattered over them (all-reduced over the dp axes it is
     not split over), the loss's mean, the clip's sums of squares and, for
     each moe layer and microbatch (twice under ``remat``: the checkpointed
@@ -87,7 +93,8 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
     axes, in layer order: the row max, the sum of exponentials and the
     products with v, float32, for each of the rank's rows and heads.  These
     are the step's only collectives whose groups can span pods; the model
-    axis's stay inside one."""
+    axis's stay inside one (the layers' own — ``tp_copy``, ``tp_reduce``
+    and the like — are not counted here)."""
     import math
 
     import torch
@@ -101,13 +108,14 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
     batch = sh.batch_axes(mesh)
     ops = []
 
-    def op(kind_, numel, dtype, axes):
-        groups = mesh.groups(axes).tolist()
+    def op(kind_, numel, dtype, axes, block=None):
+        groups = mesh.groups(axes, block).tolist()
         name = DTYPE_NAMES[str(dtype).removeprefix("torch.")]
         ops.append(CollectiveOp(kind_, int(numel) * _DTYPE_BYTES[name], len(groups[0]),
                                 groups, name))
 
-    plans = leaf_plans(model, mesh)
+    m = mesh.shape.get("model", 1)
+    plans = leaf_plans(model, mesh, kind)
     leaves = tree_util.leaves(model.param_shapes())
     reads = decode_reads(model) if kind == "decode" else [True] * len(leaves)
     for leaf, plan, read in zip(leaves, plans, reads):
@@ -117,6 +125,18 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
         for dim, names in sh._sharded_dims(plan.sharding, batch):
             shape_[dim] *= math.prod(mesh.shape[a] for a in names)
             op("all-gather", math.prod(shape_), leaf.dtype, names)
+        tile = math.prod(shape_)  # the model tile, whole along the dp dims
+        if plan.mode == "gathered" or (plan.model_sum and plan.tp_dim is not None):
+            op("all-gather", tile * m, leaf.dtype, ("model",))
+        elif plan.block > 1:
+            op("all-gather", tile * plan.block, leaf.dtype, ("model",), plan.block)
+        if kind != "train":
+            continue
+        if plan.model_sum:  # into the tile: a reduce-scatter, or an all-reduce
+            op("all-reduce" if plan.tp_dim is None else "reduce-scatter", tile,
+               torch.float32, ("model",))
+        elif plan.block > 1:
+            op("reduce-scatter", tile, torch.float32, ("model",), plan.block)
     cfg = model.cfg
     dp = tuple(a for a in batch if mesh.shape[a] > 1)
     if cfg.family == "moe" and dp and shape is not None and kind != "decode":
@@ -181,7 +201,7 @@ def held_param_bytes(model, mesh, kind: str = "train") -> tuple:
     from repro_torch.optim import tree as tree_util
     from repro_torch.parallel import sharding as sh
 
-    plans = leaf_plans(model, mesh)
+    plans = leaf_plans(model, mesh, kind)
     leaves = tree_util.leaves(model.param_shapes())
     reads = decode_reads(model) if kind == "decode" else [True] * len(plans)
     with sh.use_mesh(mesh):
@@ -262,7 +282,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
     sh.set_profile(profile)
     t0 = time.time()
     try:
-        plans = leaf_plans(model, mesh)
+        plans = leaf_plans(model, mesh, shape.kind)
         shapes = model.param_shapes()
         shards = module_like(shapes, [sh.shard_tensor(x, p.sharding)
                                       for x, p in zip(tree_util.leaves(shapes), plans)])
@@ -307,6 +327,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
         summary = collective_summary(ops)
         n_pods = 2 if multi_pod else 1
         tm = pod_traffic_matrix(ops, devices_per_pod=256, n_pods=n_pods)
+        planned = pod_traffic_matrix(planned_collectives(
+            model, mesh, shape.kind, shape, window_cache, record.get("microbatches", 1)),
+            devices_per_pod=256, n_pods=n_pods)
+        if not (tm == planned).all():
+            raise ValueError(f"the step's pod matrix {tm.tolist()} differs from the one "
+                             f"counted from the specs {planned.tolist()}")
         record.update(
             status="ok",
             seconds=seconds,

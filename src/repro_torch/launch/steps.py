@@ -122,47 +122,70 @@ _READ_IN_PART = {("ssd", "w_in"), ("ssd", "conv_w"), ("ssd", "a_log"), ("ssd", "
                  ("attn", "q_norm"), ("attn", "k_norm")}
 
 
-def _group_divides(cfg, role: str, m: int) -> bool:
-    """Whether the model axis ``m`` divides what a Megatron ``role`` splits:
-    the heads (a KV head count it divides, or one that divides it: each KV
-    head on ``m / n_kv`` ranks), the experts, the SSD heads (2·d_model/64),
-    the RG-LRU width (the vocabulary always: where the axis does not divide
+def _group_splits(cfg, role: str, m: int, kind: str) -> bool:
+    """Whether a Megatron ``role`` runs tensor parallel on a model axis of
+    ``m`` in a step of ``kind``: attention when the axis divides the KV
+    head count or is a multiple of it (each KV head then on ``m / n_kv``
+    ranks) and no rank holds every head — the heads themselves in shares
+    that may be unequal (:func:`~repro_torch.parallel.sharding.head_range`);
+    the experts when it divides their count; the SSD heads (2·d_model/64)
+    when there are at least ``m`` (unequal shares), except at decode, where
+    the state's tile holds heads only if the axis divides them (else it is
+    split over N, and the SSD weights are read whole); the RG-LRU width when
+    it divides it; the vocabulary always (where the axis does not divide
     it, the unembedding runs row-parallel over d)."""
     if role == "attn":
-        kv = cfg.n_kv_heads
-        return cfg.n_heads % m == 0 and (kv % m == 0 or m % kv == 0)
+        kv, h = cfg.n_kv_heads, cfg.n_heads
+        return (kv % m == 0 or m % kv == 0) and -(-h // m) < h
     if role == "moe":
         return cfg.n_experts % m == 0
     if role == "ssd":
-        return (2 * cfg.d_model // 64) % m == 0
+        h = 2 * cfg.d_model // 64
+        return h % m == 0 if kind == "decode" else h >= m
     if role == "rglru":
         return cfg.d_model % m == 0
     return True
 
 
-def leaf_plans(model: Model, mesh: Mesh) -> list:
+def _heads_of(cfg, role: str, name: str) -> tuple:
+    """(heads, entries a head) along the model dim of a leaf that holds a
+    Megatron group's heads: attention's ``wq`` columns and ``wo`` rows, the
+    SSD's ``w_out`` rows; (0, 0) for any other leaf."""
+    if role == "attn" and name in ("wq", "wo"):
+        return cfg.n_heads, cfg.resolved_head_dim
+    if role == "ssd" and name == "w_out":
+        return 2 * cfg.d_model // 64, 64
+    return 0, 0
+
+
+def leaf_plans(model: Model, mesh: Mesh, kind: str = "train") -> list:
     """A :class:`~repro_torch.parallel.sharding.LeafPlan` for every parameter
-    leaf (in ``tree_util.leaves`` order) on ``mesh``.
+    leaf (in ``tree_util.leaves`` order) on ``mesh``, for a step of
+    ``kind`` ("train", "prefill" or "decode").
 
     A leaf the rules split over the model axis runs Megatron when its whole
     group does, which the model axis's size decides from the shapes alone
-    (:func:`_group_divides`): an attention block — decoder, encoder or
-    cross attention — when the axis divides the head count and either
-    divides the KV head count or is a multiple of it (each KV head then
-    replicated over ``model / n_kv_heads`` ranks, its columns gathered over
-    them); a SwiGLU MLP; the moe experts when it divides their count
-    (expert parallelism); an SSD block when it divides the SSD heads; an
-    RG-LRU block when it divides its width; the vocabulary (the embedding's
-    rows and the unembedding's columns, tied or not; the unembedding's tile
-    splits d, so it is gathered whole and cut by its columns:
-    ``LeafPlan.relayout``), or, when the axis does not divide the
-    vocabulary, the unembedding row-parallel over its d.  The leaves such a
-    group reads only in part (``_READ_IN_PART``) get ``model_sum``: their
-    gradients are summed over the model axis.  A split leaf of a group the
-    axis does not divide — attention whose heads it does not divide
-    (qwen3-14b's 40 or internvl2's 14 on 16), mamba2-130m's SSD at 24 heads
-    on 16 — is gathered whole, and its layer runs whole on every model
-    rank.  The plan is decided before a step runs; no layer falls back."""
+    (:func:`_group_splits`): an attention block — decoder, encoder or
+    cross attention — when the axis divides the KV head count or is a
+    multiple of it (each KV head replicated over ``model / n_kv_heads``
+    ranks, its columns gathered over them); a SwiGLU MLP; the moe experts
+    when it divides their count (expert parallelism); an SSD block on its
+    heads; an RG-LRU block when it divides its width; the vocabulary (the
+    embedding's rows and the unembedding's columns, tied or not; the
+    unembedding's tile splits d, so it is gathered whole and cut by its
+    columns: ``LeafPlan.relayout``), or, when the axis does not divide the
+    vocabulary, the unembedding row-parallel over its d.  Where the axis
+    does not divide the heads (qwen3-14b's 40 or internvl2-1b's 14 on 16,
+    internvl2-1b's on 4, mamba2-130m's 24 SSD heads on 16), each rank runs
+    its unequal share of them (``LeafPlan.heads``: read from its block's
+    tiles, a rank of internvl2-1b on 16 holding none); the ranges never
+    cross a KV group where the axis is a multiple of the KV head count.
+    The leaves such a group reads only in part (``_READ_IN_PART``) get
+    ``model_sum``: their gradients are summed over the model axis.  At
+    decode, mamba2-130m's SSD on 16 reads its weights whole (the state is
+    split over N there).  Any other split leaf of a group that does not
+    split is gathered whole, and its layer runs whole on every model rank.
+    The plan is decided before a step runs; no layer falls back."""
     cfg = model.cfg
     shapes = model.param_shapes()
     with use_mesh(mesh):
@@ -188,7 +211,7 @@ def leaf_plans(model: Model, mesh: Mesh) -> list:
     ok = {}
     for role in ("attn", "mlp", "moe", "ssd", "rglru", "vocab"):
         mine = [(p, s, n) for p, s, r, n in zip(paths, shardings, roles, names) if r == role]
-        ok[role] = m > 1 and bool(mine) and _group_divides(cfg, role, m) and all(
+        ok[role] = m > 1 and bool(mine) and _group_splits(cfg, role, m, kind) and all(
             tp_dim(s) == want_dim(role, n) or relayout(p, s) is not None
             for p, s, n in mine if (role, n) not in _READ_IN_PART)
     kv = cfg.n_kv_heads
@@ -201,6 +224,11 @@ def leaf_plans(model: Model, mesh: Mesh) -> list:
         elif partial:
             plans.append(LeafPlan(s, "megatron", model_sum=True))
         elif r is not None and ok[r]:
+            heads, size = _heads_of(cfg, r, n)
+            if heads % m:  # an unequal share, cut from its block's tiles
+                plans.append(LeafPlan(s, "megatron", m // math.gcd(heads, m),
+                                      heads=heads, head_size=size))
+                continue
             kb = kv_block if r == "attn" and n in ("wk", "wv") else 0
             rl = relayout(p, s)
             plans.append(LeafPlan(s, "megatron", kb, rl, model_sum=rl is not None))
@@ -260,8 +288,13 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     k = step_cfg.microbatches
 
     def grads_of(params, plist, batch):
+        """(loss, the gradient of every leaf of ``plist``): zeros for a leaf
+        the loss does not read (on a mesh, a rank with no heads of an
+        attention block reads neither its KV head nor qk-norm's scales)."""
         loss, _ = model.loss(params, batch, remat=step_cfg.remat)
-        return loss.detach(), torch.autograd.grad(loss, plist)
+        grads = torch.autograd.grad(loss, plist, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(plist, grads)]
 
     def local_grads(params, batch):
         """(loss, gradient tree) of ``batch`` at ``params``."""
@@ -296,7 +329,7 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     if mesh is None:
         return train_step
     check_executable(mesh, "train")
-    plans = leaf_plans(model, mesh)
+    plans = leaf_plans(model, mesh, "train")
     split = [_split_axes(p) for p in plans]
     batch_ax = batch_axes(mesh)
     n_batch = math.prod(mesh.shape[a] for a in batch_ax)
@@ -360,7 +393,7 @@ def make_serve_step(model: Model, ring: bool = False, mesh: Mesh | None = None,
     if cache_sh is None:
         raise ValueError("a serve step on a mesh takes the cache's tile shardings "
                          "(cache_tile_shardings)")
-    plans = leaf_plans(model, mesh)
+    plans = leaf_plans(model, mesh, "decode")
     reads = decode_reads(model)
 
     @torch.inference_mode()
@@ -415,7 +448,7 @@ def make_prefill_step(model: Model, mesh: Mesh | None = None):
 
         return prefill_step
     check_executable(mesh, "prefill")
-    plans = leaf_plans(model, mesh)
+    plans = leaf_plans(model, mesh, "prefill")
 
     @torch.inference_mode()
     def sharded_prefill(shards, batch):

@@ -18,9 +18,13 @@ of ``wo`` — fewer heads than ``cfg.n_heads`` —, :func:`self_attention` and
 :func:`~repro_torch.parallel.sharding.tp_copy` and the row-parallel output
 is summed over the model axis by
 :func:`~repro_torch.parallel.sharding.tp_reduce`.  The head counts come from
-the weights' shapes, so whole weights run as before, bit for bit.  At
-decode the heads' shares of q and of the new key and value are gathered
-over the model axis, since every rank reads its slots for all heads; a
+the weights' shapes, so whole weights run as before, bit for bit.  Where the
+model axis does not divide the heads the shares are unequal
+(:func:`~repro_torch.parallel.sharding.head_range`); a rank with no heads
+launches no kernel and adds zeros.  At decode the heads' shares of q and of
+the new key and value are gathered over the model axis (q padded to
+⌈H/m⌉ heads a rank: the all-gather takes equal shares), since every rank
+reads its slots for all heads; a
 cross attention whose encoder output is split over T by the model axis too
 folds its key and value projections into the query and the output
 (:func:`_cross_decode_split`), so that no weight and no cache tile moves.
@@ -119,25 +123,48 @@ def self_attention(p, x, cfg, window: int = 0, positions=None, causal: bool = Tr
     split = _is_split(p, cfg)
     if split:
         x = sh.tp_copy(x)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    if p.wq.shape[-1]:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    else:  # a model rank with no heads: its (empty) product keeps tp_copy's
+        out = (x @ p.wq).reshape(b, s, 0, cfg.resolved_head_dim)  # backward
     out = _out_proj(p, out, cfg)
     return sh.tp_reduce(out) if split else out
 
 
+def _pad_heads(x, dim: int, width: int):
+    """``x`` with zero heads appended along ``dim`` up to ``width``."""
+    pad = x.new_zeros(x.shape[:dim] + (width - x.shape[dim],) + x.shape[dim + 1:])
+    return torch.cat([x, pad], dim)
+
+
+def _unpad_heads(x, dim: int, n: int, m: int):
+    """Every rank's heads of ``x``, whose ``dim`` holds the ``m`` model
+    ranks' shares of ``n`` heads one after another, each padded to ⌈n/m⌉
+    (:func:`_pad_heads`): the padding dropped, in model order."""
+    width = -(-n // m)
+    if width * m == n:
+        return x
+    ranges = [sh.head_range(n, m, r) for r in range(m)]
+    keep = [r * width + i for r, (lo, hi) in enumerate(ranges) for i in range(hi - lo)]
+    return x.index_select(dim, torch.tensor(keep, device=x.device))
+
+
 def _gather_heads(q, k, v, cfg):
     """Every head's q, k and v from this rank's tensor-parallel shares: one
-    all-gather over the model axis of the three side by side (a KV head
-    replicated over a block of model ranks kept once)."""
+    all-gather over the model axis of the three side by side (q padded to
+    ⌈H/m⌉ heads; a KV head replicated over a block of model ranks kept
+    once)."""
     mesh = sh.active_mesh()
     m = mesh.shape["model"]
-    hq, hk = q.shape[2], k.shape[2]
-    both = sh.all_gather(torch.cat([q, k, v], dim=2), 2, mesh, ("model",))
+    hq, hk = -(-cfg.n_heads // m), k.shape[2]
+    both = sh.all_gather(torch.cat([_pad_heads(q, 2, hq), k, v], dim=2), 2, mesh,
+                         ("model",))
     both = both.unflatten(2, (m, hq + 2 * hk))
     q, k, v = (both[:, :, :, a:b].flatten(2, 3) for a, b in
                ((0, hq), (hq, hq + hk), (hq + hk, hq + 2 * hk)))
     rep = m * hk // cfg.n_kv_heads  # model ranks that hold one KV head
-    return q, k[:, :, ::rep], v[:, :, ::rep]
+    return _unpad_heads(q, 2, cfg.n_heads, m), k[:, :, ::rep], v[:, :, ::rep]
 
 
 def _sdpa_split(q, k, v, mask, mesh, axes):
@@ -210,9 +237,8 @@ def decode_attention(p, x, cache, pos: int, cfg, window: int = 0,
     out = _sdpa_split(q, k, v, mask, mesh, axes) if axes else _sdpa(q, k, v, mask, cfg)
     if not split:
         return _out_proj(p, out, cfg), cache
-    h_loc = p.wo.shape[0] // cfg.resolved_head_dim
-    r = sh.tp_rank()
-    return sh.tp_reduce(_out_proj(p, out[:, :, r * h_loc:(r + 1) * h_loc], cfg)), cache
+    h0, h1 = sh.tp_heads(cfg.n_heads)
+    return sh.tp_reduce(_out_proj(p, out[:, :, h0:h1], cfg)), cache
 
 
 def init_cross_attn_params(gen, cfg, device, d_enc=None) -> dict:
@@ -276,17 +302,20 @@ def _cross_decode_split(p, x, enc, cfg, mesh, axes):
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     h_loc, kv_loc = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
+    m = mesh.shape["model"]
     q = (x @ p.wq).reshape(b, kv_loc, h_loc // kv_loc, hd)
     wk = p.wk.reshape(-1, kv_loc, hd)
     qk = torch.einsum("bkgh,dkh->bkgd", q.float(), wk.float()).reshape(b, h_loc, -1)
-    qk = sh.all_gather(qk.to(enc.dtype), 1, mesh, ("model",))  # (B, H, d)
+    qk = sh.all_gather(_pad_heads(qk.to(enc.dtype), 1, -(-cfg.n_heads // m)), 1, mesh,
+                       ("model",))
+    qk = _unpad_heads(qk, 1, cfg.n_heads, m)  # (B, H, d)
     logits = torch.einsum("bhd,btd->bht", qk, enc).float() / hd ** 0.5
     top = sh.all_reduce(logits.amax(dim=-1, keepdim=True), mesh, axes, op="max")
     w = torch.exp(logits - top)
     w = (w / sh.all_reduce(w.sum(dim=-1, keepdim=True), mesh, axes)).to(enc.dtype)
     ctx = sh.all_reduce(torch.einsum("bht,btd->bhd", w, enc).float(), mesh, axes)
-    r = sh.tp_rank()
-    ctx = ctx[:, r * h_loc:(r + 1) * h_loc].reshape(b, kv_loc, h_loc // kv_loc, -1)
+    h0, h1 = sh.tp_heads(cfg.n_heads)
+    ctx = ctx[:, h0:h1].reshape(b, kv_loc, h_loc // kv_loc, -1)
     wv = p.wv.reshape(-1, kv_loc, hd)
     out = torch.einsum("bkgd,dkh->bkgh", ctx, wv.float()).to(x.dtype)
     return sh.tp_reduce(_out_proj(p, out.reshape(b, 1, h_loc, hd), cfg))

@@ -12,12 +12,16 @@ one-token decode, on the whole state or on this rank's tile of it (its
 heads, or its share of N, and its channels of the convolution's state).
 
 Tensor parallelism over the model axis (the SSD heads): handed this rank's
-rows of ``w_out`` (fewer than d_inner), a block runs its H/m heads alone.
+rows of ``w_out`` (fewer than d_inner), a block runs its heads alone —
+H/m of them, or an unequal share where the axis does not divide H
+(:func:`~repro_torch.parallel.sharding.head_range`: mamba2-130m's 24 on 16
+ranks, 1 or 2 a rank).
 ``w_in`` and ``conv_w`` come whole (their tiles cut plain column blocks
 that do not align with [z | x | B | C | dt]); the block reads its z, x and
 dt columns and B, C whole, convolves its x channels and B, C, runs the
 scan on its heads, adds ``d_skip``, and applies the gated RMSNorm over all
-of d_inner with the sum of squares summed over the model axis
+of d_inner (the global width, whatever the rank's share) with the sum of
+squares summed over the model axis
 (:func:`~repro_torch.parallel.sharding.tp_sum`: each rank's gradient of it
 differs, so the backward sums too); ``w_out`` is row-parallel, its
 partial products summed (:func:`~repro_torch.parallel.sharding.tp_reduce`).
@@ -145,17 +149,18 @@ def _gated_norm(y, z, norm_z, dtype, d_inner=None):
 
 
 def _head_share(p, cfg):
-    """(first head, head count) of this rank's share of the SSD heads: all
-    of them unless ``p`` holds a share of ``w_out``'s rows."""
+    """(first head, head count) of this rank's share of the SSD heads
+    (:func:`~repro_torch.parallel.sharding.tp_heads`): all of them unless
+    ``p`` holds a share of ``w_out``'s rows."""
     d_inner, h, _ = dims(cfg)
     rows = p.w_out.shape[0]
     if rows == d_inner:
         return 0, h
-    if d_inner % rows or d_inner // rows != sh.tp_size():
-        raise ValueError(f"{rows} of {d_inner} rows of w_out is not a model rank's "
-                         f"share on a model axis of {sh.tp_size()}")
-    h_loc = rows // HEAD_P
-    return sh.tp_rank() * h_loc, h_loc
+    h0, h1 = sh.tp_heads(h)
+    if rows != (h1 - h0) * HEAD_P:
+        raise ValueError(f"{rows} of {d_inner} rows of w_out is not model rank "
+                         f"{sh.tp_rank()}'s share on a model axis of {sh.tp_size()}")
+    return h0, h1 - h0
 
 
 def _columns(cfg, h0: int, h_loc: int):

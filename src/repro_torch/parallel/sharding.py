@@ -21,8 +21,11 @@ A leaf is gathered over the dp axes only — the ranks that share its model
 index — and its gradient reduce-scattered over the same group
 (:func:`gather_for_use`, :func:`reduce_gradient`).  Over the ``model`` axis
 a tp-sharded leaf either stays in its tile, where the model's layers run
-Megatron tensor parallelism on it (:func:`tp_copy`, :func:`tp_reduce`), or
-is gathered whole (:class:`LeafPlan`); which one is the step's plan
+Megatron tensor parallelism on it (:func:`tp_copy`, :func:`tp_reduce`) —
+on the rank's share of the heads (:func:`head_range`: unequal shares where
+the axis does not divide the head count, each read from a block of
+consecutive ranks' tiles) —, or is gathered whole (:class:`LeafPlan`);
+which one is the step's plan
 (:func:`repro_torch.launch.steps.leaf_plans`).  A decode step keeps
 each cache leaf in the tile its spec names (:func:`dim_axes` reads which
 axes split a dim): attention combines its partial softmaxes over the
@@ -72,7 +75,7 @@ __all__ = [
     "gather_tensor", "reduce_gradient", "host_sync_point", "dim_axes", "tile_slice",
     "LeafPlan", "param_paths", "gather_for_use", "all_gather", "reduce_scatter", "all_reduce",
     "tp_copy", "tp_reduce", "tp_sum", "tp_gather", "tp_max", "tp_rank", "tp_size",
-    "batch_mean", "axis_index", "batch_axes",
+    "tp_heads", "head_range", "batch_mean", "axis_index", "batch_axes",
 ]
 
 _ACTIVE_MESH = None
@@ -761,16 +764,35 @@ def gather_tensor(x: torch.Tensor, sharding: NamedSharding, axes=None) -> torch.
     return x
 
 
+def head_range(n: int, m: int, r: int) -> tuple:
+    """Model rank ``r``'s heads of ``n`` on a model axis of ``m``:
+    ``[⌊r·n/m⌋, ⌊(r+1)·n/m⌋)``.  Equal shares where ``m`` divides ``n``;
+    otherwise they differ by one head at most (a rank may hold none), and
+    each block of ``m / gcd(n, m)`` consecutive ranks holds ``n / gcd(n,
+    m)`` whole heads: exactly the columns of the block's tiles when the
+    heads' columns are split evenly over the ``m`` ranks."""
+    return r * n // m, (r + 1) * n // m
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """How a step uses one parameter leaf over the mesh's model axis.
 
     ``mode`` "data": the leaf is not split over the model axis; "megatron":
     the model's layer runs tensor parallel on the rank's model tile (with
-    ``kv_block`` > 1 the tile is first gathered over that many consecutive
-    model ranks: a KV head replicated over them); "gathered": the leaf is
-    gathered whole over the model axis too, and its layer runs whole on
-    every model rank.
+    ``block`` > 1 the tile is first gathered over that many consecutive
+    model ranks: a KV head replicated over them, or the tiles that hold a
+    block of whole heads); "gathered": the leaf is gathered whole over the
+    model axis too, and its layer runs whole on every model rank.
+
+    ``heads``: the leaf's model dim holds that many heads of
+    ``head_size`` entries each, and the model axis does not divide them
+    (set only then): the rank reads its own heads (:func:`head_range`), cut
+    from its block's tiles gathered over ``block = m / gcd(heads, m)``
+    ranks, and the cut's gradient is put back in place in the block (zeros
+    elsewhere) and reduce-scattered over it into the tile.  The ranks of a
+    block read disjoint heads, so each entry of the sum has one nonzero
+    term: the tile's gradient is the rank's own, exactly.
 
     ``model_sum``: a Megatron layer reads only a part of the leaf — the
     rank's heads or channels of a leaf whole on every model rank (qk-norm's
@@ -791,14 +813,27 @@ class LeafPlan:
 
     sharding: NamedSharding
     mode: str = "data"
-    kv_block: int = 0
+    block: int = 0
     relayout: int | None = None
     model_sum: bool = False
+    heads: int = 0
+    head_size: int = 0
 
     @property
     def tp_dim(self) -> int | None:
         dims = _sharded_dims(self.sharding, ("model",))
         return dims[0][0] if dims else None
+
+    def head_cut(self) -> tuple:
+        """(start, size, length) of this rank's heads along the model dim of
+        its block's tiles gathered, ``length`` entries long."""
+        mesh = self.sharding.mesh
+        m, r = mesh.shape["model"], mesh.coords()["model"]
+        first = r - r % self.block  # the block's first rank
+        lo, hi = head_range(self.heads, m, r)
+        n = self.head_size
+        return ((lo - head_range(self.heads, m, first)[0]) * n, (hi - lo) * n,
+                self.heads * self.block // m * n)
 
 
 def gather_for_use(x: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
@@ -811,18 +846,21 @@ def gather_for_use(x: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
         x = gather_tensor(x, plan.sharding, ("model",))
         if plan.relayout is not None:
             x = _cut(x, mesh.shape["model"], plan.relayout, mesh.coords()["model"])
-    elif plan.kv_block > 1:
-        x = all_gather(x, plan.tp_dim, mesh, ("model",), plan.kv_block)
+    elif plan.block > 1:
+        x = all_gather(x, plan.tp_dim, mesh, ("model",), plan.block)
+    if plan.heads:
+        start, size, _ = plan.head_cut()
+        x = x.narrow(plan.tp_dim, start, size).clone(memory_format=torch.contiguous_format)
     return x
 
 
-def _put_back(g: torch.Tensor, n: int, dim: int, i: int) -> torch.Tensor:
-    """``g`` as the ``i``-th of ``n`` blocks along ``dim`` of a tensor of
-    zeros ``n`` times as long there."""
+def _put_back(g: torch.Tensor, dim: int, length: int, start: int) -> torch.Tensor:
+    """``g`` at ``[start, start + g.shape[dim])`` along ``dim`` of a tensor
+    of zeros ``length`` long there."""
     shape = list(g.shape)
-    shape[dim] *= n
+    shape[dim] = length
     out = g.new_zeros(shape)
-    out.narrow(dim, i * g.shape[dim], g.shape[dim]).copy_(g)
+    out.narrow(dim, start, g.shape[dim]).copy_(g)
     return out
 
 
@@ -835,17 +873,20 @@ def reduce_gradient(g: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
     axis into the rank's tile — a reduce-scatter along its model dim, or an
     all-reduce for a leaf whole over the model axis; a replicated KV head's
     gradient is summed over its ranks and scattered back (a reduce-scatter
-    over the block); a gathered leaf's gradient is the same on every model
-    rank, which keeps its own chunk.  Then over the dp axes: a
-    reduce-scatter along the dp dim (an all-reduce over the dp axes the
-    leaf is not split over, or over all of them for a leaf replicated over
-    dp), then a division by the dp rank count (exact for a power of two; a
-    world of one changes no bit)."""
+    over the block), and so is the gradient of a rank's uneven share of the
+    heads, put back in place in its block first; a gathered leaf's gradient
+    is the same on every model rank, which keeps its own chunk.  Then over
+    the dp axes: a reduce-scatter along the dp dim (an all-reduce over the
+    dp axes the leaf is not split over, or over all of them for a leaf
+    replicated over dp), then a division by the dp rank count (exact for a
+    power of two; a world of one changes no bit)."""
     mesh = plan.sharding.mesh
     g = g.float()
     if plan.model_sum:
         if plan.relayout is not None:
-            g = _put_back(g, mesh.shape["model"], plan.relayout, mesh.coords()["model"])
+            n = g.shape[plan.relayout]
+            g = _put_back(g, plan.relayout, n * mesh.shape["model"],
+                          n * mesh.coords()["model"])
         if plan.tp_dim is None:
             g = all_reduce(g, mesh, ("model",))
         else:
@@ -854,8 +895,11 @@ def reduce_gradient(g: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
         for dim, names in _sharded_dims(plan.sharding, ("model",)):
             g = _cut(g, math.prod(mesh.shape[a] for a in names), dim,
                      axis_index(mesh, names))
-    elif plan.kv_block > 1:
-        g = reduce_scatter(g, plan.tp_dim, mesh, ("model",), plan.kv_block)
+    elif plan.block > 1:
+        if plan.heads:
+            start, _, length = plan.head_cut()
+            g = _put_back(g, plan.tp_dim, length, start)
+        g = reduce_scatter(g, plan.tp_dim, mesh, ("model",), plan.block)
     batch = batch_axes(mesh)
     split = _sharded_dims(plan.sharding, batch)
     done = set()
@@ -1000,3 +1044,9 @@ def tp_rank() -> int:
 def tp_size() -> int:
     """The size of the active mesh's model axis."""
     return _tp_mesh().shape["model"]
+
+
+def tp_heads(n: int) -> tuple:
+    """This rank's heads ``[h0, h1)`` of ``n`` on the active mesh's model
+    axis (:func:`head_range`)."""
+    return head_range(n, tp_size(), tp_rank())

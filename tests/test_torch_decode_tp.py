@@ -25,8 +25,12 @@ token cannot steer the next).  Contract, per step and rank:
 The cases: llama3 on (2, 2) and on (1, 4) (each KV head on two model ranks);
 llama3 at B = 1 on (2, 2), where the batch cannot take the dp axes and the
 sequence spans every rank (two of them hold no visible slot at first);
-qwen3 with qk-norm and six heads on a model axis of 4, so attention is
-gathered whole; mixtral's ring cache (``window_cache``) on (1, 4), past the
+qwen3 with qk-norm, six heads and three KV heads on a model axis of 4,
+which neither divides the KV heads nor is a multiple of them, so attention
+is gathered whole; attention on unequal shares of the heads on (1, 4):
+qwen3 (qk-norm) at ten heads and two KV heads (2, 3, 2, 3 heads a rank) and
+internvl2 at fourteen and two (3, 4, 3, 4), q padded to the largest share
+for the gather; mixtral's ring cache (``window_cache``) on (1, 4), past the
 ring's wrap, and mixtral on (1, 2) (both with expert parallelism); mamba2 on
 (1, 2) with its heads split (the weights' heads: SSD tensor parallel), and
 with three heads (d_model 96), so the state's N is split and the SSD
@@ -67,7 +71,11 @@ CASES = {
     "llama3-2x2": ("llama3-8b", {}, (2, 2), 4, 32, 20, False, 0),
     "llama3-1x4": ("llama3-8b", {}, (1, 4), 4, 32, 20, False, 0),
     "llama3-b1-2x2": ("llama3-8b", {}, (2, 2), 1, 32, 3, False, 0),
-    "qwen3-gathered-1x4": ("qwen3-14b", {"n_heads": 6}, (1, 4), 2, 32, 20, False, 0),
+    "qwen3-gathered-1x4": ("qwen3-14b", {"n_heads": 6, "n_kv_heads": 3}, (1, 4), 2, 32,
+                           20, False, 0),
+    "qwen3-uneven-10-2-1x4": ("qwen3-14b", {"n_heads": 10}, (1, 4), 2, 32, 20, False, 0),
+    "internvl2-uneven-14-2-1x4": ("internvl2-1b", {"n_heads": 14}, (1, 4), 2, 32, 20,
+                                  False, 0),
     "mixtral-ring-1x4": ("mixtral-8x7b", {}, (1, 4), 2, 128, 60, True, 0),
     "mixtral-ep-1x2": ("mixtral-8x7b", {}, (1, 2), 2, 32, 20, False, 0),
     "mamba2-heads-1x2": ("mamba2-130m", {}, (1, 2), 2, 32, 0, False, 0),
@@ -138,8 +146,8 @@ def _rank(rank, world, case):
     one = make_serve_step(model, ring, logits=True)
     want = [one(params, ref_cache, tokens[i], start + i) for i in range(STEPS)]
 
-    # this rank's tiles
-    plans = leaf_plans(model, mesh)
+    # this rank's tiles, and the decode step's plan
+    plans = leaf_plans(model, mesh, "decode")
     shards = module_like(params, [sh.shard_tensor(x, p.sharding)
                                   for x, p in zip(tree_util.leaves(params), plans)])
     cache_sh = cache_tile_shardings(mesh, cfg, shape, whole)
@@ -197,6 +205,7 @@ def _rank(rank, world, case):
             "n_ops": len(records[0]), "same_each_step": all(r == records[0] for r in records),
             "ops_equal": records[0] == [_op_key(op) for op in vops], "tile_err": tile_err,
             "modes": sorted({p.mode for p in plans}),
+            "uneven": sorted({p.heads for p in plans if p.heads}),
             "split": sorted({str(t.spec) for t in tree_util.leaves_of(cache_sh)})}
 
 
@@ -216,6 +225,8 @@ def test_sharded_decode_matches_one_rank(case):
     want_modes = {"qwen3-gathered-1x4": ["data", "gathered", "megatron"],
                   "mamba2-state-1x2": ["data", "gathered", "megatron"]}
     assert ranks[0]["modes"] == want_modes.get(case, ["data", "megatron"])
+    want_uneven = {"qwen3-uneven-10-2-1x4": [10], "internvl2-uneven-14-2-1x4": [14]}
+    assert ranks[0]["uneven"] == want_uneven.get(case, [])
 
 
 def test_hybrid_window_cache_clamps_like_the_reference():

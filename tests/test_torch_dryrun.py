@@ -19,7 +19,11 @@
     subprocess has a 300 s limit.
 (c) The full-size mamba2-130m ``train_4k`` cell on 2×16×16 completes on
     ``meta`` with the reference's record keys (one microbatch: flops and pod
-    matrix do not depend on the count, ``tests/test_torch_hlo_tools.py``);
+    matrix do not depend on the count, ``tests/test_torch_hlo_tools.py``),
+    its SSD on unequal shares of its 24 heads; qwen3-14b train_4k and
+    internvl2-1b decode_32k run attention on unequal shares of the heads,
+    their collectives over blocks of the model axis as planned and their
+    flops a device below the whole layer's;
     decode cells run the sharded serve step: llama3-8b decode_32k holds
     2^31 B of cache a device on 16×16 (2^30 on 2×16×16), each decode
     record's pod matrix equals ``planned_collectives(..., "decode")`` (at
@@ -176,7 +180,10 @@ def test_full_size_mamba2_cell_on_the_production_mesh(tmp_path, monkeypatch):
     tm = np.asarray(rec["pod_tm_bytes"])
     assert tm.shape == (2, 2) and tm[0, 1] == tm[1, 0] > 0 and tm[0, 0] == 0
     assert rec["flops"] > 0 and rec["n_devices"] == 512 and rec["seconds"] > 0
-    assert rec["tensor_parallel"]["megatron"] == []
+    # its 24 SSD heads on 16 model ranks, 1 or 2 a rank: w_out on the rank's
+    # rows, the convolution read in part (its w_in the rules leave whole)
+    assert rec["tensor_parallel"] == {"megatron": ["blocks/ssd/conv_w", "blocks/ssd/w_out"],
+                                      "gathered": []}
     assert json.loads(dryrun.cell_path("mamba2-130m", "train_4k", True,
                                        "mb1").read_text()) == rec
 
@@ -312,17 +319,13 @@ def test_bridge_traffic_to_controller(tmp_path):
 
 
 # the leaves gathered whole over the model axis of 16 (both production
-# meshes): attention whose head count the axis does not divide (qwen3-14b's
-# 40 heads, internvl2-1b's 14), and mamba2-130m's SSD at 24 heads, whose
-# split leaves (its convolution and out-projection; its 3352-wide w_in the
-# rules leave whole) stay gathered; every other leaf the rules split runs
-# Megatron
-PRODUCTION_GATHERED = {
-    "qwen3-14b": ["blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv", "blocks/attn/wo"],
-    "internvl2-1b": ["blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
-                     "blocks/attn/wo"],
-    "mamba2-130m": ["blocks/ssd/conv_w", "blocks/ssd/w_out"],
-}
+# meshes), by step kind: none in training and prefill (attention whose head
+# count the axis does not divide — qwen3-14b's 40 heads, internvl2-1b's 14 —
+# and mamba2-130m's 24 SSD heads run on unequal shares of the heads); at
+# decode mamba2-130m's SSD state is split over N (the reference's
+# cache_shardings), so its split leaves (its convolution and out-projection;
+# its 3352-wide w_in the rules leave whole) are read whole
+PRODUCTION_GATHERED = {"decode": {"mamba2-130m": ["blocks/ssd/conv_w", "blocks/ssd/w_out"]}}
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])
@@ -334,8 +337,68 @@ def test_gathered_leaves_on_the_production_meshes(arch, multi_pod):
     from repro_torch.launch.mesh import make_production_mesh
 
     model = Model(get_arch(arch), torch.device("meta"))
-    report = tp_report(model, leaf_plans(model, make_production_mesh(multi_pod=multi_pod)))
-    assert report["gathered"] == PRODUCTION_GATHERED.get(arch, [])
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    for kind in ("train", "prefill", "decode"):
+        report = tp_report(model, leaf_plans(model, mesh, kind))
+        assert report["gathered"] == PRODUCTION_GATHERED.get(kind, {}).get(arch, []), kind
+
+
+def _block_key(ops, model_axis=16):
+    """The collectives over a block of the model axis (2 to 15 ranks: a
+    replicated KV head, a block of unequal head shares), as a sorted list."""
+    return sorted((o.kind, o.result_bytes, o.group_size, str(o.groups), o.dtype)
+                  for o in ops if 1 < o.group_size < model_axis)
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-14b", "train_4k"),
+                                        ("internvl2-1b", "decode_32k")])
+def test_uneven_heads_cells_on_the_production_mesh(arch, shape, tmp_path, monkeypatch):
+    """qwen3-14b train_4k (2 or 3 of its 40 heads a model rank) and
+    internvl2-1b decode_32k (0 or 1 of its 14; rank 0, the dry run's, holds
+    none) on 2×16×16: no leaf gathered; the record's pod matrix and its
+    collectives over blocks of the model axis (the head shares' gathers
+    and, in training, reduce-scatters, and the replicated KV heads') equal
+    ``planned_collectives``; and a device's flops fall from those of the
+    same cell with its attention gathered whole (the plan before unequal
+    shares)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import ALL_SHAPES
+    from repro_torch.runtime import hlo_cost
+
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    captured = []
+    measure = hlo_cost.measure_step
+
+    def spy(*args, **kw):
+        cost = measure(*args, **kw)
+        captured.append(cost.collective_ops)
+        return cost
+
+    monkeypatch.setattr(hlo_cost, "measure_step", spy)
+    kw = {"microbatches": 1} if shape == "train_4k" else {}
+    rec = dryrun.run_cell(arch, shape, True, **kw)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["tensor_parallel"]["gathered"] == []
+    assert {"blocks/attn/wq", "blocks/attn/wo"} <= set(rec["tensor_parallel"]["megatron"])
+    cell = {s.name: s for s in ALL_SHAPES}[shape]
+    model = Model(get_arch(arch), torch.device("meta"))
+    planned = dryrun.planned_collectives(model, make_production_mesh(multi_pod=True),
+                                         cell.kind, cell, microbatches=1)
+    assert np.array_equal(np.asarray(rec["pod_tm_bytes"]),
+                          pod_traffic_matrix(planned, 256, 2))
+    assert _block_key(captured[-1]) == _block_key(planned) != []
+    splits = steps._group_splits
+    monkeypatch.setattr(steps, "_group_splits",
+                        lambda cfg, role, m, kind: role != "attn" and splits(cfg, role, m,
+                                                                             kind))
+    whole = dryrun.run_cell(arch, shape, True, tag="whole_attention", **kw)
+    assert whole["status"] == "ok" and "blocks/attn/wq" in whole["tensor_parallel"]["gathered"]
+    assert rec["flops"] < whole["flops"]
+    print(f"{arch} {shape}: flops a device {rec['flops']:.6e} (attention gathered whole: "
+          f"{whole['flops']:.6e}); parameter bytes a device "
+          f"{rec['memory_analysis']['gathered_param_bytes']} "
+          f"({whole['memory_analysis']['gathered_param_bytes']})")
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

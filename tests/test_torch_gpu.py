@@ -420,6 +420,12 @@ def test_fleet_entry_refuses_an_oversize_grid(gen, name, n_in):
     # ragged bf16: hd not a multiple of 16, Sq not a multiple of the q-tile
     (1, 1000, 8, 2, 100, False, 48, torch.bfloat16, None),
     (2, 130, 4, 2, 32, True, 0, torch.bfloat16, None),
+    # a tensor-parallel rank's uneven head shares: internvl2-1b's 14 heads on
+    # a model axis of 4 (4 or 3 a rank), qwen3-14b's 40 on 16 (3 or 2)
+    (4, 2048, 4, 1, 64, True, 0, torch.bfloat16, None),
+    (4, 2048, 3, 1, 64, True, 0, torch.bfloat16, None),
+    (1, 4096, 3, 1, 128, True, 0, torch.bfloat16, None),
+    (1, 4096, 2, 1, 128, True, 0, torch.bfloat16, None),
     (1, 1024, 4, 1, 256, True, 256, torch.float32, 2e-3),
     (1, 1000, 4, 1, 100, False, 48, torch.float32, 2e-3),   # ragged
     (2, 130, 4, 2, 32, True, 0, torch.float32, 2e-3)])
@@ -504,6 +510,8 @@ def _ssd_inputs(gen, b, h, s, p, n):
     (4, 24, 4096, 64, 128, 64),  # mamba2-130m
     (4, 12, 4096, 64, 128, 64),  # its heads on a model axis of 2
     (4, 6, 4096, 64, 128, 64),   # and of 4
+    (4, 2, 4096, 64, 128, 64),   # its uneven shares on 16 (1 or 2 a rank)
+    (4, 1, 4096, 64, 128, 64),
     (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
     (2, 2, 256, 64, 128, 128),
     (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
@@ -561,6 +569,8 @@ def _ssd_bwd_check(got, want):
     (4, 24, 4096, 64, 128, 64),  # mamba2-130m's training shape
     (4, 12, 4096, 64, 128, 64),  # its heads on a model axis of 2
     (4, 6, 4096, 64, 128, 64),   # and of 4
+    (4, 2, 4096, 64, 128, 64),   # its uneven shares on 16 (1 or 2 a rank)
+    (4, 1, 4096, 64, 128, 64),
     (1, 3, 96, 32, 16, 64),      # ragged: the chunk halves to 32
     (2, 2, 256, 64, 128, 128),   # chunks of 128: the backward walks 64
     (1, 2, 64, 64, 128, 64),     # one chunk: nothing carries
@@ -913,7 +923,13 @@ def test_autotune_round_trip_on_the_card(gen, tmp_path, monkeypatch):
     (1, 300, 700, 4, 4, 128, False, 0, torch.bfloat16),
     (1, 1000, 1000, 16, 1, 256, True, 100, torch.bfloat16),
     (1, 500, 500, 12, 1, 128, True, 70, torch.bfloat16),
-    (1, 300, 500, 8, 2, 100, False, 48, torch.bfloat16)])
+    (1, 300, 500, 8, 2, 100, False, 48, torch.bfloat16),
+    # a tensor-parallel rank's uneven head shares (chip_smoke's TP_FLASH):
+    # groups of 4, 3 (a cluster of 3 CTAs) and 2 on one KV head
+    (4, 2048, 2048, 4, 1, 64, True, 0, torch.bfloat16),
+    (4, 2048, 2048, 3, 1, 64, True, 0, torch.bfloat16),
+    (1, 4096, 4096, 3, 1, 128, True, 0, torch.bfloat16),
+    (1, 4096, 4096, 2, 1, 128, True, 0, torch.bfloat16)])
 def test_flash_attention_backward_matches_plain(gen, b, sq, sk, h, kv, hd, causal,
                                                 window, dtype):
     """The backward kernels through ``FlashAttention`` at chip_smoke's phase-3

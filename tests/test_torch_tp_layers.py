@@ -4,7 +4,16 @@ parallelism, one-hot and sorted dispatch), the SSD block on its heads, the
 RG-LRU block on its channels, the encoder-decoder's encoder block,
 decoder block and cross attention on their heads, and its logits with a
 vocabulary of 510 (vocab-parallel on 1×2; row-parallel over d on 1×4,
-which does not divide it).
+which does not divide it).  And attention and the SSD block on unequal
+shares of their heads, where the model axis does not divide them: model
+rank ``r`` of ``m`` runs heads ``[⌊r·H/m⌋, ⌊(r+1)·H/m⌋)``
+(``sharding.head_range``), read from its block of ``m / gcd(H, m)`` ranks'
+tiles (``LeafPlan.heads``) — self-attention at (H, KV) = (10, 2) with
+qk-norm (2, 3, 2, 3 heads a rank on 1×4: qwen3-14b's pattern on 16),
+(14, 2) (3, 4, 3, 4: internvl2-1b on 4) and (3, 1) (0, 1, 1, 1: a rank
+with no head, as internvl2-1b's on 16), the SSD block at 6 heads (1, 2, 1,
+2: mamba2-130m's 24 on 16); a leaf a rank does not read gets a zero
+gradient, as ``make_train_step``'s.
 
 Each layer runs on ``gloo`` ranks of a 1×2 and a 1×4 mesh
 (``make_host_mesh(model_axis=...)``) as a training step runs it: the rank's
@@ -19,7 +28,8 @@ to the largest magnitude of its own reference, on every rank; and the
 output within ``REL`` of the reference package's function on the same
 numpy parameters (``repro.models.moe.moe_ffn_onehot`` /
 ``moe_ffn_sorted``, ``repro.models.ssd.ssd_block``,
-``repro.models.rglru.recurrent_block``, ``repro.models.encdec._dec_block``).
+``repro.models.rglru.recurrent_block``, ``repro.models.encdec._dec_block``,
+``repro.models.attention.self_attention``).
 The gradient traps these catch: the router's gradient through the combine
 (the gate values pass ``tp_copy``), the aux loss (the same on every rank,
 not summed), SSD's B and C columns of ``w_in`` (read by every rank: their
@@ -33,19 +43,24 @@ the aux loss's means are the whole batch's, as the reference's sharded step
 computes them).
 
 Also the plans themselves (on ``meta``, no step): on the 2×2 and 1×4 host
-meshes no leaf of mixtral-8x7b, mamba2-130m, recurrentgemma-9b or
-seamless-m4t-large-v2 is gathered whole.  The ranks are spawned processes
-with a 240 s limit.
+meshes no leaf of mixtral-8x7b, mamba2-130m, recurrentgemma-9b,
+seamless-m4t-large-v2, internvl2-1b or qwen3-14b is gathered whole; for
+the ten configs at model axes of 2, 4 and 16 the head ranges partition the
+heads, never cross a KV group where the axis is a multiple of the KV head
+count, equal the even split where the axis divides the heads, and the
+plans mark ``heads`` exactly where it does not.  The ranks are spawned
+processes with a 240 s limit.
 """
 
 import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch.train import run_ranks
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import tree as tree_util
@@ -66,8 +81,17 @@ LAYERS = {
     "dec_block": ("seamless-m4t-large-v2", ("dec_blocks", 0), 2, 16, 24),
     "cross_attention": ("seamless-m4t-large-v2", ("dec_blocks", 0, "xattn"), 2, 16, 24),
     "logits": ("seamless-m4t-large-v2", ("unembed",), 2, 16, 0),
+    "attn_10_2_qknorm": ("qwen3-14b", ("blocks", 0, "attn"), 2, 64, 0),
+    "attn_14_2": ("internvl2-1b", ("blocks", 0, "attn"), 2, 64, 0),
+    "attn_3_1": ("llama3-8b", ("blocks", 0, "attn"), 2, 64, 0),
+    "ssd_6": ("mamba2-130m", ("blocks", 0, "ssd"), 2, 64, 0),
 }
 MESHES = (2, 4)  # the model axis of a 1×m mesh
+# the unequal-share layers: their config overrides and each rank's heads on 1×4
+UNEVEN = {"attn_10_2_qknorm": ({"n_heads": 10, "n_kv_heads": 2}, [2, 3, 2, 3]),
+          "attn_14_2": ({"n_heads": 14, "n_kv_heads": 2}, [3, 4, 3, 4]),
+          "attn_3_1": ({"n_heads": 3, "n_kv_heads": 1}, [0, 1, 1, 1]),
+          "ssd_6": ({"d_model": 192, "ssd_chunk": 32}, [1, 2, 1, 2])}
 
 
 def _cfg(name):
@@ -78,6 +102,7 @@ def _cfg(name):
         over.update(ssd_chunk=32)  # two chunks: the state carried across
     if name == "logits":  # 510 = 2·255: vocab-parallel on 1×2, row-parallel on 1×4
         over.update(vocab=510)
+    over.update(UNEVEN.get(name, ({}, None))[0])
     return dataclasses.replace(get_arch(LAYERS[name][0]).reduced(), **over)
 
 
@@ -110,8 +135,10 @@ def _apply(name, full, cfg, x, enc, ct):
     aux = None
     if name.startswith("moe"):
         out, aux = getattr(moe, f"moe_ffn_{name[4:]}")(blk, x, cfg)
-    elif name == "ssd":
+    elif name.startswith("ssd"):
         out = ssd.ssd_block(blk, x, cfg, chunk=cfg.ssd_chunk)
+    elif name.startswith("attn"):
+        out = attention.self_attention(blk, x, cfg)
     elif name == "rglru":
         out = rglru.recurrent_block(blk, x)
     elif name == "enc_block":
@@ -147,8 +174,8 @@ def _block_leaves(model, path):
 
 def _run(name, leaves, cfg, mesh=None):
     """Forward and backward of the layer: (output, aux, {leaf: gradient of
-    the leaf as used}, input gradients), all with ``leaves`` the used
-    parameter leaves of the whole model."""
+    the leaf as used, zeros where the layer reads none}, input gradients),
+    all with ``leaves`` the used parameter leaves of the whole model."""
     from repro_torch.launch.steps import module_like
     from repro_torch.parallel import sharding as sh
 
@@ -164,7 +191,8 @@ def _run(name, leaves, cfg, mesh=None):
     with ctx:
         out, aux, loss = _apply(name, full, cfg, x, enc, ct)
         wrt = [used[i] for i in idx] + [x] + ([enc] if enc is not None else [])
-        grads = torch.autograd.grad(loss, wrt)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = [torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)]
     return (out.detach(), None if aux is None else float(aux.detach()), grads[:len(idx)],
             [g.numpy() for g in grads[len(idx):]])
 
@@ -194,12 +222,18 @@ def _rank(rank, world, names):
                     for x, p in zip(params, plans)]
         y, aux, grads, dins = _run(name, used, cfg, mesh)
         block = _block_leaves(model, LAYERS[name][1])
+        idx = {leaf: i for i, leaf in block}
         whole = {}
         for (i, leaf), g in zip(block, grads):
             tile = sh.reduce_gradient(g, plans[i])
             whole[leaf] = sh.gather_tensor(tile, plans[i].sharding).numpy()
         out[name] = {"y": y.numpy(), "aux": aux, "grads": whole, "dins": dins,
-                     "modes": {leaf: plans[i].mode for i, leaf in block}}
+                     "modes": {leaf: plans[i].mode for i, leaf in block},
+                     "uneven": sorted(leaf for i, leaf in block if plans[i].heads)}
+        if name in UNEVEN:  # the heads this rank ran: its wq or w_out share
+            i, dim, size = ((idx["w_out"], 0, 64) if name.startswith("ssd")
+                            else (idx["wq"], 1, cfg.resolved_head_dim))
+            out[name]["heads"] = used[i].shape[dim] // size
     return out
 
 
@@ -235,6 +269,10 @@ def test_layer_matches_one_rank(name, m):
     ranks = _sharded(m)
     assert any(mode == "megatron" for mode in ranks[0][name]["modes"].values())
     assert "gathered" not in ranks[0][name]["modes"].values()
+    if name in UNEVEN and m == 4:
+        assert [r[name]["heads"] for r in ranks] == UNEVEN[name][1]
+        assert ranks[0][name]["uneven"] == (["w_out"] if name.startswith("ssd")
+                                            else ["wo", "wq"])
     for r in ranks:
         got = r[name]
         _close(got["y"], y, "output")
@@ -256,7 +294,7 @@ def _jax_tree(module):
     return jnp.asarray(tree.detach().numpy())
 
 
-REF_LAYERS = ("moe_onehot", "moe_sorted", "ssd", "rglru", "dec_block")
+REF_LAYERS = ("moe_onehot", "moe_sorted", "ssd", "rglru", "dec_block", *UNEVEN)
 
 
 @pytest.mark.parametrize("m", MESHES)
@@ -265,6 +303,7 @@ def test_layer_matches_reference(name, m):
     import jax.numpy as jnp
 
     from repro.configs import get_arch as ref_get_arch
+    from repro.models import attention as ref_attention
     from repro.models import encdec as ref_encdec
     from repro.models import moe as ref_moe
     from repro.models import rglru as ref_rglru
@@ -279,8 +318,10 @@ def test_layer_matches_reference(name, m):
     x = jnp.asarray(x)
     if name.startswith("moe"):
         want = getattr(ref_moe, f"moe_ffn_{name[4:]}")(p, x, ref_cfg)[0]
-    elif name == "ssd":
+    elif name.startswith("ssd"):
         want = ref_ssd.ssd_block(p, x, ref_cfg, chunk=cfg.ssd_chunk)
+    elif name.startswith("attn"):
+        want = ref_attention.self_attention(p, x, ref_cfg)
     elif name == "rglru":
         want = ref_rglru.recurrent_block(p, x)
     else:
@@ -395,10 +436,11 @@ def test_moe_over_dp_ranks_dispatches_the_whole_batch(name):
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m", "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "internvl2-1b", "qwen3-14b"])
 def test_no_leaf_gathered_on_host_meshes(arch, shape):
     """At full width and reduced, on the 2×2 and 1×4 host meshes: every
-    leaf the rules split over the model axis runs Megatron."""
+    leaf the rules split over the model axis runs Megatron (internvl2-1b's
+    14 heads on 1×4 on unequal shares)."""
     from repro_torch.launch.steps import leaf_plans, tp_report
     from repro_torch.parallel import sharding as sh
 
@@ -411,3 +453,49 @@ def test_no_leaf_gathered_on_host_meshes(arch, shape):
         split = {p for p, plan in zip(sh.param_paths(model.param_shapes()), plans)
                  if plan.tp_dim is not None}
         assert split and split <= set(report["megatron"]), (cfg.name, split)
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_head_ranges_partition_the_heads(arch, m):
+    """The ranges cover every head once, in order; at most one head apart;
+    inside one KV group where the axis is a multiple of the KV head count;
+    the even split where the axis divides the heads; and the plan marks
+    ``heads`` (with its block) exactly on the leaves whose heads the axis
+    does not divide."""
+    from repro_torch.launch.steps import leaf_plans
+    from repro_torch.models.ssd import HEAD_P
+    from repro_torch.parallel import sharding as sh
+
+    cfg = get_arch(arch)
+    groups = [("attn", cfg.n_heads, cfg.n_kv_heads)] if cfg.n_heads else []
+    if cfg.family == "ssm":
+        groups.append(("ssd", 2 * cfg.d_model // HEAD_P, 1))
+    for _, h, kv in groups:
+        ranges = [sh.head_range(h, m, r) for r in range(m)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == h
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        sizes = [hi - lo for lo, hi in ranges]
+        assert max(sizes) - min(sizes) <= 1
+        if h % m == 0:  # the Megatron split of equal shares
+            assert ranges == [(r * (h // m), (r + 1) * (h // m)) for r in range(m)]
+        if kv < m and m % kv == 0:  # rank r reads KV head r // (m / kv)
+            for r, (lo, hi) in enumerate(ranges):
+                assert all(j * kv // h == r // (m // kv) for j in range(lo, hi))
+        b = m // math.gcd(h, m)  # a block of ranks holds whole heads
+        for first in range(0, m, b):
+            assert ranges[first][0] * m == first * h
+    model = Model(cfg, torch.device("meta"))
+    mesh = sh.Mesh((1, m), ("data", "model"))
+    for path, plan in zip(sh.param_paths(model.param_shapes()), leaf_plans(model, mesh)):
+        name = path.split("/")[-1]
+        heads = dict((g, n) for g, n, _ in groups)
+        want = 0
+        if path.endswith(("attn/wq", "attn/wo")) and heads["attn"] % m:
+            want = heads["attn"]
+        if path.endswith("ssd/w_out") and heads["ssd"] % m:
+            want = heads["ssd"]
+        assert plan.heads == want, (path, plan)
+        if want:
+            assert plan.mode == "megatron" and plan.block == m // math.gcd(want, m)
+            assert plan.head_size == (HEAD_P if name == "w_out" else cfg.resolved_head_dim)
