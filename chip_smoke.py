@@ -50,7 +50,11 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    B=4, S=2048, hd=64; qwen3-14b's 3 or 2 of 40 on 16 at B=1, S=4096,
    hd=128; one KV head, causal, bf16, timed beside the yardstick, bit for
    bit against a second call; their backward too, GQA groups of 3 on a
-   cluster of 3 CTAs) and at a ragged shape (hd=100, non-causal window
+   cluster of 3 CTAs), at phase 16's dense prefills (``DENSE_FLASH``:
+   gemma3-12b's B=1, S=8192, H=16, KV=8, hd=256 at window 1024 and global;
+   deepseek-7b's B=2, S=4096, H=KV=32, hd=128; timed beside the yardstick,
+   bit for bit against a second call; their backward at phase 16's training
+   shapes) and at a ragged shape (hd=100, non-causal window
    48) in f32 and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1, at a
    tensor-parallel rank's 2048 channels and at ragged S and D, the SSD chunk
    scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128, chunk 64, also
@@ -207,6 +211,21 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    through ``run_controller`` on the card; ``Trainer.extract_traffic`` on
    one rank.
 
+16. The dense family at its published widths (run after phase 12; random
+   weights from a seed): the prefill step of gemma3-12b at all 48 layers
+   (bf16, B=1, S=8192: 5:1 local:global attention, 16 query heads on 8 KV
+   heads at hd 256 with qk-norm, a tied 262,144-word vocabulary) and of
+   deepseek-7b at all 30 (MHA, B=2, S=4096), one flash-attention launch a
+   layer and no other, finite logits, the step's token; each at full width
+   in float32 (TF32 off) with its depth cut (gemma3 6 layers, one
+   local:global period, its window cut to 16; deepseek 2) decoded over
+   ``DECODE_LEN`` tokens against the kernels' forward; ``serve`` of 8
+   requests with ``--full``; three bf16 training steps each through
+   ``make_train_step`` (gemma3 6 layers at B=1, S=4096; deepseek 2 at B=2,
+   S=2048) with exact flash-attention forward and backward launches, MFU
+   (each layer's attention at its own window) and the backward's share of
+   a step.
+
 The multi-card entry, ``phase_multicard()``, is not part of ``main()``; it
 runs on every visible card (four on a host with four H100s):
 
@@ -275,12 +294,23 @@ TP_FLASH = (("internvl2_1x4_h4", (4, 2048, 4, 1, 64)),
             ("internvl2_1x4_h3", (4, 2048, 3, 1, 64)),
             ("qwen3_16_h3", (1, 4096, 3, 1, 128)),
             ("qwen3_16_h2", (1, 4096, 2, 1, 128)))
+# flash attention at the dense family's prefills (phase 16): gemma3-12b's
+# local (window 1024) and global layers at B = 1, S = 8192 (16 heads on 8 KV
+# heads, hd 256) and deepseek-7b's MHA (32 on 32, hd 128) at B = 2, S = 4096,
+# causal, bf16; label: ((B, S, H, KV, hd), window)
+DENSE_FLASH = (("gemma3_local", ((1, 8192, 16, 8, 256), 1024)),
+               ("gemma3_global", ((1, 8192, 16, 8, 256), 0)),
+               ("deepseek", ((2, 4096, 32, 32, 128), 0)))
 FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
              ("recurrentgemma", (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16")),
              ("seamless_cross", (4, 256, 1024, 16, 16, 64, False, 0, "bfloat16")),
              ("ragged_f32", (1, 300, 500, 8, 2, 100, False, 48, "float32")),
              *((label, (b, s, s, h, kv, hd, True, 0, "bfloat16"))
-               for label, (b, s, h, kv, hd) in TP_FLASH))
+               for label, (b, s, h, kv, hd) in TP_FLASH),
+             # the dense family's training shapes (phase 16's steps)
+             ("gemma3_train_local", (1, 4096, 4096, 16, 8, 256, True, 1024, "bfloat16")),
+             ("gemma3_train_global", (1, 4096, 4096, 16, 8, 256, True, 0, "bfloat16")),
+             ("deepseek_train", (2, 2048, 2048, 32, 32, 128, True, 0, "bfloat16")))
 FLASH_BWD_F32_TOL = 1e-4  # f32 gradients: 1e-4·(1 + |ref|)
 # the backward's edge shapes at small sizes (checked, not timed): Sq and Sk
 # off every tile, windows that straddle tile edges, GQA groups of 2, 1, 16
@@ -1336,16 +1366,19 @@ def phase_model_kernels():
 
     # 7. flash attention: recurrentgemma-9b's local attention, a ragged
     # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, the
-    # prefills of phase 12 (FAMILY_FLASH) and a tensor-parallel rank's
-    # uneven head shares (TP_FLASH, also bit for bit against a second call)
-    rank_rows = {}
+    # prefills of phase 12 (FAMILY_FLASH), a tensor-parallel rank's uneven
+    # head shares (TP_FLASH) and the dense family's prefills (DENSE_FLASH),
+    # the last two also bit for bit against a second call
+    rank_rows, dense_rows = {}, {}
     for label, (b, s, h, kv, hd, causal, window, dtype) in (
             ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
             ("ragged", (1, 1000, 8, 2, 100, False, 48, torch.float32)),
             ("ragged_bf16", (1, 1000, 8, 2, 100, False, 48, torch.bfloat16)),
             *((arch, (*shape, True, window, torch.bfloat16))
               for arch, (shape, window) in FAMILY_FLASH.items()),
-            *((label, (*shape, True, 0, torch.bfloat16)) for label, shape in TP_FLASH)):
+            *((label, (*shape, True, 0, torch.bfloat16)) for label, shape in TP_FLASH),
+            *((label, (*shape, True, window, torch.bfloat16))
+              for label, (shape, window) in DENSE_FLASH)):
         q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
                    for n in (h, kv, kv))
         args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
@@ -1394,12 +1427,12 @@ def phase_model_kernels():
         if label != "main":
             row = {"shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib}
-            if label in dict(TP_FLASH):
+            if label in dict(TP_FLASH) or label in dict(DENSE_FLASH):
                 same = bool(torch.equal(faops.flash_attention_rows(q, k, v, **args), out))
                 log(f"  flash_attention {label} second call bit-equal {same}")
                 if not same:
                     fail(f"flash_attention {label} is not deterministic")
-                rank_rows[label] = row
+                (rank_rows if label in dict(TP_FLASH) else dense_rows)[label] = row
             else:
                 family_rows[label] = row
             del q, k, v, out, ref, q4, k4, v4
@@ -1465,6 +1498,7 @@ def phase_model_kernels():
     rows["rglru_scan"]["rank_2048_ms"] = rank_ms
     rows["flash_attention"]["family_shapes"] = family_rows
     rows["flash_attention"]["rank_shapes"] = rank_rows
+    rows["flash_attention"]["dense_shapes"] = dense_rows
 
     # 8, backward: the reversed scan, one more launch of the kernel
     a = (0.8 + 0.199 * torch.rand((2, 4096, 4096), generator=gen, device=dev)
@@ -2752,6 +2786,20 @@ def _device_profile(fn, device, top: int = 8):
                         for e in kernels[:top]]
 
 
+def _decode_vs_forward(model, params, full, tokens, cache, **decode_kw):
+    """``tokens`` (B, S) decoded one at a time from ``cache`` (updated in
+    place) against the forward's logits ``full`` (B, S, V): (max abs err,
+    worst |err|/(DECODE_TOL + DECODE_TOL·|ref|))."""
+    worst = err = 0.0
+    for pos in range(tokens.shape[1]):
+        logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos,
+                                     **decode_kw)
+        d = (logits[:, 0] - full[:, pos]).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+    return err, worst
+
+
 def phase_models(device):
     """Model serving (phase 8): the prefill step of each ``PREFILL`` model at
     full width and depth with the kernel counters zeroed around it, the
@@ -2850,12 +2898,7 @@ def phase_models(device):
             t0 = time.perf_counter()
             full = model.forward(params, {"tokens": tokens})
             cache = model.init_cache(2, DECODE_LEN)
-            worst = err = 0.0
-            for pos in range(DECODE_LEN):
-                logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos)
-                d = (logits[:, 0] - full[:, pos]).abs()
-                err = max(err, float(d.max()))
-                worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+            err, worst = _decode_vs_forward(model, params, full, tokens, cache)
             synchronize(device)
             log(f"phase 8: {cfg.name} float32 (TF32 off) decode vs forward, B=2, "
                 f"S={DECODE_LEN}: {time.perf_counter() - t0:.3f} s; max abs err "
@@ -3017,13 +3060,7 @@ def phase_families(device):
         full = model.forward(params, {"tokens": tokens})
         launches += faops.launches
         cache = model.init_cache(2, DECODE_LEN, window_cache=True)
-        worst = err = 0.0
-        for pos in range(DECODE_LEN):
-            logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos,
-                                         ring=True)
-            d = (logits[:, 0] - full[:, pos]).abs()
-            err = max(err, float(d.max()))
-            worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+        err, worst = _decode_vs_forward(model, params, full, tokens, cache, ring=True)
         log(f"phase 12: {cfg.name} float32 (TF32 off), window {cfg.window}, ring "
             f"decode of {DECODE_LEN} tokens on a {cache['blocks'][0]['k'].shape[1]}-slot "
             f"ring vs the kernels' forward ({faops.launches} flash launches): max abs "
@@ -3068,17 +3105,24 @@ TRAIN_AUDIO = ("seamless-m4t-large-v2", 4, 2, 1024, 256)
 def _train_flops(cfg, n_params_matmul: int, b: int, s: int) -> float:
     """Model FLOPs of one training step (forward + backward, no remat):
     6 · (parameters in matrix products) · tokens + 3 · the attention's
-    forward products (4 · hd a visible (q, k) pair, causal) or, for the ssm
-    family, 3 · the SSD scan's forward products (``_ssd_flops``)."""
+    forward products (4 · hd a visible (q, k) pair, causal, each layer at its
+    own window: gemma3's global layers see every earlier key) or, for the
+    ssm family, 3 · the SSD scan's forward products (``_ssd_flops``)."""
     if cfg.family == "ssm":
         from repro_torch.models import ssd
 
         _, h, n = ssd.dims(cfg)
         mix = _ssd_flops(b, h, s, ssd.HEAD_P, n, cfg.ssd_chunk)
         return 6.0 * n_params_matmul * b * s + 3.0 * mix * cfg.n_layers
-    attn = 4 * cfg.resolved_head_dim * _band_pairs(s, s, True, cfg.window) * b * cfg.n_heads
-    n_attn_layers = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
-    return 6.0 * n_params_matmul * b * s + 3.0 * attn * n_attn_layers
+    if cfg.family == "hybrid":  # one attention block a super-block, at cfg.window
+        windows = [cfg.window] * (cfg.n_layers // 3)
+    else:
+        from repro_torch.models.transformer import layer_window
+
+        windows = [layer_window(cfg, i) for i in range(cfg.n_layers)]
+    pairs = {w: _band_pairs(s, s, True, w) for w in set(windows)}
+    attn = 4 * cfg.resolved_head_dim * b * cfg.n_heads * sum(pairs[w] for w in windows)
+    return 6.0 * n_params_matmul * b * s + 3.0 * attn
 
 
 class _BackwardTimer:
@@ -3117,15 +3161,101 @@ class _BackwardTimer:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def _backward_share(name, timer, n_steps, step_ms, smi):
+def _backward_share(name, timer, n_steps, step_ms, smi, tag="phase 13"):
     """Log and return a backward entry's device time a step (the mean over
     the timed steps) against a step's time (the caller's median)."""
     bwd = timer.ms() / n_steps
-    log(f"phase 13: {name}: the backward entry (CUDA events around "
+    log(f"{tag}: {name}: the backward entry (CUDA events around "
         f"{timer._name}, {len(timer.events) // n_steps} calls a step) "
         f"{bwd:.3f} ms a step of the step's {step_ms:.1f} ms: share "
         f"{bwd / step_ms:.4f} ({smi})")
     return {"bwd_ms_per_step": bwd, "step_ms": step_ms, "share": bwd / step_ms}
+
+
+def _short_train(tag, arch, n_layers, b, s, s_dec=None, *, device, gen, smi=""):
+    """``SHORT_STEPS`` bf16 steps of ``arch`` at full width with ``n_layers``
+    layers (the encoder-decoder's encoder too) through ``make_train_step``
+    (remat, AdamW lr 3e-4) on one random batch (B=``b``, S=``s``; ``s_dec``
+    decoder tokens for the audio family): the losses and gradient norms
+    finite, the third loss moved by the update, the model kernels' launches
+    exact (with remat each attention runs its forward twice and its backward
+    once a step, an RG-LRU block its scan twice forward and once backward);
+    the step times, tokens/s, model-FLOPs utilisation (``_train_flops`` at
+    the median step; the audio family's is not counted), peak memory and
+    #7b's device time a step against the step's.  Logged under ``tag``;
+    returns the numbers with the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = _train_cfg(arch, n_layers, None)
+    model = build_model(cfg, device)
+    params = model.init(0)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = AdamW(lr=3e-4, warmup_steps=1)
+    state = opt.init(params)
+    train = make_train_step(model, opt, StepConfig(remat=True))
+    s_dec = s_dec or s
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
+                                     device=device),
+             "labels": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
+                                     device=device)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=device).to(torch.bfloat16)
+    _zero_launches()
+    losses, norms, times = [], [], []
+    with _BackwardTimer(faops, "flash_attention_bwd_rows") as bwd_timer:
+        for _ in range(SHORT_STEPS):
+            synchronize(device)
+            t0 = time.perf_counter()
+            params, state, m = train(params, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+    got = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    if cfg.family == "hybrid":
+        n_attn, n_rec = n_layers // 3, n_layers - n_layers // 3
+    else:
+        n_attn = (cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
+                  else cfg.n_layers)
+        n_rec = 0
+    expect = {"flash_fwd": SHORT_STEPS * 2 * n_attn, "flash_bwd": SHORT_STEPS * n_attn,
+              "rglru": SHORT_STEPS * 3 * n_rec, "ssd": 0, "ssd_bwd": 0}
+    n_tok = b * (s + s_dec) if cfg.family == "audio" else b * s
+    step_s = float(np.median(times))
+    # the tied embedding is the unembedding's matrix product (its gather is not)
+    n_matmul = n_params if cfg.tie_embeddings else n_params - cfg.vocab * cfg.d_model
+    mfu = (None if cfg.family == "audio"
+           else _train_flops(cfg, n_matmul, b, s) / step_s / BF16_FLOP_PER_S)
+    log(f"{tag}: {cfg.name} training ({n_layers} layers"
+        f"{' + ' + str(n_layers) + ' encoder layers' if cfg.family == 'audio' else ''}"
+        f", {n_params} parameters, bf16, B={b}, S={s}"
+        f"{f', {s_dec} tokens' if cfg.family == 'audio' else ''}, remat): "
+        f"{SHORT_STEPS} steps on one batch, losses {losses}, grad norms {norms}, step "
+        f"times {[round(t, 4) for t in times]} s, median {step_s * 1e3:.1f} ms "
+        f"({n_tok / step_s:.1f} tokens/s), model-FLOPs utilisation "
+        f"{'not counted' if mfu is None else f'{mfu:.4f}'} of "
+        f"{BF16_FLOP_PER_S:.3g} FLOP/s bf16 ({smi}); launches {got} (expected "
+        f"{expect}); peak device memory {peak} B")
+    if got != expect:
+        fail(f"{cfg.name} training: launches {got}, expected {expect}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"{cfg.name} training: losses or gradient norms not finite")
+    if losses[-1] == losses[-2]:
+        fail(f"{cfg.name} training: the update did not move the loss ({losses})")
+    share = _backward_share(cfg.name, bwd_timer, SHORT_STEPS, step_s * 1e3, smi, tag)
+    del model, params, state, batch
+    return {"family": cfg.family, "layers": n_layers, "params": n_params,
+            "losses": losses, "grad_norms": norms, "step_times_s": times,
+            "step_ms": step_s * 1e3, "tokens_per_s": n_tok / step_s, "mfu": mfu,
+            "peak_bytes": peak, "launches": got, "backward_share": share}
 
 
 def phase_audio_train(device, smi: str = ""):
@@ -3157,11 +3287,9 @@ def phase_audio_train(device, smi: str = ""):
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.device import synchronize
-    from repro_torch.kernels.flash_attention import ops as faops
-    from repro_torch.kernels.rglru_scan import ops as rlops
     from repro_torch.kernels.ssd_chunk import ops as sdops
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.steps import StepConfig, make_prefill_step, make_train_step
+    from repro_torch.launch.steps import StepConfig, make_prefill_step
     from repro_torch.models import encdec
     from repro_torch.models.api import build_model
     from repro_torch.optim import tree as tree_util
@@ -3172,14 +3300,7 @@ def phase_audio_train(device, smi: str = ""):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    def zero():
-        faops.launches = faops.bwd_launches = rlops.launches = 0
-        sdops.launches = sdops.bwd_launches = 0
-
-    def counts():
-        return {"flash_fwd": faops.launches, "flash_bwd": faops.bwd_launches,
-                "rglru": rlops.launches, "ssd": sdops.launches,
-                "ssd_bwd": sdops.bwd_launches}
+    zero, counts = _zero_launches, _launch_counts
 
     def expected(**launches):
         return {"flash_fwd": 0, "flash_bwd": 0, "rglru": 0, "ssd": 0, "ssd_bwd": 0,
@@ -3251,12 +3372,7 @@ def phase_audio_train(device, smi: str = ""):
         cache = model.init_cache(2, DECODE_LEN, enc_len=DECODE_LEN)
         with torch.inference_mode():
             cache["enc_out"][:] = encdec.encode(params, frames, rcfg)
-        worst = err = 0.0
-        for pos in range(DECODE_LEN):
-            lg, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos)
-            d = (lg[:, 0] - full[:, pos]).abs()
-            err = max(err, float(d.max()))
-            worst = max(worst, float((d / (DECODE_TOL * (1 + full[:, pos].abs()))).max()))
+        err, worst = _decode_vs_forward(model, params, full, tokens, cache)
         log(f"phase 13: {rcfg.name} float32 (TF32 off) decode vs forward, B=2, "
             f"S={DECODE_LEN}: max abs err {err:.3e}, worst |err|/(tol+tol|ref|) "
             f"{worst:.4f} (tol {DECODE_TOL})")
@@ -3380,72 +3496,206 @@ def phase_audio_train(device, smi: str = ""):
     # llama3-8b (2 layers), recurrentgemma-9b (one super-block) and seamless
     # (4 + 4 layers): SHORT_STEPS steps each through make_train_step
     for arch, n_layers, b, s, *rest in (TRAIN_LLAMA, TRAIN_HYBRID, TRAIN_AUDIO):
-        full_cfg = get_arch(arch)
-        over = {"n_layers": n_layers}
-        if full_cfg.family == "audio":
-            over["encoder_layers"] = n_layers
-        cfg = dataclasses.replace(full_cfg, **over)
         release()
-        model = build_model(cfg, device)
-        params = model.init(0)
-        opt = AdamW(lr=3e-4, warmup_steps=1)
-        state = opt.init(params)
-        train = make_train_step(model, opt, StepConfig(remat=True))
-        s_dec = rest[0] if rest else s
-        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
-                                         device=device),
-                 "labels": torch.randint(0, cfg.vocab, (b, s_dec), generator=gen,
-                                         device=device)}
-        if cfg.family == "audio":
-            batch["frames"] = torch.randn((b, s, cfg.d_model), generator=gen,
-                                          device=device).to(torch.bfloat16)
-        zero()
-        losses, norms, times = [], [], []
-        with _BackwardTimer(faops, "flash_attention_bwd_rows") as bwd_timer:
-            for _ in range(SHORT_STEPS):
-                synchronize(device)
-                t0 = time.perf_counter()
-                params, state, m = train(params, state, batch)
-                losses.append(float(m["loss"]))
-                norms.append(float(m["grad_norm"]))
-                times.append(time.perf_counter() - t0)
-        got = counts()
-        peak = torch.cuda.max_memory_allocated()
-        # with remat each attention runs forward twice and backward once a step
-        if cfg.family == "hybrid":
-            n_attn, n_rec = n_layers // 3, n_layers - n_layers // 3
-            expect = expected(flash_fwd=SHORT_STEPS * 2 * n_attn,
-                              flash_bwd=SHORT_STEPS * n_attn,
-                              rglru=SHORT_STEPS * (2 * n_rec + n_rec))
+        rec = _short_train("phase 13", arch, n_layers, b, s, *rest, device=device,
+                           gen=gen, smi=smi)
+        got = rec["launches"]
+        if rec["family"] == "hybrid":
             train_counts["rglru"] = got["rglru"]
-        else:
-            n_attn = (cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
-                      else cfg.n_layers)
-            expect = expected(flash_fwd=SHORT_STEPS * 2 * n_attn,
-                              flash_bwd=SHORT_STEPS * n_attn)
-        if cfg.family == "dense":
+        if rec["family"] == "dense":
             train_counts["flash_bwd"] = got["flash_bwd"]
-        n_tok = b * (s + s_dec) if cfg.family == "audio" else b * s
-        log(f"phase 13: {cfg.name} training ({n_layers} layers"
-            f"{' + ' + str(n_layers) + ' encoder layers' if cfg.family == 'audio' else ''}"
-            f", bf16, B={b}, S={s}{f', {s_dec} tokens' if rest else ''}, remat): "
-            f"{SHORT_STEPS} steps on one batch, "
-            f"losses {losses}, grad norms {norms}, step times "
-            f"{[round(t, 4) for t in times]} s ({n_tok / times[-1]:.1f} tokens/s); "
-            f"launches {got} (expected {expect}); peak device memory {peak} B")
-        if got != expect:
-            fail(f"{cfg.name} training: launches {got}, expected {expect}")
-        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
-            fail(f"{cfg.name} training: losses or gradient norms not finite")
-        if losses[-1] == losses[-2]:
-            fail(f"{cfg.name} training: the update did not move the loss ({losses})")
-        out[f"{cfg.family}_train"] = {
-            "losses": losses, "grad_norms": norms, "step_times_s": times, "peak_bytes": peak,
-            "launches": got, "backward_share": _backward_share(
-                cfg.name, bwd_timer, SHORT_STEPS, float(np.median(times)) * 1e3, smi)}
-        del model, params, state, batch
+        out[f"{rec['family']}_train"] = rec
     release()
     return train_counts, out
+
+
+# ---- phase 16: the dense family at its published widths ----------------------
+
+# prefill at full width and depth in bf16: (arch, batch, sequence), one #7
+# launch a layer.  gemma3-12b's S = 8192 spans eight of its locals' 1024-key
+# windows (weights 23.5 GB, logits 4.3 GB); deepseek-7b is MHA (13.8 GB)
+DENSE_RUNS = (("gemma3-12b", 1, 8192), ("deepseek-7b", 2, 4096))
+# float32 (TF32 off) decode of DECODE_LEN tokens at B = 2 against the
+# kernels' forward, full width, depth cut: (arch, layers kept, window (None:
+# the config's)).  gemma3's six layers are one local:global period (0-4
+# local, 5 global), its window cut to 16 so that the 64 positions cross it
+# (9.4 GB of weights); deepseek's two layers 5 GB
+DENSE_DECODE = (("gemma3-12b", 6, 16), ("deepseek-7b", 2, None))
+# serve(..., full=True) of each DENSE_RUNS model: (requests, batch, prompt
+# tokens, generated tokens), the launcher's defaults but 8 requests, not 16:
+# its decode is host-bound (gemma3-12b 103-136 ms a step on one NVIDIA H100
+# 80GB HBM3 at 700.00 W, against 7.0 ms to read its weights), and 16 took
+# 54.3 s of the script there
+DENSE_SERVE = (8, 4, 32, 32)
+# SHORT_STEPS bf16 training steps at full width, depth cut to fit one card:
+# (arch, layers kept, B, S).  gemma3's six layers are one local:global
+# period (2.35 G parameters: bf16 weights, f32 gradient sums and AdamW's two
+# moments, the f32 262,144-wide logits and their gradient peak at 48.5 GB
+# on an NVIDIA H100 80GB HBM3 at 700.00 W); deepseek's two 1.24 G (23.4 GB)
+DENSE_TRAIN = (("gemma3-12b", 6, 1, 4096), ("deepseek-7b", 2, 2, 2048))
+
+
+def phase_dense(device, smi: str = ""):
+    """The dense family at its published widths (phase 16), random weights
+    from a seed: gemma3-12b (5:1 local:global attention, 16 query heads on 8
+    KV heads at hd 256 with qk-norm, a query width of 4096 against d_model
+    3840, a tied 262,144-word vocabulary) and deepseek-7b (MHA: 32 KV
+    heads).  (1) The prefill step of each ``DENSE_RUNS`` model at full depth
+    in bf16, the kernel counters zeroed around it: one #7 launch a layer and
+    no other, finite logits (B, S, vocab), the last position's argmax equal
+    to the step's token; init, step and warm-forward seconds, tokens/s, peak
+    memory.  (2) ``DENSE_DECODE``: float32 (TF32 off) decode against the
+    kernels' forward within ``DECODE_TOL``, gemma3's across its cut window
+    and through its global layer.  (3) ``serve(..., full=True)`` of each with
+    ``DENSE_SERVE`` (its decode launches no kernel).  (4) ``DENSE_TRAIN``:
+    ``SHORT_STEPS`` steps through ``_short_train`` (exact #7 and #7b
+    launches, MFU with each layer at its own window, #7b's share of a
+    step).  Each run releases its memory before the next.  Returns
+    ({"flash_attention": #7's launches, "flash_attention_bwd": #7b's},
+    numbers)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import synchronize
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import layer_window
+
+    def release():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    zero, counts = _zero_launches, _launch_counts
+
+    def windows(cfg):
+        ws = [layer_window(cfg, i) for i in range(cfg.n_layers)]
+        return {w: ws.count(w) for w in sorted(set(ws))}
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(counts(), 0)
+    gen = torch.Generator(device=device).manual_seed(16)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    out = {}
+
+    # (1) prefill at full width and depth
+    for arch, batch, s in DENSE_RUNS:
+        cfg = get_arch(arch)
+        release()
+        model = build_model(cfg, device)
+        t0 = time.perf_counter()
+        params = model.init(0)
+        synchronize(device)
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        tokens = torch.randint(0, cfg.vocab, (batch, s), generator=gen, device=device)
+        step = make_prefill_step(model)
+        synchronize(device)
+        zero()
+        t0 = time.perf_counter()
+        nxt = step(params, {"tokens": tokens})
+        synchronize(device)
+        t_step = time.perf_counter() - t0
+        got = counts()
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens})
+        synchronize(device)
+        t_fwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        same = bool(torch.equal(logits[:, -1].argmax(-1, keepdim=True).int(), nxt))
+        expect = dict(none, flash_fwd=cfg.n_layers)
+        log(f"phase 16: {cfg.name} prefill ({cfg.dtype}, all {cfg.n_layers} layers, "
+            f"layers a window (0 = global) {windows(cfg)}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads at hd {cfg.resolved_head_dim}, {n_params} "
+            f"parameters (the config's count {cfg.param_count()}), {n_bytes} B; "
+            f"B={batch}, S={s}): init {t_init:.3f} s; prefill step {t_step:.3f} s "
+            f"({batch * s / t_step:.1f} tokens/s), warm forward {t_fwd:.3f} s "
+            f"({batch * s / t_fwd:.1f} tokens/s); launches {got} (expected {expect}); "
+            f"logits {tuple(logits.shape)} {logits.dtype}, finite {finite}, "
+            f"last-position argmax equals the step's token {same}; peak device memory "
+            f"{peak} B ({smi})")
+        if got != expect:
+            fail(f"{cfg.name} prefill: launches {got}, expected {expect}")
+        if logits.shape != (batch, s, cfg.vocab) or not finite or not same:
+            fail(f"{cfg.name} prefill: logits mis-shaped, not finite, or not the "
+                 f"step's token")
+        launches["flash_attention"] += got["flash_fwd"]
+        out[arch] = {"params": n_params, "param_bytes": n_bytes, "init_s": t_init,
+                     "prefill_step_s": t_step, "forward_s": t_fwd,
+                     "prefill_tokens_per_s": batch * s / t_step, "peak_bytes": peak}
+        del logits, params, model, tokens, nxt, step
+
+    # (2) the kernels' forward against the plain token-by-token decode, float32
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch, n_layers, window in DENSE_DECODE:
+            base = get_arch(arch)
+            cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32",
+                                      window=base.window if window is None else window)
+            release()
+            model = build_model(cfg, device)
+            params = model.init(0)
+            tokens = torch.randint(0, cfg.vocab, (2, DECODE_LEN), generator=gen,
+                                   device=device)
+            zero()
+            t0 = time.perf_counter()
+            full = model.forward(params, {"tokens": tokens})
+            got = counts()
+            cache = model.init_cache(2, DECODE_LEN)
+            err, worst = _decode_vs_forward(model, params, full, tokens, cache)
+            synchronize(device)
+            log(f"phase 16: {cfg.name} float32 (TF32 off) decode vs the kernels' "
+                f"forward, B=2, S={DECODE_LEN}, {n_layers} of {base.n_layers} layers, "
+                f"window {cfg.window} (the config's {base.window}), layers a window "
+                f"{windows(cfg)}: {time.perf_counter() - t0:.3f} s; forward launches "
+                f"{got}; max abs err {err:.3e}, |logits| max "
+                f"{float(full.abs().max()):.3f}, worst |err|/(tol+tol|ref|) "
+                f"{worst:.4f} (tol {DECODE_TOL}); peak device memory "
+                f"{torch.cuda.max_memory_allocated()} B")
+            if got != dict(none, flash_fwd=n_layers):
+                fail(f"{cfg.name} float32 forward: launches {got}")
+            if not worst <= 1.0:
+                fail(f"{cfg.name}: float32 decode disagrees with the forward")
+            launches["flash_attention"] += got["flash_fwd"]
+            out[arch]["decode"] = {"layers": n_layers, "window": cfg.window,
+                                   "max_abs_err": err, "worst": worst}
+            del params, model, full, cache, tokens
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # (3) the serving launcher at full size
+    requests, bsz, prompt, n_gen = DENSE_SERVE
+    for arch, *_ in DENSE_RUNS:
+        release()
+        zero()
+        res = serve(arch, requests=requests, batch=bsz, prompt_len=prompt,
+                    gen_len=n_gen, full=True, device=device)
+        got = counts()
+        log(f"phase 16: serve {json.dumps(res)}; launches {got} (decode runs none); "
+            f"peak device memory {torch.cuda.max_memory_allocated()} B")
+        if res["requests"] != requests or res["tokens_generated"] != requests * n_gen:
+            fail(f"serve {arch}: {res}")
+        if got != none:
+            fail(f"serve {arch}: decode launched {got}")
+        out[arch]["serve"] = res
+
+    # (4) training steps at full width, depth cut
+    for arch, n_layers, b, s in DENSE_TRAIN:
+        release()
+        rec = _short_train("phase 16", arch, n_layers, b, s, device=device, gen=gen,
+                           smi=smi)
+        launches["flash_attention"] += rec["launches"]["flash_fwd"]
+        launches["flash_attention_bwd"] += rec["launches"]["flash_bwd"]
+        out[arch]["train"] = rec
+    release()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['seconds']:.1f} s; launches {launches}")
+    return launches, out
 
 
 # ---- phase 14: sharding on one card; the multi-card entry --------------------
@@ -4588,6 +4838,22 @@ def _model_launches() -> tuple:
             sdops.bwd_launches)
 
 
+def _launch_counts() -> dict:
+    """``_model_launches()`` by name."""
+    return dict(zip(("flash_fwd", "flash_bwd", "rglru", "ssd", "ssd_bwd"),
+                    _model_launches()))
+
+
+def _zero_launches():
+    """Set the model kernels' launch counters to 0."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.rglru_scan import ops as rgops
+    from repro_torch.kernels.ssd_chunk import ops as sdops
+
+    faops.launches = faops.bwd_launches = rgops.launches = 0
+    sdops.launches = sdops.bwd_launches = 0
+
+
 def _dryrun_cell(arch, shape):
     """One phase-15 cell in a worker process (``run_cell`` on meta): its
     record, and the worker's model kernel launch counts before and after."""
@@ -4857,6 +5123,8 @@ def _main(t_start, dev, marks, dry_cells) -> int:
     mark("autotune")
     family_launches, _ = phase_families(dev)
     mark("families")
+    dense_launches, _ = phase_dense(dev, smi)
+    mark("dense")
     train_counts, _ = phase_audio_train(dev, smi)
     mark("audio_train")
     phase_sharding(dev, smi)
@@ -4876,6 +5144,9 @@ def _main(t_start, dev, marks, dry_cells) -> int:
     for key in model_counts:
         model_rows[key]["launches"] = model_counts[key]
     model_rows["flash_attention"]["launches_families_phase"] = family_launches
+    model_rows["flash_attention"]["launches_dense_phase"] = dense_launches["flash_attention"]
+    model_rows["flash_attention_bwd"]["launches_dense_phase"] = \
+        dense_launches["flash_attention_bwd"]
     model_rows["rglru_scan"]["launches_train_phase"] = train_counts["rglru"]
     model_rows["ssd_chunk"]["launches_train_phase"] = train_counts["ssd"]
     model_rows["flash_attention_bwd"]["launches"] = train_counts["flash_bwd"]

@@ -24,7 +24,9 @@ batch; the moe prefill (mixtral with its window masking, dbrx) with the
 sorted dispatch against the one-hot one, ring decode past the window against
 the forward, the vlm prefill with patches, and the autotune table's round
 trip (bodies launched through the wrappers, the PDHG knob resolved); flash
-attention's backward at chip_smoke's four phase-3 shapes and five edge
+attention forward and backward at the dense family's head layouts
+(gemma3-12b's 16/8 at hd 256, local and global; deepseek-7b's MHA) and its
+backward at chip_smoke's four phase-3 shapes and five edge
 shapes (bit for bit on a second call), the RG-LRU backward (two launches),
 the SSD chunk backward (#9b) at mamba2-130m's training shape and the
 forward's edge shapes (bit for bit on a second call, chunk-invariant, one
@@ -426,6 +428,12 @@ def test_fleet_entry_refuses_an_oversize_grid(gen, name, n_in):
     (4, 2048, 3, 1, 64, True, 0, torch.bfloat16, None),
     (1, 4096, 3, 1, 128, True, 0, torch.bfloat16, None),
     (1, 4096, 2, 1, 128, True, 0, torch.bfloat16, None),
+    # the dense family's head layouts (chip_smoke's DENSE_FLASH at a small S):
+    # gemma3-12b's 16 heads on 8 KV heads at hd 256, local (window 1024) and
+    # global; deepseek-7b's MHA, 32 on 32 at hd 128
+    (1, 2048, 16, 8, 256, True, 1024, torch.bfloat16, None),
+    (1, 2048, 16, 8, 256, True, 0, torch.bfloat16, None),
+    (1, 1024, 32, 32, 128, True, 0, torch.bfloat16, None),
     (1, 1024, 4, 1, 256, True, 256, torch.float32, 2e-3),
     (1, 1000, 4, 1, 100, False, 48, torch.float32, 2e-3),   # ragged
     (2, 130, 4, 2, 32, True, 0, torch.float32, 2e-3)])
@@ -929,7 +937,13 @@ def test_autotune_round_trip_on_the_card(gen, tmp_path, monkeypatch):
     (4, 2048, 2048, 4, 1, 64, True, 0, torch.bfloat16),
     (4, 2048, 2048, 3, 1, 64, True, 0, torch.bfloat16),
     (1, 4096, 4096, 3, 1, 128, True, 0, torch.bfloat16),
-    (1, 4096, 4096, 2, 1, 128, True, 0, torch.bfloat16)])
+    (1, 4096, 4096, 2, 1, 128, True, 0, torch.bfloat16),
+    # the dense family's head layouts (chip_smoke's dense training shapes at
+    # a small S): gemma3-12b's 16/8 at hd 256, window 1024 and global, and
+    # deepseek-7b's MHA, 32/32 at hd 128
+    (1, 2048, 2048, 16, 8, 256, True, 1024, torch.bfloat16),
+    (1, 2048, 2048, 16, 8, 256, True, 0, torch.bfloat16),
+    (1, 1024, 1024, 32, 32, 128, True, 0, torch.bfloat16)])
 def test_flash_attention_backward_matches_plain(gen, b, sq, sk, h, kv, hd, causal,
                                                 window, dtype):
     """The backward kernels through ``FlashAttention`` at chip_smoke's phase-3

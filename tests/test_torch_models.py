@@ -37,6 +37,12 @@ CASES = [(a, dt, {}) for a in ("recurrentgemma-9b", "mamba2-130m", "llama3-8b",
 CASES += [("recurrentgemma-9b", dt, {"n_layers": 8, "window": 12})
           for dt in ("float32", "bfloat16")]
 CASES += [("gemma3-12b", "float32", {"window": 8})]
+# the dense features that reduced() hides: gemma3 at 7 layers, whose layer 5
+# is global among its locals, with a query width of 4 × 48 = 192 against
+# d_model 128; deepseek's MHA (4 KV heads for 4 heads: a GQA group of 1)
+CASES += [("gemma3-12b", dt, {"n_layers": 7, "window": 8, "head_dim": 48})
+          for dt in ("float32", "bfloat16")]
+CASES += [("deepseek-7b", dt, {"n_kv_heads": 4}) for dt in ("float32", "bfloat16")]
 # the moe and vlm families: mixtral (8 experts top-2 cut to 4, sliding
 # window), dbrx (global attention), internvl2 (patches in front of the
 # tokens, tied embeddings).  The moe models run in float32 only: top-k

@@ -397,3 +397,36 @@ def test_kernel_wrappers_run_their_plain_version_on_meta():
     assert y.shape == x.shape and torch.autograd.grad(y.sum(), x)[0].shape == x.shape
     assert (fa.launches, fa.bwd_launches, rg.launches, sd.launches,
             sd.bwd_launches) == before
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its imports sit inside its phases, so
+    importing it needs no card)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "llama3-8b", "recurrentgemma-9b"])
+def test_train_flops_count_each_layer_at_its_window(arch):
+    """The MFU's model FLOPs (``chip_smoke._train_flops``) count each
+    attention layer's visible (q, k) pairs at that layer's window: gemma3's
+    8 global layers at window 0 beside its 40 locals at 1024; llama3-8b (every
+    layer global) and recurrentgemma-9b (one attention block a super-block,
+    at its window) as before the per-layer count."""
+    cs = _chip_smoke()
+    cfg, n, b, s = get_arch(arch), 10 ** 9, 2, 2048
+    per_pair = 4 * cfg.resolved_head_dim * b * cfg.n_heads
+    if arch == "gemma3-12b":
+        windows = [model_transformer.layer_window(cfg, i) for i in range(cfg.n_layers)]
+        assert windows.count(0) == 8 and windows.count(1024) == 40
+        pairs = sum(cs._band_pairs(s, s, True, w) for w in windows)
+        assert pairs > cfg.n_layers * cs._band_pairs(s, s, True, cfg.window)
+    else:  # the count before: every attention layer at cfg.window
+        n_attn = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+        pairs = n_attn * cs._band_pairs(s, s, True, cfg.window)
+    assert cs._train_flops(cfg, n, b, s) == 6.0 * n * b * s + 3.0 * per_pair * pairs

@@ -1,7 +1,9 @@
 """The port's training against the reference's on the same parameters and
 batches, one reduced config per family: dense (llama3-8b), moe
 (mixtral-8x7b), vlm (internvl2-1b), hybrid (recurrentgemma-9b), ssm
-(mamba2-130m) and audio (seamless-m4t-large-v2), in float32 (``dataclasses.replace(cfg.reduced(),
+(mamba2-130m) and audio (seamless-m4t-large-v2), and the dense features
+that ``reduced()`` hides (gemma3-12b's global layer among its locals at a
+query width other than d_model, deepseek-7b's MHA), in float32 (``dataclasses.replace(cfg.reduced(),
 dtype="float32")``; the moe family is float32-only for the reason in
 ``tests/test_torch_models.py``: top-k routing flips at near-ties in bf16).
 
@@ -53,10 +55,20 @@ LOSS_REL, GRAD_REL, STEP_TOL = 1e-5, 1e-4, 1e-5
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-3)
 
 
-def configs(family):
-    arch = FAMILIES[family]
-    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(), dtype="float32")
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+# the dense features that reduced() hides (tests/test_torch_models.py's
+# cases): gemma3's global layer 5 among its locals at a query width of
+# 4 × 48 against d_model 128, and deepseek's MHA (a GQA group of 1)
+DENSE_FEATURES = {"gemma3-12b": {"n_layers": 7, "window": 8, "head_dim": 48},
+                  "deepseek-7b": {"n_kv_heads": 4}}
+
+
+def configs(family, over=None):
+    """The reduced float32 configs of a family of ``FAMILIES`` (or of an
+    architecture by name) with ``over`` replaced."""
+    arch = FAMILIES.get(family, family)
+    over = dict(over or {}, dtype="float32")
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(), **over)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
     return ref_cfg, cfg
 
@@ -84,10 +96,10 @@ def port_batch(batch):
             for k, v in batch.items()}
 
 
-def setup(family, seed=0):
+def setup(family, seed=0, over=None):
     """(ref model, its params, the port's model, the same params as the
     port's module, the batch as numpy)."""
-    ref_cfg, cfg = configs(family)
+    ref_cfg, cfg = configs(family, over)
     ref_model = ref_build_model(ref_cfg)
     params = ref_model.init(jax.random.key(seed))
     model = build_model(cfg, device="cpu")
@@ -178,10 +190,11 @@ def port_steps(model, net, params, batch, step_cfg, n=2):
     return net, state, metrics
 
 
-def check_steps(family, flips=0.0, **step_over):
+def check_steps(family, flips=0.0, over=None, **step_over):
     """Two updates of both packages from the same state, held at
-    ``STEP_TOL`` (``flips``: see :func:`assert_tree_close`)."""
-    ref_model, params, model, net, batch = setup(family)
+    ``STEP_TOL`` (``flips``: see :func:`assert_tree_close`; ``over``: config
+    fields replaced, see :func:`configs`)."""
+    ref_model, params, model, net, batch = setup(family, over=over)
     rp, rs, rm = ref_steps(ref_model, params, batch, RefStepConfig(**step_over))
     net, st, pm = port_steps(model, net, params, batch, StepConfig(**step_over))
     for a, b in zip(pm, rm):
@@ -201,3 +214,10 @@ def test_train_step_matches_reference(family):
     """Two ``make_train_step`` updates (remat on, no compression) from the
     same parameters and AdamW state as the reference's."""
     check_steps(family)
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_FEATURES))
+def test_train_step_matches_reference_with_dense_features(arch):
+    """Two updates as above of gemma3 (a global layer among its locals, a
+    query width other than d_model) and deepseek (MHA)."""
+    check_steps(arch, over=DENSE_FEATURES[arch])
