@@ -50,7 +50,12 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    B=4, S=2048, hd=64; qwen3-14b's 3 or 2 of 40 on 16 at B=1, S=4096,
    hd=128; one KV head, causal, bf16, timed beside the yardstick, bit for
    bit against a second call; their backward too, GQA groups of 3 on a
-   cluster of 3 CTAs), at phase 16's dense prefills (``DENSE_FLASH``:
+   cluster of 3 CTAs), at a 1×4 rank's share of the moe family's heads at
+   the 4-card entry's published-depth prefills (``MOE_TP_FLASH``:
+   mixtral-8x7b's 8 of 32 heads on 2 KV heads at B=1, S=8192, window 4096;
+   dbrx-132b's 12 of 48 on 2 at S=4096, causal; timed beside the
+   yardstick, bit for bit against a second call), at phase 16's dense
+   prefills (``DENSE_FLASH``:
    gemma3-12b's B=1, S=8192, H=16, KV=8, hd=256 at window 1024 and global;
    deepseek-7b's B=2, S=4096, H=KV=32, hd=128; timed beside the yardstick,
    bit for bit against a second call; their backward at phase 16's training
@@ -93,8 +98,9 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    da's sum: device ms a call).
 4. The batched engine: ``repro_torch.core.run_controller`` over fabric F21
    (12 pods), an 8-day trace at 5-minute TMs, the paper's default controller
-   (routing every 15 min, topology daily, 7-day aggregation, 12 critical
-   TMs), Gemini with burst-loss tracking: 96 routing epochs, one joint
+   (routing every 15 min, topology daily, 7-day aggregation) at 4 critical
+   TMs (``SWEEP_K``, the paper's 12 cut for the script's time, as phases 5
+   and 9 are), Gemini with burst-loss tracking: 96 routing epochs, one joint
    topology solve, batched PDHG and one launch of each batched kernel;
    re-scored through the float64 numpy oracle.
 5. The streaming controller: ``repro_torch.serve.StreamingController`` on
@@ -124,11 +130,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    plain token-by-token decode in float32 (TF32 off) at B=2, S=64; and
    ``repro_torch.launch.serve.serve`` with ``--full`` and the launcher's
    defaults (16 requests, batch 4, prompt 32, gen 32) for both.
-9. The transition sweep: phase 4's configuration with 4 critical TMs (the
-   paper's 12 cut to keep the script's time) and a topology update
-   every 12 hours (two joint solves) executed as drain stages over 4 patch
-   panels (``TransitionConfig(n_panels=4, stage_intervals=1,
-   decide=False)``).  One plan walk (the joint solves and the §4.6 gate,
+9. The transition sweep: phase 4's configuration (4 critical TMs) and a
+   topology update every 12 hours (two joint solves) executed as drain
+   stages over 4 patch panels (``TransitionConfig(n_panels=4,
+   stage_intervals=1, decide=False)``).  One plan walk (the joint solves and the §4.6 gate,
    whose old/new/stage routing re-solves are one PDHG batch), then
    ``execute_plan`` twice on the same plan: as planned (the stage blocks on
    the batch axis of one launch each of the batched kernels) and with the
@@ -136,8 +141,12 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    staged epochs; the staged epochs against the float64 numpy oracle from
    the gate's stage weights and capacities.  Then a second, short plan walk
    with the gate deciding (``decide=True``) on the 9-pod F5 over a 2.5-day
-   hourly trace (three joint solves): it applies the first update and skips
-   the second, as the CPU run held to the reference does.
+   hourly trace (three joint solves), failure-aware: its benefit and
+   disruption blended with their worst over phase 10's 64 contingencies
+   (``contingency_weight`` 0.5), it skips both updates as the CPU run does,
+   and the plain rule on the same logged benefits and disruptions applies
+   the first and skips the second, as the CPU run held to the reference
+   does.
 10. Failure contingencies and bf16 PDHG on phase 9's plan (no new joint
    solve): ``execute_plan`` with 64 fixed-routing scenarios of link, trunk,
    panel and pod failures (``repro_torch.failures``; one launch each of the
@@ -233,18 +242,25 @@ runs on every visible card (four on a host with four H100s):
         cs.phase_card(); cs.phase_build(); cs.phase_multicard()"
 
 the 22-fabric ``run_fleet`` on one card and dealt over all of them;
-mamba2-130m at full size and llama3-8b at full width (2 layers) trained with
-FSDP, one process a card, against one card on the same global batches, with
-a checkpoint written on four ranks restored on one, a restart and a remesh to
-two ranks; FSDP × TP training (``MULTI_TP``: llama3-8b, mixtral-8x7b's
+mamba2-130m at full size, llama3-8b and mixtral-8x7b at full width (2
+layers), recurrentgemma-9b's first super-block and seamless (2 + 2 layers)
+trained with FSDP, one process a card, against one card on the same global
+batches, mamba2-130m and recurrentgemma-9b with a checkpoint written on
+four ranks restored on one, a restart and a remesh to two ranks (each
+rank drawing its tiles straight from the seed); FSDP × TP training
+(``MULTI_TP``: llama3-8b, mixtral-8x7b's
 experts on 2×2 and 1×4, qwen3-14b, mamba2-130m's SSD heads,
 recurrentgemma-9b's RG-LRU channels and seamless on 2×2, internvl2-1b at
 full size on unequal shares of its 14 heads on 1×4, no leaf gathered
 whole); and decode on the sharded mesh (``MULTI_DECODE``: llama3-8b on 2×2
 and 1×4, and at B=1, mamba2-130m, recurrentgemma-9b, seamless and
 mixtral-8x7b on 2×2, internvl2-1b on 1×4), 32 steps from a 32,768-position
-cache in float32 and bf16 against one card.  ``parts`` picks among
-"fleet", "fsdp", "tp" and "decode".
+cache in float32 and bf16 against one card; and the moe family at its
+published depth, which no single card holds (``MOE_FULL``: mixtral-8x7b's 32
+layers and dbrx-132b's 40 on 1×4, each rank's tiles drawn straight from the
+seed, prefilled and decoded, held against a one-card truth that streams the
+model a layer at a time).  ``parts`` picks among "fleet", "fsdp", "tp",
+"decode" and "moe_full".
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -274,7 +290,8 @@ PREFILL = (("recurrentgemma-9b", 2, 4096,
             {"flash_attention": 0, "rglru_scan": 0, "ssd_chunk": 24}))
 # phase 12's prefills: (arch, layers kept (None = all), batch, sequence
 # incl. patches, flash-attention launches); mixtral (93 GB) and dbrx (264 GB)
-# do not fit one card in bf16, so their depth is cut
+# do not fit one card in bf16, so their depth is cut here (the 4-card entry's
+# moe_full part runs them whole on 1×4)
 FAMILY_RUNS = (("mixtral-8x7b", 8, 1, 8192, 8), ("dbrx-132b", 2, 1, 4096, 2),
                ("internvl2-1b", None, 4, 4096, 24))
 # flash attention at those prefills: ((B, S, H, KV, hd), window)
@@ -294,6 +311,12 @@ TP_FLASH = (("internvl2_1x4_h4", (4, 2048, 4, 1, 64)),
             ("internvl2_1x4_h3", (4, 2048, 3, 1, 64)),
             ("qwen3_16_h3", (1, 4096, 3, 1, 128)),
             ("qwen3_16_h2", (1, 4096, 2, 1, 128)))
+# flash attention at a 1×4 rank's share of the moe family's heads at its
+# published depth (the 4-card entry's moe_full part): mixtral-8x7b's 8 of 32
+# heads on 2 of 8 KV heads at B = 1, S = 8192, window 4096, and dbrx-132b's
+# 12 of 48 on 2 of 8 at S = 4096, causal; label: ((B, S, H, KV, hd), window)
+MOE_TP_FLASH = (("mixtral_1x4_h8", ((1, 8192, 8, 2, 128), 4096)),
+                ("dbrx_1x4_h12", ((1, 4096, 12, 2, 128), 0)))
 # flash attention at the dense family's prefills (phase 16): gemma3-12b's
 # local (window 1024) and global layers at B = 1, S = 8192 (16 heads on 8 KV
 # heads, hd 256) and deepseek-7b's MHA (32 on 32, hd 128) at B = 2, S = 4096,
@@ -358,6 +381,11 @@ FLASH_F32_TOL, RGLRU_TOL, SSD_REL_TOL = 2e-3, 1e-4, 1e-3
 # (tests/test_arch_smoke.py)
 DECODE_TOL, DECODE_LEN = 1e-3, 64
 MAIN_B, MAIN_T, MAIN_TS, MAIN_C = 96, 3, 36, 132  # phase 4's batch
+# phase 4's critical TMs per joint topology solve: 4 of the paper's 12, which
+# cuts its one host joint solve (91.1 s of phase 4's 98.5 s at 12 on one
+# H100's host, 112.2 s of 124.8 s on a slower one) to keep the whole script
+# well inside its time limit
+SWEEP_K = 4
 # phase 5 streams phase 4's first 7 1/8 days: the 7-day window, then 12
 # routing decisions (the first with the joint topology solve), at 4 critical
 # TMs (phase 9's cut: the joint solve at 12 took ~75 s of the script on one
@@ -1367,8 +1395,9 @@ def phase_model_kernels():
     # 7. flash attention: recurrentgemma-9b's local attention, a ragged
     # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, the
     # prefills of phase 12 (FAMILY_FLASH), a tensor-parallel rank's uneven
-    # head shares (TP_FLASH) and the dense family's prefills (DENSE_FLASH),
-    # the last two also bit for bit against a second call
+    # head shares (TP_FLASH), a 1×4 rank's share of mixtral's and dbrx's
+    # heads (MOE_TP_FLASH) and the dense family's prefills (DENSE_FLASH),
+    # the last three also bit for bit against a second call
     rank_rows, dense_rows = {}, {}
     for label, (b, s, h, kv, hd, causal, window, dtype) in (
             ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
@@ -1378,7 +1407,7 @@ def phase_model_kernels():
               for arch, (shape, window) in FAMILY_FLASH.items()),
             *((label, (*shape, True, 0, torch.bfloat16)) for label, shape in TP_FLASH),
             *((label, (*shape, True, window, torch.bfloat16))
-              for label, (shape, window) in DENSE_FLASH)):
+              for label, (shape, window) in MOE_TP_FLASH + DENSE_FLASH)):
         q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
                    for n in (h, kv, kv))
         args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
@@ -1427,12 +1456,13 @@ def phase_model_kernels():
         if label != "main":
             row = {"shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib}
-            if label in dict(TP_FLASH) or label in dict(DENSE_FLASH):
+            shares = dict(TP_FLASH + MOE_TP_FLASH)
+            if label in shares or label in dict(DENSE_FLASH):
                 same = bool(torch.equal(faops.flash_attention_rows(q, k, v, **args), out))
                 log(f"  flash_attention {label} second call bit-equal {same}")
                 if not same:
                     fail(f"flash_attention {label} is not deterministic")
-                (rank_rows if label in dict(TP_FLASH) else dense_rows)[label] = row
+                (rank_rows if label in shares else dense_rows)[label] = row
             else:
                 family_rows[label] = row
             del q, k, v, out, ref, q4, k4, v4
@@ -2255,14 +2285,29 @@ GATE_DECIDE = dict(spec_index=4, days=2.5, interval_minutes=60.0,
                    routing_interval_hours=3.0, topology_interval_days=0.5,
                    aggregation_days=1.0, k_critical=4)
 GATE_DECISIONS = [True, False]
+# the same walk's gate blending in the worst contingency
+# (``FailureConfig.contingency_weight``): under phase 10's failure mix (64
+# scenarios, seed 0) the first update's worst contingency has a negative
+# benefit, so at weight 0.5 the blend vetoes the update the plain gate
+# applies, and skips the second; the walk then evaluates the second from the
+# old topology, and the plain rule on its logged benefit and disruption
+# still gives ``GATE_DECISIONS`` (the CPU run's)
+GATE_CONTINGENCY_WEIGHT = 0.5
+GATE_BLENDED_DECISIONS = [False, False]
 
 
 def phase_gate_decide(device):
-    """The §4.6 gate deciding on the card: one plan walk of ``GATE_DECIDE``
-    with ``TransitionConfig(n_panels=4, stage_intervals=1)`` (``decide``
-    on), whose gate re-solves each evaluated update's old/new/stage
-    routings in one PDHG batch.  Fails unless it applies and skips the
-    updates the CPU run does (``GATE_DECISIONS``)."""
+    """The §4.6 gate deciding on the card, failure-aware: one plan walk of
+    ``GATE_DECIDE`` with ``TransitionConfig(n_panels=4, stage_intervals=1)``
+    (``decide`` on) and ``FailureConfig(**FAILURES,
+    contingency_weight=GATE_CONTINGENCY_WEIGHT)``, whose gate re-solves each
+    evaluated update's old/new/stage routings in one PDHG batch and blends
+    its benefit and disruption with their worst over the sampled
+    contingencies (``transition_worst_case``, fixed routings re-scored
+    under the masks).  Fails unless it applies and skips the updates the
+    CPU run does (``GATE_BLENDED_DECISIONS``), and unless the plain rule
+    (``should_reconfigure`` on each logged benefit and disruption,
+    recomputed on the host) gives ``GATE_DECISIONS``."""
     import numpy as np
 
     from repro_torch.core import ControllerConfig, SolverConfig, Strategy
@@ -2270,7 +2315,8 @@ def phase_gate_decide(device):
     from repro_torch.core.fleet import FLEET_SPECS, make_fabric, make_trace
     from repro_torch.core.pdhg import TorchRoutingSolver
     from repro_torch.device import synchronize
-    from repro_torch.transition import TransitionConfig
+    from repro_torch.failures import FailureConfig
+    from repro_torch.transition import TransitionConfig, should_reconfigure
 
     cfg = dict(GATE_DECIDE)
     spec = FLEET_SPECS[cfg.pop("spec_index")]
@@ -2279,6 +2325,8 @@ def phase_gate_decide(device):
                        interval_minutes=cfg.pop("interval_minutes"))
     cc = ControllerConfig(solver_backend="pdhg", backend="torch",
                           transition=TransitionConfig(n_panels=4, stage_intervals=1),
+                          failures=FailureConfig(
+                              **FAILURES, contingency_weight=GATE_CONTINGENCY_WEIGHT),
                           **cfg)
     batches = []
     solve_batch = TorchRoutingSolver.solve_routing_batch
@@ -2297,20 +2345,27 @@ def phase_gate_decide(device):
     synchronize(device)
     wall = time.perf_counter() - t0
     decisions = [e["applied"] for e in art.transition_log]
+    plain = [should_reconfigure(e["benefit"], e["disruption"]) for e in art.transition_log]
     log(f"phase 9: the gate deciding (decide=True) on {fab.name} ({fab.n_pods} "
-        f"pods), trace {trace.demand.shape} at {trace.interval_minutes} min: plan "
-        f"walk {wall:.3f} s, {art.plan.n_topology} joint solves, gate "
-        f"{art.transition_seconds:.3f} s in PDHG batches of {batches}; applied "
-        f"{art.n_topology - 1} and skipped {art.n_skipped} updates")
+        f"pods), trace {trace.demand.shape} at {trace.interval_minutes} min, blending "
+        f"the worst of {cc.failures.n_scenarios} contingencies at weight "
+        f"{GATE_CONTINGENCY_WEIGHT}: plan walk {wall:.3f} s, {art.plan.n_topology} "
+        f"joint solves, gate {art.transition_seconds:.3f} s in PDHG batches of "
+        f"{batches}; applied {art.n_topology - 1} and skipped {art.n_skipped} updates; "
+        f"decisions {decisions} (the CPU run's {GATE_BLENDED_DECISIONS}), the plain "
+        f"rule on the same benefits and disruptions {plain} ({GATE_DECISIONS})")
     for e in art.transition_log:
         log(f"  decision at interval {e['start']}: applied {e['applied']}, "
             f"benefit {e['benefit']:.6f}, disruption {e['disruption']:.6f}, "
             f"u_old {e['u_old']:.6f}, u_new {e['u_new']:.6f}")
-    if decisions != GATE_DECISIONS or len(batches) != len(decisions):
+    if decisions != GATE_BLENDED_DECISIONS or len(batches) != len(decisions):
         fail(f"gate: decisions {decisions} in PDHG batches {batches}, expected "
-             f"{GATE_DECISIONS} in one batch each (the CPU run's)")
+             f"{GATE_BLENDED_DECISIONS} in one batch each (the CPU run's)")
+    if plain != GATE_DECISIONS:
+        fail(f"gate: the plain rule on the logged benefits and disruptions gives "
+             f"{plain}, expected {GATE_DECISIONS}")
     return {"wall_s": wall, "gate_s": art.transition_seconds,
-            "decisions": decisions, "gate_batches": batches}
+            "decisions": decisions, "plain_decisions": plain, "gate_batches": batches}
 
 
 # phase 10's failure model: a mix of link, trunk, panel and pod
@@ -3711,9 +3766,21 @@ DEAL_SPECS = (20, 0, 16)
 DEAL_SHARDS = (2, 4)
 DEAL_MAX_ITERS = 100
 MESH_STEPS = 3  # training steps of phase 14's one-rank mesh and the multi-card runs
-# the multi-card training runs: (arch, layers kept (None = all), global batch
-# (one sequence a card on four), sequence)
-MULTI_TRAIN = (("mamba2-130m", None, 4, 4096), ("llama3-8b", 2, 4, 2048))
+# the multi-card training runs, FSDP alone: (arch, layers kept (None = all),
+# global batch (one sequence a card on four), sequence): mamba2-130m at full
+# size, llama3-8b and mixtral-8x7b at full width (2 layers; mixtral's bf16
+# diff printed, not held), recurrentgemma-9b's first super-block (3 layers)
+# and seamless (2 encoder and 2 decoder layers; frames from a seeded
+# generator)
+MULTI_TRAIN = (("mamba2-130m", None, 4, 4096), ("llama3-8b", 2, 4, 2048),
+               ("mixtral-8x7b", 2, 4, 2048), ("recurrentgemma-9b", 3, 4, 2048),
+               ("seamless-m4t-large-v2", 2, 4, 1024))
+# the FSDP runs whose bf16 run also writes its checkpoints, restores the
+# 4-rank one on one card, restarts from step 2 and remeshes to two ranks
+# (through ``Trainer.run``, which draws tokens alone, so not seamless; not
+# mixtral, whose 31.6 GB of state a checkpoint would write three times;
+# recurrentgemma's is 17.1 GB, mamba2-130m's 1.3 GB)
+MULTI_TRAIN_RESTART = ("mamba2-130m", "recurrentgemma-9b")
 # four ranks against one card on the same global batch.  float32 (TF32 off,
 # AdamW eps 1e-3, lr 1e-3): the card-vs-CPU train-step contract of
 # tests/test_torch_gpu.py, losses at 1e-5 relative.  bf16 (the models' own
@@ -3781,6 +3848,30 @@ DECODE_F32_FACTOR = 8.0
 DECODE_BF16_FACTOR = 2.0
 # phase 14's one-rank-mesh decode: (arch, layers kept, batch, cache length, steps)
 MESH_DECODE = ("llama3-8b", 2, 4, 4096, 8)
+# the 4-card entry's moe_full part: the moe family at its published depth
+# on make_host_mesh(model_axis=4), which no single card holds (bf16:
+# mixtral-8x7b 93.4 GB, dbrx-132b 263.2 GB): (arch, prefills ((dtype,
+# sequence) at B = 1), decode dtypes).  mixtral-8x7b: 2 of its 8 experts, 8
+# of its 32 heads on 2 of its 8 KV heads and 8,000 words of its vocabulary a
+# rank; bf16 prefill at S = 8192 (its 4096 window masking, as phase 12's),
+# float32 (TF32 off) at S = 4096, decode_32k in both.  dbrx-132b: 4 of 16
+# experts, 12 of 48 heads on 2 of 8, 25,088 words a rank; bf16 prefill at
+# S = 4096 and bf16 decode_32k (its float32 weights would take 526 GB).
+# Decode: MOE_FULL_DECODE_B sequences, MULTI_DECODE_STEPS steps from
+# MULTI_DECODE_START of a MULTI_DECODE_LEN cache filled tile by tile
+MOE_FULL = (("mixtral-8x7b", (("bfloat16", 8192), ("float32", 4096)),
+             ("bfloat16", "float32")),
+            ("dbrx-132b", (("bfloat16", 4096),), ("bfloat16",)))
+MOE_FULL_DECODE_B = 4
+# a rank's peak device memory while it draws its tiles (``init_tiles``)
+# stays under its tiles' bytes, one whole float32 leaf (the model's largest)
+# and this many bytes: no rank ever holds the whole model
+MOE_DRAW_SLACK = 2e9
+# a routing disagreement between the mesh and the one-card truth is a
+# near-tie when the truth's gap between its k-th and (k+1)-th router logits
+# at that token is under this share of the layer's largest |router logit|
+# (ROADMAP §3: a flip at a near-tie is no fault of the arithmetic)
+MOE_NEAR_TIE = 1e-5
 
 
 def _fleet_run(jobs, device, mesh):
@@ -4083,7 +4174,9 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
     one model index also a restart from step 2 and a remesh to ranks 0 and 1
     with one step there.  With a model axis, one more step is recorded
     (``record_collectives``) and compared, op for op, with the same step on
-    a virtual copy of the mesh on ``meta`` (``Trainer.extract_traffic``)."""
+    a virtual copy of the mesh on ``meta`` (``Trainer.extract_traffic``).
+    Each rank draws its tiles straight from the seed (``init_tiles``, as
+    ``Trainer.run`` does)."""
     import shutil
 
     import numpy as np
@@ -4096,7 +4189,7 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
     from repro_torch.kernels.rglru_scan import ops as rgops
     from repro_torch.kernels.ssd_chunk import ops as sdops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import StepConfig
+    from repro_torch.launch.steps import StepConfig, init_tiles
     from repro_torch.models.api import build_model
     from repro_torch.optim import tree as tree_util
     from repro_torch.optim.adamw import AdamW
@@ -4139,7 +4232,8 @@ def _multicard_rank(rank, world, arch, n_layers, b, s, dtype, opt_kw, ckdir, ext
         return batch
 
     if embeds is not None:  # Trainer.run draws tokens alone: its step on the same batches
-        params, state = tr.shard(model.init(0))
+        params = init_tiles(model, tr._step_fn.plans)
+        state = tr.opt.init(params)
         losses, times = [], []
         for i in range(MESH_STEPS):
             batch = rank_batch(i)
@@ -4295,31 +4389,35 @@ def multicard_fleet(dev, n: int, smi: str = "") -> dict:
             "bit_equal": _check_sharded_fleet(f"{n} cards", jobs, one, many)}
 
 
-def _filled_cache(model, b: int, length: int, start: int, seed: int, device):
+def _filled_cache(model, b: int, length: int, start: int, seed: int, device, tiles=None):
     """A whole decode cache of ``length`` positions (and encoder frames)
     whose KV slots below ``start``, recurrent states and encoder output are
     drawn from ``seed`` (a generator on ``device``: the same values on every
-    card)."""
+    card), leaf by leaf in the cache's order.  With ``tiles`` (mesh, shape):
+    this rank's tile of every leaf instead, each cut as soon as it is filled
+    (``init_cache_tiles``): the tiles ``shard_cache`` cuts from the whole
+    cache, which is never held."""
     import torch
 
+    from repro_torch.launch.steps import init_cache_tiles
+    from repro_torch.parallel import sharding as sh
+
     gen = torch.Generator(device=device).manual_seed(seed)
-    cache = model.init_cache(b, length, enc_len=length)
 
-    def fill(tree, name=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                fill(v, k)
-        elif isinstance(tree, list):
-            for v in tree:
-                fill(v, name)
-        elif name in ("k", "v"):
-            n = min(start, tree.shape[1])
-            tree[:, :n] = torch.randn((tree.shape[0], n) + tuple(tree.shape[2:]),
-                                      generator=gen, device=device).to(tree.dtype)
+    def fill(name, leaf):
+        if name in ("k", "v"):
+            n = min(start, leaf.shape[1])
+            leaf[:, :n] = torch.randn((leaf.shape[0], n) + tuple(leaf.shape[2:]),
+                                      generator=gen, device=device).to(leaf.dtype)
         else:
-            tree.copy_(torch.randn(tuple(tree.shape), generator=gen, device=device))
+            leaf.copy_(torch.randn(tuple(leaf.shape), generator=gen, device=device))
 
-    fill(cache)
+    if tiles is not None:
+        mesh, shape = tiles
+        return init_cache_tiles(model, mesh, shape, fill, enc_len=length)
+    cache = model.init_cache(b, length, enc_len=length)
+    for path, _, leaf in sh._param_leaves(cache):
+        fill(next(str(k) for k in reversed(path) if isinstance(k, str)), leaf)
     return cache
 
 
@@ -4358,28 +4456,60 @@ def _run_decode(step, params, cache, tokens, start: int, device, record=None):
     return torch.stack(logits).numpy(), torch.stack(toks).numpy().astype(np.int64), times
 
 
+def _op_keys(ops) -> list:
+    """What two records of collectives must agree on, op for op."""
+    return [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype) for op in ops]
+
+
+def _virtual_decode_ops(cfg, mesh, b: int, length: int, start: int, rows) -> list:
+    """The collectives (``_op_keys``) of one decode step at ``start`` on a
+    virtual copy of ``mesh``, on ``meta`` tensors, for the rank's ``rows``
+    of the batch: what the dry run records for the same step."""
+    import torch
+
+    from repro_torch.launch.steps import (cache_tile_shardings, leaf_plans, make_serve_step,
+                                          module_like, shard_cache)
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_traffic import record_collectives
+
+    shape = ShapeConfig("decode_32k", length, b, "decode")
+    vmesh = mesh.virtual_copy()
+    vmodel = Model(cfg, torch.device("meta"))
+    vshapes = vmodel.param_shapes()
+    vshards = module_like(vshapes, [sh.shard_tensor(x, p.sharding) for x, p in
+                                    zip(tree_util.leaves(vshapes), leaf_plans(vmodel, vmesh))])
+    vwhole = vmodel.init_cache(b, length, enc_len=length)
+    vstep = make_serve_step(vmodel, mesh=vmesh, logits=True,
+                            cache_sh=cache_tile_shardings(vmesh, cfg, shape, vwhole))
+    vtok = torch.empty((rows.stop - rows.start, 1), dtype=torch.int64, device="meta")
+    with record_collectives() as vops:
+        vstep(vshards, shard_cache(vwhole, vmesh, cfg, shape), vtok, start)
+    return _op_keys(vops)
+
+
 def _decode_rank(rank, world, arch, n_layers, b, model_axis, run, device_type="cuda"):
     """One rank of a multi-card decode run: for float32 (TF32 off) and the
     model's bf16, ``MULTI_DECODE_STEPS`` steps of ``make_serve_step`` on
     ``make_host_mesh(model_axis)`` from this rank's tiles of the parameters
-    and of a cache filled from the seed (``shard_cache``): its logits and
+    and of a cache filled from the seed, each drawn tile by tile
+    (``init_tiles``, ``_filled_cache(tiles=...)``): its logits and
     tokens (its batch rows and vocabulary columns), step times, peak memory
     and cache bytes, and whether the first step's collectives equal, op for
     op, the same step's on a virtual copy of the mesh on ``meta``.  ``run``
     is (cache length, start position, steps): a spawned rank reads no
     constant its parent changed."""
-    import numpy as np
     import torch
 
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import (cache_tile_shardings, input_shardings,
-                                          leaf_plans, make_serve_step, module_like,
-                                          shard_cache)
+    from repro_torch.launch.steps import (cache_tile_shardings, init_tiles, input_shardings,
+                                          leaf_plans, make_serve_step)
     from repro_torch.models.api import Model, build_model
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import tree as tree_util
     from repro_torch.parallel import sharding as sh
-    from repro_torch.runtime.hlo_traffic import record_collectives
 
     dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
     cuda = dev.type == "cuda"
@@ -4391,15 +4521,10 @@ def _decode_rank(rank, world, arch, n_layers, b, model_axis, run, device_type="c
     for dtype in ("float32", None):
         cfg = _train_cfg(arch, n_layers, dtype)
         model = build_model(cfg, dev)
-        params = model.init(0)
-        plans = leaf_plans(model, mesh)
-        shards = module_like(params, [sh.shard_tensor(x, p.sharding)
-                                      for x, p in zip(tree_util.leaves(params), plans)])
-        del params
-        whole = _filled_cache(model, b, length, start, 1, dev)
-        cache_sh = cache_tile_shardings(mesh, cfg, shape, whole)
-        tiles = shard_cache(whole, mesh, cfg, shape)
-        del whole
+        shards = init_tiles(model, leaf_plans(model, mesh))
+        tiles = _filled_cache(model, b, length, start, 1, dev, tiles=(mesh, shape))
+        cache_sh = cache_tile_shardings(mesh, cfg, shape, Model(cfg, torch.device("meta"))
+                                        .init_cache(b, length, enc_len=length))
         tokens = _decode_tokens(cfg, b, steps, dev)
         tok_sh = input_shardings(mesh, cfg, shape, {"token": tokens[0]})["token"]
         step = make_serve_step(model, mesh=mesh, cache_sh=cache_sh, logits=True)
@@ -4414,26 +4539,13 @@ def _decode_rank(rank, world, arch, n_layers, b, model_axis, run, device_type="c
         rows = sh.tile_slice(toks.shape[1], mesh, rows) if rows else slice(0, b)
         cols = (sh.tile_slice(logits.shape[-1], mesh, ("model",))
                 if logits.shape[-1] != cfg.vocab else slice(0, cfg.vocab))
-        vmesh = mesh.virtual_copy()
-        vmodel = Model(cfg, torch.device("meta"))
-        vshapes = vmodel.param_shapes()
-        vshards = module_like(vshapes, [sh.shard_tensor(x, p.sharding) for x, p in
-                                        zip(tree_util.leaves(vshapes),
-                                            leaf_plans(vmodel, vmesh))])
-        vwhole = vmodel.init_cache(b, length, enc_len=length)
-        vstep = make_serve_step(vmodel, mesh=vmesh, logits=True,
-                                cache_sh=cache_tile_shardings(vmesh, cfg, shape, vwhole))
-        vtok = torch.empty((rows.stop - rows.start, 1), dtype=torch.int64, device="meta")
-        with record_collectives() as vops:
-            vstep(vshards, shard_cache(vwhole, vmesh, cfg, shape), vtok, start)
-        key = [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype) for op in ops]
         out[cfg.dtype] = {
             "logits": logits, "tokens": toks, "rows": (rows.start, rows.stop),
             "cols": (cols.start, cols.stop), "times": times,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "cache_bytes": sum(x.numel() * x.element_size() for x in tree_util.leaves(tiles)),
-            "n_ops": len(ops), "ops_equal": key == [(op.kind, op.result_bytes, op.group_size,
-                                                     op.groups, op.dtype) for op in vops],
+            "n_ops": len(ops),
+            "ops_equal": _op_keys(ops) == _virtual_decode_ops(cfg, mesh, b, length, start, rows),
             "wire_bytes_per_chip": float(sum(op.wire_bytes_per_chip() for op in ops))}
         del shards, tiles, step, model
         if cuda:
@@ -4623,23 +4735,543 @@ def multicard_decode(n: int, dev, smi: str, backend: str, device_type: str) -> d
     return out
 
 
+def _nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _moe_reckoning(cfg, mesh, run) -> dict:
+    """A rank's bytes on ``mesh`` (a virtual mesh serves) before any weight
+    is drawn, from the shapes alone: its parameter tiles (``leaf_plans``),
+    its decode cache tiles (``cache_tile_shardings``), the whole model's and
+    cache's, and the model's largest leaf drawn in float32."""
+    import torch
+
+    from repro_torch.launch.steps import cache_tile_shardings, leaf_plans
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    length, _, _, b = run
+    model = Model(cfg, torch.device("meta"))
+    shapes = tree_util.leaves(model.param_shapes())
+    tiles = [sh.shard_tensor(x, p.sharding)
+             for x, p in zip(shapes, leaf_plans(model, mesh, "prefill"))]
+    cache = model.init_cache(b, length, enc_len=length)
+    cache_sh = tree_util.leaves_of(cache_tile_shardings(
+        mesh, cfg, ShapeConfig("decode_32k", length, b, "decode"), cache))
+    cache = tree_util.leaves(cache)
+    return {"param_bytes": _nbytes(tiles), "whole_param_bytes": _nbytes(shapes),
+            "cache_bytes": _nbytes(sh.shard_tensor(x, t) for x, t in zip(cache, cache_sh)),
+            "whole_cache_bytes": _nbytes(cache),
+            "f32_leaf_bytes": 4 * max(x.numel() for x in shapes)}
+
+
+def _recording_routes(sink):
+    """A context in which every moe layer's routing also goes to
+    ``sink(experts, gap, scale)``: the chosen experts of each token (T, k),
+    sorted (the set decides the output), the gap between its k-th and
+    (k+1)-th router logits (T,), and the layer's largest |router logit|;
+    left on the device until read.  ``sink=None``: nothing recorded."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def patched():
+        if sink is None:
+            yield
+            return
+        route = moe._route
+
+        def recorded(p, xt, k):
+            probs, gates, idx = route(p, xt, k)
+            logits = (xt.float() @ p.router).reshape(-1, p.router.shape[-1])
+            top = torch.topk(logits, k + 1, dim=-1).values
+            sink(idx.reshape(-1, k).sort(dim=-1).values, top[:, k - 1] - top[:, k],
+                 logits.abs().max())
+            return probs, gates, idx
+
+        moe._route = recorded
+        try:
+            yield
+        finally:
+            moe._route = route
+
+    return patched()
+
+
+def _routes_host(calls) -> list:
+    """Recorded routings (``_recording_routes``) read to the host."""
+    return [(e.cpu().numpy(), g.cpu().numpy(), float(s)) for e, g, s in calls]
+
+
+def _prefill_tokens(cfg, s: int, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    return torch.randint(0, cfg.vocab, (1, s), generator=gen, device=device)
+
+
+def _moe_prefill(model, mesh, params, s: int, dev, record: bool) -> dict:
+    """The moe_full part's prefill of ``s`` tokens through
+    ``make_prefill_step(mesh=, logits=True)``: a first call (its flash
+    launches counted, its collectives and, with ``record``, its routing
+    recorded), then a second timed alone."""
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_traffic import record_collectives
+
+    tokens = _prefill_tokens(model.cfg, s, dev)
+    step = make_prefill_step(model, mesh=mesh, logits=True)
+    calls = []
+    faops.launches = 0
+    with record_collectives() as ops, _recording_routes(
+            (lambda *r: calls.append(r)) if record else None):
+        tok, logits = step(params, {"tokens": tokens})
+    synchronize(dev)
+    launches = faops.launches
+    cols = (sh.tile_slice(logits.shape[-1], mesh, ("model",))
+            if logits.shape[-1] != model.cfg.vocab else slice(0, model.cfg.vocab))
+    share = logits[0].float().cpu().numpy()
+    del logits
+    faops.launches = 0
+    synchronize(dev)
+    t0 = time.perf_counter()
+    tok2, logits = step(params, {"tokens": tokens})
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    del logits
+    return {"logits": share, "cols": (cols.start, cols.stop), "token": int(tok[0, 0]),
+            "token_again": int(tok2[0, 0]), "launches": [launches, faops.launches],
+            "seconds": seconds, "routes": _routes_host(calls), "n_ops": len(ops),
+            "wire_bytes_per_chip": float(sum(op.wire_bytes_per_chip() for op in ops))}
+
+
+def _moe_decode(model, mesh, params, run, dev, record: bool) -> dict:
+    """The moe_full part's decode: ``make_serve_step(mesh=, cache_sh=)``
+    over a cache filled tile by tile from the seed (``_filled_cache(...,
+    tiles=)``), ``steps`` teacher-forced steps from ``start`` (with
+    ``record``, every step's routing recorded on the device)."""
+    import torch
+
+    from repro_torch.launch.steps import cache_tile_shardings, input_shardings, make_serve_step
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    cfg = model.cfg
+    length, start, steps, b = run
+    shape = ShapeConfig("decode_32k", length, b, "decode")
+    cache = _filled_cache(model, b, length, start, 1, dev, tiles=(mesh, shape))
+    cache_sh = cache_tile_shardings(mesh, cfg, shape, Model(cfg, torch.device("meta"))
+                                    .init_cache(b, length, enc_len=length))
+    tokens = _decode_tokens(cfg, b, steps, dev)
+    tok_sh = input_shardings(mesh, cfg, shape, {"token": tokens[0]})["token"]
+    step = make_serve_step(model, mesh=mesh, cache_sh=cache_sh, logits=True)
+    ops, calls = [], []
+    cache_bytes = _nbytes(tree_util.leaves(cache))
+    with _recording_routes((lambda *r: calls.append(r)) if record else None):
+        logits, toks, times = _run_decode(
+            step, params, cache, torch.stack([sh.shard_tensor(t, tok_sh) for t in tokens]),
+            start, dev, ops)
+    rows = sh.dim_axes(tok_sh, 0)
+    rows = sh.tile_slice(toks.shape[1], mesh, rows) if rows else slice(0, b)
+    cols = (sh.tile_slice(logits.shape[-1], mesh, ("model",))
+            if logits.shape[-1] != cfg.vocab else slice(0, cfg.vocab))
+    return {"logits": logits, "tokens": toks, "rows": (rows.start, rows.stop),
+            "cols": (cols.start, cols.stop), "times": times, "cache_bytes": cache_bytes,
+            "routes": _routes_host(calls), "n_ops": len(ops),
+            "ops_equal": _op_keys(ops) == _virtual_decode_ops(cfg, mesh, b, length, start,
+                                                              rows),
+            "wire_bytes_per_chip": float(sum(op.wire_bytes_per_chip() for op in ops))}
+
+
+def _moe_full_rank(rank, world, arch, prefills, decodes, run, device_type="cuda"):
+    """One rank of the moe_full part on ``make_host_mesh(model_axis=world)``:
+    for each dtype, the rank's tiles drawn straight from the seed
+    (``init_tiles``; its bytes, the draw's seconds and the peak memory while
+    it draws), then that dtype's prefills (``_moe_prefill``) and decode
+    (``_moe_decode``), and the peak memory over all of it.  Rank 0 records
+    the routing.  ``run``: (cache length, start, steps, batch)."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import init_tiles, leaf_plans
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(model_axis=world)
+    out = {}
+    for dtype in dict.fromkeys([d for d, _ in prefills] + list(decodes)):
+        model = build_model(_train_cfg(arch, None, dtype), dev)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        t0 = time.perf_counter()
+        params = init_tiles(model, leaf_plans(model, mesh, "prefill"))
+        synchronize(dev)
+        got = {"draw_s": time.perf_counter() - t0,
+               "draw_peak": torch.cuda.max_memory_allocated(dev) - base if cuda else None,
+               "param_bytes": _nbytes(tree_util.leaves(params)),
+               "prefill": {s: _moe_prefill(model, mesh, params, s, dev, rank == 0)
+                           for d, s in prefills if d == dtype}}
+        if dtype in decodes:
+            got["decode"] = _moe_decode(model, mesh, params, run, dev, rank == 0)
+        got["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base if cuda else None
+        out[dtype] = got
+        del params, model
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moe_truth(arch, seqs, run, device, ulp: bool = False) -> dict:
+    """The one-card truth of a moe model no card holds, in float32 (TF32
+    off), streamed a layer at a time: the same leaves drawn in ``init``'s
+    order from the same seed (the float32 draws the bf16 model rounds),
+    the embedding and unembedding kept, each block drawn, applied with the
+    port's own block functions (``_attn_block_fwd`` to the prefills of
+    ``seqs`` tokens, ``_attn_step`` to every decode step over that layer's
+    cache, drawn as ``_filled_cache`` draws it) and freed.  With ``ulp``
+    the decode runs twice more, its cache one ulp off either way
+    (x (1 ± 2^-23)).  Returns the logits (prefills (S, V), decode (steps,
+    B, V)), the routing of every layer (``_recording_routes``) and the
+    seconds."""
+    import torch
+
+    from repro_torch.launch.steps import _draw_paths
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import init_dense, rms_norm
+    from repro_torch.models.params import Params
+
+    cfg = _train_cfg(arch, None, "float32")
+    length, start, steps, b = run
+    order = _draw_paths(Model(cfg, torch.device("meta")))
+    if cfg.tie_embeddings or order[:3] != [("embed",), ("unembed",), ("blocks", 0, "attn", "wq")]:
+        fail(f"{arch}: init draws {order[:3]} first, not the embedding, the unembedding "
+             f"and the first block, as the truth streams them")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    routes = {("prefill", s): [] for s in seqs}
+    routes["decode"] = []
+    sink = {"to": None}
+    signs = (0, 1, -1) if ulp else (0,)
+    try:
+        with torch.inference_mode(), _recording_routes(lambda *r: sink["to"].append(r)):
+            gen = torch.Generator(device=device).manual_seed(0)
+            cgen = torch.Generator(device=device).manual_seed(1)
+            head = Params({"embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                                               dtype=torch.float32, device=device),
+                           "final_norm": tf._norm(cfg, device),
+                           "unembed": init_dense(gen, (cfg.d_model, cfg.vocab),
+                                                 dtype=torch.float32, device=device)})
+            xs = {s: tf._embed(head, _prefill_tokens(cfg, s, device), cfg) for s in seqs}
+            tokens = _decode_tokens(cfg, b, steps, device)
+            xd = {sign: [tf._embed(head, t, cfg) for t in tokens] for sign in signs}
+            kv_shape = (b, length, cfg.n_kv_heads, cfg.resolved_head_dim)
+            for layer in range(cfg.n_layers):
+                blk = Params(tf._attn_block(gen, cfg, device))
+                window = tf.layer_window(cfg, layer)
+                for s in seqs:
+                    sink["to"] = routes[("prefill", s)]
+                    xs[s] = tf._attn_block_fwd(blk, xs[s], cfg, window)[0]
+                kv = {}
+                for name in ("k", "v"):  # the cache's leaf order
+                    kv[name] = torch.zeros(kv_shape, dtype=torch.float32, device=device)
+                    n = min(start, length)
+                    kv[name][:, :n] = torch.randn((b, n) + kv_shape[2:], generator=cgen,
+                                                  device=device)
+                for sign in signs:
+                    sink["to"] = routes["decode"] if sign == 0 else []
+                    cache = {k: v * (1 + sign * 2.0 ** -23) if sign else v.clone()
+                             for k, v in kv.items()}
+                    for i in range(steps):
+                        xd[sign][i], cache = tf._attn_step(blk, xd[sign][i], cache,
+                                                           start + i, cfg, window)
+                    del cache
+                del blk, kv
+            out = {"prefill": {s: tf._project_logits(head, rms_norm(x, head.final_norm),
+                                                     cfg)[0].cpu().numpy()
+                               for s, x in xs.items()}}
+            for sign in signs:
+                out[("decode", sign)] = torch.stack([
+                    tf._project_logits(head, rms_norm(x, head.final_norm), cfg)[:, -1]
+                    for x in xd[sign]]).cpu().numpy()
+            out["routes"] = {k: _routes_host(v) for k, v in routes.items()}
+        del head, xs, xd
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _route_flips(got, want, n_layers: int, steps: int = 0) -> dict:
+    """The mesh's recorded routing (``got``) against the truth's (``want``),
+    token by token and layer by layer.  A disagreement is first-order where
+    nothing upstream of it disagreed: no earlier layer at a token at or
+    before it (a prefill, causal), or no earlier layer of the same step or
+    earlier step of the same sequence (a decode, ``steps`` > 0: ``got``
+    step-major, ``want`` layer-major); only a first-order one is judged, a
+    near-tie when the truth's gap under it is below ``MOE_NEAR_TIE`` of its
+    layer's largest |router logit|.  Returns the counts, the first-order
+    disagreements that are no near-tie, and where the logits stay clean:
+    ``clean_from`` (a prefill: every position before it; a decode: per
+    sequence, every step before it)."""
+    import numpy as np
+
+    flips, judged, far = 0, 0, []
+    if steps == 0:
+        dirty = np.inf
+        for layer in range(n_layers):
+            e, (w, gap, scale) = got[layer][0], want[layer]
+            bad = np.flatnonzero((e != w).any(-1))
+            flips += bad.size
+            first = bad[bad < dirty]
+            judged += first.size
+            far += [(layer, int(t), float(gap[t] / scale)) for t in first
+                    if not gap[t] < MOE_NEAR_TIE * scale]
+            if bad.size:
+                dirty = min(dirty, int(bad.min()))
+        return {"flips": flips, "first_order": judged, "not_near_ties": far,
+                "clean_from": dirty}
+    b = got[0][0].shape[0]
+    dirty = np.full(b, np.inf)
+    for i in range(steps):
+        for layer in range(n_layers):
+            e = got[i * n_layers + layer][0]
+            w, gap, scale = want[layer * steps + i]
+            bad = np.flatnonzero((e != w).any(-1))
+            flips += bad.size
+            first = bad[i < dirty[bad]]
+            judged += first.size
+            far += [(i, layer, int(r), float(gap[r] / scale)) for r in first
+                    if not gap[r] < MOE_NEAR_TIE * scale]
+            dirty[bad] = np.minimum(dirty[bad], i)
+    return {"flips": flips, "first_order": judged, "not_near_ties": far,
+            "clean_from": dirty.tolist()}
+
+
+def _moe_full_check(arch, ranks, truth, reck, prefills, decodes, run, n, smi, t_ranks):
+    """Holds and prints one moe_full model's run (the ranks' results, the
+    one-card truth, the reckoning a dtype) as ``multicard_moe_full`` says."""
+    import numpy as np
+
+    cfg = _train_cfg(arch, None, None)
+    length, start, steps, b = run
+    out = {}
+    for dtype, want in reck.items():
+        got = [r[dtype] for r in ranks]
+        held = dtype == "float32"
+        label = f"moe_full {arch} ({cfg.n_layers} layers) {dtype} on 1x{n}"
+        pb, cb = [g["param_bytes"] for g in got], [g["decode"]["cache_bytes"]
+                                                   for g in got if "decode" in g]
+        bound = want["param_bytes"] + want["f32_leaf_bytes"] + MOE_DRAW_SLACK
+        peaks = [g["draw_peak"] for g in got]
+        log(f"multicard: {label}: parameter bytes a card {pb} (reckoned "
+            f"{want['param_bytes']}), cache bytes a card {cb or '-'} (reckoned "
+            f"{want['cache_bytes']}); drawn in {[round(g['draw_s'], 3) for g in got]} s, "
+            f"peak while drawing {peaks} B (bound {bound:.6e}: tiles + one float32 leaf "
+            f"{want['f32_leaf_bytes']} + {MOE_DRAW_SLACK:.0e}); peak a card over the part "
+            f"{[g['peak_bytes'] for g in got]} B ({smi})")
+        if any(x != want["param_bytes"] for x in pb) or any(x != want["cache_bytes"]
+                                                            for x in cb):
+            fail(f"{label}: the bytes a card differ from the reckoning")
+        if any(p is not None and p > bound for p in peaks):
+            fail(f"{label}: a rank's peak while drawing passed its tiles, one float32 "
+                 f"leaf and {MOE_DRAW_SLACK:.0e} B")
+        res = {"param_bytes": pb, "cache_bytes": cb, "draw_s": [g["draw_s"] for g in got],
+               "draw_peak_bytes": peaks, "peak_bytes": [g["peak_bytes"] for g in got]}
+        for s, p0 in got[0]["prefill"].items():
+            ref = truth["prefill"][s]
+            flips = _route_flips(p0["routes"], truth["routes"][("prefill", s)], cfg.n_layers)
+            clean = min(s, flips["clean_from"])
+            scale = np.abs(ref).max(axis=-1)  # (S,)
+            worst = max(float((np.abs(g["prefill"][s]["logits"][:clean]
+                                      - ref[:clean, slice(*g["prefill"][s]["cols"])]).max(-1)
+                               / scale[:clean]).max()) if clean else 0.0 for g in got)
+            top2 = np.sort(ref[-1])[-2:]
+            token_clear = clean == s and top2[1] - top2[0] > 2 * worst * scale[-1]
+            token_ok = all(g["prefill"][s]["token"] == int(ref[-1].argmax())
+                           and g["prefill"][s]["token_again"] == g["prefill"][s]["token"]
+                           for g in got)
+            launches = [g["prefill"][s]["launches"] for g in got]
+            secs = p0["seconds"]
+            log(f"multicard: {label} prefill B=1, S={s}: {secs:.3f} s ({s / secs:.1f} "
+                f"tokens/s); flash launches a rank {launches} (expected {cfg.n_layers} "
+                f"each call); routing against the one-card truth: {flips['flips']} "
+                f"disagreements, {flips['first_order']} first-order, not near-ties "
+                f"{flips['not_near_ties']}; logits against the truth (the first {clean} "
+                f"positions, before any disagreement): worst diff over the row's largest "
+                f"{worst:.3e} ({f'bound {MULTI_F32_REL:.0e}' if held else 'bf16: printed'}); "
+                f"the greedy token {p0['token']} vs the truth's {int(ref[-1].argmax())} "
+                f"(equal {token_ok}, margin clear {token_clear}); {p0['n_ops']} "
+                f"collectives, {p0['wire_bytes_per_chip']:.6e} wire bytes a chip")
+            if any(x != [cfg.n_layers, cfg.n_layers] for x in launches):
+                fail(f"{label} prefill S={s}: flash launches {launches}")
+            if not all(np.isfinite(g["prefill"][s]["logits"]).all() for g in got):
+                fail(f"{label} prefill S={s}: logits not finite")
+            if held and (flips["not_near_ties"] or worst > MULTI_F32_REL
+                         or (token_clear and not token_ok)):
+                fail(f"{label} prefill S={s}: disagrees with the one-card truth")
+            res[f"prefill_{s}"] = {"seconds": secs, "tokens_per_s": s / secs,
+                                   "launches": launches, "worst_rel": worst, "clean": clean,
+                                   "wire_bytes_per_chip": p0["wire_bytes_per_chip"],
+                                   **{k: flips[k] for k in ("flips", "first_order")}}
+        if dtype in decodes:
+            d0 = got[0]["decode"]
+            ref = truth[("decode", 0)]
+            flips = _route_flips(d0["routes"], truth["routes"]["decode"], cfg.n_layers, steps)
+            clean = np.arange(steps)[:, None] < np.asarray(flips["clean_from"])[None, :]
+            scale = np.abs(ref).max(axis=-1)  # (steps, B)
+            moved = max((float((np.abs(truth[("decode", sg)] - ref).max(-1) / scale).max())
+                         for sg in (1, -1) if ("decode", sg) in truth), default=0.0)
+            bound = max(MULTI_F32_REL, DECODE_F32_FACTOR * moved)
+            worst, tokens_ok, clear = 0.0, True, []
+            for g in got:
+                d = g["decode"]
+                rows, cols = slice(*d["rows"]), slice(*d["cols"])
+                err = np.abs(d["logits"] - ref[:, rows, cols]).max(-1) / scale[:, rows]
+                ok = clean[:, rows]
+                worst = max(worst, float(err[ok].max()) if ok.any() else 0.0)
+                top2 = np.sort(ref[:, rows], axis=-1)[..., -2:]
+                sure = ok & (top2[..., 1] - top2[..., 0] > 2 * err * scale[:, rows])
+                clear.append(sure)
+                tokens_ok &= bool(np.array_equal(d["tokens"][sure],
+                                                 ref[:, rows].argmax(-1)[sure]))
+            ms = float(np.median(d0["times"][1:])) * 1e3
+            rule = (f"bound {bound:.3e}: {MULTI_F32_REL:.0e} or {DECODE_F32_FACTOR:g} x the "
+                    f"truth's move with its cache one ulp off, {moved:.3e}" if held
+                    else "bf16: printed")
+            log(f"multicard: {label} decode B={b}, cache {length} from {start}, {steps} "
+                f"steps: {ms:.3f} ms a token ({b / ms * 1e3:.1f} tokens/s); routing "
+                f"against the one-card truth: {flips['flips']} disagreements, "
+                f"{flips['first_order']} first-order, not near-ties "
+                f"{flips['not_near_ties']}; logits against the truth where clean "
+                f"({float(clean.mean()):.3f} of the steps): worst diff over the row's "
+                f"largest {worst:.3e} ({rule}); "
+                f"greedy tokens equal the truth's where its margin clears twice the error "
+                f"({float(np.mean(np.concatenate(clear))):.3f} of them): {tokens_ok}; "
+                f"NCCL = virtual {[g['decode']['ops_equal'] for g in got]} "
+                f"({d0['n_ops']} ops, {d0['wire_bytes_per_chip']:.6e} wire bytes a chip "
+                f"a step)")
+            if not all(np.isfinite(g["decode"]["logits"]).all() for g in got):
+                fail(f"{label} decode: logits not finite")
+            if not all(g["decode"]["ops_equal"] for g in got):
+                fail(f"{label} decode: the recorded collectives differ from the virtual "
+                     f"mesh's")
+            if held and (flips["not_near_ties"] or worst > bound or not tokens_ok):
+                fail(f"{label} decode: disagrees with the one-card truth")
+            res["decode"] = {"ms_a_token": ms, "worst_rel": worst, "bound": bound,
+                             "ulp_moved": moved, "tokens_equal": tokens_ok,
+                             "n_ops": d0["n_ops"],
+                             "wire_bytes_per_chip": d0["wire_bytes_per_chip"],
+                             **{k: flips[k] for k in ("flips", "first_order")}}
+        out[dtype] = res
+    log(f"multicard: moe_full {arch}: {t_ranks:.1f} s for the ranks (start included), "
+        f"the one-card truth {truth['seconds']:.1f} s")
+    return out
+
+
+def multicard_moe_full(n: int, dev, smi: str, backend: str, device_type: str) -> dict:
+    """The 4-card entry's moe_full part: each model of ``MOE_FULL`` at its
+    published depth on ``make_host_mesh(model_axis=n)``.  Before any weight
+    is drawn, a rank's parameter and cache bytes are reckoned from the
+    shapes on a virtual mesh; then the ranks draw their tiles straight from
+    the seed and run the prefills and decodes (``_moe_full_rank``); then,
+    on the first card with the ranks gone, the one-card truth streams the
+    same model a layer at a time in float32 (``_moe_truth``).  Held: the
+    bytes a card equal the reckoning; a rank's peak while drawing stays
+    under its tiles, one float32 leaf and ``MOE_DRAW_SLACK``; #7 launches
+    once a layer a rank in each prefill; the decode's collectives equal
+    the virtual mesh's op for op; the float32 logits (the rank's share of
+    the vocabulary) within ``MULTI_F32_REL`` of the truth's (the decode's
+    within ``DECODE_F32_FACTOR`` times the truth's move with its cache one
+    ulp off, where that is larger: f32 decode's rule on a mesh) wherever
+    the routing agreed upstream, every first-order routing disagreement a
+    near-tie (``MOE_NEAR_TIE``), and the greedy tokens the truth's where its
+    margin clears twice the error.  bf16 against the truth is printed, not
+    held (a bf16 routing flip at a near-tie, ROADMAP §3)."""
+    import os
+
+    import torch
+
+    from repro_torch.launch.train import run_ranks
+    from repro_torch.parallel.sharding import Mesh
+
+    smi = "; ".join(dict.fromkeys(smi.splitlines()))
+    run = (MULTI_DECODE_LEN, MULTI_DECODE_START, MULTI_DECODE_STEPS, MOE_FULL_DECODE_B)
+    vmesh = Mesh((1, n), ("data", "model"))
+    out = {}
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    # the ranks' allocators: a draw's whole leaf and its tile freed and taken
+    # again leaf after leaf fragment fixed segments
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for arch, prefills, decodes in MOE_FULL:
+            dtypes = dict.fromkeys([d for d, _ in prefills] + list(decodes))
+            reck = {dt: _moe_reckoning(_train_cfg(arch, None, dt), vmesh, run)
+                    for dt in dtypes}
+            for dt, r in reck.items():
+                log(f"multicard: moe_full {arch} {dt} on 1x{n}, reckoned before any "
+                    f"weight is drawn: parameters {r['param_bytes']} B a card of "
+                    f"{r['whole_param_bytes']} B ({r['param_bytes'] / 1e9:.2f} of "
+                    f"{r['whole_param_bytes'] / 1e9:.2f} GB), decode cache (B="
+                    f"{MOE_FULL_DECODE_B}, {MULTI_DECODE_LEN} slots) {r['cache_bytes']} B "
+                    f"a card of {r['whole_cache_bytes']} B, the largest leaf in float32 "
+                    f"{r['f32_leaf_bytes']} B")
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = run_ranks(_moe_full_rank, n, arch, prefills, decodes, run, device_type,
+                              backend=backend, timeout=1500)
+            t_ranks = time.perf_counter() - t0
+            truth = _moe_truth(arch, [s for _, s in prefills], run, dev,
+                               ulp="float32" in decodes)
+            out[arch] = _moe_full_check(arch, ranks, truth, reck, prefills, decodes, run, n,
+                                        smi, t_ranks)
+            del ranks, truth
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    return out
+
+
 def phase_multicard(smi: str | None = None, device_type: str = "cuda",
                     backend: str = "nccl", world: int | None = None,
-                    parts=("fleet", "fsdp", "tp", "decode")):
+                    parts=("fleet", "fsdp", "tp", "decode", "moe_full")):
     """The multi-card entry (every visible card, four on a host with four
     H100s; not part of ``main()``): (1) ``run_fleet`` over all 22
     fabrics unsharded on one card, then with ``mesh="auto"`` (the warm PDHG
     stages dealt over every card), both sweeps timed with their stages, each
-    job held as in phase 14; (2) mamba2-130m at full size and llama3-8b at
-    full width (phase 13's depth cut), one sequence a card, ``MESH_STEPS``
-    steps through ``Trainer`` on ``make_host_mesh()`` (FSDP over NCCL, one
-    process a card), each in float32 (TF32 off; losses within
+    job held as in phase 14; (2) ``MULTI_TRAIN``: mamba2-130m at full size,
+    llama3-8b and mixtral-8x7b at full width (2 layers), recurrentgemma-9b's
+    first super-block and seamless (2 + 2 layers), one sequence a card,
+    ``MESH_STEPS`` steps through ``Trainer`` on ``make_host_mesh()`` (FSDP
+    over NCCL, one process a card), each in float32 (TF32 off; losses within
     ``MULTI_F32_REL`` of one card's on the same global batches) and in the
-    models' bf16 (within ``MULTI_BF16_REL``; step time, tokens/s, each card's
-    peak memory and the bytes of its shards); mamba2's bf16 run also writes
-    gathered checkpoints, restores the 4-rank one on one card (its digest
-    bit-equal to the logical state's), restarts from step 2 (losses
-    bit-equal) and remeshes to two ranks (the logical state bit-equal, one
+    models' bf16 (within ``MULTI_BF16_REL``, mixtral's printed; step time,
+    tokens/s, each card's peak memory and the bytes of its shards, launches
+    a card one card's); the bf16 runs of ``MULTI_TRAIN_RESTART`` also write
+    gathered checkpoints, restore the 4-rank one on one card (its digest
+    bit-equal to the logical state's), restart from step 2 (losses
+    bit-equal) and remesh to two ranks (the logical state bit-equal, one
     step there); (3) FSDP × TP (``MULTI_TP``): llama3-8b at full width
     (2 layers) on 2×2 and 1×4, qwen3-14b (2 layers, qk-norm) on 2×2,
     mamba2-130m (SSD heads) on 2×2, mixtral-8x7b (2 layers, expert
@@ -4658,7 +5290,9 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     float32 and bf16 against one card (logits within the same bounds of the
     largest logit, tokens equal), ms a token against one card, each card's
     peak memory and cache bytes, and NCCL's collectives equal to the virtual
-    record.  ``parts`` picks among the four.  A CPU rehearsal passes
+    record; (5) the moe family at its published depth on 1×4
+    (``MOE_FULL``, :func:`multicard_moe_full`).  ``parts`` picks among the
+    five.  A CPU rehearsal passes
     ``device_type="cpu"``, ``backend="gloo"`` and ``world`` (with the
     configurations shrunk)."""
     import shutil
@@ -4697,7 +5331,9 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
         dp = n // model_axis
         label = f"{arch}{'' if layers is None else f' ({layers} layers)'} " \
                 f"{dtype or 'bf16'}{'' if model_axis == 1 else f' on {dp}x{model_axis}'}"
-        extras = arch.startswith("mamba2-130m") and dtype is None
+        # the TP runs restore mamba2's 2×2 checkpoint alone
+        restart = MULTI_TRAIN_RESTART if model_axis == 1 else ("mamba2-130m",)
+        extras = dtype is None and arch.removesuffix("-reduced") in restart
         ckdir = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
         if device_type == "cuda":
             torch.cuda.empty_cache()
@@ -4796,6 +5432,8 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
             shutil.rmtree(ckdir, ignore_errors=True)
     if "decode" in parts:
         out["decode"] = multicard_decode(n, dev, smi, backend, device_type)
+    if "moe_full" in parts:
+        out["moe_full"] = multicard_moe_full(n, dev, smi, backend, device_type)
     log(f"multicard: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"multicard": out}, default=float))
     return out
@@ -5099,7 +5737,7 @@ def _main(t_start, dev, marks, dry_cells) -> int:
     model_rows = phase_model_kernels()
     phase_pdhg_check()
     mark("kernels")
-    config = sweep_config()
+    config = sweep_config(k_critical=SWEEP_K)
     counts, _ = phase_sweep(*config, device=dev)
     mark("batched")
     serve_counts, _ = phase_serve(*config, device=dev)

@@ -59,8 +59,8 @@ from repro_torch.parallel.sharding import (LeafPlan, Mesh, NamedSharding,
 
 __all__ = ["StepConfig", "make_train_step", "make_serve_step", "make_prefill_step",
            "input_shardings", "cache_shardings", "cache_tile_shardings", "shard_cache",
-           "train_state_shardings", "module_like", "leaf_plans", "decode_reads",
-           "tp_report"]
+           "train_state_shardings", "module_like", "leaf_plans", "init_tiles",
+           "init_cache_tiles", "decode_reads", "tp_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,6 +235,50 @@ def leaf_plans(model: Model, mesh: Mesh, kind: str = "train") -> list:
         else:
             plans.append(LeafPlan(s, "gathered"))
     return plans
+
+
+def _draw_paths(model: Model) -> list:
+    """The place in the parameter tree (its key path, layer indices
+    included) of each leaf ``init_dense`` draws for ``model``, in draw
+    order: its init on ``meta`` with every draw recorded, each matched to
+    its place by identity (the draw order is not the tree's: the embedding,
+    the final norm and the unembedding come first, a block's leaves in its
+    own order)."""
+    drawn = []
+
+    def record(w, dtype):
+        drawn.append(w.to(dtype))
+        return drawn[-1]
+
+    tree = model.init_tree(None, torch.device("meta"), record)
+    where = {id(x): path for path, _, x in sh._param_leaves(tree)}
+    return [where[id(x)] for x in drawn]
+
+
+def init_tiles(model: Model, plans: list, seed: int = 0):
+    """This rank's tiles of ``model.init(seed)``, bit for bit, without ever
+    holding the whole model: each leaf is drawn in ``init``'s own order
+    from the same generator, cut to its tile by its plan (``plans``: the
+    :class:`LeafPlan` of :func:`leaf_plans`, or the :class:`NamedSharding`
+    of :func:`param_shardings`, of every leaf in ``tree_util.leaves``
+    order) as soon as it is drawn, and the rest dropped: beyond its tiles a
+    rank holds one leaf's float32 draw and its float32 tile at a time (the
+    cut comes before the cast, which is elementwise).  Each draw finds its
+    plan by its place in the tree, not by its position in the draws.  The
+    leaves ``init_dense`` does not draw (norm scales, per-head vectors) are
+    made whole and cut after."""
+    paths = [path for path, _, _ in sh._param_leaves(model.param_shapes())]
+    by_path = {p: getattr(plan, "sharding", plan) for p, plan in zip(paths, plans)}
+    order = _draw_paths(model)
+    draws = iter(order)
+
+    def take(w, dtype):
+        return sh.shard_tensor(w, by_path[next(draws)]).to(dtype)
+
+    params = model.init(seed, take)
+    drawn = set(order)
+    return module_like(params, [x if p in drawn else sh.shard_tensor(x, by_path[p])
+                                for p, x in zip(paths, tree_util.leaves(params))])
 
 
 def tp_report(model: Model, plans: list) -> dict:
@@ -433,18 +477,21 @@ def _vocab_argmax(last: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return pairs[..., 1].gather(0, best[None])[0, :, None].int()
 
 
-def make_prefill_step(model: Model, mesh: Mesh | None = None):
+def make_prefill_step(model: Model, mesh: Mesh | None = None, logits: bool = False):
     """(params, batch) -> the greedy next token (B, 1) after the prompt.
-    With a ``mesh``, ``params`` are this rank's tiles and ``batch`` its dp
-    slice: each leaf is gathered as :func:`leaf_plans` says, the Megatron
-    layers run on their tiles, and the greedy token is chosen over the
-    vocabulary's shares (:func:`_vocab_argmax`)."""
+    With ``logits`` the step also returns the logits (B, S, V) of every
+    position.  With a ``mesh``, ``params`` are this rank's tiles and
+    ``batch`` its dp slice: each leaf is gathered as :func:`leaf_plans`
+    says, the Megatron layers run on their tiles, and the greedy token is
+    chosen over the vocabulary's shares (:func:`_vocab_argmax`); the logits
+    are then this rank's share (B, S, V / model)."""
 
     if mesh is None:
         @torch.inference_mode()
         def prefill_step(params, batch):
-            logits = model.forward(params, batch)
-            return logits[:, -1].argmax(dim=-1, keepdim=True).int()
+            out = model.forward(params, batch)
+            tok = out[:, -1].argmax(dim=-1, keepdim=True).int()
+            return (tok, out) if logits else tok
 
         return prefill_step
     check_executable(mesh, "prefill")
@@ -455,10 +502,13 @@ def make_prefill_step(model: Model, mesh: Mesh | None = None):
         with use_mesh(mesh):
             full = module_like(shards, [gather_for_use(x, p) for x, p in
                                         zip(tree_util.leaves(shards), plans)])
-            last = model.forward(full, batch)[:, -1]
+            out = model.forward(full, batch)
+            last = out[:, -1]
             if last.shape[-1] != model.cfg.vocab:
-                return _vocab_argmax(last, mesh)
-            return last.argmax(dim=-1, keepdim=True).int()
+                tok = _vocab_argmax(last, mesh)
+            else:
+                tok = last.argmax(dim=-1, keepdim=True).int()
+        return (tok, out) if logits else tok
 
     sharded_prefill.plans = plans
     return sharded_prefill
@@ -575,6 +625,27 @@ def shard_cache(cache, mesh: Mesh, cfg: ArchConfig, shape: ShapeConfig):
     tiles = tree_util.leaves_of(cache_tile_shardings(mesh, cfg, shape, cache))
     return tree_util.unflatten(cache, [sh.shard_tensor(x, t).clone()
                                        for x, t in zip(tree_util.leaves(cache), tiles)])
+
+
+def init_cache_tiles(model: Model, mesh: Mesh, shape: ShapeConfig, fill=None,
+                     **cache_kw):
+    """This rank's tile of every leaf of the decode cache
+    ``model.init_cache(shape.global_batch, shape.seq_len, **cache_kw)``,
+    made one leaf at a time in the cache's leaf order: the whole leaf
+    (zeros, then ``fill(name, leaf)`` writes it in place; ``name`` its key),
+    cut as :func:`shard_cache` cuts it, and dropped before the next.  The
+    tiles equal :func:`shard_cache` of the whole cache filled leaf by leaf
+    in the same order, with one whole leaf held at a time."""
+    spec = Model(model.cfg, torch.device("meta")).init_cache(
+        shape.global_batch, shape.seq_len, **cache_kw)
+    tiles = tree_util.leaves_of(cache_tile_shardings(mesh, model.cfg, shape, spec))
+    out = []
+    for (path, _, leaf), tile in zip(sh._param_leaves(spec), tiles):
+        whole = torch.zeros(leaf.shape, dtype=leaf.dtype, device=model.device)
+        if fill is not None:
+            fill(next(str(k) for k in reversed(path) if isinstance(k, str)), whole)
+        out.append(sh.shard_tensor(whole, tile))
+    return tree_util.unflatten(spec, out)
 
 
 def train_state_shardings(mesh: Mesh, model: Model, opt: AdamW):

@@ -28,7 +28,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig, ShapeConfig
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import drawing, dtype_of
 from repro_torch.optim.tree import stacked
 
 __all__ = ["LONG_CONTEXT_OK", "Model", "build_model", "supports_cell"]
@@ -55,15 +55,28 @@ class Model:
     cfg: ArchConfig
     device: torch.device
 
-    def init(self, seed: int = 0):
+    def init(self, seed: int = 0, take=None):
         """Random parameters drawn from a ``torch.Generator`` on the model's
-        device seeded with ``seed``."""
+        device seeded with ``seed``.  ``take(w, dtype)``: what each leaf
+        that ``init_dense`` draws becomes in place of its cast
+        (:func:`repro_torch.models.layers.drawing`; a rank's tiles,
+        :func:`repro_torch.launch.steps.init_tiles`)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._module(self.init_tree(gen, self.device, take))
+
+    def init_tree(self, gen, device, take=None) -> dict:
+        """The parameter tree that :meth:`init` wraps (nested dicts and
+        lists of the very tensors made), drawn from ``gen`` on ``device``,
+        each leaf that ``init_dense`` draws passed through ``take``."""
+        with drawing(take):
+            if self.cfg.family == "audio":
+                return encdec.init_params(gen, self.cfg, device)
+            return transformer.init_params(gen, self.cfg, device)
+
+    def _module(self, tree: dict):
         if self.cfg.family == "audio":
-            return encdec.EncDecLM(self.cfg, encdec.init_params(gen, self.cfg,
-                                                                self.device))
-        return transformer.DecoderLM(
-            self.cfg, transformer.init_params(gen, self.cfg, self.device))
+            return encdec.EncDecLM(self.cfg, tree)
+        return transformer.DecoderLM(self.cfg, tree)
 
     def loss(self, params, batch: dict, remat=True):
         """(loss, metrics) of ``batch``, differentiable; each block
@@ -101,11 +114,7 @@ class Model:
     def param_shapes(self):
         """The parameters (the ``init`` module) on the ``meta`` device: shapes
         and dtypes, nothing allocated."""
-        meta = torch.device("meta")
-        if self.cfg.family == "audio":
-            return encdec.EncDecLM(self.cfg, encdec.init_params(None, self.cfg, meta))
-        return transformer.DecoderLM(self.cfg,
-                                     transformer.init_params(None, self.cfg, meta))
+        return self._module(self.init_tree(None, torch.device("meta")))
 
     def input_specs(self, shape: ShapeConfig, cache_dtype=None,
                     window_cache: bool = False) -> dict:

@@ -10,14 +10,19 @@ the loss over them (:func:`vocab_parallel_cross_entropy`)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.parallel import sharding as sh
 
 __all__ = ["dtype_of", "rms_norm", "rope", "swiglu", "embed", "unembed",
-           "init_dense", "softmax_cross_entropy", "swiglu_tp",
+           "init_dense", "drawing", "softmax_cross_entropy", "swiglu_tp",
            "vocab_parallel_embed", "vocab_parallel_cross_entropy"]
+
+# while a ``drawing`` block runs: what ``init_dense`` hands each drawn leaf to
+_take = None
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -88,11 +93,30 @@ def vocab_parallel_embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Ten
 def init_dense(gen: torch.Generator, shape, scale: float | None = None,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Normal(0, scale) in float32, cast to ``dtype``; ``scale`` defaults to
-    1/sqrt(fan_in) with fan_in = ``shape[-2]`` (``shape[0]`` for a vector)."""
+    1/sqrt(fan_in) with fan_in = ``shape[-2]`` (``shape[0]`` for a vector).
+    Inside a :func:`drawing` block the scaled float32 draw goes to its
+    ``take(w, dtype)``, whose result is returned instead of the cast."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     scale = scale if scale is not None else 1.0 / fan_in ** 0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    w.mul_(scale)
+    if _take is not None:
+        return _take(w, dtype)
+    return w.to(dtype)
+
+
+@contextlib.contextmanager
+def drawing(take):
+    """Within the block, :func:`init_dense` hands each leaf it draws (the
+    float32 draw, scaled) to ``take(w, dtype)`` and returns what it gives
+    back, in draw order: a leaf can be cut to a tile before it is cast, and
+    the whole draw dropped before the next (``None``: the plain cast)."""
+    global _take
+    before, _take = _take, take
+    try:
+        yield
+    finally:
+        _take = before
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -26,8 +26,11 @@ FSDP × TP, each rank holding its tile of the parameters and of AdamW's
 moments (:func:`repro_torch.launch.steps.make_train_step`) and reading the
 slice of the global batch of its index over the dp axes (the pipeline's
 host sharding, ``n_hosts``/``host_id`` = the dp size and index: ranks that
-differ only in their model index read the same slice).  Checkpoints hold
-the logical state, so any mesh restores them.
+differ only in their model index read the same slice).  A fresh run on a
+mesh draws its tiles straight from the seed
+(:func:`repro_torch.launch.steps.init_tiles`): no rank holds the whole
+model, so a model no card holds trains on the cards that hold its tiles.
+Checkpoints hold the logical state, so any mesh restores them.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import synchronize
-from repro_torch.launch.steps import StepConfig, make_train_step, module_like
+from repro_torch.launch.steps import StepConfig, init_tiles, make_train_step, module_like
 from repro_torch.models.api import Model
 from repro_torch.optim import tree as tree_util
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -216,12 +219,12 @@ class Trainer:
         if self.mesh is not None and self.mesh.rank_index is None:
             raise ValueError("Trainer.run: this rank is not one of the mesh's "
                              f"({self.mesh})")
-        params = self.model.init(0)
-        if self.mesh is not None:  # every rank draws the same weights
-            params, opt_state = self.shard(params)
+        if self.mesh is not None:  # every rank draws the same weights, keeps its tiles
+            params = init_tiles(self.model, tree_util.leaves_of(self._shardings))
         else:
+            params = self.model.init(0)
             params.requires_grad_(True)
-            opt_state = self.opt.init(params)
+        opt_state = self.opt.init(params)
         start = 0
         if resume and self.ckpt.latest_step() is not None:
             opt_state, meta = self._restore(params, opt_state)
