@@ -59,7 +59,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON result):
    gemma3-12b's B=1, S=8192, H=16, KV=8, hd=256 at window 1024 and global;
    deepseek-7b's B=2, S=4096, H=KV=32, hd=128; timed beside the yardstick,
    bit for bit against a second call; their backward at phase 16's training
-   shapes) and at a ragged shape (hd=100, non-causal window
+   shapes), at a rank's microbatch in the 4-card entry's dense_full steps
+   (``DENSE_FULL_FLASH``: gemma3-12b and deepseek-7b on 4×1 and 2×2, bf16
+   at S=4096 and float32 at S=2048; forward and backward, timed beside the
+   yardstick, bit for bit against a second call) and at a ragged shape (hd=100, non-causal window
    48) in f32 and bf16, the RG-LRU scan at (2, 4096, 4096), at B=1, at a
    tensor-parallel rank's 2048 channels and at ragged S and D, the SSD chunk
    scan at mamba2-130m's (B=4, H=24, S=4096, P=64, N=128, chunk 64, also
@@ -324,6 +327,20 @@ MOE_TP_FLASH = (("mixtral_1x4_h8", ((1, 8192, 8, 2, 128), 4096)),
 DENSE_FLASH = (("gemma3_local", ((1, 8192, 16, 8, 256), 1024)),
                ("gemma3_global", ((1, 8192, 16, 8, 256), 0)),
                ("deepseek", ((2, 4096, 32, 32, 128), 0)))
+# flash attention at a rank's microbatch in the 4-card entry's dense_full
+# steps (4×1: one sequence, every head; 2×2: two sequences, half the heads):
+# gemma3-12b's local (window 1024) and global layers and deepseek-7b's MHA,
+# bf16 at S = 4096 and float32 at S = 2048 (gemma3 on 2×2, deepseek on
+# 4×1), causal; label: ((B, S, H, KV, hd), window, dtype)
+DENSE_FULL_FLASH = (("gemma3_4x1_local", ((1, 4096, 16, 8, 256), 1024, "bfloat16")),
+                    ("gemma3_4x1_global", ((1, 4096, 16, 8, 256), 0, "bfloat16")),
+                    ("gemma3_2x2_local", ((2, 4096, 8, 4, 256), 1024, "bfloat16")),
+                    ("gemma3_2x2_global", ((2, 4096, 8, 4, 256), 0, "bfloat16")),
+                    ("deepseek_4x1", ((1, 4096, 32, 32, 128), 0, "bfloat16")),
+                    ("deepseek_2x2", ((2, 4096, 16, 16, 128), 0, "bfloat16")),
+                    ("gemma3_2x2_f32_local", ((2, 2048, 8, 4, 256), 1024, "float32")),
+                    ("gemma3_2x2_f32_global", ((2, 2048, 8, 4, 256), 0, "float32")),
+                    ("deepseek_4x1_f32", ((1, 2048, 32, 32, 128), 0, "float32")))
 FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
              ("recurrentgemma", (2, 4096, 4096, 16, 1, 256, True, 2048, "bfloat16")),
              ("seamless_cross", (4, 256, 1024, 16, 16, 64, False, 0, "bfloat16")),
@@ -333,7 +350,11 @@ FLASH_BWD = (("llama3", (2, 2048, 2048, 32, 8, 128, True, 0, "bfloat16")),
              # the dense family's training shapes (phase 16's steps)
              ("gemma3_train_local", (1, 4096, 4096, 16, 8, 256, True, 1024, "bfloat16")),
              ("gemma3_train_global", (1, 4096, 4096, 16, 8, 256, True, 0, "bfloat16")),
-             ("deepseek_train", (2, 2048, 2048, 32, 32, 128, True, 0, "bfloat16")))
+             ("deepseek_train", (2, 2048, 2048, 32, 32, 128, True, 0, "bfloat16")),
+             # dense_full's (gemma3's on 4×1 are gemma3_train_local/global)
+             *((label, (b, s, s, h, kv, hd, True, window, dt))
+               for label, ((b, s, h, kv, hd), window, dt) in DENSE_FULL_FLASH
+               if not label.startswith("gemma3_4x1")))
 FLASH_BWD_F32_TOL = 1e-4  # f32 gradients: 1e-4·(1 + |ref|)
 # the backward's edge shapes at small sizes (checked, not timed): Sq and Sk
 # off every tile, windows that straddle tile edges, GQA groups of 2, 1, 16
@@ -1396,8 +1417,9 @@ def phase_model_kernels():
     # shape (hd 100, H/KV 4, non-causal window) in f32 and bf16, the
     # prefills of phase 12 (FAMILY_FLASH), a tensor-parallel rank's uneven
     # head shares (TP_FLASH), a 1×4 rank's share of mixtral's and dbrx's
-    # heads (MOE_TP_FLASH) and the dense family's prefills (DENSE_FLASH),
-    # the last three also bit for bit against a second call
+    # heads (MOE_TP_FLASH), the dense family's prefills (DENSE_FLASH) and
+    # its 4-card steps (DENSE_FULL_FLASH, bf16 and float32), the last four
+    # also bit for bit against a second call
     rank_rows, dense_rows = {}, {}
     for label, (b, s, h, kv, hd, causal, window, dtype) in (
             ("main", (2, 4096, 16, 1, 256, True, 2048, torch.bfloat16)),
@@ -1407,7 +1429,9 @@ def phase_model_kernels():
               for arch, (shape, window) in FAMILY_FLASH.items()),
             *((label, (*shape, True, 0, torch.bfloat16)) for label, shape in TP_FLASH),
             *((label, (*shape, True, window, torch.bfloat16))
-              for label, (shape, window) in MOE_TP_FLASH + DENSE_FLASH)):
+              for label, (shape, window) in MOE_TP_FLASH + DENSE_FLASH),
+            *((label, (*shape, True, window, getattr(torch, dt)))
+              for label, (shape, window, dt) in DENSE_FULL_FLASH)):
         q, k, v = (torch.randn((b * n, s, hd), generator=gen, device=dev).to(dtype)
                    for n in (h, kv, kv))
         args = dict(n_heads=h, n_kv=kv, causal=causal, window=window)
@@ -1447,17 +1471,20 @@ def phase_model_kernels():
         ms = time_cuda(lambda: faops.flash_attention_rows(q, k, v, **args))
         plain = time_cuda(lambda: attention_ref(q, k, v, **args))
         lib = time_cuda(sdpa)
-        bnd, by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+        # the float32 entry runs float32 FMAs on the CUDA cores (no TF32)
+        rate, rate_name = ((F32_FLOP_PER_S, "f32 CUDA-core") if dtype == torch.float32
+                           else (BF16_FLOP_PER_S, "bf16"))
+        bnd, by = bound_ms(n_bytes, n_flops, rate)
         log(f"  flash_attention {label} times: kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, scaled_dot_product_attention {lib:.4f} ms (max abs diff to the "
             f"kernel {sdpa_err:.3e}), bound {bnd:.4f} ms ({by}: "
             f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP on {pairs} "
-            f"(q, k) pairs at the bf16 rate)")
+            f"(q, k) pairs at the {rate_name} rate)")
         if label != "main":
             row = {"shape": [b, s, h, kv, hd, window], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib}
             shares = dict(TP_FLASH + MOE_TP_FLASH)
-            if label in shares or label in dict(DENSE_FLASH):
+            if label in shares or label in dict(DENSE_FLASH + DENSE_FULL_FLASH):
                 same = bool(torch.equal(faops.flash_attention_rows(q, k, v, **args), out))
                 log(f"  flash_attention {label} second call bit-equal {same}")
                 if not same:
@@ -3872,6 +3899,36 @@ MOE_DRAW_SLACK = 2e9
 # at that token is under this share of the layer's largest |router logit|
 # (ROADMAP §3: a flip at a near-tie is no fault of the arithmetic)
 MOE_NEAR_TIE = 1e-5
+# the 4-card entry's dense_full part: the dense family at its published
+# depth trained with FSDP a block gathered at a time (make_train_step), on
+# make_host_mesh(model_axis=...): (arch, dtype, model axis, global batch,
+# sequence), MESH_STEPS steps each at DENSE_FULL_MICROBATCHES microbatches
+# with remat, each rank's tiles drawn from the seed (Trainer.run).  bf16
+# (phase_multicard's bf16 AdamW): gemma3-12b (48 layers, its tied
+# 262,144-word table gathered once for both uses) and deepseek-7b (30) on
+# 4×1 (FSDP) and 2×2 (FSDP × TP) at S = 4096; float32 (TF32 off, the f32
+# AdamW): deepseek-7b on 4×1 and gemma3-12b on 2×2 at S = 2048, each held
+# to the one-card truth of step 0 (_dense_truth).  No card trains either:
+# the f32 moments alone are 94.1 GB (gemma3-12b) and 55.3 GB (deepseek-7b).
+# A rank's activations in these runs, reckoned from the shapes by
+# _dense_act_bytes (an upper bound; the head's float32 logits the most):
+# 30.20, 32.72, 13.77, 15.85, 8.23 and 20.02 GB, beside a reckoned state of
+# 48.57, 44.88, 30.44, 27.31, 35.97 and 51.99 GB (tiles, moments, float32
+# gradient tiles, the top-level leaves and one block gathered and their
+# float32 gradients): caps of 78.77, 77.59, 44.20, 43.16, 44.20 and 72.00 GB
+DENSE_FULL = (("gemma3-12b", "bfloat16", 1, 8, 4096), ("gemma3-12b", "bfloat16", 2, 8, 4096),
+              ("deepseek-7b", "bfloat16", 1, 8, 4096), ("deepseek-7b", "bfloat16", 2, 8, 4096),
+              ("deepseek-7b", "float32", 1, 8, 2048), ("gemma3-12b", "float32", 2, 8, 2048))
+DENSE_FULL_MICROBATCHES = 2
+# the float32 runs against the truth: the gradient's norm, each leaf's norm
+# and its projection on a seeded ±1 tensor (``_probe``: seed
+# DENSE_PROBE_SEED + the leaf's place in tree order) within this share of
+# the leaf's norm — or within DECODE_F32_FACTOR × the truth's own move
+# when its embedding output is one ulp off (x (1 + 2^-23)), where that is
+# larger (f32 decode's mesh rule; the move is computed only where a reading
+# passes 1e-4)
+DENSE_GRAD_REL = 1e-4
+DENSE_PROBE_SEED = 7000
 
 
 def _fleet_run(jobs, device, mesh):
@@ -4936,6 +4993,36 @@ def _moe_full_rank(rank, world, arch, prefills, decodes, run, device_type="cuda"
     return out
 
 
+def _streamed_init(cfg, arch, device) -> tuple:
+    """``init``'s draws replayed from the seed for a truth that streams a
+    model a block at a time, in float32: the top-level leaves (``Params`` of
+    the embedding, the final norm and, untied, the unembedding) and the
+    generator, which then draws the blocks in order (``tf._attn_block``).
+    Fails unless ``init`` draws the embedding, the unembedding (untied) and
+    the first block first."""
+    import torch
+
+    from repro_torch.launch.steps import _draw_paths
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import init_dense
+    from repro_torch.models.params import Params
+
+    heads = [("embed",)] + ([] if cfg.tie_embeddings else [("unembed",)])
+    first = _draw_paths(Model(cfg, torch.device("meta")))[:len(heads) + 1]
+    if first != heads + [("blocks", 0, "attn", "wq")]:
+        fail(f"{arch}: init draws {first} first, not the embedding, the unembedding "
+             f"and the first block, as the truth streams them")
+    gen = torch.Generator(device=device).manual_seed(0)
+    tree = {"embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                                dtype=torch.float32, device=device),
+            "final_norm": tf._norm(cfg, device)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = init_dense(gen, (cfg.d_model, cfg.vocab),
+                                     dtype=torch.float32, device=device)
+    return Params(tree), gen
+
+
 def _moe_truth(arch, seqs, run, device, ulp: bool = False) -> dict:
     """The one-card truth of a moe model no card holds, in float32 (TF32
     off), streamed a layer at a time: the same leaves drawn in ``init``'s
@@ -4950,18 +5037,12 @@ def _moe_truth(arch, seqs, run, device, ulp: bool = False) -> dict:
     seconds."""
     import torch
 
-    from repro_torch.launch.steps import _draw_paths
     from repro_torch.models import transformer as tf
-    from repro_torch.models.api import Model
-    from repro_torch.models.layers import init_dense, rms_norm
+    from repro_torch.models.layers import rms_norm
     from repro_torch.models.params import Params
 
     cfg = _train_cfg(arch, None, "float32")
     length, start, steps, b = run
-    order = _draw_paths(Model(cfg, torch.device("meta")))
-    if cfg.tie_embeddings or order[:3] != [("embed",), ("unembed",), ("blocks", 0, "attn", "wq")]:
-        fail(f"{arch}: init draws {order[:3]} first, not the embedding, the unembedding "
-             f"and the first block, as the truth streams them")
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -4971,13 +5052,8 @@ def _moe_truth(arch, seqs, run, device, ulp: bool = False) -> dict:
     signs = (0, 1, -1) if ulp else (0,)
     try:
         with torch.inference_mode(), _recording_routes(lambda *r: sink["to"].append(r)):
-            gen = torch.Generator(device=device).manual_seed(0)
+            head, gen = _streamed_init(cfg, arch, device)
             cgen = torch.Generator(device=device).manual_seed(1)
-            head = Params({"embed": init_dense(gen, (cfg.vocab, cfg.d_model), scale=0.02,
-                                               dtype=torch.float32, device=device),
-                           "final_norm": tf._norm(cfg, device),
-                           "unembed": init_dense(gen, (cfg.d_model, cfg.vocab),
-                                                 dtype=torch.float32, device=device)})
             xs = {s: tf._embed(head, _prefill_tokens(cfg, s, device), cfg) for s in seqs}
             tokens = _decode_tokens(cfg, b, steps, device)
             xd = {sign: [tf._embed(head, t, cfg) for t in tokens] for sign in signs}
@@ -5253,9 +5329,509 @@ def multicard_moe_full(n: int, dev, smi: str, backend: str, device_type: str) ->
     return out
 
 
+def _probe(shape, j: int, device):
+    """Leaf ``j``'s (its place in tree order) seeded ±1 tensor of ``shape``,
+    float32, the same on every card: the direction its gradient is read
+    along."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(DENSE_PROBE_SEED + j)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    return out.bernoulli_(0.5, generator=gen).mul_(2).sub_(1)
+
+
+def _grad_reading(g, j: int, probe=None) -> tuple:
+    """(sum of squares, projection on leaf ``j``'s ``_probe``) of a gradient
+    ``g`` (``probe``: the probe's cut that matches ``g``)."""
+    import torch
+
+    g = g.detach().float()
+    p = _probe(g.shape, j, g.device) if probe is None else probe
+    return (float(torch.linalg.vector_norm(g)) ** 2,
+            float(torch.dot(g.reshape(-1), p.reshape(-1))))
+
+
+def _dense_truth(arch, b, s, dp, k, device, perturb: float = 0.0, n_layers=None,
+                 hosts: int = 4) -> dict:
+    """The one-card float32 truth (TF32 off) of step 0 of a dense_full run,
+    for a model no card trains, streamed a block at a time: ``init``'s
+    draws replayed from the seed, the top-level leaves kept and, for each
+    block, the generator's state at its first draw saved.  Forward: the
+    global batch of step 0 (``_global_batch`` of ``hosts`` slices, as the
+    ranks take it) through one block at a time with the port's own block
+    function (``_attn_block_fwd``), each block's input kept and the block
+    freed;
+    then the loss a microbatch at a time, as the step takes them (``dp`` ×
+    ``k`` slices of ``b / (dp·k)`` sequences, each loss's gradient scaled
+    by ``1 / (dp·k)``).  Backward: from the last block to the first, each
+    block drawn again from its saved state, recomputed from its saved input
+    and back-propagated; each leaf's gradient reduced to its sum of squares
+    and its projection on ``_probe`` and dropped.  ``perturb``: the
+    embedding output scaled by ``1 + perturb``.  Returns the loss (the
+    slices' mean), the gradient's norm, each leaf's (sum of squares,
+    projection) in tree order and the seconds."""
+    import torch
+
+    from repro_torch.launch.steps import block_leaves
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import rms_norm, softmax_cross_entropy
+    from repro_torch.models.params import Params
+    from repro_torch.optim import tree as tree_util
+
+    cfg = _train_cfg(arch, n_layers, "float32")
+    if cfg.family != "dense":
+        fail(f"{arch}: the streamed truth of training takes the dense family only")
+    top, blocks = block_leaves(Model(cfg, torch.device("meta")).param_shapes())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    reads = [None] * (len(top) + sum(len(blk) for blk in blocks))
+    try:
+        batch = _global_batch(cfg, b, s, 0, hosts, device)
+        head, gen = _streamed_init(cfg, arch, device)
+        head_leaves = tree_util.leaves(head)
+        states, xs = [], []
+        with torch.no_grad():
+            x = tf._embed(head, batch["tokens"], cfg)
+            if perturb:
+                x = x * (1 + perturb)
+            for i in range(cfg.n_layers):
+                states.append(gen.get_state())
+                blk = Params(tf._attn_block(gen, cfg, device))
+                xs.append(x)
+                x = tf._attn_block_fwd(blk, x, cfg, tf.layer_window(cfg, i))[0]
+                del blk
+        n = dp * k
+        rows = b // n
+        g = torch.empty_like(x)
+        head_grads = [torch.zeros_like(w) for w in head_leaves]
+        losses = []
+        head.requires_grad_(True)
+        for c in range(n):
+            part = slice(c * rows, (c + 1) * rows)
+            xc = x[part].detach().requires_grad_(True)
+            logits = tf._project_logits(head, rms_norm(xc, head.final_norm), cfg)
+            loss = softmax_cross_entropy(logits, batch["labels"][part])
+            got = torch.autograd.grad(loss / n, [xc] + head_leaves, allow_unused=True)
+            g[part] = got[0]
+            for acc, gw in zip(head_grads, got[1:]):
+                if gw is not None:
+                    acc.add_(gw)
+            losses.append(loss.detach())
+            del logits, loss, got, xc
+        del x
+        for i in reversed(range(cfg.n_layers)):
+            gen.set_state(states[i])
+            blk = Params(tf._attn_block(gen, cfg, device))
+            blk.requires_grad_(True)
+            x_in = xs[i].requires_grad_(True)
+            xs[i] = None
+            with torch.enable_grad():
+                out = tf._attn_block_fwd(blk, x_in, cfg, tf.layer_window(cfg, i))[0]
+            leaves = tree_util.leaves(blk)
+            got = torch.autograd.grad(out, [x_in] + leaves, g, allow_unused=True)
+            g = got[0]
+            for j, w, gw in zip(blocks[i], leaves, got[1:]):
+                reads[j] = _grad_reading(torch.zeros_like(w) if gw is None else gw, j)
+            del blk, out, got, leaves, x_in
+        with torch.enable_grad():  # the embedding's own use of the table
+            x0 = tf._embed(head, batch["tokens"], cfg)
+            if perturb:
+                x0 = x0 * (1 + perturb)
+            head_grads[0].add_(torch.autograd.grad(x0, head.embed, g)[0])
+        del x0, g
+        for j, gw in zip(top, head_grads):
+            reads[j] = _grad_reading(gw, j)
+        loss = float(torch.stack(losses).mean())
+        del head, head_leaves, head_grads, xs, states, batch
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": sum(r[0] for r in reads) ** 0.5, "reads": reads,
+            "seconds": time.perf_counter() - t0}
+
+
+def _dense_act_bytes(cfg, rows: int, s: int, m: int) -> int:
+    """A rank's activation bytes in a dense_full step, reckoned from the
+    shapes as an upper bound, for ``rows`` sequences of ``s`` tokens a
+    microbatch on a model axis of ``m`` (T = rows · s tokens, e the
+    model's bytes a value, H' = H / m and KV' = max(1, KV / m) the rank's
+    heads, F' = d_ff / m and V' = V / m its hidden units and words):
+      * every block's checkpointed input: L · T · d · e;
+      * the head at its widest: the logits in the model's dtype, their
+        float32 copy, two float32 temporaries of the log-sum-exp, their
+        gradient in float32 twice (the gather's and the log-sum-exp's,
+        added) and once in the dtype: T · V' · (2e + 20);
+      * one block recomputed in the backward with its gradients, every
+        value counted as float32: the norms' and residuals' copies and
+        their gradients (16 · d), q, k, v and the attention's output with
+        their gradients (4 · (H' + KV') · hd), the MLP's three hidden
+        products with their gradients (6 · F'): T · (16 d + 4 (H' + KV')
+        hd + 6 F') · 4."""
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    t = rows * s
+    heads = cfg.n_heads // m + max(1, cfg.n_kv_heads // m)
+    block = t * (16 * cfg.d_model + 4 * heads * cfg.resolved_head_dim
+                 + 6 * cfg.d_ff // m) * 4
+    return cfg.n_layers * t * cfg.d_model * e + t * (cfg.vocab // m) * (2 * e + 20) + block
+
+
+def _dense_reckoning(cfg, mesh, rows: int, s: int) -> dict:
+    """A rank's bytes in a dense_full run on ``mesh`` (a virtual mesh
+    serves) before any weight is drawn, from the shapes alone: its tiles
+    (``leaf_plans``), their float32 moments and float32 gradient tiles, the
+    parameters a step holds gathered at once and their float32 gradients
+    (``dryrun.peak_param_bytes``), the activations (``_dense_act_bytes``),
+    and the whole model's and moments' bytes."""
+    import torch
+
+    from repro_torch.launch.dryrun import peak_param_bytes
+    from repro_torch.launch.steps import leaf_plans
+    from repro_torch.models.api import Model
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    model = Model(cfg, torch.device("meta"))
+    shapes = tree_util.leaves(model.param_shapes())
+    tiles = [sh.shard_tensor(x, p.sharding)
+             for x, p in zip(shapes, leaf_plans(model, mesh, "train"))]
+    n = sum(x.numel() for x in tiles)
+    gathered, grads = peak_param_bytes(model, mesh, "train")
+    out = {"tile_bytes": _nbytes(tiles), "moment_bytes": 8 * n, "grad_tile_bytes": 4 * n,
+           "peak_gathered_bytes": gathered, "peak_gradient_bytes": grads,
+           "act_bytes": _dense_act_bytes(cfg, rows, s, mesh.shape["model"]),
+           "whole_param_bytes": _nbytes(shapes),
+           "whole_moment_bytes": 8 * sum(x.numel() for x in shapes)}
+    out["state_bytes"] = sum(out[key] for key in ("tile_bytes", "moment_bytes",
+                                                  "grad_tile_bytes", "peak_gathered_bytes",
+                                                  "peak_gradient_bytes"))
+    return out
+
+
+def _mu_reading(model, plans, mesh, state, metrics, opt, device) -> list:
+    """The mesh's step-0 gradient read from the moments without changing
+    the step: at step 0 the learning rate is 0 and ``mu`` is ``(1 - b1) ·
+    s · g`` (``s`` the clip's scale), so each rank divides its ``mu`` tile
+    by that and reads it as ``_grad_reading`` reads a leaf, along its cut
+    of the leaf's ``_probe``; a tile that other ranks hold too counts on the
+    first of them alone; the ranks' sums are added (one all-reduce over the
+    whole mesh).  Every rank gets each leaf's (sum of squares, projection),
+    in tree order."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.steps import _split_axes
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    scale = torch.clamp(opt.grad_clip / (metrics["grad_norm"] + 1e-9), max=1.0)
+    coef = (1 - opt.b1) * scale
+    coords = mesh.coords()
+    shapes = tree_util.leaves(model.param_shapes())
+    out = torch.zeros((len(plans), 2), dtype=torch.float64, device=device)
+    for j, (mu, plan, leaf) in enumerate(zip(tree_util.leaves(state.mu), plans, shapes)):
+        split = _split_axes(plan)
+        if any(coords[a] for a in mesh.axis_names if a not in split):
+            continue  # a replica of a tile another rank reads
+        probe = sh.shard_tensor(_probe(leaf.shape, j, device), plan.sharding)
+        out[j, 0], out[j, 1] = _grad_reading(mu / coef, j, probe.contiguous())
+        del probe
+    if dist.is_initialized():
+        dist.all_reduce(out)
+    return out.tolist()
+
+
+def _dense_full_rank(rank, world, arch, dtype, model_axis, b, s, opt_kw, read, ckdir,
+                     device_type="cuda"):
+    """One rank of a dense_full run: ``MESH_STEPS`` steps through
+    ``Trainer.run`` (its tiles drawn from the seed) on
+    ``make_host_mesh(model_axis)`` at ``DENSE_FULL_MICROBATCHES``
+    microbatches with remat, each on the rank's dp rows of the same global
+    batch whatever the layout (``_global_batch`` of ``world`` slices, in
+    place of the pipeline's); each step's #7/#7b launches; the peak device
+    memory from the first step's start; with ``read`` the step-0 gradient
+    read from the moments (``_mu_reading``); then one more step recorded
+    over NCCL and compared, op for op, with the same step on a virtual copy
+    of the mesh on ``meta`` (``Trainer.extract_traffic``)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.hlo_traffic import record_collectives
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = _train_cfg(arch, None, dtype)
+    model = build_model(cfg, dev)
+    mesh = make_host_mesh(model_axis=model_axis)
+    tr = Trainer(model, AdamW(**opt_kw), mesh,
+                 DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b),
+                 StepConfig(microbatches=DENSE_FULL_MICROBATCHES, remat=True),
+                 TrainerConfig(total_steps=MESH_STEPS, checkpoint_every=MESH_STEPS + 1), ckdir)
+    tr._save = lambda *a: None
+    inner = tr._step_fn
+    seen = {"launches": [], "reading": None, "metrics0": None}
+    rows = sh.tile_slice(b // mesh.shape["data"], mesh, ("data",))
+
+    def global_slice(i):
+        """This rank's dp rows of step ``i``'s global batch of ``world``
+        pipeline slices (``_global_batch``): the same global batches on
+        4×1 and 2×2 (the pipeline's own slices depend on the dp count)."""
+        return {key: x[rows] for key, x in _global_batch(cfg, b, s, i, world, dev).items()}
+
+    def step(params, state, batch):
+        batch = global_slice(len(seen["launches"]))
+        if not seen["launches"] and cuda:  # the peak over the steps, not the draw
+            synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = (faops.launches, faops.bwd_launches)
+        params, state, metrics = inner(params, state, batch)
+        seen["launches"].append([faops.launches - before[0],
+                                 faops.bwd_launches - before[1]])
+        if seen["metrics0"] is None:
+            seen["metrics0"] = {key: float(v) for key, v in metrics.items()}
+            if read:
+                seen["reading"] = _mu_reading(model, inner.plans, mesh, state, metrics,
+                                              tr.opt, dev)
+        return params, state, metrics
+
+    step.plans = inner.plans
+    tr._step_fn = step
+    run = tr.run(resume=False)
+    if cuda:
+        synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    params, state = run["params"], run["opt_state"]
+    out = {"losses": run["losses"], "step_times": run["stats"]["step_times"],
+           "peak_bytes": peak, "launches": seen["launches"], "metrics0": seen["metrics0"],
+           "reading": seen["reading"] if rank == 0 else None,
+           "tile_bytes": _nbytes(tree_util.leaves(params)),
+           "moment_bytes": _nbytes(tree_util.leaves(state.mu) + tree_util.leaves(state.nu))}
+    batch = global_slice(MESH_STEPS)
+    tr.extract_traffic(params, state, batch)
+    with record_collectives() as real:
+        inner(params, state, batch)
+    key = [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype) for op in real]
+    out["ops_equal"] = key == [(op.kind, op.result_bytes, op.group_size, op.groups, op.dtype)
+                               for op in tr.collective_ops]
+    out["n_ops"] = len(real)
+    out["wire_bytes_per_chip"] = tr.collectives["total_wire_bytes_per_chip"]
+    return out
+
+
+def _dense_truth_check(label, arch, b, s, dp, ranks, dev, smi, problems, hosts) -> dict:
+    """The float32 run ``ranks`` of ``arch`` against ``_dense_truth``:
+    step 0's loss within ``MULTI_F32_REL``; the gradient's norm, each
+    leaf's norm and its projection within ``DENSE_GRAD_REL`` of the leaf's
+    norm, or ``DECODE_F32_FACTOR`` × the truth's own move with its
+    embedding output one ulp off where that is larger (computed only where
+    a reading passes ``DENSE_GRAD_REL``).  Appends what fails to
+    ``problems``."""
+    import numpy as np
+
+    k = DENSE_FULL_MICROBATCHES
+    truth = _dense_truth(arch, b, s, dp, k, dev, hosts=hosts)
+    got = np.asarray(ranks[0]["reading"])
+    want = np.asarray(truth["reads"])
+    norms = np.sqrt(want[:, 0])
+
+    def diffs(reads):
+        """Each leaf's norm and projection off the truth's, over its norm."""
+        scale = np.where(norms > 0, norms, 1.0)
+        return (np.abs(np.sqrt(reads[:, 0]) - norms) / scale,
+                np.abs(reads[:, 1] - want[:, 1]) / scale)
+
+    err_norm, err_proj = diffs(got)
+    loss0, gn0 = ranks[0]["metrics0"]["loss"], ranks[0]["metrics0"]["grad_norm"]
+    loss_rel = abs(loss0 - truth["loss"]) / abs(truth["loss"])
+    gn_rel = abs(gn0 - truth["grad_norm"]) / truth["grad_norm"]
+    bound = np.full(len(norms), DENSE_GRAD_REL)
+    gn_bound, moved = DENSE_GRAD_REL, None
+    if max(err_norm.max(), err_proj.max(), gn_rel) > DENSE_GRAD_REL:
+        off = _dense_truth(arch, b, s, dp, k, dev, perturb=2.0 ** -23, hosts=hosts)
+        moved = np.maximum(*diffs(np.asarray(off["reads"])))
+        bound = np.maximum(bound, DECODE_F32_FACTOR * moved)
+        gn_bound = max(gn_bound, DECODE_F32_FACTOR * abs(off["grad_norm"] - truth["grad_norm"])
+                       / truth["grad_norm"])
+    worst = int(np.argmax(np.maximum(err_norm, err_proj) / bound))
+    rule = ("DENSE_GRAD_REL" if moved is None else
+            f"the larger of DENSE_GRAD_REL and DECODE_F32_FACTOR x the ulp move, "
+            f"{moved[worst]:.3e} there")
+    log(f"multicard: {label} against the one-card truth ({truth['seconds']:.1f} s, "
+        f"streamed a block at a time): step-0 loss {loss0!r} vs {truth['loss']!r} (rel "
+        f"{loss_rel:.3e}, bound {MULTI_F32_REL:.0e}); grad_norm {gn0!r} vs "
+        f"{truth['grad_norm']!r} (rel {gn_rel:.3e}, bound {gn_bound:.3e}); {len(norms)} "
+        f"leaves: worst norm diff {err_norm.max():.3e}, worst projection diff "
+        f"{err_proj.max():.3e} of the leaf's norm; the leaf nearest its bound #{worst} "
+        f"(norm {err_norm[worst]:.3e}, projection {err_proj[worst]:.3e}, bound "
+        f"{bound[worst]:.3e}: {rule}) ({smi})")
+    if loss_rel > MULTI_F32_REL:
+        problems.append(f"{label}: step-0 loss {loss0} vs the truth's {truth['loss']}")
+    if gn_rel > gn_bound:
+        problems.append(f"{label}: grad_norm {gn0} vs the truth's {truth['grad_norm']}")
+    bad = np.flatnonzero((err_norm > bound) | (err_proj > bound))
+    if bad.size:
+        problems.append(f"{label}: leaves {bad.tolist()[:20]} disagree with the truth")
+    return {"truth_seconds": truth["seconds"], "loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "worst_norm_rel": float(err_norm.max()), "worst_proj_rel": float(err_proj.max()),
+            "bound": float(bound[worst]), "ulp_move_computed": moved is not None}
+
+
+def multicard_dense_full(n: int, dev, smi: str, backend: str, device_type: str) -> dict:
+    """The 4-card entry's dense_full part: each run of ``DENSE_FULL``.
+    Before any weight is drawn a rank's bytes are reckoned from the shapes
+    on a virtual copy of the mesh (``_dense_reckoning``); then the ranks
+    train (``_dense_full_rank``); then, on the first card with the ranks
+    gone, the float32 runs' one-card truth (``_dense_truth_check``).  Held:
+    each rank's tiles and moments equal the reckoning to the byte and its
+    peak over the steps stays under the reckoning plus the activations;
+    #7 launches layers × microbatches × 2 (the rematerialised forward) a
+    step a rank and #7b layers × microbatches; the ranks' losses finite and
+    equal; the recorded NCCL collectives of a step equal the virtual
+    mesh's; each model's bf16 losses on 4×1 and 2×2 within
+    ``MULTI_BF16_REL`` of each other at every step; the float32 runs
+    within bound of the truth.  Printed: step ms, tokens/s, MFU
+    (``_train_flops``, each layer at its window, over the cards' peak for
+    the dtype), peak GB a card and wire bytes a chip a step.  Every check
+    runs before the part fails on any."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import run_ranks
+    from repro_torch.parallel.sharding import Mesh
+
+    smi = "; ".join(dict.fromkeys(smi.splitlines()))
+    opts = {"float32": dict(lr=1e-3, warmup_steps=1, eps=1e-3),
+            "bfloat16": dict(lr=3e-4, warmup_steps=1)}
+    k = DENSE_FULL_MICROBATCHES
+    out, problems, bf16 = {}, [], {}
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="dense_full_", dir=ROOT / "build")
+    try:
+        for arch, dtype, m, b, s in DENSE_FULL:
+            dp = n // m
+            cfg = _train_cfg(arch, None, dtype)
+            label = f"dense_full {arch} ({cfg.n_layers} layers) {dtype} on {dp}x{m}"
+            reck = _dense_reckoning(cfg, Mesh((dp, m), ("data", "model")), b // dp // k, s)
+            log(f"multicard: {label}, B={b}, S={s}, {k} microbatches, reckoned before any "
+                f"weight is drawn: a rank's tiles {reck['tile_bytes']} B (of "
+                f"{reck['whole_param_bytes']}), moments {reck['moment_bytes']} B (of "
+                f"{reck['whole_moment_bytes']}), float32 gradient tiles "
+                f"{reck['grad_tile_bytes']} B, gathered at once (peak_param_bytes) "
+                f"{reck['peak_gathered_bytes']} B and their float32 gradients "
+                f"{reck['peak_gradient_bytes']} B: {reck['state_bytes'] / 1e9:.2f} GB; "
+                f"activations {reck['act_bytes'] / 1e9:.2f} GB")
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = run_ranks(_dense_full_rank, n, arch, dtype, m, b, s, opts[dtype],
+                              dtype == "float32", ckdir, device_type, backend=backend,
+                              timeout=480)
+            t_ranks = time.perf_counter() - t0
+            r0 = ranks[0]
+            losses = r0["losses"]
+            step_s = float(np.median(r0["step_times"][1:]))
+            n_matmul = sum(x.numel() for x in _meta_params(cfg))
+            if not cfg.tie_embeddings:
+                n_matmul -= cfg.vocab * cfg.d_model
+            peak_rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+            mfu = _train_flops(cfg, n_matmul, b, s) / step_s / (n * peak_rate)
+            want_launches = [cfg.n_layers * k * 2, cfg.n_layers * k]
+            peaks = [r["peak_bytes"] for r in ranks]
+            cap = reck["state_bytes"] + reck["act_bytes"]
+            log(f"multicard: {label}: {MESH_STEPS} steps ({t_ranks:.1f} s with the ranks' "
+                f"start and draw): losses {losses} (all ranks equal "
+                f"{all(r['losses'] == losses for r in ranks)}); step {step_s * 1e3:.1f} ms "
+                f"({b * s / step_s:.1f} tokens/s), MFU {mfu:.4f} of {n} x "
+                f"{peak_rate:.3g} FLOP/s {dtype}; peak a card over the steps "
+                f"{[None if p is None else round(p / 1e9, 2) for p in peaks]} GB (reckoned "
+                f"{reck['state_bytes'] / 1e9:.2f} + activations {reck['act_bytes'] / 1e9:.2f} "
+                f"= {cap / 1e9:.2f}); tiles {sorted({r['tile_bytes'] for r in ranks})} B, "
+                f"moments {sorted({r['moment_bytes'] for r in ranks})} B; #7/#7b launches a "
+                f"step on rank 0 {r0['launches']} (expected {want_launches} each step; "
+                f"all ranks equal {all(r['launches'] == r0['launches'] for r in ranks)}); "
+                f"NCCL = virtual {[r['ops_equal'] for r in ranks]} "
+                f"({r0['n_ops']} ops, {r0['wire_bytes_per_chip']:.6e} wire bytes a chip a "
+                f"step) ({smi})")
+            if not all(r["losses"] == losses for r in ranks) or not np.isfinite(losses).all():
+                problems.append(f"{label}: losses {[r['losses'] for r in ranks]}")
+            if any(r["tile_bytes"] != reck["tile_bytes"] or r["moment_bytes"]
+                   != reck["moment_bytes"] for r in ranks):
+                problems.append(f"{label}: the bytes a card differ from the reckoning")
+            if any(p is not None and p > cap for p in peaks):
+                problems.append(f"{label}: a peak {peaks} passed the reckoning {cap}")
+            if any(step != want_launches for r in ranks for step in r["launches"]):
+                problems.append(f"{label}: #7/#7b launches {r0['launches']} on rank 0, "
+                                f"not {want_launches} a step")
+            if not all(r["ops_equal"] for r in ranks):
+                problems.append(f"{label}: the recorded collectives differ from the "
+                                f"virtual mesh's")
+            res = {"losses": losses, "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
+                   "mfu": mfu, "peak_bytes": peaks, "reckoned_bytes": cap,
+                   "tile_bytes": r0["tile_bytes"], "moment_bytes": r0["moment_bytes"],
+                   "launches": r0["launches"], "n_ops": r0["n_ops"],
+                   "wire_bytes_per_chip": r0["wire_bytes_per_chip"], "seconds": t_ranks}
+            if dtype == "float32":
+                res.update(_dense_truth_check(label, arch, b, s, dp, ranks, dev, smi,
+                                              problems, n))
+            else:
+                bf16.setdefault(arch, {})[f"{dp}x{m}"] = losses
+            out[label] = res
+            del ranks
+        for arch, runs in bf16.items():
+            if len(runs) < 2:
+                continue
+            (ma, la), (mb, lb) = list(runs.items())[:2]
+            worst = max(abs(a - c) / abs(c) for a, c in zip(la, lb))
+            log(f"multicard: dense_full {arch} bf16 losses on {ma} {la} vs {mb} {lb}: worst "
+                f"rel diff {worst:.3e} (bound {MULTI_BF16_REL:.3e})")
+            out[f"dense_full {arch} bf16 {ma} vs {mb}"] = worst
+            if worst > MULTI_BF16_REL:
+                problems.append(f"dense_full {arch}: bf16 losses on {ma} and {mb} differ "
+                                f"by {worst:.3e}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    if problems:
+        fail("dense_full: " + "; ".join(problems))
+    return out
+
+
+def _meta_params(cfg) -> list:
+    """``cfg``'s parameters on ``meta``, in tree order."""
+    import torch
+
+    from repro_torch.models.api import Model
+    from repro_torch.optim import tree as tree_util
+
+    return tree_util.leaves(Model(cfg, torch.device("meta")).param_shapes())
+
+
 def phase_multicard(smi: str | None = None, device_type: str = "cuda",
                     backend: str = "nccl", world: int | None = None,
-                    parts=("fleet", "fsdp", "tp", "decode", "moe_full")):
+                    parts=("fleet", "fsdp", "tp", "decode", "moe_full", "dense_full")):
     """The multi-card entry (every visible card, four on a host with four
     H100s; not part of ``main()``): (1) ``run_fleet`` over all 22
     fabrics unsharded on one card, then with ``mesh="auto"`` (the warm PDHG
@@ -5291,8 +5867,10 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
     largest logit, tokens equal), ms a token against one card, each card's
     peak memory and cache bytes, and NCCL's collectives equal to the virtual
     record; (5) the moe family at its published depth on 1×4
-    (``MOE_FULL``, :func:`multicard_moe_full`).  ``parts`` picks among the
-    five.  A CPU rehearsal passes
+    (``MOE_FULL``, :func:`multicard_moe_full`); (6) the dense family at its
+    published depth trained on 4×1 and 2×2, a block gathered at a time
+    (``DENSE_FULL``, :func:`multicard_dense_full`).  ``parts`` picks among
+    the six.  A CPU rehearsal passes
     ``device_type="cpu"``, ``backend="gloo"`` and ``world`` (with the
     configurations shrunk)."""
     import shutil
@@ -5434,6 +6012,8 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
         out["decode"] = multicard_decode(n, dev, smi, backend, device_type)
     if "moe_full" in parts:
         out["moe_full"] = multicard_moe_full(n, dev, smi, backend, device_type)
+    if "dense_full" in parts:
+        out["dense_full"] = multicard_dense_full(n, dev, smi, backend, device_type)
     log(f"multicard: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"multicard": out}, default=float))
     return out
@@ -5442,9 +6022,10 @@ def phase_multicard(smi: str | None = None, device_type: str = "cuda",
 # ---- phase 15: the dry run and the training-traffic bridge -------------------
 
 # the dry-run cells of phase 15 on 2×16×16: (arch, shape).  One microbatch:
-# the flops and the pod matrix do not depend on the count
-# (tests/test_torch_hlo_tools.py), and a step on meta costs host time per
-# operator, so the reference's 8 would take ~4× as long
+# the flops do not depend on the count and the pod matrix is
+# planned_collectives' at it (tests/test_torch_hlo_tools.py), and a step on
+# meta costs host time per operator, so the reference's 8 would take ~4× as
+# long
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
                 ("mamba2-130m", "train_4k"), ("llama3-8b", "decode_32k"),
                 ("mamba2-130m", "long_500k"), ("dbrx-132b", "decode_32k"),
@@ -5462,8 +6043,6 @@ DRYRUN_GATHERED_BYTES = {("dbrx-132b", "decode_32k"): 254_345_687_040
 # JOBS), two jobs of two pods on a 4-pod fabric re-placed every two days
 BRIDGE_STEPS_PER_S = 0.5
 BRIDGE_PODS, BRIDGE_DAYS, BRIDGE_CHURN = 4, 6.0, 48
-
-
 def _model_launches() -> tuple:
     """The model kernels' launch counts in this process: flash attention's
     forward and backward, the RG-LRU scan, the SSD chunk's forward and

@@ -21,9 +21,11 @@ For each cell this:
      matrices differ is ``failed``).
 
 The port compiles no HLO, so its collectives are the ones its step issues by
-hand (:mod:`repro_torch.parallel.sharding`), not XLA's: each leaf is
-gathered once a step, before the first microbatch, and each gradient
-reduce-scattered once, after the last; a decode step also combines each
+hand (:mod:`repro_torch.parallel.sharding`), not XLA's, on XLA's schedule
+for a scan over checkpointed layers: a training step gathers each block's
+leaves where the block runs, once a microbatch and again when the backward
+recomputes it, and reduce-scatters each leaf's gradient once a microbatch
+(``make_train_step``); a decode step also combines each
 attention's partial softmaxes over its cache's sequence axes, which span
 the pods where the batch cannot take the dp axes (long_500k).  Cells the
 reference skips are ``skipped`` with ``supports_cell``'s reason.  Records go to
@@ -44,7 +46,7 @@ import time
 import traceback
 
 __all__ = ["RESULTS", "MICROBATCHES", "CACHE_DTYPES", "cell_path", "run_cell",
-           "planned_collectives", "held_param_bytes", "main"]
+           "planned_collectives", "held_param_bytes", "peak_param_bytes", "main"]
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -74,20 +76,29 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
                         window_cache: bool = False, microbatches: int = 1,
                         remat: bool = True) -> list:
     """The collectives over the dp axes that a step of ``kind`` issues on
-    ``mesh``, counted from ``param_shardings`` and the step's plan alone
-    (no step runs), and the plan's own over the model axis: each leaf's
-    tile gathered over the dp axes it is split over (at decode, each leaf
-    decode reads), then over the model axis as its ``LeafPlan`` says (whole,
+    ``mesh``, in the step's order, counted from ``param_shardings`` and the
+    step's plan alone (no step runs), and the plan's own over the model
+    axis.  Gathering a leaf is its tile gathered over the dp axes it is
+    split over, then over the model axis as its ``LeafPlan`` says (whole,
     or over a block of ranks: a replicated KV head, an unequal share of the
-    heads); training adds the plan's float32 sums over the model axis
-    (a leaf read in part, a block's reduce-scatter) and each leaf's float32
-    gradient reduce-scattered over them (all-reduced over the dp axes it is
-    not split over), the loss's mean, the clip's sums of squares and, for
-    each moe layer and microbatch (twice under ``remat``: the checkpointed
-    block's forward runs again in the backward), the load-balancing loss's
-    means over the dp ranks (``moe._aux_loss``); with ``shape``, a train or
-    prefill step's moe layers also gather each dp rank's expert counts where
-    the batch's tokens a dispatch exceed 256 (``moe._offsets``); decode
+    heads); reducing its gradient is the plan's float32 sum over the model
+    axis (a leaf read in part, a block's reduce-scatter), then the float32
+    gradient reduce-scattered over the dp axes it is split over (all-reduced
+    over those it is not).
+
+    Prefill gathers every leaf once, decode every leaf decode reads.  A
+    training step (``make_train_step``'s schedule, as the reference's scan
+    over its checkpointed layers) does, for each of ``microbatches``: every
+    top-level leaf gathered (``steps.block_leaves``), every block's leaves
+    gathered in block order, then, from the last block to the first, the
+    block's leaves gathered again under ``remat`` (the checkpointed body
+    runs again in the backward) and each of its leaves' gradients reduced;
+    then the top-level leaves' gradients reduced.  Each moe layer, in each
+    of its forwards, gathers each dp rank's expert counts where the batch's
+    tokens a dispatch exceed 256 (``moe._offsets``; with ``shape``) and
+    takes the load-balancing loss's means over the dp ranks
+    (``moe._aux_loss``); a prefill's moe layers the counts too.  Once a
+    step: the loss's mean and the clip's sums of squares.  Decode
     (``shape`` the cell's ``ShapeConfig``, ``window_cache`` its cache's
     knob) adds every attention's softmax combined over its cache's sequence
     axes, in layer order: the row max, the sum of exponentials and the
@@ -99,8 +110,8 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
 
     import torch
 
-    from repro_torch.launch.steps import (_split_axes, cache_tile_shardings, decode_reads,
-                                          leaf_plans)
+    from repro_torch.launch.steps import (_split_axes, block_leaves, cache_tile_shardings,
+                                          decode_reads, leaf_plans)
     from repro_torch.optim import tree as tree_util
     from repro_torch.parallel import sharding as sh
     from repro_torch.runtime.hlo_traffic import DTYPE_NAMES, CollectiveOp, _DTYPE_BYTES
@@ -116,12 +127,13 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
 
     m = mesh.shape.get("model", 1)
     plans = leaf_plans(model, mesh, kind)
-    leaves = tree_util.leaves(model.param_shapes())
-    reads = decode_reads(model) if kind == "decode" else [True] * len(leaves)
-    for leaf, plan, read in zip(leaves, plans, reads):
-        if not read:
-            continue
-        shape_ = list(sh.shard_tensor(leaf, plan.sharding).shape)
+    shapes = model.param_shapes()
+    leaves = tree_util.leaves(shapes)
+    tiles = [sh.shard_tensor(x, p.sharding).shape for x, p in zip(leaves, plans)]
+
+    def gather(i):
+        leaf, plan = leaves[i], plans[i]
+        shape_ = list(tiles[i])
         for dim, names in sh._sharded_dims(plan.sharding, batch):
             shape_[dim] *= math.prod(mesh.shape[a] for a in names)
             op("all-gather", math.prod(shape_), leaf.dtype, names)
@@ -130,31 +142,59 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
             op("all-gather", tile * m, leaf.dtype, ("model",))
         elif plan.block > 1:
             op("all-gather", tile * plan.block, leaf.dtype, ("model",), plan.block)
-        if kind != "train":
-            continue
+
+    def reduce(i):
+        plan, tile = plans[i], tiles[i]
+        split = sh._sharded_dims(plan.sharding, batch)
+        shape_ = list(tile)  # the gradient: whole along the dp dims
+        for dim, names in split:
+            shape_[dim] *= math.prod(mesh.shape[a] for a in names)
         if plan.model_sum:  # into the tile: a reduce-scatter, or an all-reduce
-            op("all-reduce" if plan.tp_dim is None else "reduce-scatter", tile,
-               torch.float32, ("model",))
+            op("all-reduce" if plan.tp_dim is None else "reduce-scatter",
+               math.prod(shape_), torch.float32, ("model",))
         elif plan.block > 1:
-            op("reduce-scatter", tile, torch.float32, ("model",), plan.block)
+            op("reduce-scatter", math.prod(shape_), torch.float32, ("model",), plan.block)
+        for dim, names in split:
+            shape_[dim] = tile[dim]
+            op("reduce-scatter", math.prod(shape_), torch.float32, names)
+        done = {a for _, names in split for a in names}
+        rest = tuple(a for a in batch if a not in done and mesh.shape[a] > 1)
+        if rest:
+            op("all-reduce", math.prod(tile), torch.float32, rest)
+
     cfg = model.cfg
     dp = tuple(a for a in batch if mesh.shape[a] > 1)
-    if cfg.family == "moe" and dp and shape is not None and kind != "decode":
-        tokens = shape.global_batch * shape.seq_len // (microbatches if kind == "train" else 1)
-        groups = max(1, cfg.moe_groups) if cfg.moe_impl == "sorted" else 1
-        n = math.prod(mesh.shape[a] for a in dp)
-        if groups < n and tokens // groups > 256:  # a dispatch over several dp ranks
-            calls = microbatches * (2 if remat else 1) if kind == "train" else 1
-            for _ in range(cfg.n_layers * calls):
-                op("all-gather", n * cfg.n_experts, torch.float32, dp)
-    if kind == "decode":
+    n_dp = math.prod(mesh.shape[a] for a in dp)
+
+    def moe_layer(train: bool):
+        """A moe layer's forward: the expert counts' gather (a dispatch over
+        several dp ranks), then, training, the load-balancing means."""
+        if cfg.family != "moe" or not dp:
+            return
+        if shape is not None:
+            tokens = shape.global_batch * shape.seq_len // (microbatches if train else 1)
+            groups = max(1, cfg.moe_groups) if cfg.moe_impl == "sorted" else 1
+            if groups < n_dp and tokens // groups > 256:
+                op("all-gather", n_dp * cfg.n_experts, torch.float32, dp)
+        if train:
+            op("all-reduce", 2 * cfg.n_experts, torch.float32, dp)
+
+    if kind != "train":
+        reads = decode_reads(model) if kind == "decode" else [True] * len(leaves)
+        for i, read in enumerate(reads):
+            if read:
+                gather(i)
+        if kind == "prefill":
+            for _ in range(cfg.n_layers):
+                moe_layer(False)
+            return ops
         whole = model.init_cache(shape.global_batch, shape.seq_len, enc_len=shape.seq_len,
                                  window_cache=window_cache)
-        tiles = cache_tile_shardings(mesh, cfg, shape, whole)
+        cache_sh = cache_tile_shardings(mesh, cfg, shape, whole)
         attn = [t for (path, _, _), t in zip(sh._param_leaves(whole),
-                                             tree_util.leaves_of(tiles)) if path[-1] == "k"]
+                                             tree_util.leaves_of(cache_sh)) if path[-1] == "k"]
         if cfg.family == "audio":  # each decoder layer: self, then cross attention
-            attn = [t for self_kv in attn for t in (self_kv, tiles["enc_out"])]
+            attn = [t for self_kv in attn for t in (self_kv, cache_sh["enc_out"])]
         heads = cfg.n_heads
         for t in attn:
             axes = sh.dim_axes(t, 1)
@@ -164,26 +204,26 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
                 op("all-reduce", rows * heads, torch.float32, axes)  # the row max
                 op("all-reduce", rows * heads, torch.float32, axes)  # the sum
                 op("all-reduce", rows * heads * cfg.resolved_head_dim, torch.float32, axes)
-    if kind != "train":
         return ops
-    for leaf, plan in zip(leaves, plans):
-        tile = sh.shard_tensor(leaf, plan.sharding).shape
-        split = sh._sharded_dims(plan.sharding, batch)
-        shape_ = list(tile)  # the gradient: whole along the dp dims
-        for dim, names in split:
-            shape_[dim] *= math.prod(mesh.shape[a] for a in names)
-        for dim, names in split:
-            shape_[dim] = tile[dim]
-            op("reduce-scatter", math.prod(shape_), torch.float32, names)
-        done = {a for _, names in split for a in names}
-        rest = tuple(a for a in batch if a not in done and mesh.shape[a] > 1)
-        if rest:
-            op("all-reduce", math.prod(tile), torch.float32, rest)
-    if batch and math.prod(mesh.shape[a] for a in batch) > 1:
+    top, blocks = block_leaves(shapes)
+    for _ in range(microbatches):
+        for i in top:
+            gather(i)
+        for blk in blocks:
+            for i in blk:
+                gather(i)
+            moe_layer(True)
+        for blk in reversed(blocks):
+            if remat:
+                for i in blk:
+                    gather(i)
+                moe_layer(True)
+            for i in blk:
+                reduce(i)
+        for i in top:
+            reduce(i)
+    if dp:
         op("all-reduce", 1, torch.float32, batch)  # the loss
-        if cfg.family == "moe":  # the aux loss's global means, (2, E)
-            for _ in range(model.cfg.n_layers * microbatches * (2 if remat else 1)):
-                op("all-reduce", 2 * model.cfg.n_experts, torch.float32, dp)
     split = [_split_axes(p) for p in plans]
     for axes in dict.fromkeys(a for a in split if a):
         if set(axes) & set(batch):  # the clip's sums of squares
@@ -191,12 +231,43 @@ def planned_collectives(model, mesh, kind: str = "train", shape=None,
     return ops
 
 
+def peak_param_bytes(model, mesh, kind: str = "train") -> tuple:
+    """(parameter bytes, float32 gradient bytes) a device holds gathered at
+    once in a step of ``kind`` on ``mesh``, from the shapes alone (rank 0's
+    tiles on ``meta``).  Training (``make_train_step``'s schedule): the
+    top-level leaves (``steps.block_leaves``) and the largest block, as its
+    layer takes them, and a float32 gradient of each; prefill and decode
+    gather every leaf they read at once (:func:`held_param_bytes`)."""
+    from repro_torch.launch.steps import block_leaves, leaf_plans
+    from repro_torch.optim import tree as tree_util
+    from repro_torch.parallel import sharding as sh
+
+    if kind != "train":
+        return held_param_bytes(model, mesh, kind)
+    plans = leaf_plans(model, mesh, kind)
+    shapes = model.param_shapes()
+    leaves = tree_util.leaves(shapes)
+    with sh.use_mesh(mesh):
+        used = [sh.gather_for_use(sh.shard_tensor(x, p.sharding), p)
+                for x, p in zip(leaves, plans)]
+    top, blocks = block_leaves(shapes)
+
+    def nbytes(idx):
+        return _bytes([used[i] for i in idx]), 4 * sum(used[i].numel() for i in idx)
+
+    largest = max(blocks, key=lambda b: nbytes(b)[0], default=[])
+    return tuple(a + b for a, b in zip(nbytes(top), nbytes(largest)))
+
+
 def held_param_bytes(model, mesh, kind: str = "train") -> tuple:
-    """(gathered parameter bytes, float32 gradient bytes) a device holds in
-    a step of ``kind`` on ``mesh``: every leaf the step reads (at decode,
-    :func:`~repro_torch.launch.steps.decode_reads`) as its layer takes it
-    (``gather_for_use`` of rank 0's tile, on ``meta``: no step runs), and
-    a float32 gradient of each in training (0 otherwise)."""
+    """(gathered parameter bytes, float32 gradient bytes) a step of
+    ``kind`` on ``mesh`` reads on a device as its layers take them: every
+    leaf the step reads (at decode,
+    :func:`~repro_torch.launch.steps.decode_reads`) as ``gather_for_use``
+    makes it of rank 0's tile (on ``meta``: no step runs), and a float32
+    gradient of each in training (0 otherwise).  A training step does not
+    hold them all at once: it gathers a block at a time
+    (:func:`peak_param_bytes`)."""
     from repro_torch.launch.steps import decode_reads, leaf_plans
     from repro_torch.optim import tree as tree_util
     from repro_torch.parallel import sharding as sh
@@ -293,6 +364,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
         batch = {k: sh.shard_tensor(v, in_sh[k], sh.batch_axes(mesh))
                  for k, v in specs.items()}
         gathered, grad_bytes = held_param_bytes(model, mesh, shape.kind)
+        peak_gathered, peak_grads = peak_param_bytes(model, mesh, shape.kind)
         cache_bytes = 0
         if shape.kind == "train":
             opt = AdamW()
@@ -347,6 +419,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
                                   "allocator to measure a peak",
                 "gathered_param_bytes": gathered,
                 "gradient_bytes": grad_bytes,
+                "peak_gathered_param_bytes": peak_gathered,
+                "peak_gradient_bytes": peak_grads,
                 "cache_bytes": cache_bytes,
             },
             collectives=summary,
@@ -355,8 +429,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
             model_params=cfg.param_count(),
             model_params_active=cfg.active_param_count(),
             tensor_parallel=tp_report(model, plans),
-            schedule="each leaf gathered once a step, before the first microbatch; "
-                     "each gradient reduce-scattered once, after the last"
+            schedule="each block's leaves gathered where the block runs, once a "
+                     "microbatch and again under remat; the top-level leaves once a "
+                     "microbatch; each gradient reduce-scattered once a microbatch"
             if shape.kind == "train" else "each leaf gathered once a step",
         )
         print(f"[dryrun] OK  {arch} × {shape_name} × {record['mesh']} "

@@ -12,11 +12,13 @@ card) the training step is FSDP × TP: each rank holds its tile of every
 parameter and of AdamW's moments (the dims that
 :func:`repro_torch.parallel.sharding.param_shardings` names, cut by its
 indices over the dp axes and the model axis), gathers each leaf over the dp
-axes before the forward, runs the layers that :func:`leaf_plans` names
-Megatron-parallel over the model axis on their tiles (the others on leaves
-gathered whole), and reduce-scatters the gradients over the dp axes into
-their mean after the backward; the update runs on the tiles.  The prefill
-and decode steps gather the leaves the same way and run the same layers
+axes where it is used — a block at a time, inside the block's checkpoint,
+as the reference's scan over its layers does —, runs the layers that
+:func:`leaf_plans` names Megatron-parallel over the model axis on their
+tiles (the others on leaves gathered whole), and reduce-scatters each
+block's gradients over the dp axes into their mean once the block's
+backward is done; the update runs on the tiles.  The prefill and decode
+steps gather every leaf at once and run the same layers
 Megatron-parallel; the decode step also keeps every cache leaf in the tile
 that ``cache_shardings`` names (:func:`cache_tile_shardings`,
 :func:`shard_cache`), from one step to the next.  On a virtual mesh
@@ -47,6 +49,7 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.models.params import TensorTree
 from repro_torch.optim import tree as tree_util
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.compression import compress_decompress
@@ -60,7 +63,7 @@ from repro_torch.parallel.sharding import (LeafPlan, Mesh, NamedSharding,
 __all__ = ["StepConfig", "make_train_step", "make_serve_step", "make_prefill_step",
            "input_shardings", "cache_shardings", "cache_tile_shardings", "shard_cache",
            "train_state_shardings", "module_like", "leaf_plans", "init_tiles",
-           "init_cache_tiles", "decode_reads", "tp_report"]
+           "init_cache_tiles", "decode_reads", "tp_report", "block_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +302,122 @@ def _split_axes(plan: LeafPlan) -> tuple:
     return tuple(a for a in mesh.axis_names if a in names)
 
 
+def block_leaves(params) -> tuple:
+    """(the positions of the top-level leaves, the positions of each
+    block's leaves) in ``tree_util.leaves`` order of ``params`` (a
+    parameter tree or module; ``meta`` serves).  A block is one entry of a
+    layer list — a decoder block, a hybrid super-block or tail block, an
+    encoder or decoder block —, the unit the model checkpoints
+    (``transformer._ck``); the top-level leaves are the others (the
+    embedding, the final norms, the unembedding)."""
+    top, blocks = [], {}
+    for i, (path, layers, _) in enumerate(sh._param_leaves(params)):
+        if layers:
+            blocks.setdefault(path[:2], []).append(i)
+        else:
+            top.append(i)
+    return top, list(blocks.values())
+
+
+class _GatheredLeaf(torch.autograd.Function):
+    """A block's leaf gathered from the rank's tile (:func:`gather_for_use`)
+    inside the block's checkpointed body.  Its gradient is kept in ``slot``
+    for the block's reduce and not handed to the tile: autograd would cast
+    it to the tile's dtype, and a bf16 tile would round the float32 mean.
+    ``anchor``, a scalar that requires grad, puts the gather in the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, tile, plan, slot):
+        ctx.slot = slot
+        out = gather_for_use(tile, plan)
+        slot["like"] = (out.shape, out.dtype)
+        return out.view_as(out) if out is tile else out
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.slot["grad"] = g
+        return None, None, None, None
+
+
+class _BlockCall:
+    """One block of a training step on a mesh: its function, the
+    checkpoint wrapper it runs under, its module of tiles with their plans
+    and places in tree order, the inputs it passes on (``_Block``), and a
+    slot a leaf for the gradient its backward leaves."""
+
+    def __init__(self, ck, fn, blk, plans, positions, passed, reduce):
+        self.ck, self.fn, self.blk, self.plans = ck, fn, blk, plans
+        self.positions, self.passed, self.reduce = positions, passed, reduce
+        self.tiles = tree_util.leaves(blk)
+        self.slots = [{} for _ in self.tiles]
+        self.tuple = False
+
+    def body(self, anchor):
+        """The block's function with its leaves gathered first, inside the
+        checkpoint: the gathered leaves are never saved for the backward,
+        which gathers them again."""
+        def run(*args):
+            leaves = [_GatheredLeaf.apply(anchor, x, p, slot)
+                      for x, p, slot in zip(self.tiles, self.plans, self.slots)]
+            return self.fn(TensorTree(tree_util.unflatten(self.blk, leaves)), *args)
+
+        return run
+
+    def reduce_all(self):
+        """Each leaf's gradient (zeros where the rank's loss read none of it:
+        a rank with no heads of the block) reduced into its tile, in tree
+        order, so every rank issues the same collectives."""
+        for i, slot in zip(self.positions, self.slots):
+            g = slot.pop("grad", None)
+            if g is None:
+                shape, dtype = slot["like"]
+                g = torch.zeros(shape, dtype=dtype, device=self.tiles[0].device)
+            self.reduce(i, g)
+
+
+class _Block(torch.autograd.Function):
+    """A block as one node of the step's graph.  The forward runs the block
+    under its checkpoint wrapper on detached inputs, with grad enabled
+    inside; the backward runs the block's own backward
+    (``torch.autograd.grad`` from its outputs to its inputs and to the
+    gathers' anchor: the checkpoint gathers the leaves again there), then
+    reduces every leaf of the block, once the block's input gradient
+    exists.  ``anchor`` (a scalar that requires grad) keeps the node in the
+    step's graph where no input requires grad (the encoder's frames).
+
+    The inputs at ``call.passed`` (after the first, requiring grad: the
+    encoder's output, which every decoder block reads) are also passed on,
+    identity outputs the next block takes in their place: the gradient then
+    reaches each block with the later blocks' sum, which the block's own
+    uses add to in the order the whole graph's backward adds them."""
+
+    @staticmethod
+    def forward(ctx, call, anchor, *args):
+        ins = [x.detach().requires_grad_(x.requires_grad) if torch.is_tensor(x) else x
+               for x in args]
+        inner = torch.zeros((), device=anchor.device, requires_grad=True)
+        with torch.enable_grad():
+            out = call.ck(call.body(inner), *ins)
+            outs = out if isinstance(out, tuple) else (out,)
+            passed = tuple(ins[i].view_as(ins[i]) for i in call.passed)
+        call.tuple = isinstance(out, tuple)
+        ctx.call, ctx.ins, ctx.outs, ctx.inner = call, ins, outs + passed, inner
+        return tuple(o.detach() if torch.is_tensor(o) else o for o in outs + passed)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        pairs = [(o, g) for o, g in zip(ctx.outs, gs)
+                 if torch.is_tensor(o) and o.requires_grad and g is not None]
+        wanted = [torch.is_tensor(x) and x.requires_grad for x in ctx.ins]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [x for x, w in zip(ctx.ins, wanted) if w] + [ctx.inner],
+                                  [g for _, g in pairs], allow_unused=True)
+        ctx.outs = ctx.ins = None
+        ctx.call.reduce_all()
+        got = iter(got)
+        return (None, None, *[next(got) if w else None for w in wanted])
+
+
 def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
                     mesh: Mesh | None = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
@@ -315,21 +434,49 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     ``opt_state`` hold this rank's tiles
     (:func:`repro_torch.runtime.trainer.Trainer` makes them), ``batch`` the
     slice of the global batch of its index over the dp axes (ranks that
-    differ only in their model index hold the same slice).  The step gathers
-    every leaf over the dp axes — and over the model axis as
-    :func:`leaf_plans` says — all at once (the tiles are what FSDP divides;
-    a leaf's whole gradient is held on each rank before it is
-    reduce-scattered), runs the forward and backward on them — the
-    hand-written kernels among them, at the rank's head counts —,
-    compresses the local gradients if ``compression`` says so,
-    reduce-scatters them into their float32 mean over the dp ranks
-    (:func:`~repro_torch.parallel.sharding.reduce_gradient`), and updates
+    differ only in their model index hold the same slice).  Each leaf is
+    gathered over the dp axes — and over the model axis as
+    :func:`leaf_plans` says — where it is used, a block at a time, as the
+    reference's scan over its checkpointed layers does.  For each
+    microbatch the top-level leaves (:func:`block_leaves`: the embedding,
+    a tied table once for both its uses, the final norms, the unembedding)
+    are gathered at the loss's start and held to its end; each block's
+    leaves are gathered inside the body that ``StepConfig.remat``
+    checkpoints, so they are never saved for the backward, and gathered
+    again when the backward recomputes the block (with ``remat`` False they
+    live from the block's forward to its backward).  Once a block's
+    backward is done, each of its leaves' gradients is cast to float32,
+    scaled by ``1/k``, reduce-scattered into its float32 mean over the dp
+    ranks (:func:`~repro_torch.parallel.sharding.reduce_gradient`, which
+    first sums over the model axis what the plan reads in part) and added
+    into the rank's float32 tile of the step's gradient — the leaves of a
+    block in tree order, zeros for a leaf the rank's loss did not read, so
+    that every rank issues the same collectives; the top-level leaves'
+    after the microbatch's backward.  A rank thus holds its tiles, their
+    moments and float32 gradient tiles, the top-level leaves and one
+    block's gathered leaves with their gradients; and it issues, each
+    microbatch, one gather of every top-level leaf, one of every block leaf
+    (two under ``remat``), one reduce of every leaf — and the layers' own
+    collectives over the model axis and the moe's over the dp axes —; then,
+    once a step, the loss's mean and the clip's sums.  The hand-written
+    kernels run at the rank's batch and head counts.  The update runs on
     the tiles; the global-norm clip sums each leaf's squares over the axes
     its tile is split over, so a replicated leaf counts once.  ``loss`` is
     the mean of the dp ranks' losses.  On a world of one every collective
     is the identity, so the step gives the unsharded step's bits.
+
+    With ``compression`` other than "none" the mesh step keeps the whole
+    gradient instead: it gathers every leaf at once, runs the loss, and
+    compresses each leaf's local float32 gradient before it is
+    reduce-scattered — the compression rounds each tensor of the
+    reference's stacked layout (top-k and int8's scale span every layer of
+    a group), which a block at a time cannot see.
     """
     k = step_cfg.microbatches
+
+    def microbatch(batch, i):
+        return {key: x.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
+                for key, x in batch.items()} if k > 1 else batch
 
     def grads_of(params, plist, batch):
         """(loss, the gradient of every leaf of ``plist``): zeros for a leaf
@@ -350,9 +497,7 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
                    for p in plist]
             losses = []
             for i in range(k):
-                mb = {key: x.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
-                      for key, x in batch.items()}
-                loss, grads = grads_of(params, plist, mb)
+                loss, grads = grads_of(params, plist, microbatch(batch, i))
                 for a, g in zip(acc, grads):
                     a.add_(g.float() / k)
                 losses.append(loss)
@@ -377,6 +522,7 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
     split = [_split_axes(p) for p in plans]
     batch_ax = batch_axes(mesh)
     n_batch = math.prod(mesh.shape[a] for a in batch_ax)
+    top, _ = block_leaves(model.param_shapes())
 
     def sum_squares(sq: list) -> list:
         """Each leaf's sum of squares over the whole gradient: the tiles'
@@ -390,7 +536,13 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
                 sq[i] = tot[j]
         return sq
 
-    def fsdp_step(shards, opt_state, batch):
+    def update(shards, opt_state, grads, loss):
+        loss = _all_reduce_sum(loss, mesh, batch_ax) / n_batch
+        shards, opt_state, om = opt.update(tree_util.unflatten(shards, grads),
+                                           opt_state, shards, sum_squares=sum_squares)
+        return shards, opt_state, {"loss": loss, **om}
+
+    def whole_step(shards, opt_state, batch):
         with use_mesh(mesh):
             full = module_like(shards, [gather_for_use(x, p) for x, p in
                                         zip(tree_util.leaves(shards), plans)])
@@ -398,13 +550,58 @@ def make_train_step(model: Model, opt: AdamW, step_cfg: StepConfig,
             del full
             grads = [reduce_gradient(g, p)
                      for g, p in zip(tree_util.leaves(grads), plans)]
-            loss = _all_reduce_sum(loss, mesh, batch_ax) / n_batch
-            shards, opt_state, om = opt.update(tree_util.unflatten(shards, grads),
-                                               opt_state, shards, sum_squares=sum_squares)
-        return shards, opt_state, {"loss": loss, **om}
+            return update(shards, opt_state, grads, loss)
 
-    fsdp_step.plans = plans
-    return fsdp_step
+    def block_loss(shards, tiles, batch, reduce):
+        """One microbatch's loss, its gradients reduced into the tiles as
+        its backward goes (a block's once the block's is done, the
+        top-level leaves' at the end).  Nothing it gathers outlives it."""
+        gathered = {i: gather_for_use(tiles[i], plans[i]) for i in top}
+        params = module_like(shards, [gathered.pop(i, x) for i, x in enumerate(tiles)])
+        plist = tree_util.leaves(params)
+        position = {id(x): i for i, x in enumerate(plist)}
+        heads = [plist[i].requires_grad_(True) for i in top]
+        anchor = torch.zeros((), device=tiles[0].device, requires_grad=True)
+        passing = {}  # an input the blocks share: its latest pass
+
+        def run_block(ck, fn, blk, *args):
+            pos = [position[id(x)] for x in tree_util.leaves(blk)]
+            shared = [i for i, x in enumerate(args) if i and torch.is_tensor(x)
+                      and x.requires_grad]
+            call = _BlockCall(ck, fn, blk, [plans[i] for i in pos], pos, shared, reduce)
+            out = _Block.apply(call, anchor, *[passing.get(id(x), x) for x in args])
+            n = len(out) - len(call.passed)
+            for i, x in zip(call.passed, out[n:]):
+                passing[id(args[i])] = x
+            return out[:n] if call.tuple else out[0]
+
+        loss, _ = model.loss(params, batch, remat=step_cfg.remat, run_block=run_block)
+        grads = torch.autograd.grad(loss, heads + [anchor], allow_unused=True)
+        for i, x, g in zip(top, heads, grads):
+            reduce(i, torch.zeros_like(x) if g is None else g)
+        return loss.detach()
+
+    def block_step(shards, opt_state, batch):
+        with use_mesh(mesh):
+            tiles = tree_util.leaves(shards)
+            acc = [None] * len(tiles)
+            if k > 1:  # the unsharded step's sum, from zeros in order
+                acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                       for x in tiles]
+
+            def reduce(i, g):
+                g = g.float() / k if k > 1 else g.float()
+                r = reduce_gradient(g, plans[i])
+                acc[i] = r if acc[i] is None else acc[i].add_(r)
+
+            losses = [block_loss(shards, tiles, microbatch(batch, mb), reduce)
+                      for mb in range(k)]
+            loss = torch.stack(losses).mean() if k > 1 else losses[0]
+            return update(shards, opt_state, acc, loss)
+
+    step = whole_step if step_cfg.compression != "none" else block_step
+    step.plans = plans
+    return step
 
 
 def make_serve_step(model: Model, ring: bool = False, mesh: Mesh | None = None,

@@ -78,12 +78,14 @@ class Model:
             return encdec.EncDecLM(self.cfg, tree)
         return transformer.DecoderLM(self.cfg, tree)
 
-    def loss(self, params, batch: dict, remat=True):
+    def loss(self, params, batch: dict, remat=True, run_block=None):
         """(loss, metrics) of ``batch``, differentiable; each block
-        checkpointed as ``remat`` says (False, True or ``"dots"``)."""
+        checkpointed as ``remat`` says (False, True or ``"dots"``) and, with
+        ``run_block(ck, fn, blk, *args)``, run through it (a block is one
+        entry of a layer list: ``transformer._ck``)."""
         if self.cfg.family == "audio":
-            return encdec.loss_fn(params, batch, self.cfg, remat)
-        return transformer.loss_fn(params, batch, self.cfg, remat)
+            return encdec.loss_fn(params, batch, self.cfg, remat, run_block)
+        return transformer.loss_fn(params, batch, self.cfg, remat, run_block)
 
     def forward(self, params, batch: dict) -> torch.Tensor:
         if self.cfg.family == "audio":

@@ -79,9 +79,11 @@ def _enc_block(blk, x, cfg):
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
-def encode(params, frames: torch.Tensor, cfg: ArchConfig, remat=False) -> torch.Tensor:
-    """frames (B, S_enc, d) -> the encoder's output (B, S_enc, d)."""
-    ck = _ck(remat)
+def encode(params, frames: torch.Tensor, cfg: ArchConfig, remat=False,
+           run_block=None) -> torch.Tensor:
+    """frames (B, S_enc, d) -> the encoder's output (B, S_enc, d); each block
+    run as ``remat`` and ``run_block`` say (``transformer._ck``)."""
+    ck = _ck(remat, run_block)
     x = frames
     for blk in params.enc_blocks:
         x = ck(_enc_block, blk, x, cfg)
@@ -94,10 +96,10 @@ def _dec_block(blk, x, enc_out, cfg, window: int = 0):
     return x + _mlp_fwd(blk.mlp, rms_norm(x, blk.norm2), cfg)
 
 
-def _logits(params, frames, tokens, cfg, remat):
+def _logits(params, frames, tokens, cfg, remat, run_block=None):
     _check_audio(cfg)
-    enc_out = encode(params, frames, cfg, remat)
-    ck = _ck(remat)
+    enc_out = encode(params, frames, cfg, remat, run_block)
+    ck = _ck(remat, run_block)
     x = _embed(params, tokens, cfg)
     for blk in params.dec_blocks:
         x = ck(_dec_block, blk, x, enc_out, cfg)
@@ -113,11 +115,12 @@ def forward(params, frames: torch.Tensor, tokens: torch.Tensor,
     return _logits(params, frames, tokens, cfg, False)
 
 
-def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True, run_block=None):
     """Cross-entropy of ``batch`` (``frames``, ``tokens``, ``labels``,
     optional ``mask``) and {"ce"}; differentiable, each block checkpointed
-    as ``remat`` says (``transformer._ck``)."""
-    logits = _logits(params, batch["frames"], batch["tokens"], cfg, remat)
+    as ``remat`` says and run through ``run_block`` if given
+    (``transformer._ck``)."""
+    logits = _logits(params, batch["frames"], batch["tokens"], cfg, remat, run_block)
     ce = (vocab_parallel_cross_entropy if logits.shape[-1] != cfg.vocab
           else softmax_cross_entropy)
     loss = ce(logits, batch["labels"], batch.get("mask"))

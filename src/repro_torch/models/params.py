@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["Params"]
+__all__ = ["Params", "TensorTree"]
 
 
 class Params(nn.Module):
@@ -42,3 +42,28 @@ class Params(nn.Module):
             else:
                 out[key] = self._modules[key].tree()
         return out
+
+
+class TensorTree:
+    """A parameter tree's tensors under the names a :class:`Params` node
+    gives them (``blk.attn.wq``, ``"moe" in blk``), each the very tensor
+    given: not made a parameter, so the output of a differentiable op (a
+    leaf gathered inside a training step's checkpointed block) keeps its
+    place in the graph."""
+
+    def __init__(self, tree: dict):
+        self._tree = tree
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._tree
+
+    def __getattr__(self, key: str):
+        try:
+            value = self.__dict__["_tree"][key]
+        except KeyError:
+            raise AttributeError(key) from None
+        if isinstance(value, dict):
+            return TensorTree(value)
+        if isinstance(value, list):
+            return [TensorTree(v) for v in value]
+        return value

@@ -206,25 +206,35 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _ck(remat):
+def _ck(remat, run_block=None):
     """How a block runs: ``remat`` False as it is, True under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward),
     ``"dots"`` the same but keeping the outputs of its matrix products.
-    Returns ``call(fn, *args)``."""
+    Returns ``call(fn, blk, *args)``.  ``run_block(ck, fn, blk, *args)``,
+    if given, runs each block in ``ck``'s place (a training step on a mesh
+    gathers the block's leaves inside ``ck``'s body:
+    :func:`repro_torch.launch.steps.make_train_step`)."""
     if remat == "dots":
         ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
-                                            context_fn=ctx)
-    if remat:
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
-    return lambda fn, *args: fn(*args)
+
+        def ck(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    elif remat:
+        def ck(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False)
+    else:
+        def ck(fn, *args):
+            return fn(*args)
+    if run_block is None:
+        return ck
+    return lambda fn, blk, *args: run_block(ck, fn, blk, *args)
 
 
-def backbone(params, x, cfg: ArchConfig, remat=False):
+def backbone(params, x, cfg: ArchConfig, remat=False, run_block=None):
     """Apply all blocks to the embedded input x (B, S, d), each as ``remat``
-    says (:func:`_ck`).  Returns (x, the summed MoE load-balancing loss,
-    float32; 0 for the other families)."""
-    ck = _ck(remat)
+    and ``run_block`` say (:func:`_ck`).  Returns (x, the summed MoE
+    load-balancing loss, float32; 0 for the other families)."""
+    ck = _ck(remat, run_block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for sup in params.super:
@@ -269,13 +279,13 @@ def _project_logits(params, x, cfg: ArchConfig):
     return (sh.tp_copy(x) if w.shape[1] != cfg.vocab else x) @ w
 
 
-def _logits(params, tokens, cfg, patches, remat):
+def _logits(params, tokens, cfg, patches, remat, run_block=None):
     """(logits, aux) of the full sequence; see :func:`forward`."""
     _check_decoder(cfg)
     x = _embed(params, tokens, cfg)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-    x, aux = backbone(params, x, cfg, remat)
+    x, aux = backbone(params, x, cfg, remat, run_block)
     logits = _project_logits(params, rms_norm(x, params.final_norm), cfg)
     if patches is not None:
         logits = logits[:, patches.shape[1]:]
@@ -291,12 +301,13 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     return _logits(params, tokens, cfg, patches, False)[0]
 
 
-def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True):
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat=True, run_block=None):
     """The training loss of ``batch`` (``tokens``, ``labels``, optional
     ``mask`` and, for vlm, ``patches``): cross-entropy + 0.01 · the MoE
-    load-balancing loss, and {"ce", "aux"}.  Differentiable; ``remat`` as
-    :func:`backbone`."""
-    logits, aux = _logits(params, batch["tokens"], cfg, batch.get("patches"), remat)
+    load-balancing loss, and {"ce", "aux"}.  Differentiable; ``remat`` and
+    ``run_block`` as :func:`backbone`."""
+    logits, aux = _logits(params, batch["tokens"], cfg, batch.get("patches"), remat,
+                          run_block)
     ce = (vocab_parallel_cross_entropy if logits.shape[-1] != cfg.vocab
           else softmax_cross_entropy)
     loss = ce(logits, batch["labels"], batch.get("mask"))

@@ -21,12 +21,17 @@
     ``analyze`` of the same compiled step.  llama3's are equal; mamba2's
     differ by the reference's depthwise convolution, an einsum (a dot in
     HLO) where the port sums shifted products (-0.8 %).  A train step's
-    flops and its collectives over the dp axes (the pod matrix) do not
-    depend on its microbatch count; the model axis's all-reduces come once
-    a microbatch, the same bytes in all.
+    flops do not depend on its microbatch count; its collectives outside
+    the model axis are, op for op and in order, and in the pod matrix,
+    those ``dryrun.planned_collectives`` counts for that count (a block's
+    leaves gathered once a microbatch and again under remat, every
+    gradient reduced once a microbatch, as the reference's scan over its
+    checkpointed layers); the model axis's all-reduces come once a
+    microbatch, the same bytes in all.
 """
 
 import itertools
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -204,11 +209,17 @@ def test_measure_step_flops_match_the_reference_analyze(arch):
     assert got.hbm_bytes > 0 and got.collective_ops == [] and got.unknown_trip_loops == 0
 
 
-def test_train_flops_and_collectives_do_not_depend_on_microbatches():
+def test_train_flops_do_not_depend_on_microbatches_and_collectives_are_planned():
     """The dry run may take one microbatch where the reference's table says
-    more: the step's products scale with the tokens, each leaf is gathered
-    and reduced over the dp axes once a step whatever the count, and the
-    activations' all-reduces over the model axis split by microbatch."""
+    more: the step's products scale with the tokens; its collectives over
+    the dp axes follow the count — each block's leaves gathered once a
+    microbatch and again in the rematerialised backward, the top-level
+    leaves once a microbatch, every gradient reduced once a microbatch —
+    and equal ``planned_collectives`` at each count, op for op and in the
+    pod matrix; the activations' all-reduces over the model axis split by
+    microbatch."""
+    from repro_torch.launch import dryrun
+
     model = Model(get_arch("llama3-8b").reduced(), torch.device("meta"))
     mesh = sh.Mesh((2, 1, 2), ("pod", "data", "model"))
     from repro_torch.launch.steps import leaf_plans, module_like
@@ -228,10 +239,19 @@ def test_train_flops_and_collectives_do_not_depend_on_microbatches():
     model_groups = mesh.groups(("model",)).tolist()
 
     def split(ops):
-        dp = [_fields(o) for o in ops if o.groups != model_groups]
-        return dp, sum(o.result_bytes for o in ops if o.groups == model_groups)
+        return ([_fields(o) for o in ops if o.groups != model_groups],
+                Counter((o.kind, o.result_bytes) for o in ops if o.groups == model_groups))
 
-    (dp1, tp1), (dp4, tp4) = split(out[0].collective_ops), split(out[1].collective_ops)
-    assert dp1 == dp4 and tp1 == tp4 > 0
-    assert np.array_equal(hlo_traffic.pod_traffic_matrix(out[0].collective_ops, 2, 2),
-                          hlo_traffic.pod_traffic_matrix(out[1].collective_ops, 2, 2))
+    dps, layers = [], []
+    for mb, cost in ((1, out[0]), (4, out[1])):
+        planned = dryrun.planned_collectives(model, mesh, microbatches=mb)
+        (dp, tp), (dp_plan, tp_plan) = split(cost.collective_ops), split(planned)
+        assert dp == dp_plan != []
+        assert np.array_equal(hlo_traffic.pod_traffic_matrix(cost.collective_ops, 2, 2),
+                              hlo_traffic.pod_traffic_matrix(planned, 2, 2))
+        # over the model axis: the plan's own (its gathers and sums, counted
+        # by planned_collectives) and the layers' activations'
+        assert tp_plan <= tp
+        layers.append(sum(f[1] * n for f, n in (tp - tp_plan).items()))
+        dps.append(dp)
+    assert layers[0] == layers[1] > 0 and len(dps[1]) > len(dps[0])
